@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's serving path, on one CUDA card.
+
+Builds full-width recurrentgemma-2b in bf16 (random weights from a
+seed), warms it up, then traces with ``torch.profiler`` one prefill of
+4 x 512 byte tokens and 16 decode steps.  For each phase it prints the
+wall time (host clock around work that ends in a synchronise), the
+device time summed over kernels, the device's idle share, and the
+kernels that take the most device time.  The Chrome traces go to the
+directory named by ``--out`` (``profile_out/`` by default).
+
+Usage, from the root of a checkout::
+
+    python3 tools/profile_torch_serve.py [--out DIR]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+
+BATCH, PROMPT_LEN, DECODE_STEPS = 4, 512, 16
+
+
+def kernel_events(prof):
+    """Device-side entries only (kernels, memcpy, memset), so no time is
+    counted twice through the CPU ops that launched them."""
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_us(prof) -> float:
+    return sum(e.self_device_time_total for e in kernel_events(prof))
+
+
+def top_kernels(prof, n=12):
+    rows = sorted(kernel_events(prof), key=lambda e: e.self_device_time_total, reverse=True)
+    return [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in rows[:n]]
+
+
+def traced(name, fn, out_dir):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = device_us(prof) / 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    row = {"phase": name, "wall_ms": wall_ms, "device_ms": dev_ms,
+           "idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
+           "top": top_kernels(prof)}
+    print(json.dumps(row))
+    for key, count, ms in row["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"),
+                    help="directory for the Chrome traces")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"device: {smi}")
+    cfg = get_config("recurrentgemma-2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(32, 127, (BATCH, PROMPT_LEN)), device="cuda")
+    max_len = PROMPT_LEN + DECODE_STEPS + 1
+    state = {}
+
+    def prefill():
+        state["cache"] = model.init_cache(BATCH, max_len, device="cuda")
+        logits, state["cache"] = model.prefill(params, {"tokens": tokens}, state["cache"])
+        state["tok"] = torch.argmax(logits, dim=-1)
+
+    def decode():
+        tok, cache = state["tok"], state["cache"]
+        for i in range(DECODE_STEPS):
+            logits, cache = model.decode_step(params, tok, PROMPT_LEN + i, cache)
+            tok = torch.argmax(logits, dim=-1)
+
+    with torch.inference_mode():
+        prefill()
+        decode()      # warm-up: cuBLAS handles, kernel build, allocator
+        rows = [traced("prefill", prefill, args.out), traced("decode", decode, args.out)]
+    rows[1]["per_step_wall_ms"] = rows[1]["wall_ms"] / DECODE_STEPS
+    print(json.dumps({"profile": rows, "device": smi}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
