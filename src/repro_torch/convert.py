@@ -1,9 +1,10 @@
-"""Load parameters written by the JAX package into the port.
+"""Load parameters and train states written by the JAX package into the port.
 
 The port keeps the reference's parameter tree: the same dict keys,
 ``groups`` stacked along axis 0 (one entry per pattern position) and
-``rest`` as a list, with the same shapes and layouts.  So converting is
-a walk over the tree that turns numpy leaves into tensors on a device.
+``rest`` as a list, with the same shapes and layouts, and the
+reference's train-state layout around it.  So converting is a walk over
+the tree that turns numpy leaves into tensors on a device.
 """
 
 from __future__ import annotations
@@ -49,3 +50,19 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, device="cuda") -> dict:
             raise ValueError(f"group leaves stack {sorted(lead)} layers, expected {n_groups}")
     return _walk(np_tree, device)
 
+
+
+def state_from_jax(np_state: Any, cfg: ModelConfig, device="cuda") -> dict:
+    """Map a JAX train state ``{"params", "opt": {mu, nu, master, count},
+    "step"}`` with numpy leaves onto the port's (``train.step``)."""
+    opt = np_state["opt"]
+    return {
+        "params": params_from_jax(np_state["params"], cfg, device),
+        "opt": {
+            "mu": params_from_jax(opt["mu"], cfg, device),
+            "nu": params_from_jax(opt["nu"], cfg, device),
+            "master": params_from_jax(opt["master"], cfg, device),
+            "count": _tensor(np.asarray(opt["count"], np.int32), device),
+        },
+        "step": _tensor(np.asarray(np_state["step"], np.int32), device),
+    }

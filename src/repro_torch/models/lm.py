@@ -10,8 +10,8 @@ layers come after.
 
 Entry points: ``apply_stack_train`` (full forward without caches),
 ``lm_prefill`` (forward the prompt, fill the caches) and
-``lm_decode_step`` (one token against the caches).  MoE, the VLM
-frontend, mLSTM/sLSTM and the training loss are not ported yet.
+``lm_decode_step`` (one token against the caches), and ``lm_loss`` for
+training.  MoE, the VLM frontend and mLSTM/sLSTM are not ported yet.
 """
 
 from __future__ import annotations
@@ -182,8 +182,29 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def lm_loss(params, cfg: ModelConfig, batch: Dict):
-    raise _not_ported("the training loss")
+def lm_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none"):
+    """Next-token CE over ``labels`` (mask: labels < 0) plus the z-loss
+    ``1e-4 * mean(lse^2)`` and ``1e-2 * aux``.  Returns (loss, metrics).
+
+    ``remat_policy``: only ``"none"``; the port keeps every activation.
+    """
+    if remat_policy != "none":
+        raise _not_ported(f"remat_policy {remat_policy!r}")
+    x = _embed(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = apply_stack_train(params, cfg, x, positions)
+    logits = _logits(params, cfg, x).float()
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    lbl = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    loss = ce.sum() / denom
+    zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom
+    total = loss + zloss + 1e-2 * aux
+    return total, {"ce": loss, "zloss": zloss, "aux": aux, "tokens": denom}
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: Dict, cache):

@@ -39,6 +39,15 @@ def stack_trees(trees: List[Dict]) -> Dict:
     return out
 
 
+def tree_map(fn, tree):
+    """A tree of dicts and lists with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def tree_leaves(tree) -> Iterator:
     """Every leaf of a tree of dicts and lists, depth first."""
     if isinstance(tree, dict):

@@ -19,7 +19,7 @@ from repro_torch.models.config import ModelConfig
 class Model:
     cfg: ModelConfig
     init: Callable          # generator -> params, on the generator's device
-    loss_fn: Callable       # (params, batch) -> (loss, metrics)
+    loss_fn: Callable       # (params, batch, remat_policy="none") -> (loss, metrics)
     init_cache: Callable    # (batch, max_len, device="cuda") -> cache
     prefill: Callable       # (params, batch, cache) -> (logits, cache)
     decode_step: Callable   # (params, token, pos, cache) -> (logits, cache)
@@ -32,8 +32,8 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(gen):
         return LM.init_lm(gen, cfg)
 
-    def loss_fn(params, batch):
-        return LM.lm_loss(params, cfg, batch)
+    def loss_fn(params, batch, remat_policy="none"):
+        return LM.lm_loss(params, cfg, batch, remat_policy)
 
     def init_cache(batch, max_len, device="cuda"):
         return LM.init_lm_cache(cfg, batch, max_len, device)
