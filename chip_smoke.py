@@ -16,7 +16,13 @@ Phases (each one's failure fails the run):
    over the digest tests' sweep and one full-size leaf, the stacked
    ``w_up`` master of olmo-1b, 16 x 2048 x 8192 float32 at 256 KiB
    pages; ``delta_mask`` bit-equal over 63,000 rows with planted
-   differences);
+   differences); and
+   ``flash_attention`` against its plain version over the attention
+   tests' sweep (float32 within 2e-5, bf16 within 3e-2), with Tq = 1,
+   ragged lengths, softcap, windows, D = 120 and 256, strided k and v, a
+   ``q_offset`` that leaves rows fully masked (zeros), and the long
+   serving path's shape, bf16 (4, 32, 8192, 120) over (4, 8, 8192, 120)
+   with a 4096 window;
 4. serve: ``repro_torch.launch.serve.generate`` on full-width
    recurrentgemma-2b in bf16 (random weights from a seed), 4 prompts of
    512 byte tokens, 32 new tokens; the launch counts of that run must
@@ -26,7 +32,17 @@ Phases (each one's failure fails the run):
 5. decode vs teacher forcing: at full width with 4 layers in float32, a
    kernel-backed prefill plus single-step decodes must reproduce the full
    forward's logits (the check of ``tests/test_models.py``);
-6. train: ``repro_torch.launch.train.main`` at its default size (6
+6. long-context serve: ``generate`` on full-width h2o-danube3-4b in
+   bf16 (3.96 B parameters, sliding window 4096), 4 prompts of 8192
+   tokens, 32 new tokens: every prefill attention is over more than 4096
+   kv positions, so the run must launch ``flash_attention`` exactly once
+   per layer (24) per prefill; then the prefill time (median of 3), the
+   decode rate over the rolling window cache and the peak memory;
+7. long decode vs teacher forcing: h2o-danube3-4b at full width with 4
+   layers in float32, an 8160-token prefill (kernel) and 32 single-step
+   decodes (no kernel) against one forward over the 8192 tokens
+   (kernel): the last 32 positions' logits within 2e-2;
+8. train: ``repro_torch.launch.train.main`` at its default size (6
    steps, two checkpoints: every leaf digested twice and masked once);
    then full-width olmo-1b (bf16 params, fp32 AdamW state, 1.18 B
    parameters, 16.5 GB of state) takes 3 AdamW steps at batch 2 x 2048
@@ -37,11 +53,15 @@ Phases (each one's failure fails the run):
    and saves again with only ``extra`` moved (one ``delta_mask`` launch
    per leaf, no page written); then the step time, the save and restore
    times, the peak device memory and the host's peak RSS;
-7. the ``kernels`` line: per kernel, its launches on its path (serving
-   for ``linear_scan``, training for the other two), its error against
+9. the ``kernels`` line: per kernel, its launches on its path (serving
+   recurrentgemma-2b for ``linear_scan``, training for ``page_digest``
+   and ``delta_mask``, long-context serving for ``flash_attention``),
+   its error against
    the plain version, its time, the plain version's time, the least time
    the card could take and, where one PyTorch call computes the same
-   function, that call's time, at the path's shape.
+   function, that call's time, at the path's shape (for
+   ``flash_attention``, ``scaled_dot_product_attention`` with the
+   window-causal boolean mask, which the port never calls).
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
@@ -72,10 +92,11 @@ from repro_torch.core import BlobSeerService  # noqa: E402
 from repro_torch.data import ByteTokenizer, CorpusWriter, ShardedReader  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
-from repro_torch.kernels.ref import (ref_delta_mask, ref_linear_scan,  # noqa: E402
-                                     ref_page_digest)
+from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
+                                     ref_linear_scan, ref_page_digest)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import synthesize_corpus  # noqa: E402
@@ -86,6 +107,9 @@ from repro_torch.train import AdamWConfig, TrainStepBuilder  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
 BATCH, PROMPT_LEN, MAX_NEW = 4, 512, 32
+LONG_ARCH = "h2o-danube-3-4b"
+LONG_BATCH, LONG_PROMPT, LONG_NEW = 4, 8192, 32   # the published context, twice the window
+LONG_TF_PREFILL = 8160                            # teacher forcing: 8160 + 32 decodes = 8192
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 CKPT_PSIZE = 256 * 1024                     # BlobCheckpointer's default page
@@ -100,6 +124,26 @@ MASK_ROWS, MASK_PLANTED = 63_000, 257
 SCAN_SHAPES = [(2, 64, 32), (3, 100, 17), (1, 1, 8), (4, 257, 130)]  # tests/test_kernels.py
 SCAN_TOL = 1e-5                                                       # tests/test_kernels.py
 TEACHER_TOL = 2e-2                                                    # tests/test_models.py
+# flash attention: tests/test_kernels.py's cases (B, Hq, Hkv, Tq, Tk, D,
+# causal, window, softcap, dtype) with q_offset = Tk - Tq when causal, plus
+# the long path's head width and window, D = 256 MQA and strided k, v
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, 32, True, None, None, torch.float32),
+    (1, 8, 1, 37, 37, 16, True, None, None, torch.float32),
+    (2, 2, 2, 50, 70, 8, False, None, None, torch.float32),
+    (1, 4, 2, 96, 96, 64, True, 24, None, torch.float32),
+    (1, 2, 1, 1, 40, 16, True, None, None, torch.float32),
+    (1, 4, 4, 128, 128, 128, True, None, None, torch.float32),
+    (1, 4, 2, 64, 64, 32, True, None, None, torch.bfloat16),
+    (1, 2, 2, 32, 32, 16, True, None, 20.0, torch.float32),
+    (1, 8, 2, 300, 1500, 120, True, 100, None, torch.float32),
+    (2, 8, 1, 130, 300, 256, True, None, None, torch.float32),
+    (1, 32, 8, 1, 5000, 120, True, 4096, None, torch.bfloat16),
+    (1, 4, 2, 200, 4200, 120, True, 64, 30.0, torch.bfloat16),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}              # tests/test_kernels.py
+# H100 SXM data sheet: bf16 dense tensor-core rate (the least time of attention)
+BF16_FLOP_PER_S = 989e12
 # H100 SXM data sheet: HBM3 rate, and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -183,14 +227,86 @@ def phase_scan_vs_plain(state):
     log(f"kernel vs plain: linear_scan within rtol=atol={SCAN_TOL} (worst {worst:.3e})")
 
 
-def prompts_for(seed):
+def prompts_for(seed, batch=BATCH, length=PROMPT_LEN):
     tok = ByteTokenizer()
     rng = np.random.default_rng(seed)
     out = []
-    for _ in range(BATCH):
-        text = bytes(rng.integers(32, 127, PROMPT_LEN - 2).astype(np.uint8)).decode()
+    for _ in range(batch):
+        text = bytes(rng.integers(32, 127, length - 2).astype(np.uint8)).decode()
         out.append(tok.encode(text, add_special=True))
     return out
+
+
+def attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, strided=False):
+    """q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D), as views of (B, Tk, Hkv, D)
+    tensors when ``strided`` (the layout a projection einsum hands over)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Hq, Tq, D), generator=g, device="cuda").to(dtype)
+    kv_shape = (B, Tk, Hkv, D) if strided else (B, Hkv, Tk, D)
+    k = torch.randn(kv_shape, generator=g, device="cuda").to(dtype)
+    v = torch.randn(kv_shape, generator=g, device="cuda").to(dtype)
+    if strided:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    return q, k, v
+
+
+def flash_case(q, k, v, **kw) -> float:
+    """The kernel against the plain version on the same inputs; returns
+    the largest absolute difference, raising past the dtype's tolerance."""
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = ref_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {tuple(q.shape)} {kw}: {got.shape} {got.dtype} "
+                             f"vs {want.shape} {want.dtype}, finite {bool(torch.isfinite(got).all())}")
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= FLASH_TOL[q.dtype]:
+        raise AssertionError(f"flash_attention {tuple(q.shape)} {q.dtype} {kw}: max abs err "
+                             f"{err:.3e} > {FLASH_TOL[q.dtype]}")
+    return err
+
+
+def long_shapes(cfg):
+    """q and k/v shapes of one prefill attention on the long serving path."""
+    return ((LONG_BATCH, cfg.n_heads, LONG_PROMPT, cfg.head_dim),
+            (LONG_BATCH, cfg.n_kv_heads, LONG_PROMPT, cfg.head_dim))
+
+
+def phase_flash_vs_plain(state):
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, dtype) in enumerate(FLASH_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed=200 + i,
+                                       strided=strided)
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=Tk - Tq if causal else 0)
+            err = flash_case(q, k, v, **kw)
+            worst[dtype], n = max(worst[dtype], err), n + 1
+            log(f"  flash_attention {tuple(q.shape)} kv {tuple(k.shape)} {dtype} {kw} "
+                f"strided={strided}: max abs err {err:.3e}")
+    # rows before the first key (q_offset < 0) see nothing: zeros, not NaN
+    q, k, v = attention_inputs(1, 4, 2, 100, 100, 120, torch.float32, seed=250)
+    got = flash_attention_cuda(q, k, v, causal=True, q_offset=-40)
+    worst[torch.float32] = max(worst[torch.float32], flash_case(q, k, v, causal=True,
+                                                                q_offset=-40))
+    if not torch.equal(got[:, :, :40], torch.zeros_like(got[:, :, :40])):
+        raise AssertionError("fully masked rows are not zero")
+    n += 1
+    # the long serving path's shape
+    cfg = get_config(LONG_ARCH)
+    qs, ks = long_shapes(cfg)
+    q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], torch.bfloat16,
+                               seed=251)
+    err = flash_case(q, k, v, causal=True, window=cfg.window)
+    worst[torch.bfloat16], n = max(worst[torch.bfloat16], err), n + 1
+    log(f"  flash_attention {qs} kv {ks} bf16 window {cfg.window}: max abs err {err:.3e}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    state["flash_err"] = worst
+    log(f"kernel vs plain: flash_attention in {n} cases, float32 worst "
+        f"{worst[torch.float32]:.3e} (tol {FLASH_TOL[torch.float32]}), bf16 worst "
+        f"{worst[torch.bfloat16]:.3e} (tol {FLASH_TOL[torch.bfloat16]})")
 
 
 def phase_serve(state):
@@ -294,6 +410,124 @@ def phase_teacher_forcing(state):
         f"{max(errs):.3e} (tol {TEACHER_TOL})")
     if scans != 3:
         raise AssertionError(f"the prefill ran {scans} scan kernels, expected 3")
+    if not max(errs) < TEACHER_TOL:
+        raise AssertionError(f"decode disagrees with the full forward: {errs}")
+    del params, model, cache, full
+    torch.cuda.empty_cache()
+
+
+def phase_serve_long(state):
+    cfg = get_config(LONG_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"long serve: {cfg.name} {cfg.n_layers} layers ({cfg.block_pattern[0]}, window "
+        f"{cfg.window}), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params")
+    prompts = prompts_for(seed=4, batch=LONG_BATCH, length=LONG_PROMPT)
+    max_len = LONG_PROMPT + LONG_NEW
+
+    # -- the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = generate(model, params, prompts, max_new=LONG_NEW, max_len=max_len, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["long_launches"] = counts
+    log(f"  generate: {LONG_BATCH}x{LONG_PROMPT} prompt + {LONG_NEW} new tokens in {wall:.3f} s "
+        f"(first call); launches {counts}")
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched {counts['flash_attention']} times, "
+                             f"expected {cfg.n_layers} (one per layer, in the prefill)")
+    for p, o in zip(prompts, outs):
+        if o.shape != (LONG_PROMPT + LONG_NEW,) or not np.array_equal(o[:LONG_PROMPT], p):
+            raise AssertionError(f"bad output shape {o.shape} or prompt not preserved")
+        if not ((o >= 0) & (o < cfg.vocab_size)).all():
+            raise AssertionError("token outside the vocabulary")
+
+    # -- timings through the same entry points, warm
+    tokens = torch.as_tensor(np.stack(prompts).astype(np.int64), device="cuda")
+    with torch.inference_mode():
+        prefill_ms = []
+        for _ in range(3):
+            cache = model.init_cache(LONG_BATCH, max_len, device="cuda")
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            if ops.launch_counts()["flash_attention"] != cfg.n_layers:
+                raise AssertionError(f"prefill launched {ops.launch_counts()}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite prefill logits")
+        tok = torch.argmax(logits, dim=-1)
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LONG_NEW):   # no host sync inside the loop, as in generate
+            logits, cache = model.decode_step(params, tok, LONG_PROMPT + i, cache)
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if not bool(finite):
+            raise AssertionError("non-finite decode logits")
+        if ops.launch_counts()["flash_attention"] != 0:
+            raise AssertionError("a decode step over the window cache launched the kernel")
+    state["serve_long"] = {
+        "prefill_ms": sorted(prefill_ms)[1],
+        "decode_tok_s": LONG_BATCH * LONG_NEW / decode_s,
+        "decode_ms_per_step": decode_s * 1e3 / LONG_NEW,
+        "peak_gib": peak / 2**30,
+        "generate_first_call_s": wall,
+    }
+    r = state["serve_long"]
+    log(f"  prefill {LONG_BATCH}x{LONG_PROMPT}: {r['prefill_ms']:.2f} ms (median of 3: "
+        f"{', '.join(f'{m:.2f}' for m in prefill_ms)}); decode {r['decode_tok_s']:.1f} tok/s "
+        f"({r['decode_ms_per_step']:.2f} ms/step, batch {LONG_BATCH}, window cache "
+        f"{cfg.window}); peak memory {r['peak_gib']:.2f} GiB; on {state['smi']}")
+    del params, model, cache, logits
+    torch.cuda.empty_cache()
+
+
+def phase_teacher_forcing_long(state):
+    cfg = dataclasses.replace(get_config(LONG_ARCH), n_layers=4, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(5))
+    B, T, T0 = 2, LONG_PROMPT, LONG_TF_PREFILL
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device="cuda")
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        x = params["embed"]["table"][toks]
+        h = LM.apply_stack_train(params, cfg, x, torch.arange(T, device="cuda"))[0]
+        full = LM._logits(params, cfg, h[:, T0 - 1:])      # positions T0-1 .. T-1
+        del x, h
+        fwd = ops.launch_counts()["flash_attention"]
+        cache = model.init_cache(B, T + 4, device="cuda")
+        ops.reset_launch_counts()
+        lg, cache = model.prefill(params, {"tokens": toks[:, :T0]}, cache)
+        pre = ops.launch_counts()["flash_attention"]
+        errs = [float((lg - full[:, 0]).abs().max())]
+        for t in range(T0, T):
+            lg, cache = model.decode_step(params, toks[:, t], t, cache)
+            errs.append(float((lg - full[:, t - T0 + 1]).abs().max()))
+        dec = ops.launch_counts()["flash_attention"] - pre
+    state["teacher_long_err"] = max(errs)
+    log(f"long teacher forcing: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"float32, prefill {T0} + {T - T0} decode steps vs one forward over {T}: max "
+        f"|dlogit| {max(errs):.3e} (tol {TEACHER_TOL}); flash_attention launches: forward "
+        f"{fwd}, prefill {pre}, decode {dec}")
+    if (fwd, pre, dec) != (cfg.n_layers, cfg.n_layers, 0):
+        raise AssertionError(f"expected {cfg.n_layers} launches in the forward and the "
+                             f"prefill and none in decode, got {fwd}, {pre}, {dec}")
     if not max(errs) < TEACHER_TOL:
         raise AssertionError(f"decode disagrees with the full forward: {errs}")
     del params, model, cache, full
@@ -498,6 +732,32 @@ def phase_train(state):
     torch.cuda.empty_cache()
 
 
+def live_pairs(Tq, Tk, *, causal, window, q_offset) -> int:
+    """(query, key) pairs that the masks leave live, for one (batch, head)."""
+    qpos = q_offset + np.arange(Tq, dtype=np.int64)
+    hi = np.minimum(qpos, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(Tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def sdpa_ms(q, k, v, window) -> float:
+    """Device ms of ``scaled_dot_product_attention`` on the same inputs
+    with the window-causal boolean mask, on its memory-efficient backend
+    (the math backend would hold every score), the kv heads repeated to
+    the query heads outside the timing (that backend takes no
+    ``enable_gqa``).  The yardstick only: the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Tq, Tk = q.shape[2], k.shape[2]
+    qpos = torch.arange(Tq, device="cuda")[:, None]
+    kpos = torch.arange(Tk, device="cuda")[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    group = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask), reps=5)
+
+
 def phase_kernel_times(state):
     B, T, D = BATCH, PROMPT_LEN, state["cfg"].rnn_width
     a, x = scan_inputs((B, T, D), seed=7)
@@ -580,6 +840,46 @@ def phase_kernel_times(state):
         "dtype": "int32",
         "bound_basis": f"20 B/row over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
     })
+    del new, old
+
+    # flash_attention at one prefill attention of the long serving path
+    cfg = get_config(LONG_ARCH)
+    qs, ks = long_shapes(cfg)
+    q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], torch.bfloat16,
+                               seed=12)
+    kw = dict(causal=True, window=cfg.window)
+    err = flash_case(q, k, v, **kw)
+    B, Hq, Tq, D = qs
+    pairs = live_pairs(Tq, ks[2], causal=True, window=cfg.window, q_offset=0) * B * Hq
+    fa_ops = 4 * D * pairs              # score dot and value multiply-add per live pair
+    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:105",
+        "launches": state["long_launches"]["flash_attention"],
+        "max_abs_err": max(err, *state["flash_err"].values()),
+        "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=5),
+        "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=2),
+        "bound_ms": max(fa_bytes / HBM_BYTES_PER_S, fa_ops / BF16_FLOP_PER_S) * 1e3,
+        "bound_by": "bytes" if fa_bytes / HBM_BYTES_PER_S >= fa_ops / BF16_FLOP_PER_S
+        else "operations",
+        "library_ms": sdpa_ms(q, k, v, cfg.window),
+        "library_call": "scaled_dot_product_attention, efficient backend, boolean mask, "
+                        "kv heads repeated outside the timing",
+        "shape": [list(qs), list(ks)],
+        "dtype": "bfloat16",
+        "window": cfg.window,
+        "live_pairs": pairs,
+        "max_abs_err_f32_sweep": state["flash_err"][torch.float32],
+        "bound_f32_cuda_core_ms": fa_ops / F32_FLOP_PER_S * 1e3,
+        "bound_basis": f"4*D flop per live (q, k) pair over {BF16_FLOP_PER_S:.3g} flop/s "
+                       f"(H100 SXM bf16 tensor cores); q, k, v read and o written once over "
+                       f"{HBM_BYTES_PER_S:.3g} B/s",
+    })
+    del q, k, v
+    torch.cuda.empty_cache()
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
@@ -593,8 +893,11 @@ PHASES = [
     ("build", phase_build),
     ("kernel vs plain", phase_scan_vs_plain),
     ("digest and mask vs plain", phase_digest_vs_plain),
+    ("flash attention vs plain", phase_flash_vs_plain),
     ("serve", phase_serve),
     ("decode vs teacher forcing", phase_teacher_forcing),
+    ("long-context serve", phase_serve_long),
+    ("long decode vs teacher forcing", phase_teacher_forcing_long),
     ("train entry point", phase_train_entry),
     ("train and checkpoint", phase_train),
     ("kernel times", phase_kernel_times),

@@ -5,7 +5,9 @@
 * ``page_digest``: per-page polynomial digest of a leaf's bytes (the
   checkpoint's delta scan), ``csrc/page_digest.cu``;
 * ``delta_mask``: changed-page mask of two digest tables,
-  ``csrc/delta_mask.cu``.
+  ``csrc/delta_mask.cu``;
+* ``flash_attention``: GQA online-softmax attention, forward (prefill
+  over more than 4096 kv positions), ``csrc/flash_attention.cu``.
 
 Each is CUDA C++ built with ``nvcc`` and bound with ``ctypes``
 (``build.py``).  Callers use ``repro_torch.kernels.ops``: it sends a CPU

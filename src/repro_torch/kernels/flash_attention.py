@@ -1,0 +1,100 @@
+"""CUDA kernel for GQA online-softmax (flash) attention, forward only.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
+The kernel (``csrc/flash_attention.cu``) runs one block per 64 query rows
+of one (batch, query head), walks only the 64-key tiles that a causal or
+sliding-window mask leaves live, and keeps the online softmax's running
+max, normaliser and accumulator in registers; its float32 arithmetic on
+the CUDA cores bounds it.  Its plain version is
+``repro_torch.kernels.ref.ref_flash_attention``.
+
+``launches`` counts the kernel's launches, and nothing else; a run reads
+it to show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("flash_attention").flash_attention_fwd
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = ([ptr] * 4 + [ctypes.c_int] + [i64] * 6 + [i64] * 9
+                       + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q must be (B, Hq, Tq, D) and k, v (B, Hkv, Tk, D) "
+                         f"of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Hq, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: batch and head width of q {tuple(q.shape)} and "
+                         f"k {tuple(k.shape)} differ")
+    if k.shape[1] == 0 or Hq % k.shape[1]:
+        raise ValueError(f"flash_attention: {Hq} query heads do not group over "
+                         f"{k.shape[1]} kv heads")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head width {D} outside 1..{MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: float32 or bfloat16 inputs of one type, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v need unit stride in the head dimension")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: the kernel takes CUDA tensors on one device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if B > _MAX_GRID_YZ or Hq > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: batch {B} or {Hq} heads exceed {_MAX_GRID_YZ}")
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D) CUDA tensors, float32 or
+    bfloat16, unit stride in D -> contiguous (B, Hq, Tq, D) in q's dtype."""
+    global launches
+    _check(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel()
+    B, Hq, Tq, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+                 B, Hq, k.shape[1], Tq, k.shape[2], D,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 int(causal), int(window is not None), int(window or 0), int(q_offset),
+                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out

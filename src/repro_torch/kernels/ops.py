@@ -7,17 +7,19 @@ is no switch and no fallback: the card always runs the kernel.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import delta_mask as _dm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import page_digest as _pd
 from repro_torch.kernels import ref as _ref
 
-_KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm}
+_KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
+            "flash_attention": _fa}
 
 
 def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -25,6 +27,40 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return _ref.ref_linear_scan(a, x)
     return _ls.linear_scan_cuda(a, x)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """GQA online-softmax attention, q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D).
+
+    ``chunk`` is the number of keys per slice of the plain version (the
+    CPU path's memory is O(Tq * chunk) per head); the kernel tiles on its
+    own.  Forward only, as the TPU kernel: on the card a call that
+    autograd would record raises, since the kernel has no backward.
+    """
+    if q.device.type == "cpu":
+        return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, softcap=softcap, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward on the card: training over more than "
+            "4096 kv positions waits for a later slice")
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

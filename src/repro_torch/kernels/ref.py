@@ -5,8 +5,9 @@ Each ``ref_*`` function is the semantic ground truth for its kernel:
 what ``ops`` runs for a tensor on the CPU.  The tests hold it against the
 JAX package's oracle of the same name.  ``ref_attention`` is also the
 dense attention of ``models.layers`` on every device, as
-``repro.kernels.ref.ref_attention`` is in the reference; its flash kernel
-is not ported yet.
+``repro.kernels.ref.ref_attention`` is in the reference;
+``ref_flash_attention`` is the plain version of the flash kernel, the
+reference's blockwise (online-softmax) attention.
 """
 
 from __future__ import annotations
@@ -101,6 +102,70 @@ def ref_attention(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def ref_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax GQA attention over ``chunk``-key slices, in float32.
+
+    The plain version of ``flash_attention``, ported from the reference's
+    ``models/layers.py::_blockwise_attention``: q is scaled by
+    ``D ** -0.5`` in float32 before the dot, masked scores are ``-1e30``
+    and their probabilities are zeroed after the exp, a row with no live
+    key (``l == 0``) comes out as zeros, and the output is in q's dtype.
+    Memory is O(Tq * chunk) per head.  Shapes as ``ref_attention``.
+
+    Each slice updates only the rows that can see one of its keys, as the
+    kernel skips dead tiles: for any other row the reference's update is
+    ``p = 0`` and ``alpha = exp(0) = 1``, which leaves m, l and the
+    accumulator exactly as they were.
+    """
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qf = (q.float() * (D ** -0.5)).reshape(B, Hkv, group, Tq, D)
+    qpos = q_offset + torch.arange(Tq, device=q.device)
+    m = torch.full((B, Hkv, group, Tq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hkv, group, Tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, group, Tq, D), dtype=torch.float32, device=q.device)
+    for j0 in range(0, Tk, chunk):
+        j1 = min(j0 + chunk, Tk)
+        r0 = max(0, j0 - q_offset) if causal else 0                  # qpos >= j0
+        r1 = Tq if window is None else min(Tq, j1 - 1 + window - q_offset)
+        if r0 >= r1:
+            continue
+        kj = k[:, :, j0:j1].float()
+        vj = v[:, :, j0:j1].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf[..., r0:r1, :], kj)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = torch.arange(j0, j1, device=q.device)
+        rpos = qpos[r0:r1, None]
+        mask = torch.ones((r1 - r0, j1 - j0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= rpos
+        if window is not None:
+            mask &= kpos[None, :] > rpos - window
+        s = s.masked_fill(~mask, -1e30)
+        m_old = m[..., r0:r1]
+        m_new = torch.maximum(m_old, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]).masked_fill(~mask, 0.0)
+        alpha = torch.exp(m_old - m_new)
+        l[..., r0:r1] = l[..., r0:r1] * alpha + p.sum(-1)
+        acc[..., r0:r1, :] = (acc[..., r0:r1, :] * alpha[..., None]
+                              + torch.einsum("bhgqk,bhkd->bhgqd", p, vj))
+        m[..., r0:r1] = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l[..., None]).reshape(B, Hq, Tq, D).to(q.dtype)
 
 
 def ref_linear_scan(

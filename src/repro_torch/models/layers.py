@@ -3,9 +3,12 @@
 Plain functions over parameter dicts of tensors, the counterparts of
 ``repro.models.layers``.  Covers qk-norm, QKV bias, the three norm kinds,
 sliding-window and local attention (recurrentgemma) and GQA.  Attention
-is the reference's plain path: dense scores for prefill and training
-(``kernels.ref.ref_attention``, as ``layers.py:257`` of the reference)
-and dense scores over the cache for decode.
+takes the reference's three paths: dense scores up to
+``BLOCKWISE_KV_THRESHOLD`` kv positions (``kernels.ref.ref_attention``,
+as ``layers.py:257`` of the reference), online-softmax attention above it
+(``kernels.ops.flash_attention``: the CUDA kernel on the card, the
+chunked plain version on the CPU; the reference's
+``_blockwise_attention``), and dense scores over the cache for decode.
 """
 
 from __future__ import annotations
@@ -15,13 +18,16 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param_util import normal, ones, zeros
 
-# Above this many kv positions the reference switches to blockwise
-# (online-softmax) attention; that path is not ported yet.
+# Above this many kv positions attention is blockwise (online softmax),
+# as in the reference; the plain version walks the keys in slices of
+# BLOCKWISE_CHUNK, so its memory is O(Tq * chunk) per head.
 BLOCKWISE_KV_THRESHOLD = 4096
+BLOCKWISE_CHUNK = 1024
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -150,7 +156,8 @@ def _project_qkv(p, cfg, x, positions, apply_rope: bool = True):
 def attention_core(q, k, v, *, causal, window, q_offset, softcap,
                    kv_positions: Optional[torch.Tensor] = None,
                    q_positions: Optional[torch.Tensor] = None):
-    """Dense attention, or dense attention over a cache for decode.
+    """Dense, blockwise (above ``BLOCKWISE_KV_THRESHOLD`` kv positions) or
+    cache (decode) attention.
 
     ``kv_positions``: absolute positions of cache slots for decode
     (entries < 0 are empty slots).  When given, masking uses positions
@@ -178,9 +185,8 @@ def attention_core(q, k, v, *, causal, window, q_offset, softcap,
         out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(k.dtype).float(), v.float())
         return out.reshape(B, Hq, Tq, D).to(q.dtype)
     if Tk > BLOCKWISE_KV_THRESHOLD:
-        raise NotImplementedError(
-            f"attention over {Tk} > {BLOCKWISE_KV_THRESHOLD} kv positions needs the "
-            "blockwise path, which is not ported yet")
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, softcap=softcap, chunk=BLOCKWISE_CHUNK)
     return ref_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                          softcap=softcap)
 

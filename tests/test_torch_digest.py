@@ -175,7 +175,8 @@ def test_cpu_dispatch_never_builds(no_build):
     d = ops.page_digest(torch.arange(3000, dtype=torch.float32), page_bytes=4096)
     m = ops.delta_mask(d, d.clone())
     assert d.shape == (3, 2) and not bool(m.any())
-    assert ops.launch_counts() == {"linear_scan": 0, "page_digest": 0, "delta_mask": 0}
+    assert ops.launch_counts() == {"linear_scan": 0, "page_digest": 0, "delta_mask": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.parametrize("case", ["cpu_tensor", "dtype", "rank", "contiguity", "page_bytes"])

@@ -3,8 +3,10 @@
 Parameters come from the JAX ``model.init`` and reach the port through
 ``params_from_jax``; token ids and activations are made with numpy from
 a seed.  Reduced configs in float32: recurrentgemma-2b (4 layers: rglru,
-rglru, local attention with window 8, rglru) and olmo-1b as a second
-case for the non-parametric LayerNorm, SwiGLU and full attention.
+rglru, local attention with window 8, rglru), olmo-1b as a second
+case for the non-parametric LayerNorm, SwiGLU and full attention, and
+h2o-danube-3-4b for sliding-window attention on every layer (window 8),
+RMSNorm and an untied ``lm_head``.
 
 Tolerance: atol 1e-4 on logits (and on block outputs and state).  The
 port scans sequentially where the reference's CPU path runs an
@@ -34,7 +36,7 @@ from repro_torch.models import recurrent as TR
 torch.set_num_threads(2)
 
 ATOL = 1e-4
-ARCHS = ["recurrentgemma-2b", "olmo-1b"]
+ARCHS = ["recurrentgemma-2b", "olmo-1b", "h2o-danube-3-4b"]
 B, T, T0 = 2, 18, 12      # T0 > window 8: the local cache is rolled at prefill
 
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's serving path, on one CUDA card.
 
-Builds full-width recurrentgemma-2b in bf16 (random weights from a
-seed), warms it up, then traces with ``torch.profiler`` one prefill of
-4 x 512 byte tokens and 16 decode steps.  For each phase it prints the
-wall time (host clock around work that ends in a synchronise), the
-device time summed over kernels, the device's idle share, and the
-kernels that take the most device time.  The Chrome traces go to the
-directory named by ``--out`` (``profile_out/`` by default).
+Builds a full-width model in bf16 (``--arch``, recurrentgemma-2b by
+default; random weights from a seed), warms it up, then traces with
+``torch.profiler`` one prefill of 4 x ``--prompt-len`` byte tokens (512
+by default) and 16 decode steps.  For each phase it prints the wall time
+(host clock around work that ends in a synchronise), the device time
+summed over kernels, the device's idle share, the kernels that take the
+most device time, and the kernel launches of the port's own CUDA kernels
+(``ops.launch_counts``).  The Chrome traces go to the directory named by
+``--out`` (``profile_out/`` by default).
 
 Usage, from the root of a checkout::
 
-    python3 tools/profile_torch_serve.py [--out DIR]
+    python3 tools/profile_torch_serve.py [--arch ARCH] [--prompt-len T] [--out DIR]
+    python3 tools/profile_torch_serve.py --arch h2o-danube-3-4b --prompt-len 8192
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
-BATCH, PROMPT_LEN, DECODE_STEPS = 4, 512, 16
+BATCH, DECODE_STEPS = 4, 16
 
 
 def kernel_events(prof):
@@ -54,6 +58,7 @@ def top_kernels(prof, n=12):
 
 def traced(name, fn, out_dir):
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -63,7 +68,7 @@ def traced(name, fn, out_dir):
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
     row = {"phase": name, "wall_ms": wall_ms, "device_ms": dev_ms,
            "idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
-           "top": top_kernels(prof)}
+           "top": top_kernels(prof), "launches": ops.launch_counts()}
     print(json.dumps(row))
     for key, count, ms in row["top"]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key}")
@@ -72,6 +77,8 @@ def traced(name, fn, out_dir):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="recurrentgemma-2b", choices=ARCH_IDS)
+    ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"),
                     help="directory for the Chrome traces")
     args = ap.parse_args(argv)
@@ -82,12 +89,13 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {smi}")
-    cfg = get_config("recurrentgemma-2b")
+    cfg = get_config(args.arch)
+    print(f"model: {cfg.name}, prompt {BATCH} x {args.prompt_len}, {DECODE_STEPS} decode steps")
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(1)
-    tokens = torch.as_tensor(rng.integers(32, 127, (BATCH, PROMPT_LEN)), device="cuda")
-    max_len = PROMPT_LEN + DECODE_STEPS + 1
+    tokens = torch.as_tensor(rng.integers(32, 127, (BATCH, args.prompt_len)), device="cuda")
+    max_len = args.prompt_len + DECODE_STEPS + 1
     state = {}
 
     def prefill():
@@ -98,7 +106,7 @@ def main(argv=None) -> int:
     def decode():
         tok, cache = state["tok"], state["cache"]
         for i in range(DECODE_STEPS):
-            logits, cache = model.decode_step(params, tok, PROMPT_LEN + i, cache)
+            logits, cache = model.decode_step(params, tok, args.prompt_len + i, cache)
             tok = torch.argmax(logits, dim=-1)
 
     with torch.inference_mode():
@@ -106,7 +114,8 @@ def main(argv=None) -> int:
         decode()      # warm-up: cuBLAS handles, kernel build, allocator
         rows = [traced("prefill", prefill, args.out), traced("decode", decode, args.out)]
     rows[1]["per_step_wall_ms"] = rows[1]["wall_ms"] / DECODE_STEPS
-    print(json.dumps({"profile": rows, "device": smi}))
+    print(json.dumps({"profile": rows, "arch": cfg.name, "prompt_len": args.prompt_len,
+                      "device": smi}))
     return 0
 
 
