@@ -43,18 +43,15 @@ def flash_attention(
     window: Optional[int] = None,
     q_offset: int = 0,
     softcap: Optional[float] = None,
-    chunk: int = 1024,
 ) -> torch.Tensor:
     """GQA online-softmax attention, q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D).
 
-    ``chunk`` is the number of keys per slice of the plain version (the
-    CPU path's memory is O(Tq * chunk) per head); the kernel tiles on its
-    own.  Forward only, as the TPU kernel: on the card a call that
-    autograd would record raises, since the kernel has no backward.
+    Forward only, as the TPU kernel: on the card a call that autograd
+    would record raises, since the kernel has no backward.
     """
     if q.device.type == "cpu":
         return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset, softcap=softcap, chunk=chunk)
+                                        q_offset=q_offset, softcap=softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward on the card: training over more than "

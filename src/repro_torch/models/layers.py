@@ -25,7 +25,8 @@ from repro_torch.models.param_util import normal, ones, zeros
 
 # Above this many kv positions attention is blockwise (online softmax),
 # as in the reference; the plain version walks the keys in slices of
-# BLOCKWISE_CHUNK, so its memory is O(Tq * chunk) per head.
+# BLOCKWISE_CHUNK (``ref_flash_attention``'s default, the reference's
+# chunk), so its memory is O(Tq * chunk) per head.
 BLOCKWISE_KV_THRESHOLD = 4096
 BLOCKWISE_CHUNK = 1024
 
@@ -186,7 +187,7 @@ def attention_core(q, k, v, *, causal, window, q_offset, softcap,
         return out.reshape(B, Hq, Tq, D).to(q.dtype)
     if Tk > BLOCKWISE_KV_THRESHOLD:
         return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, softcap=softcap, chunk=BLOCKWISE_CHUNK)
+                                    q_offset=q_offset, softcap=softcap)
     return ref_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                          softcap=softcap)
 
