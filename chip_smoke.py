@@ -17,12 +17,14 @@ Phases (each one's failure fails the run):
    ``w_up`` master of olmo-1b, 16 x 2048 x 8192 float32 at 256 KiB
    pages; ``delta_mask`` bit-equal over 63,000 rows with planted
    differences); and
-   ``flash_attention`` against its plain version over the attention
-   tests' sweep (float32 within 2e-5, bf16 within 3e-2), with Tq = 1,
-   ragged lengths, softcap, windows, D = 120 and 256, strided k and v, a
-   ``q_offset`` that leaves rows fully masked (zeros), and the long
-   serving path's shape, bf16 (4, 32, 8192, 120) over (4, 8, 8192, 120)
-   with a 4096 window;
+   attention against its plain version over the attention tests' sweep:
+   ``flash_attention_sm90`` (bf16 on the tensor cores) on every case in
+   bf16, within 3e-2 and 2^-7 |want| + 1e-4 per element, and
+   ``flash_attention`` (float32 arithmetic) on the float32 cases within
+   2e-5, with Tq = 1, ragged lengths, softcap, windows, D = 8 to 256,
+   strided k and v, a ``q_offset`` that leaves rows fully masked (zeros),
+   and the long serving path's shape (4, 32, 8192, 120) over
+   (4, 8, 8192, 120) with a 4096 window, in both dtypes and layouts;
 4. serve: ``repro_torch.launch.serve.generate`` on full-width
    recurrentgemma-2b in bf16 (random weights from a seed), 4 prompts of
    512 byte tokens, 32 new tokens; the launch counts of that run must
@@ -35,13 +37,15 @@ Phases (each one's failure fails the run):
 6. long-context serve: ``generate`` on full-width h2o-danube3-4b in
    bf16 (3.96 B parameters, sliding window 4096), 4 prompts of 8192
    tokens, 32 new tokens: every prefill attention is over more than 4096
-   kv positions, so the run must launch ``flash_attention`` exactly once
-   per layer (24) per prefill; then the prefill time (median of 3), the
-   decode rate over the rolling window cache and the peak memory;
+   kv positions, so the run must launch ``flash_attention_sm90`` exactly
+   once per layer (24) per prefill, and the float32 kernel never; then
+   the prefill time (median of 3), the decode rate over the rolling
+   window cache and the peak memory;
 7. long decode vs teacher forcing: h2o-danube3-4b at full width with 4
    layers in float32, an 8160-token prefill (kernel) and 32 single-step
    decodes (no kernel) against one forward over the 8192 tokens
-   (kernel): the last 32 positions' logits within 2e-2;
+   (kernel): the last 32 positions' logits within 2e-2; float32 inputs
+   run the float32 ``flash_attention``;
 8. train: ``repro_torch.launch.train.main`` at its default size (6
    steps, two checkpoints: every leaf digested twice and masked once);
    then full-width olmo-1b (bf16 params, fp32 AdamW state, 1.18 B
@@ -55,13 +59,14 @@ Phases (each one's failure fails the run):
    times, the peak device memory and the host's peak RSS;
 9. the ``kernels`` line: per kernel, its launches on its path (serving
    recurrentgemma-2b for ``linear_scan``, training for ``page_digest``
-   and ``delta_mask``, long-context serving for ``flash_attention``),
+   and ``delta_mask``, long-context serving for ``flash_attention_sm90``,
+   the float32 long teacher forcing for ``flash_attention``),
    its error against
    the plain version, its time, the plain version's time, the least time
    the card could take and, where one PyTorch call computes the same
-   function, that call's time, at the path's shape (for
-   ``flash_attention``, ``scaled_dot_product_attention`` with the
-   window-causal boolean mask, which the port never calls).
+   function, that call's time, at the path's shape (for both attention
+   kernels, ``scaled_dot_product_attention`` with the window-causal
+   boolean mask in the kernel's dtype, which the port never calls).
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
@@ -93,6 +98,7 @@ from repro_torch.data import ByteTokenizer, CorpusWriter, ShardedReader  # noqa:
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
@@ -126,7 +132,8 @@ SCAN_TOL = 1e-5                                                       # tests/te
 TEACHER_TOL = 2e-2                                                    # tests/test_models.py
 # flash attention: tests/test_kernels.py's cases (B, Hq, Hkv, Tq, Tk, D,
 # causal, window, softcap, dtype) with q_offset = Tk - Tq when causal, plus
-# the long path's head width and window, D = 256 MQA and strided k, v
+# the long path's head width and window, D = 256 MQA and strided k, v;
+# every case also runs in bf16 (the tensor-core kernel)
 FLASH_CASES = [
     (2, 4, 2, 64, 64, 32, True, None, None, torch.float32),
     (1, 8, 1, 37, 37, 16, True, None, None, torch.float32),
@@ -256,12 +263,18 @@ def attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, strided=False):
     return q, k, v
 
 
+def flash_kernel(dtype):
+    """The attention kernel ``ops.flash_attention`` runs for ``dtype``."""
+    return flash_attention_sm90_cuda if dtype == torch.bfloat16 else flash_attention_cuda
+
+
 def flash_case(q, k, v, **kw):
-    """The kernel against the plain version on the same inputs; returns
-    the largest absolute difference and, for bf16, the largest share of
-    the scaled limit ``FLASH_BF16_REL * |want| + FLASH_BF16_FLOOR`` (None
-    for float32), raising past either limit."""
-    got = flash_attention_cuda(q, k, v, **kw)
+    """``ops.flash_attention`` on the card (the dtype's kernel) against the
+    plain version on the same inputs; returns the largest absolute
+    difference and, for bf16, the largest share of the scaled limit
+    ``FLASH_BF16_REL * |want| + FLASH_BF16_FLOOR`` (None for float32),
+    raising past either limit."""
+    got = ops.flash_attention(q, k, v, **kw)
     want = ref_flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
@@ -291,24 +304,26 @@ def phase_flash_vs_plain(state):
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_share, n = 0.0, 0
     for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, dtype) in enumerate(FLASH_CASES):
-        for strided in (False, True):
-            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed=200 + i,
-                                       strided=strided)
-            kw = dict(causal=causal, window=window, softcap=softcap,
-                      q_offset=Tk - Tq if causal else 0)
-            err, share = flash_case(q, k, v, **kw)
-            worst[dtype], n = max(worst[dtype], err), n + 1
-            worst_share = max(worst_share, share or 0.0)
-            log(f"  flash_attention {tuple(q.shape)} kv {tuple(k.shape)} {dtype} {kw} "
-                f"strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
+        for dt in (dtype,) if dtype == torch.bfloat16 else (dtype, torch.bfloat16):
+            for strided in (False, True):
+                q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, dt, seed=200 + i,
+                                           strided=strided)
+                kw = dict(causal=causal, window=window, softcap=softcap,
+                          q_offset=Tk - Tq if causal else 0)
+                err, share = flash_case(q, k, v, **kw)
+                worst[dt], n = max(worst[dt], err), n + 1
+                worst_share = max(worst_share, share or 0.0)
+                log(f"  {flash_kernel(dt).__name__} {tuple(q.shape)} kv {tuple(k.shape)} {dt} "
+                    f"{kw} strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
     # rows before the first key (q_offset < 0) see nothing: zeros, not NaN
-    q, k, v = attention_inputs(1, 4, 2, 100, 100, 120, torch.float32, seed=250)
-    got = flash_attention_cuda(q, k, v, causal=True, q_offset=-40)
-    worst[torch.float32] = max(worst[torch.float32], flash_case(q, k, v, causal=True,
-                                                                q_offset=-40)[0])
-    if not torch.equal(got[:, :, :40], torch.zeros_like(got[:, :, :40])):
-        raise AssertionError("fully masked rows are not zero")
-    n += 1
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(1, 4, 2, 100, 100, 120, dt, seed=250)
+        got = ops.flash_attention(q, k, v, causal=True, q_offset=-40)
+        err, share = flash_case(q, k, v, causal=True, q_offset=-40)
+        worst[dt], n = max(worst[dt], err), n + 1
+        worst_share = max(worst_share, share or 0.0)
+        if not torch.equal(got[:, :, :40], torch.zeros_like(got[:, :, :40])):
+            raise AssertionError(f"{dt}: fully masked rows are not zero")
     # the long serving path's shape, in the layout the model hands over
     # (v a strided view of the projection) and contiguous; in float32 too,
     # where 2e-5 holds every row's sums at ~1e-3 of a typical output
@@ -321,14 +336,15 @@ def phase_flash_vs_plain(state):
             err, share = flash_case(q, k, v, causal=True, window=cfg.window)
             worst[dtype], n = max(worst[dtype], err), n + 1
             worst_share = max(worst_share, share or 0.0)
-            log(f"  flash_attention {qs} kv {ks} {dtype} window {cfg.window} "
+            log(f"  {flash_kernel(dtype).__name__} {qs} kv {ks} {dtype} window {cfg.window} "
                 f"strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
             del q, k, v
             torch.cuda.empty_cache()
     state["flash_err"] = worst
     state["flash_bf16_share"] = worst_share
-    log(f"kernel vs plain: flash_attention in {n} cases, float32 worst "
-        f"{worst[torch.float32]:.3e} (tol {FLASH_TOL[torch.float32]}), bf16 worst "
+    log(f"kernel vs plain: attention in {n} cases, flash_attention (float32) worst "
+        f"{worst[torch.float32]:.3e} (tol {FLASH_TOL[torch.float32]}), "
+        f"flash_attention_sm90 (bf16) worst "
         f"{worst[torch.bfloat16]:.3e} (tol {FLASH_TOL[torch.bfloat16]}) and "
         f"{worst_share:.3f} of {FLASH_BF16_REL:.3g} |want| + {FLASH_BF16_FLOOR}")
 
@@ -465,9 +481,11 @@ def phase_serve_long(state):
     state["long_launches"] = counts
     log(f"  generate: {LONG_BATCH}x{LONG_PROMPT} prompt + {LONG_NEW} new tokens in {wall:.3f} s "
         f"(first call); launches {counts}")
-    if counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched {counts['flash_attention']} times, "
-                             f"expected {cfg.n_layers} (one per layer, in the prefill)")
+    if counts["flash_attention_sm90"] != cfg.n_layers or counts["flash_attention"] != 0:
+        raise AssertionError(f"flash_attention_sm90 launched {counts['flash_attention_sm90']} "
+                             f"times and flash_attention {counts['flash_attention']}, expected "
+                             f"{cfg.n_layers} and 0 (bf16: one tensor-core launch per layer, "
+                             f"in the prefill)")
     for p, o in zip(prompts, outs):
         if o.shape != (LONG_PROMPT + LONG_NEW,) or not np.array_equal(o[:LONG_PROMPT], p):
             raise AssertionError(f"bad output shape {o.shape} or prompt not preserved")
@@ -486,8 +504,9 @@ def phase_serve_long(state):
             logits, cache = model.prefill(params, {"tokens": tokens}, cache)
             torch.cuda.synchronize()
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            if ops.launch_counts()["flash_attention"] != cfg.n_layers:
-                raise AssertionError(f"prefill launched {ops.launch_counts()}")
+            c = ops.launch_counts()
+            if c["flash_attention_sm90"] != cfg.n_layers or c["flash_attention"] != 0:
+                raise AssertionError(f"prefill launched {c}")
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite prefill logits")
         tok = torch.argmax(logits, dim=-1)
@@ -503,8 +522,9 @@ def phase_serve_long(state):
         decode_s = time.perf_counter() - t0
         if not bool(finite):
             raise AssertionError("non-finite decode logits")
-        if ops.launch_counts()["flash_attention"] != 0:
-            raise AssertionError("a decode step over the window cache launched the kernel")
+        c = ops.launch_counts()
+        if c["flash_attention"] != 0 or c["flash_attention_sm90"] != 0:
+            raise AssertionError("a decode step over the window cache launched a kernel")
     state["serve_long"] = {
         "prefill_ms": sorted(prefill_ms)[1],
         "decode_tok_s": LONG_BATCH * LONG_NEW / decode_s,
@@ -544,14 +564,17 @@ def phase_teacher_forcing_long(state):
             lg, cache = model.decode_step(params, toks[:, t], t, cache)
             errs.append(float((lg - full[:, t - T0 + 1]).abs().max()))
         dec = ops.launch_counts()["flash_attention"] - pre
+        sm90 = ops.launch_counts()["flash_attention_sm90"]
     state["teacher_long_err"] = max(errs)
+    state["long_tf_launches"] = fwd + pre
     log(f"long teacher forcing: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"float32, prefill {T0} + {T - T0} decode steps vs one forward over {T}: max "
         f"|dlogit| {max(errs):.3e} (tol {TEACHER_TOL}); flash_attention launches: forward "
         f"{fwd}, prefill {pre}, decode {dec}")
-    if (fwd, pre, dec) != (cfg.n_layers, cfg.n_layers, 0):
-        raise AssertionError(f"expected {cfg.n_layers} launches in the forward and the "
-                             f"prefill and none in decode, got {fwd}, {pre}, {dec}")
+    if (fwd, pre, dec, sm90) != (cfg.n_layers, cfg.n_layers, 0, 0):
+        raise AssertionError(f"expected {cfg.n_layers} float32 launches in the forward and "
+                             f"the prefill, none in decode and no bf16 kernel, got {fwd}, "
+                             f"{pre}, {dec}, {sm90}")
     if not max(errs) < TEACHER_TOL:
         raise AssertionError(f"decode disagrees with the full forward: {errs}")
     del params, model, cache, full
@@ -610,6 +633,9 @@ def phase_digest_vs_plain(state):
     got = delta_mask_cuda(new, old)
     want = ref_delta_mask(new, old)
     torch.cuda.synchronize()
+    if got.dtype != torch.bool or got.shape != (MASK_ROWS,):
+        raise AssertionError(f"delta_mask: {got.dtype} {tuple(got.shape)}, expected bool "
+                             f"({MASK_ROWS},)")
     if not torch.equal(got, want) or int(got.sum()) != MASK_PLANTED:
         raise AssertionError(f"delta_mask: {int(got.sum())} rows flagged, plain "
                              f"{int(want.sum())}, planted {MASK_PLANTED}")
@@ -845,7 +871,7 @@ def phase_kernel_times(state):
     old = new.clone()
     old[::97, 1] += 1
     err = int((delta_mask_cuda(new, old).int() - ref_delta_mask(new, old).int()).abs().max())
-    dm_bytes = n_pages * (8 + 8 + 4)
+    dm_bytes = n_pages * (8 + 8 + 1)   # two digest rows read, one bool written
     dm_ops = n_pages * 3          # two compares and an or per row
     kernels.append({
         "name": "delta_mask",
@@ -862,49 +888,54 @@ def phase_kernel_times(state):
         "library_ms": cuda_ms(lambda: (new != old).any(dim=1), reps=200),
         "shape": [n_pages, 2],
         "dtype": "int32",
-        "bound_basis": f"20 B/row over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
+        "bound_basis": f"17 B/row over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
     })
     del new, old
 
-    # flash_attention at one prefill attention of the long serving path
+    # attention at one prefill attention of the long serving path: the bf16
+    # tensor-core kernel (the bf16 model's path) and the float32 kernel (the
+    # float32 long teacher forcing's path), each against SDPA in its dtype
     cfg = get_config(LONG_ARCH)
     qs, ks = long_shapes(cfg)
-    q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], torch.bfloat16,
-                               seed=12)
-    kw = dict(causal=True, window=cfg.window)
-    err, share = flash_case(q, k, v, **kw)
     B, Hq, Tq, D = qs
+    kw = dict(causal=True, window=cfg.window)
     pairs = live_pairs(Tq, ks[2], causal=True, window=cfg.window, q_offset=0) * B * Hq
     fa_ops = 4 * D * pairs              # score dot and value multiply-add per live pair
-    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    kernels.append({
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:105",
-        "launches": state["long_launches"]["flash_attention"],
-        "max_abs_err": max(err, *state["flash_err"].values()),
-        "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps=5),
-        "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=2),
-        "bound_ms": max(fa_bytes / HBM_BYTES_PER_S, fa_ops / BF16_FLOP_PER_S) * 1e3,
-        "bound_by": "bytes" if fa_bytes / HBM_BYTES_PER_S >= fa_ops / BF16_FLOP_PER_S
-        else "operations",
-        "library_ms": sdpa_ms(q, k, v, cfg.window),
-        "library_call": "scaled_dot_product_attention, efficient backend, boolean mask, "
-                        "kv heads repeated outside the timing",
-        "shape": [list(qs), list(ks)],
-        "dtype": "bfloat16",
-        "window": cfg.window,
-        "max_abs_err_f32": state["flash_err"][torch.float32],
-        "bf16_limit_share": max(share, state["flash_bf16_share"]),
-        "bound_basis": f"4*D flop per live (q, k) pair ({pairs} pairs) over "
-                       f"{BF16_FLOP_PER_S:.3g} flop/s (H100 SXM bf16 tensor cores; "
-                       f"{fa_ops / F32_FLOP_PER_S * 1e3:.4f} ms at the {F32_FLOP_PER_S:.3g} "
-                       f"flop/s float32 CUDA-core rate); q, k, v read and o written once "
-                       f"over {HBM_BYTES_PER_S:.3g} B/s",
-    })
-    del q, k, v
-    torch.cuda.empty_cache()
+    for name, dtype, rate, rate_name, launches in (
+            ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores",
+             state["long_launches"]["flash_attention_sm90"]),
+            ("flash_attention", torch.float32, F32_FLOP_PER_S, "float32 outside the tensor cores",
+             state["long_tf_launches"])):
+        q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], dtype, seed=12)
+        err, share = flash_case(q, k, v, **kw)
+        kernel = flash_kernel(dtype)
+        fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:105",
+            "launches": launches,
+            "max_abs_err": max(err, state["flash_err"][dtype]),
+            "ms": cuda_ms(lambda: kernel(q, k, v, **kw), reps=10 if share is not None else 5),
+            "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=2),
+            "bound_ms": max(fa_bytes / HBM_BYTES_PER_S, fa_ops / rate) * 1e3,
+            "bound_by": "bytes" if fa_bytes / HBM_BYTES_PER_S >= fa_ops / rate else "operations",
+            "library_ms": sdpa_ms(q, k, v, cfg.window),
+            "library_call": "scaled_dot_product_attention, efficient backend, boolean mask, "
+                            "kv heads repeated outside the timing",
+            "shape": [list(qs), list(ks)],
+            "dtype": str(dtype).replace("torch.", ""),
+            "window": cfg.window,
+            "bound_basis": f"4*D flop per live (q, k) pair ({pairs} pairs) over {rate:.3g} "
+                           f"flop/s (H100 SXM {rate_name}); q, k, v read and o written once "
+                           f"over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
+        }
+        if share is not None:
+            row["bf16_limit_share"] = max(share, state["flash_bf16_share"])
+        kernels.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "

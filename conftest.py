@@ -1,4 +1,11 @@
-"""Test isolation for the JAX reference's thread-local sharding rules.
+"""Test isolation: fresh Hypothesis draws, and the JAX reference's
+thread-local sharding rules cleared before every test.
+
+Hypothesis saves every falsifying example in ``.hypothesis/`` and replays
+it first in each later run from the same directory, so one failed draw
+of a property test would decide every later run on that checkout.  The
+profile loaded here turns that database off: each run draws its own
+examples.  No test's ``max_examples``, deadline or seed changes.
 
 ``repro.train.step.TrainStepBuilder`` activates logical-axis rules with
 ``repro.distributed.axes.set_logical_rules`` inside its step functions
@@ -14,6 +21,14 @@ each test start from the state it would have alone.
 import sys
 
 import pytest
+
+try:
+    from hypothesis import settings as _hypothesis_settings
+except ImportError:    # the property tests fall back to fixed seeds
+    pass
+else:
+    _hypothesis_settings.register_profile("fresh-draws", database=None)
+    _hypothesis_settings.load_profile("fresh-draws")
 
 
 @pytest.fixture(autouse=True)

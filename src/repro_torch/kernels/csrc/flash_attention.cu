@@ -6,21 +6,21 @@
 //
 // with G = Hq / Hkv query heads per kv head.  Key j is live for row i when
 // j < Tk, (causal) j <= qpos and (window) j > qpos - window, where
-// qpos = q_offset + i.  A row with no live key comes out as zeros.  Inputs
-// are float32 or bfloat16; every sum is float32; the output is in the
-// input's type.
+// qpos = q_offset + i.  A row with no live key comes out as zeros.  Inputs,
+// sums and output are float32 (bfloat16 inputs go to
+// csrc/flash_attention_sm90.cu, on the tensor cores).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _attn_kernel), which the reference's serving path computes for every
-// attention over more than 4096 kv positions (models/layers.py
-// _blockwise_attention, its jnp twin).
+// _attn_kernel) for float32 inputs, which the reference's serving path
+// computes for every attention over more than 4096 kv positions
+// (models/layers.py _blockwise_attention, its jnp twin).
 //
 // Bound: operations.  Each live (query, key) pair costs 4 * D flops (the
 // score's dot and the value's multiply-add) against 2 * D bytes of q and
 // out per query and of k and v per key, so at a long prompt the work is
 // far above the card's ridge point.  The arithmetic is the reference's
-// float32, here on the CUDA cores (67 TFLOP/s), not on the tensor cores
-// (989 TFLOP/s in bf16): moving it onto wgmma is a later change.
+// float32, here on the CUDA cores (67 TFLOP/s): float32 inputs keep
+// float32 products, as the 2e-5 parity gate asks.
 //
 // Design: the TPU kernel walks the kv blocks as the sequential innermost
 // grid axis with m, l and the accumulator in VMEM scratch.  Here one block
@@ -41,7 +41,6 @@
 // rows are padded so that the score loop reads K without bank conflicts.
 // exp and tanh are the accurate expf / tanhf (no fast math).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,13 +53,6 @@ constexpr int kQS = kBQ + 4;   // row stride of the transposed q tile (floats)
 constexpr int kPS = kBQ + 4;   // row stride of the transposed probability tile
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __host__ __device__ constexpr int k_stride(int D) { return (D % 2) ? D : D + 1; }
 
@@ -87,7 +79,7 @@ size_t smem_bytes(int64_t D) {
                           static_cast<size_t>(kBK) * 64 * NG + static_cast<size_t>(kBK) * kPS);
 }
 
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads, NG <= 2 ? 2 : 1)
 flash_attention_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -111,15 +103,15 @@ flash_attention_kernel(const Params p) {
   const int64_t b = blockIdx.z;
   const int64_t hk = h / p.group;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   // q tile, scaled in float32, transposed; rows past Tq are zero
   for (int r = warp; r < kBQ; r += kThreads / 32) {
     const bool ok = q0 + r < p.Tq;
     for (int d = lane; d < D; d += 32)
-      qt[d * kQS + r] = ok ? to_float(qg[(q0 + r) * p.q_st + d]) * p.scale : 0.0f;
+      qt[d * kQS + r] = ok ? qg[(q0 + r) * p.q_st + d] * p.scale : 0.0f;
   }
   // the value columns past D stay zero for the whole loop
   for (int i = tid; i < kBK * (VS - D); i += kThreads) {
@@ -149,11 +141,11 @@ flash_attention_kernel(const Params p) {
     __syncthreads();   // the previous tile's K, V and P are consumed
     for (int c = warp; c < kBK; c += kThreads / 32) {
       const bool ok = kt + c < p.Tk;
-      const T* kr = kg + (kt + c) * p.k_st;
-      const T* vr = vg + (kt + c) * p.v_st;
+      const float* kr = kg + (kt + c) * p.k_st;
+      const float* vr = vg + (kt + c) * p.v_st;
       for (int d = lane; d < D; d += 32) {
-        ks[c * KS + d] = ok ? to_float(kr[d]) : 0.0f;
-        vs[c * VS + d] = ok ? to_float(vr[d]) : 0.0f;
+        ks[c * KS + d] = ok ? kr[d] : 0.0f;
+        vs[c * VS + d] = ok ? vr[d] : 0.0f;
       }
     }
     __syncthreads();
@@ -239,7 +231,7 @@ flash_attention_kernel(const Params p) {
     }
   }
 
-  T* og = static_cast<T*>(p.o) + ((b * p.Hq + h) * p.Tq) * p.D;
+  float* og = static_cast<float*>(p.o) + ((b * p.Hq + h) * p.Tq) * p.D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + tr * 4 + i;
@@ -250,36 +242,35 @@ flash_attention_kernel(const Params p) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int col = g * 64 + tc * 4 + jj;
-        if (col < D) og[row * p.D + col] = from_float<T>(acc[i][g * 4 + jj] / denom);
+        if (col < D) og[row * p.D + col] = acc[i][g * 4 + jj] / denom;
       }
   }
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch(const Params& p, int64_t B, cudaStream_t stream) {
   const size_t smem = smem_bytes<NG>(p.D);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, NG>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<NG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // all of the SM's unified memory as shared memory: two blocks fit at D <= 120
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, NG>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<NG>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((p.Tq + kBQ - 1) / kBQ), static_cast<unsigned>(p.Hq),
                   static_cast<unsigned>(B));
-  flash_attention_kernel<T, NG><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<NG><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_d(const Params& p, int64_t B, cudaStream_t stream) {
   switch ((p.D + 63) / 64) {
-    case 1: return launch<T, 1>(p, B, stream);
-    case 2: return launch<T, 2>(p, B, stream);
-    case 3: return launch<T, 3>(p, B, stream);
-    default: return launch<T, 4>(p, B, stream);
+    case 1: return launch<1>(p, B, stream);
+    case 2: return launch<2>(p, B, stream);
+    case 3: return launch<3>(p, B, stream);
+    default: return launch<4>(p, B, stream);
   }
 }
 
@@ -287,19 +278,19 @@ int launch_d(const Params& p, int64_t B, cudaStream_t stream) {
 
 // q: (B, Hq, Tq, D), k and v: (B, Hkv, Tk, D), each with unit stride in D
 // and the given strides (in elements) in its first three dimensions; o:
-// contiguous (B, Hq, Tq, D) of the same type.  dtype 0 is float32, 1 is
-// bfloat16.  1 <= D <= 256, Hq a multiple of Hkv.  Launches on `stream`;
+// contiguous (B, Hq, Tq, D), all float32.  1 <= D <= 256, Hq a multiple of
+// Hkv.  Launches on `stream`;
 // returns the cudaError_t of the launch (0 on success).  The caller checks
 // shapes, types and devices.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int64_t B, int64_t Hq, int64_t Hkv, int64_t Tq,
+                                   int64_t B, int64_t Hq, int64_t Hkv, int64_t Tq,
                                    int64_t Tk, int64_t D, int64_t q_sb, int64_t q_sh,
                                    int64_t q_st, int64_t k_sb, int64_t k_sh, int64_t k_st,
                                    int64_t v_sb, int64_t v_sh, int64_t v_st, int causal,
                                    int has_window, int64_t window, int64_t q_offset,
                                    int has_softcap, float softcap, float scale, void* stream) {
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
-      (Tq + kBQ - 1) / kBQ > 0x7fffffff || (dtype != 0 && dtype != 1))
+      (Tq + kBQ - 1) / kBQ > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   Params p;
@@ -312,5 +303,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
   p.softcap = softcap; p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_d<float>(p, B, s) : launch_d<__nv_bfloat16>(p, B, s);
+  return launch_d(p, B, s);
 }

@@ -1,6 +1,9 @@
-"""CUDA kernel for GQA online-softmax (flash) attention, forward only.
+"""CUDA kernel for GQA online-softmax (flash) attention on float32 inputs,
+forward only.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
+Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` for
+float32 inputs (``ops.flash_attention`` sends bfloat16 inputs to
+``flash_attention_sm90.py``'s tensor-core kernel).
 The kernel (``csrc/flash_attention.cu``) runs one block per 64 query rows
 of one (batch, query head), walks only the 64-key tiles that a causal or
 sliding-window mask leaves live, and keeps the online softmax's running
@@ -23,7 +26,6 @@ from repro_torch.kernels import build
 
 launches = 0
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 
 _fn = None
@@ -34,7 +36,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_fwd
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([ptr] * 4 + [ctypes.c_int] + [i64] * 6 + [i64] * 9
+        fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
@@ -42,7 +44,8 @@ def _kernel():
     return _fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Ranks, shapes, head grouping, head width and unit stride in D."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be (B, Hq, Tq, D) and k, v (B, Hkv, Tk, D) "
                          f"of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -56,11 +59,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.shape[1]} kv heads")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head width {D} outside 1..{MAX_HEAD_DIM}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: float32 or bfloat16 inputs of one type, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v need unit stride in the head dimension")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _check_shapes(q, k, v)
+    B, Hq = q.shape[:2]
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError(f"flash_attention: float32 inputs only, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: the kernel takes CUDA tensors on one device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -78,8 +86,8 @@ def flash_attention_cuda(
     q_offset: int = 0,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D) CUDA tensors, float32 or
-    bfloat16, unit stride in D -> contiguous (B, Hq, Tq, D) in q's dtype."""
+    """q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D) float32 CUDA tensors, unit
+    stride in D -> contiguous (B, Hq, Tq, D) float32."""
     global launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -89,7 +97,7 @@ def flash_attention_cuda(
     B, Hq, Tq, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, k.shape[1], Tq, k.shape[2], D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window is not None), int(window or 0), int(q_offset),

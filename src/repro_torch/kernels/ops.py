@@ -14,12 +14,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import delta_mask as _dm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_sm90 as _fa90
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import page_digest as _pd
 from repro_torch.kernels import ref as _ref
 
 _KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
-            "flash_attention": _fa}
+            "flash_attention": _fa, "flash_attention_sm90": _fa90}
 
 
 def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -46,8 +47,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """GQA online-softmax attention, q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D).
 
-    Forward only, as the TPU kernel: on the card a call that autograd
-    would record raises, since the kernel has no backward.
+    On the card, bfloat16 q, k and v go to the tensor-core kernel
+    (``flash_attention_sm90``), which raises on what it does not take;
+    any other call goes to ``flash_attention``'s kernel, which takes
+    float32 only and raises on anything else.  Forward only, as the TPU kernel: on the card a
+    call that autograd would record raises, since neither kernel has a
+    backward.
     """
     if q.device.type == "cpu":
         return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
@@ -56,8 +61,9 @@ def flash_attention(
         raise NotImplementedError(
             "flash_attention has no backward on the card: training over more than "
             "4096 kv positions waits for a later slice")
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, softcap=softcap)
+    kernel = (_fa90.flash_attention_sm90_cuda
+              if q.dtype == k.dtype == v.dtype == torch.bfloat16 else _fa.flash_attention_cuda)
+    return kernel(q, k, v, causal=causal, window=window, q_offset=q_offset, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_attention_sm90 as tfa90
 from repro_torch.kernels import ref as tref
 from repro_torch.launch.serve import generate
 from repro_torch.models import build_model
@@ -61,6 +62,7 @@ def no_build(monkeypatch):
     monkeypatch.setattr(build, "load", refuse)
     monkeypatch.setattr(build, "build_all", refuse)
     monkeypatch.setattr(tfa, "_fn", None)
+    monkeypatch.setattr(tfa90, "_fn", None)
 
 
 def _qkv(B, Hq, Hkv, Tq, Tk, D, seed):
@@ -155,7 +157,7 @@ def test_ops_flash_attention_on_cpu_runs_the_plain_version(no_build):
     want = tref.ref_flash_attention(q, k, v, causal=True, window=30, q_offset=20)
     assert torch.equal(got, want)
     assert ops.launch_counts() == {"linear_scan": 0, "page_digest": 0, "delta_mask": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "flash_attention_sm90": 0}
 
 
 def test_ops_flash_attention_refuses_autograd_off_the_cpu(no_build):
@@ -190,6 +192,121 @@ def test_cuda_wrapper_rejects_bad_inputs_before_building(case, no_build):
     with pytest.raises((ValueError, TypeError)):
         tfa.flash_attention_cuda(q, k, v)
     assert tfa.launches == before
+
+
+# ------------------------------------------- the bf16 tensor-core kernel's arithmetic
+BF16_REL, BF16_FLOOR = 2.0 ** -7, 1e-4     # chip_smoke.py's per-element limit for bf16
+
+
+def _tensor_core_model(q, k, v, *, window, q_offset, p_parts, tile=64):
+    """Plain PyTorch rounding as ``csrc/flash_attention_sm90.cu`` does, for
+    one (batch, head), causal: bf16 q and k multiplied exactly and summed
+    in float32, scaled by D^-0.5 in float32; the online softmax over
+    64-key tiles in float32, whose reference point m moves only when a
+    row's max grows by more than 8 in exp2 units (so p < 256); P rounded
+    to bf16 in ``p_parts`` parts (hi = bf16(p), lo = bf16(p - hi)) and
+    each part's product with the bf16 v summed in float32; l from the
+    unrounded p; bf16 output."""
+    Tq, D = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    qpos = q_offset + torch.arange(Tq)[:, None]
+    m = torch.full((Tq, 1), -1e30)
+    l = torch.zeros((Tq, 1))
+    acc = torch.zeros((Tq, D))
+    for j0 in range(0, k.shape[0], tile):
+        kpos = torch.arange(j0, min(j0 + tile, k.shape[0]))[None, :]
+        live = (kpos <= qpos) & (kpos > qpos - window)
+        if not live.any():
+            continue
+        s = (qf @ kf[j0:j0 + tile].T) * D ** -0.5
+        s = s.masked_fill(~live, -1e30)
+        mx = s.amax(-1, keepdim=True)
+        m_new = torch.where(mx - m > 8 * np.log(2.0), mx, m)
+        p = torch.exp(s - m_new).masked_fill(~live, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        rest = p
+        for _ in range(p_parts):
+            part = rest.bfloat16().float()
+            acc = acc + part @ vf[j0:j0 + tile]
+            rest = rest - part
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).bfloat16()
+
+
+@pytest.mark.parametrize("p_parts", [2, 1])
+def test_tensor_core_rounding_holds_the_bf16_limit_only_with_p_in_two_parts(p_parts):
+    """One head over 4352 keys, window 4096: the rows see ~4096 keys each,
+    where an output is ~0.03 and one bf16 ulp of it is the limit.  P in
+    two bf16 parts (the kernel's design) stays within 2^-7 |want| + 1e-4
+    of the plain version; P rounded once does not."""
+    Tq, Tk, D, window = 256, 4352, 120, 4096
+    q, k, v = (torch.from_numpy(x[0, 0]).bfloat16() for x in _qkv(1, 1, 1, Tq, Tk, D, seed=17))
+    got = _tensor_core_model(q, k, v, window=window, q_offset=Tk - Tq, p_parts=p_parts)
+    want = tref.ref_flash_attention(q[None, None], k[None, None], v[None, None], causal=True,
+                                    window=window, q_offset=Tk - Tq)[0, 0]
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (BF16_REL * want.float().abs() + BF16_FLOOR)).max())
+    assert float(diff.max()) <= TOL[jnp.bfloat16]
+    if p_parts == 2:
+        assert share <= 1.0, share
+    else:
+        assert share > 1.0, share
+
+
+@pytest.mark.parametrize("device,dtypes,route", [
+    ("cpu", ("bf16",) * 3, "plain"),
+    ("cpu", ("f32",) * 3, "plain"),
+    ("meta", ("bf16",) * 3, "sm90"),
+    ("meta", ("f32",) * 3, "f32"),
+    ("meta", ("bf16", "f32", "bf16"), "f32"),
+])
+def test_ops_flash_attention_picks_the_kernel_by_device_and_dtype(device, dtypes, route,
+                                                                  monkeypatch, no_build):
+    """A CPU tensor runs the plain version; off the CPU, all-bf16 inputs go
+    to the tensor-core kernel and anything else to the float32 kernel
+    (whose checks refuse mixed types).  The wrappers are replaced by
+    recorders; the meta device stands for a card without faking one."""
+    called = []
+    monkeypatch.setattr(tfa, "flash_attention_cuda", lambda *a, **kw: called.append("f32"))
+    monkeypatch.setattr(tfa90, "flash_attention_sm90_cuda",
+                        lambda *a, **kw: called.append("sm90"))
+    monkeypatch.setattr(tref, "ref_flash_attention", lambda *a, **kw: called.append("plain"))
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    q, k, v = (torch.zeros(1, 4, 8, 16, device=device, dtype=dt[d]) for d in dtypes)
+    ops.flash_attention(q, k, v, causal=True, window=4)
+    assert called == [route]
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("float32", TypeError, "bfloat16 inputs only"),
+    ("mixed", TypeError, "bfloat16 inputs only"),
+    ("head_dim", ValueError, "multiple of 8"),
+    ("stride", ValueError, "multiples of 8 elements"),
+    ("base", ValueError, "16-byte boundary"),
+    ("cpu_tensor", ValueError, "CUDA tensors"),
+])
+def test_sm90_wrapper_rejects_bad_inputs_before_building(case, error, match, no_build):
+    """The tensor-core kernel raises on what it does not take, the device
+    last; nothing falls back to the float32 kernel or the plain version."""
+    q, k, v = (torch.zeros(2, 4, 8, 16, dtype=torch.bfloat16) for _ in range(3))
+    if case == "float32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif case == "mixed":
+        v = v.float()
+    elif case == "head_dim":
+        q, k, v = (torch.zeros(2, 4, 8, 20, dtype=torch.bfloat16) for _ in range(3))
+    elif case == "stride":
+        # (B, T, H, D) storage with rows of 20 elements, seen as (B, H, T, 16)
+        k = torch.zeros(2, 8, 4, 20, dtype=torch.bfloat16)[..., :16].transpose(1, 2)
+    elif case == "base":
+        k = torch.zeros(2 * 4 * 8 * 16 + 4, dtype=torch.bfloat16)[4:].view(2, 4, 8, 16)
+        assert k.data_ptr() % 16 == 8
+    before = tfa90.launches
+    with pytest.raises(error, match=match):
+        tfa90.flash_attention_sm90_cuda(q, k, v)
+    assert tfa90.launches == before
 
 
 # ------------------------------------------------------- the slice, end to end
