@@ -11,8 +11,10 @@ Phases (each one's failure fails the run):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, one nvcc each, all in parallel;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, over the shapes of the kernel tests plus the serving path's
-   (``linear_scan``) and the training path's (``page_digest`` bit-equal
+   card, over the shapes of the kernel tests plus the serving path's and
+   a long prompt's (``linear_scan`` bit-equal, ``torch.equal``, and within
+   1e-5 at (4, 512, 2560) and (4, 8192, 2560)) and the training path's
+   (``page_digest`` bit-equal
    over the digest tests' sweep and one full-size leaf, the stacked
    ``w_up`` master of olmo-1b, 16 x 2048 x 8192 float32 at 256 KiB
    pages; ``delta_mask`` bit-equal over 63,000 rows with planted
@@ -23,7 +25,9 @@ Phases (each one's failure fails the run):
    ``flash_attention`` (float32 arithmetic) on the float32 cases within
    2e-5, with Tq = 1, ragged lengths, softcap, windows, D = 8 to 256,
    strided k and v, a ``q_offset`` that leaves rows fully masked (zeros),
-   and the long serving path's shape (4, 32, 8192, 120) over
+   float32-only cases at the float32 kernel's tile edges (Tq off its row
+   tile, D = 33, 100, 120, 256, query groups of 1, 3, 8 and 32, a window
+   inside one key tile), and the long serving path's shape (4, 32, 8192, 120) over
    (4, 8, 8192, 120) with a 4096 window, in both dtypes and layouts;
 4. serve: ``repro_torch.launch.serve.generate`` on full-width
    recurrentgemma-2b in bf16 (random weights from a seed), 4 prompts of
@@ -64,7 +68,9 @@ Phases (each one's failure fails the run):
    its error against
    the plain version, its time, the plain version's time, the least time
    the card could take and, where one PyTorch call computes the same
-   function, that call's time, at the path's shape (for both attention
+   function, that call's time, at the path's shape (``linear_scan`` also
+   at (4, 8192, 2560): ``long_ms``, ``long_plain_ms``, ``long_bound_ms``;
+   for both attention
    kernels, ``scaled_dot_product_attention`` with the window-causal
    boolean mask in the kernel's dtype, which the port never calls).
 
@@ -128,6 +134,7 @@ DIGEST_LEAVES = [(torch.float32, 5000), (torch.bfloat16, 5000), (torch.int32, 50
 FULL_LEAF = (16, 2048, 8192)                # olmo-1b's stacked w_up master, float32
 MASK_ROWS, MASK_PLANTED = 63_000, 257
 SCAN_SHAPES = [(2, 64, 32), (3, 100, 17), (1, 1, 8), (4, 257, 130)]  # tests/test_kernels.py
+SCAN_LONG_T = 8192                          # the scan at a long prompt, timed too
 SCAN_TOL = 1e-5                                                       # tests/test_kernels.py
 TEACHER_TOL = 2e-2                                                    # tests/test_models.py
 # flash attention: tests/test_kernels.py's cases (B, Hq, Hkv, Tq, Tk, D,
@@ -147,6 +154,23 @@ FLASH_CASES = [
     (2, 8, 1, 130, 300, 256, True, None, None, torch.float32),
     (1, 32, 8, 1, 5000, 120, True, 4096, None, torch.bfloat16),
     (1, 4, 2, 200, 4200, 120, True, 64, 30.0, torch.bfloat16),
+]
+# float32 only (the tensor-core kernel takes D in multiples of 8): the
+# float32 kernel's tile edges, flash_attention.tiling's layouts and GQA
+# stackings: Tq off the 32-row tile, D = 100 and 120 (128 columns) and 256
+# (64 stacked rows, 32-key tiles), G = 1, 3 (a block with an empty head),
+# 8 and 32, a window inside one key tile, D = 33 (4-byte copies)
+FLASH_F32_CASES = [
+    (2, 8, 2, 77, 77, 120, True, None, None),
+    (2, 4, 2, 130, 200, 100, True, 64, None),
+    (1, 2, 2, 70, 90, 256, False, None, None),
+    (1, 4, 2, 100, 100, 256, True, 40, 25.0),
+    (1, 8, 1, 45, 300, 120, True, None, None),
+    (1, 6, 2, 50, 50, 64, True, None, 10.0),
+    (1, 32, 1, 20, 100, 64, True, None, None),
+    (1, 4, 1, 200, 200, 120, True, 5, None),
+    (1, 4, 2, 40, 70, 33, True, None, None),
+    (1, 4, 4, 129, 129, 120, False, 17, None),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}              # tests/test_kernels.py
 # Past a few thousand keys an output of random q, k, v is ~0.03, as small
@@ -224,20 +248,27 @@ def phase_build(state):
     log(f"build: {len(build.SOURCES)} source(s) in {state['build_s']:.2f} s")
 
 
+def scan_shapes(cfg):
+    """The serving path's scan shape and the same at a long prompt."""
+    return (BATCH, PROMPT_LEN, cfg.rnn_width), (BATCH, SCAN_LONG_T, cfg.rnn_width)
+
+
 def phase_scan_vs_plain(state):
-    path_shape = (BATCH, PROMPT_LEN, state["cfg"].rnn_width)
     worst = 0.0
-    for i, shape in enumerate(SCAN_SHAPES + [path_shape]):
+    for i, shape in enumerate(SCAN_SHAPES + list(scan_shapes(state["cfg"]))):
         a, x = scan_inputs(shape, seed=100 + i)
         got = linear_scan_cuda(a, x)
         want = ref_linear_scan(a, x)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=SCAN_TOL, atol=SCAN_TOL)
+        if not torch.equal(got, want):
+            raise AssertionError(f"linear_scan {shape}: not bit-equal to the plain loop")
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        log(f"  linear_scan {shape}: max abs err {err:.3e}")
+        log(f"  linear_scan {shape}: bit-equal, max abs err {err:.3e}")
     state["scan_err"] = worst
-    log(f"kernel vs plain: linear_scan within rtol=atol={SCAN_TOL} (worst {worst:.3e})")
+    log(f"kernel vs plain: linear_scan bit-equal and within rtol=atol={SCAN_TOL} "
+        f"(worst {worst:.3e})")
 
 
 def prompts_for(seed, batch=BATCH, length=PROMPT_LEN):
@@ -315,6 +346,16 @@ def phase_flash_vs_plain(state):
                 worst_share = max(worst_share, share or 0.0)
                 log(f"  {flash_kernel(dt).__name__} {tuple(q.shape)} kv {tuple(k.shape)} {dt} "
                     f"{kw} strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap) in enumerate(FLASH_F32_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.float32, seed=260 + i,
+                                       strided=strided)
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=Tk - Tq if causal else 0)
+            err, _ = flash_case(q, k, v, **kw)
+            worst[torch.float32], n = max(worst[torch.float32], err), n + 1
+            log(f"  flash_attention_cuda {tuple(q.shape)} kv {tuple(k.shape)} float32 {kw} "
+                f"strided={strided}: max abs err {err:.3e}")
     # rows before the first key (q_offset < 0) see nothing: zeros, not NaN
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = attention_inputs(1, 4, 2, 100, 100, 120, dt, seed=250)
@@ -808,30 +849,43 @@ def sdpa_ms(q, k, v, window) -> float:
             q, ke, ve, attn_mask=mask), reps=5)
 
 
-def phase_kernel_times(state):
-    B, T, D = BATCH, PROMPT_LEN, state["cfg"].rnn_width
-    a, x = scan_inputs((B, T, D), seed=7)
+def scan_times(shape, seed, plain_reps):
+    """linear_scan at ``shape``: error, kernel ms, plain ms and the bound
+    (12 B an element over the memory rate, or 2 flops over the float32
+    rate, whichever is larger)."""
+    a, x = scan_inputs(shape, seed=seed)
     err = float((linear_scan_cuda(a, x) - ref_linear_scan(a, x)).abs().max())
-    n = B * T * D
-    bytes_bound = 12 * n / HBM_BYTES_PER_S
-    ops_bound = 2 * n / F32_FLOP_PER_S
+    n = a.numel()
+    bytes_bound, ops_bound = 12 * n / HBM_BYTES_PER_S, 2 * n / F32_FLOP_PER_S
+    return {"err": err, "ms": cuda_ms(lambda: linear_scan_cuda(a, x), reps=200),
+            "plain_ms": cuda_ms(lambda: ref_linear_scan(a, x), reps=plain_reps),
+            "bound_ms": max(bytes_bound, ops_bound) * 1e3,
+            "bound_by": "bytes" if bytes_bound >= ops_bound else "operations"}
+
+
+def phase_kernel_times(state):
+    path, long = scan_shapes(state["cfg"])
+    t, t_long = scan_times(path, seed=7, plain_reps=5), scan_times(long, seed=10, plain_reps=1)
     kernels = [{
         "name": "linear_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan.py:48",
         "launches": state["launches"]["linear_scan"],
-        "max_abs_err": max(err, state["scan_err"]),
-        "ms": cuda_ms(lambda: linear_scan_cuda(a, x), reps=200),
-        "plain_ms": cuda_ms(lambda: ref_linear_scan(a, x), reps=5),
-        "bound_ms": max(bytes_bound, ops_bound) * 1e3,
-        "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
+        "max_abs_err": max(t["err"], t_long["err"], state["scan_err"]),
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,   # no single PyTorch call computes a linear recurrence
-        "shape": [B, T, D],
+        "shape": list(path),
         "dtype": "float32",
         "bound_basis": f"12 B/element over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
+        "long_shape": list(long),
+        "long_ms": t_long["ms"],
+        "long_plain_ms": t_long["plain_ms"],
+        "long_bound_ms": t_long["bound_ms"],
     }]
-    del a, x
 
     # page_digest at the training path's largest leaf: the stacked w_up
     # master, read once (its padded pages), 8 B of digest written a page
@@ -942,6 +996,10 @@ def phase_kernel_times(state):
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_ms'] / k['ms']:.1%} of roofline), {k['launches']} launches on the "
             f"path, on {state['smi']}")
+    k = kernels[0]
+    log(f"linear_scan {k['long_shape']} float32: kernel {k['long_ms']:.4f} ms, plain "
+        f"{k['long_plain_ms']:.4f} ms, bound {k['long_bound_ms']:.4f} ms "
+        f"({k['long_bound_ms'] / k['long_ms']:.1%} of roofline), on {state['smi']}")
 
 
 PHASES = [

@@ -4,11 +4,14 @@ forward only.
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` for
 float32 inputs (``ops.flash_attention`` sends bfloat16 inputs to
 ``flash_attention_sm90.py``'s tensor-core kernel).
-The kernel (``csrc/flash_attention.cu``) runs one block per 64 query rows
-of one (batch, query head), walks only the 64-key tiles that a causal or
-sliding-window mask leaves live, and keeps the online softmax's running
-max, normaliser and accumulator in registers; its float32 arithmetic on
-the CUDA cores bounds it.  Its plain version is
+The kernel (``csrc/flash_attention.cu``) runs one block per tile of
+stacked query rows, a few positions of every query head that shares a kv
+head (:func:`tiling`), so each K/V tile is read once for the group; it
+walks only the key tiles that a causal or sliding-window mask leaves
+live, brings them in through a two-stage ``cp.async`` ring that overlaps
+the next tile's copies with this tile's arithmetic, and keeps the online
+softmax's running max, normaliser and accumulator in registers.  Its
+float32 arithmetic on the CUDA cores bounds it.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention``.
 
 ``launches`` counts the kernel's launches, and nothing else; a run reads
@@ -18,7 +21,7 @@ it to show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,10 +41,38 @@ def _kernel():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_float, ptr])
+                          ctypes.c_float, ctypes.c_float, i64, i64, i64, ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+class Tiling(NamedTuple):
+    """How the kernel cuts one call: ``head_pad`` columns of q, k and v in
+    shared memory, and blocks of ``rows`` positions of ``heads`` query
+    heads of one kv head (``rows * heads`` stacked rows)."""
+
+    head_pad: int
+    rows: int
+    heads: int
+
+
+def tiling(Hq: int, Hkv: int, D: int) -> Tiling:
+    """The kernel's layout for a head width D (the smallest of 64, 128 and
+    256 columns that holds it: 128 stacked rows, or 64 at 256 columns) and
+    its GQA stacking: the G = Hq / Hkv heads of a kv head share each
+    block's K/V tiles, ``rows`` positions each (a power of two, at least 16,
+    so that every 8-row warp lies in one head), so that ``heads = stacked
+    / rows`` heads fill the block; a group that does not divide into them leaves its last block's
+    extra heads empty.  The grid is (position tiles of ``rows``, kv heads
+    x head chunks of ``heads``, batch)."""
+    head_pad = 64 if D <= 64 else 128 if D <= 128 else 256
+    stacked = 64 if head_pad == 256 else 128
+    group = Hq // Hkv
+    rows = 16
+    while rows < stacked and rows * group < stacked:
+        rows *= 2
+    return Tiling(head_pad, rows, stacked // rows)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -95,13 +126,15 @@ def flash_attention_cuda(
         return out
     fn = _kernel()
     B, Hq, Tq, D = q.shape
+    tile = tiling(Hq, k.shape[1], D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, k.shape[1], Tq, k.shape[2], D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window is not None), int(window or 0), int(q_offset),
-                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5), stream)
+                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5),
+                 tile.head_pad, tile.rows, tile.heads, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     launches += 1

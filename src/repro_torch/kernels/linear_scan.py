@@ -1,10 +1,15 @@
 """CUDA kernel for the diagonal linear recurrence ``h_t = a_t h_{t-1} + x_t``.
 
 Replaces ``repro/kernels/linear_scan.py::linear_scan_pallas``.  The
-kernel (``csrc/linear_scan.cu``) runs one thread per (batch, channel)
-with the carry in a register and a loop over time; it is bound by HBM
-traffic at 12 bytes per element (read a, read x, write h).  Its plain
-version is ``repro_torch.kernels.ref.ref_linear_scan``.
+kernel (``csrc/linear_scan.cu``) keeps each (batch, channel) a sequential
+chain over time, so it is bit-identical to its plain version
+``repro_torch.kernels.ref.ref_linear_scan``.  It is bound by HBM traffic
+at 12 bytes per element (read a, read x, write h); to keep enough of
+those bytes in flight, each warp owns 32 consecutive channels and streams
+time through a six-stage ring of 32-step chunks in shared memory, filled
+by ``cp.async`` while the chain runs over the chunk before.  Any B <=
+65535, T and D: a ragged channel tile or last chunk is masked, nothing is
+padded and the input is never copied.
 
 ``launches`` counts the kernel's launches, and nothing else; a run reads
 it to show that its path went through the kernel.

@@ -173,7 +173,7 @@ def test_ops_flash_attention_refuses_autograd_off_the_cpu(no_build):
 
 
 @pytest.mark.parametrize("case", ["cpu_tensor", "dtype", "mixed_dtype", "head_dim", "groups",
-                                  "rank", "stride"])
+                                  "rank", "stride", "meta_device", "no_kv_heads"])
 def test_cuda_wrapper_rejects_bad_inputs_before_building(case, no_build):
     q, k, v = (torch.rand(1, 4, 8, 16), torch.rand(1, 2, 8, 16), torch.rand(1, 2, 8, 16))
     if case == "dtype":
@@ -188,10 +188,62 @@ def test_cuda_wrapper_rejects_bad_inputs_before_building(case, no_build):
         q = q[0]
     elif case == "stride":
         k = torch.rand(1, 2, 16, 8).transpose(2, 3)
+    elif case == "meta_device":
+        q, k, v = (t.to("meta") for t in (q, k, v))
+    elif case == "no_kv_heads":
+        k, v = torch.rand(1, 0, 8, 16), torch.rand(1, 0, 8, 16)
     before = tfa.launches
     with pytest.raises((ValueError, TypeError)):
         tfa.flash_attention_cuda(q, k, v)
     assert tfa.launches == before
+
+
+# (Hq, Hkv, D) -> (head_pad, rows, heads): the float32 kernel's layout for
+# the head width and its stacking of a GQA group into 128 rows (64 at 256
+# columns): the long path's 4-head groups, MQA, no grouping, a group of 3
+# (the last block of a group holds an empty head), D off every layout
+TILINGS = [
+    ((32, 8, 120), (128, 32, 4)),
+    ((8, 1, 120), (128, 16, 8)),
+    ((4, 4, 128), (128, 128, 1)),
+    ((6, 2, 64), (64, 64, 2)),
+    ((32, 1, 64), (64, 16, 8)),
+    ((4, 2, 256), (256, 32, 2)),
+    ((2, 2, 256), (256, 64, 1)),
+    ((4, 2, 8), (64, 64, 2)),
+    ((4, 2, 100), (128, 64, 2)),
+    ((4, 2, 33), (64, 64, 2)),
+]
+
+
+@pytest.mark.parametrize("shape,want", TILINGS)
+def test_tiling_stacks_the_group_into_whole_warps(shape, want):
+    Hq, Hkv, D = shape
+    t = tfa.tiling(Hq, Hkv, D)
+    assert tuple(t) == want
+    assert D <= t.head_pad and t.rows % 16 == 0
+    assert t.rows * t.heads == (64 if t.head_pad == 256 else 128)
+
+
+@pytest.mark.parametrize("Hq,Hkv,Tq,D", [(32, 8, 100, 120), (6, 2, 70, 64), (32, 1, 20, 64),
+                                         (4, 4, 129, 128), (4, 2, 33, 256)])
+def test_tiling_covers_every_query_row_once(Hq, Hkv, Tq, D):
+    """The kernel's grid over a tiling, (position tiles, kv heads x head
+    chunks): stacked row r of block (x, y) is head h0 + r // rows at
+    position q0 + r % rows, kept when both are in range; every (head,
+    position) is computed by exactly one block."""
+    t = tfa.tiling(Hq, Hkv, D)
+    group = Hq // Hkv
+    chunks = -(-group // t.heads)
+    seen = []
+    for x in range(-(-Tq // t.rows)):
+        for y in range(Hkv * chunks):
+            hk, h0 = y // chunks, (y // chunks) * group + (y % chunks) * t.heads
+            for r in range(t.rows * t.heads):
+                head, pos = h0 + r // t.rows, x * t.rows + r % t.rows
+                if head < (hk + 1) * group and pos < Tq:
+                    seen.append((head, pos))
+    assert sorted(seen) == [(h, i) for h in range(Hq) for i in range(Tq)]
 
 
 # ------------------------------------------- the bf16 tensor-core kernel's arithmetic

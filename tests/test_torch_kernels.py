@@ -91,7 +91,8 @@ def test_ops_linear_scan_on_cpu_never_touches_the_extension(no_build):
                                    "flash_attention": 0, "flash_attention_sm90": 0}
 
 
-@pytest.mark.parametrize("case", ["cpu_tensor", "dtype", "shape", "rank", "contiguity"])
+@pytest.mark.parametrize("case", ["cpu_tensor", "dtype", "shape", "rank", "contiguity",
+                                  "meta_device", "mixed_device"])
 def test_cuda_wrapper_rejects_bad_inputs_before_building(case, no_build):
     a = torch.rand(2, 8, 4)
     x = torch.rand(2, 8, 4)
@@ -103,6 +104,10 @@ def test_cuda_wrapper_rejects_bad_inputs_before_building(case, no_build):
         a, x = a[0], x[0]
     elif case == "contiguity":
         a, x = a.transpose(1, 2), x.transpose(1, 2)
+    elif case == "meta_device":
+        a, x = a.to("meta"), x.to("meta")
+    elif case == "mixed_device":
+        a = a.to("meta")
     before = tls.launches
     with pytest.raises((ValueError, TypeError)):
         tls.linear_scan_cuda(a, x)

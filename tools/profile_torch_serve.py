@@ -8,8 +8,9 @@ by default) and 16 decode steps.  For each phase it prints the wall time
 (host clock around work that ends in a synchronise), the device time
 summed over kernels, the device's idle share, the kernels that take the
 most device time, and the kernel launches of the port's own CUDA kernels
-(``ops.launch_counts``).  The Chrome traces go to the directory named by
-``--out`` (``profile_out/`` by default).
+(``ops.launch_counts``) with their device time and share.  The Chrome
+traces go to the directory named by ``--out`` (``profile_out/`` by
+default).
 
 Usage, from the root of a checkout::
 
@@ -56,6 +57,22 @@ def top_kernels(prof, n=12):
     return [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in rows[:n]]
 
 
+# the port's own CUDA kernels, by the name of their __global__ function
+PORT_KERNELS = {"linear_scan": "linear_scan_f32_kernel", "page_digest": "page_digest_kernel",
+                "delta_mask": "delta_mask_kernel", "flash_attention": "flash_attention_kernel<",
+                "flash_attention_sm90": "flash_attention_sm90_kernel"}
+
+
+def port_kernel_ms(prof):
+    """Device ms of each of the port's kernels that ran in the trace."""
+    out = {}
+    for e in kernel_events(prof):
+        for name, symbol in PORT_KERNELS.items():
+            if symbol in e.key:
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
 def traced(name, fn, out_dir):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -68,10 +85,13 @@ def traced(name, fn, out_dir):
     prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
     row = {"phase": name, "wall_ms": wall_ms, "device_ms": dev_ms,
            "idle_share": max(0.0, 1.0 - dev_ms / wall_ms),
-           "top": top_kernels(prof), "launches": ops.launch_counts()}
+           "top": top_kernels(prof), "launches": ops.launch_counts(),
+           "port_kernel_ms": port_kernel_ms(prof)}
     print(json.dumps(row))
     for key, count, ms in row["top"]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    for kname, ms in row["port_kernel_ms"].items():
+        print(f"  port kernel {kname}: {ms:.3f} ms, {ms / dev_ms:.2%} of the device time")
     return row
 
 
