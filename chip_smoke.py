@@ -61,7 +61,26 @@ Phases (each one's failure fails the run):
    and saves again with only ``extra`` moved (one ``delta_mask`` launch
    per leaf, no page written); then the step time, the save and restore
    times, the peak device memory and the host's peak RSS;
-9. the ``kernels`` line: per kernel, its launches on its path (serving
+9. the modules without a kernel (the reference runs no Pallas kernel
+   there; each run must launch none): ``generate`` on full-width
+   olmoe-1b-7b in bf16 (6.919 B parameters, 64 experts top-8), 4 x 512
+   byte tokens + 32 new, with the prefill time (median of 3), the decode
+   rate, the peak memory and the (token, choice) pairs the prefill's
+   expert capacity dropped; olmoe-1b-7b at full width with 2 layers in
+   float32 on the card and on the CPU from the same parameters and
+   tokens (a 2 x 128 prefill and 8 decode steps): logits within 2e-3 and
+   the same experts at every (token, choice) unless the two router
+   probabilities are within 1e-6; full-width granite-moe-1b-a400m (bf16
+   params, fp32 AdamW state, 18.7 GB) takes 3 steps at batch 2 x 2048
+   at remat ``"full"``, then the next batch's forward and backward at
+   ``"full"`` and ``"dots"`` and one step at ``"dots"`` from the same
+   state and batch (losses equal within 1e-5 relative, aux > 0), with
+   step and forward-backward times and peak memory per policy;
+   ``generate`` on full-width xlstm-350m (21 mLSTM + 3 sLSTM layers) in
+   bf16, 4 x 512 + 32 new; and xlstm-350m at full width with 8 layers
+   in float32, a 500-token prefill and 12 decodes against one forward
+   over 512 tokens (2e-2);
+10. the ``kernels`` line: per kernel, its launches on its path (serving
    recurrentgemma-2b for ``linear_scan``, training for ``page_digest``
    and ``delta_mask``, long-context serving for ``flash_attention_sm90``,
    the float32 long teacher forcing for ``flash_attention``),
@@ -81,6 +100,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -114,8 +134,10 @@ from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import synthesize_corpus  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
-from repro_torch.models.param_util import tree_leaves  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models.param_util import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train import AdamWConfig, TrainStepBuilder  # noqa: E402
+from repro_torch.train.optimizer import global_norm  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
 BATCH, PROMPT_LEN, MAX_NEW = 4, 512, 32
@@ -125,6 +147,13 @@ LONG_TF_PREFILL = 8160                            # teacher forcing: 8160 + 32 d
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
 CKPT_PSIZE = 256 * 1024                     # BlobCheckpointer's default page
+MOE_ARCH = "olmoe-1b-7b"                    # served: 4 x 512 keeps the dispatch O(T^2) small
+MOE_CMP_LAYERS, MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_DECODE = 2, 2, 128, 8
+MOE_CMP_TOL, MOE_TIE = 2e-3, 1e-6           # logits card vs CPU; a router near-tie
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+REMAT_LOSS_RTOL, REMAT_GNORM_RTOL = 1e-5, 1e-3
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_TF_LAYERS, XLSTM_TF_PREFILL, XLSTM_TF_DECODE = 8, 500, 12
 # the digest tests' sweep (tests/test_torch_digest.py): word-domain pages,
 # byte cases (page bytes, total bytes) and leaves at 4096-byte pages
 DIGEST_WORD_SHAPES = [(1, 512), (3, 512), (8, 1024), (17, 1536)]
@@ -713,12 +742,7 @@ def phase_train_entry(state):
 
 def phase_train(state):
     cfg = get_config(TRAIN_ARCH)
-    tok = ByteTokenizer()
-    svc = BlobSeerService(n_providers=4, n_meta_shards=4)
-    client = svc.client("trainer")
-    writer = CorpusWriter(client, psize=16 * 1024)
-    synthesize_corpus(writer, tok, n_docs=400)
-    reader = ShardedReader(client, writer.blob_id, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    client, reader = corpus_reader(TRAIN_BATCH, TRAIN_SEQ)
     builder = TrainStepBuilder(build_model(cfg),
                                opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
     step_fn = builder.train_step_fn()
@@ -819,7 +843,7 @@ def phase_train(state):
         f"host peak RSS {t['host_rss_gib']:.1f} GiB; whole-state page_digest "
         f"{scan_ms:.3f} ms vs bound {t['state_digest_bound_ms']:.3f} ms; on {state['smi']}")
     log("  free -g:\n" + free.rstrip())
-    del train_state, leaves, data, ckpt, svc, client
+    del train_state, leaves, data, ckpt, client
     torch.cuda.empty_cache()
 
 
@@ -1002,6 +1026,311 @@ def phase_kernel_times(state):
         f"({k['long_bound_ms'] / k['long_ms']:.1%} of roofline), on {state['smi']}")
 
 
+# ------------------------------------------------- the modules without kernels
+
+
+def no_launches(counts, what):
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched kernels: {counts}")
+
+
+def serve_and_time(state, model, params, prompts, max_new, what):
+    """``generate`` once with the launch counts at 0 just before and read
+    just after (none may launch), then the prefill three times (median)
+    and ``max_new`` decode steps, warm, through the same entry points."""
+    cfg = model.cfg
+    B, T0 = len(prompts), len(prompts[0])
+    max_len = T0 + max_new
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = generate(model, params, prompts, max_new=max_new, max_len=max_len, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_launches(ops.launch_counts(), f"{what}: generate")
+    peak = torch.cuda.max_memory_allocated()
+    for p, o in zip(prompts, outs):
+        if o.shape != (max_len,) or not np.array_equal(o[:T0], p):
+            raise AssertionError(f"bad output shape {o.shape} or prompt not preserved")
+        if not ((o >= 0) & (o < cfg.vocab_size)).all():
+            raise AssertionError("token outside the vocabulary")
+    tokens = torch.as_tensor(np.stack(prompts).astype(np.int64), device="cuda")
+    with torch.inference_mode():
+        prefill_ms = []
+        for _ in range(3):
+            cache = model.init_cache(B, max_len, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite prefill logits")
+        tok = torch.argmax(logits, dim=-1)
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(max_new):   # no host sync inside the loop, as in generate
+            logits, cache = model.decode_step(params, tok, T0 + i, cache)
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if not bool(finite):
+            raise AssertionError("non-finite decode logits")
+    no_launches(ops.launch_counts(), f"{what}: prefill and decode")
+    r = {"prefill_ms": sorted(prefill_ms)[1], "decode_tok_s": B * max_new / decode_s,
+         "decode_ms_per_step": decode_s * 1e3 / max_new, "peak_gib": peak / 2**30,
+         "generate_first_call_s": wall}
+    log(f"  generate: {B}x{T0} prompt + {max_new} new tokens in {wall:.3f} s (first call), "
+        f"no kernel launched")
+    log(f"  prefill {B}x{T0}: {r['prefill_ms']:.2f} ms (median of 3: "
+        f"{', '.join(f'{m:.2f}' for m in prefill_ms)}); decode {r['decode_tok_s']:.1f} tok/s "
+        f"({r['decode_ms_per_step']:.2f} ms/step, batch {B}); peak memory "
+        f"{r['peak_gib']:.2f} GiB; on {state['smi']}")
+    return r, tokens
+
+
+@contextlib.contextmanager
+def recorded_routes(calls):
+    """Every ``moe.route`` result, in call order, appended to ``calls``."""
+    route = MOE.route
+
+    def recording(p, cfg, x):
+        out = route(p, cfg, x)
+        calls.append(out)
+        return out
+
+    MOE.route = recording
+    try:
+        yield calls
+    finally:
+        MOE.route = route
+
+
+def describe(cfg, params):
+    n = sum(t.numel() for t in tree_leaves(params))
+    return (f"{cfg.name} {cfg.n_layers} layers {sorted(set(cfg.block_pattern))}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, experts "
+            f"{cfg.n_experts} top-{cfg.top_k}, d_rnn {cfg.d_rnn}, vocab {cfg.vocab_size}, "
+            f"{cfg.dtype}, {n / 1e9:.3f} B params")
+
+
+def phase_serve_moe(state):
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(7))
+    log(f"moe serve: {describe(cfg, params)}")
+    r, tokens = serve_and_time(state, model, params, prompts_for(seed=8), MAX_NEW, "moe serve")
+    # the prefill's routing, once more with every route recorded; and, for
+    # comparison, a prefill of token ids drawn from the whole vocabulary
+    # (the prompts are printable bytes: 95 distinct ids)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    spread = torch.randint(0, cfg.vocab_size, tokens.shape, generator=g, device="cuda")
+    for name, toks in (("prompts", tokens), ("vocabulary-wide ids", spread)):
+        with torch.inference_mode(), recorded_routes([]) as calls:
+            model.prefill(params, {"tokens": toks},
+                          model.init_cache(BATCH, PROMPT_LEN + 1, device="cuda"))
+        if len(calls) != cfg.n_layers:
+            raise AssertionError(f"{len(calls)} routed layers, expected {cfg.n_layers}")
+        kept = torch.stack([c[4] for c in calls])             # (layers, B, T, K)
+        by_layer = (~kept).flatten(1).float().mean(1).tolist()
+        log(f"  prefill routing of the {name}: capacity {calls[0][5]} a expert, "
+            f"{int((~kept).sum())} of {kept.numel()} (token, choice) pairs dropped over "
+            f"{len(calls)} layers; dropped share by layer "
+            f"{', '.join(f'{x:.3f}' for x in by_layer)}")
+        if name == "prompts":
+            r.update(capacity=calls[0][5], dropped_pairs=int((~kept).sum()),
+                     pairs=kept.numel(), dropped_by_layer=by_layer)
+        else:
+            r["spread_dropped_pairs"] = int((~kept).sum())
+    state["serve_moe"] = r
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def phase_moe_card_vs_cpu(state):
+    """The MoE layer has no kernel: the card's torch ops against the CPU's
+    on the same parameters and tokens, logits and the chosen experts."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_CMP_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(9))
+    host = tree_map(lambda t: t.cpu(), params)
+    log(f"moe card vs cpu: {describe(cfg, params)}, TF32 off")
+    g = torch.Generator().manual_seed(10)
+    T = MOE_CMP_PROMPT + MOE_CMP_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (MOE_CMP_BATCH, T), generator=g)
+    runs = {}
+    for dev, p in (("cuda", params), ("cpu", host)):
+        t = toks.to(dev)
+        with torch.inference_mode(), recorded_routes([]) as calls:
+            cache = model.init_cache(MOE_CMP_BATCH, T, device=dev)
+            lg, cache = model.prefill(p, {"tokens": t[:, :MOE_CMP_PROMPT]}, cache)
+            logits = [lg]
+            for i in range(MOE_CMP_PROMPT, T):
+                lg, cache = model.decode_step(p, t[:, i], i, cache)
+                logits.append(lg)
+        runs[dev] = ([x.float().cpu() for x in logits],
+                     [(c[0].cpu(), c[1].cpu()) for c in calls])
+    err = max(float((a - b).abs().max()) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    n_pairs, ties = 0, []
+    for call, ((_, i_gpu), (p_cpu, i_cpu)) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+        n_pairs += i_cpu.numel()
+        for b, t, k in (i_gpu != i_cpu).nonzero().tolist():
+            a, c = int(i_gpu[b, t, k]), int(i_cpu[b, t, k])
+            gap = abs(float(p_cpu[b, t, a]) - float(p_cpu[b, t, c]))
+            ties.append((call, b, t, k, a, c, gap))
+            log(f"  route call {call} (b {b}, t {t}, choice {k}): card expert {a}, cpu "
+                f"expert {c}, router probabilities {gap:.3e} apart")
+    state["moe_card_vs_cpu"] = {"max_abs_logit_err": err, "routed_pairs": n_pairs,
+                                "differing_choices": len(ties)}
+    log(f"  {len(runs['cuda'][0])} logit rows (prefill {MOE_CMP_BATCH}x{MOE_CMP_PROMPT} + "
+        f"{MOE_CMP_DECODE} decode steps): max |dlogit| {err:.3e} (tol {MOE_CMP_TOL}); "
+        f"{len(ties)} of {n_pairs} (token, choice) pairs chose another expert")
+    if len(runs["cuda"][1]) != len(runs["cpu"][1]) or not runs["cpu"][1]:
+        raise AssertionError("the two runs routed a different number of times")
+    if any(gap > MOE_TIE for *_, gap in ties):
+        raise AssertionError(f"an expert choice differs without a router tie (<= {MOE_TIE})")
+    if not err <= MOE_CMP_TOL:
+        raise AssertionError(f"card and CPU logits differ by {err}")
+    del params, host, model
+    torch.cuda.empty_cache()
+
+
+def corpus_reader(batch, seq):
+    """The seeded synthetic byte corpus in a BlobSeer blob, and a reader."""
+    client = BlobSeerService(n_providers=4, n_meta_shards=4).client("trainer")
+    writer = CorpusWriter(client, psize=16 * 1024)
+    synthesize_corpus(writer, ByteTokenizer(), n_docs=400)
+    return client, ShardedReader(client, writer.blob_id, batch=batch, seq_len=seq)
+
+
+def phase_train_moe(state):
+    cfg = get_config(MOE_TRAIN_ARCH)
+    _, reader = corpus_reader(TRAIN_BATCH, TRAIN_SEQ)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    full = TrainStepBuilder(build_model(cfg), opt=opt, remat_policy="full")
+    dots = TrainStepBuilder(build_model(cfg), opt=opt, remat_policy="dots")
+
+    def next_batch():
+        tokens, labels = reader.next_batch()
+        return {"tokens": torch.as_tensor(tokens, device="cuda"),
+                "labels": torch.as_tensor(labels, device="cuda")}
+
+    def check(metrics, what):
+        loss, gnorm, aux = (float(metrics[k]) for k in ("loss", "grad_norm", "aux"))
+        if not (np.isfinite(loss) and np.isfinite(gnorm) and aux > 0):
+            raise AssertionError(f"{what}: loss {loss}, grad norm {gnorm}, aux {aux}")
+        return loss, gnorm, aux
+
+    # -- the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    train_state = full.init_state(torch.Generator(device="cuda").manual_seed(0))
+    n_state = sum(t.numel() * t.element_size() for _, t in flatten_with_paths(train_state))
+    log(f"moe train: {describe(cfg, train_state['params'])}, state {n_state / 1e9:.2f} GB, "
+        f"batch {TRAIN_BATCH}x{TRAIN_SEQ}")
+    step_full, step_dots = full.train_step_fn(), dots.train_step_fn()
+    full_ms = []
+    for _ in range(TRAIN_STEPS):
+        batch = next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_state, metrics = step_full(train_state, batch)
+        loss, gnorm, aux = check(metrics, "full")
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {int(train_state['step'])} (remat full): loss {loss:.4f} grad norm "
+            f"{gnorm:.4f} aux {aux:.4f} in {full_ms[-1]:.1f} ms")
+    full_peak = torch.cuda.max_memory_allocated()
+
+    # the next batch's forward and backward at each policy, without an
+    # update (an AdamW step's peak is its float32 temporaries of the
+    # largest leaf, whatever the policy), then the step at "dots" from
+    # the same state and batch
+    batch = next_batch()
+    fb = {}
+    for name, builder in (("full", full), ("dots", dots)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_b, _, grads = builder._grads(train_state["params"], batch)
+        gnorm_b = float(global_norm(grads))
+        fb[name] = {"loss": float(loss_b), "grad_norm": gnorm_b,
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del grads
+        log(f"  forward + backward at {name}: loss {fb[name]['loss']:.6f} grad norm "
+            f"{gnorm_b:.6f} in {fb[name]['ms']:.1f} ms, peak {fb[name]['peak_gib']:.2f} GiB")
+    loss_full, gnorm_full = fb["full"]["loss"], fb["full"]["grad_norm"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_state, metrics = step_dots(train_state, batch)
+    loss, gnorm, aux = check(metrics, "dots")
+    dots_ms = (time.perf_counter() - t0) * 1e3
+    dots_peak = torch.cuda.max_memory_allocated()
+    no_launches(ops.launch_counts(), "moe train")
+    log(f"  step {int(train_state['step'])} (remat dots): loss {loss:.6f} grad norm "
+        f"{gnorm:.6f} aux {aux:.4f} in {dots_ms:.1f} ms; the same batch at full: loss "
+        f"{loss_full:.6f} grad norm {gnorm_full:.6f}")
+    state["train_moe"] = {"full_step_ms": full_ms, "full_peak_gib": full_peak / 2**30,
+                          "dots_step_ms": dots_ms, "dots_peak_gib": dots_peak / 2**30,
+                          "fwd_bwd": fb, "state_gb": n_state / 1e9}
+    log(f"  remat full: step {full_ms[-1]:.1f} ms warm ({', '.join(f'{m:.1f}' for m in full_ms)}),"
+        f" peak {full_peak / 2**30:.2f} GiB; remat dots: step {dots_ms:.1f} ms, peak "
+        f"{dots_peak / 2**30:.2f} GiB; forward + backward {fb['full']['ms']:.1f} vs "
+        f"{fb['dots']['ms']:.1f} ms, peak {fb['full']['peak_gib']:.2f} vs "
+        f"{fb['dots']['peak_gib']:.2f} GiB; no kernel launched; on {state['smi']}")
+    if abs(loss - loss_full) > REMAT_LOSS_RTOL * abs(loss_full):
+        raise AssertionError(f"dots loss {loss} vs full {loss_full}")
+    if abs(gnorm - gnorm_full) > REMAT_GNORM_RTOL * gnorm_full:
+        raise AssertionError(f"dots grad norm {gnorm} vs full {gnorm_full}")
+    del train_state, metrics, batch
+    torch.cuda.empty_cache()
+
+
+def phase_serve_xlstm(state):
+    cfg = get_config(XLSTM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(11))
+    log(f"xlstm serve: {describe(cfg, params)}")
+    state["serve_xlstm"], _ = serve_and_time(state, model, params, prompts_for(seed=12),
+                                             MAX_NEW, "xlstm serve")
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def phase_teacher_forcing_xlstm(state):
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), n_layers=XLSTM_TF_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(13))
+    B, T0, T = 2, XLSTM_TF_PREFILL, XLSTM_TF_PREFILL + XLSTM_TF_DECODE
+    g = torch.Generator(device="cuda").manual_seed(14)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device="cuda")
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        x = params["embed"]["table"][toks]
+        full = LM._logits(params, cfg, LM.apply_stack_train(
+            params, cfg, x, torch.arange(T, device="cuda"))[0])
+        cache = model.init_cache(B, T + 4, device="cuda")
+        lg, cache = model.prefill(params, {"tokens": toks[:, :T0]}, cache)
+        errs = [float((lg - full[:, T0 - 1]).abs().max())]
+        for t in range(T0, T):
+            lg, cache = model.decode_step(params, toks[:, t], t, cache)
+            errs.append(float((lg - full[:, t]).abs().max()))
+    no_launches(ops.launch_counts(), "xlstm teacher forcing")
+    state["teacher_xlstm_err"] = max(errs)
+    log(f"xlstm teacher forcing: {cfg.n_layers} layers {cfg.block_pattern}, d_model "
+        f"{cfg.d_model}, d_rnn {cfg.d_rnn}, float32, prefill {T0} + {T - T0} decode steps vs "
+        f"one forward over {T}: max |dlogit| {max(errs):.3e} (tol {TEACHER_TOL})")
+    if not max(errs) < TEACHER_TOL:
+        raise AssertionError(f"decode disagrees with the full forward: {errs}")
+    del params, model, cache, full
+    torch.cuda.empty_cache()
+
+
 PHASES = [
     ("device", phase_device),
     ("build", phase_build),
@@ -1014,6 +1343,11 @@ PHASES = [
     ("long decode vs teacher forcing", phase_teacher_forcing_long),
     ("train entry point", phase_train_entry),
     ("train and checkpoint", phase_train),
+    ("moe serve", phase_serve_moe),
+    ("moe card vs cpu", phase_moe_card_vs_cpu),
+    ("moe train", phase_train_moe),
+    ("xlstm serve", phase_serve_xlstm),
+    ("xlstm decode vs teacher forcing", phase_teacher_forcing_xlstm),
     ("kernel times", phase_kernel_times),
 ]
 

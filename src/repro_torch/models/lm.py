@@ -11,26 +11,34 @@ layers come after.
 Entry points: ``apply_stack_train`` (full forward without caches),
 ``lm_prefill`` (forward the prompt, fill the caches) and
 ``lm_decode_step`` (one token against the caches), and ``lm_loss`` for
-training.  MoE, the VLM frontend and mLSTM/sLSTM are not ported yet.
+training.  Everything the reference's decoder does is ported: attention
+(global, local, sliding-window), RG-LRU, mLSTM and sLSTM blocks (the
+last two without an FFN), dense and MoE FFNs (the MoE aux loss enters
+``lm_loss``), the VLM frontend stub (``batch["vision_embeds"]`` replaces
+the embeddings of the first positions) and the three rematerialisation
+policies, which wrap each pattern group as the reference wraps its scan
+body.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param_util import index_tree, normal, stack_trees
 
 ATTN_KINDS = ("attn", "local", "swa")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
-
+RECURRENT = {"rglru": (R.init_rglru, R.apply_rglru, R.init_rglru_state),
+             "mlstm": (R.init_mlstm, R.apply_mlstm, R.init_mlstm_state),
+             "slstm": (R.init_slstm, R.apply_slstm, R.init_slstm_state)}
 
 # ---------------------------------------------------------------------------
 # block init / apply
@@ -42,15 +50,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict:
     p: Dict = {"norm1": L.init_norm(cfg, gen.device)}
     if kind in ATTN_KINDS:
         p["mixer"] = L.init_attention(gen, cfg, dt)
-    elif kind == "rglru":
-        p["mixer"] = R.init_rglru(gen, cfg, dt)
+    elif kind in RECURRENT:
+        p["mixer"] = RECURRENT[kind][0](gen, cfg, dt)
     else:
-        raise _not_ported(f"block kind {kind!r}")
-    if cfg.d_ff > 0:
-        if cfg.moe:
-            raise _not_ported("MoE")
+        raise ValueError(kind)
+    if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         p["norm2"] = L.init_norm(cfg, gen.device)
-        p["ffn"] = L.init_mlp(gen, cfg, dt)
+        p["ffn"] = M.init_moe(gen, cfg, dt) if cfg.moe else L.init_mlp(gen, cfg, dt)
     return p
 
 
@@ -60,16 +66,20 @@ def apply_block(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     h = L.apply_norm(p["norm1"], cfg, x)
     if kind in ATTN_KINDS:
         y, new_cache = L.apply_attention(p["mixer"], cfg, h, positions, kind=kind, cache=cache)
-    elif kind == "rglru":
-        y, new_cache = R.apply_rglru(p["mixer"], cfg, h, cache)
+    elif kind in RECURRENT:
+        y, new_cache = RECURRENT[kind][1](p["mixer"], cfg, h, cache)
     else:
-        raise _not_ported(f"block kind {kind!r}")
+        raise ValueError(kind)
     x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
+        h2 = L.apply_norm(p["norm2"], cfg, x)
         if cfg.moe:
-            raise _not_ported("MoE")
-        x = x + L.apply_mlp(p["ffn"], cfg, L.apply_norm(p["norm2"], cfg, x))
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+            y2, aux = M.apply_moe(p["ffn"], cfg, h2)
+        else:
+            y2 = L.apply_mlp(p["ffn"], cfg, h2)
+        x = x + y2
+    return x, new_cache, aux
 
 
 def init_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
@@ -77,9 +87,9 @@ def init_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, devi
     if kind in ATTN_KINDS:
         length = max_len if kind == "attn" or cfg.window is None else min(max_len, cfg.window)
         return L.init_kv_cache(cfg, batch, length, dt, device)
-    if kind == "rglru":
-        return R.init_rglru_state(cfg, batch, dt, device)
-    raise _not_ported(f"block kind {kind!r}")
+    if kind in RECURRENT:
+        return RECURRENT[kind][2](cfg, batch, dt, device)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +108,7 @@ def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random parameters on ``gen``'s device, drawn from ``gen``."""
     if cfg.arch_kind != "decoder":
-        raise _not_ported(f"arch_kind {cfg.arch_kind!r}")
+        raise NotImplementedError(f"arch_kind {cfg.arch_kind!r} is not ported to repro_torch yet")
     dt = L.torch_dtype(cfg)
     n_groups, rest = _pattern_layout(cfg)
     tree: Dict = {
@@ -121,9 +131,12 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def _embed(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    x = params["embed"]["table"][batch["tokens"]]
     if cfg.frontend is not None and "vision_embeds" in batch:
-        raise _not_ported("the VLM frontend")
-    return params["embed"]["table"][batch["tokens"]]
+        # the stub frontend's embeddings replace the first n positions
+        fe = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    return x
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -142,10 +155,50 @@ def _layers(params, cfg: ModelConfig):
         yield params["rest"][i], kind, None, i
 
 
-def apply_stack_train(params, cfg: ModelConfig, x, positions):
-    """Full forward pass without caches. Returns (x, aux)."""
+def _save_dots(ctx, op, *args, **kwargs):
+    """jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims: keep the
+    outputs of products without batch dimensions, recompute the rest.
+    ``x @ w`` reaches autograd as ``mm``; ``torch.einsum`` makes every
+    contraction a ``bmm``, one without batch dimensions a ``bmm`` of batch 1."""
+    dot = op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+        op == torch.ops.aten.bmm.default and args[0].shape[0] == 1)
+    return CheckpointPolicy.MUST_SAVE if dot else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(policy)
+
+
+def apply_stack_train(params, cfg: ModelConfig, x, positions, remat_policy: str = "none"):
+    """Full forward pass without caches. Returns (x, aux).
+
+    ``remat_policy`` (``"none"``, ``"full"``, ``"dots"``) wraps each
+    pattern group's body, as the reference wraps its scan body; the
+    ``rest`` layers stay unwrapped."""
+    n_groups, rest = _pattern_layout(cfg)
+
+    def group_body(x, g):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p_idx, kind in enumerate(cfg.block_pattern):
+            p = index_tree(params["groups"][p_idx], g)
+            x, _, a = apply_block(p, cfg, kind, x, positions, None)
+            aux = aux + a
+        return x, aux
+
+    body = _remat(group_body, remat_policy)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind, _, _ in _layers(params, cfg):
+    for g in range(n_groups):
+        x, a = body(x, g)
+        aux_total = aux_total + a
+    for p, kind in zip(params["rest"], rest):
         x, _, a = apply_block(p, cfg, kind, x, positions, None)
         aux_total = aux_total + a
     return x, aux_total
@@ -186,13 +239,13 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none"):
     """Next-token CE over ``labels`` (mask: labels < 0) plus the z-loss
     ``1e-4 * mean(lse^2)`` and ``1e-2 * aux``.  Returns (loss, metrics).
 
-    ``remat_policy``: only ``"none"``; the port keeps every activation.
+    ``remat_policy``: ``"none"`` keeps every activation, ``"full"``
+    recomputes each pattern group in backward, ``"dots"`` keeps only the
+    outputs of its plain matrix products (``apply_stack_train``).
     """
-    if remat_policy != "none":
-        raise _not_ported(f"remat_policy {remat_policy!r}")
     x = _embed(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = apply_stack_train(params, cfg, x, positions)
+    x, aux = apply_stack_train(params, cfg, x, positions, remat_policy)
     logits = _logits(params, cfg, x).float()
     labels = batch["labels"]
     mask = (labels >= 0).float()

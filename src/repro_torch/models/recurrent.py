@@ -1,12 +1,15 @@
-"""Recurrent token mixer: the RG-LRU block of recurrentgemma (Griffin).
+"""Recurrent token mixers: RG-LRU (recurrentgemma), mLSTM + sLSTM (xLSTM).
 
-A plain function with an explicit state dict, so the same code serves a
+Plain functions with an explicit state dict, so the same code serves a
 full-sequence pass (the scan over the whole prompt, returning the final
-state) and decode (one step from the carried state).  The diagonal
-recurrence goes through ``kernels.ops.linear_scan``: the CUDA kernel on
-the card, the plain loop on the CPU.
-
-mLSTM and sLSTM (xLSTM) are not ported yet.
+state) and decode (one step from the carried state).  The RG-LRU's
+diagonal recurrence goes through ``kernels.ops.linear_scan``: the CUDA
+kernel on the card, the plain loop on the CPU.  The mLSTM's matrix
+memory is the reference's chunked form (parallel within a chunk, a loop
+over chunks carrying the state) and the sLSTM, whose gates see the
+previous hidden state through a full matrix, a loop over time: neither
+is the diagonal recurrence of ``linear_scan``, and the reference computes
+both with plain array ops, as the port does.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param_util import normal, zeros
+from repro_torch.models.param_util import normal, ones, zeros
 
 # ---------------------------------------------------------------------------
 # temporal conv
@@ -91,3 +94,171 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
     r, w = cfg.rnn_width, cfg.conv_width
     return {"h": zeros((batch, r), torch.float32, device),
             "conv": zeros((batch, w - 1, r), dtype, device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM): matrix memory, chunked-parallel
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    d, r, h = cfg.d_model, cfg.rnn_width, cfg.n_heads
+    dh = r // h
+    dev = gen.device
+    return {
+        "w_up": normal(gen, (d, 2 * r), dtype),
+        "conv": normal(gen, (cfg.conv_width, r), dtype, scale=0.1),
+        "wq": normal(gen, (r, h, dh), dtype),
+        "wk": normal(gen, (r, h, dh), dtype),
+        "wv": normal(gen, (r, h, dh), dtype),
+        "w_if": normal(gen, (r, 2 * h), torch.float32),
+        "b_if": torch.cat([zeros((h,), torch.float32, dev),
+                           3.0 * ones((h,), torch.float32, dev)]),
+        "o_norm": ones((h, dh), torch.float32, dev),
+        "w_down": normal(gen, (r, d), dtype),
+    }
+
+
+def _mlstm_chunk_scan(q, k, v, log_f, log_i, C, n, m, chunk: int):
+    """Chunked mLSTM. q,k,v: (B,H,T,Dh); log_f/log_i: (B,H,T), float32.
+
+    Stabilised exponential gating (xLSTM eq. 19-27) evaluated chunkwise:
+    within a chunk every pair's decay is ``exp(F_t - F_s + i_s - m)``;
+    across chunks the matrix state C (B,H,Dh,Dh), the normaliser n
+    (B,H,Dh) and the stabiliser m (B,H) carry.  Returns (h, (C, n, m)).
+    """
+    B, H, T, Dh = q.shape
+    pad = (-T) % chunk
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        log_f = F.pad(log_f, (0, pad))
+        log_i = F.pad(log_i, (0, pad), value=-1e30)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    hs = []
+    for j in range(0, T + pad, chunk):
+        qj, kj, vj = (t[:, :, j:j + chunk] for t in (q, k, v))
+        fj, ij = log_f[..., j:j + chunk], log_i[..., j:j + chunk]
+        Fc = torch.cumsum(fj, dim=-1)        # (B,H,c) cumulative log-forget
+        Ftot = Fc[..., -1]
+        a_log = Fc - fj + ij
+        # intra-chunk pair decay: D[t,s] = F_t - F_s + i_s  (s<=t)
+        Dmat = Fc[..., :, None] - Fc[..., None, :] + ij[..., None, :]
+        Dmat = Dmat.masked_fill(~tri, float("-inf"))
+        m_intra = Dmat.amax(dim=-1)                            # (B,H,c)
+        m_inter = Fc + m[..., None]                            # carry path
+        m_new_t = torch.maximum(m_intra, m_inter)              # (B,H,c)
+        # intra contribution
+        w = torch.exp(Dmat - m_new_t[..., None])               # (B,H,c,c)
+        s = torch.einsum("bhtd,bhsd->bhts", qj, kj)            # scores
+        h_intra = torch.einsum("bhts,bhsd->bhtd", w * s, vj)
+        l_intra = torch.einsum("bhts,bhsd->bhtd", w, kj)       # for the normaliser
+        n_intra = torch.einsum("bhtd,bhtd->bht", qj, l_intra)
+        # inter contribution (state from earlier chunks)
+        scale = torch.exp(m_inter - m_new_t)                   # (B,H,c)
+        h_inter = torch.einsum("bhtd,bhde->bhte", qj, C) * scale[..., None]
+        n_inter = torch.einsum("bhtd,bhd->bht", qj, n) * scale
+        denom = torch.maximum((n_intra + n_inter).abs(), torch.exp(-m_new_t))
+        hs.append((h_intra + h_inter) / denom[..., None])
+        # state update to the end of the chunk
+        m_end = torch.maximum(Ftot + m, (a_log + (Ftot[..., None] - Fc)).amax(dim=-1))
+        dec = torch.exp(ij + Ftot[..., None] - Fc - m_end[..., None])   # (B,H,c)
+        carry = torch.exp(Ftot + m - m_end)
+        C = C * carry[..., None, None] + torch.einsum("bhs,bhsd,bhse->bhde", dec, kj, vj)
+        n = n * carry[..., None] + torch.einsum("bhs,bhsd->bhd", dec, kj)
+        m = m_end
+    return torch.cat(hs, dim=2)[:, :, :T], (C, n, m)
+
+
+def apply_mlstm(
+    p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Optional[Dict] = None,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,T,D) -> (y, new_state).  state={"C": (B,H,Dh,Dh), "n": (B,H,Dh),
+    "m": (B,H), all float32, "conv": (B,W-1,R) in the model's dtype}."""
+    B, T, _ = x.shape
+    r, H = cfg.rnn_width, cfg.n_heads
+    dh = r // H
+    xi, z = (x @ p["w_up"]).chunk(2, dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    xi, new_conv = _causal_conv(xi, p["conv"], conv_state)
+    xi_act = F.silu(xi)
+    # projected in the model's dtype, cast to float32 afterwards (as the reference)
+    q = torch.einsum("btr,rhk->bhtk", xi_act, p["wq"]) * (dh ** -0.5)
+    k = torch.einsum("btr,rhk->bhtk", xi_act, p["wk"])
+    v = torch.einsum("btr,rhk->bhtk", xi_act, p["wv"])
+    gates = xi.float() @ p["w_if"] + p["b_if"]
+    log_i, log_f = gates.chunk(2, dim=-1)                  # (B,T,H)
+    log_f = F.logsigmoid(log_f).transpose(1, 2)            # (B,H,T)
+    log_i = log_i.transpose(1, 2)                          # exp input gate (log-space)
+
+    st = state if state is not None else init_mlstm_state(cfg, B, x.dtype, x.device)
+    h, (C, n, m) = _mlstm_chunk_scan(q.float(), k.float(), v.float(), log_f, log_i,
+                                     st["C"], st["n"], st["m"], chunk=min(chunk, max(T, 1)))
+    h = h * p["o_norm"][None, :, None, :]
+    h = h.transpose(1, 2).reshape(B, T, r).to(x.dtype)
+    y = h * F.silu(z)
+    return y @ p["w_down"], {"C": C, "n": n, "m": m, "conv": new_conv}
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
+    r, H, w = cfg.rnn_width, cfg.n_heads, cfg.conv_width
+    dh = r // H
+    return {
+        "C": zeros((batch, H, dh, dh), torch.float32, device),
+        "n": zeros((batch, H, dh), torch.float32, device),
+        "m": torch.full((batch, H), -1e30, dtype=torch.float32, device=device),
+        "conv": zeros((batch, w - 1, r), dtype, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM): scalar memory, sequential
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    d, r = cfg.d_model, cfg.rnn_width
+    return {
+        "w_in": normal(gen, (d, 4 * r), dtype),
+        "r_rec": normal(gen, (r, 4 * r), dtype, scale=0.01),
+        "b": zeros((4 * r,), torch.float32, gen.device),
+        "w_out": normal(gen, (r, d), dtype),
+    }
+
+
+def apply_slstm(
+    p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Optional[Dict] = None
+) -> Tuple[torch.Tensor, Dict]:
+    """Sequential sLSTM with exponential gating + stabiliser (xLSTM §2.1).
+    state={"c", "n", "h", "m"}, each (B,R) float32."""
+    B, T, _ = x.shape
+    pre = (x @ p["w_in"]).float()
+    if state is None:
+        state = init_slstm_state(cfg, B, x.dtype, x.device)
+    c, n, h, m = (state[k] for k in ("c", "n", "h", "m"))
+    rrec = p["r_rec"].float()
+    hs = []
+    for t in range(T):
+        g = pre[:, t] + h @ rrec + p["b"]
+        zi, zf, zz, zo = g.chunk(4, dim=-1)
+        log_f = F.logsigmoid(zf)
+        m_new = torch.maximum(log_f + m, zi)
+        i = torch.exp(zi - m_new)
+        f = torch.exp(log_f + m - m_new)
+        c = f * c + i * torch.tanh(zz)
+        n = f * n + i
+        h = torch.sigmoid(zo) * c / torch.clamp(n.abs(), min=1.0)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype)
+    return y @ p["w_out"], {"c": c, "n": n, "h": h, "m": m}
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
+    r = cfg.rnn_width
+    return {
+        "c": zeros((batch, r), torch.float32, device),
+        "n": zeros((batch, r), torch.float32, device),
+        "h": zeros((batch, r), torch.float32, device),
+        "m": torch.full((batch, r), -1e30, dtype=torch.float32, device=device),
+    }

@@ -2,8 +2,9 @@
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods are plain
 functions of (params, batch); the serving driver and the tests drive
-models only through it.  Decoder-only archs are ported; encoder-decoder
-is not yet.
+models only through it.  Every decoder-only arch of the repo is ported
+(dense, hybrid, MoE, xLSTM and the VLM with its stub frontend, each
+with the three rematerialisation policies); encoder-decoder is not yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.models.config import ModelConfig
 class Model:
     cfg: ModelConfig
     init: Callable          # generator -> params, on the generator's device
-    loss_fn: Callable       # (params, batch, remat_policy="none") -> (loss, metrics)
+    loss_fn: Callable       # (params, batch, remat_policy="none"|"full"|"dots") -> (loss, metrics)
     init_cache: Callable    # (batch, max_len, device="cuda") -> cache
     prefill: Callable       # (params, batch, cache) -> (logits, cache)
     decode_step: Callable   # (params, token, pos, cache) -> (logits, cache)

@@ -9,6 +9,7 @@ with its version-manager WAL, is recovered by the other package's
 ``BlobSeerService.restore`` and restored bit for bit.
 """
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -265,19 +266,21 @@ def test_failed_commit_releases_fresh_pin(ckpt_env):
 PSIZE, HEADER_PAGES = 4096, 16
 
 
-def _jax_state():
-    """A reduced olmo-1b train state from the JAX init, numpy leaves: bf16
-    params (the dtype of the full-size model), fp32 optimizer, int32
+def _jax_state(arch="olmo-1b"):
+    """A reduced train state of ``arch`` from the JAX init, numpy leaves:
+    params in the full-size model's dtypes (bf16, and float32 where it
+    keeps float32, as norm scales and a MoE router), fp32 optimizer, int32
     count and step."""
-    cfg = jget_config("olmo-1b").reduced(vocab_size=ByteTokenizer().vocab_size + 1)
+    cfg = jget_config(arch).reduced(vocab_size=ByteTokenizer().vocab_size + 1)
     model = jbuild_model(cfg)
     params = jax.jit(lambda r: model.init(r)[0])(jax.random.PRNGKey(0))
     opt = jadamw_init(params)
     opt["count"] = jnp.asarray(3, jnp.int32)
     opt["mu"] = jax.tree.map(lambda m: m + 0.25, opt["mu"])
-    params = jax.tree.map(lambda p: p.astype(jnp.bfloat16), params)
+    full = jbuild_model(dataclasses.replace(cfg, dtype="bfloat16")).abstract()[0]
+    params = jax.tree.map(lambda p, a: p.astype(a.dtype), params, full)
     state = {"params": params, "opt": opt, "step": jnp.asarray(3, jnp.int32)}
-    return jax.tree.map(np.asarray, state), get_config("olmo-1b").reduced(
+    return jax.tree.map(np.asarray, state), get_config(arch).reduced(
         vocab_size=ByteTokenizer().vocab_size + 1)
 
 
@@ -295,7 +298,11 @@ def _like(np_state):
 
 
 def test_manifest_equals_reference_for_converted_state():
-    np_state, cfg = _jax_state()
+    _assert_same_manifest("olmo-1b")
+
+
+def _assert_same_manifest(arch):
+    np_state, cfg = _jax_state(arch)
     extra = {"reader": {"version": 2, "position": 64, "shard": 0, "n_shards": 1}}
     jck = JBlobCheckpointer(JBlobSeerService(n_providers=4, n_meta_shards=2).client(),
                             psize=PSIZE, header_pages=HEADER_PAGES)
@@ -314,7 +321,24 @@ def test_manifest_equals_reference_for_converted_state():
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 def test_checkpoint_exchanges_between_packages(writer, tmp_path):
-    np_state, cfg = _jax_state()
+    _exchange("olmo-1b", writer, tmp_path)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_moe_checkpoint_exchanges_between_packages(writer, tmp_path):
+    """Reduced granite-moe-1b-a400m, whose expert weights are stacked 4-D
+    leaves (layers, experts, in, out) and whose router stays float32:
+    the same manifest (leaf keys, offsets, digests) from both packages,
+    and a byte-equal restore across them."""
+    np_state, _ = _jax_state("granite-moe-1b-a400m")
+    assert np_state["params"]["groups"][0]["ffn"]["wi"].ndim == 4
+    assert np_state["params"]["groups"][0]["ffn"]["router"].dtype == np.float32
+    _assert_same_manifest("granite-moe-1b-a400m")
+    _exchange("granite-moe-1b-a400m", writer, tmp_path)
+
+
+def _exchange(arch, writer, tmp_path):
+    np_state, cfg = _jax_state(arch)
     spool, wal = str(tmp_path / "spool"), str(tmp_path / "vm.wal")
     kw = dict(n_providers=4, n_meta_shards=2)
     states = [np_state, _changed(np_state)]

@@ -1,12 +1,15 @@
-"""Port vs JAX reference: RG-LRU block, full forward, prefill and decode.
+"""Port vs JAX reference: RG-LRU block, full forward, prefill and decode,
+rematerialisation, the VLM frontend splice and the parameter trees.
 
 Parameters come from the JAX ``model.init`` and reach the port through
 ``params_from_jax``; token ids and activations are made with numpy from
 a seed.  Reduced configs in float32: recurrentgemma-2b (4 layers: rglru,
 rglru, local attention with window 8, rglru), olmo-1b as a second
-case for the non-parametric LayerNorm, SwiGLU and full attention, and
+case for the non-parametric LayerNorm, SwiGLU and full attention,
 h2o-danube-3-4b for sliding-window attention on every layer (window 8),
-RMSNorm and an untied ``lm_head``.
+RMSNorm and an untied ``lm_head``, xlstm-350m (9 layers: 7 mLSTM, an
+sLSTM, an mLSTM), olmoe-1b-7b and granite-moe-1b-a400m (MoE FFNs, whose
+aux loss the forward returns), and internvl2-76b with ``vision_embeds``.
 
 Tolerance: atol 1e-4 on logits (and on block outputs and state).  The
 port scans sequentially where the reference's CPU path runs an
@@ -36,7 +39,8 @@ from repro_torch.models import recurrent as TR
 torch.set_num_threads(2)
 
 ATOL = 1e-4
-ARCHS = ["recurrentgemma-2b", "olmo-1b", "h2o-danube-3-4b"]
+ARCHS = ["recurrentgemma-2b", "olmo-1b", "h2o-danube-3-4b", "xlstm-350m", "olmoe-1b-7b",
+         "granite-moe-1b-a400m"]
 B, T, T0 = 2, 18, 12      # T0 > window 8: the local cache is rolled at prefill
 
 
@@ -117,14 +121,15 @@ def test_apply_stack_train_logits_match_jax(arch):
 
     @jax.jit
     def jfwd(params, x):
-        h, _ = JLM.apply_stack_train(params, pr.jcfg, x, jnp.arange(T))
-        return JLM._logits(params, pr.jcfg, h)
+        h, aux = JLM.apply_stack_train(params, pr.jcfg, x, jnp.arange(T))
+        return JLM._logits(params, pr.jcfg, h), aux
 
-    want = jfwd(pr.jparams, jx)
+    want, want_aux = jfwd(pr.jparams, jx)
     tx = pr.params["embed"]["table"][torch.from_numpy(toks).long()]
     h, aux = TLM.apply_stack_train(pr.params, pr.cfg, tx, torch.arange(T))
     _close(TLM._logits(pr.params, pr.cfg, h), want)
-    assert float(aux) == 0.0
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0, atol=1e-6)
+    assert (float(aux) > 0) == pr.cfg.moe
 
 
 def _jax_prefill_and_decode(pr, max_len):
@@ -194,18 +199,114 @@ def test_decode_matches_teacher_forcing():
     assert max(errs) < ATOL, errs
 
 
-@pytest.mark.parametrize("what", ["moe", "mlstm", "loss", "encdec"])
+@pytest.mark.parametrize("what", ["encdec"])
 def test_unported_paths_raise(what):
-    gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
-        if what == "moe":
-            build_model(get_config("olmoe-1b-7b").reduced()).init(gen)
-        elif what == "mlstm":
-            build_model(get_config("xlstm-350m").reduced()).init(gen)
-        elif what == "loss":
-            # the loss itself is ported; rematerialisation is not
-            pr = pair("olmo-1b")
-            zeros = torch.zeros(1, 4, dtype=torch.long)
-            pr.model.loss_fn(pr.params, {"tokens": zeros, "labels": zeros}, "full")
-        else:
-            build_model(get_config("seamless-m4t-large-v2").reduced())
+        build_model(get_config("seamless-m4t-large-v2").reduced())
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m", "xlstm-350m",
+                                  "internvl2-76b"])
+def test_params_from_jax_gives_the_port_init_tree(arch):
+    """The JAX tree, converted, has the keys, shapes and dtypes of the
+    port's own init, bf16 leaves and float32 ones (norms, the MoE router,
+    the mLSTM gates) alike."""
+    clear_logical_rules()
+    jcfg = jget_config(arch).reduced(dtype="bfloat16")
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    jparams = jbuild_model(jcfg).abstract()[0]
+    np_tree = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), jparams)
+    got = params_from_jax(np_tree, cfg, device="cpu")
+    want = build_model(cfg).init(torch.Generator().manual_seed(0))
+    g, w = jax.tree_util.tree_flatten_with_path(got), jax.tree_util.tree_flatten_with_path(want)
+    assert g[1] == w[1]
+    for (path, a), (_, b) in zip(g[0], w[0]):
+        assert (tuple(a.shape), a.dtype) == (tuple(b.shape), b.dtype), path
+    assert {str(a.dtype) for a in jax.tree.leaves(want)} == {"torch.bfloat16", "torch.float32"}
+
+
+def _loss_batch(cfg, seed=13):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    labels[:, :3] = -1
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(tokens).long(), "labels": torch.from_numpy(labels).long()}
+    if cfg.frontend is not None:
+        ve = rng.standard_normal((B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+        jb["vision_embeds"], tb["vision_embeds"] = jnp.asarray(ve), torch.from_numpy(ve)
+    return jb, tb
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "granite-moe-1b-a400m"])
+def test_remat_policies_agree(arch):
+    """``lm_loss`` at "none", "full" and "dots": the same loss (rtol 1e-6)
+    and gradients (rtol 2e-4, atol 1e-6; the reference's own bounds,
+    tests/test_models.py::test_remat_policies_agree), and the loss of the
+    JAX package within 1e-5."""
+    pr = pair(arch)
+    jb, tb = _loss_batch(pr.cfg)
+    jloss, _ = jax.jit(pr.jmodel.loss_fn)(pr.jparams, jb)
+    out = {}
+    for policy in ("none", "full", "dots"):
+        live = [t.detach().clone().requires_grad_() for t in jax.tree.leaves(pr.params)]
+        params = jax.tree.unflatten(jax.tree.structure(pr.params), live)
+        loss, _ = pr.model.loss_fn(params, tb, policy)
+        out[policy] = float(loss.detach()), torch.autograd.grad(loss, live)
+    np.testing.assert_allclose(out["none"][0], float(jloss), rtol=0, atol=1e-5)
+    for policy in ("full", "dots"):
+        np.testing.assert_allclose(out[policy][0], out["none"][0], rtol=1e-6)
+        for a, b in zip(out[policy][1], out["none"][1]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4, atol=1e-6)
+    with pytest.raises(ValueError):
+        pr.model.loss_fn(pr.params, tb, "some")
+
+
+def test_vlm_splice_matches_jax():
+    """internvl2-76b's stub frontend: ``vision_embeds`` replace the first
+    ``n_frontend_tokens`` embeddings in the loss and the prefill."""
+    pr = pair("internvl2-76b")
+    jb, tb = _loss_batch(pr.cfg)
+    jloss, jm = jax.jit(pr.jmodel.loss_fn)(pr.jparams, jb)
+    loss, m = pr.model.loss_fn(pr.params, tb)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(float(m["ce"].detach()), float(jm["ce"]), rtol=0, atol=ATOL)
+    jb.pop("labels"), tb.pop("labels")
+    jlg, _ = jax.jit(pr.jmodel.prefill)(pr.jparams, jb, pr.jmodel.init_cache(B, T + 4))
+    with torch.inference_mode():
+        lg, _ = pr.model.prefill(pr.params, tb, pr.model.init_cache(B, T + 4, device="cpu"))
+        plain, _ = pr.model.prefill(pr.params, {"tokens": tb["tokens"]},
+                                    pr.model.init_cache(B, T + 4, device="cpu"))
+    _close(lg, jlg)
+    assert float((lg - plain).abs().max()) > 10 * ATOL   # the splice reached the logits
+
+
+def test_dots_policy_keeps_the_plain_products():
+    """Backward recomputes every product of a pattern group at "full", and
+    at "dots" all but the ones without batch dimensions (``mm``, and the
+    batch-1 ``bmm`` that ``torch.einsum`` makes of them): here the
+    attention projections and the router, 5 a layer."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+            return func(*args, **(kwargs or {}))
+
+    pr = pair("granite-moe-1b-a400m")
+    _, tb = _loss_batch(pr.cfg)
+    counts = {}
+    for policy in ("none", "full", "dots"):
+        live = [t.detach().clone().requires_grad_() for t in jax.tree.leaves(pr.params)]
+        loss, _ = pr.model.loss_fn(jax.tree.unflatten(jax.tree.structure(pr.params), live),
+                                   tb, policy)
+        with Products() as products:
+            torch.autograd.grad(loss, live)
+        counts[policy] = products.n
+    per_layer = (counts["full"] - counts["none"]) // pr.cfg.n_layers
+    assert counts["full"] - counts["dots"] == 5 * pr.cfg.n_layers, counts
+    assert per_layer > 5, counts

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's training path, on one CUDA card.
 
-Builds full-width olmo-1b in bf16 with its fp32 AdamW state (random
-weights from a seed), takes two warm-up steps at batch 2 x 2048 tokens,
+Builds a full-width model (``--arch``, olmo-1b by default) in bf16 with
+its fp32 AdamW state (random weights from a seed) and the
+rematerialisation policy ``--remat`` (``none`` by default), takes two
+warm-up steps at batch 2 x 2048 tokens,
 then traces one step with ``torch.profiler``: wall time, device time
 summed over kernels, the device's idle share and the kernels that take
 the most device time.  Then it runs a full checkpoint save and a
@@ -13,7 +15,8 @@ the directory named by ``--out`` (``profile_out/`` by default).
 
 Usage, from the root of a checkout::
 
-    python3 tools/profile_torch_train.py [--out DIR]
+    python3 tools/profile_torch_train.py [--arch ARCH] [--remat POLICY] [--out DIR]
+    python3 tools/profile_torch_train.py --arch granite-moe-1b-a400m --remat full
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from profile_torch_serve import device_us, top_kernels  # noqa: E402
 from repro_torch.checkpoint import BlobCheckpointer  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core import BlobSeerService  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.train import AdamWConfig, TrainStepBuilder  # noqa: E402
@@ -72,6 +75,8 @@ def host_profile(name, fn, out_dir, n=15):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b", choices=ARCH_IDS)
+    ap.add_argument("--remat", default="none", choices=["none", "full", "dots"])
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"),
                     help="directory for the Chrome trace and the cProfile tables")
     args = ap.parse_args(argv)
@@ -83,8 +88,10 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    builder = TrainStepBuilder(build_model(get_config("olmo-1b")),
-                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    print(f"train: {args.arch}, remat {args.remat}, batch {BATCH} x {SEQ}")
+    builder = TrainStepBuilder(build_model(get_config(args.arch)),
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100),
+                               remat_policy=args.remat)
     state = builder.init_state(torch.Generator(device="cuda").manual_seed(0))
     step = builder.train_step_fn()
     rng = np.random.default_rng(1)
