@@ -27,8 +27,12 @@ Phases (each one's failure fails the run):
    strided k and v, a ``q_offset`` that leaves rows fully masked (zeros),
    float32-only cases at the float32 kernel's tile edges (Tq off its row
    tile, D = 33, 100, 120, 256, query groups of 1, 3, 8 and 32, a window
-   inside one key tile), and the long serving path's shape (4, 32, 8192, 120) over
-   (4, 8, 8192, 120) with a 4096 window, in both dtypes and layouts;
+   inside one key tile), the long serving path's shape (4, 32, 8192, 120) over
+   (4, 8, 8192, 120) with a 4096 window, in both dtypes and layouts, and
+   the encoder-decoder's three unmasked shapes over 32768 frames of 16
+   heads of 64 in both dtypes: the encoder's self-attention (batch 1, v
+   strided), the prefill's cross-attention (4, 16, 512, 64) and a decode
+   step's (4, 16, 1, 64);
 4. serve: ``repro_torch.launch.serve.generate`` on full-width
    recurrentgemma-2b in bf16 (random weights from a seed), 4 prompts of
    512 byte tokens, 32 new tokens; the launch counts of that run must
@@ -80,10 +84,24 @@ Phases (each one's failure fails the run):
    bf16, 4 x 512 + 32 new; and xlstm-350m at full width with 8 layers
    in float32, a 500-token prefill and 12 decodes against one forward
    over 512 tokens (2e-2);
-10. the ``kernels`` line: per kernel, its launches on its path (serving
+10. the encoder-decoder: full-width seamless-m4t-large-v2 in bf16 (24 +
+   24 layers, 1.632 B parameters) serves 4 x 32768 frame embeddings
+   (numpy, from a seed) and 4 x 512 byte tokens through the facade's
+   ``prefill`` and 31 greedy ``decode_step``s over its memories: exactly
+   48 + 24 x 31 ``flash_attention_sm90`` launches (every encoder layer,
+   every cross-attention) and no float32 one; then the prefill time
+   (median of 3), the encoder's and the memories' times, the decode rate
+   and the peak memory; 4 + 4 layers in float32 over 1 x 8192 frames, a
+   512-token prefill and 32 decodes against one ``decode_train`` over the
+   544 tokens (2e-2; the float32 ``flash_attention``, 8 + 8 + 128
+   launches); full-width training at 2 x 2048 frames and tokens (bf16
+   params, fp32 AdamW state, remat ``"full"``), 3 steps, finite, no
+   launch (2048 frames stay dense: the kernels have no backward);
+11. the ``kernels`` line: per kernel, its launches on its paths (serving
    recurrentgemma-2b for ``linear_scan``, training for ``page_digest``
-   and ``delta_mask``, long-context serving for ``flash_attention_sm90``,
-   the float32 long teacher forcing for ``flash_attention``),
+   and ``delta_mask``, long-context and encoder-decoder serving for
+   ``flash_attention_sm90``, the float32 long and encoder-decoder
+   teacher forcing for ``flash_attention``; ``launches_by_path``),
    its error against
    the plain version, its time, the plain version's time, the least time
    the card could take and, where one PyTorch call computes the same
@@ -91,7 +109,10 @@ Phases (each one's failure fails the run):
    at (4, 8192, 2560): ``long_ms``, ``long_plain_ms``, ``long_bound_ms``;
    for both attention
    kernels, ``scaled_dot_product_attention`` with the window-causal
-   boolean mask in the kernel's dtype, which the port never calls).
+   boolean mask in the kernel's dtype, which the port never calls);
+   ``flash_attention_sm90`` also at the encoder-decoder's three shapes
+   (``seamless``: error, time, plain time, bound, and
+   ``scaled_dot_product_attention`` with no mask).
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
@@ -133,6 +154,7 @@ from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import synthesize_corpus  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import encdec as ED  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.param_util import tree_leaves, tree_map  # noqa: E402
@@ -154,6 +176,14 @@ MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
 REMAT_LOSS_RTOL, REMAT_GNORM_RTOL = 1e-5, 1e-3
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_TF_LAYERS, XLSTM_TF_PREFILL, XLSTM_TF_DECODE = 8, 500, 12
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# the repo's prefill_32k cell feeds 32768 encoder frames; one card holds a
+# batch of 4 of them (12.9 GB of cross memories), not the cell's 32
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 32768, 512, 32
+ENCDEC_TF_LAYERS, ENCDEC_TF_FRAMES = 4, 8192   # teacher forcing: 4 + 4 layers, float32
+# training stays at or under the blockwise threshold (4096 frames): the
+# attention kernels have no backward on the card
+ENCDEC_TRAIN_FRAMES = 2048
 # the digest tests' sweep (tests/test_torch_digest.py): word-domain pages,
 # byte cases (page bytes, total bytes) and leaves at 4096-byte pages
 DIGEST_WORD_SHAPES = [(1, 512), (3, 512), (8, 1024), (17, 1536)]
@@ -360,6 +390,25 @@ def long_shapes(cfg):
             (LONG_BATCH, cfg.n_kv_heads, LONG_PROMPT, cfg.head_dim))
 
 
+def seamless_shapes(cfg, batch=ENCDEC_BATCH):
+    """q and k/v shapes of the encoder-decoder's attention over 32768
+    frames: the encoder's self-attention, the prefill's cross-attention
+    and a decode step's."""
+    kv = (batch, cfg.n_kv_heads, ENCDEC_FRAMES, cfg.head_dim)
+    return {"encoder": ((batch, cfg.n_heads, ENCDEC_FRAMES, cfg.head_dim), kv),
+            "cross prefill": ((batch, cfg.n_heads, ENCDEC_PROMPT, cfg.head_dim), kv),
+            "cross decode": ((batch, cfg.n_heads, 1, cfg.head_dim), kv)}
+
+
+def seamless_cases(cfg):
+    """(name, q shape, k/v shape, strided) of the plain-version checks."""
+    shapes = seamless_shapes(cfg)
+    enc_q, enc_kv = seamless_shapes(cfg, batch=1)["encoder"]
+    return [("encoder", enc_q, enc_kv, True),
+            ("cross prefill", *shapes["cross prefill"], False),
+            ("cross decode", *shapes["cross decode"], False)]
+
+
 def phase_flash_vs_plain(state):
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_share, n = 0.0, 0
@@ -408,6 +457,22 @@ def phase_flash_vs_plain(state):
             worst_share = max(worst_share, share or 0.0)
             log(f"  {flash_kernel(dtype).__name__} {qs} kv {ks} {dtype} window {cfg.window} "
                 f"strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    # the encoder-decoder's three new uses, unmasked: the encoder's
+    # bidirectional self-attention (batch 1, so that the plain version's
+    # float32 score slices stay at 2 GB; v a strided view as the model
+    # hands it over), the prefill's cross-attention and a decode step's
+    # one-query cross-attention over contiguous memories
+    for name, qs, ks, strided in seamless_cases(get_config(ENCDEC_ARCH)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], dtype,
+                                       seed=252, strided=strided)
+            err, share = flash_case(q, k, v, causal=False)
+            worst[dtype], n = max(worst[dtype], err), n + 1
+            worst_share = max(worst_share, share or 0.0)
+            log(f"  {flash_kernel(dtype).__name__} seamless {name} {qs} kv {ks} {dtype} "
+                f"non-causal strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
             del q, k, v
             torch.cuda.empty_cache()
     state["flash_err"] = worst
@@ -873,6 +938,37 @@ def sdpa_ms(q, k, v, window) -> float:
             q, ke, ve, attn_mask=mask), reps=5)
 
 
+def seamless_times():
+    """``flash_attention_sm90`` at the encoder-decoder's three shapes over
+    32768 frames (bf16, no mask): its error against the plain version, its
+    time, the plain version's, the bound, and ``scaled_dot_product_attention``
+    with no mask (which lets PyTorch pick its flash backend)."""
+    out = {}
+    for i, (name, (qs, ks)) in enumerate(seamless_shapes(get_config(ENCDEC_ARCH)).items()):
+        B, Hq, Tq, D = qs
+        q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, torch.bfloat16, seed=30 + i)
+        err, share = flash_case(q, k, v, causal=False)
+        pairs = live_pairs(Tq, ks[2], causal=False, window=None, q_offset=0) * B * Hq
+        ops_s = 4 * D * pairs / BF16_FLOP_PER_S
+        bytes_s = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S
+        out[name] = {
+            "shape": [list(qs), list(ks)],
+            "max_abs_err": err,
+            "bf16_limit_share": share,
+            "ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, causal=False),
+                          reps=3 if Tq > ENCDEC_PROMPT else 20),
+            "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, causal=False),
+                                reps=1 if Tq > ENCDEC_PROMPT else 5),
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v), reps=3 if Tq > ENCDEC_PROMPT else 20),
+        }
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def scan_times(shape, seed, plain_reps):
     """linear_scan at ``shape``: error, kernel ms, plain ms and the bound
     (12 B an element over the memory rate, or 2 flops over the float32
@@ -979,11 +1075,17 @@ def phase_kernel_times(state):
     kw = dict(causal=True, window=cfg.window)
     pairs = live_pairs(Tq, ks[2], causal=True, window=cfg.window, q_offset=0) * B * Hq
     fa_ops = 4 * D * pairs              # score dot and value multiply-add per live pair
-    for name, dtype, rate, rate_name, launches in (
-            ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores",
-             state["long_launches"]["flash_attention_sm90"]),
-            ("flash_attention", torch.float32, F32_FLOP_PER_S, "float32 outside the tensor cores",
-             state["long_tf_launches"])):
+    by_path = {
+        "flash_attention_sm90": {
+            f"{LONG_ARCH} serve": state["long_launches"]["flash_attention_sm90"],
+            f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_sm90"]},
+        "flash_attention": {
+            f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
+            f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"]},
+    }
+    for name, dtype, rate, rate_name in (
+            ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores"),
+            ("flash_attention", torch.float32, F32_FLOP_PER_S, "float32 outside the tensor cores")):
         q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], dtype, seed=12)
         err, share = flash_case(q, k, v, **kw)
         kernel = flash_kernel(dtype)
@@ -993,7 +1095,8 @@ def phase_kernel_times(state):
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": "src/repro/kernels/flash_attention.py:105",
-            "launches": launches,
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": max(err, state["flash_err"][dtype]),
             "ms": cuda_ms(lambda: kernel(q, k, v, **kw), reps=10 if share is not None else 5),
             "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=2),
@@ -1014,12 +1117,20 @@ def phase_kernel_times(state):
         kernels.append(row)
         del q, k, v
         torch.cuda.empty_cache()
+        if name == "flash_attention_sm90":
+            row["seamless"] = seamless_times()
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_ms'] / k['ms']:.1%} of roofline), {k['launches']} launches on the "
             f"path, on {state['smi']}")
+    for shape_name, t in next(k for k in kernels if "seamless" in k)["seamless"].items():
+        log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA, no mask) "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['bound_ms'] / t['ms']:.1%} of roofline), max abs err {t['max_abs_err']:.3e}, "
+            f"on {state['smi']}")
     k = kernels[0]
     log(f"linear_scan {k['long_shape']} float32: kernel {k['long_ms']:.4f} ms, plain "
         f"{k['long_plain_ms']:.4f} ms, bound {k['long_bound_ms']:.4f} ms "
@@ -1331,6 +1442,225 @@ def phase_teacher_forcing_xlstm(state):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ the encoder-decoder
+
+
+def frame_embeddings(batch, frames, d_model, seed):
+    """Stub frontend output (batch, frames, d_model), float32, made with
+    numpy from ``seed`` and moved to the card."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((batch, frames, d_model),
+                                                dtype=np.float32)).to("cuda")
+
+
+def median_ms(fn, n=3):
+    """The median host ms of ``n`` calls of ``fn``, each ended by a sync."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[n // 2], ms
+
+
+def phase_serve_encdec(state):
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(16))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    B, S, T0, new = ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW
+    log(f"encdec serve: {cfg.name} {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, {n_params / 1e9:.3f} B params; "
+        f"{B} x {S} frames, {B} x {T0} prompt tokens, {new} new tokens")
+    emb = frame_embeddings(B, S, cfg.d_model, seed=17)
+    tokens = torch.as_tensor(np.stack(prompts_for(seed=18, batch=B, length=T0)).astype(np.int64),
+                             device="cuda")
+    batch = {"enc_embeds": emb, "tokens": tokens}
+    max_len = T0 + new
+    # attention over more than 4096 frames: each encoder layer and each
+    # decoder layer's cross-attention in the prefill, then every decoder
+    # layer's in each decode step
+    want = cfg.n_enc_layers + cfg.n_layers * new
+
+    # -- the main path: counts at 0 just before, read just after.  The
+    # facade's prefill, then greedy decode steps over its memories
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = model.init_cache(B, max_len, device="cuda")
+        logits, cache, mem = model.prefill(params, batch, cache)
+        finite = torch.isfinite(logits).all()
+        out = [torch.argmax(logits, dim=-1)]
+        for i in range(new - 1):
+            logits, cache = model.decode_step(params, out[-1], T0 + i, cache, mem)
+            finite &= torch.isfinite(logits).all()
+            out.append(torch.argmax(logits, dim=-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["encdec_launches"] = counts
+    log(f"  prefill + {new - 1} decode steps: {new} new tokens a row in {wall:.3f} s (first "
+        f"call); launches {counts}")
+    if counts["flash_attention_sm90"] != want or counts["flash_attention"] != 0:
+        raise AssertionError(f"flash_attention_sm90 launched {counts['flash_attention_sm90']} "
+                             f"times and flash_attention {counts['flash_attention']}, expected "
+                             f"{want} ({cfg.n_enc_layers} + {cfg.n_layers} in the prefill, "
+                             f"{cfg.n_layers} a decode step) and 0")
+    new_tokens = torch.stack(out, dim=1)
+    if not bool(finite) or new_tokens.shape != (B, new) or \
+            not bool(((new_tokens >= 0) & (new_tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"non-finite logits or bad tokens {tuple(new_tokens.shape)}")
+    for name, t in (("K", mem[0]), ("V", mem[1])):
+        if tuple(t.shape) != (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim) or \
+                not t.is_contiguous():
+            raise AssertionError(f"memory {name} {tuple(t.shape)} {t.stride()}")
+    mem_gb = 2 * mem[0].numel() * mem[0].element_size() / 1e9
+    del logits, cache, mem
+
+    # -- timings through the same entry points, warm: the prefill, the
+    # encoder alone and the memories alone (medians of 3), then the decode
+    with torch.inference_mode():
+        held = {}
+
+        def prefill():
+            held.clear()
+            ops.reset_launch_counts()
+            held["out"] = model.prefill(params, batch, model.init_cache(B, max_len, device="cuda"))
+            c = ops.launch_counts()
+            if c["flash_attention_sm90"] != cfg.n_enc_layers + cfg.n_layers:
+                raise AssertionError(f"prefill launched {c}")
+
+        prefill_ms, prefill_all = median_ms(prefill)
+        held.clear()
+        enc_ms, _ = median_ms(lambda: held.update(enc=ED.encode(params, cfg, emb)))
+
+        def memories():
+            held.pop("mem", None)
+            held["mem"] = ED.cross_memories(params, cfg, held["enc"])
+
+        mem_ms, _ = median_ms(memories)
+        held.clear()
+        prefill()
+        logits, cache, mem = held.pop("out")
+        tok = torch.argmax(logits, dim=-1)
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(new - 1):   # no host sync inside the loop
+            logits, cache = model.decode_step(params, tok, T0 + i, cache, mem)
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if not bool(finite):
+            raise AssertionError("non-finite decode logits")
+    state["serve_encdec"] = r = {
+        "prefill_ms": prefill_ms, "encode_ms": enc_ms, "memories_ms": mem_ms,
+        "encoder_share": enc_ms / prefill_ms,
+        "decode_tok_s": B * (new - 1) / decode_s, "decode_ms_per_step": decode_s * 1e3 / (new - 1),
+        "peak_gib": peak / 2**30, "memories_gb": mem_gb, "first_call_s": wall,
+    }
+    log(f"  prefill {B}x{S} frames + {B}x{T0} tokens: {prefill_ms:.2f} ms (median of 3: "
+        f"{', '.join(f'{m:.2f}' for m in prefill_all)}); encoder {enc_ms:.2f} ms "
+        f"({r['encoder_share']:.1%} of the prefill), memories {mem_ms:.2f} ms ({mem_gb:.2f} GB); "
+        f"decode {r['decode_tok_s']:.1f} tok/s ({r['decode_ms_per_step']:.2f} ms/step, batch "
+        f"{B}); peak memory {r['peak_gib']:.2f} GiB; on {state['smi']}")
+    del params, model, cache, logits, mem, emb, held
+    torch.cuda.empty_cache()
+
+
+def phase_teacher_forcing_encdec(state):
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH), n_layers=ENCDEC_TF_LAYERS,
+                              n_enc_layers=ENCDEC_TF_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(19))
+    T0, T = ENCDEC_PROMPT, ENCDEC_PROMPT + ENCDEC_NEW
+    emb = frame_embeddings(1, ENCDEC_TF_FRAMES, cfg.d_model, seed=20)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=g, device="cuda")
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        full = ED.decode_train(params, cfg, toks, ED.encode(params, cfg, emb))
+        fwd = ops.launch_counts()["flash_attention"]
+        ops.reset_launch_counts()
+        cache = model.init_cache(1, T + 4, device="cuda")
+        lg, cache, mem = model.prefill(params, {"enc_embeds": emb, "tokens": toks[:, :T0]},
+                                       cache)
+        pre = ops.launch_counts()["flash_attention"]
+        errs = [float((lg - full[:, T0 - 1]).abs().max())]
+        for t in range(T0, T):
+            lg, cache = model.decode_step(params, toks[:, t], t, cache, mem)
+            errs.append(float((lg - full[:, t]).abs().max()))
+        dec = ops.launch_counts()["flash_attention"] - pre
+        sm90 = ops.launch_counts()["flash_attention_sm90"]
+    state["teacher_encdec_err"] = max(errs)
+    state["encdec_tf_launches"] = fwd + pre + dec
+    log(f"encdec teacher forcing: {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, float32, {ENCDEC_TF_FRAMES} frames, prefill {T0} + {T - T0} decode "
+        f"steps vs one decode_train over {T}: max |dlogit| {max(errs):.3e} (tol {TEACHER_TOL}); "
+        f"flash_attention launches: forward {fwd}, prefill {pre}, decode {dec}")
+    n = cfg.n_enc_layers + cfg.n_layers
+    if (fwd, pre, dec, sm90) != (n, n, cfg.n_layers * (T - T0), 0):
+        raise AssertionError(f"expected {n} float32 launches in the forward and the prefill, "
+                             f"{cfg.n_layers * (T - T0)} in decode and no bf16 kernel, got "
+                             f"{fwd}, {pre}, {dec}, {sm90}")
+    if not max(errs) < TEACHER_TOL:
+        raise AssertionError(f"decode disagrees with teacher forcing: {errs}")
+    del params, model, cache, full, mem, emb
+    torch.cuda.empty_cache()
+
+
+def phase_train_encdec(state):
+    cfg = get_config(ENCDEC_ARCH)
+    _, reader = corpus_reader(TRAIN_BATCH, TRAIN_SEQ)
+    builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    step_fn = builder.train_step_fn()
+
+    # -- the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    train_state = builder.init_state(torch.Generator(device="cuda").manual_seed(22))
+    n_state = sum(t.numel() * t.element_size() for _, t in flatten_with_paths(train_state))
+    n_params = sum(t.numel() for t in tree_leaves(train_state["params"]))
+    log(f"encdec train: {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params, state {n_state / 1e9:.2f} GB, {TRAIN_BATCH} x "
+        f"{ENCDEC_TRAIN_FRAMES} frames and {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full")
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        tokens, labels = reader.next_batch()
+        batch = {"enc_embeds": frame_embeddings(TRAIN_BATCH, ENCDEC_TRAIN_FRAMES, cfg.d_model,
+                                                seed=23 + i),
+                 "tokens": torch.as_tensor(tokens, device="cuda"),
+                 "labels": torch.as_tensor(labels, device="cuda")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_state, metrics = step_fn(train_state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {int(train_state['step'])}: loss {loss:.4f} grad norm {gnorm:.4f} in "
+            f"{step_ms[-1]:.1f} ms")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"non-finite loss {loss} or grad norm {gnorm}")
+    no_launches(ops.launch_counts(), "encdec train")
+    peak = torch.cuda.max_memory_allocated()
+    state["train_encdec"] = {"step_ms": step_ms, "peak_gib": peak / 2**30,
+                             "state_gb": n_state / 1e9}
+    log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB; no kernel launched (attention over {ENCDEC_TRAIN_FRAMES} "
+        f"frames stays dense); on {state['smi']}")
+    del train_state, metrics, batch
+    torch.cuda.empty_cache()
+
+
 PHASES = [
     ("device", phase_device),
     ("build", phase_build),
@@ -1348,6 +1678,9 @@ PHASES = [
     ("moe train", phase_train_moe),
     ("xlstm serve", phase_serve_xlstm),
     ("xlstm decode vs teacher forcing", phase_teacher_forcing_xlstm),
+    ("encdec serve", phase_serve_encdec),
+    ("encdec decode vs teacher forcing", phase_teacher_forcing_encdec),
+    ("encdec train", phase_train_encdec),
     ("kernel times", phase_kernel_times),
 ]
 

@@ -2,9 +2,11 @@
 
 The port keeps the reference's parameter tree: the same dict keys,
 ``groups`` stacked along axis 0 (one entry per pattern position) and
-``rest`` as a list, with the same shapes and layouts, and the
-reference's train-state layout around it.  So converting is a walk over
-the tree that turns numpy leaves into tensors on a device.
+``rest`` as a list for a decoder, ``enc_blocks`` and ``dec_blocks``
+stacked along axis 0 for an encoder-decoder, with the same shapes and
+layouts, and the reference's train-state layout around it.  So
+converting is a walk over the tree that turns numpy leaves into tensors
+on a device.
 """
 
 from __future__ import annotations
@@ -36,8 +38,22 @@ def _walk(tree: Any, device):
     return _tensor(tree, device)
 
 
+def _check_stack(stacked: Any, n: int, what: str) -> None:
+    lead = {np.shape(v)[0] for v in tree_leaves(stacked)}
+    if lead != {n}:
+        raise ValueError(f"{what} leaves stack {sorted(lead)} layers, expected {n}")
+
+
 def params_from_jax(np_tree: Any, cfg: ModelConfig, device="cuda") -> dict:
     """Map a JAX parameter tree with numpy leaves onto the port's params."""
+    if cfg.arch_kind == "encdec":
+        missing = {"enc_blocks", "dec_blocks"} - set(np_tree)
+        if missing:
+            raise ValueError(f"an encoder-decoder tree needs {sorted(missing)}, got "
+                             f"{sorted(np_tree)}")
+        _check_stack(np_tree["enc_blocks"], cfg.n_enc_layers, "enc_blocks")
+        _check_stack(np_tree["dec_blocks"], cfg.n_layers, "dec_blocks")
+        return _walk(np_tree, device)
     n_groups, rest = _pattern_layout(cfg)
     want_groups = len(cfg.block_pattern) if n_groups > 0 else 0
     if len(np_tree["groups"]) != want_groups or len(np_tree["rest"]) != len(rest):
@@ -45,11 +61,8 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, device="cuda") -> dict:
             f"tree has {len(np_tree['groups'])} groups / {len(np_tree['rest'])} rest "
             f"layers; {cfg.name} needs {want_groups} / {len(rest)}")
     for stacked in np_tree["groups"]:
-        lead = {np.shape(v)[0] for v in tree_leaves(stacked)}
-        if lead != {n_groups}:
-            raise ValueError(f"group leaves stack {sorted(lead)} layers, expected {n_groups}")
+        _check_stack(stacked, n_groups, "group")
     return _walk(np_tree, device)
-
 
 
 def state_from_jax(np_state: Any, cfg: ModelConfig, device="cuda") -> dict:

@@ -41,7 +41,14 @@ def generate(
     ``params`` must live on ``device``.  Sampling draws from
     ``generator`` (a ``torch.Generator`` on ``device``) when
     ``temperature > 0``.  Returns each prompt followed by its new tokens.
+    Decoder-only models, as the reference's ``generate``: an
+    encoder-decoder is driven through its ``Model.prefill`` and
+    ``Model.decode_step`` with the memories the prefill returns.
     """
+    if model.cfg.arch_kind != "decoder":
+        raise NotImplementedError(
+            f"generate serves decoder-only models, not arch_kind {model.cfg.arch_kind!r}: "
+            f"call Model.prefill with enc_embeds, then Model.decode_step with its memories")
     B = len(prompts)
     T0 = len(prompts[0])
     if any(len(p) != T0 for p in prompts):

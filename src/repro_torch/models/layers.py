@@ -2,7 +2,8 @@
 
 Plain functions over parameter dicts of tensors, the counterparts of
 ``repro.models.layers``.  Covers qk-norm, QKV bias, the three norm kinds,
-sliding-window and local attention (recurrentgemma) and GQA.  Attention
+sliding-window and local attention (recurrentgemma), GQA and the
+encoder-decoder's cross-attention over precomputed encoder K/V.  Attention
 takes the reference's three paths: dense scores up to
 ``BLOCKWISE_KV_THRESHOLD`` kv positions (``kernels.ref.ref_attention``,
 as ``layers.py:257`` of the reference), online-softmax attention above it
@@ -112,7 +113,8 @@ def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, cross: bool = False) -> Dict:
+    """A cross-attention block (``cross``) has no QKV bias and no qk-norm."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = gen.device
     p = {
@@ -121,11 +123,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
         "wv": normal(gen, (d, hkv, dh), dtype),
         "wo": normal(gen, (h, dh, d), dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = zeros((h, dh), dtype, dev)
         p["bk"] = zeros((hkv, dh), dtype, dev)
         p["bv"] = zeros((hkv, dh), dtype, dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_scale"] = ones((dh,), torch.float32, dev)
         p["k_scale"] = ones((dh,), torch.float32, dev)
     return p
@@ -232,6 +234,27 @@ def apply_attention(
     )
     y = torch.einsum("bhtk,hkd->btd", out, p["wo"])
     return y, new_cache
+
+
+def apply_cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          memory_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V: no RoPE, no
+    mask.  A memory longer than ``BLOCKWISE_KV_THRESHOLD`` goes to
+    ``ops.flash_attention``, in the prefill and in every decode step."""
+    q = torch.einsum("btd,dhk->bhtk", x, p["wq"])
+    k, v = memory_kv
+    out = attention_core(q, k, v, causal=False, window=None, q_offset=0, softcap=None)
+    return torch.einsum("bhtk,hkd->btd", out, p["wo"])
+
+
+def cross_attention_memory(p: Dict, cfg: ModelConfig,
+                           enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, V) of the encoder output for one cross-attention block, each
+    (B, Hkv, S, Dh): views of the projections' (B, S, Hkv, Dh) results,
+    whose strides the attention kernels take as they are."""
+    k = torch.einsum("btd,dhk->bhtk", enc_out, p["wk"])
+    v = torch.einsum("btd,dhk->bhtk", enc_out, p["wv"])
+    return k, v
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict:

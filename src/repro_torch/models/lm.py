@@ -108,7 +108,8 @@ def _pattern_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random parameters on ``gen``'s device, drawn from ``gen``."""
     if cfg.arch_kind != "decoder":
-        raise NotImplementedError(f"arch_kind {cfg.arch_kind!r} is not ported to repro_torch yet")
+        raise ValueError(f"init_lm builds decoder-only models, not arch_kind {cfg.arch_kind!r}: "
+                         f"models.build_model builds an encoder-decoder through models.encdec")
     dt = L.torch_dtype(cfg)
     n_groups, rest = _pattern_layout(cfg)
     tree: Dict = {

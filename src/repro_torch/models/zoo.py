@@ -2,9 +2,12 @@
 
 ``build_model(cfg)`` returns a :class:`Model` whose methods are plain
 functions of (params, batch); the serving driver and the tests drive
-models only through it.  Every decoder-only arch of the repo is ported
-(dense, hybrid, MoE, xLSTM and the VLM with its stub frontend, each
-with the three rematerialisation policies); encoder-decoder is not yet.
+models only through it.  Every arch of the repo is ported: the
+decoder-only ones (dense, hybrid, MoE, xLSTM and the VLM with its stub
+frontend) through ``models.lm`` and the encoder-decoder
+(seamless-m4t-large-v2) through ``models.encdec``, each with the three
+rematerialisation policies.  An encoder-decoder's prefill also returns
+the cross-attention memories, which its decode step takes.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 from repro_torch.models.config import ModelConfig
 
@@ -22,13 +26,15 @@ class Model:
     init: Callable          # generator -> params, on the generator's device
     loss_fn: Callable       # (params, batch, remat_policy="none"|"full"|"dots") -> (loss, metrics)
     init_cache: Callable    # (batch, max_len, device="cuda") -> cache
-    prefill: Callable       # (params, batch, cache) -> (logits, cache)
-    decode_step: Callable   # (params, token, pos, cache) -> (logits, cache)
+    prefill: Callable       # (params, batch, cache) -> (logits, cache[, memories])
+    decode_step: Callable   # (params, token, pos, cache[, memories]) -> (logits, cache)
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.arch_kind == "encdec":
+        return _build_encdec(cfg)
     if cfg.arch_kind != "decoder":
-        raise NotImplementedError(f"arch_kind {cfg.arch_kind!r} is not ported to repro_torch yet")
+        raise ValueError(cfg.arch_kind)
 
     def init(gen):
         return LM.init_lm(gen, cfg)
@@ -44,6 +50,26 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def decode_step(params, token, pos, cache):
         return LM.lm_decode_step(params, cfg, token, pos, cache)
+
+    return Model(cfg=cfg, init=init, loss_fn=loss_fn, init_cache=init_cache,
+                 prefill=prefill, decode_step=decode_step)
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    def init(gen):
+        return ED.init_encdec(gen, cfg)
+
+    def loss_fn(params, batch, remat_policy="none"):
+        return ED.encdec_loss(params, cfg, batch, remat_policy)
+
+    def init_cache(batch, max_len, device="cuda"):
+        return ED.init_encdec_cache(cfg, batch, max_len, device)
+
+    def prefill(params, batch, cache):
+        return ED.encdec_prefill(params, cfg, batch, cache)
+
+    def decode_step(params, token, pos, cache, memories):
+        return ED.encdec_decode_step(params, cfg, token, pos, cache, memories)
 
     return Model(cfg=cfg, init=init, loss_fn=loss_fn, init_cache=init_cache,
                  prefill=prefill, decode_step=decode_step)

@@ -337,6 +337,21 @@ def test_moe_checkpoint_exchanges_between_packages(writer, tmp_path):
     _exchange("granite-moe-1b-a400m", writer, tmp_path)
 
 
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_encdec_checkpoint_exchanges_between_packages(writer, tmp_path):
+    """Reduced seamless-m4t-large-v2, whose tree has no ``groups`` or
+    ``rest`` but stacked ``enc_blocks`` and ``dec_blocks`` and an untied
+    ``lm_head``: the same manifest from both packages, and a byte-equal
+    restore across them."""
+    np_state, cfg = _jax_state("seamless-m4t-large-v2")
+    params = np_state["params"]
+    assert {"enc_blocks", "dec_blocks", "lm_head"} <= set(params) and "groups" not in params
+    assert params["enc_blocks"]["mlp"]["wi"].shape[0] == cfg.n_enc_layers
+    assert params["dec_blocks"]["cross"]["wq"].shape[0] == cfg.n_layers
+    _assert_same_manifest("seamless-m4t-large-v2")
+    _exchange("seamless-m4t-large-v2", writer, tmp_path)
+
+
 def _exchange(arch, writer, tmp_path):
     np_state, cfg = _jax_state(arch)
     spool, wal = str(tmp_path / "spool"), str(tmp_path / "vm.wal")

@@ -199,18 +199,20 @@ def test_decode_matches_teacher_forcing():
     assert max(errs) < ATOL, errs
 
 
-@pytest.mark.parametrize("what", ["encdec"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_paths_raise(what):
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("seamless-m4t-large-v2").reduced())
+    """What the port still lacks raises: a device mesh other than 1x1."""
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(NotImplementedError, match="one device"):
+        train_main(["--mesh", "2x1", "--device", "cpu", "--quiet"])
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m", "xlstm-350m",
-                                  "internvl2-76b"])
+                                  "internvl2-76b", "seamless-m4t-large-v2"])
 def test_params_from_jax_gives_the_port_init_tree(arch):
     """The JAX tree, converted, has the keys, shapes and dtypes of the
     port's own init, bf16 leaves and float32 ones (norms, the MoE router,
-    the mLSTM gates) alike."""
+    the mLSTM gates) alike, the encoder-decoder's stacks too."""
     clear_logical_rules()
     jcfg = jget_config(arch).reduced(dtype="bfloat16")
     cfg = get_config(arch).reduced(dtype="bfloat16")

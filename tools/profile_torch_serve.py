@@ -4,7 +4,10 @@
 Builds a full-width model in bf16 (``--arch``, recurrentgemma-2b by
 default; random weights from a seed), warms it up, then traces with
 ``torch.profiler`` one prefill of 4 x ``--prompt-len`` byte tokens (512
-by default) and 16 decode steps.  For each phase it prints the wall time
+by default) and 16 decode steps.  An encoder-decoder's prefill also
+encodes 4 x 32768 frame embeddings (the repo's prefill_32k frames, made
+with numpy from a seed), and its decode steps attend to the memories the
+prefill returned.  For each phase it prints the wall time
 (host clock around work that ends in a synchronise), the device time
 summed over kernels, the device's idle share, the kernels that take the
 most device time, and the kernel launches of the port's own CUDA kernels
@@ -16,6 +19,7 @@ Usage, from the root of a checkout::
 
     python3 tools/profile_torch_serve.py [--arch ARCH] [--prompt-len T] [--out DIR]
     python3 tools/profile_torch_serve.py --arch h2o-danube-3-4b --prompt-len 8192
+    python3 tools/profile_torch_serve.py --arch seamless-m4t-large-v2
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 BATCH, DECODE_STEPS = 4, 16
+ENC_FRAMES = 32768      # an encoder-decoder's frames a row
 
 
 def kernel_events(prof):
@@ -115,18 +120,25 @@ def main(argv=None) -> int:
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(1)
     tokens = torch.as_tensor(rng.integers(32, 127, (BATCH, args.prompt_len)), device="cuda")
+    batch = {"tokens": tokens}
+    if cfg.arch_kind == "encdec":
+        print(f"encoder: {BATCH} x {ENC_FRAMES} frames")
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (BATCH, ENC_FRAMES, cfg.d_model), dtype=np.float32)).to("cuda")
     max_len = args.prompt_len + DECODE_STEPS + 1
     state = {}
 
     def prefill():
-        state["cache"] = model.init_cache(BATCH, max_len, device="cuda")
-        logits, state["cache"] = model.prefill(params, {"tokens": tokens}, state["cache"])
-        state["tok"] = torch.argmax(logits, dim=-1)
+        state.clear()
+        cache = model.init_cache(BATCH, max_len, device="cuda")
+        logits, cache, *state["extras"] = model.prefill(params, batch, cache)
+        state["cache"], state["tok"] = cache, torch.argmax(logits, dim=-1)
 
     def decode():
         tok, cache = state["tok"], state["cache"]
         for i in range(DECODE_STEPS):
-            logits, cache = model.decode_step(params, tok, args.prompt_len + i, cache)
+            logits, cache = model.decode_step(params, tok, args.prompt_len + i, cache,
+                                              *state["extras"])
             tok = torch.argmax(logits, dim=-1)
 
     with torch.inference_mode():
@@ -135,6 +147,7 @@ def main(argv=None) -> int:
         rows = [traced("prefill", prefill, args.out), traced("decode", decode, args.out)]
     rows[1]["per_step_wall_ms"] = rows[1]["wall_ms"] / DECODE_STEPS
     print(json.dumps({"profile": rows, "arch": cfg.name, "prompt_len": args.prompt_len,
+                      "frames": ENC_FRAMES if cfg.arch_kind == "encdec" else None,
                       "device": smi}))
     return 0
 
