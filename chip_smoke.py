@@ -97,11 +97,30 @@ Phases (each one's failure fails the run):
    launches); full-width training at 2 x 2048 frames and tokens (bf16
    params, fp32 AdamW state, remat ``"full"``), 3 steps, finite, no
    launch (2048 frames stay dense: the kernels have no backward);
-11. the ``kernels`` line: per kernel, its launches on its paths (serving
-   recurrentgemma-2b for ``linear_scan``, training for ``page_digest``
-   and ``delta_mask``, long-context and encoder-decoder serving for
-   ``flash_attention_sm90``, the float32 long and encoder-decoder
-   teacher forcing for ``flash_attention``; ``launches_by_path``),
+11. the mesh paths, on a (1, 1) ("data", "model") ``DeviceMesh`` over a
+   one-rank NCCL group (``repro_torch.distributed``): full-width olmo-1b
+   under ``tp_fsdp`` + ``zero2`` with ``accum=2`` takes two steps at
+   2 x 2048 from the state and batches of a no-mesh ``accum=2`` run
+   (losses within 1e-4 relative, parameters within rtol 5e-4), then its
+   state is saved whole (34 ``page_digest`` launches on the gathered
+   leaves), restored into the mesh placements (byte-equal) and saved
+   again unchanged (34 + 34 launches, no page); ``compressed_grad_mean``
+   over NCCL on that state's gradients, each leaf within one int8 step
+   (scale / 127); full-width h2o-danube3-4b under ``tp_serve_sm``: the
+   long-context phase's 4 x 8192 prompts (24 ``flash_attention_sm90``
+   launches on the local shards) and 32 decode steps through
+   ``sharded_decode_attention``, teacher-forced on that phase's greedy
+   tokens and held to its logits (max |dlogit| and the share of equal
+   greedy tokens reported, no bound), and its 4-layer float32 copy
+   against its own no-mesh run within rtol 2e-4, atol 2e-5 (4 + 4
+   float32 launches); step, prefill and decode times and peaks beside
+   the no-mesh ones;
+12. the ``kernels`` line: per kernel, its launches on its paths (serving
+   recurrentgemma-2b for ``linear_scan``, training and mesh training for
+   ``page_digest`` and ``delta_mask``, long-context, encoder-decoder and
+   mesh serving for ``flash_attention_sm90``, the float32 long and
+   encoder-decoder teacher forcing and the float32 mesh serve for
+   ``flash_attention``; ``launches_by_path``),
    its error against
    the plain version, its time, the plain version's time, the least time
    the card could take and, where one PyTorch call computes the same
@@ -116,7 +135,8 @@ Phases (each one's failure fails the run):
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
-prints no result.
+prints no result.  ``--phases a,b,...`` runs only the named phases, in
+their order (for work on one path; such a run prints no result).
 """
 
 from __future__ import annotations
@@ -126,6 +146,7 @@ import dataclasses
 import json
 import os
 import resource
+import socket
 import subprocess
 import sys
 import time
@@ -142,6 +163,8 @@ from repro_torch.checkpoint.blobckpt import flatten_with_paths  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import BlobSeerService  # noqa: E402
 from repro_torch.data import ByteTokenizer, CorpusWriter, ShardedReader  # noqa: E402
+from repro_torch.distributed.collectives import compressed_grad_mean  # noqa: E402
+from repro_torch.distributed.partitioning import full as whole  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
@@ -152,6 +175,7 @@ from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noq
                                      ref_linear_scan, ref_page_digest)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import synthesize_corpus  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import encdec as ED  # noqa: E402
@@ -168,6 +192,11 @@ LONG_BATCH, LONG_PROMPT, LONG_NEW = 4, 8192, 32   # the published context, twice
 LONG_TF_PREFILL = 8160                            # teacher forcing: 8160 + 32 decodes = 8192
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+# the mesh phases, on a (1, 1) ("data", "model") mesh over a one-rank NCCL group
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS, MESH_ACCUM = TRAIN_BATCH, 2, 2
+MESH_LOSS_RTOL = 1e-4                                   # mesh vs no-mesh step loss
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-4, 1e-6           # tests/test_train.py:80
+MESH_DEC_RTOL, MESH_DEC_ATOL = 2e-4, 2e-5               # tests/test_decode_attn.py:44
 CKPT_PSIZE = 256 * 1024                     # BlobCheckpointer's default page
 MOE_ARCH = "olmoe-1b-7b"                    # served: 4 x 512 keeps the dispatch O(T^2) small
 MOE_CMP_LAYERS, MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_DECODE = 2, 2, 128, 8
@@ -646,11 +675,15 @@ def phase_serve_long(state):
             raise AssertionError("non-finite prefill logits")
         tok = torch.argmax(logits, dim=-1)
         finite = torch.ones((), dtype=torch.bool, device="cuda")
+        # the mesh serve phase is teacher-forced on these tokens and held to these logits
+        ref = state["long_ref"] = {"logits": [logits], "fed": []}
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(LONG_NEW):   # no host sync inside the loop, as in generate
+            ref["fed"].append(tok)
             logits, cache = model.decode_step(params, tok, LONG_PROMPT + i, cache)
+            ref["logits"].append(logits)
             finite &= torch.isfinite(logits).all()
             tok = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
@@ -1021,7 +1054,11 @@ def phase_kernel_times(state):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/page_digest.cu",
         "replaces": "src/repro/kernels/page_digest.py:85",
-        "launches": state["train_launches"]["page_digest"],
+        "launches": state["train_launches"]["page_digest"]
+        + state["mesh_train_launches"]["page_digest"],
+        "launches_by_path": {f"{TRAIN_ARCH} train": state["train_launches"]["page_digest"],
+                             f"{TRAIN_ARCH} mesh train":
+                                 state["mesh_train_launches"]["page_digest"]},
         "max_abs_err": max(state["digest_err"], digest_case(leaf, CKPT_PSIZE)),
         "ms": cuda_ms(lambda: page_digest_cuda(data, CKPT_PSIZE), reps=20),
         "plain_ms": cuda_ms(lambda: ref_page_digest(ops.as_page_words(data, CKPT_PSIZE)),
@@ -1052,7 +1089,11 @@ def phase_kernel_times(state):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_mask.cu",
         "replaces": "src/repro/kernels/delta_mask.py:29",
-        "launches": state["train_launches"]["delta_mask"],
+        "launches": state["train_launches"]["delta_mask"]
+        + state["mesh_train_launches"]["delta_mask"],
+        "launches_by_path": {f"{TRAIN_ARCH} train": state["train_launches"]["delta_mask"],
+                             f"{TRAIN_ARCH} mesh train":
+                                 state["mesh_train_launches"]["delta_mask"]},
         "max_abs_err": max(state["mask_err"], err),
         "ms": cuda_ms(lambda: delta_mask_cuda(new, old), reps=200),
         "plain_ms": cuda_ms(lambda: ref_delta_mask(new, old), reps=200),
@@ -1078,10 +1119,12 @@ def phase_kernel_times(state):
     by_path = {
         "flash_attention_sm90": {
             f"{LONG_ARCH} serve": state["long_launches"]["flash_attention_sm90"],
-            f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_sm90"]},
+            f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_sm90"],
+            f"{LONG_ARCH} mesh serve": state["mesh_serve_launches"]},
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
-            f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"]},
+            f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"],
+            f"{LONG_ARCH} float32 mesh serve": state["mesh_serve_f32_launches"]},
     }
     for name, dtype, rate, rate_name in (
             ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores"),
@@ -1135,6 +1178,262 @@ def phase_kernel_times(state):
     log(f"linear_scan {k['long_shape']} float32: kernel {k['long_ms']:.4f} ms, plain "
         f"{k['long_plain_ms']:.4f} ms, bound {k['long_bound_ms']:.4f} ms "
         f"({k['long_bound_ms'] / k['long_ms']:.1%} of roofline), on {state['smi']}")
+
+
+# ------------------------------------------------------------ the mesh paths
+
+
+def phase_mesh_group(state):
+    """A one-rank NCCL group and a (1, 1) ("data", "model") mesh on it."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    state["mesh"] = make_mesh((1, 1), ("data", "model"), device="cuda")
+    log(f"mesh: {state['mesh']} over a one-rank NCCL group")
+
+
+def phase_mesh_train(state):
+    """Full-width olmo-1b under ``tp_fsdp`` + ``zero2`` with ``accum=2``:
+    two steps from the state and batches of a no-mesh ``accum=2`` run,
+    then a full and an incremental checkpoint of the mesh state and a
+    restore into its placements."""
+    cfg = get_config(TRAIN_ARCH)
+    client, reader = corpus_reader(MESH_TRAIN_BATCH, TRAIN_SEQ)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))
+               for _ in range(MESH_TRAIN_STEPS)]
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+
+    def run(builder):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_state = builder.init_state(torch.Generator(device="cuda").manual_seed(0))
+        step_fn, losses, ms = builder.train_step_fn(), [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_state, metrics = step_fn(train_state, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return train_state, losses, ms, torch.cuda.max_memory_allocated() / 2**30
+
+    plain = TrainStepBuilder(build_model(cfg), opt=opt, accum=MESH_ACCUM)
+    ref_state, ref_losses, ref_ms, ref_peak = run(plain)
+    ref_params = [t.clone() for t in tree_leaves(ref_state["params"])]
+    del ref_state
+    torch.cuda.empty_cache()
+
+    builder = TrainStepBuilder(build_model(cfg), state["mesh"], strategy="tp_fsdp",
+                               opt=opt, accum=MESH_ACCUM, zero2=True)
+    # -- the main path: counts at 0 just before, read just after
+    ops.reset_launch_counts()
+    train_state, losses, ms, peak = run(builder)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the mesh train steps launched {counts}: olmo-1b at 2048 "
+                             f"tokens has dense attention")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    p_abs, p_rel = 0.0, 0.0
+    for a, b in zip(tree_leaves(train_state["params"]), ref_params):
+        d = (whole(a).float() - b.float()).abs()
+        p_abs = max(p_abs, float(d.max()))
+        p_rel = max(p_rel, float((d / (b.float().abs() + 1e-6)).max()))
+        torch.testing.assert_close(whole(a), b, rtol=MESH_PARAM_RTOL, atol=MESH_PARAM_ATOL)
+    del ref_params
+    if not loss_rel <= MESH_LOSS_RTOL:
+        raise AssertionError(f"mesh losses {losses} vs no-mesh {ref_losses}")
+    log(f"mesh train: {cfg.name} tp_fsdp + zero2, accum {MESH_ACCUM}, "
+        f"{MESH_TRAIN_BATCH}x{TRAIN_SEQ}: losses {losses} vs no-mesh {ref_losses} (max rel "
+        f"{loss_rel:.3e}); params max |d| {p_abs:.3e}, max rel {p_rel:.3e} (rtol "
+        f"{MESH_PARAM_RTOL}); step ms mesh {', '.join(f'{m:.1f}' for m in ms)} vs no-mesh "
+        f"{', '.join(f'{m:.1f}' for m in ref_ms)}; peak {peak:.2f} vs {ref_peak:.2f} GiB; "
+        f"on {state['smi']}")
+
+    # -- checkpoints of the mesh state: digests and masks on the gathered leaves
+    n_leaves = len(flatten_with_paths(train_state))
+    ckpt = BlobCheckpointer(client, psize=CKPT_PSIZE)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st1 = ckpt.save(train_state, step=MESH_TRAIN_STEPS, extra={"reader": reader.state_dict()})
+    save_s = time.perf_counter() - t0
+    full_counts = ops.launch_counts()
+    if (full_counts["page_digest"], full_counts["delta_mask"]) != (n_leaves, 0) or \
+            st1.pages_written != st1.pages_total:
+        raise AssertionError(f"full mesh save: {full_counts}, {st1.pages_written}/"
+                             f"{st1.pages_total} pages")
+    t0 = time.perf_counter()
+    restored = builder.distribute_state(ckpt.restore(builder.abstract_state(), device="cuda"))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got, want = flatten_with_paths(restored), flatten_with_paths(train_state)
+    if [k for k, _ in got] != [k for k, _ in want]:
+        raise AssertionError("restored mesh tree differs")
+    for (k, a), (_, b) in zip(got, want):
+        if getattr(a, "placements", None) != getattr(b, "placements", None) or \
+                not torch.equal(ops.leaf_bytes(whole(a)), ops.leaf_bytes(whole(b))):
+            raise AssertionError(f"restored mesh leaf {k} differs")
+    del restored, got
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st2 = ckpt.save(train_state, step=MESH_TRAIN_STEPS,
+                    extra={"reader": reader.state_dict(), "note": "extra moved"})
+    save2_s = time.perf_counter() - t0
+    inc_counts = ops.launch_counts()
+    if (inc_counts["page_digest"], inc_counts["delta_mask"]) != (n_leaves, n_leaves) or \
+            st2.pages_written != 0:
+        raise AssertionError(f"incremental mesh save: {inc_counts}, {st2.pages_written} pages")
+    state["mesh_train_launches"] = {k: full_counts[k] + inc_counts[k] for k in full_counts}
+    log(f"  mesh checkpoint: full save {st1.pages_written}/{st1.pages_total} pages in "
+        f"{save_s:.2f} s ({full_counts['page_digest']} page_digest), restore into the "
+        f"mesh placements byte-equal in {restore_s:.2f} s, unchanged save "
+        f"{st2.pages_written} pages in {save2_s:.2f} s ({inc_counts['page_digest']} "
+        f"page_digest, {inc_counts['delta_mask']} delta_mask); host peak RSS "
+        f"{host_rss_gib():.1f} GiB")
+    state["mesh_train"] = {"losses": losses, "ref_losses": ref_losses, "loss_rel": loss_rel,
+                           "param_abs": p_abs, "param_rel": p_rel, "step_ms": ms,
+                           "ref_step_ms": ref_ms, "peak_gib": peak, "ref_peak_gib": ref_peak,
+                           "save_s": save_s, "restore_s": restore_s, "save2_s": save2_s}
+    # the gradients of the last batch at the trained state, for the collective
+    state["mesh_grads"] = builder.grads_fn()(train_state, batches[-1])[1]
+    del ckpt, client, reader, train_state
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_collective(state):
+    """``compressed_grad_mean`` over the "data" axis's NCCL group on the
+    mesh train step's gradients, each leaf within one step of the int8
+    grid (scale / 127)."""
+    mesh, grads = state["mesh"], state.pop("mesh_grads")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    compressed_grad_mean(grads, mesh, "data", gen)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = compressed_grad_mean(grads, mesh, "data", gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for i, (a, g) in enumerate(zip(out, grads)):
+        a, g = whole(a).float(), whole(g).float()
+        scale = float(g.abs().max()) + 1e-12
+        err = float((a - g).abs().max())
+        worst = max(worst, err / scale * 127)
+        if not err <= scale / 127 * (1 + 1e-6):
+            raise AssertionError(f"gradient leaf {i}: |out - g| {err} > scale/127 {scale / 127}")
+    n = sum(whole(g).numel() for g in grads)
+    state["mesh_collective"] = {"ms": ms, "leaves": len(grads), "elements": n,
+                                "worst_in_steps": worst}
+    log(f"mesh collective: compressed_grad_mean over NCCL, {len(grads)} gradient leaves "
+        f"({n / 1e9:.3f} B elements) in {ms:.2f} ms; worst |out - g| {worst:.3f} int8 steps "
+        f"(limit 1); on {state['smi']}")
+    del grads, out
+    torch.cuda.empty_cache()
+
+
+def mesh_decode(builder, model, params, tokens, fed, max_len):
+    """A ``tp_serve_sm`` prefill of ``tokens`` and teacher-forced decode
+    steps on ``fed``: (logits of each, prefill ms, decode ms a step,
+    prefill launches)."""
+    B, T = tokens.shape
+    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+    cache = builder.shard_cache(model.init_cache(B, max_len, device="cuda"))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = ops.launch_counts()
+    outs = [logits]
+    t0 = time.perf_counter()
+    for i, tok in enumerate(fed):
+        logits, cache = decode(params, tok, T + i, cache)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(len(fed), 1)
+    dec = ops.launch_counts()
+    if any(dec[k] != pre[k] for k in dec):
+        raise AssertionError(f"a sharded decode step launched a kernel: {pre} -> {dec}")
+    del cache
+    return outs, prefill_ms, step_ms, pre
+
+
+def phase_mesh_serve(state):
+    """Full-width h2o-danube3-4b under ``tp_serve_sm``: the long-serve
+    phase's prompts and tokens, its logits the reference; then the
+    4-layer float32 copy against its own no-mesh run."""
+    cfg = get_config(LONG_ARCH)
+    model = build_model(cfg)
+    builder = TrainStepBuilder(model, state["mesh"], strategy="tp_serve_sm")
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))   # the long phase's
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    tokens = torch.as_tensor(np.stack(prompts_for(seed=4, batch=LONG_BATCH,
+                                                  length=LONG_PROMPT)).astype(np.int64),
+                             device="cuda")
+    ref = state.pop("long_ref")
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts at 0 just before (in mesh_decode), read just after
+    outs, prefill_ms, step_ms, pre = mesh_decode(builder, model, params, tokens, ref["fed"],
+                                                 LONG_PROMPT + LONG_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if pre["flash_attention_sm90"] != cfg.n_layers or pre["flash_attention"] != 0:
+        raise AssertionError(f"the mesh prefill launched {pre}, expected {cfg.n_layers} "
+                             f"flash_attention_sm90")
+    dlogit = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, ref["logits"]))
+    same = float(torch.stack([(a.argmax(-1) == b.argmax(-1)).float().mean()
+                              for a, b in zip(outs, ref["logits"])]).mean())
+    if not all(bool(torch.isfinite(a).all()) for a in outs):
+        raise AssertionError("non-finite mesh logits")
+    prefill_times = [prefill_ms] + [mesh_decode(builder, model, params, tokens, [],
+                                                LONG_PROMPT + LONG_NEW)[1] for _ in range(2)]
+    state["mesh_serve"] = {"prefill_ms": sorted(prefill_times)[1], "prefill_runs_ms":
+                           prefill_times, "decode_ms_per_step": step_ms,
+                           "max_dlogit": dlogit, "greedy_same": same, "peak_gib": peak,
+                           "no_mesh_prefill_ms": state["serve_long"]["prefill_ms"],
+                           "no_mesh_decode_ms_per_step":
+                               state["serve_long"]["decode_ms_per_step"]}
+    state["mesh_serve_launches"] = pre["flash_attention_sm90"]
+    r = state["mesh_serve"]
+    log(f"mesh serve: {cfg.name} tp_serve_sm, {LONG_BATCH}x{LONG_PROMPT} prefill "
+        f"{r['prefill_ms']:.2f} ms (median of 3: {', '.join(f'{m:.2f}' for m in prefill_times)}; "
+        f"no mesh {r['no_mesh_prefill_ms']:.2f}), {pre['flash_attention_sm90']} "
+        f"flash_attention_sm90 launches; {LONG_NEW} teacher-forced decode steps through "
+        f"sharded_decode_attention {step_ms:.2f} ms/step (no mesh "
+        f"{r['no_mesh_decode_ms_per_step']:.2f}); max |dlogit| vs no mesh {dlogit:.3e}, "
+        f"greedy tokens equal {same:.4f}; peak {peak:.2f} GiB; on {state['smi']}")
+    del params, outs, ref
+    torch.cuda.empty_cache()
+
+    # -- the float32 copy: mesh and no mesh on the same parameters and tokens
+    cfg = dataclasses.replace(get_config(LONG_ARCH), n_layers=4, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(5))
+    B, T0 = 2, LONG_TF_PREFILL
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (B, LONG_PROMPT), generator=g, device="cuda")
+    fed = [toks[:, t] for t in range(T0, LONG_PROMPT)]
+    plain = TrainStepBuilder(model)
+    want, _, _, pre_plain = mesh_decode(plain, model, params, toks[:, :T0], fed, LONG_PROMPT + 4)
+    builder = TrainStepBuilder(model, state["mesh"], strategy="tp_serve_sm")
+    dparams = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    got, _, _, pre = mesh_decode(builder, model, dparams, toks[:, :T0], fed, LONG_PROMPT + 4)
+    if (pre["flash_attention"], pre_plain["flash_attention"], pre["flash_attention_sm90"]) != \
+            (cfg.n_layers, cfg.n_layers, 0):
+        raise AssertionError(f"float32 prefills launched {pre_plain} and {pre}")
+    f32_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=MESH_DEC_RTOL, atol=MESH_DEC_ATOL,
+                                   msg=lambda m, i=i: f"float32 mesh step {i}: {m}")
+    state["mesh_serve"]["f32_max_dlogit"] = f32_err
+    state["mesh_serve_f32_launches"] = pre["flash_attention"]
+    log(f"  float32 copy ({cfg.n_layers} layers, {B}x{T0} + {len(fed)} steps): mesh vs no "
+        f"mesh max |dlogit| {f32_err:.3e} (rtol {MESH_DEC_RTOL}, atol {MESH_DEC_ATOL}); "
+        f"flash_attention launches {pre_plain['flash_attention']} + {pre['flash_attention']}")
+    del params, dparams, got, want
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- the modules without kernels
@@ -1681,14 +1980,32 @@ PHASES = [
     ("encdec serve", phase_serve_encdec),
     ("encdec decode vs teacher forcing", phase_teacher_forcing_encdec),
     ("encdec train", phase_train_encdec),
+    ("mesh group", phase_mesh_group),
+    ("mesh train and checkpoint", phase_mesh_train),
+    ("mesh collective", phase_mesh_collective),
+    ("mesh serve", phase_mesh_serve),
     ("kernel times", phase_kernel_times),
 ]
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one H100.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase names to run, in order (default: all; a "
+                         "phase may need what an earlier one left, and without 'kernel "
+                         "times' the run prints no result)")
+    args = ap.parse_args()
+    names = None if args.phases is None else args.phases.split(",")
+    unknown = set(names or ()) - {n for n, _ in PHASES}
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}")
     state = {"cfg": get_config(ARCH)}
     failed = []
     for name, fn in PHASES:
+        if names is not None and name not in names:
+            continue
         if failed and failed[0] in ("device", "build"):
             break   # nothing can run without the card or the kernels
         log(f"== {name}")
@@ -1700,6 +2017,10 @@ def main() -> int:
             failed.append(name)
             log(f"FAILED: {name}")
         log(f"   ({time.perf_counter() - t0:.1f} s)")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     if failed or "kernels" not in state:
         log(f"chip_smoke: failed phases: {failed}")
         return 1

@@ -19,6 +19,12 @@ so that either package restores what the other saved:
 
 A bf16 leaf is stored as its raw 16-bit words under the dtype string
 ``"bfloat16"``, as the reference stores its ml_dtypes arrays.
+
+Under a mesh (DTensor leaves) every rank calls ``save``: each leaf is
+gathered whole, one leaf at a time (a collective every rank joins, as the
+reference's per-leaf ``device_get``), and rank 0 alone digests and writes
+it; the other ranks return None.  ``restore`` returns whole tensors,
+which the caller places (``TrainStepBuilder.distribute_state``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.blob import BlobClient
+from repro_torch.distributed.partitioning import full, is_distributed
 from repro_torch.core.version_manager import RetiredVersion, VersionUnpublished
 from repro_torch.kernels import ops
 
@@ -106,17 +113,24 @@ class BlobCheckpointer:
         self._manifest_lease: Optional[str] = None
 
     # ------------------------------------------------------------------- save
-    def save(self, state, step: int, extra: Optional[Dict] = None) -> CheckpointStats:
-        """Write an incremental checkpoint; returns sharing stats."""
-        leaves = [(path, leaf, ops.leaf_bytes(leaf))
-                  for path, leaf in flatten_with_paths(state)]
+    def save(self, state, step: int, extra: Optional[Dict] = None) -> Optional[CheckpointStats]:
+        """Write an incremental checkpoint; returns sharing stats (None on
+        a rank other than 0 under a mesh)."""
+        leaves = flatten_with_paths(state)
+        if any(is_distributed(leaf) for _, leaf in leaves):
+            import torch.distributed as dist
+
+            if dist.get_rank() != 0:
+                for _, leaf in leaves:
+                    full(leaf)          # join each leaf's gather, in rank 0's order
+                return None
         psz = self.psize
 
         # -- layout: leaf offsets page-aligned after the header region --
         offset = self.header_bytes
         layout: Dict[str, Tuple[int, int]] = {}
-        for path, _, data in leaves:
-            nbytes = max(data.numel(), 1)
+        for path, leaf in leaves:
+            nbytes = max(leaf.numel() * leaf.element_size(), 1)
             layout[path] = (offset, nbytes)
             offset += -(-nbytes // psz) * psz
         total = offset
@@ -139,8 +153,9 @@ class BlobCheckpointer:
         # each with its pages' digests for the dedup handshake
         dirty_writes: List[Tuple[bytes, int]] = []
         dirty_digests: List[List[Tuple[int, int]]] = []
-        for path, leaf, data in leaves:
+        for path, leaf in leaves:
             off, nbytes = layout[path]
+            data = ops.leaf_bytes(full(leaf))                 # the whole leaf, gathered
             dg = ops.page_digest(data, page_bytes=psz)        # on the leaf's device
             dg_host = dg.cpu().numpy().view(np.uint32)
             new_digests[path] = dg_host

@@ -2,7 +2,10 @@
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref``; a CUDA
 tensor goes to the hand-written kernel, which launches or raises.  There
-is no switch and no fallback: the card always runs the kernel.
+is no switch and no fallback: the card always runs the kernel.  Under a
+mesh the scan runs on each rank's local slices (its time axis whole);
+attention is reached with local tensors (``models.layers``), and a
+DTensor handed to the other kernels raises.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.kernels import delta_mask as _dm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_sm90 as _fa90
@@ -23,8 +27,24 @@ _KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
             "flash_attention": _fa, "flash_attention_sm90": _fa90}
 
 
+def _refuse_distributed(name: str, *ts) -> None:
+    if any(is_distributed(t) for t in ts):
+        raise NotImplementedError(f"{name} takes each rank's local tensors, not DTensors")
+
+
 def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + x_t over (B, T, D), with h_{-1} = 0."""
+    """h_t = a_t * h_{t-1} + x_t over (B, T, D), with h_{-1} = 0.  DTensors
+    are scanned on each rank's local (B, T, D) slices, T gathered whole
+    and x placed as a is: the recurrence is elementwise over B and D."""
+    if is_distributed(a):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = a.device_mesh
+        pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in a.placements)
+        if not is_distributed(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        h = linear_scan(a.redistribute(mesh, pl).to_local(), x.redistribute(mesh, pl).to_local())
+        return DTensor.from_local(h, mesh, pl, run_check=False)
     if a.device.type == "cpu":
         return _ref.ref_linear_scan(a, x)
     return _ls.linear_scan_cuda(a, x)
@@ -54,6 +74,7 @@ def flash_attention(
     call that autograd would record raises, since neither kernel has a
     backward.
     """
+    _refuse_distributed("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, softcap=softcap)
@@ -100,6 +121,7 @@ def as_page_words(t: torch.Tensor, page_bytes: int) -> torch.Tensor:
 
 def page_digest(t: torch.Tensor, page_bytes: int = 64 * 1024) -> torch.Tensor:
     """(n_pages, 2) int32 digests (uint32 bits) of ``t``'s bytes, on its device."""
+    _refuse_distributed("page_digest", t)
     if t.device.type == "cpu":
         return _ref.ref_page_digest(as_page_words(t, page_bytes))
     return _pd.page_digest_cuda(leaf_bytes(t), page_bytes)
@@ -107,6 +129,7 @@ def page_digest(t: torch.Tensor, page_bytes: int = 64 * 1024) -> torch.Tensor:
 
 def delta_mask(new_digest: torch.Tensor, old_digest: torch.Tensor) -> torch.Tensor:
     """(n,) bool: pages whose digest changed since the last checkpoint."""
+    _refuse_distributed("delta_mask", new_digest, old_digest)
     if new_digest.device.type == "cpu":
         return _ref.ref_delta_mask(new_digest, old_digest)
     return _dm.delta_mask_cuda(new_digest, old_digest)

@@ -1,21 +1,29 @@
-"""End-to-end training on one device.
+"""End-to-end training, on one device or under a mesh.
 
-The counterpart of ``repro.launch.train`` without a mesh: a BlobSeer
-deployment holds both the tokenized corpus (append-ingested,
-snapshot-pinned readers) and the versioned incremental checkpoint
-lineage, and the model and AdamW run on one device.  On startup it
-GET_RECENTs the checkpoint blob and resumes (params, optimizer, step,
-data cursor) from it, so it can be killed and restarted at any point.
+The counterpart of ``repro.launch.train``: a BlobSeer deployment holds
+both the tokenized corpus (append-ingested, snapshot-pinned readers) and
+the versioned incremental checkpoint lineage, and the model and AdamW
+run on one device (``--mesh 1x1``, no launcher) or on a ``DxM`` mesh of
+("data", "model") under ``torch.distributed.run`` with ``D*M`` ranks:
+NCCL with one card a rank on ``--device cuda``, gloo on ``--device
+cpu``.  Under a mesh every rank builds the same corpus blob from the seed
+and keeps its slice of each global batch, and rank 0 alone writes the
+checkpoints (a resume under a mesh raises).  On startup it GET_RECENTs
+the checkpoint blob and resumes (params, optimizer, step, data cursor)
+from it, so it can be killed and restarted at any point.
 
 Usage (CPU-sized defaults)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 50 \\
         --d-model 128 --layers 2 --seq 64 --batch 8 --spool /tmp/run1
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --device cpu --mesh 2x1 --strategy tp_fsdp
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -25,6 +33,7 @@ from repro_torch.checkpoint import BlobCheckpointer
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import BlobSeerService
 from repro_torch.data import ByteTokenizer, CorpusWriter, ShardedReader
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from repro_torch.models.param_util import tree_map
 from repro_torch.train.optimizer import AdamWConfig
@@ -42,14 +51,36 @@ def synthesize_corpus(writer: CorpusWriter, tok: ByteTokenizer, n_docs: int,
         writer.append_tokens(tok.encode(text))
 
 
-def build_runtime(args):
+def build_runtime(args, rank: int = 0):
+    """A BlobSeer deployment and a client; under a mesh only rank 0 spools
+    to ``--spool`` (the other ranks' deployments stay in memory)."""
+    spool = args.spool if rank == 0 else None
     svc = BlobSeerService(
         n_providers=args.providers, n_meta_shards=4,
-        data_replication=args.replication, spool_dir=args.spool,
-        wal_path=(args.spool + "/vm.wal") if args.spool else None,
+        data_replication=args.replication, spool_dir=spool,
+        wal_path=(spool + "/vm.wal") if spool else None,
     )
     client = svc.client("trainer")
     return svc, client
+
+
+def _mesh(args):
+    """(mesh or None, rank): a ``DxM`` mesh over the process group that
+    ``torch.distributed.run`` set up, or no mesh for ``1x1`` without it."""
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    if shape == (1, 1) and "RANK" not in os.environ:
+        return None, 0
+    import torch.distributed as dist
+
+    if "RANK" not in os.environ:
+        raise RuntimeError(f"--mesh {args.mesh} runs under torch.distributed.run "
+                           f"--nproc-per-node {shape[0] * shape[1]}")
+    if args.device.startswith("cuda"):
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        args.device = "cuda"
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    return make_mesh(shape, ("data", "model"), device=args.device), dist.get_rank()
 
 
 def main(argv=None) -> dict:
@@ -68,17 +99,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--providers", type=int, default=4)
     ap.add_argument("--replication", type=int, default=1)
     ap.add_argument("--spool", default=None)
-    ap.add_argument("--mesh", default="1x1", help="only 1x1: the port trains on one device")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM over (data, model); other than 1x1 under torch.distributed.run")
     ap.add_argument("--strategy", default="tp",
-                    help="the reference's sharding strategy; one device shards nothing")
+                    help="partitioning strategy (distributed.partitioning); a _zero2 "
+                         "suffix gathers the parameters once a step")
     ap.add_argument("--corpus-docs", type=int, default=200)
     ap.add_argument("--resume-blob", default=None)
     ap.add_argument("--corpus-blob", default=None)
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(f"--mesh {args.mesh}: repro_torch trains on one device")
+    mesh, rank = _mesh(args)
 
     tok = ByteTokenizer()
     cfg = get_config(args.arch).reduced(
@@ -88,7 +120,7 @@ def main(argv=None) -> dict:
         d_ff=args.d_ff if get_config(args.arch).d_ff else 0,
         vocab_size=tok.vocab_size + 1,
     )
-    svc, client = build_runtime(args)
+    svc, client = build_runtime(args, rank)
 
     # ---- corpus (ingestion substrate) ----
     writer = CorpusWriter(client, args.corpus_blob, psize=16 * 1024)
@@ -98,11 +130,16 @@ def main(argv=None) -> dict:
     # ---- model + step ----
     model = build_model(cfg)
     builder = TrainStepBuilder(
-        model, opt=AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps),
-        remat_policy="none", accum=args.accum,
+        model, mesh, strategy=args.strategy,
+        opt=AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps),
+        remat_policy="none", accum=args.accum, zero2="_zero2" in args.strategy,
     )
+    quiet = args.quiet or rank != 0
 
     # ---- checkpoint lineage (resume if one exists) ----
+    if mesh is not None and args.resume_blob is not None:
+        raise NotImplementedError("--resume-blob under a mesh: a resume reads the checkpoint "
+                                  "whole on one device")
     ckpt = BlobCheckpointer(client, args.resume_blob, psize=16 * 1024, header_pages=16)
     start_step = 0
     reader_state = None
@@ -112,7 +149,7 @@ def main(argv=None) -> dict:
         ckpt.load_digest_cache()
         start_step = manifest["step"]
         reader_state = manifest["extra"].get("reader")
-        if not args.quiet:
+        if not quiet:
             print(f"[resume] blob={ckpt.blob_id} step={start_step}")
     except (FileNotFoundError, KeyError):
         state = builder.init_state(torch.Generator(device=args.device).manual_seed(0))
@@ -130,13 +167,13 @@ def main(argv=None) -> dict:
                          {"tokens": tokens, "labels": labels})
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
-        if not args.quiet and (step % 10 == 0 or step == args.steps - 1):
+        if not quiet and (step % 10 == 0 or step == args.steps - 1):
             print(f"step {step:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f}")
         if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
             stats = ckpt.save(state, step=step + 1,
                               extra={"reader": reader.state_dict()})
-            if not args.quiet:
+            if not quiet:
                 print(f"[ckpt] v{stats.version} step {stats.step} "
                       f"wrote {stats.pages_written}/{stats.pages_total} pages "
                       f"(sharing {stats.sharing_fraction:.0%})")
@@ -144,11 +181,16 @@ def main(argv=None) -> dict:
     return {
         "losses": losses, "wall_s": wall, "ckpt_blob": ckpt.blob_id,
         "corpus_blob": writer.blob_id, "final_step": args.steps,
-        "service": svc, "client": client, "state": state,
+        "service": svc, "client": client, "state": state, "rank": rank,
     }
 
 
 if __name__ == "__main__":
     out = main()
-    print(f"done: {len(out['losses'])} steps in {out['wall_s']:.1f}s, "
-          f"final loss {out['losses'][-1]:.4f}")
+    if out["rank"] == 0:
+        print(f"done: {len(out['losses'])} steps in {out['wall_s']:.1f}s, "
+              f"final loss {out['losses'][-1]:.4f}")
+    if "RANK" in os.environ:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()

@@ -24,10 +24,12 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.axes import constrain
+from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import _remat
-from repro_torch.models.param_util import index_tree, normal, stack_trees
+from repro_torch.models.param_util import index_tree, leaf, normal, stack_trees
 
 # ---------------------------------------------------------------------------
 # blocks
@@ -59,7 +61,7 @@ def _apply_enc_block(p, cfg: ModelConfig, x, positions):
     y, _ = L.apply_attention(p["attn"], cfg, h, positions, causal=False)
     x = x + y
     h = L.apply_norm(p["norm2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h)
+    return constrain(x + L.apply_mlp(p["mlp"], cfg, h), "batch", None, "embed_act")
 
 
 def _apply_dec_block(p, cfg: ModelConfig, x, positions, memory_kv, cache):
@@ -69,7 +71,7 @@ def _apply_dec_block(p, cfg: ModelConfig, x, positions, memory_kv, cache):
     h = L.apply_norm(p["norm_x"], cfg, x)
     x = x + L.apply_cross_attention(p["cross"], cfg, h, memory_kv)
     h = L.apply_norm(p["norm2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h), new_cache
+    return constrain(x + L.apply_mlp(p["mlp"], cfg, h), "batch", None, "embed_act"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -81,13 +83,15 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random parameters on ``gen``'s device, drawn from ``gen``."""
     dt = L.torch_dtype(cfg)
     return {
-        "embed": {"table": normal(gen, (cfg.vocab_size, cfg.d_model), dt)},
+        "embed": {"table": leaf(normal(gen, (cfg.vocab_size, cfg.d_model), dt),
+                                "vocab", "embed")},
         "enc_blocks": stack_trees([_init_enc_block(gen, cfg, dt)
                                    for _ in range(cfg.n_enc_layers)]),
         "enc_norm": L.init_norm(cfg, gen.device),
         "dec_blocks": stack_trees([_init_dec_block(gen, cfg, dt) for _ in range(cfg.n_layers)]),
         "final_norm": L.init_norm(cfg, gen.device),
-        "lm_head": {"w": normal(gen, (cfg.d_model, cfg.vocab_size), dt)},
+        "lm_head": {"w": leaf(normal(gen, (cfg.d_model, cfg.vocab_size), dt),
+                              "embed", "vocab")},
     }
 
 
@@ -95,7 +99,7 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
            remat_policy: str = "none") -> torch.Tensor:
     """enc_embeds: (B, S_enc, D) stub frontend output, cast to the model's
     dtype.  ``remat_policy`` wraps each encoder layer (``lm._remat``)."""
-    x = enc_embeds.to(L.torch_dtype(cfg))
+    x = constrain(enc_embeds.to(L.torch_dtype(cfg)), "batch", None, "embed_act")
     positions = torch.arange(x.shape[1], device=x.device)
     body = _remat(lambda x, i: _apply_enc_block(index_tree(params["enc_blocks"], i), cfg, x,
                                                 positions), remat_policy)
@@ -110,6 +114,9 @@ def cross_memories(params, cfg: ModelConfig,
     (n_dec, B, Hkv, S_enc, Dh), contiguous: layer i's memory is the
     view ``K[i]``, ``V[i]``.  Each layer's projection is written into the
     stacks as it is made, so no second copy of the stacks is ever held."""
+    if is_distributed(enc_out):
+        raise NotImplementedError("the encoder-decoder's stacked cross-attention memories "
+                                  "under a mesh: serving it waits for a later slice")
     B, S = enc_out.shape[:2]
     wk = params["dec_blocks"]["cross"]["wk"]
     shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
@@ -151,7 +158,8 @@ def encdec_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none
     labels < 0).  Next-token CE plus the z-loss ``1e-4 * mean(lse^2)``;
     returns (loss, metrics)."""
     enc_out = encode(params, cfg, batch["enc_embeds"], remat_policy)
-    logits = decode_train(params, cfg, batch["tokens"], enc_out, remat_policy).float()
+    logits = decode_train(params, cfg, batch["tokens"], enc_out, remat_policy)
+    logits = constrain(logits, "batch", None, "vocab_act").float()
     labels = batch["labels"]
     mask = (labels >= 0).float()
     lbl = labels.clamp_min(0).long()

@@ -10,6 +10,12 @@ as ``layers.py:257`` of the reference), online-softmax attention above it
 (``kernels.ops.flash_attention``: the CUDA kernel on the card, the
 chunked plain version on the CPU; the reference's
 ``_blockwise_attention``), and dense scores over the cache for decode.
+
+Under a mesh (``distributed``: parameters, batch and caches are
+DTensors) the ``constrain`` calls sit where the reference's do, attention
+runs on each rank's local q, k, v (``_local_attention``: the CUDA
+kernels read plain tensors) and the cache writes are local; a decode
+step under ``tp_serve_sm`` goes to ``decode_attn.sharded_decode_attention``.
 """
 
 from __future__ import annotations
@@ -19,10 +25,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import partitioning as PT
+from repro_torch.distributed.axes import constrain
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param_util import normal, ones, zeros
+from repro_torch.models.param_util import leaf, normal, ones, zeros
 
 # Above this many kv positions attention is blockwise (online softmax),
 # as in the reference; the plain version walks the keys in slices of
@@ -43,11 +52,11 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_norm(cfg: ModelConfig, device) -> Dict:
     if cfg.norm_kind == "rmsnorm":
-        return {"scale": ones((cfg.d_model,), torch.float32, device)}
+        return {"scale": leaf(ones((cfg.d_model,), torch.float32, device), "embed")}
     if cfg.norm_kind == "layernorm":
         return {
-            "scale": ones((cfg.d_model,), torch.float32, device),
-            "bias": zeros((cfg.d_model,), torch.float32, device),
+            "scale": leaf(ones((cfg.d_model,), torch.float32, device), "embed"),
+            "bias": leaf(zeros((cfg.d_model,), torch.float32, device), "embed"),
         }
     if cfg.norm_kind == "nonparam_ln":  # OLMo: no learnable affine
         return {}
@@ -90,9 +99,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    p = {"wi": normal(gen, (d, f), dtype), "wo": normal(gen, (f, d), dtype)}
+    p = {"wi": leaf(normal(gen, (d, f), dtype), "embed", "mlp"),
+         "wo": leaf(normal(gen, (f, d), dtype), "mlp", "embed")}
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        p["wg"] = normal(gen, (d, f), dtype)
+        p["wg"] = leaf(normal(gen, (d, f), dtype), "embed", "mlp")
     return p
 
 
@@ -105,6 +115,7 @@ def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ p["wg"], approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
+    h = constrain(h, "batch", None, "mlp_act")
     return h @ p["wo"]
 
 
@@ -118,18 +129,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, cross: bool = 
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = gen.device
     p = {
-        "wq": normal(gen, (d, h, dh), dtype),
-        "wk": normal(gen, (d, hkv, dh), dtype),
-        "wv": normal(gen, (d, hkv, dh), dtype),
-        "wo": normal(gen, (h, dh, d), dtype),
+        "wq": leaf(normal(gen, (d, h, dh), dtype), "embed", "q_heads", "head"),
+        "wk": leaf(normal(gen, (d, hkv, dh), dtype), "embed", "kv_heads", "head"),
+        "wv": leaf(normal(gen, (d, hkv, dh), dtype), "embed", "kv_heads", "head"),
+        "wo": leaf(normal(gen, (h, dh, d), dtype), "q_heads", "head", "embed"),
     }
     if cfg.qkv_bias and not cross:
-        p["bq"] = zeros((h, dh), dtype, dev)
-        p["bk"] = zeros((hkv, dh), dtype, dev)
-        p["bv"] = zeros((hkv, dh), dtype, dev)
+        p["bq"] = leaf(zeros((h, dh), dtype, dev), "q_heads", "head")
+        p["bk"] = leaf(zeros((hkv, dh), dtype, dev), "kv_heads", "head")
+        p["bv"] = leaf(zeros((hkv, dh), dtype, dev), "kv_heads", "head")
     if cfg.qk_norm and not cross:
-        p["q_scale"] = ones((dh,), torch.float32, dev)
-        p["k_scale"] = ones((dh,), torch.float32, dev)
+        p["q_scale"] = leaf(ones((dh,), torch.float32, dev), "head")
+        p["k_scale"] = leaf(ones((dh,), torch.float32, dev), "head")
     return p
 
 
@@ -164,8 +175,13 @@ def attention_core(q, k, v, *, causal, window, q_offset, softcap,
 
     ``kv_positions``: absolute positions of cache slots for decode
     (entries < 0 are empty slots).  When given, masking uses positions
-    (``q_positions``) rather than indices.
+    (``q_positions``) rather than indices.  DTensor inputs run on each
+    rank's local slices (``_local_attention``).
     """
+    if PT.is_distributed(q):
+        return _local_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                softcap=softcap, kv_positions=kv_positions,
+                                q_positions=q_positions)
     Tk = k.shape[2]
     if kv_positions is not None:
         # decode: scores against the cache.  The reference multiplies the
@@ -194,6 +210,80 @@ def attention_core(q, k, v, *, causal, window, q_offset, softcap,
                          softcap=softcap)
 
 
+def _local_attention(q, k, v, *, kv_positions, **kw):
+    """``attention_core`` on each rank's local q, k, v, the output rebuilt
+    as a DTensor split as q is.
+
+    q keeps its batch and head splits (anything else is gathered); k and
+    v follow its batch split, and its head split where kv_heads divides
+    that axis.  Where it does not (``spec_for``'s guard replicated k and
+    v), each rank takes the kv heads its local q heads read: a slice of
+    ``group = Hq / Hkv`` consecutive q heads reads one kv head.  Those
+    gradients of k and v are partial sums over the ranks."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = q.device_mesh
+    B, Hq, Tq, D = q.shape
+    Hkv = k.shape[1]
+    qp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in q.placements)
+    even = all(Hkv % mesh.size(i) == 0 for i, p in enumerate(qp) if p.is_shard(1))
+    kvp = tuple(p if p.is_shard(0) or (even and p.is_shard(1)) else Replicate() for p in qp)
+    grad_p = tuple(Partial() if p.is_shard(1) and not even else kp for p, kp in zip(qp, kvp))
+    ql = q.redistribute(mesh, qp).to_local()
+    kl, vl = (t.redistribute(mesh, kvp).to_local(grad_placements=grad_p) for t in (k, v))
+    if not even:
+        h0, hl = PT.local_range(mesh, qp, 1, Hq)
+        group = Hq // Hkv
+        if not (group % hl == 0 or hl % group == 0):
+            raise NotImplementedError(
+                f"{hl} local q heads of {Hq} do not map onto whole groups of {group} "
+                f"over {Hkv} kv heads")
+        lo, n = h0 // group, max(hl // group, 1)
+        kl, vl = kl[:, lo:lo + n], vl[:, lo:lo + n]
+    if isinstance(kv_positions, DTensor):
+        kv_positions = kv_positions.full_tensor()
+    out = attention_core(ql, kl, vl, kv_positions=kv_positions, **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor) -> None:
+    """Slot invariant: position pos lives at slot pos % cache_len.  Only
+    the last cache_len positions can survive, so a prefill longer than a
+    window-limited cache writes its last cache_len positions, which lands
+    the window rolled into place (the reference's jnp.roll branch); a
+    shorter prefill or a decode step is the reference's contiguous write.
+    The write is in place.  A DTensor cache is written on each rank's own
+    slices: the new K, V split as the cache is over batch and heads, and
+    over a split sequence each rank writes the slots it holds."""
+    cache_len = cache["k"].shape[2]
+    pw = positions[-cache_len:]
+    slots = pw % cache_len
+    kw, vw = k[:, :, -cache_len:], v[:, :, -cache_len:]
+    if PT.is_distributed(cache["k"]):
+        from torch.distributed.tensor import Replicate
+
+        mesh, cp = cache["k"].device_mesh, cache["k"].placements
+        kp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in cp)
+        kw, vw = (t.redistribute(mesh, kp).to_local() for t in (kw, vw))
+        cache["pos"].to_local().index_copy_(0, slots, pw)
+        if any(p.is_shard(2) for p in cp):
+            off, n = PT.local_range(mesh, cp, 2, cache_len)
+            mine = (slots >= off) & (slots < off + n)
+            slots, kw, vw = slots[mine] - off, kw[:, :, mine], vw[:, :, mine]
+        ck, cv = cache["k"].to_local(), cache["v"].to_local()
+    else:
+        ck, cv = cache["k"], cache["v"]
+        cache["pos"].index_copy_(0, slots, pw)
+    ck.index_copy_(2, slots, kw.to(ck.dtype))
+    cv.index_copy_(2, slots, vw.to(cv.dtype))
+
+
+def _use_shard_decode() -> bool:
+    rules, mesh = AX.current_rules(), AX.current_mesh()
+    return bool(rules and rules.get(PT.SHARD_DECODE_FLAG)
+                and mesh is not None and "model" in AX.mesh_axis_names(mesh))
+
+
 def apply_attention(
     p: Dict,
     cfg: ModelConfig,
@@ -207,23 +297,23 @@ def apply_attention(
     window = cfg.window if kind in ("local", "swa") else None
     is_decode = cache is not None and x.shape[1] == 1
     q, k, v = _project_qkv(p, cfg, x, positions)
+    q = constrain(q, "batch", "heads_act", None, None)
+    k = constrain(k, "batch", "kv_act", None, None)
+    v = constrain(v, "batch", "kv_act", None, None)
+
+    if is_decode and _use_shard_decode():
+        from repro_torch.distributed.decode_attn import sharded_decode_attention
+
+        out, new_cache = sharded_decode_attention(
+            AX.current_mesh(), q, cache, k, v, positions,
+            causal=causal, window=window, softcap=cfg.softcap)
+        return torch.einsum("bhtk,hkd->btd", out, p["wo"]), new_cache
 
     new_cache = None
     kv_positions = None
     if cache is not None:
-        # Slot invariant: position pos lives at slot pos % cache_len.  Only
-        # the last cache_len positions can survive, so a prefill longer
-        # than a window-limited cache writes its last cache_len positions,
-        # which lands the window rolled into place (the reference's
-        # jnp.roll branch); a shorter prefill or a decode step is the
-        # reference's contiguous write.  The write is in place: the
-        # caller's cache tensors are updated and returned.
-        cache_len = cache["k"].shape[2]
-        pw = positions[-cache_len:]
-        slots = pw % cache_len
-        cache["k"].index_copy_(2, slots, k[:, :, -cache_len:].to(cache["k"].dtype))
-        cache["v"].index_copy_(2, slots, v[:, :, -cache_len:].to(cache["v"].dtype))
-        cache["pos"].index_copy_(0, slots, pw)
+        # the caller's cache tensors are updated in place and returned
+        _write_cache(cache, k, v, positions)
         new_cache = cache
         if is_decode:
             # decode: attend over the cache (positions mask empty slots)

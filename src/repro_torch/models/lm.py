@@ -29,11 +29,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.axes import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param_util import index_tree, normal, stack_trees
+from repro_torch.models.param_util import index_tree, leaf, normal, stack_trees
 
 ATTN_KINDS = ("attn", "local", "swa")
 RECURRENT = {"rglru": (R.init_rglru, R.apply_rglru, R.init_rglru_state),
@@ -79,7 +80,7 @@ def apply_block(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         else:
             y2 = L.apply_mlp(p["ffn"], cfg, h2)
         x = x + y2
-    return x, new_cache, aux
+    return constrain(x, "batch", None, "embed_act"), new_cache, aux
 
 
 def init_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
@@ -113,11 +114,13 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     dt = L.torch_dtype(cfg)
     n_groups, rest = _pattern_layout(cfg)
     tree: Dict = {
-        "embed": {"table": normal(gen, (cfg.vocab_size, cfg.d_model), dt)},
+        "embed": {"table": leaf(normal(gen, (cfg.vocab_size, cfg.d_model), dt),
+                                "vocab", "embed")},
         "final_norm": L.init_norm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = {"w": normal(gen, (cfg.d_model, cfg.vocab_size), dt)}
+        tree["lm_head"] = {"w": leaf(normal(gen, (cfg.d_model, cfg.vocab_size), dt),
+                                     "embed", "vocab")}
     tree["groups"] = [
         stack_trees([init_block(gen, cfg, kind) for _ in range(n_groups)])
         for kind in (cfg.block_pattern if n_groups > 0 else ())
@@ -137,13 +140,13 @@ def _embed(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
         # the stub frontend's embeddings replace the first n positions
         fe = batch["vision_embeds"].to(x.dtype)
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
-    return x
+    return constrain(x, "batch", None, "embed_act")
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.apply_norm(params["final_norm"], cfg, x)
     w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    return x @ w
+    return constrain(x @ w, "batch", None, "vocab_act")
 
 
 def _layers(params, cfg: ModelConfig):

@@ -22,17 +22,19 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.axes import constrain
+from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param_util import normal
+from repro_torch.models.param_util import leaf, normal
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": normal(gen, (d, e), torch.float32),
-        "wi": normal(gen, (e, d, f), dtype),
-        "wg": normal(gen, (e, d, f), dtype),
-        "wo": normal(gen, (e, f, d), dtype),
+        "router": leaf(normal(gen, (d, e), torch.float32), "embed", "experts"),
+        "wi": leaf(normal(gen, (e, d, f), dtype), "experts", "embed", "mlp"),
+        "wg": leaf(normal(gen, (e, d, f), dtype), "experts", "embed", "mlp"),
+        "wo": leaf(normal(gen, (e, f, d), dtype), "experts", "mlp", "embed"),
     }
 
 
@@ -64,6 +66,10 @@ def route(p: Dict, cfg: ModelConfig, x: torch.Tensor):
 def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) -> (out, aux_loss)."""
     B0, T0, D = x.shape
+    if is_distributed(x) and x.requires_grad and x.device_mesh.size() > 1:
+        raise NotImplementedError(
+            "the MoE FFN's backward over more than one rank: DTensor's backward of the "
+            "dispatch einsums views a non-contiguous local tensor")
     if cfg.moe_group is not None and T0 > cfg.moe_group and T0 % cfg.moe_group == 0:
         # re-group tokens: dispatch cost drops from O(T^2) to O(T*group)
         x = x.reshape(B0 * (T0 // cfg.moe_group), cfg.moe_group, D)
@@ -83,9 +89,11 @@ def apply_moe(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor,
     combine = dispatch * weight[..., None]                     # (B,T,E,C)
 
     xin = torch.einsum("btec,btd->becd", dispatch.to(x.dtype), x)   # (B,E,C,D)
+    xin = constrain(xin, "batch", "experts_act", None, None)
     h = torch.einsum("becd,edf->becf", xin, p["wi"])
     g = F.silu(torch.einsum("becd,edf->becf", xin, p["wg"]))
     eout = torch.einsum("becf,efd->becd", h * g, p["wo"])            # (B,E,C,D)
+    eout = constrain(eout, "batch", "experts_act", None, None)
     out = torch.einsum("btec,becd->btd", combine.to(x.dtype), eout)
 
     # auxiliary load-balance loss (Switch eq. 4)

@@ -1,16 +1,42 @@
 """Parameter initialisers on an explicit generator and device.
 
-The JAX package pairs every leaf with logical sharding axes; the port
-runs on one device with no mesh, so its leaves are bare tensors.  Each
-initialiser draws from the ``torch.Generator`` it is given and allocates
-on that generator's device.
+Each initialiser draws from the ``torch.Generator`` it is given and
+allocates on that generator's device.  The init functions return trees of
+bare tensors; each leaf is tagged with its logical sharding axes by
+:func:`leaf` (the reference pairs them as ``(array, axes)``), and
+:func:`axes_tree` reads the tags back as the reference's axes twin tree,
+which the partitioner (``distributed.partitioning``) maps onto a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
+
+AXES_ATTR = "logical_axes"
+
+
+def leaf(t: torch.Tensor, *axes) -> torch.Tensor:
+    """Tag ``t`` with one logical axis name (or None) per dimension and
+    return it."""
+    if t.ndim != len(axes):
+        raise ValueError(f"shape {tuple(t.shape)} vs axes {axes}")
+    setattr(t, AXES_ATTR, tuple(axes))
+    return t
+
+
+def axes_of(t: torch.Tensor) -> Tuple:
+    axes = getattr(t, AXES_ATTR, None)
+    if axes is None:
+        raise ValueError(f"a {tuple(t.shape)} leaf carries no logical axes")
+    return axes
+
+
+def axes_tree(tree):
+    """The logical axes of every leaf of a freshly initialised tree, in a
+    twin tree of dicts and lists with tuple leaves."""
+    return tree_map(axes_of, tree)
 
 
 def normal(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
@@ -29,13 +55,17 @@ def ones(shape: Sequence[int], dtype: torch.dtype, device) -> torch.Tensor:
 
 def stack_trees(trees: List[Dict]) -> Dict:
     """Stack identically-structured dicts of tensors along a new axis 0
-    (the per-group layer axis of ``lm``'s pattern groups)."""
+    (the per-group layer axis of ``lm``'s pattern groups); a tagged
+    leaf's axes gain a leading ``"layers"``."""
     out = {}
     for key, first in trees[0].items():
         if isinstance(first, dict):
             out[key] = stack_trees([t[key] for t in trees])
         else:
             out[key] = torch.stack([t[key] for t in trees])
+            axes = getattr(first, AXES_ATTR, None)
+            if axes is not None:
+                leaf(out[key], "layers", *axes)
     return out
 
 

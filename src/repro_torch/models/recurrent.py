@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param_util import normal, ones, zeros
+from repro_torch.models.param_util import leaf, normal, ones, zeros
 
 # ---------------------------------------------------------------------------
 # temporal conv
@@ -48,14 +48,14 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     d, r, w = cfg.d_model, cfg.rnn_width, cfg.conv_width
     lam = torch.linspace(0.001, 0.1, r, dtype=torch.float32, device=gen.device)
     return {
-        "wx": normal(gen, (d, r), dtype),
-        "wy": normal(gen, (d, r), dtype),
-        "conv": normal(gen, (w, r), dtype, scale=0.1),
-        "w_a": normal(gen, (r, r), dtype),
-        "w_i": normal(gen, (r, r), dtype),
+        "wx": leaf(normal(gen, (d, r), dtype), "embed", "rnn"),
+        "wy": leaf(normal(gen, (d, r), dtype), "embed", "rnn"),
+        "conv": leaf(normal(gen, (w, r), dtype, scale=0.1), "conv", "rnn"),
+        "w_a": leaf(normal(gen, (r, r), dtype), "rnn", "rnn_gate"),
+        "w_i": leaf(normal(gen, (r, r), dtype), "rnn", "rnn_gate"),
         # Λ init so that a = exp(-8 softplus(Λ) r) starts near 0.9..0.999
-        "lam": torch.log(torch.expm1(lam)),
-        "wo": normal(gen, (r, d), dtype),
+        "lam": leaf(torch.log(torch.expm1(lam)), "rnn"),
+        "wo": leaf(normal(gen, (r, d), dtype), "rnn", "embed"),
     }
 
 
@@ -106,16 +106,16 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     dh = r // h
     dev = gen.device
     return {
-        "w_up": normal(gen, (d, 2 * r), dtype),
-        "conv": normal(gen, (cfg.conv_width, r), dtype, scale=0.1),
-        "wq": normal(gen, (r, h, dh), dtype),
-        "wk": normal(gen, (r, h, dh), dtype),
-        "wv": normal(gen, (r, h, dh), dtype),
-        "w_if": normal(gen, (r, 2 * h), torch.float32),
-        "b_if": torch.cat([zeros((h,), torch.float32, dev),
-                           3.0 * ones((h,), torch.float32, dev)]),
-        "o_norm": ones((h, dh), torch.float32, dev),
-        "w_down": normal(gen, (r, d), dtype),
+        "w_up": leaf(normal(gen, (d, 2 * r), dtype), "embed", "rnn_up"),
+        "conv": leaf(normal(gen, (cfg.conv_width, r), dtype, scale=0.1), "conv", "rnn"),
+        "wq": leaf(normal(gen, (r, h, dh), dtype), "rnn", "q_heads", "head"),
+        "wk": leaf(normal(gen, (r, h, dh), dtype), "rnn", "q_heads", "head"),
+        "wv": leaf(normal(gen, (r, h, dh), dtype), "rnn", "q_heads", "head"),
+        "w_if": leaf(normal(gen, (r, 2 * h), torch.float32), "rnn", "gates"),
+        "b_if": leaf(torch.cat([zeros((h,), torch.float32, dev),
+                                3.0 * ones((h,), torch.float32, dev)]), "gates"),
+        "o_norm": leaf(ones((h, dh), torch.float32, dev), "q_heads", "head"),
+        "w_down": leaf(normal(gen, (r, d), dtype), "rnn", "embed"),
     }
 
 
@@ -219,10 +219,10 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
 def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     d, r = cfg.d_model, cfg.rnn_width
     return {
-        "w_in": normal(gen, (d, 4 * r), dtype),
-        "r_rec": normal(gen, (r, 4 * r), dtype, scale=0.01),
-        "b": zeros((4 * r,), torch.float32, gen.device),
-        "w_out": normal(gen, (r, d), dtype),
+        "w_in": leaf(normal(gen, (d, 4 * r), dtype), "embed", "rnn_gates"),
+        "r_rec": leaf(normal(gen, (r, 4 * r), dtype, scale=0.01), "rnn", "rnn_gates"),
+        "b": leaf(zeros((4 * r,), torch.float32, gen.device), "rnn_gates"),
+        "w_out": leaf(normal(gen, (r, d), dtype), "rnn", "embed"),
     }
 
 

@@ -13,11 +13,14 @@ the cross-attention memories, which its decode step takes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Tuple
+
+import torch
 
 from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.param_util import axes_tree
 
 
 @dataclass
@@ -28,6 +31,16 @@ class Model:
     init_cache: Callable    # (batch, max_len, device="cuda") -> cache
     prefill: Callable       # (params, batch, cache) -> (logits, cache[, memories])
     decode_step: Callable   # (params, token, pos, cache[, memories]) -> (logits, cache)
+
+    def abstract(self) -> Tuple[Any, Any]:
+        """(abstract_params, axes) without allocating: the init runs on
+        fake tensors (shapes and dtypes only), and the axes tree is read
+        from the tags its leaves carry (``param_util.leaf``)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            params = self.init(torch.Generator())
+        return params, axes_tree(params)
 
 
 def build_model(cfg: ModelConfig) -> Model:

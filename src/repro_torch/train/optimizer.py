@@ -9,7 +9,11 @@ parameter.  Global-norm clipping and the warmup-cosine schedule follow
 Unlike the reference's pure functions, :func:`adamw_update` updates the
 moments, the master copy, the count and the parameters in place and
 returns the same objects: at full width this saves a second copy of the
-16.5 GB state on the card.
+16.5 GB state on the card.  Under a mesh the parameters and moments are
+DTensors with the same placements: each gradient is first redistributed
+to its parameter's placements (a reduce-scatter where it is a partial
+sum), the global norm is summed over the whole tensors, and the update
+runs on each rank's local shards.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.partitioning import full, is_distributed
 from repro_torch.models.param_util import tree_leaves, tree_map
 
 
@@ -49,20 +54,23 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def adamw_init(params) -> Dict[str, Any]:
     """Zero moments, an fp32 master copy and an int32 count, on the
-    parameters' device."""
+    parameters' device (placed as the parameters are, under a mesh; the
+    count is a plain tensor, the same on every rank)."""
     device = next(iter(tree_leaves(params))).device
     return {
-        "mu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       params),
-        "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       params),
+        "mu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+        "nu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
         "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
         "count": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_distributed(t) else t
+
+
 def global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(x.float()))
+    return torch.sqrt(torch.sum(torch.stack([full(torch.sum(torch.square(x.float())))
                                              for x in leaves])))
 
 
@@ -80,6 +88,8 @@ def adamw_update(
     flat_ma = list(tree_leaves(opt_state["master"]))
     if not len(flat_g) == len(flat_p) == len(flat_mu) == len(flat_nu) == len(flat_ma):
         raise ValueError("grads, params and optimizer state differ in structure")
+    flat_g = [g.redistribute(p.device_mesh, p.placements) if is_distributed(p) else g
+              for g, p in zip(flat_g, flat_p)]
     count = opt_state["count"]
     count.add_(1)
     gnorm = global_norm(flat_g)
@@ -89,7 +99,8 @@ def adamw_update(
     lr = schedule(cfg, count)
     b1c = 1 - torch.pow(cfg.b1, count.float())
     b2c = 1 - torch.pow(cfg.b2, count.float())
-    for g, p, mu, nu, master in zip(flat_g, flat_p, flat_mu, flat_nu, flat_ma):
+    for leaves in zip(flat_g, flat_p, flat_mu, flat_nu, flat_ma):
+        g, p, mu, nu, master = (_local(t) for t in leaves)
         g = g.float()
         if scale is not None:
             g = g * scale

@@ -17,6 +17,9 @@ associative scan, and its einsums sum in another order, so the two agree
 to float32 rounding accumulated over a few layers, not bit for bit.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 
@@ -201,10 +204,41 @@ def test_decode_matches_teacher_forcing():
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_unported_paths_raise(what):
-    """What the port still lacks raises: a device mesh other than 1x1."""
+    """A mesh other than 1x1 without its launcher raises, naming the
+    launcher (``test_launch_train_under_the_launcher`` runs it)."""
     from repro_torch.launch.train import main as train_main
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         train_main(["--mesh", "2x1", "--device", "cpu", "--quiet"])
+
+
+def test_launch_train_under_the_launcher(tmp_path):
+    """``launch.train --mesh 2x1 --strategy tp_fsdp --device cpu`` trains
+    under ``torch.distributed.run`` (two gloo ranks, checkpoints written
+    by rank 0): its losses are the one-device run's within 1e-5."""
+    import socket
+    import subprocess
+    import sys
+
+    from repro_torch.launch.train import main as train_main
+
+    args = ["--device", "cpu", "--steps", "6", "--ckpt-every", "3", "--seq", "32",
+            "--batch", "4", "--quiet"]
+    want = train_main(args)["losses"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(os.path.dirname(here), "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+         "--master-addr", "localhost", "--master-port", str(port),
+         os.path.join(here, "torch_mesh_worker.py"), "train-main", str(tmp_path / "losses.json"),
+         *args, "--mesh", "2x1", "--strategy", "tp_fsdp"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    got = json.loads((tmp_path / "losses.json").read_text())
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-1b-a400m", "xlstm-350m",

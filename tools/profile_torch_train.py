@@ -4,7 +4,8 @@
 Builds a full-width model (``--arch``, olmo-1b by default) in bf16 with
 its fp32 AdamW state (random weights from a seed) and the
 rematerialisation policy ``--remat`` (``none`` by default), takes two
-warm-up steps at batch 2 x 2048 tokens,
+warm-up steps at batch 2 x 2048 tokens (and, for the encoder-decoder,
+2 x 2048 stub frontend frames from numpy),
 then traces one step with ``torch.profiler``: wall time, device time
 summed over kernels, the device's idle share and the kernels that take
 the most device time.  Then it runs a full checkpoint save and a
@@ -89,7 +90,8 @@ def main(argv=None) -> int:
     print(f"device: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"train: {args.arch}, remat {args.remat}, batch {BATCH} x {SEQ}")
-    builder = TrainStepBuilder(build_model(get_config(args.arch)),
+    cfg = get_config(args.arch)
+    builder = TrainStepBuilder(build_model(cfg),
                                opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100),
                                remat_policy=args.remat)
     state = builder.init_state(torch.Generator(device="cuda").manual_seed(0))
@@ -97,6 +99,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(1)
     toks = torch.as_tensor(rng.integers(0, 259, (BATCH, SEQ + 1)), device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.arch_kind == "encdec":
+        # the encoder's input: stub frontend frames, as many as tokens
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((BATCH, SEQ, cfg.d_model), dtype=np.float32)).to("cuda")
     for _ in range(2):                      # warm-up: cuBLAS handles, allocator
         state, _ = step(state, batch)
     torch.cuda.synchronize()
