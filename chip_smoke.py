@@ -115,9 +115,32 @@ Phases (each one's failure fails the run):
    against its own no-mesh run within rtol 2e-4, atol 2e-5 (4 + 4
    float32 launches); step, prefill and decode times and peaks beside
    the no-mesh ones;
-12. the ``kernels`` line: per kernel, its launches on its paths (serving
-   recurrentgemma-2b for ``linear_scan``, training and mesh training for
-   ``page_digest`` and ``delta_mask``, long-context, encoder-decoder and
+12. dry run: ``repro_torch.launch.dryrun`` in three processes at once
+   (their fake process groups apart from this one's NCCL group), on fake
+   tensors over a fake 256-rank 16 x 16 mesh: olmo-1b ``train_4k``
+   (``tp_fsdp``), qwen3-32b ``train_4k`` (both at one microbatch),
+   h2o-danube3-4b ``prefill_32k`` (``tp_serve``), granite-moe-1b-a400m
+   ``decode_32k``, recurrentgemma-2b ``long_500k``, and olmo-1b
+   ``train_4k`` over 512 ranks (2 x 16 x 16): each must be ``ok``; and a
+   (1, 1) record of the train phase's step (olmo-1b, 2 x 2048), whose
+   input bytes must equal the bytes the train phase's state and batch
+   hold on the card within 0.1 %, its temp-bytes estimate printed beside
+   that phase's measured peak;
+13. roofline vs card: for the olmo-1b train step at 2 x 2048 and the
+   h2o-danube3-4b prefill at 4 x 8192 of this run, the model FLOPs, the
+   cost model's roofline at (1, 1) with the H100's constants, the
+   measured time and model FLOPs / 989e12 / measured seconds; and the
+   host time of a call of ``ops.flash_attention`` (the custom-op
+   binding's fake-tensor check) against the kernel's wrapper at a
+   seamless decode step's shape;
+14. examples: ``examples/train_e2e_torch.py`` at its defaults with its
+   crash at step 150, and uninterrupted: the losses after the resume
+   equal bit for bit; ``examples/branch_experiments_torch.py``: each
+   fork adds no data page, the trunk restores byte-equal after the
+   branches; their saves launch ``page_digest`` and ``delta_mask``;
+15. the ``kernels`` line: per kernel, its launches on its paths (serving
+   recurrentgemma-2b for ``linear_scan``, training, mesh training and the
+   examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder and
    mesh serving for ``flash_attention_sm90``, the float32 long and
    encoder-decoder teacher forcing and the float32 mesh serve for
    ``flash_attention``; ``launches_by_path``),
@@ -151,6 +174,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -173,7 +197,11 @@ from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
                                      ref_linear_scan, ref_page_digest)
+from repro_torch.configs.shapes import ShapeCell  # noqa: E402
+from repro_torch.launch.costmodel import analytic_roofline  # noqa: E402
+from repro_torch.launch.hlo import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.specs import model_flops_for  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import synthesize_corpus  # noqa: E402
@@ -267,11 +295,10 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}              # tests/tes
 # float32 sums of the same products, so they may differ by one ulp
 # (<= 2^-7 |want|).  The floor covers outputs near zero.
 FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0 ** -7, 1e-4
-# H100 SXM data sheet: bf16 dense tensor-core rate (the least time of attention)
-BF16_FLOP_PER_S = 989e12
-# H100 SXM data sheet: HBM3 rate, and float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+# H100 SXM data sheet (``repro_torch.launch.hlo``, the cost model's constants):
+# bf16 dense tensor-core rate (the least time of attention), HBM3 rate, and
+# the float32 rate outside the tensor cores
+BF16_FLOP_PER_S, HBM_BYTES_PER_S, F32_FLOP_PER_S = PEAK_FLOPS, HBM_BW, F32_FLOPS
 # The digest and the mask do 32-bit integer work on the CUDA cores; the
 # data sheet gives no integer rate outside the tensor cores, so their
 # operations are counted against its CUDA-core (float32) rate.  Both
@@ -864,6 +891,7 @@ def phase_train(state):
         tokens, labels = reader.next_batch()
         batch = {"tokens": torch.as_tensor(tokens, device="cuda"),
                  "labels": torch.as_tensor(labels, device="cuda")}
+        batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         train_state, metrics = step_fn(train_state, batch)
@@ -932,6 +960,7 @@ def phase_train(state):
         "peak_gib": peak / 2**30, "step_peak_gib": step_peak / 2**30,
         "host_rss_gib": host_rss_gib(), "pages": st1.pages_total,
         "state_gb": state_bytes / 1e9, "state_digest_ms": scan_ms,
+        "arg_bytes": state_bytes + batch_bytes,
         "state_digest_bound_ms": padded / HBM_BYTES_PER_S * 1e3,
     }
     t = state["train"]
@@ -1055,10 +1084,12 @@ def phase_kernel_times(state):
         "source": "src/repro_torch/kernels/csrc/page_digest.cu",
         "replaces": "src/repro/kernels/page_digest.py:85",
         "launches": state["train_launches"]["page_digest"]
-        + state["mesh_train_launches"]["page_digest"],
+        + state["mesh_train_launches"]["page_digest"]
+        + state["examples_launches"]["page_digest"],
         "launches_by_path": {f"{TRAIN_ARCH} train": state["train_launches"]["page_digest"],
                              f"{TRAIN_ARCH} mesh train":
-                                 state["mesh_train_launches"]["page_digest"]},
+                                 state["mesh_train_launches"]["page_digest"],
+                             "examples": state["examples_launches"]["page_digest"]},
         "max_abs_err": max(state["digest_err"], digest_case(leaf, CKPT_PSIZE)),
         "ms": cuda_ms(lambda: page_digest_cuda(data, CKPT_PSIZE), reps=20),
         "plain_ms": cuda_ms(lambda: ref_page_digest(ops.as_page_words(data, CKPT_PSIZE)),
@@ -1090,10 +1121,12 @@ def phase_kernel_times(state):
         "source": "src/repro_torch/kernels/csrc/delta_mask.cu",
         "replaces": "src/repro/kernels/delta_mask.py:29",
         "launches": state["train_launches"]["delta_mask"]
-        + state["mesh_train_launches"]["delta_mask"],
+        + state["mesh_train_launches"]["delta_mask"]
+        + state["examples_launches"]["delta_mask"],
         "launches_by_path": {f"{TRAIN_ARCH} train": state["train_launches"]["delta_mask"],
                              f"{TRAIN_ARCH} mesh train":
-                                 state["mesh_train_launches"]["delta_mask"]},
+                                 state["mesh_train_launches"]["delta_mask"],
+                             "examples": state["examples_launches"]["delta_mask"]},
         "max_abs_err": max(state["mask_err"], err),
         "ms": cuda_ms(lambda: delta_mask_cuda(new, old), reps=200),
         "plain_ms": cuda_ms(lambda: ref_delta_mask(new, old), reps=200),
@@ -1960,6 +1993,214 @@ def phase_train_encdec(state):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- launch tooling, examples
+
+# the dry run's cells on the card machine (``repro_torch.launch.dryrun``):
+# (arch, shape, mesh); train cells at one microbatch to keep the phase short
+DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
+                [("olmo-1b", "train_4k", "single"), ("olmo-1b", "train_4k", "multi")],
+                [("h2o-danube-3-4b", "prefill_32k", "single"),
+                 ("granite-moe-1b-a400m", "decode_32k", "single"),
+                 ("recurrentgemma-2b", "long_500k", "single")]]
+DRYRUN_TIMEOUT_S = 300
+ARG_BYTES_RTOL = 1e-3      # the (1, 1) record's inputs vs the train phase's state and batch
+# one process of the dry run: its cells, then (the last group) the (1, 1)
+# record of the train phase's step
+_DRYRUN_SCRIPT = """
+import functools, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch.dryrun import run_cell, trace_cell
+from repro_torch.launch.mesh import make_mesh
+cells, out, smoke = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3] == "1"
+for arch, shape, mesh in cells:
+    run_cell(arch, shape, mesh, "auto", out, accum=1 if shape.startswith("train") else None,
+             device="cuda", timeout_s=%d)
+if smoke:
+    rec = trace_cell(get_config(%r), ShapeCell("smoke_train", "train", %d, %d), 1,
+                     functools.partial(make_mesh, (1, 1), ("data", "model"), device="cuda"),
+                     "tp_fsdp", remat="none", accum=1, device="cuda")
+    with open(out + "/smoke_train_1x1.json", "w") as f:
+        json.dump(rec, f, default=str)
+""" % (DRYRUN_TIMEOUT_S, TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH)
+
+
+def phase_dry_run(state):
+    """The port's dry run of six cells on fake 256- and 512-rank meshes,
+    each group of cells in its own process (the fake process group must
+    not meet this process's NCCL group), the groups in parallel."""
+    out = os.path.join(ROOT, "experiments", "dryrun_torch", "smoke")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(cells), out,
+                               "1" if i == len(DRYRUN_CELLS) - 1 else "0"],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i, cells in enumerate(DRYRUN_CELLS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=2 * DRYRUN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a dry-run process exited {p.returncode}:\n{text[-3000:]}")
+    recs = []
+    for arch, shape, mesh in (c for group in DRYRUN_CELLS for c in group):
+        strategy = "tp_fsdp" if shape.startswith("train") else "tp_serve"
+        with open(os.path.join(out, f"{arch}_{shape}_{mesh}_{strategy}.json")) as f:
+            rec = json.load(f)
+        recs.append(rec)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: {rec['status']} "
+                                 f"{rec.get('error', '')[:1000]}")
+        m, rf = rec["memory"], rec["roofline"]
+        log(f"  dry run {arch} {shape} {mesh} {strategy} (accum {rec['accum']}): ok, build "
+            f"{rec['lower_s']} s, trace {rec['compile_s']} s; {(m['argument_bytes'] + m['temp_bytes']) / 2**30:.2f} "
+            f"GiB a device (args {m['argument_bytes'] / 2**30:.2f} + temp "
+            f"{m['temp_bytes'] / 2**30:.2f}); FLOPs traced {rec['cost_hlo_raw']['flops']:.4e} "
+            f"vs analytic {rf['flops_per_device']:.4e} a device; collectives "
+            f"{rec['collectives_hlo']['count_by_op']}; roofline {rf['step_time_s'] * 1e3:.2f} ms, "
+            f"{rf['bottleneck']} (H100 constants)")
+    with open(os.path.join(out, "smoke_train_1x1.json")) as f:
+        smoke = json.load(f)
+    got, want = smoke["memory"]["argument_bytes"], state["train"]["arg_bytes"]
+    log(f"  (1, 1) record of the train step ({TRAIN_ARCH} {TRAIN_BATCH}x{TRAIN_SEQ}, remat none): "
+        f"argument bytes {got} vs {want} held by the train phase's state and batch "
+        f"({got / want - 1:+.2e}); temp estimate {smoke['memory']['temp_bytes'] / 2**30:.2f} GiB, "
+        f"inputs + temp {(got + smoke['memory']['temp_bytes']) / 2**30:.2f} GiB vs the train "
+        f"phase's measured step peak {state['train']['step_peak_gib']:.2f} GiB; traced FLOPs "
+        f"{smoke['cost_hlo_raw']['flops']:.4e} vs analytic {smoke['roofline']['flops_per_device']:.4e}")
+    if abs(got / want - 1) > ARG_BYTES_RTOL:
+        raise AssertionError(f"(1, 1) argument bytes {got} vs {want}")
+    state["dry_run"] = {"cells": recs, "smoke": smoke}
+
+
+def phase_roofline_vs_card(state):
+    """Model FLOPs, the cost model's roofline at (1, 1) with the H100's
+    constants, and the measured time of two cells of this run: the
+    olmo-1b train step at 2 x 2048 and the h2o-danube3-4b prefill at
+    4 x 8192.  Then the host cost of the custom-op binding of attention
+    (``ops.flash_attention``'s fake-tensor check) at a decode step's shape."""
+    one = types.SimpleNamespace(shape={"data": 1, "model": 1})    # a (1, 1) mesh's sizes
+    cells = [
+        (TRAIN_ARCH, ShapeCell("smoke_train", "train", TRAIN_SEQ, TRAIN_BATCH), "tp",
+         min(state["train"]["step_ms"][1:]), "train phase, fastest warm step"),
+        (LONG_ARCH, ShapeCell("smoke_prefill", "prefill", LONG_PROMPT, LONG_BATCH), "tp_serve",
+         state["serve_long"]["prefill_ms"], "long-context serve, median of 3"),
+    ]
+    rows = []
+    for arch, cell, strategy, ms, what in cells:
+        cfg = get_config(arch)
+        mf = model_flops_for(cfg, cell)
+        roof = analytic_roofline(cfg, cell, one, strategy, remat="none", accum=1,
+                                 model_flops=mf)
+        rows.append({"arch": arch, "cell": dataclasses.asdict(cell), "model_flops": mf,
+                     "roofline_ms": roof.step_time_s * 1e3, "bottleneck": roof.bottleneck,
+                     "measured_ms": ms, "share": mf / BF16_FLOP_PER_S / (ms / 1e3)})
+        r = rows[-1]
+        log(f"  {arch} {cell.step} {cell.global_batch}x{cell.seq_len}: model FLOPs {mf:.4e}, "
+            f"roofline {r['roofline_ms']:.2f} ms ({r['bottleneck']}), measured {ms:.2f} ms "
+            f"({what}); model FLOPs / peak / measured = {r['share']:.2%}; on {state['smi']}")
+
+    # the binding's host cost: a real CUDA tensor goes past the fake check
+    # to the kernel; both issue the same launch, timed on the host
+    cfg = get_config(ENCDEC_ARCH)
+    q = torch.randn(ENCDEC_BATCH, cfg.n_heads, 1, cfg.head_dim, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn(ENCDEC_BATCH, cfg.n_kv_heads, 4096 + 8, cfg.head_dim, device="cuda",
+                    dtype=torch.bfloat16)
+    kw = dict(causal=False, window=None, q_offset=0, softcap=None)
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    with torch.inference_mode():
+        direct = [host_us(lambda: flash_attention_sm90_cuda(q, k, k, **kw)) for _ in range(3)]
+        bound = [host_us(lambda: ops.flash_attention(q, k, k, **kw)) for _ in range(3)]
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    t0 = time.perf_counter()
+    for _ in range(100_000):
+        isinstance(q, FakeTensor)
+    check_ns = (time.perf_counter() - t0) / 100_000 * 1e9
+    ops.reset_launch_counts()
+    binding = {"direct_us": sorted(direct)[1], "ops_us": sorted(bound)[1], "check_ns": check_ns,
+               "shape": [list(q.shape), list(k.shape)],
+               "seamless_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
+    log(f"  binding: ops.flash_attention {binding['ops_us']:.2f} us a call on the host vs the "
+        f"kernel's wrapper {binding['direct_us']:.2f} us (median of 3 x 200 calls, q "
+        f"{binding['shape'][0]}), of which the fake-tensor check is {check_ns:.1f} ns; x 24 "
+        f"a seamless decode step ({binding['seamless_decode_ms_per_step']:.2f} ms a step in "
+        f"this run)")
+    state["roofline_vs_card"] = {"cells": rows, "binding": binding}
+
+
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(state):
+    """The two example twins at their defaults on the card: the crash and
+    resume run's losses after the crash equal an uninterrupted run's bit
+    for bit; each fork adds no data page, and the trunk restores
+    byte-equal after branching.  Their checkpoint saves launch
+    ``page_digest`` and ``delta_mask``."""
+    train, branch = _example("train_e2e_torch"), _example("branch_experiments_torch")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    crashed = train.main(["--device", "cuda"])
+    t1 = time.perf_counter()
+    straight = train.main(["--device", "cuda", "--crash-at", "300"])
+    t2 = time.perf_counter()
+    out = branch.main(["--device", "cuda"])
+    t3 = time.perf_counter()
+    counts = ops.launch_counts()
+    state["examples_launches"] = counts
+    after = sorted(s for s in crashed["losses"] if s >= crashed["resumed_at"])
+    same = [crashed["losses"][s] == straight["losses"][s] for s in after]
+    log(f"  train_e2e_torch: {len(crashed['losses'])} steps, resumed at step "
+        f"{crashed['resumed_at']} ({t1 - t0:.1f} s); uninterrupted run ({t2 - t1:.1f} s); "
+        f"{sum(same)}/{len(same)} losses after the resume bit-equal; lineage "
+        f"{crashed['lineage']}")
+    if not after or not all(same) or not np.isfinite(list(crashed["losses"].values())).all():
+        raise AssertionError("the resumed losses differ from the uninterrupted run's")
+    for name, b in out["branches"].items():
+        log(f"  branch_experiments_torch {name}: fork added {b['fork_pages']} pages, saved "
+            f"{b['pages_written']}/{b['pages_total']} pages, loss {b['losses'][0]:.3f} -> "
+            f"{b['losses'][-1]:.3f}")
+        if b["fork_pages"] != 0:
+            raise AssertionError(f"{name}: the fork added {b['fork_pages']} pages")
+    pairs = list(zip(flatten_with_paths(out["trunk"]["state"]),
+                     flatten_with_paths(out["trunk_restored"])))
+    if not pairs or not all(ka == kb and torch.equal(ops.leaf_bytes(a), ops.leaf_bytes(b))
+                            for (ka, a), (kb, b) in pairs):
+        raise AssertionError("the trunk did not restore byte-equal after branching")
+    log(f"  trunk restored byte-equal ({out['trunk_elements']} elements) in {t3 - t2:.1f} s; "
+        f"launches {counts}")
+    if counts["page_digest"] == 0 or counts["delta_mask"] == 0:
+        raise AssertionError(f"the examples' saves launched {counts}")
+    state["examples"] = {"train_s": t1 - t0, "straight_s": t2 - t1, "branch_s": t3 - t2,
+                         "launches": counts}
+    torch.cuda.empty_cache()
+
+
 PHASES = [
     ("device", phase_device),
     ("build", phase_build),
@@ -1984,6 +2225,9 @@ PHASES = [
     ("mesh train and checkpoint", phase_mesh_train),
     ("mesh collective", phase_mesh_collective),
     ("mesh serve", phase_mesh_serve),
+    ("dry run", phase_dry_run),
+    ("roofline vs card", phase_roofline_vs_card),
+    ("examples", phase_examples),
     ("kernel times", phase_kernel_times),
 ]
 

@@ -72,8 +72,11 @@ def _paths(tree, prefix: Tuple[str, ...] = ()):
 
 def flatten_with_paths(tree) -> List[Tuple[str, torch.Tensor]]:
     """Leaves keyed by their ``"/"``-joined dict keys and list indices,
-    sorted by key (the reference's ``_flatten_with_paths``)."""
-    return sorted((("/".join(p), leaf) for p, leaf in _paths(tree)), key=lambda kv: kv[0])
+    sorted by key (the reference's ``_flatten_with_paths``).  A numpy
+    leaf (the scenario library's model state) comes as a tensor viewing
+    its memory."""
+    return sorted((("/".join(p), torch.from_numpy(leaf) if isinstance(leaf, np.ndarray) else leaf)
+                   for p, leaf in _paths(tree)), key=lambda kv: kv[0])
 
 
 def dtype_name(dtype: torch.dtype) -> str:

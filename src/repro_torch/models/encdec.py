@@ -28,7 +28,7 @@ from repro_torch.distributed.axes import constrain
 from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import _remat
+from repro_torch.models.lm import _remat, gold_logits
 from repro_torch.models.param_util import index_tree, leaf, normal, stack_trees
 
 # ---------------------------------------------------------------------------
@@ -59,7 +59,7 @@ def _init_dec_block(gen: torch.Generator, cfg: ModelConfig, dt) -> Dict:
 def _apply_enc_block(p, cfg: ModelConfig, x, positions):
     h = L.apply_norm(p["norm1"], cfg, x)
     y, _ = L.apply_attention(p["attn"], cfg, h, positions, causal=False)
-    x = x + y
+    x = constrain(x + y, "batch", None, "embed_act")     # whole before the norm (lm.apply_block)
     h = L.apply_norm(p["norm2"], cfg, x)
     return constrain(x + L.apply_mlp(p["mlp"], cfg, h), "batch", None, "embed_act")
 
@@ -67,9 +67,10 @@ def _apply_enc_block(p, cfg: ModelConfig, x, positions):
 def _apply_dec_block(p, cfg: ModelConfig, x, positions, memory_kv, cache):
     h = L.apply_norm(p["norm1"], cfg, x)
     y, new_cache = L.apply_attention(p["self"], cfg, h, positions, cache=cache)
-    x = x + y
+    x = constrain(x + y, "batch", None, "embed_act")     # whole before the norm (lm.apply_block)
     h = L.apply_norm(p["norm_x"], cfg, x)
-    x = x + L.apply_cross_attention(p["cross"], cfg, h, memory_kv)
+    x = constrain(x + L.apply_cross_attention(p["cross"], cfg, h, memory_kv),
+                  "batch", None, "embed_act")
     h = L.apply_norm(p["norm2"], cfg, x)
     return constrain(x + L.apply_mlp(p["mlp"], cfg, h), "batch", None, "embed_act"), new_cache
 
@@ -139,7 +140,8 @@ def decode_train(params, cfg: ModelConfig, tokens: torch.Tensor, enc_out: torch.
                  remat_policy: str = "none") -> torch.Tensor:
     """Teacher-forced decoder logits (B, T, vocab) over ``enc_out``; each
     layer's memory is recomputed inside its (rematerialised) body."""
-    x = params["embed"]["table"][tokens]
+    # whole over "model" (a lookup in a vocab-split table is a partial sum)
+    x = constrain(L.embed_lookup(params["embed"]["table"], tokens), "batch", None, "embed_act")
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(x, enc_out, i):
@@ -157,6 +159,7 @@ def encdec_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none
     """batch: enc_embeds (B, S, D), tokens (B, T), labels (B, T) (mask:
     labels < 0).  Next-token CE plus the z-loss ``1e-4 * mean(lse^2)``;
     returns (loss, metrics)."""
+    params = L.gathered_table(params)
     enc_out = encode(params, cfg, batch["enc_embeds"], remat_policy)
     logits = decode_train(params, cfg, batch["tokens"], enc_out, remat_policy)
     logits = constrain(logits, "batch", None, "vocab_act").float()
@@ -164,7 +167,7 @@ def encdec_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none
     mask = (labels >= 0).float()
     lbl = labels.clamp_min(0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    gold = gold_logits(logits, lbl)
     denom = mask.sum().clamp_min(1.0)
     loss = ((lse - gold) * mask).sum() / denom
     zloss = 1e-4 * ((lse * mask) ** 2).sum() / denom

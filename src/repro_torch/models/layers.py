@@ -63,18 +63,58 @@ def init_norm(cfg: ModelConfig, device) -> Dict:
     raise ValueError(cfg.norm_kind)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A table that a mesh axis splits goes through
+    ``F.embedding``, which DTensor shards as the table is, forward and
+    backward: the advanced index's backward is an ``index_put`` into a
+    replicated zero table (a whole vocab x embed gradient on every rank),
+    and DTensor's sharding propagation of it fails in some torch
+    versions.  A whole table keeps the index, whose gradient sums the rows
+    in another order (the (1, 1) mesh stays bit-equal to one device)."""
+    if PT.is_distributed(table) and any(p.is_shard() for p in table.placements):
+        return F.embedding(tokens, table)
+    return table[tokens]
+
+
+def gathered_table(params: Dict) -> Dict:
+    """``params`` with the embedding table gathered over the mesh axes that
+    split its embed dimension (fsdp), kept split over vocab: one tensor
+    for the lookup and, when tied, the logits, so that both gradients meet
+    in one placement and reach the parameter through one reduce-scatter
+    (DTensor of some torch versions cannot add a gradient split over
+    "data" to a partial one).  Plain tensors are returned as they are."""
+    t = params["embed"]["table"]
+    if not PT.is_distributed(t):
+        return params
+    from torch.distributed.tensor import Replicate
+
+    pl = [p if p.is_shard(0) else Replicate() for p in t.placements]
+    return dict(params, embed=dict(params["embed"], table=t.redistribute(t.device_mesh, pl)))
+
+
 def apply_norm(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The norm of the residual stream, whole over "model" (``constrain``).
+
+    Under a mesh the constraint matters in backward: the gradient that
+    reaches the norm's output from the next products is a partial sum over
+    "model", and DTensor passes a partial gradient through the norm and
+    the residual adds unreduced, so the products further back would run on
+    it with gathered weights (a whole layer's work on every rank).  The
+    constraint's backward reduces it here, as Megatron's all-reduce at the
+    input of a tensor-parallel region does."""
     dt = x.dtype
     xf = x.float()
     if cfg.norm_kind == "rmsnorm":
         xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-6)
-        return (xf * p["scale"]).to(dt)
-    mean = torch.mean(xf, -1, keepdim=True)
-    var = torch.mean((xf - mean) ** 2, -1, keepdim=True)
-    xf = (xf - mean) * torch.rsqrt(var + 1e-5)
-    if cfg.norm_kind == "layernorm":
-        xf = xf * p["scale"] + p["bias"]
-    return xf.to(dt)
+        out = (xf * p["scale"]).to(dt)
+    else:
+        mean = torch.mean(xf, -1, keepdim=True)
+        var = torch.mean((xf - mean) ** 2, -1, keepdim=True)
+        xf = (xf - mean) * torch.rsqrt(var + 1e-5)
+        if cfg.norm_kind == "layernorm":
+            xf = xf * p["scale"] + p["bias"]
+        out = xf.to(dt)
+    return constrain(out, "batch", *([None] * (out.ndim - 2)), "embed_act")
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +190,23 @@ def _head_rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (xf * scale).to(x.dtype)
 
 
+def _heads_whole(w: torch.Tensor) -> torch.Tensor:
+    """A (d, heads, head_dim) projection whose heads no mesh axis splits
+    (kv_heads=8 on a 16-way "model" axis), gathered whole first: DTensor
+    would otherwise split the product's flattened heads x head_dim over
+    "model" and could not unflatten 8 heads over 16 ranks.  Under fsdp
+    this is the weight's all-gather the product needs anyway."""
+    if PT.is_distributed(w) and not any(pl.is_shard(1) for pl in w.placements):
+        from torch.distributed.tensor import Replicate
+
+        return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+    return w
+
+
 def _project_qkv(p, cfg, x, positions, apply_rope: bool = True):
-    q = torch.einsum("btd,dhk->bhtk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bhtk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bhtk", x, p["wv"])
+    q = torch.einsum("btd,dhk->bhtk", x, _heads_whole(p["wq"]))
+    k = torch.einsum("btd,dhk->bhtk", x, _heads_whole(p["wk"]))
+    v = torch.einsum("btd,dhk->bhtk", x, _heads_whole(p["wv"]))
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
@@ -266,11 +319,20 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch
         kp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in cp)
         kw, vw = (t.redistribute(mesh, kp).to_local() for t in (kw, vw))
         cache["pos"].to_local().index_copy_(0, slots, pw)
-        if any(p.is_shard(2) for p in cp):
-            off, n = PT.local_range(mesh, cp, 2, cache_len)
-            mine = (slots >= off) & (slots < off + n)
-            slots, kw, vw = slots[mine] - off, kw[:, :, mine], vw[:, :, mine]
         ck, cv = cache["k"].to_local(), cache["v"].to_local()
+        if any(p.is_shard(2) for p in cp):
+            # the written positions are consecutive, so the slot off + l that
+            # a rank holds takes write (off + l - pw[0]) mod cache_len when
+            # that is below their count, and keeps its value otherwise: a
+            # select over the rank's slots, whose shapes do not depend on the
+            # positions (a fake tensor has no values to select by)
+            off, n = PT.local_range(mesh, cp, 2, cache_len)
+            rel = (torch.arange(off, off + n, device=pw.device) - pw[0]) % cache_len
+            hit = (rel < pw.shape[0])[None, None, :, None]
+            idx = rel.clamp(max=pw.shape[0] - 1)
+            ck.copy_(torch.where(hit, kw[:, :, idx].to(ck.dtype), ck))
+            cv.copy_(torch.where(hit, vw[:, :, idx].to(cv.dtype), cv))
+            return
     else:
         ck, cv = cache["k"], cache["v"]
         cache["pos"].index_copy_(0, slots, pw)

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distributed.axes import constrain
+from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
@@ -71,7 +72,11 @@ def apply_block(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         y, new_cache = RECURRENT[kind][1](p["mixer"], cfg, h, cache)
     else:
         raise ValueError(kind)
-    x = x + y
+    # the residual stream whole over "model" before the next norm: left a
+    # partial sum of the mixer's output projection, the norm's output stays
+    # partial and DTensor runs the FFN's products on it with gathered
+    # weights, a whole layer's work on every rank
+    x = constrain(x + y, "batch", None, "embed_act")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         h2 = L.apply_norm(p["norm2"], cfg, x)
@@ -135,7 +140,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def _embed(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    x = params["embed"]["table"][batch["tokens"]]
+    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
     if cfg.frontend is not None and "vision_embeds" in batch:
         # the stub frontend's embeddings replace the first n positions
         fe = batch["vision_embeds"].to(x.dtype)
@@ -239,6 +244,31 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
 # ---------------------------------------------------------------------------
 
 
+def gold_logits(logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
+    """``logits[..., lbl]``: each position's logit of its label.
+
+    A plain gather, unless the vocab dimension of ``logits`` is split over
+    a mesh axis: there DTensor's gather keeps a masked partial result that
+    no longer fits once the gathered dimension is dropped, so each rank
+    multiplies its vocab slice by the matching slice of the labels' one-hot
+    mask and sums it (a partial sum over the axis, reduced where it is
+    used).  Exactly one term of the sum is not zero, so both give the same
+    value; the mask and the product cost two tensors of the local logits'
+    size.
+    """
+    v = logits.ndim - 1
+    if not (is_distributed(logits) and any(p.is_shard(v) for p in logits.placements)):
+        return torch.gather(logits, -1, lbl[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = logits.device_mesh
+    vocab = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.to_local().device), mesh,
+        [Shard(0) if p.is_shard(v) else Replicate() for p in logits.placements],
+        src_data_rank=None)
+    return (logits * (lbl[..., None] == vocab)).sum(-1)
+
+
 def lm_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none"):
     """Next-token CE over ``labels`` (mask: labels < 0) plus the z-loss
     ``1e-4 * mean(lse^2)`` and ``1e-2 * aux``.  Returns (loss, metrics).
@@ -247,6 +277,7 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none"):
     recomputes each pattern group in backward, ``"dots"`` keeps only the
     outputs of its plain matrix products (``apply_stack_train``).
     """
+    params = L.gathered_table(params)
     x = _embed(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = apply_stack_train(params, cfg, x, positions, remat_policy)
@@ -255,7 +286,7 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict, remat_policy: str = "none"):
     mask = (labels >= 0).float()
     lbl = labels.clamp_min(0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    gold = gold_logits(logits, lbl)
     ce = (lse - gold) * mask
     denom = mask.sum().clamp_min(1.0)
     loss = ce.sum() / denom

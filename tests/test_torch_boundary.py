@@ -27,7 +27,8 @@ COPIED = [f"core/{n}.py" for n in (
     "dedup_index", "provider", "version_manager", "blob", "service", "gc", "membership",
     "durability")] + [
     "store/__init__.py", "store/memory.py", "store/file.py", "store/s3.py",
-    "kernels/hostdigest.py", "data/pipeline.py"]
+    "kernels/hostdigest.py", "data/pipeline.py", "core/scenarios.py", "configs/shapes.py",
+    "launch/report.py"]
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro\.")
 

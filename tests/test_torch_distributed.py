@@ -448,6 +448,74 @@ def _jax_step(jmodel, np_params, batch, accum):
             "mu": _paths(new_opt["mu"]), "state": {"params": new_p, "opt": new_opt}}
 
 
+def _run_two_ranks(in_path, out_dir, *mode):
+    """``torch_mesh_worker.py [mode] IN OUT`` as two gloo ranks; rank 0's
+    ``out.npz``."""
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_mesh_worker.py"),
+                               *mode, str(in_path), str(out_dir)],
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TWO_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+        f"rank {r}: " + "\n".join(line for line in log.splitlines() if "Error" in line)
+        for r, log in enumerate(logs))
+    return np.load(os.path.join(out_dir, "out.npz"))
+
+
+def _step_outputs(out, name):
+    """(params, mu, loss, grad norm) that a worker wrote for ``name``."""
+    prefix = lambda what: {k[len(f"{name}/{what}/"):]: out[k] for k in out.files
+                           if k.startswith(f"{name}/{what}/")}
+    return ({k: v.astype(np.float32) for k, v in prefix("params").items()}, prefix("mu"),
+            float(out[f"{name}/loss"]), float(out[f"{name}/grad_norm"]))
+
+
+VOCAB_SPLIT = 512
+
+
+def test_two_ranks_vocab_split_matches_reference(tmp_path):
+    """``train_tp_vocab``: with an even vocabulary the "model" axis of mesh
+    (1, 2) splits the logits' vocab dimension, and the loss's gold logit
+    is taken from split logits.  One ``tp`` and one ``tp_fsdp`` step of
+    reduced olmo-1b and one ``tp`` step of the reduced encoder-decoder
+    against the reference's single-device step (``src/repro/models/lm.py``
+    ``lm_loss``, ``encdec.py`` ``encdec_loss``)."""
+    jcfg = dataclasses.replace(jget_config("olmo-1b").reduced(), vocab_size=VOCAB_SPLIT)
+    jmodel = jbuild_model(jcfg)
+    np_params = jax.tree.map(np.asarray, jax.jit(lambda r: jmodel.init(r)[0])(
+        jax.random.PRNGKey(3)))
+    batch = _train_batch(jcfg)
+    ecfg = dataclasses.replace(jget_config("seamless-m4t-large-v2").reduced(),
+                               vocab_size=VOCAB_SPLIT)
+    emodel = jbuild_model(ecfg)
+    e_params = jax.tree.map(np.asarray, jax.jit(lambda r: emodel.init(r)[0])(
+        jax.random.PRNGKey(4)))
+    ebatch = dict(_train_batch(ecfg, seed=5), enc_embeds=np.random.default_rng(6)
+                  .standard_normal((4, 12, ecfg.d_model)).astype(np.float32))
+    inputs = {f"olmo/{k}": v for k, v in _paths_raw(np_params).items()}
+    inputs.update({f"batch/{k}": v for k, v in batch.items()})
+    inputs.update({f"encdec/{k}": v for k, v in _paths_raw(e_params).items()})
+    inputs.update({f"encdec_batch/{k}": v for k, v in ebatch.items()})
+    inputs["meta"] = np.asarray(json.dumps({"opt": OPT, "vocab": VOCAB_SPLIT}))
+    np.savez(tmp_path / "in.npz", **inputs)
+    out = _run_two_ranks(tmp_path / "in.npz", tmp_path, "vocab")
+
+    want = _jax_step(jmodel, np_params, batch, 1)
+    for name in ("train_tp_vocab", "train_tp_fsdp_vocab"):
+        _assert_step_close(*_step_outputs(out, name), want)
+    _assert_step_close(*_step_outputs(out, "train_encdec_vocab"),
+                       _jax_step(emodel, e_params, ebatch, 1))
+
+
 def test_two_ranks_match_reference(tmp_path):
     """Two gloo ranks (two processes): ``tp_fsdp`` + ``zero2`` + ``accum=2``
     on (2, 1) and ``tp`` on (1, 2) train reduced olmo-1b (with ``tp`` also
@@ -477,34 +545,12 @@ def test_two_ranks_match_reference(tmp_path):
     inputs["meta"] = np.asarray(json.dumps({"opt": OPT, "prefill": 6}))
     np.savez(tmp_path / "in.npz", **inputs)
 
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_mesh_worker.py"),
-                               str(tmp_path / "in.npz"), str(tmp_path)],
-                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TWO_RANK_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(
-        f"rank {r}: " + "\n".join(line for line in log.splitlines() if "Error" in line)
-        for r, log in enumerate(logs))
-    out = np.load(tmp_path / "out.npz")
+    out = _run_two_ranks(tmp_path / "in.npz", tmp_path)
 
     for name, accum, jm, npp in (("train_zero2", 2, jmodel, np_params),
                                  ("train_tp", 1, jmodel, np_params),
                                  ("train_tp_kv1", 1, jmodel_kv1, np_params_kv1)):
-        want = _jax_step(jm, npp, batch, accum)
-        prefix = lambda what: {k[len(f"{name}/{what}/"):]: out[k] for k in out.files
-                               if k.startswith(f"{name}/{what}/")}
-        _assert_step_close({k: v.astype(np.float32) for k, v in prefix("params").items()},
-                           prefix("mu"), float(out[f"{name}/loss"]),
-                           float(out[f"{name}/grad_norm"]), want)
+        _assert_step_close(*_step_outputs(out, name), _jax_step(jm, npp, batch, accum))
     # a stacked wq is (layers, embed, q_heads, head)
     assert str(out["train_zero2/placements"]) == "(Shard(dim=1), Replicate())"  # fsdp
     assert str(out["train_tp/placements"]) == "(Replicate(), Shard(dim=2))"     # heads

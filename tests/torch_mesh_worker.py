@@ -5,6 +5,7 @@ Run as two processes with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
 does not resolve)::
 
     python tests/torch_mesh_worker.py IN.npz OUT_DIR
+    python tests/torch_mesh_worker.py vocab IN.npz OUT_DIR
     python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
         train-main LOSSES.json --mesh 2x1 --device cpu ...
 
@@ -22,7 +23,11 @@ port's entry points,
   steps of reduced h2o-danube3-4b on mesh (1, 2), with two kv heads and
   with one (which does not divide the "model" axis);
 
-and rank 0 writes what came out to ``OUT_DIR/out.npz``.  With
+and rank 0 writes what came out to ``OUT_DIR/out.npz``.  With ``vocab``
+they run ``train_tp_vocab``: one ``tp`` and one ``tp_fsdp`` step of
+reduced olmo-1b and one ``tp`` step of the reduced encoder-decoder, each
+with an even vocabulary that the "model" axis of mesh (1, 2) splits (the
+loss's gold logit on split logits).  With
 ``train-main`` it runs ``repro_torch.launch.train.main`` with the
 arguments that follow, under the launcher, and rank 0 writes the losses.
 Only the port is imported here; the tests hold the results to the
@@ -71,24 +76,34 @@ def whole(tree, prefix):
             for k, t in flatten_with_paths(tree)}
 
 
-def train(npz, meta, out, mesh, name, strategy, zero2, accum, kv=None, spool=None):
-    cfg = get_config("olmo-1b").reduced()
-    cfg = dataclasses.replace(cfg, n_kv_heads=kv or cfg.n_kv_heads)
+def train(npz, meta, out, mesh, name, strategy, zero2, accum, kv=None, spool=None,
+          arch="olmo-1b", inputs=None, vocab=None):
+    """One step; the parameters come from ``npz[<inputs>/...]`` (by default
+    ``olmo``, or ``olmo_kv1`` with one kv head), the batch from
+    ``npz[<inputs>_batch/...]`` (by default ``batch``)."""
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, n_kv_heads=kv or cfg.n_kv_heads,
+                              vocab_size=vocab or cfg.vocab_size)
     model = build_model(cfg)
     builder = TrainStepBuilder(model, mesh, strategy=strategy, accum=accum, zero2=zero2,
                                opt=AdamWConfig(**meta["opt"]))
-    params = tree_from(npz, "olmo_kv1" if kv == 1 else "olmo", model.abstract()[0])
+    prefix = inputs or ("olmo_kv1" if kv == 1 else "olmo")
+    params = tree_from(npz, prefix, model.abstract()[0])
     state = builder.distribute_state(
         {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32)},
         src_data_rank=None)
-    batch = {k: torch.from_numpy(npz[f"batch/{k}"]).long() for k in ("tokens", "labels")}
+    bkey = f"{inputs}_batch" if inputs else "batch"
+    batch = {k[len(bkey) + 1:]: torch.from_numpy(npz[k]) for k in npz.files
+             if k.startswith(bkey + "/")}
+    batch = {k: v.long() if k in ("tokens", "labels") else v for k, v in batch.items()}
     state, metrics = builder.train_step_fn()(state, batch)
     out[f"{name}/loss"] = np.asarray(float(metrics["loss"]))
     out[f"{name}/grad_norm"] = np.asarray(float(metrics["grad_norm"]))
     out.update(whole(state["params"], f"{name}/params"))
     out.update(whole(state["opt"]["mu"], f"{name}/mu"))
-    out[f"{name}/placements"] = np.asarray(
-        str(state["params"]["groups"][0]["mixer"]["wq"].placements))
+    if "groups" in state["params"]:
+        out[f"{name}/placements"] = np.asarray(
+            str(state["params"]["groups"][0]["mixer"]["wq"].placements))
     if spool is not None:
         rank0 = dist.get_rank() == 0
         if rank0:
@@ -140,10 +155,32 @@ def train_main(out_path, argv) -> int:
     return 0
 
 
+def vocab_main(in_path, out_dir) -> int:
+    """``train_tp_vocab``: the vocabulary split over "model" (mesh (1, 2))."""
+    npz = np.load(in_path)
+    meta = json.loads(str(npz["meta"]))
+    dist.init_process_group("gloo")
+    out: dict = {}
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+        vocab = meta["vocab"]
+        train(npz, meta, out, mesh, "train_tp_vocab", "tp", False, 1, vocab=vocab)
+        train(npz, meta, out, mesh, "train_tp_fsdp_vocab", "tp_fsdp", False, 1, vocab=vocab)
+        train(npz, meta, out, mesh, "train_encdec_vocab", "tp", False, 1,
+              arch="seamless-m4t-large-v2", inputs="encdec", vocab=vocab)
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, "out.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     torch.set_num_threads(1)
     if sys.argv[1] == "train-main":
         return train_main(sys.argv[2], sys.argv[3:])
+    if sys.argv[1] == "vocab":
+        return vocab_main(sys.argv[2], sys.argv[3])
     npz = np.load(sys.argv[1])
     out_dir = sys.argv[2]
     meta = json.loads(str(npz["meta"]))
