@@ -114,14 +114,37 @@ Phases (each one's failure fails the run):
    greedy tokens reported, no bound), and its 4-layer float32 copy
    against its own no-mesh run within rtol 2e-4, atol 2e-5 (4 + 4
    float32 launches); step, prefill and decode times and peaks beside
-   the no-mesh ones;
-12. dry run: ``repro_torch.launch.dryrun`` in three processes at once
+   the no-mesh ones; the checkpoint of the mesh state is resumed through
+   ``launch.train``'s own ``resume_state`` (rank 0 reads it whole,
+   ``distribute_state`` places it) and that checkpointer's unchanged save
+   launches 34 + 34; full-width seamless-m4t-large-v2 under ``tp_serve``:
+   the encdec serve phase's 4 x 32768 frames and prompts, a prefill and
+   31 decode steps teacher-forced on that phase's greedy tokens, its
+   stacked memories placed on the mesh, exactly 48 + 24 x 31
+   ``flash_attention_sm90`` launches on the local shards, logits held to
+   that phase's within 1e-3 (max |dlogit| and the share of equal greedy
+   tokens reported); ``launch.serve.generate(..., mesh,
+   strategy="tp_serve_sm")`` on the long-context phase's prompts (24
+   launches), its first new tokens equal to the mesh serve prefill's
+   greedy tokens, and to the no-mesh run's in every row whose top-two
+   margin there exceeds twice the prefill's |dlogit|; its new tokens
+   against that phase's (the share equal reported), its wall time split
+   into placement, prefill, decode steps and the rest, beside the same
+   call inside ``torch.inference_mode`` (reported); full-width
+   xlstm-350m under ``tp_fsdp`` takes 2 steps at 2 x 512 from the state
+   and batches of a no-mesh run, losses within 1e-4 relative;
+12. dry run: ``repro_torch.launch.dryrun`` in six processes at once
    (their fake process groups apart from this one's NCCL group), on fake
    tensors over a fake 256-rank 16 x 16 mesh: olmo-1b ``train_4k``
    (``tp_fsdp``), qwen3-32b ``train_4k`` (both at one microbatch),
    h2o-danube3-4b ``prefill_32k`` (``tp_serve``), granite-moe-1b-a400m
    ``decode_32k``, recurrentgemma-2b ``long_500k``, and olmo-1b
-   ``train_4k`` over 512 ranks (2 x 16 x 16): each must be ``ok``; and a
+   ``train_4k`` over 512 ranks (2 x 16 x 16); then one cell of each class
+   of the mesh path's repaired faults: olmo-1b ``decode_32k`` on
+   2 x 16 x 16, olmoe-1b-7b ``prefill_32k``, granite-moe-1b-a400m and
+   recurrentgemma-2b ``train_4k``, xlstm-350m ``decode_32k``,
+   internvl2-76b ``prefill_32k``, seamless-m4t-large-v2 ``prefill_32k``
+   and ``train_4k`` (train cells at one microbatch): each must be ``ok``; and a
    (1, 1) record of the train phase's step (olmo-1b, 2 x 2048), whose
    input bytes must equal the bytes the train phase's state and batch
    hold on the card within 0.1 %, its temp-bytes estimate printed beside
@@ -140,8 +163,9 @@ Phases (each one's failure fails the run):
    branches; their saves launch ``page_digest`` and ``delta_mask``;
 15. the ``kernels`` line: per kernel, its launches on its paths (serving
    recurrentgemma-2b for ``linear_scan``, training, mesh training and the
-   examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder and
-   mesh serving for ``flash_attention_sm90``, the float32 long and
+   examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
+   mesh serving, mesh encoder-decoder serving and mesh ``generate`` for
+   ``flash_attention_sm90``, the float32 long and
    encoder-decoder teacher forcing and the float32 mesh serve for
    ``flash_attention``; ``launches_by_path``),
    its error against
@@ -200,9 +224,11 @@ from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noq
 from repro_torch.configs.shapes import ShapeCell  # noqa: E402
 from repro_torch.launch.costmodel import analytic_roofline  # noqa: E402
 from repro_torch.launch.hlo import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
+from repro_torch.launch import serve as serve_module  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.specs import model_flops_for  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.train import resume_state  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import synthesize_corpus  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -225,6 +251,7 @@ MESH_TRAIN_BATCH, MESH_TRAIN_STEPS, MESH_ACCUM = TRAIN_BATCH, 2, 2
 MESH_LOSS_RTOL = 1e-4                                   # mesh vs no-mesh step loss
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-4, 1e-6           # tests/test_train.py:80
 MESH_DEC_RTOL, MESH_DEC_ATOL = 2e-4, 2e-5               # tests/test_decode_attn.py:44
+MESH_ENCDEC_DLOGIT = 1e-3     # seamless on the (1, 1) mesh: the no-mesh products, bit-equal
 CKPT_PSIZE = 256 * 1024                     # BlobCheckpointer's default page
 MOE_ARCH = "olmoe-1b-7b"                    # served: 4 x 512 keeps the dispatch O(T^2) small
 MOE_CMP_LAYERS, MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_DECODE = 2, 2, 128, 8
@@ -233,6 +260,7 @@ MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
 REMAT_LOSS_RTOL, REMAT_GNORM_RTOL = 1e-5, 1e-3
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_TF_LAYERS, XLSTM_TF_PREFILL, XLSTM_TF_DECODE = 8, 500, 12
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 2, 512, 2   # the mesh xLSTM phase
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 # the repo's prefill_32k cell feeds 32768 encoder frames; one card holds a
 # batch of 4 of them (12.9 GB of cross memories), not the cell's 32
@@ -670,6 +698,7 @@ def phase_serve_long(state):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     state["long_launches"] = counts
+    state["long_outs"] = outs        # the mesh generate phase's reference
     log(f"  generate: {LONG_BATCH}x{LONG_PROMPT} prompt + {LONG_NEW} new tokens in {wall:.3f} s "
         f"(first call); launches {counts}")
     if counts["flash_attention_sm90"] != cfg.n_layers or counts["flash_attention"] != 0:
@@ -1153,7 +1182,9 @@ def phase_kernel_times(state):
         "flash_attention_sm90": {
             f"{LONG_ARCH} serve": state["long_launches"]["flash_attention_sm90"],
             f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_sm90"],
-            f"{LONG_ARCH} mesh serve": state["mesh_serve_launches"]},
+            f"{LONG_ARCH} mesh serve": state["mesh_serve_launches"],
+            f"{ENCDEC_ARCH} mesh serve": state["mesh_encdec_launches"],
+            f"{LONG_ARCH} mesh generate": state["mesh_generate_launches"]},
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
             f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"],
@@ -1298,10 +1329,16 @@ def phase_mesh_train(state):
             st1.pages_written != st1.pages_total:
         raise AssertionError(f"full mesh save: {full_counts}, {st1.pages_written}/"
                              f"{st1.pages_total} pages")
+    # the resume of ``launch.train``: a checkpointer on the blob, rank 0
+    # reading the state whole, ``distribute_state`` placing it
+    resumed = BlobCheckpointer(client, ckpt.blob_id, psize=CKPT_PSIZE)
     t0 = time.perf_counter()
-    restored = builder.distribute_state(ckpt.restore(builder.abstract_state(), device="cuda"))
+    restored, step, reader_state = resume_state(types.SimpleNamespace(device="cuda"), builder,
+                                                resumed, state["mesh"], 0)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
+    if step != MESH_TRAIN_STEPS or reader_state != reader.state_dict():
+        raise AssertionError(f"resumed at step {step}, reader {reader_state}")
     got, want = flatten_with_paths(restored), flatten_with_paths(train_state)
     if [k for k, _ in got] != [k for k, _ in want]:
         raise AssertionError("restored mesh tree differs")
@@ -1312,8 +1349,8 @@ def phase_mesh_train(state):
     del restored, got
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    st2 = ckpt.save(train_state, step=MESH_TRAIN_STEPS,
-                    extra={"reader": reader.state_dict(), "note": "extra moved"})
+    st2 = resumed.save(train_state, step=MESH_TRAIN_STEPS,
+                       extra={"reader": reader.state_dict(), "note": "extra moved"})
     save2_s = time.perf_counter() - t0
     inc_counts = ops.launch_counts()
     if (inc_counts["page_digest"], inc_counts["delta_mask"]) != (n_leaves, n_leaves) or \
@@ -1321,8 +1358,9 @@ def phase_mesh_train(state):
         raise AssertionError(f"incremental mesh save: {inc_counts}, {st2.pages_written} pages")
     state["mesh_train_launches"] = {k: full_counts[k] + inc_counts[k] for k in full_counts}
     log(f"  mesh checkpoint: full save {st1.pages_written}/{st1.pages_total} pages in "
-        f"{save_s:.2f} s ({full_counts['page_digest']} page_digest), restore into the "
-        f"mesh placements byte-equal in {restore_s:.2f} s, unchanged save "
+        f"{save_s:.2f} s ({full_counts['page_digest']} page_digest), resumed through "
+        f"launch.train.resume_state into the mesh placements byte-equal in {restore_s:.2f} s, "
+        f"its checkpointer's unchanged save "
         f"{st2.pages_written} pages in {save2_s:.2f} s ({inc_counts['page_digest']} "
         f"page_digest, {inc_counts['delta_mask']} delta_mask); host peak RSS "
         f"{host_rss_gib():.1f} GiB")
@@ -1332,7 +1370,7 @@ def phase_mesh_train(state):
                            "save_s": save_s, "restore_s": restore_s, "save2_s": save2_s}
     # the gradients of the last batch at the trained state, for the collective
     state["mesh_grads"] = builder.grads_fn()(train_state, batches[-1])[1]
-    del ckpt, client, reader, train_state
+    del ckpt, resumed, client, reader, train_state
     torch.cuda.empty_cache()
 
 
@@ -1429,6 +1467,11 @@ def phase_mesh_serve(state):
                            "no_mesh_decode_ms_per_step":
                                state["serve_long"]["decode_ms_per_step"]}
     state["mesh_serve_launches"] = pre["flash_attention_sm90"]
+    top2 = ref["logits"][0].float().topk(2, dim=-1).values
+    state["mesh_prefill_first"] = {
+        "mesh": outs[0].argmax(-1).cpu().numpy(), "no_mesh": ref["logits"][0].argmax(-1)
+        .cpu().numpy(), "margin": (top2[:, 0] - top2[:, 1]).cpu().numpy(),
+        "dlogit": float((outs[0].float() - ref["logits"][0].float()).abs().max())}
     r = state["mesh_serve"]
     log(f"mesh serve: {cfg.name} tp_serve_sm, {LONG_BATCH}x{LONG_PROMPT} prefill "
         f"{r['prefill_ms']:.2f} ms (median of 3: {', '.join(f'{m:.2f}' for m in prefill_times)}; "
@@ -1466,6 +1509,230 @@ def phase_mesh_serve(state):
         f"mesh max |dlogit| {f32_err:.3e} (rtol {MESH_DEC_RTOL}, atol {MESH_DEC_ATOL}); "
         f"flash_attention launches {pre_plain['flash_attention']} + {pre['flash_attention']}")
     del params, dparams, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_serve_encdec(state):
+    """Full-width seamless-m4t-large-v2 under ``tp_serve``: the encdec
+    serve phase's frames and prompts, its memories placed on the mesh,
+    teacher-forced on that phase's greedy tokens and held to its logits;
+    every attention over the 32768 frames on the local shards."""
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    builder = TrainStepBuilder(model, state["mesh"], strategy="tp_serve")
+    params = model.init(torch.Generator(device="cuda").manual_seed(16))   # the serve phase's
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    B, S, T0 = ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT
+    batch = {"enc_embeds": frame_embeddings(B, S, cfg.d_model, seed=17),
+             "tokens": torch.as_tensor(np.stack(prompts_for(seed=18, batch=B, length=T0))
+                                       .astype(np.int64), device="cuda")}
+    ref = state.pop("encdec_ref")
+    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+    cache = builder.shard_cache(model.init_cache(B, T0 + ENCDEC_NEW, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts at 0 just before, read just after
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache, mem = prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = ops.launch_counts()
+    outs = [logits]
+    t0 = time.perf_counter()
+    for i, tok in enumerate(ref["fed"]):
+        logits, cache = decode(params, tok, T0 + i, cache, mem)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(ref["fed"])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = (cfg.n_enc_layers + cfg.n_layers, cfg.n_enc_layers + cfg.n_layers * (1 + len(ref["fed"])))
+    if (pre["flash_attention_sm90"], counts["flash_attention_sm90"]) != want or \
+            counts["flash_attention"] != 0:
+        raise AssertionError(f"the mesh prefill launched {pre}, with the decode steps {counts}; "
+                             f"expected {want} flash_attention_sm90")
+    if not all(t.to_local().is_contiguous() and t.placements == mem[0].placements for t in mem):
+        raise AssertionError(f"memories {[t.placements for t in mem]}")
+    if not all(bool(torch.isfinite(a).all()) for a in outs):
+        raise AssertionError("non-finite mesh logits")
+    dlogit = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, ref["logits"]))
+    same = float(torch.stack([(a.argmax(-1) == b.argmax(-1)).float().mean()
+                              for a, b in zip(outs, ref["logits"])]).mean())
+    if not dlogit <= MESH_ENCDEC_DLOGIT:
+        raise AssertionError(f"seamless mesh logits off the no-mesh run's by {dlogit:.3e} "
+                             f"(limit {MESH_ENCDEC_DLOGIT})")
+    state["mesh_serve_encdec"] = r = {
+        "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms, "max_dlogit": dlogit,
+        "greedy_same": same, "peak_gib": peak, "launches": counts["flash_attention_sm90"],
+        "no_mesh_prefill_ms": state["serve_encdec"]["prefill_ms"],
+        "no_mesh_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
+    state["mesh_encdec_launches"] = counts["flash_attention_sm90"]
+    log(f"mesh encdec serve: {cfg.name} tp_serve, {B}x{S} frames + {B}x{T0} tokens prefill "
+        f"{prefill_ms:.2f} ms (first call; no mesh {r['no_mesh_prefill_ms']:.2f}, median of 3), "
+        f"{pre['flash_attention_sm90']} flash_attention_sm90 launches on the local shards; "
+        f"{len(ref['fed'])} teacher-forced decode steps {step_ms:.2f} ms/step (no mesh "
+        f"{r['no_mesh_decode_ms_per_step']:.2f}), {counts['flash_attention_sm90']} launches in "
+        f"all; memories placed {mem[0].placements}; max |dlogit| vs no mesh {dlogit:.3e} "
+        f"(limit {MESH_ENCDEC_DLOGIT}), greedy tokens equal {same:.4f}; peak {peak:.2f} GiB; "
+        f"on {state['smi']}")
+    del params, outs, ref, cache, mem, logits, batch
+    torch.cuda.empty_cache()
+
+
+class _TimedBuilder(TrainStepBuilder):
+    """``TrainStepBuilder`` that adds the seconds of each of its steps,
+    each closed by a device sync, to ``seconds``: where ``generate``'s
+    time under a mesh goes."""
+
+    seconds: dict = {}
+
+    def _timed(self, what, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds[what] = self.seconds.get(what, 0.0) + time.perf_counter() - t0
+        return out
+
+    def distribute(self, *args, **kwargs):
+        return self._timed("place", super().distribute, *args, **kwargs)
+
+    def shard_cache(self, *args, **kwargs):
+        return self._timed("place", super().shard_cache, *args, **kwargs)
+
+    def prefill_step_fn(self):
+        fn = super().prefill_step_fn()
+        return lambda *args: self._timed("prefill", fn, *args)
+
+    def decode_step_fn(self):
+        fn = super().decode_step_fn()
+        return lambda *args: self._timed("decode", fn, *args)
+
+
+def phase_mesh_generate(state):
+    """``launch.serve.generate(..., mesh, strategy="tp_serve_sm")`` on the
+    long-context phase's model and prompts: its first new tokens against
+    the mesh serve phase's prefill, its tokens against the long phase's
+    (no mesh), its wall time split by a builder that syncs each step."""
+    cfg = get_config(LONG_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))   # the long phase's
+    prompts = prompts_for(seed=4, batch=LONG_BATCH, length=LONG_PROMPT)
+    want = state.pop("long_outs")
+    first = state.pop("mesh_prefill_first")
+    torch.cuda.synchronize()
+    _TimedBuilder.seconds = {}
+    # -- the main path: counts at 0 just before, read just after
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _swap(serve_module, "TrainStepBuilder", _TimedBuilder):
+        outs = generate(model, params, prompts, max_new=LONG_NEW,
+                        max_len=LONG_PROMPT + LONG_NEW, device="cuda", mesh=state["mesh"],
+                        strategy="tp_serve_sm")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    split = dict(_TimedBuilder.seconds)
+    split["rest"] = wall - sum(split.values())
+    if counts["flash_attention_sm90"] != cfg.n_layers or counts["flash_attention"] != 0:
+        raise AssertionError(f"generate under the mesh launched {counts}, expected "
+                             f"{cfg.n_layers} flash_attention_sm90 (the prefill)")
+    for p, o in zip(prompts, outs):
+        if o.shape != (LONG_PROMPT + LONG_NEW,) or not np.array_equal(o[:LONG_PROMPT], p) or \
+                not ((o >= 0) & (o < cfg.vocab_size)).all():
+            raise AssertionError(f"bad output {o.shape} or prompt not preserved")
+    got, ref = np.stack(outs)[:, LONG_PROMPT:], np.stack(want)[:, LONG_PROMPT:]
+    # the first new token comes from the prefill: the mesh serve phase's
+    # exactly (the same steps on the same mesh), and the no-mesh run's
+    # wherever no |dlogit| of that prefill could swap its top two
+    clear = first["margin"] > 2 * first["dlogit"]
+    if not (np.array_equal(got[:, 0], first["mesh"]) and
+            np.array_equal(got[clear, 0], first["no_mesh"][clear])):
+        raise AssertionError(f"first new tokens {got[:, 0]}: mesh prefill {first['mesh']}, no "
+                             f"mesh {first['no_mesh']} (margins {first['margin']}, |dlogit| "
+                             f"{first['dlogit']:.3e})")
+    same = float((got == ref).mean())
+    # greedy decoding from bf16 logits summed in another order: after the
+    # first token that flips, a row continues from another prefix
+    agree = [int(np.argmin(np.append(g == r, False))) for g, r in zip(got, ref)]
+    # the same call inside torch.inference_mode, which generate keeps for
+    # one device only: its split says what DTensor's dispatch costs there
+    _TimedBuilder.seconds = {}
+    t0 = time.perf_counter()
+    with _swap(serve_module, "TrainStepBuilder", _TimedBuilder), torch.inference_mode():
+        inf_outs = generate(model, params, prompts, max_new=LONG_NEW,
+                            max_len=LONG_PROMPT + LONG_NEW, device="cuda", mesh=state["mesh"],
+                            strategy="tp_serve_sm")
+    torch.cuda.synchronize()
+    inf_split = dict(_TimedBuilder.seconds, wall=time.perf_counter() - t0)
+    inf_same = float(np.mean([np.array_equal(a, b) for a, b in zip(inf_outs, outs)]))
+    state["mesh_generate"] = {"wall_s": wall, "split_s": split, "tokens_same": same,
+                              "rows_agree_for": agree, "first_rows_held": int(clear.sum()),
+                              "inference_mode_split_s": inf_split,
+                              "inference_mode_rows_same": inf_same,
+                              "no_mesh_wall_s": state["serve_long"]["generate_first_call_s"]}
+    state["mesh_generate_launches"] = counts["flash_attention_sm90"]
+    log(f"mesh generate: {cfg.name} generate(mesh, tp_serve_sm), {LONG_BATCH}x{LONG_PROMPT} + "
+        f"{LONG_NEW} new tokens in {wall:.2f} s (no mesh, first call "
+        f"{state['serve_long']['generate_first_call_s']:.2f} s): "
+        f"{', '.join(f'{k} {v:.3f} s' for k, v in split.items())} ({LONG_NEW - 1} decode "
+        f"steps); launches {counts}; first new tokens equal to the mesh prefill's, and to the "
+        f"no-mesh run's in {int(clear.sum())} of {LONG_BATCH} rows whose top-two margin "
+        f"exceeds 2 x |dlogit| {first['dlogit']:.3e}; new tokens equal to the no-mesh run's "
+        f"{same:.4f}; each row agrees for its first {agree} new tokens; inside "
+        f"torch.inference_mode: {', '.join(f'{k} {v:.3f} s' for k, v in inf_split.items())}, "
+        f"rows equal to the no_grad call's {inf_same:.2f}; on {state['smi']}")
+    del params, model
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _swap(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def phase_mesh_train_xlstm(state):
+    """Full-width xlstm-350m under ``tp_fsdp``: two steps at 2 x 512 from
+    the state and batches of a no-mesh run, losses within 1e-4 relative."""
+    cfg = get_config(XLSTM_ARCH)
+    _, reader = corpus_reader(XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))
+               for _ in range(XLSTM_TRAIN_STEPS)]
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+
+    def run(builder):
+        train_state = builder.init_state(torch.Generator(device="cuda").manual_seed(0))
+        step_fn, losses, ms = builder.train_step_fn(), [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_state, metrics = step_fn(train_state, batch)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    ref_losses, ref_ms = run(TrainStepBuilder(build_model(cfg), opt=opt))
+    builder = TrainStepBuilder(build_model(cfg), state["mesh"], strategy="tp_fsdp", opt=opt)
+    # -- the main path: counts at 0 just before, read just after
+    ops.reset_launch_counts()
+    losses, ms = run(builder)
+    no_launches(ops.launch_counts(), "the xLSTM mesh train steps")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if not (all(np.isfinite(losses)) and rel <= MESH_LOSS_RTOL):
+        raise AssertionError(f"xLSTM mesh losses {losses} vs no-mesh {ref_losses}")
+    state["mesh_train_xlstm"] = {"losses": losses, "ref_losses": ref_losses, "loss_rel": rel,
+                                 "step_ms": ms, "ref_step_ms": ref_ms}
+    log(f"mesh xlstm train: {cfg.name} tp_fsdp, {XLSTM_TRAIN_BATCH}x{XLSTM_TRAIN_SEQ}: losses "
+        f"{losses} vs no-mesh {ref_losses} (max rel {rel:.3e}, limit {MESH_LOSS_RTOL}); step ms "
+        f"mesh {', '.join(f'{m:.1f}' for m in ms)} vs no-mesh "
+        f"{', '.join(f'{m:.1f}' for m in ref_ms)}; on {state['smi']}")
     torch.cuda.empty_cache()
 
 
@@ -1828,10 +2095,15 @@ def phase_serve_encdec(state):
         logits, cache, mem = model.prefill(params, batch, cache)
         finite = torch.isfinite(logits).all()
         out = [torch.argmax(logits, dim=-1)]
+        ref_logits = [logits]
         for i in range(new - 1):
             logits, cache = model.decode_step(params, out[-1], T0 + i, cache, mem)
+            ref_logits.append(logits)
             finite &= torch.isfinite(logits).all()
             out.append(torch.argmax(logits, dim=-1))
+        # the mesh encdec phase is teacher-forced on these tokens and held
+        # to these logits
+        state["encdec_ref"] = {"logits": ref_logits, "fed": out[:new - 1]}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -2001,7 +2273,18 @@ DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
                 [("olmo-1b", "train_4k", "single"), ("olmo-1b", "train_4k", "multi")],
                 [("h2o-danube-3-4b", "prefill_32k", "single"),
                  ("granite-moe-1b-a400m", "decode_32k", "single"),
-                 ("recurrentgemma-2b", "long_500k", "single")]]
+                 ("recurrentgemma-2b", "long_500k", "single")],
+                # one cell of each class of the mesh path's repaired faults: the
+                # decode lookup on 2 x 16 x 16, the MoE over split experts
+                # (prefill, training), heads a 16-way axis does not divide,
+                # xLSTM, the VLM splice, serving and training the encoder-decoder
+                [("olmo-1b", "decode_32k", "multi"), ("olmoe-1b-7b", "prefill_32k", "single"),
+                 ("xlstm-350m", "decode_32k", "single")],
+                [("granite-moe-1b-a400m", "train_4k", "single"),
+                 ("recurrentgemma-2b", "train_4k", "single")],
+                [("internvl2-76b", "prefill_32k", "single"),
+                 ("seamless-m4t-large-v2", "prefill_32k", "single"),
+                 ("seamless-m4t-large-v2", "train_4k", "single")]]
 DRYRUN_TIMEOUT_S = 300
 ARG_BYTES_RTOL = 1e-3      # the (1, 1) record's inputs vs the train phase's state and batch
 # one process of the dry run: its cells, then (the last group) the (1, 1)
@@ -2026,7 +2309,7 @@ if smoke:
 
 
 def phase_dry_run(state):
-    """The port's dry run of six cells on fake 256- and 512-rank meshes,
+    """The port's dry run of fourteen cells on fake 256- and 512-rank meshes,
     each group of cells in its own process (the fake process group must
     not meet this process's NCCL group), the groups in parallel."""
     out = os.path.join(ROOT, "experiments", "dryrun_torch", "smoke")
@@ -2225,6 +2508,9 @@ PHASES = [
     ("mesh train and checkpoint", phase_mesh_train),
     ("mesh collective", phase_mesh_collective),
     ("mesh serve", phase_mesh_serve),
+    ("mesh encdec serve", phase_mesh_serve_encdec),
+    ("mesh generate", phase_mesh_generate),
+    ("mesh xlstm train", phase_mesh_train_xlstm),
     ("dry run", phase_dry_run),
     ("roofline vs card", phase_roofline_vs_card),
     ("examples", phase_examples),

@@ -19,14 +19,17 @@ rank holds whole, equal slices (the local attention needs whole heads).
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 AxisRule = Union[str, Tuple[str, ...], None]
 
-_state = threading.local()
+# Process-wide, not thread-local (the reference's are): autograd runs a
+# CUDA backward on a device thread of its own, and the forward that a
+# checkpointed block recomputes there must see the rules it first ran under.
+_state = types.SimpleNamespace(rules=None, mesh=None)
 
 
 def set_logical_rules(rules: Dict[str, AxisRule], mesh) -> None:

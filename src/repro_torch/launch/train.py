@@ -8,9 +8,14 @@ run on one device (``--mesh 1x1``, no launcher) or on a ``DxM`` mesh of
 NCCL with one card a rank on ``--device cuda``, gloo on ``--device
 cpu``.  Under a mesh every rank builds the same corpus blob from the seed
 and keeps its slice of each global batch, and rank 0 alone writes the
-checkpoints (a resume under a mesh raises).  On startup it GET_RECENTs
-the checkpoint blob and resumes (params, optimizer, step, data cursor)
-from it, so it can be killed and restarted at any point.
+checkpoints.  On startup it GET_RECENTs the checkpoint blob and resumes
+(params, optimizer, step, data cursor) from it, so it can be killed and
+restarted at any point: ``--resume-blob`` with the ``--spool`` of the
+killed run restores that deployment (a cold restart: pages from the
+spool, the version manager from its WAL; ``--corpus-blob`` names its
+corpus).  Under a mesh rank 0 alone restores and reads the checkpoint,
+whole, and ``TrainStepBuilder.distribute_state`` scatters it to the
+ranks' placements; the other ranks rebuild the corpus from the seed.
 
 Usage (CPU-sized defaults)::
 
@@ -53,34 +58,72 @@ def synthesize_corpus(writer: CorpusWriter, tok: ByteTokenizer, n_docs: int,
 
 def build_runtime(args, rank: int = 0):
     """A BlobSeer deployment and a client; under a mesh only rank 0 spools
-    to ``--spool`` (the other ranks' deployments stay in memory)."""
+    to ``--spool`` (the other ranks' deployments stay in memory).  With
+    ``--resume-blob``, rank 0 restores the deployment already spooled
+    there."""
     spool = args.spool if rank == 0 else None
-    svc = BlobSeerService(
-        n_providers=args.providers, n_meta_shards=4,
-        data_replication=args.replication, spool_dir=spool,
-        wal_path=(spool + "/vm.wal") if spool else None,
-    )
+    kw = dict(n_providers=args.providers, n_meta_shards=4, data_replication=args.replication)
+    if spool and args.resume_blob and os.path.exists(os.path.join(spool, "vm.wal")):
+        svc = BlobSeerService.restore(spool, os.path.join(spool, "vm.wal"), **kw)
+    else:
+        svc = BlobSeerService(spool_dir=spool, wal_path=(spool + "/vm.wal") if spool else None,
+                              **kw)
     client = svc.client("trainer")
     return svc, client
 
 
 def _mesh(args):
     """(mesh or None, rank): a ``DxM`` mesh over the process group that
-    ``torch.distributed.run`` set up, or no mesh for ``1x1`` without it."""
-    shape = tuple(int(x) for x in args.mesh.split("x"))
-    if shape == (1, 1) and "RANK" not in os.environ:
-        return None, 0
+    ``torch.distributed.run`` set up (or the caller brought up), or no
+    mesh for ``1x1`` without either."""
     import torch.distributed as dist
 
-    if "RANK" not in os.environ:
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    grouped = "RANK" in os.environ or (dist.is_available() and dist.is_initialized())
+    if shape == (1, 1) and not grouped:
+        return None, 0
+    if not grouped:
         raise RuntimeError(f"--mesh {args.mesh} runs under torch.distributed.run "
                            f"--nproc-per-node {shape[0] * shape[1]}")
     if args.device.startswith("cuda"):
-        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        if "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
         args.device = "cuda"
     if not dist.is_initialized():
         dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
     return make_mesh(shape, ("data", "model"), device=args.device), dist.get_rank()
+
+
+def resume_state(args, builder, ckpt, mesh, rank):
+    """(state or None, step, reader state): the checkpoint's, or None and
+    a fresh start.  Rank 0 reads it, whole; under a mesh the other ranks
+    learn from rank 0 whether and where it resumed, hold zeros of the
+    state's shapes, and the state is scattered from rank 0 to its
+    placements (the step counters, plain tensors, broadcast)."""
+    state, found = None, None
+    if rank == 0:
+        try:
+            state, manifest = ckpt.restore(builder.abstract_state(), with_manifest=True,
+                                           device=args.device)
+            ckpt.load_digest_cache()
+            found = (manifest["step"], manifest["extra"].get("reader"))
+        except (FileNotFoundError, KeyError):
+            pass
+    if mesh is None:
+        return (state,) + (found or (0, None))
+    import torch.distributed as dist
+
+    box = [found]
+    dist.broadcast_object_list(box, src=0)
+    if box[0] is None:
+        return None, 0, None
+    if state is None:
+        state = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=args.device),
+                         builder.abstract_state())
+    state = builder.distribute_state(state)
+    for t in (state["step"], state["opt"]["count"]):
+        dist.broadcast(t, src=0)
+    return (state,) + box[0]
 
 
 def main(argv=None) -> dict:
@@ -123,8 +166,9 @@ def main(argv=None) -> dict:
     svc, client = build_runtime(args, rank)
 
     # ---- corpus (ingestion substrate) ----
-    writer = CorpusWriter(client, args.corpus_blob, psize=16 * 1024)
-    if args.corpus_blob is None:
+    corpus_blob = args.corpus_blob if rank == 0 else None   # only rank 0 restores
+    writer = CorpusWriter(client, corpus_blob, psize=16 * 1024)
+    if corpus_blob is None:
         synthesize_corpus(writer, tok, args.corpus_docs)
 
     # ---- model + step ----
@@ -137,22 +181,13 @@ def main(argv=None) -> dict:
     quiet = args.quiet or rank != 0
 
     # ---- checkpoint lineage (resume if one exists) ----
-    if mesh is not None and args.resume_blob is not None:
-        raise NotImplementedError("--resume-blob under a mesh: a resume reads the checkpoint "
-                                  "whole on one device")
-    ckpt = BlobCheckpointer(client, args.resume_blob, psize=16 * 1024, header_pages=16)
-    start_step = 0
-    reader_state = None
-    try:
-        state, manifest = ckpt.restore(builder.abstract_state(), with_manifest=True,
-                                       device=args.device)
-        ckpt.load_digest_cache()
-        start_step = manifest["step"]
-        reader_state = manifest["extra"].get("reader")
-        if not quiet:
-            print(f"[resume] blob={ckpt.blob_id} step={start_step}")
-    except (FileNotFoundError, KeyError):
+    ckpt = BlobCheckpointer(client, args.resume_blob if rank == 0 else None,
+                            psize=16 * 1024, header_pages=16)
+    state, start_step, reader_state = resume_state(args, builder, ckpt, mesh, rank)
+    if state is None:
         state = builder.init_state(torch.Generator(device=args.device).manual_seed(0))
+    elif not quiet:
+        print(f"[resume] blob={ckpt.blob_id} step={start_step}")
 
     reader = ShardedReader(client, writer.blob_id, batch=args.batch,
                            seq_len=args.seq, state=reader_state)

@@ -24,8 +24,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import partitioning as PT
 from repro_torch.distributed.axes import constrain
-from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import _remat, gold_logits
@@ -114,26 +115,45 @@ def cross_memories(params, cfg: ModelConfig,
     """Every decoder layer's cross-attention (K, V) of ``enc_out``, each
     (n_dec, B, Hkv, S_enc, Dh), contiguous: layer i's memory is the
     view ``K[i]``, ``V[i]``.  Each layer's projection is written into the
-    stacks as it is made, so no second copy of the stacks is ever held."""
-    if is_distributed(enc_out):
-        raise NotImplementedError("the encoder-decoder's stacked cross-attention memories "
-                                  "under a mesh: serving it waits for a later slice")
+    stacks as it is made, so no second copy of the stacks is ever held.
+
+    Under a mesh (a DTensor ``enc_out``) the stacks are DTensors placed by
+    the active rules' memories axes (``partitioning.memories_axes_for``:
+    split as the cache's kv heads and batch are), each rank writing its
+    own slices of every layer into one local stack."""
     B, S = enc_out.shape[:2]
     wk = params["dec_blocks"]["cross"]["wk"]
     shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
     dt = torch.promote_types(enc_out.dtype, wk.dtype)
-    k = torch.empty(shape, dtype=dt, device=enc_out.device)
-    v = torch.empty(shape, dtype=dt, device=enc_out.device)
+    placed = None
+    if PT.is_distributed(enc_out):
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh = enc_out.device_mesh
+        names = PT.memories_axes_for((torch.empty(shape, device="meta"),))[0]
+        placed = PT.placements_for(mesh, PT.spec_for(mesh, AX.current_rules() or {}, names,
+                                                     shape))
+        # a layer's placements: the stack's one dimension down ("layers"
+        # is never split)
+        layer = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in placed)
+    k = v = None
     for i in range(cfg.n_layers):
         ki, vi = L.cross_attention_memory(index_tree(params["dec_blocks"], i)["cross"], cfg,
                                           enc_out)
+        if placed is not None:
+            ki, vi = (t.redistribute(mesh, layer).to_local() for t in (ki, vi))
+        if k is None:
+            k = torch.empty((cfg.n_layers,) + tuple(ki.shape), dtype=dt, device=ki.device)
+            v = torch.empty_like(k)
         k[i].copy_(ki)
         v[i].copy_(vi)
+    if placed is not None:
+        k, v = (DTensor.from_local(t, mesh, placed, run_check=False) for t in (k, v))
     return k, v
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return L.apply_norm(params["final_norm"], cfg, x) @ params["lm_head"]["w"]
+    return L.vocab_logits(L.apply_norm(params["final_norm"], cfg, x), params["lm_head"]["w"])
 
 
 def decode_train(params, cfg: ModelConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
@@ -196,7 +216,8 @@ def encdec_prefill(params, cfg: ModelConfig, batch: Dict, cache):
     enc_out = encode(params, cfg, batch["enc_embeds"])
     memories = cross_memories(params, cfg, enc_out)
     del enc_out
-    x = params["embed"]["table"][batch["tokens"]]
+    x = constrain(L.embed_lookup(params["embed"]["table"], batch["tokens"]),
+                  "batch", None, "embed_act")
     positions = torch.arange(x.shape[1], device=x.device)
     x = _decoder_cached(params, cfg, x, positions, cache, memories)
     return _logits(params, cfg, x[:, -1:, :])[:, 0], cache, memories
@@ -206,7 +227,8 @@ def encdec_decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int, 
                        memories):
     """One decoder step. token: (B,) int64; pos: absolute position;
     ``memories``: what the prefill returned."""
-    x = params["embed"]["table"][token][:, None, :]
+    x = constrain(L.embed_lookup(L.gathered_table(params)["embed"]["table"], token[:, None]),
+                  "batch", None, "embed_act")
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     x = _decoder_cached(params, cfg, x, positions, cache, memories)
     return _logits(params, cfg, x)[:, 0], cache

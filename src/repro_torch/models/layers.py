@@ -64,16 +64,30 @@ def init_norm(cfg: ModelConfig, device) -> Dict:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  A table that a mesh axis splits goes through
-    ``F.embedding``, which DTensor shards as the table is, forward and
-    backward: the advanced index's backward is an ``index_put`` into a
-    replicated zero table (a whole vocab x embed gradient on every rank),
-    and DTensor's sharding propagation of it fails in some torch
-    versions.  A whole table keeps the index, whose gradient sums the rows
-    in another order (the (1, 1) mesh stays bit-equal to one device)."""
-    if PT.is_distributed(table) and any(p.is_shard() for p in table.placements):
+    """``table[tokens]``.  A table on a mesh of more than one rank goes
+    through ``F.embedding``, which DTensor shards as the table and the
+    tokens are, forward and backward: the advanced index's backward is an
+    ``index_put`` into a replicated zero table (a whole vocab x embed
+    gradient on every rank), and in some torch versions DTensor's sharding
+    propagation fails for the index on tokens split over two mesh axes and
+    for that ``index_put``.  Elsewhere the index stays, whose gradient sums
+    the rows in another order (the (1, 1) mesh stays bit-equal to one
+    device)."""
+    if PT.is_distributed(table) and table.device_mesh.size() > 1:
         return F.embedding(tokens, table)
     return table[tokens]
+
+
+def split_only_over(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor gathered over every mesh axis that does not split its
+    dimension ``dim`` (a vocabulary weight kept split over vocab, gathered
+    over the fsdp axes of its embed dimension); anything else as it is."""
+    if not PT.is_distributed(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh,
+                          [p if p.is_shard(dim) else Replicate() for p in t.placements])
 
 
 def gathered_table(params: Dict) -> Dict:
@@ -86,10 +100,17 @@ def gathered_table(params: Dict) -> Dict:
     t = params["embed"]["table"]
     if not PT.is_distributed(t):
         return params
-    from torch.distributed.tensor import Replicate
+    return dict(params, embed=dict(params["embed"], table=split_only_over(t, 0)))
 
-    pl = [p if p.is_shard(0) else Replicate() for p in t.placements]
-    return dict(params, embed=dict(params["embed"], table=t.redistribute(t.device_mesh, pl)))
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a (d_model, vocab) head, its weight gathered over the
+    fsdp axes first (``split_only_over``), as GSPMD gathers an fsdp weight
+    for its product.  Left to itself, DTensor contracts a microbatch of a
+    few rows a rank the other way (the rows gathered, the embed dimension
+    split): every rank then holds a partial sum of the whole microbatch's
+    logits, and does that product over every vocab column."""
+    return x @ split_only_over(w, 1)
 
 
 def apply_norm(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -201,6 +222,25 @@ def _heads_whole(w: torch.Tensor) -> torch.Tensor:
 
         return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
     return w
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, Dh) -> (B, T, H * Dh).  Heads that no mesh axis splits
+    (40 on a 16-way "model" axis) keep the merged dimension whole
+    (``constrain``, a no-op forward): the next product may split its
+    gradient there, which DTensor cannot unflatten into the heads."""
+    B, H, T, Dh = x.shape
+    out = x.transpose(1, 2).reshape(B, T, H * Dh)
+    if PT.is_distributed(x) and not any(p.is_shard(1) for p in x.placements):
+        out = constrain(out, "batch", None, None)
+    return out
+
+
+def project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The attention output projection ``einsum("bhtk,hkd->btd")`` as one
+    product over the merged heads (``merge_heads``)."""
+    H, Dh, D = wo.shape
+    return merge_heads(out) @ wo.reshape(H * Dh, D)
 
 
 def _project_qkv(p, cfg, x, positions, apply_rope: bool = True):
@@ -369,7 +409,7 @@ def apply_attention(
         out, new_cache = sharded_decode_attention(
             AX.current_mesh(), q, cache, k, v, positions,
             causal=causal, window=window, softcap=cfg.softcap)
-        return torch.einsum("bhtk,hkd->btd", out, p["wo"]), new_cache
+        return project_out(out, p["wo"]), new_cache
 
     new_cache = None
     kv_positions = None
@@ -384,8 +424,7 @@ def apply_attention(
         q, k, v, causal=causal, window=window, q_offset=0,
         softcap=cfg.softcap, kv_positions=kv_positions, q_positions=positions,
     )
-    y = torch.einsum("bhtk,hkd->btd", out, p["wo"])
-    return y, new_cache
+    return project_out(out, p["wo"]), new_cache
 
 
 def apply_cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -393,10 +432,10 @@ def apply_cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Decoder cross-attention over precomputed encoder K/V: no RoPE, no
     mask.  A memory longer than ``BLOCKWISE_KV_THRESHOLD`` goes to
     ``ops.flash_attention``, in the prefill and in every decode step."""
-    q = torch.einsum("btd,dhk->bhtk", x, p["wq"])
+    q = constrain(torch.einsum("btd,dhk->bhtk", x, p["wq"]), "batch", "heads_act", None, None)
     k, v = memory_kv
     out = attention_core(q, k, v, causal=False, window=None, q_offset=0, softcap=None)
-    return torch.einsum("bhtk,hkd->btd", out, p["wo"])
+    return project_out(out, p["wo"])
 
 
 def cross_attention_memory(p: Dict, cfg: ModelConfig,

@@ -140,7 +140,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def _embed(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    x = L.embed_lookup(params["embed"]["table"], batch["tokens"])
+    # whole over "model" before the splice: a lookup in a vocab-split table
+    # is a masked partial sum, which ``torch.cat`` would reduce by its mask's
+    # values (none on fake tensors)
+    x = constrain(L.embed_lookup(params["embed"]["table"], batch["tokens"]),
+                  "batch", None, "embed_act")
     if cfg.frontend is not None and "vision_embeds" in batch:
         # the stub frontend's embeddings replace the first n positions
         fe = batch["vision_embeds"].to(x.dtype)
@@ -151,7 +155,7 @@ def _embed(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.apply_norm(params["final_norm"], cfg, x)
     w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    return constrain(x @ w, "batch", None, "vocab_act")
+    return constrain(L.vocab_logits(x, w), "batch", None, "vocab_act")
 
 
 def _layers(params, cfg: ModelConfig):
@@ -247,17 +251,19 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
 def gold_logits(logits: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
     """``logits[..., lbl]``: each position's logit of its label.
 
-    A plain gather, unless the vocab dimension of ``logits`` is split over
-    a mesh axis: there DTensor's gather keeps a masked partial result that
-    no longer fits once the gathered dimension is dropped, so each rank
-    multiplies its vocab slice by the matching slice of the labels' one-hot
-    mask and sums it (a partial sum over the axis, reduced where it is
-    used).  Exactly one term of the sum is not zero, so both give the same
-    value; the mask and the product cost two tensors of the local logits'
-    size.
+    A plain gather on plain tensors.  Under a mesh each rank multiplies its
+    slice of the logits by the matching slice of the labels' one-hot mask
+    and sums it: where the vocab dimension is split, DTensor's gather keeps
+    a masked partial result that no longer fits once the gathered dimension
+    is dropped (the product is a partial sum over the axis, reduced where
+    it is used), and where it is whole, the gather's backward scatters into
+    zeros of the logits' global shape, a whole microbatch's float32 logits
+    on every rank.  Exactly one term of the sum is not zero, so both give
+    the same value, bit for bit; the mask and the product cost two tensors
+    of the local logits' size.
     """
     v = logits.ndim - 1
-    if not (is_distributed(logits) and any(p.is_shard(v) for p in logits.placements)):
+    if not is_distributed(logits):
         return torch.gather(logits, -1, lbl[..., None])[..., 0]
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -305,7 +311,7 @@ def lm_prefill(params, cfg: ModelConfig, batch: Dict, cache):
 
 def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int, cache):
     """One decode step. token: (B,) int64; pos: absolute position."""
-    x = params["embed"]["table"][token][:, None, :]
+    x = _embed(L.gathered_table(params), cfg, {"tokens": token[:, None]})
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     x, cache = apply_stack_cached(params, cfg, x, positions, cache)
     return _logits(params, cfg, x)[:, 0], cache

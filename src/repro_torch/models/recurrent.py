@@ -10,17 +10,28 @@ over chunks carrying the state) and the sLSTM, whose gates see the
 previous hidden state through a full matrix, a loop over time: neither
 is the diagonal recurrence of ``linear_scan``, and the reference computes
 both with plain array ops, as the port does.
+
+Under a mesh both loops run on each rank's local slices (``local_scan``):
+the mLSTM's for each (batch row, head), the sLSTM's for each batch row,
+whole over its channels.  On fake tensors (the dry run) each loop is one
+custom op with a shape function and a FLOP formula.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.distributed import partitioning as PT
+from repro_torch.distributed.axes import constrain
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import merge_heads
 from repro_torch.models.param_util import leaf, normal, ones, zeros
 
 # ---------------------------------------------------------------------------
@@ -101,6 +112,45 @@ def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
 # ---------------------------------------------------------------------------
 
 
+def local_scan(fn, placements, args, weights=()):
+    """``fn(*args, *weights)`` on each rank's local slices, the outputs
+    rebuilt as DTensors placed by ``placements``.
+
+    For a recurrence that loops in Python (a chunk or a time step at a
+    time): DTensor's dispatch of each op costs more than the op, and the
+    loop makes thousands of them (32768 steps of an sLSTM prefill).
+    ``placements`` split only dimensions that the recurrence keeps apart
+    (dimension 0, batch, and for the mLSTM dimension 1, heads), so each
+    rank's slice is computed alone.  Every tensor of ``args`` (a DTensor,
+    or a plain tensor whole on every rank) is taken at ``placements``;
+    each weight is gathered whole, its gradient a partial sum over the
+    mesh axes that split the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+    from torch.utils._pytree import tree_map
+
+    mesh = next(a.device_mesh for a in args if PT.is_distributed(a))
+
+    def local(t):
+        if PT.is_distributed(t):
+            return t.redistribute(mesh, placements).to_local()
+        return distribute_tensor(t, mesh, placements, src_data_rank=None).to_local()
+
+    grad = [Partial() if p.is_shard(0) else Replicate() for p in placements]
+    ws = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grad)
+          if PT.is_distributed(w) else w for w in weights]
+    out = fn(*[local(a) for a in args], *ws)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, placements, run_check=False), out)
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))`` of the mLSTM's forget gate, which is a DTensor
+    under a mesh, as ``-softplus(-x)``, jax.nn.log_sigmoid's own formula:
+    DTensor shards softplus and its backward as pointwise ops, while
+    ``aten.log_sigmoid_forward``/``_backward`` have no sharding rule.  The
+    sLSTM's loop runs on local tensors and keeps ``F.logsigmoid``."""
+    return -F.softplus(-x)
+
+
 def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     d, r, h = cfg.d_model, cfg.rnn_width, cfg.n_heads
     dh = r // h
@@ -169,6 +219,16 @@ def _mlstm_chunk_scan(q, k, v, log_f, log_i, C, n, m, chunk: int):
     return torch.cat(hs, dim=2)[:, :, :T], (C, n, m)
 
 
+def _mlstm(q, k, v, log_f, log_i, C, n, m, chunk: int):
+    """``_mlstm_chunk_scan``; on fake tensors (the dry run) the custom op
+    ``repro_torch::mlstm_scan``, whose shape function stands for the loop
+    over chunks."""
+    if isinstance(q, FakeTensor):
+        h, C, n, m = _mlstm_op(q, k, v, log_f, log_i, C, n, m, chunk)
+        return h, (C, n, m)
+    return _mlstm_chunk_scan(q, k, v, log_f, log_i, C, n, m, chunk)
+
+
 def apply_mlstm(
     p: Dict, cfg: ModelConfig, x: torch.Tensor, state: Optional[Dict] = None,
     chunk: int = 256,
@@ -183,19 +243,30 @@ def apply_mlstm(
     xi, new_conv = _causal_conv(xi, p["conv"], conv_state)
     xi_act = F.silu(xi)
     # projected in the model's dtype, cast to float32 afterwards (as the reference)
-    q = torch.einsum("btr,rhk->bhtk", xi_act, p["wq"]) * (dh ** -0.5)
-    k = torch.einsum("btr,rhk->bhtk", xi_act, p["wk"])
-    v = torch.einsum("btr,rhk->bhtk", xi_act, p["wv"])
-    gates = xi.float() @ p["w_if"] + p["b_if"]
+    # under a mesh the products over the split "rnn" width are partial
+    # sums, reduced here to the heads' layout (and the gates whole) before
+    # the scan's nonlinear ops: left partial, DTensor reduces them onto
+    # whichever dimension it picks, the chunk's time steps included
+    q, k, v = (constrain(torch.einsum("btr,rhk->bhtk", xi_act, p[w]), "batch", "heads_act",
+                         None, None) for w in ("wq", "wk", "wv"))
+    q = q * (dh ** -0.5)
+    gates = constrain(xi.float() @ p["w_if"], "batch", None, None) + p["b_if"]
     log_i, log_f = gates.chunk(2, dim=-1)                  # (B,T,H)
-    log_f = F.logsigmoid(log_f).transpose(1, 2)            # (B,H,T)
+    log_f = _log_sigmoid(log_f).transpose(1, 2)            # (B,H,T)
     log_i = log_i.transpose(1, 2)                          # exp input gate (log-space)
 
     st = state if state is not None else init_mlstm_state(cfg, B, x.dtype, x.device)
-    h, (C, n, m) = _mlstm_chunk_scan(q.float(), k.float(), v.float(), log_f, log_i,
-                                     st["C"], st["n"], st["m"], chunk=min(chunk, max(T, 1)))
-    h = h * p["o_norm"][None, :, None, :]
-    h = h.transpose(1, 2).reshape(B, T, r).to(x.dtype)
+    args = (q.float(), k.float(), v.float(), log_f, log_i, st["C"], st["n"], st["m"])
+    scan = functools.partial(_mlstm, chunk=min(chunk, max(T, 1)))
+    if PT.is_distributed(q):
+        # independent for each (batch row, head): each rank scans its own
+        from torch.distributed.tensor import Replicate
+
+        qp = tuple(pl if pl.is_shard(0) or pl.is_shard(1) else Replicate() for pl in q.placements)
+        h, (C, n, m) = local_scan(scan, qp, args)
+    else:
+        h, (C, n, m) = scan(*args)
+    h = merge_heads(h * p["o_norm"][None, :, None, :]).to(x.dtype)
     y = h * F.silu(z)
     return y @ p["w_down"], {"C": C, "n": n, "m": m, "conv": new_conv}
 
@@ -235,11 +306,35 @@ def apply_slstm(
     pre = (x @ p["w_in"]).float()
     if state is None:
         state = init_slstm_state(cfg, B, x.dtype, x.device)
-    c, n, h, m = (state[k] for k in ("c", "n", "h", "m"))
-    rrec = p["r_rec"].float()
+    args = (pre,) + tuple(state[k] for k in ("c", "n", "h", "m"))
+    weights = (p["r_rec"].float(), p["b"])
+    if PT.is_distributed(pre):
+        # each rank runs its own batch rows, whole over the channels (a
+        # step's h @ r_rec mixes all of them)
+        from torch.distributed.tensor import Replicate
+
+        bp = tuple(pl if pl.is_shard(0) else Replicate() for pl in pre.placements)
+        y, (c, n, h, m) = local_scan(_slstm, bp, args, weights)
+    else:
+        y, (c, n, h, m) = _slstm(*args, *weights)
+    return y.to(x.dtype) @ p["w_out"], {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm(pre, c, n, h, m, rrec, b):
+    """``_slstm_scan``; on fake tensors (the dry run) the custom op
+    ``repro_torch::slstm_scan``, whose shape function stands for the loop's
+    thousands of steps."""
+    if isinstance(pre, FakeTensor):
+        y, c, n, h, m = _slstm_op(pre, c, n, h, m, rrec, b)
+        return y, (c, n, h, m)
+    return _slstm_scan(pre, c, n, h, m, rrec, b)
+
+
+def _slstm_scan(pre, c, n, h, m, rrec, b):
+    """The sLSTM's loop over time: (h of every step (B,T,R), (c, n, h, m))."""
     hs = []
-    for t in range(T):
-        g = pre[:, t] + h @ rrec + p["b"]
+    for t in range(pre.shape[1]):
+        g = pre[:, t] + h @ rrec + b
         zi, zf, zz, zo = g.chunk(4, dim=-1)
         log_f = F.logsigmoid(zf)
         m_new = torch.maximum(log_f + m, zi)
@@ -250,8 +345,7 @@ def apply_slstm(
         h = torch.sigmoid(zo) * c / torch.clamp(n.abs(), min=1.0)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    return y @ p["w_out"], {"c": c, "n": n, "h": h, "m": m}
+    return torch.stack(hs, dim=1), (c, n, h, m)
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
@@ -262,3 +356,130 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
         "h": zeros((batch, r), torch.float32, device),
         "m": torch.full((batch, r), -1e30, dtype=torch.float32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# the recurrences' loops as custom ops, taken by fake tensors only
+# ---------------------------------------------------------------------------
+# Real tensors run the loops (``_mlstm_chunk_scan``, ``_slstm_scan``) under
+# autograd; a fake tensor has nothing to compute, and the loops' thousands of
+# dispatches a layer (32768 sLSTM steps a prefill) would outlast the dry run's
+# time limit, so there each loop is one op with a shape function, a backward
+# op with another, and FLOP formulas for the products the loop does.
+
+_T = torch.Tensor
+
+
+def _with_state(out):
+    return (out[0],) + tuple(out[1])
+
+
+@torch.library.custom_op("repro_torch::mlstm_scan", mutates_args=())
+def _mlstm_op(q: _T, k: _T, v: _T, log_f: _T, log_i: _T, C: _T, n: _T, m: _T,
+              chunk: int) -> Tuple[_T, _T, _T, _T]:
+    return tuple(t.clone() for t in _with_state(
+        _mlstm_chunk_scan(q, k, v, log_f, log_i, C, n, m, chunk)))
+
+
+@_mlstm_op.register_fake
+def _(q, k, v, log_f, log_i, C, n, m, chunk):
+    return tuple(torch.empty_like(t) for t in (v, C, n, m))
+
+
+@torch.library.custom_op("repro_torch::mlstm_scan_backward", mutates_args=())
+def _mlstm_backward_op(q: _T, k: _T, v: _T, log_f: _T, log_i: _T, C: _T, n: _T, m: _T,
+                       chunk: int, gh: _T, gC: _T, gn: _T, gm: _T) -> List[_T]:
+    """The loop's gradients, by running it again under ``torch.func.vjp``."""
+    _, vjp = torch.func.vjp(lambda *a: _with_state(_mlstm_chunk_scan(*a, chunk)),
+                            q, k, v, log_f, log_i, C, n, m)
+    return list(vjp((gh, gC, gn, gm)))
+
+
+@_mlstm_backward_op.register_fake
+def _(q, k, v, log_f, log_i, C, n, m, chunk, gh, gC, gn, gm):
+    return [torch.empty_like(t) for t in (q, k, v, log_f, log_i, C, n, m)]
+
+
+def _mlstm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:8])
+    ctx.chunk = inputs[8]
+
+
+def _mlstm_grads(ctx, gh, gC, gn, gm):
+    return tuple(_mlstm_backward_op(*ctx.saved_tensors, ctx.chunk, gh, gC, gn, gm)) + (None,)
+
+
+_mlstm_op.register_autograd(_mlstm_grads, setup_context=_mlstm_setup)
+
+
+def _mlstm_flop_count(q_shape, chunk: int) -> int:
+    """The loop's products over T padded to whole chunks of c: per chunk
+    three (c x c x Dh) ones (scores, values, normaliser keys), two of
+    (c x Dh x Dh) (the carried state read and updated) and three of
+    (c x Dh) (the normalisers)."""
+    B, H, T, Dh = q_shape
+    Tp = -(-T // chunk) * chunk
+    return 2 * B * H * Tp * (3 * chunk * Dh + 2 * Dh * Dh + 3 * Dh)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_scan)
+def _mlstm_flops(q_shape, *args, **kwargs) -> int:
+    return _mlstm_flop_count(q_shape, args[7])
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_scan_backward)
+def _mlstm_backward_flops(q_shape, *args, **kwargs) -> int:
+    """Two gradient products for each of the loop's products."""
+    return 2 * _mlstm_flop_count(q_shape, args[7])
+
+
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def _slstm_op(pre: _T, c: _T, n: _T, h: _T, m: _T, rrec: _T,
+              b: _T) -> Tuple[_T, _T, _T, _T, _T]:
+    return tuple(t.clone() for t in _with_state(_slstm_scan(pre, c, n, h, m, rrec, b)))
+
+
+@_slstm_op.register_fake
+def _(pre, c, n, h, m, rrec, b):
+    return (pre.new_empty(pre.shape[:2] + (rrec.shape[0],)),) + tuple(
+        torch.empty_like(t) for t in (c, n, h, m))
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
+def _slstm_backward_op(pre: _T, c: _T, n: _T, h: _T, m: _T, rrec: _T, b: _T, gy: _T, gc: _T,
+                       gn: _T, gh: _T, gm: _T) -> List[_T]:
+    """The loop's gradients, by running it again under ``torch.func.vjp``."""
+    _, vjp = torch.func.vjp(lambda *a: _with_state(_slstm_scan(*a)), pre, c, n, h, m, rrec, b)
+    return list(vjp((gy, gc, gn, gh, gm)))
+
+
+@_slstm_backward_op.register_fake
+def _(pre, c, n, h, m, rrec, b, gy, gc, gn, gh, gm):
+    return [torch.empty_like(t) for t in (pre, c, n, h, m, rrec, b)]
+
+
+def _slstm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _slstm_grads(ctx, gy, gc, gn, gh, gm):
+    return tuple(_slstm_backward_op(*ctx.saved_tensors, gy, gc, gn, gh, gm))
+
+
+_slstm_op.register_autograd(_slstm_grads, setup_context=_slstm_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _slstm_flops(pre_shape, c_shape, n_shape, h_shape, m_shape, rrec_shape, b_shape,
+                 *args, **kwargs) -> int:
+    """h @ r_rec at every step."""
+    B, T, _ = pre_shape
+    return 2 * B * T * rrec_shape[0] * rrec_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
+def _slstm_backward_flops(pre_shape, c_shape, n_shape, h_shape, m_shape, rrec_shape, b_shape,
+                          *args, **kwargs) -> int:
+    """The gradients of h @ r_rec at every step, for h and for r_rec."""
+    B, T, _ = pre_shape
+    return 4 * B * T * rrec_shape[0] * rrec_shape[1]

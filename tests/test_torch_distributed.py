@@ -13,7 +13,10 @@
   the train step of reduced olmo-1b for ``tp``, ``tp_fsdp``, ``tp_fsdp``
   with ``zero2`` and ``accum=2``, and ``dp_fsdp``, against the
   reference's ``TrainStepBuilder`` on a 1x1 mesh of Auto axes built
-  here, and ``tp_serve_sm`` decode against the reference's.
+  here, ``tp_serve_sm`` decode against the reference's, and two paths
+  the port once refused, against the reference on one device: an xLSTM
+  train step and the encoder-decoder's serving (``test_torch_mesh_paths.py``
+  has the rest of them).
 * Two ranks, as two processes (``torch_mesh_worker.py``): ``tp_fsdp`` +
   ``zero2`` on mesh (2, 1), ``tp`` on (1, 2) and ``tp_serve_sm`` decode on
   (1, 2) with two kv heads and with one, against the reference's
@@ -404,27 +407,93 @@ def test_shard_decode_matches_reference(group, arch):
     np.testing.assert_allclose(got, want, rtol=DEC_RTOL, atol=DEC_ATOL)
 
 
+def _encdec_inputs(cfg, B=2, S=10, T=9, seed=8):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+            rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32))
+
+
+def _jax_encdec_decode(jmodel, jparams, frames, toks, t0):
+    """The reference's encoder-decoder with no mesh: prefill of
+    ``toks[:, :t0]`` over ``frames``, then teacher-forced decode steps
+    over the memories the prefill returned; the logits of each."""
+    B, T = toks.shape
+    prefill, decode = jax.jit(jmodel.prefill), jax.jit(jmodel.decode_step)
+    cache = jmodel.init_cache(B, T + 4)
+    lg, cache, mem = prefill(
+        jparams, {"enc_embeds": jnp.asarray(frames), "tokens": jnp.asarray(toks[:, :t0])}, cache)
+    outs = [np.asarray(lg)]
+    for t in range(t0, T):
+        lg, cache = decode(jparams, jnp.asarray(toks[:, t]), jnp.asarray(t), cache, mem)
+        outs.append(np.asarray(lg))
+    return np.stack(outs)
+
+
+class _LookupSpy:
+    """Counts the calls of ``layers.embed_lookup`` made while ``on``."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import layers as TL
+
+        self.on, self.calls, real = False, 0, TL.embed_lookup
+
+        def spy(table, tokens):
+            self.calls += self.on
+            return real(table, tokens)
+
+        monkeypatch.setattr(TL, "embed_lookup", spy)
+
+
 @pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-large-v2"])
-def test_unported_mesh_paths_raise(group, arch):
-    """What the port does not run under a mesh raises NotImplementedError
-    naming the op (or the refused path) and the strategy: training an
-    xLSTM (``aten.log_sigmoid_backward`` has no sharding rule) and serving
-    the encoder-decoder (its stacked memories)."""
-    cfg = get_config(arch).reduced()
+def test_unported_mesh_paths_raise(group, arch, monkeypatch):
+    """The two mesh paths the port once refused (the name is the one they
+    were tested under when they raised), now run at world 1 and held to
+    the reference on one device: a ``tp`` train step of reduced
+    xlstm-350m (the mLSTM's forget gate is ``-softplus(-x)``, which
+    DTensor shards, and both loops run on local slices;
+    ``src/repro/models/recurrent.py:207, 271``), and
+    ``tp_serve`` serving of the reduced encoder-decoder (its stacked
+    memories placed on the mesh, every decode step's lookup through
+    ``layers.embed_lookup``; ``src/repro/models/encdec.py``)."""
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    if arch == "xlstm-350m":   # one mLSTM and one sLSTM block (jit time)
+        jcfg, cfg = (dataclasses.replace(c, block_pattern=("mlstm", "slstm"), n_layers=2)
+                     for c in (jcfg, cfg))
+    jmodel = jbuild_model(jcfg)
+    np_params = jax.tree.map(np.asarray, jax.jit(lambda r: jmodel.init(r)[0])(
+        jax.random.PRNGKey(6)))
     model = build_model(cfg)
-    builder = TrainStepBuilder(model, group, strategy="tp")
-    params = model.init(torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(_decode_inputs(cfg, T=8)).long()
+    params = params_from_jax(np_params, cfg, device="cpu")
     if arch == "xlstm-350m":
-        state = builder.init_state(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match=r"log_sigmoid_backward.*strategy tp"):
-            builder.train_step_fn()(state, {"tokens": toks, "labels": toks})
-    else:
-        params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
-        batch = {"tokens": toks, "enc_embeds": torch.zeros(2, 8, cfg.d_model)}
-        cache = builder.shard_cache(model.init_cache(2, 12, device="cpu"))
-        with pytest.raises(NotImplementedError, match=r"memories.*strategy tp"):
-            builder.prefill_step_fn()(params, batch, cache)
+        batch = _train_batch(cfg, T=12)
+        builder = TrainStepBuilder(model, group, strategy="tp", opt=AdamWConfig(**OPT))
+        state = builder.distribute_state(
+            {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32)}, src_data_rank=None)
+        state, m = builder.train_step_fn()(
+            state, {k: torch.from_numpy(v).long() for k, v in batch.items()})
+        whole = lambda tree: {k: PT.full(t).float().numpy() for k, t in flatten_with_paths(tree)}
+        _assert_step_close(whole(state["params"]), whole(state["opt"]["mu"]),
+                           float(m["loss"]), float(m["grad_norm"]),
+                           _jax_step(jmodel, np_params, batch, 1))
+        return
+    frames, toks = _encdec_inputs(cfg)
+    want = _jax_encdec_decode(jmodel, jax.tree.map(jnp.asarray, np_params), frames, toks, 5)
+    spy = _LookupSpy(monkeypatch)
+    builder = TrainStepBuilder(model, group, strategy="tp_serve")
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    B, T = toks.shape
+    cache = builder.shard_cache(model.init_cache(B, T + 4, device="cpu"))
+    tt = torch.from_numpy(toks).long()
+    lg, cache, mem = builder.prefill_step_fn()(
+        params, {"tokens": tt[:, :5], "enc_embeds": torch.from_numpy(frames)}, cache)
+    assert all(PT.is_distributed(m) for m in mem)
+    outs, spy.on = [lg], True
+    for t in range(5, T):
+        lg, cache = builder.decode_step_fn()(params, tt[:, t], t, cache, mem)
+        outs.append(lg)
+    assert spy.calls == T - 5
+    np.testing.assert_allclose(torch.stack(outs).numpy(), want, rtol=DEC_RTOL, atol=DEC_ATOL)
 
 
 # ----------------------------------------------------------------- two ranks
@@ -448,16 +517,16 @@ def _jax_step(jmodel, np_params, batch, accum):
             "mu": _paths(new_opt["mu"]), "state": {"params": new_p, "opt": new_opt}}
 
 
-def _run_two_ranks(in_path, out_dir, *mode):
-    """``torch_mesh_worker.py [mode] IN OUT`` as two gloo ranks; rank 0's
-    ``out.npz``."""
+def _run_two_ranks(in_path, out_dir, *mode, world=2):
+    """``torch_mesh_worker.py [mode] IN OUT`` as two (or ``world``) gloo
+    ranks; rank 0's ``out.npz``."""
     env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+               WORLD_SIZE=str(world), GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_mesh_worker.py"),
                                *mode, str(in_path), str(out_dir)],
                               env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
+             for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -465,7 +534,7 @@ def _run_two_ranks(in_path, out_dir, *mode):
     finally:
         for p in procs:
             p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(
+    assert [p.returncode for p in procs] == [0] * world, "\n".join(
         f"rank {r}: " + "\n".join(line for line in log.splitlines() if "Error" in line)
         for r, log in enumerate(logs))
     return np.load(os.path.join(out_dir, "out.npz"))

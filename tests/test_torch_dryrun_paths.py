@@ -1,0 +1,66 @@
+"""The dry run of the serving cells whose mesh path once failed in the
+port, each in a subprocess at full width on fake tensors over
+the fake 256- or 512-rank mesh (``python -m repro_torch.launch.dryrun``),
+each ``ok``.  One cell a class of fault, the cheapest (the training cells
+are in ``test_torch_dryrun_train.py``):
+
+* the decode step's lookup on 2 x 16 x 16 (olmo-1b ``decode_32k``);
+* the MoE FFN's dispatch and combine over split experts (olmoe-1b-7b
+  ``prefill_32k``);
+* xLSTM under a mesh (xlstm-350m ``decode_32k``);
+* the VLM splice after a vocab-split lookup (internvl2-76b
+  ``prefill_32k``);
+* serving the encoder-decoder, its stacked memories placed on the mesh
+  (seamless-m4t-large-v2 ``prefill_32k``).
+
+Where heads, kv heads and vocabulary all divide the axes, rank 0's traced
+FLOPs are held to the analytic per-device count within 0.85-1.2
+(``tests/test_costmodel.py``'s band).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+DRYRUN_TIMEOUT = 300
+BAND = (0.85, 1.2)
+
+CELLS = [
+    # arch, shape, mesh, extra flags, strategy of the record, FLOPs held to the band
+    ("olmo-1b", "decode_32k", "multi", (), "tp_serve", True),
+    ("olmoe-1b-7b", "prefill_32k", "single", (), "tp_serve", True),
+    ("xlstm-350m", "decode_32k", "single", (), "tp_serve", False),
+    ("internvl2-76b", "prefill_32k", "single", (), "tp_serve", False),
+    ("seamless-m4t-large-v2", "prefill_32k", "single", (), "tp_serve", True),
+]
+
+
+def _dryrun(tmp_path, arch, shape, mesh, *flags):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cpu", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(tmp_path), *flags],
+        env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT, cwd=ROOT)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+
+
+def _record(tmp_path, arch, shape, mesh, strategy):
+    return json.load(open(tmp_path / f"{arch}_{shape}_{mesh}_{strategy}.json"))
+
+
+@pytest.mark.parametrize("arch,shape,mesh,flags,strategy,in_band", CELLS,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in CELLS])
+def test_repaired_cell_traces(tmp_path, arch, shape, mesh, flags, strategy, in_band):
+    _dryrun(tmp_path, arch, shape, mesh, *flags)
+    rec = _record(tmp_path, arch, shape, mesh, strategy)
+    assert rec["status"] == "ok", rec.get("error")
+    if in_band:
+        r = rec["cost_hlo_raw"]["flops"] / rec["roofline"]["flops_per_device"]
+        assert BAND[0] < r < BAND[1], r
+

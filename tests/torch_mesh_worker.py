@@ -6,8 +6,12 @@ does not resolve)::
 
     python tests/torch_mesh_worker.py IN.npz OUT_DIR
     python tests/torch_mesh_worker.py vocab IN.npz OUT_DIR
+    python tests/torch_mesh_worker.py paths IN.npz OUT_DIR
+    python tests/torch_mesh_worker.py splice-heads IN.npz OUT_DIR    # WORLD_SIZE=4
     python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
         train-main LOSSES.json --mesh 2x1 --device cpu ...
+    python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
+        train-resume LOSSES.json SPOOL --mesh 2x1 --device cpu ...
 
 ``IN.npz`` holds the inputs: the parameters of reduced olmo-1b and of
 reduced h2o-danube3-4b (``<case>/<leaf path>``), a training batch and
@@ -27,9 +31,27 @@ and rank 0 writes what came out to ``OUT_DIR/out.npz``.  With ``vocab``
 they run ``train_tp_vocab``: one ``tp`` and one ``tp_fsdp`` step of
 reduced olmo-1b and one ``tp`` step of the reduced encoder-decoder, each
 with an even vocabulary that the "model" axis of mesh (1, 2) splits (the
-loss's gold logit on split logits).  With
-``train-main`` it runs ``repro_torch.launch.train.main`` with the
-arguments that follow, under the launcher, and rank 0 writes the losses.
+loss's gold logit on split logits).  With ``paths`` they run
+``train_moe_tp`` and ``train_moe_fsdp`` (one ``tp`` step of reduced
+granite-moe-1b-a400m on mesh (1, 2), its experts split over "model", and
+one ``tp_fsdp`` step on (2, 1)), ``train_xlstm`` (one ``tp`` step of
+reduced xlstm-350m on (1, 2)), ``serve_encdec`` (a ``tp_serve`` prefill
+of reduced seamless-m4t-large-v2 on (1, 2), its memories split by kv
+heads, and teacher-forced decode steps) and ``generate`` (greedy
+``launch.serve.generate`` of reduced h2o-danube3-4b under ``tp_serve_sm``
+on (1, 2)).  With ``splice-heads``, four ranks (``WORLD_SIZE=4``) run on
+mesh (2, 2) ``train_vlm`` and ``prefill_vlm`` under ``tp`` (a step, and a
+prefill and decode steps, of reduced internvl2-76b with ``vision_embeds``
+spliced in and an even vocabulary that "model" splits) and
+``train_rg_heads`` and ``train_qwen_heads`` under ``tp_fsdp`` (a step of
+reduced recurrentgemma-2b and of reduced qwen1.5-32b with 3 heads, which
+"model" does not divide, their other dimensions split over "data").  With
+``train-main`` it runs ``repro_torch.launch.train.main``
+with the arguments that follow, under the launcher, and rank 0 writes the
+losses; with ``train-resume`` it runs it three times: 6 steps, then 3
+steps spooled to ``SPOOL``, then 6 steps resumed from that spool
+(``--resume-blob``), and rank 0 writes the uninterrupted run's losses and
+the resumed run's.
 Only the port is imported here; the tests hold the results to the
 reference or to a run on one device.
 """
@@ -77,13 +99,14 @@ def whole(tree, prefix):
 
 
 def train(npz, meta, out, mesh, name, strategy, zero2, accum, kv=None, spool=None,
-          arch="olmo-1b", inputs=None, vocab=None):
+          arch="olmo-1b", inputs=None, vocab=None, over=None):
     """One step; the parameters come from ``npz[<inputs>/...]`` (by default
     ``olmo``, or ``olmo_kv1`` with one kv head), the batch from
-    ``npz[<inputs>_batch/...]`` (by default ``batch``)."""
+    ``npz[<inputs>_batch/...]`` (by default ``batch``); ``over`` replaces
+    fields of the reduced config."""
     cfg = get_config(arch).reduced()
-    cfg = dataclasses.replace(cfg, n_kv_heads=kv or cfg.n_kv_heads,
-                              vocab_size=vocab or cfg.vocab_size)
+    cfg = dataclasses.replace(cfg, **{"n_kv_heads": kv or cfg.n_kv_heads,
+                                       "vocab_size": vocab or cfg.vocab_size, **(over or {})})
     model = build_model(cfg)
     builder = TrainStepBuilder(model, mesh, strategy=strategy, accum=accum, zero2=zero2,
                                opt=AdamWConfig(**meta["opt"]))
@@ -101,9 +124,10 @@ def train(npz, meta, out, mesh, name, strategy, zero2, accum, kv=None, spool=Non
     out[f"{name}/grad_norm"] = np.asarray(float(metrics["grad_norm"]))
     out.update(whole(state["params"], f"{name}/params"))
     out.update(whole(state["opt"]["mu"], f"{name}/mu"))
-    if "groups" in state["params"]:
-        out[f"{name}/placements"] = np.asarray(
-            str(state["params"]["groups"][0]["mixer"]["wq"].placements))
+    wq = [g["mixer"]["wq"] for g in state["params"].get("groups", ())
+          if "wq" in g.get("mixer", {})]
+    if wq:
+        out[f"{name}/placements"] = np.asarray(str(wq[0].placements))
     if spool is not None:
         rank0 = dist.get_rank() == 0
         if rank0:
@@ -155,6 +179,135 @@ def train_main(out_path, argv) -> int:
     return 0
 
 
+def train_resume(out_path, spool, argv) -> int:
+    """``launch.train.main``: 6 steps uninterrupted; 3 steps spooled to
+    ``spool`` (its last checkpoint at step 3); 6 steps resumed from the
+    spool.  Rank 0 writes {"whole": [...], "resumed": [...]}."""
+    from repro_torch.launch.train import main as launch_main
+
+    try:
+        whole = launch_main(argv + ["--steps", "6"])["losses"]
+        if int(os.environ["RANK"]) == 0:
+            os.makedirs(spool, exist_ok=True)
+        first = launch_main(argv + ["--steps", "3", "--spool", spool])
+        resumed = launch_main(argv + ["--steps", "6", "--spool", spool,
+                                      "--resume-blob", first["ckpt_blob"],
+                                      "--corpus-blob", first["corpus_blob"]])
+        if resumed["rank"] == 0:
+            with open(out_path, "w") as f:
+                json.dump({"whole": whole, "first": first["losses"],
+                           "resumed": resumed["losses"]}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def serve_encdec(npz, meta, out, mesh, name):
+    """A ``tp_serve`` prefill of the reduced encoder-decoder and
+    teacher-forced decode steps over the memories it returns."""
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    model = build_model(cfg)
+    builder = TrainStepBuilder(model, mesh, strategy="tp_serve")
+    params = tree_from(npz, name, model.abstract()[0])
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    toks = torch.from_numpy(npz[f"{name}_in/tokens"]).long()
+    frames = torch.from_numpy(npz[f"{name}_in/frames"])
+    B, T = toks.shape
+    t0 = meta["prefill"]
+    cache = builder.shard_cache(model.init_cache(B, T + 4, device="cpu"))
+    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+    logits, cache, memories = prefill(params, {"tokens": toks[:, :t0], "enc_embeds": frames},
+                                      cache)
+    outs = [logits]
+    for t in range(t0, T):
+        logits, cache = decode(params, toks[:, t], t, cache, memories)
+        outs.append(logits)
+    out[f"{name}/logits"] = torch.stack(outs).numpy()
+    out[f"{name}/memories_placements"] = np.asarray(str(memories[0].placements))
+
+
+def generate_tokens(npz, meta, out, mesh, name):
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config(SERVE_ARCH).reduced()
+    model = build_model(cfg)
+    params = tree_from(npz, name, model.abstract()[0])
+    prompts = list(npz[f"{name}_in/prompts"])
+    got = generate(model, params, prompts, max_new=meta["max_new"],
+                   max_len=len(prompts[0]) + meta["max_new"], device="cpu", mesh=mesh,
+                   strategy="tp_serve_sm")
+    out[f"{name}/tokens"] = np.stack(got)
+
+
+def prefill_vlm(npz, meta, out, mesh, name, strategy):
+    """Prefill of the reduced VLM over tokens and ``vision_embeds``, then
+    teacher-forced decode steps."""
+    cfg = dataclasses.replace(get_config("internvl2-76b").reduced(), vocab_size=meta["vocab"])
+    model = build_model(cfg)
+    builder = TrainStepBuilder(model, mesh, strategy=strategy)
+    params = tree_from(npz, name, model.abstract()[0])
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    toks = torch.from_numpy(npz[f"{name}_in/tokens"]).long()
+    vision = torch.from_numpy(npz[f"{name}_in/vision_embeds"])
+    B, T = toks.shape
+    t0 = meta["prefill"]
+    cache = builder.shard_cache(model.init_cache(B, T + 4, device="cpu"))
+    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+    logits, cache = prefill(params, {"tokens": toks[:, :t0], "vision_embeds": vision}, cache)
+    outs = [logits]
+    for t in range(t0, T):
+        logits, cache = decode(params, toks[:, t], t, cache)
+        outs.append(logits)
+    out[f"{name}/logits"] = torch.stack(outs).numpy()
+    out[f"{name}/table_placements"] = np.asarray(str(params["embed"]["table"].placements))
+
+
+def splice_heads_main(in_path, out_dir) -> int:
+    """The VLM splice on a vocab-split table, and heads that "model" does
+    not divide (see the module docstring), on mesh (2, 2) of four ranks."""
+    npz = np.load(in_path)
+    meta = json.loads(str(npz["meta"]))
+    dist.init_process_group("gloo")
+    out: dict = {}
+    try:
+        square = make_mesh((2, 2), ("data", "model"), device="cpu")
+        train(npz, meta, out, square, "train_vlm", "tp", False, 1, arch="internvl2-76b",
+              inputs="vlm", vocab=meta["vocab"])
+        prefill_vlm(npz, meta, out, square, "prefill_vlm", "tp")
+        for arch, case in (("recurrentgemma-2b", "rg"), ("qwen1.5-32b", "qwen")):
+            train(npz, meta, out, square, f"train_{case}_heads", "tp_fsdp", False, 1,
+                  arch=arch, inputs=case, over=meta["heads"][arch])
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, "out.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def paths_main(in_path, out_dir) -> int:
+    """The mesh paths the port once refused (see the module docstring)."""
+    npz = np.load(in_path)
+    meta = json.loads(str(npz["meta"]))
+    dist.init_process_group("gloo")
+    out: dict = {}
+    try:
+        row = make_mesh((1, 2), ("data", "model"), device="cpu")
+        moe = "granite-moe-1b-a400m"
+        train(npz, meta, out, row, "train_moe_tp", "tp", False, 1, arch=moe, inputs="moe")
+        train(npz, meta, out, make_mesh((2, 1), ("data", "model"), device="cpu"),
+              "train_moe_fsdp", "tp_fsdp", False, 1, arch=moe, inputs="moe")
+        train(npz, meta, out, row, "train_xlstm", "tp", False, 1, arch="xlstm-350m",
+              inputs="xlstm", over=dict(block_pattern=tuple(meta["xlstm_blocks"]),
+                                        n_layers=len(meta["xlstm_blocks"])))
+        serve_encdec(npz, meta, out, row, "serve_encdec")
+        generate_tokens(npz, meta, out, row, "generate")
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, "out.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def vocab_main(in_path, out_dir) -> int:
     """``train_tp_vocab``: the vocabulary split over "model" (mesh (1, 2))."""
     npz = np.load(in_path)
@@ -179,8 +332,14 @@ def main() -> int:
     torch.set_num_threads(1)
     if sys.argv[1] == "train-main":
         return train_main(sys.argv[2], sys.argv[3:])
+    if sys.argv[1] == "train-resume":
+        return train_resume(sys.argv[2], sys.argv[3], sys.argv[4:])
     if sys.argv[1] == "vocab":
         return vocab_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1] == "paths":
+        return paths_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1] == "splice-heads":
+        return splice_heads_main(sys.argv[2], sys.argv[3])
     npz = np.load(sys.argv[1])
     out_dir = sys.argv[2]
     meta = json.loads(str(npz["meta"]))
