@@ -131,9 +131,14 @@ Phases (each one's failure fails the run):
    against that phase's (the share equal reported), its wall time split
    into placement, prefill, decode steps and the rest, beside the same
    call inside ``torch.inference_mode`` (reported); full-width
-   xlstm-350m under ``tp_fsdp`` takes 2 steps at 2 x 512 from the state
-   and batches of a no-mesh run, losses within 1e-4 relative;
-12. dry run: ``repro_torch.launch.dryrun`` in six processes at once
+   recurrentgemma-2b under ``tp_serve_hd``: ``generate`` on the serve
+   phase's model and prompts, 4 x 512 + 32 (18 ``linear_scan`` launches,
+   all in the prefill, on local shards), its new tokens against that
+   phase's (the share equal reported), and the mesh prefill's logits
+   within 1e-3 of that phase's (prefill time beside the no-mesh one);
+   full-width xlstm-350m under ``tp_fsdp`` takes 2 steps at 2 x 512 from
+   the state and batches of a no-mesh run, losses within 1e-4 relative;
+12. dry run: ``repro_torch.launch.dryrun`` in seven processes at once
    (their fake process groups apart from this one's NCCL group), on fake
    tensors over a fake 256-rank 16 x 16 mesh: olmo-1b ``train_4k``
    (``tp_fsdp``), qwen3-32b ``train_4k`` (both at one microbatch),
@@ -144,7 +149,14 @@ Phases (each one's failure fails the run):
    2 x 16 x 16, olmoe-1b-7b ``prefill_32k``, granite-moe-1b-a400m and
    recurrentgemma-2b ``train_4k``, xlstm-350m ``decode_32k``,
    internvl2-76b ``prefill_32k``, seamless-m4t-large-v2 ``prefill_32k``
-   and ``train_4k`` (train cells at one microbatch): each must be ``ok``; and a
+   and ``train_4k``; then the reference's last three strategies:
+   qwen1.5-32b ``train_4k`` under ``tp_fsdp_uneven``, ``prefill_32k``
+   under ``tp_serve_uneven`` (traced FLOPs at most 1.3 x the analytic
+   count, both), ``decode_32k`` under ``tp_serve_hd`` (temporaries and
+   all-gathers under 1 GiB a device: no cache gathered),
+   recurrentgemma-2b ``decode_32k`` (``tp_serve_hd``) and ``train_4k``
+   (``tp_fsdp_uneven``), h2o-danube3-4b ``long_500k`` (``tp_fsdp_sp``)
+   (train cells at one microbatch): each must be ``ok``; and a
    (1, 1) record of the train phase's step (olmo-1b, 2 x 2048), whose
    input bytes must equal the bytes the train phase's state and batch
    hold on the card within 0.1 %, its temp-bytes estimate printed beside
@@ -162,7 +174,7 @@ Phases (each one's failure fails the run):
    fork adds no data page, the trunk restores byte-equal after the
    branches; their saves launch ``page_digest`` and ``delta_mask``;
 15. the ``kernels`` line: per kernel, its launches on its paths (serving
-   recurrentgemma-2b for ``linear_scan``, training, mesh training and the
+   recurrentgemma-2b, without and with a mesh, for ``linear_scan``, training, mesh training and the
    examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
    mesh serving, mesh encoder-decoder serving and mesh ``generate`` for
    ``flash_attention_sm90``, the float32 long and
@@ -618,6 +630,7 @@ def phase_serve(state):
                 raise AssertionError(f"prefill launched {ops.launch_counts()} scans")
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite prefill logits")
+        prefill_logits = logits.float()
         tok = torch.argmax(logits, dim=-1)
         finite = torch.ones((), dtype=torch.bool, device="cuda")
         torch.cuda.synchronize()
@@ -630,6 +643,7 @@ def phase_serve(state):
         decode_s = time.perf_counter() - t0
         if not bool(finite):
             raise AssertionError("non-finite decode logits")
+    state["serve_ref"] = {"logits": prefill_logits, "outs": outs}
     state["serve"] = {
         "prefill_ms": sorted(prefill_ms)[1],
         "decode_tok_s": BATCH * MAX_NEW / decode_s,
@@ -642,6 +656,73 @@ def phase_serve(state):
         f"tok/s ({state['serve']['decode_ms_per_step']:.2f} ms/step, batch {BATCH}); "
         f"peak memory {state['serve']['peak_gib']:.2f} GiB; on {state['smi']}")
     del params, model, cache, logits
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_serve_rg(state):
+    """Full-width recurrentgemma-2b under ``tp_serve_hd``: ``generate`` on
+    the serve phase's model and prompts through the mesh (18 ``linear_scan``
+    launches, all in the prefill, on local shards), its new tokens against
+    that phase's; then the mesh prefill's logits against that phase's."""
+    cfg = state["cfg"]
+    n_rglru = sum(1 for i in range(cfg.n_layers)
+                  if cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))   # the serve phase's
+    prompts = prompts_for(seed=1)
+    ref = state.pop("serve_ref")
+    max_len = PROMPT_LEN + MAX_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts at 0 just before, read just after
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = generate(model, params, prompts, max_new=MAX_NEW, max_len=max_len, device="cuda",
+                    mesh=state["mesh"], strategy="tp_serve_hd")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if counts["linear_scan"] != n_rglru:
+        raise AssertionError(f"generate under tp_serve_hd launched {counts}, expected "
+                             f"{n_rglru} linear_scan (the prefill)")
+    got, want = np.stack(outs)[:, PROMPT_LEN:], np.stack(ref["outs"])[:, PROMPT_LEN:]
+    if got.shape != want.shape or not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise AssertionError(f"bad new tokens {got.shape}")
+    same = float((got == want).mean())
+    # the prefill alone, through the builder's step, timed (median of 3)
+    builder = TrainStepBuilder(model, state["mesh"], strategy="tp_serve_hd")
+    dparams = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    tokens = torch.as_tensor(np.stack(prompts).astype(np.int64), device="cuda")
+    prefill_ms = []
+    for _ in range(3):
+        cache = builder.shard_cache(model.init_cache(BATCH, max_len, device="cuda"))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = builder.prefill_step_fn()(dparams, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        if ops.launch_counts()["linear_scan"] != n_rglru:
+            raise AssertionError(f"the mesh prefill launched {ops.launch_counts()}")
+    dlogit = float((logits.float() - ref["logits"]).abs().max())
+    if not (bool(torch.isfinite(logits).all()) and dlogit <= MESH_ENCDEC_DLOGIT):
+        raise AssertionError(f"mesh prefill logits: max |dlogit| {dlogit:.3e} vs no mesh")
+    state["mesh_serve_rg"] = {"generate_s": wall, "prefill_ms": sorted(prefill_ms)[1],
+                              "prefill_runs_ms": prefill_ms, "max_dlogit": dlogit,
+                              "new_tokens_same": same, "peak_gib": peak,
+                              "no_mesh_prefill_ms": state["serve"]["prefill_ms"],
+                              "no_mesh_generate_s": state["serve"]["generate_first_call_s"]}
+    state["mesh_serve_rg_launches"] = counts["linear_scan"]
+    r = state["mesh_serve_rg"]
+    log(f"mesh recurrentgemma serve: {cfg.name} generate(mesh, tp_serve_hd), {BATCH}x"
+        f"{PROMPT_LEN} + {MAX_NEW} new tokens in {wall:.2f} s (no mesh, first call "
+        f"{r['no_mesh_generate_s']:.2f} s), launches {counts}; new tokens equal to the no-mesh "
+        f"run's {same:.4f}; prefill {r['prefill_ms']:.2f} ms (median of 3: "
+        f"{', '.join(f'{m:.2f}' for m in prefill_ms)}; no mesh {r['no_mesh_prefill_ms']:.2f}), "
+        f"{n_rglru} linear_scan launches each, max |dlogit| vs no mesh {dlogit:.3e}; peak "
+        f"{peak:.2f} GiB; on {state['smi']}")
+    del params, dparams, cache, logits
     torch.cuda.empty_cache()
 
 
@@ -1082,7 +1163,10 @@ def phase_kernel_times(state):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan.py:48",
-        "launches": state["launches"]["linear_scan"],
+        "launches": state["launches"]["linear_scan"] + state["mesh_serve_rg_launches"],
+        "launches_by_path": {f"{ARCH} serve": state["launches"]["linear_scan"],
+                             f"{ARCH} mesh serve (tp_serve_hd)":
+                                 state["mesh_serve_rg_launches"]},
         "max_abs_err": max(t["err"], t_long["err"], state["scan_err"]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -2268,7 +2352,8 @@ def phase_train_encdec(state):
 # ------------------------------------------------- launch tooling, examples
 
 # the dry run's cells on the card machine (``repro_torch.launch.dryrun``):
-# (arch, shape, mesh); train cells at one microbatch to keep the phase short
+# (arch, shape, mesh[, strategy]), strategy "auto" where none is named (tp_fsdp
+# to train, tp_serve to serve); train cells at one microbatch to keep the phase short
 DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
                 [("olmo-1b", "train_4k", "single"), ("olmo-1b", "train_4k", "multi")],
                 [("h2o-danube-3-4b", "prefill_32k", "single"),
@@ -2284,7 +2369,21 @@ DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
                  ("recurrentgemma-2b", "train_4k", "single")],
                 [("internvl2-76b", "prefill_32k", "single"),
                  ("seamless-m4t-large-v2", "prefill_32k", "single"),
-                 ("seamless-m4t-large-v2", "train_4k", "single")]]
+                 ("seamless-m4t-large-v2", "train_4k", "single")],
+                # the reference's last three strategies: heads split unevenly
+                # (_uneven), the decode over a cache split on its head
+                # dimension (tp_serve_hd), activations split on the sequence
+                [("qwen1.5-32b", "train_4k", "single", "tp_fsdp_uneven"),
+                 ("qwen1.5-32b", "prefill_32k", "single", "tp_serve_uneven"),
+                 ("qwen1.5-32b", "decode_32k", "single", "tp_serve_hd"),
+                 ("recurrentgemma-2b", "decode_32k", "single", "tp_serve_hd"),
+                 ("recurrentgemma-2b", "train_4k", "single", "tp_fsdp_uneven"),
+                 ("h2o-danube-3-4b", "long_500k", "single", "tp_fsdp_sp")]]
+# bounds of the strategy cells: most traced / analytic FLOPs, most temp GiB
+# beyond the inputs, most all-gather GiB a device
+DRYRUN_BOUNDS = {("qwen1.5-32b", "train_4k", "tp_fsdp_uneven"): (1.3, None, None),
+                 ("qwen1.5-32b", "prefill_32k", "tp_serve_uneven"): (1.3, None, None),
+                 ("qwen1.5-32b", "decode_32k", "tp_serve_hd"): (None, 1.0, 1.0)}
 DRYRUN_TIMEOUT_S = 300
 ARG_BYTES_RTOL = 1e-3      # the (1, 1) record's inputs vs the train phase's state and batch
 # one process of the dry run: its cells, then (the last group) the (1, 1)
@@ -2296,9 +2395,9 @@ from repro_torch.configs.shapes import ShapeCell
 from repro_torch.launch.dryrun import run_cell, trace_cell
 from repro_torch.launch.mesh import make_mesh
 cells, out, smoke = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3] == "1"
-for arch, shape, mesh in cells:
-    run_cell(arch, shape, mesh, "auto", out, accum=1 if shape.startswith("train") else None,
-             device="cuda", timeout_s=%d)
+for arch, shape, mesh, *strategy in cells:
+    run_cell(arch, shape, mesh, (strategy or ["auto"])[0], out,
+             accum=1 if shape.startswith("train") else None, device="cuda", timeout_s=%d)
 if smoke:
     rec = trace_cell(get_config(%r), ShapeCell("smoke_train", "train", %d, %d), 1,
                      functools.partial(make_mesh, (1, 1), ("data", "model"), device="cuda"),
@@ -2309,7 +2408,7 @@ if smoke:
 
 
 def phase_dry_run(state):
-    """The port's dry run of fourteen cells on fake 256- and 512-rank meshes,
+    """The port's dry run of twenty cells on fake 256- and 512-rank meshes,
     each group of cells in its own process (the fake process group must
     not meet this process's NCCL group), the groups in parallel."""
     out = os.path.join(ROOT, "experiments", "dryrun_torch", "smoke")
@@ -2330,23 +2429,38 @@ def phase_dry_run(state):
     for p, text in zip(procs, logs):
         if p.returncode != 0:
             raise AssertionError(f"a dry-run process exited {p.returncode}:\n{text[-3000:]}")
-    recs = []
-    for arch, shape, mesh in (c for group in DRYRUN_CELLS for c in group):
-        strategy = "tp_fsdp" if shape.startswith("train") else "tp_serve"
+    recs, failed = [], []
+    for arch, shape, mesh, *named in (c for group in DRYRUN_CELLS for c in group):
+        strategy = named[0] if named else "tp_fsdp" if shape.startswith("train") else "tp_serve"
         with open(os.path.join(out, f"{arch}_{shape}_{mesh}_{strategy}.json")) as f:
             rec = json.load(f)
         recs.append(rec)
         if rec["status"] != "ok":
-            raise AssertionError(f"dry run {arch} {shape} {mesh}: {rec['status']} "
-                                 f"{rec.get('error', '')[:1000]}")
+            failed.append(f"dry run {arch} {shape} {mesh} {strategy}: {rec['status']} "
+                          f"{rec.get('error', '')[:1000]}")
+            log(f"  {failed[-1]}")
+            continue
         m, rf = rec["memory"], rec["roofline"]
+        coll = rec["collectives_hlo"]
+        ratio = rec["cost_hlo_raw"]["flops"] / rf["flops_per_device"]
+        most_ratio, most_temp, most_gather = DRYRUN_BOUNDS.get((arch, shape, strategy),
+                                                               (None, None, None))
+        if most_ratio is not None and ratio > most_ratio:
+            failed.append(f"dry run {arch} {shape} {strategy}: traced / analytic {ratio:.3f}")
+        if most_temp is not None and m["temp_bytes"] > most_temp * 2**30:
+            failed.append(f"dry run {arch} {shape} {strategy}: temp {m['temp_bytes']} B")
+        if most_gather is not None and \
+                coll["bytes_by_op"].get("all-gather", 0) > most_gather * 2**30:
+            failed.append(f"dry run {arch} {shape} {strategy}: all-gather {coll['bytes_by_op']}")
         log(f"  dry run {arch} {shape} {mesh} {strategy} (accum {rec['accum']}): ok, build "
             f"{rec['lower_s']} s, trace {rec['compile_s']} s; {(m['argument_bytes'] + m['temp_bytes']) / 2**30:.2f} "
             f"GiB a device (args {m['argument_bytes'] / 2**30:.2f} + temp "
             f"{m['temp_bytes'] / 2**30:.2f}); FLOPs traced {rec['cost_hlo_raw']['flops']:.4e} "
-            f"vs analytic {rf['flops_per_device']:.4e} a device; collectives "
-            f"{rec['collectives_hlo']['count_by_op']}; roofline {rf['step_time_s'] * 1e3:.2f} ms, "
-            f"{rf['bottleneck']} (H100 constants)")
+            f"vs analytic {rf['flops_per_device']:.4e} a device ({ratio:.3f}); collectives "
+            f"{coll['count_by_op']}, GiB {({k: round(v / 2**30, 3) for k, v in coll['bytes_by_op'].items()})}; "
+            f"roofline {rf['step_time_s'] * 1e3:.2f} ms, {rf['bottleneck']} (H100 constants)")
+    if failed:
+        raise AssertionError("; ".join(failed))
     with open(os.path.join(out, "smoke_train_1x1.json")) as f:
         smoke = json.load(f)
     got, want = smoke["memory"]["argument_bytes"], state["train"]["arg_bytes"]
@@ -2510,6 +2624,7 @@ PHASES = [
     ("mesh serve", phase_mesh_serve),
     ("mesh encdec serve", phase_mesh_serve_encdec),
     ("mesh generate", phase_mesh_generate),
+    ("mesh recurrentgemma serve", phase_mesh_serve_rg),
     ("mesh xlstm train", phase_mesh_train_xlstm),
     ("dry run", phase_dry_run),
     ("roofline vs card", phase_roofline_vs_card),

@@ -10,10 +10,12 @@ names or None, as the entries of the reference's ``PartitionSpec``.
 ``constrain(x, *names)`` redistributes a ``DTensor`` to the placements
 its names give when a mesh and rules are active, and returns anything
 else unchanged, so the same model code runs on one device and under a
-mesh.  Where GSPMD pads a dimension that the axis does not divide,
-DTensor would shard it unevenly; ``constrain`` applies
-``partitioning.spec_for``'s divisibility guard instead, so that every
-rank holds whole, equal slices (the local attention needs whole heads).
+mesh.  ``constrain`` applies ``partitioning.spec_for``'s divisibility
+guard, as the reference's rule tables intend: a dimension the axis does
+not divide stays whole, unless the strategy's ``_uneven`` suffix lifts
+the guard, where GSPMD pads and DTensor splits in ``torch.chunk``'s
+layout (40 heads over 16 ranks: 3 a rank, the last ranks fewer or none;
+the model's local products and attention take such splits).
 """
 
 from __future__ import annotations

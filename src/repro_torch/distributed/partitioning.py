@@ -18,8 +18,9 @@ the reference's, value for value.  Strategies (``--strategy``):
                    storage over every mesh axis.
 
 A mesh axis is dropped for a dimension it does not divide (kv_heads=8 on
-a 16-way "model" axis, an odd vocab), unless the ``_uneven`` suffix asks
-for padding.  A spec (one entry per dimension: an axis name, a tuple of
+a 16-way "model" axis, an odd vocab), unless the ``_uneven`` suffix lifts
+the guard: where GSPMD pads, DTensor splits in ``torch.chunk``'s layout
+(``local_range``).  A spec (one entry per dimension: an axis name, a tuple of
 names or None) becomes DTensor placements through ``placements_for``:
 mesh dimension i shards tensor dimension d (``Shard(d)``) where d's
 entry names it, and replicates otherwise.
@@ -103,7 +104,7 @@ def get_rules(strategy: str) -> Dict[str, Any]:
     """Resolve a strategy name.  Suffixes compose:
 
     * ``_uneven`` relaxes the divisibility guard: 40 heads on a 16-way
-      axis shard as ceil(40/16)=3 a device instead of replicating;
+      axis shard as at most ceil(40/16)=3 a device instead of replicating;
     * ``_zero2`` is consumed by the step builder (hoisted parameter
       gather) and does not change the rule table.
     """
@@ -319,13 +320,30 @@ def full(t: torch.Tensor) -> torch.Tensor:
 def local_range(mesh, placements, dim: int, size: int) -> Tuple[int, int]:
     """(offset, length) of this rank's slice of tensor dimension ``dim``
     (of ``size``) under ``placements``: mesh dimensions that shard it
-    split it in mesh order, evenly."""
+    split it in mesh order, as DTensor does, in ``torch.chunk``'s layout:
+    ceil(n / k) a rank, the last ranks shorter or empty where k does not
+    divide n (40 heads over 16 ranks: 3 each on ranks 0-12, 1 on rank 13,
+    none on 14 and 15)."""
     off, n = 0, size
     for i, p in enumerate(placements):
         if p.is_shard(dim):
-            k = mesh.size(i)
-            if n % k:
-                raise NotImplementedError(f"dimension {dim} of {size} does not split {k} ways")
-            n //= k
-            off += mesh.get_local_rank(i) * n
+            c = -(-n // mesh.size(i))
+            start = min(mesh.get_local_rank(i) * c, n)
+            off, n = off + start, min(c, n - start)
     return off, n
+
+
+def from_local(t: torch.Tensor, mesh, placements, shape: Sequence[int]):
+    """``DTensor.from_local`` of a local result whose global ``shape`` is
+    given (a dimension split unevenly has no global size that the local
+    one implies); its global strides keep the local tensor's order of
+    dimensions."""
+    from torch.distributed.tensor import DTensor
+
+    order = sorted(range(t.ndim), key=lambda d: t.stride(d), reverse=True)
+    stride, s = [0] * t.ndim, 1
+    for d in reversed(order):
+        stride[d] = s
+        s *= shape[d]
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))

@@ -103,11 +103,11 @@ def trace_cell(cfg, cell: ShapeCell, world_size: int, make_mesh: Callable, strat
         mesh = make_mesh()
         prog = build_cell(cfg, cell, mesh, strategy=strategy, remat_policy=remat,
                           accum=accum, device=device)
-        trace = H.StepTrace()
         with prog.fake_mode:
             args = prog.placed_args()
             arg_bytes = sum(_nbytes(t) for t in _local_tensors(args))
             arg_storages = {id(t.untyped_storage()) for t in _local_tensors(args)}
+            trace = H.StepTrace(_local_tensors(args))
             t_lower = time.time() - t0
             with trace:
                 out = prog.fn(*args)

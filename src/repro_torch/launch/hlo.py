@@ -113,9 +113,12 @@ class StepTrace(TorchDispatchMode):
     ones.  Ops that DTensor's sharding propagation runs at global shapes
     to learn an output's metadata are not counted.  Allocations are
     tracked by storage: bytes live since the trace began, and their peak.
+    The storages of ``inputs`` (tensors) are not allocations: a view of an
+    input (a stacked layer's slice, ``to_local``) or an input written in
+    place allocates nothing.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, inputs=()) -> None:
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
@@ -126,6 +129,9 @@ class StepTrace(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._storages: Dict[int, int] = {}
+        self._inputs = [t.untyped_storage() for t in inputs]   # alive while traced
+        for st in self._inputs:
+            self._storages[id(st)] = 0
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._storages.pop(key, 0)

@@ -12,14 +12,20 @@ chunked plain version on the CPU; the reference's
 ``_blockwise_attention``), and dense scores over the cache for decode.
 
 Under a mesh (``distributed``: parameters, batch and caches are
-DTensors) the ``constrain`` calls sit where the reference's do, attention
-runs on each rank's local q, k, v (``_local_attention``: the CUDA
-kernels read plain tensors) and the cache writes are local; a decode
-step under ``tp_serve_sm`` goes to ``decode_attn.sharded_decode_attention``.
+DTensors) the ``constrain`` calls sit where the reference's do (naming
+the sequence, which only ``tp_fsdp_sp`` splits), and the products over
+heads and attention run on each rank's local slices (``project_heads``,
+``project_out``, ``_local_attention``: the CUDA kernels read plain
+tensors, and DTensor's view rules refuse heads split unevenly or on the
+head dimension); the cache writes are local; a decode step under
+``tp_serve_sm`` goes to ``decode_attn.sharded_decode_attention``, one
+under ``tp_serve_hd`` over a cache split on its head dimension to
+``_head_dim_attention``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -76,6 +82,13 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     if PT.is_distributed(table) and table.device_mesh.size() > 1:
         return F.embedding(tokens, table)
     return table[tokens]
+
+
+def _placed(t: torch.Tensor):
+    """A DTensor's placements, Partial ones as Replicate (a reduction)."""
+    from torch.distributed.tensor import Replicate
+
+    return [p if p.is_shard() else Replicate() for p in t.placements]
 
 
 def split_only_over(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -135,7 +148,12 @@ def apply_norm(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         if cfg.norm_kind == "layernorm":
             xf = xf * p["scale"] + p["bias"]
         out = xf.to(dt)
-    return constrain(out, "batch", *([None] * (out.ndim - 2)), "embed_act")
+    # the reference's constraints name the sequence None; "seq" maps to a
+    # mesh axis only under ``tp_fsdp_sp`` (its "data"), and only where the
+    # batch leaves that axis free (``spec_for``'s used-axis guard: a batch
+    # of 1), so elsewhere the placements are the reference's
+    lead = ("batch", "seq") if out.ndim == 3 else ("batch",) + (None,) * (out.ndim - 2)
+    return constrain(out, *lead, "embed_act")
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +194,7 @@ def apply_mlp(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ p["wg"], approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    h = constrain(h, "batch", None, "mlp_act")
+    h = constrain(h, "batch", "seq", "mlp_act")
     return h @ p["wo"]
 
 
@@ -236,21 +254,89 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _split_unmergeably(w: torch.Tensor, heads: int) -> bool:
+    """Whether a DTensor weight's heads (dimension ``heads``) are split
+    unevenly or the head dimension after them is split: layouts DTensor's
+    view rules cannot merge into (heads x head_dim)."""
+    mesh = w.device_mesh
+    ways = math.prod(mesh.size(i) for i, p in enumerate(w.placements) if p.is_shard(heads))
+    return w.shape[heads] % ways != 0 or any(p.is_shard(heads + 1) for p in w.placements)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
+    """``einsum("btd,dhk->bhtk", x, w) (+ b)``: a (d, heads, head_dim)
+    projection.
+
+    Where a mesh axis splits the heads unevenly (40 over 16 ranks under
+    ``_uneven``, ``torch.chunk``'s layout) or the head dimension
+    (``tp_serve_hd``), which DTensor's view rules cannot flatten into the
+    product's (heads x head_dim) columns, each rank multiplies its local
+    rows of ``x`` by its local heads or head-dim slice of ``w`` (gathered
+    over the axes that split its embed dimension, as fsdp gathers a weight
+    for its product) and the result is a DTensor split as both; ``x``'s
+    gradient is a partial sum over the axes that split ``w``, ``w``'s over
+    those that split ``x``'s rows.  Elsewhere DTensor places the product."""
+    if not PT.is_distributed(w) or not _split_unmergeably(w, 1):
+        y = torch.einsum("btd,dhk->bhtk", x, _heads_whole(w))
+        return y if b is None else y + b[None, :, None, :]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.device_mesh
+    wp = [p if p.is_shard(1) or p.is_shard(2) else Replicate() for p in w.placements]
+    xp = [Replicate() if q.is_shard() else p for p, q in zip(_placed(x), wp)]
+    xl = x.redistribute(mesh, xp).to_local(
+        grad_placements=[Partial() if q.is_shard() else p for p, q in zip(xp, wp)])
+    wgrad = lambda pl: [Partial() if p.is_shard() else q for p, q in zip(xp, pl)]
+    y = torch.einsum("btd,dhk->bhtk", xl, w.redistribute(mesh, wp).to_local(
+        grad_placements=wgrad(wp)))
+    if b is not None:
+        bp = [Shard(q.dim - 1) if q.is_shard() else Replicate() for q in wp]
+        y = y + b.redistribute(mesh, bp).to_local(grad_placements=wgrad(bp))[None, :, None, :]
+    yp = [Shard(2 * q.dim - 1) if q.is_shard() else Shard(2 * p.dim) if p.is_shard()
+          else Replicate() for p, q in zip(xp, wp)]       # heads 1, head dim 3; batch 0, seq 2
+    B, T, _ = x.shape
+    return PT.from_local(y, mesh, yp, (B, w.shape[1], T, w.shape[2]))
+
+
 def project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """The attention output projection ``einsum("bhtk,hkd->btd")`` as one
-    product over the merged heads (``merge_heads``)."""
+    """The attention output projection ``einsum("bhtk,hkd->btd")``, one
+    product over the merged heads.
+
+    Where a mesh axis splits the heads unevenly (``_uneven``) or the head
+    dimension (``tp_serve_hd``), which DTensor cannot merge, each rank
+    multiplies its local heads (or head-dim slice) of ``out`` by the same
+    slice of ``wo`` (gathered over its fsdp axes): ``out`` is first placed
+    as ``wo`` splits its heads or head dimension (a no-op where the
+    attention left it so), and the result is a partial sum over those
+    axes, split over batch and sequence as ``out`` is.  Elsewhere DTensor
+    places the product (heads no axis splits: it splits the output's
+    embed columns over "model")."""
     H, Dh, D = wo.shape
-    return merge_heads(out) @ wo.reshape(H * Dh, D)
+    if not PT.is_distributed(out) or not (_split_unmergeably(wo, 0) or
+                                          any(p.is_shard(3) for p in out.placements)):
+        return merge_heads(out) @ wo.reshape(H * Dh, D)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = out.device_mesh
+    wp = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in wo.placements]
+    op = [Shard(2 * q.dim + 1) if q.is_shard() else p if p.is_shard(0) or p.is_shard(2)
+          else Replicate() for p, q in zip(_placed(out), wp)]
+    ol = out.redistribute(mesh, op).to_local()
+    wl = wo.redistribute(mesh, wp).to_local(
+        grad_placements=[Partial() if p.is_shard() and not q.is_shard() else q
+                         for p, q in zip(op, wp)])
+    b, h, t, dh = ol.shape
+    y = ol.transpose(1, 2).reshape(b, t, h * dh) @ wl.reshape(h * dh, D)
+    yp = [Partial() if q.is_shard() else Shard(p.dim // 2) if p.is_shard() else Replicate()
+          for p, q in zip(op, wp)]
+    B, _, T, _ = out.shape
+    return PT.from_local(y, mesh, yp, (B, T, D))
 
 
 def _project_qkv(p, cfg, x, positions, apply_rope: bool = True):
-    q = torch.einsum("btd,dhk->bhtk", x, _heads_whole(p["wq"]))
-    k = torch.einsum("btd,dhk->bhtk", x, _heads_whole(p["wk"]))
-    v = torch.einsum("btd,dhk->bhtk", x, _heads_whole(p["wv"]))
-    if "bq" in p:
-        q = q + p["bq"][None, :, None, :]
-        k = k + p["bk"][None, :, None, :]
-        v = v + p["bv"][None, :, None, :]
+    q = project_heads(x, p["wq"], p.get("bq"))
+    k = project_heads(x, p["wk"], p.get("bk"))
+    v = project_heads(x, p["wv"], p.get("bv"))
     if "q_scale" in p:
         q = _head_rmsnorm(q, p["q_scale"])
         k = _head_rmsnorm(k, p["k_scale"])
@@ -277,25 +363,8 @@ def attention_core(q, k, v, *, causal, window, q_offset, softcap,
                                 q_positions=q_positions)
     Tk = k.shape[2]
     if kv_positions is not None:
-        # decode: scores against the cache.  The reference multiplies the
-        # cache-dtype operands with float32 accumulation; upcasting the
-        # operands exactly and multiplying in float32 is the same sum.
-        B, Hq, Tq, D = q.shape
-        Hkv = k.shape[1]
-        group = Hq // Hkv
-        qf = (q.to(k.dtype) * (D ** -0.5)).reshape(B, Hkv, group, Tq, D)
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf.float(), k.float())
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        mask = kv_positions[None, :] >= 0
-        if causal:
-            mask = mask & (kv_positions[None, :] <= q_positions[:, None])
-        if window is not None:
-            mask = mask & (kv_positions[None, :] > q_positions[:, None] - window)
-        s = s.masked_fill(~mask, -1e30)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(k.dtype).float(), v.float())
-        return out.reshape(B, Hq, Tq, D).to(q.dtype)
+        return _cache_attention(q, k, v, kv_positions, q_positions, causal=causal,
+                                window=window, softcap=softcap, scale=q.shape[-1] ** -0.5)
     if Tk > BLOCKWISE_KV_THRESHOLD:
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, softcap=softcap)
@@ -303,40 +372,109 @@ def attention_core(q, k, v, *, causal, window, q_offset, softcap,
                          softcap=softcap)
 
 
-def _local_attention(q, k, v, *, kv_positions, **kw):
+def _cache_attention(q, k, v, kv_positions, q_positions, *, causal, window, softcap, scale,
+                     reduce_scores=None):
+    """Decode: scores against the cache.  The reference multiplies the
+    cache-dtype operands with float32 accumulation; upcasting the operands
+    exactly and multiplying in float32 is the same sum.  ``reduce_scores``
+    completes scores that are partial sums over a split head dimension."""
+    B, Hq, Tq, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    qf = (q.to(k.dtype) * scale).reshape(B, Hkv, group, Tq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf.float(), k.float())
+    if reduce_scores is not None:
+        s = reduce_scores(s)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = kv_positions[None, :] >= 0
+    if causal:
+        mask = mask & (kv_positions[None, :] <= q_positions[:, None])
+    if window is not None:
+        mask = mask & (kv_positions[None, :] > q_positions[:, None] - window)
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(k.dtype).float(), v.float())
+    return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def _local_attention(q, k, v, *, kv_positions, q_offset, **kw):
     """``attention_core`` on each rank's local q, k, v, the output rebuilt
     as a DTensor split as q is.
 
-    q keeps its batch and head splits (anything else is gathered); k and
-    v follow its batch split, and its head split where kv_heads divides
-    that axis.  Where it does not (``spec_for``'s guard replicated k and
-    v), each rank takes the kv heads its local q heads read: a slice of
-    ``group = Hq / Hkv`` consecutive q heads reads one kv head.  Those
-    gradients of k and v are partial sums over the ranks."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    q keeps its batch, head and sequence splits (anything else is
+    gathered); k and v follow its batch split, and its head split where
+    they split alike (kv_heads divides that axis, or there are as many kv
+    heads as q heads, split unevenly alike).  Otherwise (``spec_for``'s
+    guard replicated k and v) each rank takes the kv heads its local q
+    heads read, ``h // group`` for q head h; and over a split sequence k
+    and v are whole, the local q rows offset by their first position.
+    Those gradients of k and v are partial sums over the ranks.  A decode
+    step over a cache split on its head dimension (``tp_serve_hd``) goes to
+    ``_head_dim_attention``."""
+    from torch.distributed.tensor import Partial, Replicate
 
+    if kv_positions is not None and any(p.is_shard(3) for p in k.placements):
+        return _head_dim_attention(q, k, v, kv_positions=kv_positions, **kw)
     mesh = q.device_mesh
     B, Hq, Tq, D = q.shape
     Hkv = k.shape[1]
-    qp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in q.placements)
-    even = all(Hkv % mesh.size(i) == 0 for i, p in enumerate(qp) if p.is_shard(1))
-    kvp = tuple(p if p.is_shard(0) or (even and p.is_shard(1)) else Replicate() for p in qp)
-    grad_p = tuple(Partial() if p.is_shard(1) and not even else kp for p, kp in zip(qp, kvp))
+    qp = tuple(p if p.is_shard(0) or p.is_shard(1) or p.is_shard(2) else Replicate()
+               for p in q.placements)
+    alike = Hkv == Hq or all(Hkv % mesh.size(i) == 0 for i, p in enumerate(qp) if p.is_shard(1))
+    kvp = tuple(p if p.is_shard(0) or (alike and p.is_shard(1)) else Replicate() for p in qp)
+    grad_p = tuple(Partial() if p.is_shard(2) or (p.is_shard(1) and not alike) else kp
+                   for p, kp in zip(qp, kvp))
     ql = q.redistribute(mesh, qp).to_local()
     kl, vl = (t.redistribute(mesh, kvp).to_local(grad_placements=grad_p) for t in (k, v))
-    if not even:
-        h0, hl = PT.local_range(mesh, qp, 1, Hq)
+    t0, _ = PT.local_range(mesh, qp, 2, Tq)
+    h0, hl = PT.local_range(mesh, qp, 1, Hq)
+    if hl == 0:
+        # no head here: an empty output, k and v kept in the graph (their
+        # sums times 0) so that every rank joins their gradients' collectives
+        out = ql + 0 * (kl.sum() + vl.sum()).to(ql.dtype)
+        return PT.from_local(out, mesh, qp, q.shape)
+    if not alike:
         group = Hq // Hkv
-        if not (group % hl == 0 or hl % group == 0):
-            raise NotImplementedError(
-                f"{hl} local q heads of {Hq} do not map onto whole groups of {group} "
-                f"over {Hkv} kv heads")
-        lo, n = h0 // group, max(hl // group, 1)
-        kl, vl = kl[:, lo:lo + n], vl[:, lo:lo + n]
-    if isinstance(kv_positions, DTensor):
+        lo, hi = h0 // group, (h0 + hl - 1) // group + 1
+        if not (h0 % group == 0 and hl % group == 0) and hi - lo > 1:
+            # the local heads straddle groups: one kv head for each
+            idx = torch.arange(h0, h0 + hl, device=kl.device) // group
+            kl, vl = kl[:, idx], vl[:, idx]
+        else:
+            kl, vl = kl[:, lo:hi], vl[:, lo:hi]
+    if PT.is_distributed(kv_positions):
         kv_positions = kv_positions.full_tensor()
-    out = attention_core(ql, kl, vl, kv_positions=kv_positions, **kw)
-    return DTensor.from_local(out, mesh, qp, run_check=False)
+    out = attention_core(ql, kl, vl, kv_positions=kv_positions, q_offset=q_offset + t0, **kw)
+    return PT.from_local(out, mesh, qp, q.shape)
+
+
+def _head_dim_attention(q, k, v, *, kv_positions, q_positions, causal, window, softcap):
+    """A decode step over a cache split on its head dimension
+    (``tp_serve_hd``, where kv_heads does not divide "model"): q is split
+    as the cache (its heads whole), each rank's dot products over its
+    slice of the head dimension are partial scores, all-reduced (a sum)
+    over the axes that split it before the softcap, mask and softmax, and
+    the output ``p @ v`` stays split on the head dimension, as the cache,
+    for ``project_out``.  The cache is never gathered."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = k.device_mesh
+    cp = tuple(p if p.is_shard(0) or p.is_shard(3) else Replicate() for p in k.placements)
+    ql, kl, vl = (t.redistribute(mesh, cp).to_local() for t in (q, k, v))
+    partial = tuple(Partial() if p.is_shard(3) else p for p in cp)
+    whole = tuple(Replicate() if p.is_shard(3) else p for p in cp)
+
+    def reduce_scores(s):
+        shape = (q.shape[0],) + tuple(s.shape[1:])
+        return PT.from_local(s, mesh, partial, shape).redistribute(mesh, whole).to_local()
+
+    if PT.is_distributed(kv_positions):
+        kv_positions = kv_positions.full_tensor()
+    out = _cache_attention(ql, kl, vl, kv_positions, q_positions, causal=causal, window=window,
+                           softcap=softcap, scale=q.shape[-1] ** -0.5,
+                           reduce_scores=reduce_scores)
+    return PT.from_local(out, mesh, cp, q.shape)
 
 
 def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor) -> None:
@@ -346,8 +484,9 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch
     the window rolled into place (the reference's jnp.roll branch); a
     shorter prefill or a decode step is the reference's contiguous write.
     The write is in place.  A DTensor cache is written on each rank's own
-    slices: the new K, V split as the cache is over batch and heads, and
-    over a split sequence each rank writes the slots it holds."""
+    slices: the new K, V split as the cache is over batch, heads and head
+    dimension, and over a split sequence each rank writes the slots it
+    holds."""
     cache_len = cache["k"].shape[2]
     pw = positions[-cache_len:]
     slots = pw % cache_len
@@ -356,7 +495,8 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor, positions: torch
         from torch.distributed.tensor import Replicate
 
         mesh, cp = cache["k"].device_mesh, cache["k"].placements
-        kp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in cp)
+        kp = tuple(p if p.is_shard(0) or p.is_shard(1) or p.is_shard(3) else Replicate()
+                   for p in cp)
         kw, vw = (t.redistribute(mesh, kp).to_local() for t in (kw, vw))
         cache["pos"].to_local().index_copy_(0, slots, pw)
         ck, cv = cache["k"].to_local(), cache["v"].to_local()
@@ -399,7 +539,8 @@ def apply_attention(
     window = cfg.window if kind in ("local", "swa") else None
     is_decode = cache is not None and x.shape[1] == 1
     q, k, v = _project_qkv(p, cfg, x, positions)
-    q = constrain(q, "batch", "heads_act", None, None)
+    # q keeps a sequence split (``tp_fsdp_sp``); k and v are whole over it
+    q = constrain(q, "batch", "heads_act", "seq", None)
     k = constrain(k, "batch", "kv_act", None, None)
     v = constrain(v, "batch", "kv_act", None, None)
 

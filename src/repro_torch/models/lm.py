@@ -76,7 +76,7 @@ def apply_block(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     # partial sum of the mixer's output projection, the norm's output stays
     # partial and DTensor runs the FFN's products on it with gathered
     # weights, a whole layer's work on every rank
-    x = constrain(x + y, "batch", None, "embed_act")
+    x = constrain(x + y, "batch", "seq", "embed_act")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         h2 = L.apply_norm(p["norm2"], cfg, x)
@@ -85,7 +85,7 @@ def apply_block(p: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
         else:
             y2 = L.apply_mlp(p["ffn"], cfg, h2)
         x = x + y2
-    return constrain(x, "batch", None, "embed_act"), new_cache, aux
+    return constrain(x, "batch", "seq", "embed_act"), new_cache, aux
 
 
 def init_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
@@ -144,18 +144,18 @@ def _embed(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     # is a masked partial sum, which ``torch.cat`` would reduce by its mask's
     # values (none on fake tensors)
     x = constrain(L.embed_lookup(params["embed"]["table"], batch["tokens"]),
-                  "batch", None, "embed_act")
+                  "batch", "seq", "embed_act")
     if cfg.frontend is not None and "vision_embeds" in batch:
         # the stub frontend's embeddings replace the first n positions
         fe = batch["vision_embeds"].to(x.dtype)
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
-    return constrain(x, "batch", None, "embed_act")
+    return constrain(x, "batch", "seq", "embed_act")
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = L.apply_norm(params["final_norm"], cfg, x)
     w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    return constrain(L.vocab_logits(x, w), "batch", None, "vocab_act")
+    return constrain(L.vocab_logits(x, w), "batch", "seq", "vocab_act")
 
 
 def _layers(params, cfg: ModelConfig):

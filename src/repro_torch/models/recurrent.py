@@ -40,7 +40,11 @@ from repro_torch.models.param_util import leaf, normal, ones, zeros
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor]):
-    """Depthwise causal conv. x: (B,T,D); w: (W,D); state: (B,W-1,D)."""
+    """Depthwise causal conv. x: (B,T,D); w: (W,D); state: (B,W-1,D).
+    A DTensor ``x`` split over its sequence (``tp_fsdp_sp``) goes to
+    ``_split_causal_conv``."""
+    if PT.is_distributed(x) and any(p.is_shard(1) for p in x.placements):
+        return _split_causal_conv(x, w, state)
     W = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
@@ -48,6 +52,45 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor]
     out = sum(xx[:, i : i + x.shape[1], :] * w[i] for i in range(W))
     new_state = xx[:, -(W - 1):, :] if W > 1 else state
     return out, new_state
+
+
+def _split_causal_conv(x, w, state):
+    """``_causal_conv`` of a sequence split over mesh axes, on each rank's
+    local steps: a rank needs the W-1 steps before its first, the previous
+    rank's last ones.  Every rank's last W-1 steps are all-gathered (W-1
+    rows a rank, not the sequence); the first rank takes ``state``
+    instead, and every rank's last steps are the new state of the last.
+    The weight's gradient is a partial sum over the axes that split the
+    rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    W = w.shape[0]
+    B, T, D = x.shape
+    xp = [p if p.is_shard() else Replicate() for p in x.placements]
+    xl = x.redistribute(mesh, xp).to_local()
+    t0, tl = PT.local_range(mesh, xp, 1, T)
+    if tl < W - 1 or T % tl:
+        raise NotImplementedError(f"a causal conv of width {W} over {tl} of {T} steps a rank")
+    wp = [Shard(1) if p.is_shard(2) else Replicate() for p in xp]
+    wl = w.redistribute(mesh, wp).to_local(
+        grad_placements=[Partial() if p.is_shard(0) or p.is_shard(1) else q
+                         for p, q in zip(xp, wp)])
+    whole = [Replicate() if p.is_shard(1) else p for p in xp]
+    tails = PT.from_local(xl[:, tl - (W - 1):], mesh, xp, (B, (T // tl) * (W - 1), D))
+    # each rank reads only its neighbour's rows: their gradient is partial
+    tails = tails.redistribute(mesh, whole).to_local(
+        grad_placements=[Partial() if p.is_shard(1) else p for p in xp])   # (b, ranks*(W-1), d)
+    # the previous rank's rows; on the first rank some rows times 0 (every
+    # rank then takes part in their gradient's reduce-scatter) plus ``state``
+    j = t0 // tl
+    prev = tails[:, max(j - 1, 0) * (W - 1):max(j, 1) * (W - 1)] * float(j > 0)
+    if state is not None:
+        prev = prev + state.redistribute(mesh, whole).to_local() * float(j == 0)
+    xx = torch.cat([prev, xl], dim=1)
+    out = sum(xx[:, i:i + tl, :] * wl[i] for i in range(W))
+    new_state = PT.from_local(tails[:, -(W - 1):], mesh, whole, (B, W - 1, D))
+    return PT.from_local(out, mesh, xp, (B, T, D)), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -80,8 +123,13 @@ def apply_rglru(
     xb, new_conv = _causal_conv(xb, p["conv"], conv_state)
 
     xf = xb.float()
-    r_gate = torch.sigmoid(xf @ p["w_a"].float())
-    i_gate = torch.sigmoid(xf @ p["w_i"].float())
+    # under a mesh the gates' products over the split width are partial sums,
+    # reduced onto that width as xb is split: left to itself, DTensor
+    # reduces them onto the sequence, and the gradient of w_a, w_i then
+    # contracts the flattened (batch x seq) rows split over two mesh axes,
+    # one of them strided, which its sharding propagation refuses
+    r_gate = torch.sigmoid(constrain(xf @ p["w_a"].float(), "batch", "seq", "rnn"))
+    i_gate = torch.sigmoid(constrain(xf @ p["w_i"].float(), "batch", "seq", "rnn"))
     log_a = -8.0 * F.softplus(p["lam"]) * r_gate        # (B,T,R)
     a = torch.exp(log_a)
     gated_x = xf * i_gate

@@ -517,16 +517,20 @@ def _jax_step(jmodel, np_params, batch, accum):
             "mu": _paths(new_opt["mu"]), "state": {"params": new_p, "opt": new_opt}}
 
 
-def _run_two_ranks(in_path, out_dir, *mode, world=2):
-    """``torch_mesh_worker.py [mode] IN OUT`` as two (or ``world``) gloo
-    ranks; rank 0's ``out.npz``."""
+def _start_ranks(in_path, out_dir, *mode, world=2):
+    """``torch_mesh_worker.py [mode] IN OUT`` started as two (or
+    ``world``) gloo ranks; ``_join_ranks`` waits for them."""
     env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(world), GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_mesh_worker.py"),
-                               *mode, str(in_path), str(out_dir)],
-                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    return [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_mesh_worker.py"),
+                              *mode, str(in_path), str(out_dir)],
+                             env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def _join_ranks(procs, out_dir):
+    """Rank 0's ``out.npz`` once every rank exited with 0."""
     logs = []
     try:
         for p in procs:
@@ -534,10 +538,16 @@ def _run_two_ranks(in_path, out_dir, *mode, world=2):
     finally:
         for p in procs:
             p.kill()
-    assert [p.returncode for p in procs] == [0] * world, "\n".join(
+    assert [p.returncode for p in procs] == [0] * len(procs), "\n".join(
         f"rank {r}: " + "\n".join(line for line in log.splitlines() if "Error" in line)
         for r, log in enumerate(logs))
     return np.load(os.path.join(out_dir, "out.npz"))
+
+
+def _run_two_ranks(in_path, out_dir, *mode, world=2):
+    """``torch_mesh_worker.py [mode] IN OUT`` as two (or ``world``) gloo
+    ranks; rank 0's ``out.npz``."""
+    return _join_ranks(_start_ranks(in_path, out_dir, *mode, world=world), out_dir)
 
 
 def _step_outputs(out, name):

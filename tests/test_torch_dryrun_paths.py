@@ -16,6 +16,14 @@ are in ``test_torch_dryrun_train.py``):
 Where heads, kv heads and vocabulary all divide the axes, rank 0's traced
 FLOPs are held to the analytic per-device count within 0.85-1.2
 (``tests/test_costmodel.py``'s band).
+
+Three cells run under a named strategy, each one the port once refused
+(``STRATEGY_CELLS``): qwen1.5-32b ``prefill_32k`` under
+``tp_serve_uneven`` (40 heads split unevenly over 16 ranks: traced FLOPs
+at most 1.3 x the analytic count, which counts the padded split), and the
+``decode_32k`` of qwen1.5-32b and recurrentgemma-2b under ``tp_serve_hd``
+(the caches split on their head dimension: no cache gathered, under 1 GiB
+of all-gathers a device, and nothing beyond the inputs but 1 GiB).
 """
 
 import json
@@ -64,3 +72,34 @@ def test_repaired_cell_traces(tmp_path, arch, shape, mesh, flags, strategy, in_b
         r = rec["cost_hlo_raw"]["flops"] / rec["roofline"]["flops_per_device"]
         assert BAND[0] < r < BAND[1], r
 
+
+
+GIB = 2 ** 30
+STRATEGY_CELLS = [
+    # arch, shape, strategy, most traced / analytic FLOPs, most temp GiB, most all-gather GiB
+    ("qwen1.5-32b", "prefill_32k", "tp_serve_uneven", 1.3, None, None),
+    ("qwen1.5-32b", "decode_32k", "tp_serve_hd", None, 1.0, 1.0),
+    ("recurrentgemma-2b", "decode_32k", "tp_serve_hd", None, 1.0, 1.0),
+]
+
+
+@pytest.mark.parametrize("arch,shape,strategy,flops_ratio,temp_gib,gather_gib", STRATEGY_CELLS,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in STRATEGY_CELLS])
+def test_strategy_cell_traces(tmp_path, arch, shape, strategy, flops_ratio, temp_gib,
+                              gather_gib):
+    """The cell on 16 x 16 under ``strategy``, ``ok``, within its bounds:
+    rank 0's traced FLOPs over the analytic count, the temporaries beyond
+    the inputs (the caches are inputs, written in place), and the bytes
+    all-gathered (a gathered qwen1.5-32b cache is 40 GiB a layer and step
+    under ``tp_serve``)."""
+    _dryrun(tmp_path, arch, shape, "single", "--strategy", strategy)
+    rec = _record(tmp_path, arch, shape, "single", strategy)
+    assert rec["status"] == "ok", rec.get("error")
+    if flops_ratio is not None:
+        r = rec["cost_hlo_raw"]["flops"] / rec["roofline"]["flops_per_device"]
+        assert r <= flops_ratio, r
+    if temp_gib is not None:
+        assert rec["memory"]["temp_bytes"] <= temp_gib * GIB, rec["memory"]
+    if gather_gib is not None:
+        gathered = rec["collectives_hlo"]["bytes_by_op"].get("all-gather", 0)
+        assert gathered <= gather_gib * GIB, rec["collectives_hlo"]

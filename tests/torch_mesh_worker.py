@@ -8,6 +8,7 @@ does not resolve)::
     python tests/torch_mesh_worker.py vocab IN.npz OUT_DIR
     python tests/torch_mesh_worker.py paths IN.npz OUT_DIR
     python tests/torch_mesh_worker.py splice-heads IN.npz OUT_DIR    # WORLD_SIZE=4
+    python tests/torch_mesh_worker.py strategies IN.npz OUT_DIR      # WORLD_SIZE=4
     python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
         train-main LOSSES.json --mesh 2x1 --device cpu ...
     python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
@@ -45,7 +46,9 @@ prefill and decode steps, of reduced internvl2-76b with ``vision_embeds``
 spliced in and an even vocabulary that "model" splits) and
 ``train_rg_heads`` and ``train_qwen_heads`` under ``tp_fsdp`` (a step of
 reduced recurrentgemma-2b and of reduced qwen1.5-32b with 3 heads, which
-"model" does not divide, their other dimensions split over "data").  With
+"model" does not divide, their other dimensions split over "data").  With ``strategies``, four ranks on mesh (2, 2) run the last
+three strategies of the reference, each case through the port's entry
+points (see ``strategies_main``).  With
 ``train-main`` it runs ``repro_torch.launch.train.main``
 with the arguments that follow, under the launcher, and rank 0 writes the
 losses; with ``train-resume`` it runs it three times: 6 steps, then 3
@@ -128,6 +131,9 @@ def train(npz, meta, out, mesh, name, strategy, zero2, accum, kv=None, spool=Non
           if "wq" in g.get("mixer", {})]
     if wq:
         out[f"{name}/placements"] = np.asarray(str(wq[0].placements))
+    table = state["params"]["embed"]["table"]
+    out[f"{name}/table_placements"] = np.asarray(str(table.placements))
+    out[f"{name}/table_local_shape"] = np.asarray(table.to_local().shape)
     if spool is not None:
         rank0 = dist.get_rank() == 0
         if rank0:
@@ -262,6 +268,101 @@ def prefill_vlm(npz, meta, out, mesh, name, strategy):
     out[f"{name}/table_placements"] = np.asarray(str(params["embed"]["table"].placements))
 
 
+def _attention_cache(cache):
+    """The first attention layer's cache entry (its "k" leaf)."""
+    return next(e for e in cache["groups"] + cache["rest"] if "k" in e)
+
+
+def serve_steps(npz, meta, out, mesh, name, arch, strategy, over):
+    """A prefill of ``npz[<name>_in/tokens][:, :prefill[name]]`` and teacher-forced
+    decode steps of the rest under ``strategy``; the logits of each, the
+    first attention cache's placements and local shape after the last
+    step, and the placements of the first ``wq``."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    model = build_model(cfg)
+    builder = TrainStepBuilder(model, mesh, strategy=strategy)
+    params = tree_from(npz, name, model.abstract()[0])
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    toks = torch.from_numpy(npz[f"{name}_in/tokens"]).long()
+    B, T = toks.shape
+    t0 = meta["prefill"][name]
+    cache = builder.shard_cache(model.init_cache(B, T + 4, device="cpu"))
+    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+    logits, cache = prefill(params, {"tokens": toks[:, :t0]}, cache)
+    outs = [logits]
+    for t in range(t0, T):
+        logits, cache = decode(params, toks[:, t], t, cache)
+        outs.append(logits)
+    out[f"{name}/logits"] = torch.stack(outs).numpy()
+    k = _attention_cache(cache)["k"]
+    out[f"{name}/cache_placements"] = np.asarray(str(k.placements))
+    out[f"{name}/cache_local_shape"] = np.asarray(k.to_local().shape)
+    wq = next(g["mixer"]["wq"] for g in params["groups"] if "wq" in g["mixer"])
+    out[f"{name}/wq_placements"] = np.asarray(str(wq.placements))
+    out[f"{name}/wq_local_shape"] = np.asarray(wq.to_local().shape)
+
+
+class _ConstrainSpy:
+    """Records the placements of the first output of ``lm``'s ``constrain``
+    (the embedding's, (B, T, D)) while installed."""
+
+    def __init__(self):
+        from repro_torch.models import lm
+
+        self.lm, self.real, self.seen = lm, lm.constrain, []
+
+    def __enter__(self):
+        def spy(x, *names):
+            y = self.real(x, *names)
+            self.seen.append(str(y.placements))
+            return y
+
+        self.lm.constrain = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.constrain = self.real
+
+
+def strategies_main(in_path, out_dir) -> int:
+    """The reference's last three strategies on mesh (2, 2) of four ranks:
+
+    * ``serve_hd_qwen``, ``serve_hd_rg``: ``tp_serve_hd`` prefill and decode
+      steps of reduced qwen1.5-32b (3 heads, 3 kv heads, head_dim 8) and
+      reduced recurrentgemma-2b (1 kv head), the caches split on their
+      head dimension;
+    * ``prefill_uneven_qwen``: ``tp_serve_uneven`` prefill and decode steps
+      of reduced qwen1.5-32b with 3 heads, split 2 + 1 over "model";
+    * ``train_uneven_qwen``, ``train_uneven_rg``: ``tp_fsdp_uneven`` steps
+      of reduced qwen1.5-32b and recurrentgemma-2b with 3 heads;
+    * ``train_uneven_vocab``: a ``tp_uneven`` step of reduced
+      granite-moe-1b-a400m with an odd vocabulary, split unevenly;
+    * ``sp_train_rg``, ``sp_prefill_danube``: ``tp_fsdp_sp`` with a batch
+      of 1, a train step of reduced recurrentgemma-2b and a prefill and
+      decode steps of reduced h2o-danube3-4b, the sequence split over
+      "data" (the placements of the embedding's constrained output)."""
+    npz = np.load(in_path)
+    meta = json.loads(str(npz["meta"]))
+    dist.init_process_group("gloo")
+    out: dict = {}
+    try:
+        square = make_mesh((2, 2), ("data", "model"), device="cpu")
+        for case, (arch, strategy) in meta["serve"].items():
+            with _ConstrainSpy() as spy:
+                serve_steps(npz, meta, out, square, case, arch, strategy, meta["over"][case])
+            out[f"{case}/embed_placements"] = np.asarray(spy.seen[0])
+        for case, (arch, strategy) in meta["train"].items():
+            with _ConstrainSpy() as spy:
+                train(npz, meta, out, square, case, strategy, False, 1, arch=arch, inputs=case,
+                      over=meta["over"][case])
+            out[f"{case}/embed_placements"] = np.asarray(spy.seen[0])
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, "out.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def splice_heads_main(in_path, out_dir) -> int:
     """The VLM splice on a vocab-split table, and heads that "model" does
     not divide (see the module docstring), on mesh (2, 2) of four ranks."""
@@ -340,6 +441,8 @@ def main() -> int:
         return paths_main(sys.argv[2], sys.argv[3])
     if sys.argv[1] == "splice-heads":
         return splice_heads_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1] == "strategies":
+        return strategies_main(sys.argv[2], sys.argv[3])
     npz = np.load(sys.argv[1])
     out_dir = sys.argv[2]
     meta = json.loads(str(npz["meta"]))
