@@ -32,7 +32,18 @@ Phases (each one's failure fails the run):
    the encoder-decoder's three unmasked shapes over 32768 frames of 16
    heads of 64 in both dtypes: the encoder's self-attention (batch 1, v
    strided), the prefill's cross-attention (4, 16, 512, 64) and a decode
-   step's (4, 16, 1, 64);
+   step's (4, 16, 1, 64); then ``flash_attention_bwd`` against the plain
+   backward (the same q, k, v, the dtype's forward kernel's o and lse, a
+   seeded do) over that sweep in both dtypes and layouts and over the
+   training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
+   120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
+   2048, 64) over 8192 frames, no mask), per gradient within 1e-4
+   max|want| (float32) and 2^-7 |want| + 1e-3 max|want| (bf16), two calls
+   bit-equal, fully masked rows' dq exactly 0, each forward kernel's lse
+   within 1e-4 of the plain one; and ``linear_scan``'s gradient through
+   the custom op (the reversed scan, two launches) against autograd
+   through the plain loop at (4, 512, 2560) and (4, 8192, 2560) within
+   1e-5;
 4. serve: ``repro_torch.launch.serve.generate`` on full-width
    recurrentgemma-2b in bf16 (random weights from a seed), 4 prompts of
    512 byte tokens, 32 new tokens; the launch counts of that run must
@@ -94,9 +105,24 @@ Phases (each one's failure fails the run):
    and the peak memory; 4 + 4 layers in float32 over 1 x 8192 frames, a
    512-token prefill and 32 decodes against one ``decode_train`` over the
    544 tokens (2e-2; the float32 ``flash_attention``, 8 + 8 + 128
-   launches); full-width training at 2 x 2048 frames and tokens (bf16
-   params, fp32 AdamW state, remat ``"full"``), 3 steps, finite, no
-   launch (2048 frames stay dense: the kernels have no backward);
+   launches); full-width training at 2 x 8192 frames and 2 x 2048 tokens
+   (bf16 params, fp32 AdamW state, remat ``"full"``), 3 steps, finite:
+   the encoder's self-attention and every cross-attention through
+   ``flash_attention_sm90`` twice a layer a step (the forward and its
+   recompute) and ``flash_attention_bwd`` once (3 x 96 and 3 x 48
+   launches), the decoder's self-attention over 2048 tokens dense;
+   full-width h2o-danube3-4b (24 layers) trained 2 steps at 1 x 8192
+   tokens, its published context (bf16 params, fp32 AdamW state, remat
+   ``"full"``), once the dry run's one-device record of that step (fake
+   tensors) fits the card: 2 x 48 ``flash_attention_sm90`` and 2 x 24
+   ``flash_attention_bwd`` launches, finite, step time, peak memory and
+   the device's idle share over one more step; full-width
+   recurrentgemma-2b trained at 2 x 2048: one batch's gradients with the
+   kernel scan and with the plain scan on the card (loss and gradient norm
+   within 1e-4, every RG-LRU layer's gradient of ``wx``, ``conv``,
+   ``w_a``, ``w_i``, ``lam`` nonzero and finite; 18 + 16 + 18
+   ``linear_scan`` launches: forward, recompute, backward), then 2 steps
+   (2 x 52 launches);
 11. the mesh paths, on a (1, 1) ("data", "model") ``DeviceMesh`` over a
    one-rank NCCL group (``repro_torch.distributed``): full-width olmo-1b
    under ``tp_fsdp`` + ``zero2`` with ``accum=2`` takes two steps at
@@ -174,7 +200,7 @@ Phases (each one's failure fails the run):
    fork adds no data page, the trunk restores byte-equal after the
    branches; their saves launch ``page_digest`` and ``delta_mask``;
 15. the ``kernels`` line: per kernel, its launches on its paths (serving
-   recurrentgemma-2b, without and with a mesh, for ``linear_scan``, training, mesh training and the
+   recurrentgemma-2b, without and with a mesh, and training it for ``linear_scan``, training, mesh training and the
    examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
    mesh serving, mesh encoder-decoder serving and mesh ``generate`` for
    ``flash_attention_sm90``, the float32 long and
@@ -190,7 +216,11 @@ Phases (each one's failure fails the run):
    boolean mask in the kernel's dtype, which the port never calls);
    ``flash_attention_sm90`` also at the encoder-decoder's three shapes
    (``seamless``: error, time, plain time, bound, and
-   ``scaled_dot_product_attention`` with no mask).
+   ``scaled_dot_product_attention`` with no mask); both forward rows also
+   time the call that writes the lse (``lse_ms``); and a
+   ``flash_attention_bwd`` row at the training phases' three shapes in
+   bf16 and danube's in float32 (bound 10 D flops a live pair; library:
+   SDPA's backward with the same mask), its launches by training path.
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
@@ -228,11 +258,13 @@ from repro_torch.distributed.partitioning import full as whole  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
-                                     ref_linear_scan, ref_page_digest)
+                                     ref_flash_attention_backward, ref_linear_scan,
+                                     ref_page_digest)
 from repro_torch.configs.shapes import ShapeCell  # noqa: E402
 from repro_torch.launch.costmodel import analytic_roofline  # noqa: E402
 from repro_torch.launch.hlo import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
@@ -278,9 +310,14 @@ ENCDEC_ARCH = "seamless-m4t-large-v2"
 # batch of 4 of them (12.9 GB of cross memories), not the cell's 32
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 32768, 512, 32
 ENCDEC_TF_LAYERS, ENCDEC_TF_FRAMES = 4, 8192   # teacher forcing: 4 + 4 layers, float32
-# training stays at or under the blockwise threshold (4096 frames): the
-# attention kernels have no backward on the card
-ENCDEC_TRAIN_FRAMES = 2048
+# training over 8192 frames: the encoder's self-attention and every
+# cross-attention take the kernels' forward and backward
+ENCDEC_TRAIN_FRAMES = 8192
+# training through the kernels: h2o-danube3-4b at its published context
+# (twice its window), recurrentgemma-2b's RG-LRU scan and its gradient
+LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 1, 8192, 2
+RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 2, 2048, 2
+RG_PLAIN_RTOL = 1e-4            # loss and grad norm, kernel scan vs the plain scan
 # the digest tests' sweep (tests/test_torch_digest.py): word-domain pages,
 # byte cases (page bytes, total bytes) and leaves at 4096-byte pages
 DIGEST_WORD_SHAPES = [(1, 512), (3, 512), (8, 1024), (17, 1536)]
@@ -335,6 +372,14 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}              # tests/tes
 # float32 sums of the same products, so they may differ by one ulp
 # (<= 2^-7 |want|).  The floor covers outputs near zero.
 FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0 ** -7, 1e-4
+# The backward against its plain version, per gradient: float32 within
+# 1e-4 x max|want|; bf16 gradients are one rounding of float32 sums taken
+# in another order, within 2^-7 |want| + 1e-3 x max|want| per element.  The
+# row log-sum-exp of either forward kernel against the plain one: float32
+# sums of the same products in another order, within 1e-4.
+FLASH_BWD_F32_REL = 1e-4
+FLASH_BWD_BF16_REL, FLASH_BWD_BF16_FLOOR = 2.0 ** -7, 1e-3
+FLASH_LSE_TOL = 1e-4
 # H100 SXM data sheet (``repro_torch.launch.hlo``, the cost model's constants):
 # bf16 dense tensor-core rate (the least time of attention), HBM3 rate, and
 # the float32 rate outside the tensor cores
@@ -578,6 +623,154 @@ def phase_flash_vs_plain(state):
         f"flash_attention_sm90 (bf16) worst "
         f"{worst[torch.bfloat16]:.3e} (tol {FLASH_TOL[torch.bfloat16]}) and "
         f"{worst_share:.3f} of {FLASH_BF16_REL:.3g} |want| + {FLASH_BF16_FLOOR}")
+
+
+def flash_bwd_case(q, k, v, seed, **kw):
+    """``flash_attention_bwd`` against the plain backward on the same q, k,
+    v, o, lse and a seeded do, o and lse from the dtype's forward kernel
+    (``return_lse``), whose lse is held to the plain forward's.  Two calls
+    must be bit-equal.  Returns (largest absolute error over the three
+    gradients, largest share of the per-gradient limit, lse error)."""
+    o, lse = flash_kernel(q.dtype)(q, k, v, return_lse=True, **kw)
+    _, lse_want = ref_flash_attention(q, k, v, return_lse=True, **kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = ref_flash_attention_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    what = f"flash_attention_bwd {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} {kw}"
+    dead = torch.isinf(lse_want)
+    if not torch.equal(torch.isinf(lse), dead) or bool((lse[dead] > 0).any()):
+        raise AssertionError(f"{what}: lse's -inf rows differ from the plain version's")
+    lse_err = float((lse[~dead] - lse_want[~dead]).abs().max()) if bool((~dead).any()) else 0.0
+    if not lse_err <= FLASH_LSE_TOL:
+        raise AssertionError(f"{what}: lse max abs err {lse_err:.3e} > {FLASH_LSE_TOL}")
+    err, share = 0.0, 0.0
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        if a.shape != w.shape or a.dtype != w.dtype or not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {name} {a.shape} {a.dtype} vs {w.shape} {w.dtype}, "
+                                 f"finite {bool(torch.isfinite(a).all())}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs between two calls")
+        diff, wf = (a.float() - w.float()).abs(), w.float().abs()
+        top = float(wf.max())
+        if q.dtype == torch.bfloat16:
+            s = float((diff / (FLASH_BWD_BF16_REL * wf + FLASH_BWD_BF16_FLOOR * top)).max()) \
+                if top > 0 else float(diff.max() > 0)
+        else:
+            s = float(diff.max()) / (FLASH_BWD_F32_REL * top) if top > 0 else float(diff.max() > 0)
+        if not s <= 1.0:
+            raise AssertionError(f"{what}: {name} reaches {s:.3f} of its limit "
+                                 f"(max abs err {float(diff.max()):.3e}, max |want| {top:.3e})")
+        err, share = max(err, float(diff.max())), max(share, s)
+    return err, share, lse_err, got
+
+
+def train_attention_shapes():
+    """(name, q shape, k/v shape, mask) of the attention calls of the two
+    training phases: danube's self-attention at 1 x 8192 (causal, window
+    4096), seamless's encoder self-attention at 2 x 8192 frames and its
+    cross-attention of 2 x 2048 tokens over them (no mask)."""
+    dn, sm = get_config(LONG_ARCH), get_config(ENCDEC_ARCH)
+    kv = (TRAIN_BATCH, sm.n_kv_heads, ENCDEC_TRAIN_FRAMES, sm.head_dim)
+    return [("danube", (LONG_TRAIN_BATCH, dn.n_heads, LONG_TRAIN_SEQ, dn.head_dim),
+             (LONG_TRAIN_BATCH, dn.n_kv_heads, LONG_TRAIN_SEQ, dn.head_dim),
+             dict(causal=True, window=dn.window)),
+            ("seamless encoder", (kv[0], sm.n_heads, ENCDEC_TRAIN_FRAMES, sm.head_dim), kv,
+             dict(causal=False)),
+            ("seamless cross", (kv[0], sm.n_heads, TRAIN_SEQ, sm.head_dim), kv,
+             dict(causal=False))]
+
+
+def phase_flash_bwd_vs_plain(state):
+    """The backward kernel and both forward kernels' lse against their
+    plain versions over the forward's sweep (both dtypes, both layouts)
+    and the training shapes; then the scan's gradient through the custom
+    op against autograd through the plain loop."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_share, worst_lse, n = 0.0, 0.0, 0
+
+    def record(dt, err, share, lse_err):
+        nonlocal worst_share, worst_lse, n
+        worst[dt], n = max(worst[dt], err), n + 1
+        worst_share, worst_lse = max(worst_share, share), max(worst_lse, lse_err)
+
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, dtype) in enumerate(FLASH_CASES):
+        for dt in (dtype,) if dtype == torch.bfloat16 else (dtype, torch.bfloat16):
+            for strided in (False, True):
+                q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, dt, seed=300 + i,
+                                           strided=strided)
+                kw = dict(causal=causal, window=window, softcap=softcap,
+                          q_offset=Tk - Tq if causal else 0)
+                record(dt, *flash_bwd_case(q, k, v, seed=400 + i, **kw)[:3])
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap) in enumerate(FLASH_F32_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.float32, seed=360 + i,
+                                       strided=strided)
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=Tk - Tq if causal else 0)
+            record(torch.float32, *flash_bwd_case(q, k, v, seed=460 + i, **kw)[:3])
+    # rows before the first key (q_offset < 0) see nothing: their dq is exactly 0
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(1, 4, 2, 100, 100, 120, dt, seed=350)
+        err, share, lse_err, (dq, _, _) = flash_bwd_case(q, k, v, seed=450, causal=True,
+                                                         q_offset=-40)
+        record(dt, err, share, lse_err)
+        if not torch.equal(dq[:, :, :40], torch.zeros_like(dq[:, :, :40])):
+            raise AssertionError(f"{dt}: the dq of fully masked rows is not zero")
+    log(f"  backward sweep: {n} cases")
+    # the training phases' shapes, in both dtypes, k and v strided as the
+    # projection hands them over
+    for name, qs, ks, kw in train_attention_shapes():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], dt, seed=353,
+                                       strided=True)
+            err, share, lse_err, _ = flash_bwd_case(q, k, v, seed=453, **kw)
+            record(dt, err, share, lse_err)
+            log(f"  flash_attention_bwd {name} q {qs} kv {ks} {dt} {kw}: max abs err "
+                f"{err:.3e}, {share:.3f} of the limit, lse err {lse_err:.3e}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    state["flash_bwd_err"] = worst
+    state["flash_bwd_share"] = worst_share
+    log(f"kernel vs plain: attention backward in {n} cases, float32 worst "
+        f"{worst[torch.float32]:.3e}, bf16 worst {worst[torch.bfloat16]:.3e}, "
+        f"{worst_share:.3f} of the limits (float32 {FLASH_BWD_F32_REL} max|want|, bf16 "
+        f"{FLASH_BWD_BF16_REL:.3g} |want| + {FLASH_BWD_BF16_FLOOR} max|want|); lse worst "
+        f"{worst_lse:.3e} (tol {FLASH_LSE_TOL}); two calls bit-equal everywhere")
+
+    # the scan's gradient: the custom op (the reversed CUDA scan) against
+    # autograd through the plain loop
+    scan_worst = 0.0
+    for shape in scan_shapes(state["cfg"]):
+        a, x = scan_inputs(shape, seed=110)
+        w = torch.randn(shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(111))
+        a.requires_grad_()
+        x.requires_grad_()
+        before = linear_scan_launches()
+        h = ops.linear_scan(a, x)
+        got = torch.autograd.grad((h * w).sum(), (a, x))
+        if linear_scan_launches() - before != 2:
+            raise AssertionError(f"linear_scan {shape} under autograd launched "
+                                 f"{linear_scan_launches() - before} times, expected 2")
+        want = torch.autograd.grad((ref_linear_scan(a, x) * w).sum(), (a, x))
+        torch.cuda.synchronize()
+        for name, g, ww in zip(("da", "dx"), got, want):
+            torch.testing.assert_close(g, ww, rtol=SCAN_TOL, atol=SCAN_TOL)
+            err = float((g - ww).abs().max())
+            scan_worst = max(scan_worst, err)
+            log(f"  linear_scan gradient {shape} {name}: max abs err {err:.3e}")
+        del a, x, w, h, got, want
+        torch.cuda.empty_cache()
+    state["scan_grad_err"] = scan_worst
+    log(f"kernel vs plain: linear_scan's gradient within rtol=atol={SCAN_TOL} "
+        f"(worst {scan_worst:.3e})")
+
+
+def linear_scan_launches() -> int:
+    return ops.launch_counts()["linear_scan"]
 
 
 def phase_serve(state):
@@ -1141,6 +1334,69 @@ def seamless_times():
     return out
 
 
+def sdpa_bwd_ms(q, k, v, do, causal, window=None) -> float:
+    """Device ms of the backward of ``scaled_dot_product_attention`` on
+    the same inputs and the same mask (the window-causal boolean mask on
+    its memory-efficient backend; with no mask PyTorch picks its backend),
+    the kv heads repeated to the query heads outside the timing.  The
+    yardstick only: the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = q.shape[1] // k.shape[1]
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)))
+    mask, backends = None, [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    if causal or window is not None:
+        qpos = torch.arange(q.shape[2], device="cuda")[:, None]
+        kpos = torch.arange(k.shape[2], device="cuda")[None, :]
+        mask = kpos <= qpos if causal else torch.ones_like(kpos > qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        backends = [SDPBackend.EFFICIENT_ATTENTION]
+    with sdpa_kernel(backends):
+        out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+        return cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True),
+                       reps=3)
+
+
+def bwd_times(qs, ks, kw, dtype, seed):
+    """``flash_attention_bwd`` at one shape: its error against the plain
+    backward, its time, the plain version's, the bound (10 D flops a live
+    pair, S recomputed, over the dtype's peak, or each input read and each
+    gradient written once over the memory rate), SDPA's backward with the
+    same mask, and the forward's time with and without its lse."""
+    B, Hq, Tq, D = qs
+    q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, dtype, seed=seed)
+    err, share, lse_err, _ = flash_bwd_case(q, k, v, seed=seed + 1, **kw)
+    kernel = flash_kernel(dtype)
+    o, lse = kernel(q, k, v, return_lse=True, **kw)
+    do = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1)).to(dtype)
+    pairs = live_pairs(Tq, ks[2], causal=kw["causal"], window=kw.get("window"),
+                       q_offset=0) * B * Hq
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    ops_s = 10 * D * pairs / rate
+    bytes_s = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+               + 4 * lse.numel()) / HBM_BYTES_PER_S
+    row = {
+        "shape": [list(qs), list(ks)],
+        "dtype": str(dtype).replace("torch.", ""),
+        "mask": {key: val for key, val in kw.items()},
+        "max_abs_err": err, "limit_share": share, "lse_err": lse_err,
+        "ms": cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), reps=3),
+        "plain_ms": cuda_ms(lambda: ref_flash_attention_backward(q, k, v, o, lse, do, **kw),
+                            reps=1),
+        "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": sdpa_bwd_ms(q, k, v, do, kw["causal"], kw.get("window")),
+        "forward_ms": cuda_ms(lambda: kernel(q, k, v, **kw), reps=3),
+        "forward_lse_ms": cuda_ms(lambda: kernel(q, k, v, return_lse=True, **kw), reps=3),
+        "live_pairs": pairs,
+    }
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return row
+
+
 def scan_times(shape, seed, plain_reps):
     """linear_scan at ``shape``: error, kernel ms, plain ms and the bound
     (12 B an element over the memory rate, or 2 flops over the float32
@@ -1163,11 +1419,14 @@ def phase_kernel_times(state):
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan.py:48",
-        "launches": state["launches"]["linear_scan"] + state["mesh_serve_rg_launches"],
+        "launches": state["launches"]["linear_scan"] + state["mesh_serve_rg_launches"]
+        + state["train_rg"]["launches"]["linear_scan"],
         "launches_by_path": {f"{ARCH} serve": state["launches"]["linear_scan"],
                              f"{ARCH} mesh serve (tp_serve_hd)":
-                                 state["mesh_serve_rg_launches"]},
-        "max_abs_err": max(t["err"], t_long["err"], state["scan_err"]),
+                                 state["mesh_serve_rg_launches"],
+                             f"{ARCH} train (forward, recompute, backward)":
+                                 state["train_rg"]["launches"]["linear_scan"]},
+        "max_abs_err": max(t["err"], t_long["err"], state["scan_err"], state["scan_grad_err"]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -1268,7 +1527,9 @@ def phase_kernel_times(state):
             f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_sm90"],
             f"{LONG_ARCH} mesh serve": state["mesh_serve_launches"],
             f"{ENCDEC_ARCH} mesh serve": state["mesh_encdec_launches"],
-            f"{LONG_ARCH} mesh generate": state["mesh_generate_launches"]},
+            f"{LONG_ARCH} mesh generate": state["mesh_generate_launches"],
+            f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_sm90"],
+            f"{ENCDEC_ARCH} train": state["train_encdec"]["launches"]["flash_attention_sm90"]},
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
             f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"],
@@ -1290,6 +1551,8 @@ def phase_kernel_times(state):
             "launches_by_path": by_path[name],
             "max_abs_err": max(err, state["flash_err"][dtype]),
             "ms": cuda_ms(lambda: kernel(q, k, v, **kw), reps=10 if share is not None else 5),
+            "lse_ms": cuda_ms(lambda: kernel(q, k, v, return_lse=True, **kw),
+                              reps=10 if share is not None else 5),
             "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=2),
             "bound_ms": max(fa_bytes / HBM_BYTES_PER_S, fa_ops / rate) * 1e3,
             "bound_by": "bytes" if fa_bytes / HBM_BYTES_PER_S >= fa_ops / rate else "operations",
@@ -1310,6 +1573,46 @@ def phase_kernel_times(state):
         torch.cuda.empty_cache()
         if name == "flash_attention_sm90":
             row["seamless"] = seamless_times()
+
+    # the backward at the training phases' three shapes in bf16 (their
+    # dtype), and at danube's in float32
+    train = {name: bwd_times(qs, ks, kw, torch.bfloat16, seed=40 + i)
+             for i, (name, qs, ks, kw) in enumerate(train_attention_shapes())}
+    dn_name, dn_q, dn_kv, dn_kw = train_attention_shapes()[0]
+    f32 = bwd_times(dn_q, dn_kv, dn_kw, torch.float32, seed=50)
+    main = train[dn_name]
+    bwd_paths = {f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_bwd"],
+                 f"{ENCDEC_ARCH} train": state["train_encdec"]["launches"]["flash_attention_bwd"]}
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:159",
+        "replaces_note": "no TPU kernel: flash_attention_pallas (src/repro/kernels/"
+                         "flash_attention.py:105) is forward only; the reference trains "
+                         "through jax.grad of _blockwise_attention",
+        "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths,
+        "max_abs_err": max([main["max_abs_err"], state["flash_bwd_err"][torch.bfloat16]]),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_call": "the backward of scaled_dot_product_attention with the same mask "
+                        "(efficient backend with the window-causal boolean mask; no mask: "
+                        "PyTorch's pick), kv heads repeated outside the timing",
+        "shape": main["shape"],
+        "dtype": main["dtype"],
+        "window": dn_kw.get("window"),
+        "limit_share": max(t["limit_share"] for t in train.values()),
+        "bound_basis": f"10*D flop per live (q, k) pair over {BF16_FLOP_PER_S:.3g} flop/s "
+                       f"(H100 SXM bf16 tensor cores; float32: {F32_FLOP_PER_S:.3g}, the "
+                       f"CUDA cores); q, k, v, o, do, lse read and dq, dk, dv written once over "
+                       f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
+        "train_shapes": train,
+        "float32": f32,
+    })
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
@@ -1322,6 +1625,20 @@ def phase_kernel_times(state):
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bound_ms'] / t['ms']:.1%} of roofline), max abs err {t['max_abs_err']:.3e}, "
             f"on {state['smi']}")
+    for shape_name, t in list(next(k for k in kernels if k["name"] == "flash_attention_bwd")[
+            "train_shapes"].items()) + [("danube float32", f32)]:
+        log(f"flash_attention_bwd {shape_name} {t['shape']} {t['dtype']} {t['mask']}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA backward) "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{t['bound_ms'] / t['ms']:.1%} of roofline); forward {t['forward_ms']:.4f} ms, "
+            f"with lse {t['forward_lse_ms']:.4f} ms; max abs err {t['max_abs_err']:.3e}; "
+            f"on {state['smi']}")
+    # the forward kernels against their times before they wrote the lse
+    # (PERF.md's kernel table: 5.6412 ms bf16, 47.27 ms float32, danube shape)
+    for name, before in (("flash_attention_sm90", 5.6412), ("flash_attention", 47.27)):
+        k = next(k for k in kernels if k["name"] == name)
+        log(f"{name} at the danube serving shape: {k['ms']:.4f} ms ({k['ms'] / before:.3f} x "
+            f"{before} ms before the lse output), with lse {k['lse_ms']:.4f} ms")
     k = kernels[0]
     log(f"linear_scan {k['long_shape']} float32: kernel {k['long_ms']:.4f} ms, plain "
         f"{k['long_plain_ms']:.4f} ms, bound {k['long_bound_ms']:.4f} ms "
@@ -2338,15 +2655,214 @@ def phase_train_encdec(state):
             f"{step_ms[-1]:.1f} ms")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"non-finite loss {loss} or grad norm {gnorm}")
-    no_launches(ops.launch_counts(), "encdec train")
+    counts = ops.launch_counts()
+    # every encoder layer and every decoder layer (its cross-attention) is
+    # checkpointed: two forwards and one backward a layer a step
+    n_att = cfg.n_enc_layers + cfg.n_layers
+    expect_launches(counts, {"flash_attention_sm90": TRAIN_STEPS * 2 * n_att,
+                             "flash_attention_bwd": TRAIN_STEPS * n_att}, "encdec train")
     peak = torch.cuda.max_memory_allocated()
     state["train_encdec"] = {"step_ms": step_ms, "peak_gib": peak / 2**30,
-                             "state_gb": n_state / 1e9}
+                             "state_gb": n_state / 1e9, "launches": counts}
     log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
-        f"{peak / 2**30:.2f} GiB; no kernel launched (attention over {ENCDEC_TRAIN_FRAMES} "
-        f"frames stays dense); on {state['smi']}")
+        f"{peak / 2**30:.2f} GiB; launches {counts} (the encoder's self-attention and the "
+        f"cross-attention over {ENCDEC_TRAIN_FRAMES} frames, forward twice under remat "
+        f"\"full\", and backward; the decoder's self-attention stays dense); on {state['smi']}")
     del train_state, metrics, batch
     torch.cuda.empty_cache()
+
+
+def train_launches(cfg, kind, steps, remat):
+    """(forward, backward) kernel launches of the ``kind`` layers of a
+    decoder-only ``cfg`` over ``steps`` steps: each such layer runs its
+    forward once and its backward once a step, and its forward again in
+    the backward's recompute when its pattern group is checkpointed (remat
+    other than "none"; the ``rest`` layers are not, ``lm.apply_stack_train``)."""
+    n_groups, rest = LM._pattern_layout(cfg)
+    in_groups = n_groups * sum(1 for k in cfg.block_pattern if k == kind)
+    n = in_groups + sum(1 for k in rest if k == kind)
+    return steps * (n + (in_groups if remat != "none" else 0)), steps * n
+
+
+def device_idle_share(fn, top=6):
+    """(output, wall ms, device ms, idle share, the ``top`` kernels as
+    (name, count, ms)) of one ``fn()`` under ``torch.profiler``: device
+    time summed over kernels, memcpys and memsets."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    rows = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    return (out, wall_ms, dev_ms, max(0.0, 1.0 - dev_ms / wall_ms),
+            [(e.key[:80], e.count, e.self_device_time_total / 1e3) for e in rows])
+
+
+def run_train_steps(state, builder, batches, what, seed):
+    """A fresh state, then one step a batch with the launch counts at 0
+    just before and read just after; then one more step of the last batch
+    under the profiler (its idle share).  Returns the counts and the
+    phase's record."""
+    step_fn = builder.train_step_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    train_state = builder.init_state(torch.Generator(device="cuda").manual_seed(seed))
+    n_state = sum(t.numel() * t.element_size() for _, t in flatten_with_paths(train_state))
+    n_params = sum(t.numel() for t in tree_leaves(train_state["params"]))
+    cfg = builder.model.cfg
+    log(f"{what}: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}, {n_params / 1e9:.3f} B params, state "
+        f"{n_state / 1e9:.2f} GB, remat {builder.remat_policy}")
+    step_ms = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_state, metrics = step_fn(train_state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {int(train_state['step'])}: loss {loss:.4f} grad norm {gnorm:.4f} in "
+            f"{step_ms[-1]:.1f} ms")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"non-finite loss {loss} or grad norm {gnorm}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (train_state, _), wall_ms, dev_ms, idle, top = device_idle_share(
+        lambda: step_fn(train_state, batches[-1]))
+    rec = {"step_ms": step_ms, "peak_gib": peak / 2**30, "state_gb": n_state / 1e9,
+           "params_b": n_params / 1e9, "profiled_step_ms": wall_ms, "device_ms": dev_ms,
+           "idle_share": idle, "top_kernels": top, "launches": counts}
+    log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
+        f"{rec['peak_gib']:.2f} GiB; profiled step {wall_ms:.1f} ms, device {dev_ms:.1f} ms, "
+        f"idle {idle:.1%}; launches {counts}; on {state['smi']}")
+    for name, n, ms in top:
+        log(f"    {ms:9.2f} ms ({ms / dev_ms:.1%})  x{n:<5d} {name}")
+    del train_state, metrics
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def expect_launches(counts, want, what):
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def train_memory_estimate(cfg, batch, seq, remat):
+    """The dry run's one-device record of a train step (fake tensors,
+    ``launch.specs.build_cell`` with no mesh, ``hlo.StepTrace``): the
+    bytes of its inputs and the peak of its temporaries."""
+    from repro_torch.launch import hlo as H
+    from repro_torch.launch.specs import build_cell
+
+    prog = build_cell(cfg, ShapeCell("smoke_train", "train", seq, batch), None,
+                      remat_policy=remat, accum=1, device="cuda")
+    with prog.fake_mode:
+        leaves = [t for t in tree_leaves(prog.placed_args()) if isinstance(t, torch.Tensor)]
+        trace = H.StepTrace(leaves)
+        with trace:
+            prog.fn(*prog.placed_args())
+    return sum(t.numel() * t.element_size() for t in leaves), trace.peak_bytes
+
+
+def phase_train_long(state):
+    """Full-width h2o-danube3-4b trained at 1 x 8192 tokens, its published
+    context and twice its window: every layer's attention goes through
+    ``flash_attention_sm90`` (forward, again in the recompute of remat
+    "full") and ``flash_attention_bwd``.  First the dry run's one-device
+    record of the step must fit the card."""
+    cfg = get_config(LONG_ARCH)
+    arg_b, temp_b = train_memory_estimate(cfg, LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, "full")
+    card_b = torch.cuda.get_device_properties(0).total_memory
+    log(f"  dry run, one device: inputs {arg_b / 1e9:.2f} GB + temporaries {temp_b / 1e9:.2f} "
+        f"GB = {(arg_b + temp_b) / 2**30:.2f} GiB of the card's {card_b / 2**30:.2f} GiB")
+    if arg_b + temp_b > card_b:
+        raise AssertionError(f"{cfg.name} at {LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ} does not fit "
+                             f"one card by the dry run's estimate")
+    _, reader = corpus_reader(LONG_TRAIN_BATCH, LONG_TRAIN_SEQ)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))
+               for _ in range(LONG_TRAIN_STEPS)]
+    builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    counts, rec = run_train_steps(state, builder, batches,
+                                  f"long train ({LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ})", seed=24)
+    fwd, bwd = train_launches(cfg, "swa", LONG_TRAIN_STEPS, builder.remat_policy)
+    expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd": bwd},
+                    "long train")
+    rec.update(estimate_gib=(arg_b + temp_b) / 2**30)
+    state["train_long"] = rec
+    log(f"  {fwd} flash_attention_sm90 and {bwd} flash_attention_bwd launches over "
+        f"{LONG_TRAIN_STEPS} steps of {cfg.n_layers} layers, as expected")
+
+
+def phase_train_rg(state):
+    """Full-width recurrentgemma-2b trained at 2 x 2048: every RG-LRU's
+    scan and its gradient go through ``linear_scan``'s kernel.  First the
+    gradients of one batch with the kernel and with the plain scan on the
+    card (loss and gradient norm within 1e-4, every RG-LRU leaf's gradient
+    nonzero and finite), then the steps."""
+    cfg = state["cfg"]
+    _, reader = corpus_reader(RG_TRAIN_BATCH, RG_TRAIN_SEQ)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))
+               for _ in range(RG_TRAIN_STEPS)]
+    builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    fwd, bwd = train_launches(cfg, "rglru", 1, builder.remat_policy)
+
+    grads_fn = builder.grads_fn()
+    probe = builder.init_state(torch.Generator(device="cuda").manual_seed(25))
+    ops.reset_launch_counts()
+    loss_k, grads_k = grads_fn(probe, batches[0])
+    expect_launches(ops.launch_counts(), {"linear_scan": fwd + bwd}, "recurrentgemma gradients")
+    norm_k = float(global_norm(grads_k))
+    paths = [p for p, _ in flatten_with_paths(probe["params"])]
+    rglru = [(p, g) for p, g in zip(paths, grads_k)
+             if p.split("/")[-1] in ("wx", "conv", "w_a", "w_i", "lam") and "mixer" in p]
+    n_rglru = sum(1 for i in range(cfg.n_layers)
+                  if cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru")
+    n_leaves = sum(k == "rglru" for k in cfg.block_pattern + LM._pattern_layout(cfg)[1])
+    if len(rglru) != 5 * n_leaves:
+        raise AssertionError(f"RG-LRU leaves {[p for p, _ in rglru]}")
+    for p, g in rglru:
+        per_layer = g.float().abs().reshape(g.shape[0], -1).amax(1) if g.ndim > 1 and \
+            p.startswith("groups/") else g.float().abs().max().reshape(1)
+        if not (bool(torch.isfinite(g).all()) and bool((per_layer > 0).all())):
+            raise AssertionError(f"RG-LRU gradient {p}: finite {bool(torch.isfinite(g).all())}, "
+                                 f"per-layer max |g| {per_layer.tolist()}")
+    del grads_k
+    with _swap(ops, "linear_scan", lambda a, x: ref_linear_scan(a, x)):
+        ops.reset_launch_counts()
+        loss_p, grads_p = grads_fn(probe, batches[0])
+        expect_launches(ops.launch_counts(), {}, "recurrentgemma gradients, plain scan")
+    norm_p = float(global_norm(grads_p))
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    del grads_p, probe
+    torch.cuda.empty_cache()
+    loss_rel, norm_rel = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
+    log(f"  {n_rglru} RG-LRU layers: loss {loss_k:.6f} (plain scan {loss_p:.6f}, rel "
+        f"{loss_rel:.2e}), grad norm {norm_k:.6f} (plain scan {norm_p:.6f}, rel {norm_rel:.2e}); "
+        f"{len(rglru)} RG-LRU leaves, every layer's gradient nonzero and finite")
+    if not (loss_rel <= RG_PLAIN_RTOL and norm_rel <= RG_PLAIN_RTOL):
+        raise AssertionError(f"kernel scan vs plain scan: loss rel {loss_rel:.2e}, grad norm "
+                             f"rel {norm_rel:.2e} > {RG_PLAIN_RTOL}")
+
+    counts, rec = run_train_steps(state, builder, batches,
+                                  f"recurrentgemma train ({RG_TRAIN_BATCH} x {RG_TRAIN_SEQ})",
+                                  seed=26)
+    expect_launches(counts, {"linear_scan": RG_TRAIN_STEPS * (fwd + bwd)},
+                    "recurrentgemma train")
+    rec.update(loss_rel=loss_rel, grad_norm_rel=norm_rel)
+    state["train_rg"] = rec
+    log(f"  {RG_TRAIN_STEPS} x ({fwd} + {bwd}) linear_scan launches (forward with the "
+        f"recompute, backward), as expected")
 
 
 # ------------------------------------------------- launch tooling, examples
@@ -2604,6 +3120,7 @@ PHASES = [
     ("kernel vs plain", phase_scan_vs_plain),
     ("digest and mask vs plain", phase_digest_vs_plain),
     ("flash attention vs plain", phase_flash_vs_plain),
+    ("flash attention backward vs plain", phase_flash_bwd_vs_plain),
     ("serve", phase_serve),
     ("decode vs teacher forcing", phase_teacher_forcing),
     ("long-context serve", phase_serve_long),
@@ -2618,6 +3135,8 @@ PHASES = [
     ("encdec serve", phase_serve_encdec),
     ("encdec decode vs teacher forcing", phase_teacher_forcing_encdec),
     ("encdec train", phase_train_encdec),
+    ("long train", phase_train_long),
+    ("recurrentgemma train", phase_train_rg),
     ("mesh group", phase_mesh_group),
     ("mesh train and checkpoint", phase_mesh_train),
     ("mesh collective", phase_mesh_collective),

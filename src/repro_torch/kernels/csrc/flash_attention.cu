@@ -66,6 +66,7 @@
 // softmax, that the barrier keeps in step across all warps of the block.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 // Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
@@ -90,12 +91,14 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kRowsPerThread = 4;   // rows rg + 2i of the warp's 8
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const float* q;
   const float* k;
   const float* v;
   float* o;
+  float* lse;   // (B, Hq, Tq) row log-sum-exp, or null: not written
   int64_t Hq, Tq, Tk, D, group;
   int64_t q_sb, q_sh, q_st;   // strides in elements; the last dimension has stride 1
   int64_t k_sb, k_sh, k_st;
@@ -418,6 +421,10 @@ flash_attention_kernel(const Params p) {
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int64_t pos = pos0 + 2 * i;
     if (pos >= p.Tq) continue;
+    // log-sum-exp of the row's scores: m is in log2 units of the scaled score
+    if (p.lse != nullptr && kg == 0)
+      p.lse[(b * p.Hq + head) * p.Tq + pos] =
+          l[i] == 0.0f ? -CUDART_INF_F : (m[i] + log2f(l[i])) * kLn2;
     const float denom = l[i] == 0.0f ? 1.0f : l[i];   // no live key: zeros
     float* orow = og + pos * p.D;
 #pragma unroll
@@ -460,8 +467,10 @@ int launch(const Params& p, int64_t B, int64_t Hkv, cudaStream_t stream) {
 // head_pad columns (64, 128 or 256) and blocks of `rows` positions of
 // `heads` query heads, rows a multiple of 16 and rows * heads the
 // layout's 128 (head_pad 64, 128) or 64 (head_pad 256) stacked rows.
-// Launches on `stream`; returns the cudaError_t of the launch (0 on
-// success).  The caller checks shapes, types and devices.
+// lse: contiguous float32 (B, Hq, Tq) for each row's log-sum-exp (-inf
+// where a row sees no key), or null.  Launches on `stream`; returns the
+// cudaError_t of the launch (0 on success).  The caller checks shapes,
+// types and devices.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int64_t B, int64_t Hq, int64_t Hkv, int64_t Tq,
                                    int64_t Tk, int64_t D, int64_t q_sb, int64_t q_sh,
@@ -470,7 +479,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int has_window, int64_t window, int64_t q_offset,
                                    int has_softcap, float softcap, float scale,
                                    int64_t head_pad, int64_t rows, int64_t heads,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   if (D < 1 || D > head_pad || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       rows < 16 || rows % 16 != 0 || heads < 1 || (Tq + rows - 1) / rows > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -480,6 +489,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   p.Hq = Hq; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;

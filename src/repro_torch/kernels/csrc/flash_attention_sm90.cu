@@ -78,6 +78,7 @@ constexpr int kBM = 64;      // query rows per consumer warpgroup
 constexpr int kBN = 64;      // keys per tile
 constexpr int kAtom = 64;    // bf16 columns of one 128-byte swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // DP: the head width rounded up to a multiple of 64 (the width of the tiles)
 template <int DP>
@@ -96,6 +97,7 @@ struct Cfg {
 
 struct Params {
   void* o;
+  float* lse;   // (B, Hq, Tq) row log-sum-exp, or null: not written
   int64_t Hq, Tq, Tk, D, group;
   int64_t window, q_offset;
   int causal, has_window, has_softcap;
@@ -447,6 +449,12 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
   const int64_t row0 = wq0 + r0;
   const int64_t row1 = row0 + 8;
+  // log-sum-exp of each row's scores: m f is in log2 units of the scaled score
+  if (p.lse != nullptr && (lane & 3) == 0) {
+    float* lse = p.lse + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq;
+    if (row0 < p.Tq) lse[row0] = l0 == 0.0f ? -CUDART_INF_F : (m0 * f + log2f(l0)) * kLn2;
+    if (row1 < p.Tq) lse[row1] = l1 == 0.0f ? -CUDART_INF_F : (m1 * f + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int nb = 0; nb < C::kNB; ++nb)
 #pragma unroll
@@ -532,9 +540,11 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 // stride in D and the given strides (in elements) in its first three
 // dimensions, every base address and stride a multiple of 16 bytes; o:
 // contiguous (B, Hq, Tq, D) bfloat16.  8 <= D <= 256 with D a multiple of
-// 8, Hq a multiple of Hkv, Tk >= 1.  Launches on `stream`; returns the
-// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for
-// arguments the kernel does not take or a tensor map CUDA refuses).
+// 8, Hq a multiple of Hkv, Tk >= 1.  lse: contiguous float32 (B, Hq, Tq)
+// for each row's log-sum-exp (-inf where a row sees no key), or null.
+// Launches on `stream`; returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue for arguments the kernel does not take or
+// a tensor map CUDA refuses).
 // The caller checks shapes, types and devices.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                         int64_t B, int64_t Hq, int64_t Hkv, int64_t Tq,
@@ -543,7 +553,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         int64_t v_sb, int64_t v_sh, int64_t v_st, int causal,
                                         int has_window, int64_t window, int64_t q_offset,
                                         int has_softcap, float softcap, float scale,
-                                        void* stream) {
+                                        void* lse, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff)
@@ -558,6 +568,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     return static_cast<int>(bad);
   Params p;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.Hq = Hq; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
   p.window = window; p.q_offset = q_offset;
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;

@@ -1,5 +1,5 @@
 """CUDA kernel for GQA online-softmax (flash) attention on float32 inputs,
-forward only.
+forward (``flash_attention_bwd.py`` has the backward).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` for
 float32 inputs (``ops.flash_attention`` sends bfloat16 inputs to
@@ -11,8 +11,9 @@ walks only the key tiles that a causal or sliding-window mask leaves
 live, brings them in through a two-stage ``cp.async`` ring that overlaps
 the next tile's copies with this tile's arithmetic, and keeps the online
 softmax's running max, normaliser and accumulator in registers.  Its
-float32 arithmetic on the CUDA cores bounds it.  Its plain version is
-``repro_torch.kernels.ref.ref_flash_attention``.
+float32 arithmetic on the CUDA cores bounds it.  With ``return_lse`` it
+also writes each row's log-sum-exp, which the backward reads.  Its plain
+version is ``repro_torch.kernels.ref.ref_flash_attention``.
 
 ``launches`` counts the kernel's launches, and nothing else; a run reads
 it to show that its path went through the kernel.
@@ -21,7 +22,7 @@ it to show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -41,7 +42,7 @@ def _kernel():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_float, i64, i64, i64, ptr])
+                          ctypes.c_float, ctypes.c_float, i64, i64, i64, ptr, ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -116,14 +117,18 @@ def flash_attention_cuda(
     window: Optional[int] = None,
     q_offset: int = 0,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D) float32 CUDA tensors, unit
-    stride in D -> contiguous (B, Hq, Tq, D) float32."""
+    stride in D -> contiguous (B, Hq, Tq, D) float32; with ``return_lse``
+    also each row's log-sum-exp, contiguous float32 (B, Hq, Tq), -inf
+    where a row sees no key."""
     global launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     fn = _kernel()
     B, Hq, Tq, D = q.shape
     tile = tiling(Hq, k.shape[1], D)
@@ -134,8 +139,9 @@ def flash_attention_cuda(
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window is not None), int(window or 0), int(q_offset),
                  int(softcap is not None), float(softcap or 0.0), float(D ** -0.5),
-                 tile.head_pad, tile.rows, tile.heads, stream)
+                 tile.head_pad, tile.rows, tile.heads,
+                 lse.data_ptr() if return_lse else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

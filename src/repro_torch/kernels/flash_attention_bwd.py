@@ -1,0 +1,112 @@
+"""CUDA kernel for the backward of GQA online-softmax (flash) attention.
+
+Replaces no TPU kernel: ``repro/kernels/flash_attention.py`` is forward
+only, and the reference trains through ``models/layers.py::
+_blockwise_attention``, whose gradient ``jax.grad`` takes.  This is that
+gradient on the card, for float32 and bfloat16 inputs, with float32
+arithmetic.  The kernel (``csrc/flash_attention_bwd.cu``) is
+FlashAttention-2's backward in three launches: ``delta = rowsum(do * o)``,
+one block per key tile of a kv head that walks the query heads and tiles
+seeing its keys and writes dK and dV once, and one block per query tile
+that walks the live key tiles and writes dQ once.  Each recomputes the
+probabilities from the forward's row log-sum-exp.  No atomics: two calls
+on one input give bit-equal gradients.  Its plain version is
+``repro_torch.kernels.ref.ref_flash_attention_backward``.
+
+``launches`` counts the wrapper's calls that launch the kernel (one a
+backward, its three launches together), and nothing else; a run reads it
+to show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as _fa
+
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("flash_attention_bwd").flash_attention_bwd
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = ([ctypes.c_int] + [ptr] * 10 + [i64] * 6 + [i64] * 15
+                       + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v, o, lse, do) -> None:
+    _fa._check_shapes(q, k, v)
+    B, Hq, Tq, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if o.stride(3) != 1 or do.stride(3) != 1:
+        raise ValueError("flash_attention_bwd: o and do need unit stride in the head dimension")
+    dtypes = {t.dtype for t in (q, k, v, o, do)}
+    if len(dtypes) != 1 or dtypes.pop() not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention_bwd: q, k, v, o and do must be all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}")
+    if lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 {(B, Hq, Tq)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise ValueError(f"flash_attention_bwd: the kernel takes CUDA tensors on one device, "
+                         f"got {q.device}, {k.device}, {v.device}, {o.device}, {lse.device}, "
+                         f"{do.device}")
+    if B > _fa._MAX_GRID_YZ or Hq > _fa._MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_bwd: batch {B} or {Hq} heads exceed "
+                         f"{_fa._MAX_GRID_YZ}")
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, o, do: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D), one dtype (float32
+    or bfloat16), unit stride in D; lse: contiguous float32 (B, Hq, Tq), the
+    forward's row log-sum-exp -> contiguous (dq, dk, dv) in that dtype."""
+    global launches
+    _check(q, k, v, o, lse, do)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    if dq.numel() == 0:
+        dk.zero_()
+        dv.zero_()
+        return dq, dk, dv
+    fn = _kernel()
+    B, Hq, Tq, D = q.shape
+    delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Hq, k.shape[1], Tq, k.shape[2], D,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                 *do.stride()[:3],
+                 int(causal), int(window is not None), int(window or 0), int(q_offset),
+                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
+    launches += 1
+    return dq, dk, dv

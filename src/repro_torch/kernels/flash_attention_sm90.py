@@ -1,5 +1,6 @@
 """CUDA kernel for GQA online-softmax (flash) attention on bf16 inputs,
-on Hopper's tensor cores, forward only.
+on Hopper's tensor cores, forward (``flash_attention_bwd.py`` has the
+backward).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` for
 bfloat16 q, k and v (``ops.flash_attention`` sends float32 inputs to
@@ -9,8 +10,9 @@ above a head width of 128) of one (batch, query head), three (two)
 warpgroups of 64 rows: one thread keeps TMA loads of k and v tiles in
 flight while the warpgroups run q k^T and P V as ``wgmma`` on bf16 tiles,
 with P split into two bf16 parts and m, l and the accumulator in
-float32.  It walks only the live 64-key tiles.  Its plain version is
-``repro_torch.kernels.ref.ref_flash_attention``.
+float32.  It walks only the live 64-key tiles.  With ``return_lse`` it
+also writes each row's log-sum-exp, which the backward reads.  Its plain
+version is ``repro_torch.kernels.ref.ref_flash_attention``.
 
 ``launches`` counts the kernel's launches, and nothing else; a run reads
 it to show that its path went through the kernel.
@@ -19,7 +21,7 @@ it to show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -38,7 +40,7 @@ def _kernel():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_float, ptr])
+                          ctypes.c_float, ctypes.c_float, ptr, ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -78,16 +80,21 @@ def flash_attention_sm90_cuda(
     window: Optional[int] = None,
     q_offset: int = 0,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D) bfloat16 CUDA tensors, unit
-    stride in D, D a multiple of 8 -> contiguous (B, Hq, Tq, D) bfloat16."""
+    stride in D, D a multiple of 8 -> contiguous (B, Hq, Tq, D) bfloat16;
+    with ``return_lse`` also each row's log-sum-exp, contiguous float32
+    (B, Hq, Tq), -inf where a row sees no key."""
     global launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if k.shape[2] == 0:     # no key at all: every row is fully masked
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("-inf"))) if return_lse else out
     fn = _kernel()
     B, Hq, Tq, D = q.shape
     with torch.cuda.device(q.device):
@@ -96,8 +103,9 @@ def flash_attention_sm90_cuda(
                  B, Hq, k.shape[1], Tq, k.shape[2], D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window is not None), int(window or 0), int(q_offset),
-                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5), stream)
+                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5),
+                 lse.data_ptr() if return_lse else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90: kernel launch failed with CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

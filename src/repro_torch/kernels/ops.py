@@ -7,19 +7,29 @@ mesh the scan runs on each rank's local slices (its time axis whole);
 attention is reached with local tensors (``models.layers``), and a
 DTensor handed to the other kernels raises.
 
+Gradients go through the same dispatch.  Under autograd (grad enabled
+and an input that requires grad) the scan goes through the custom op
+``repro_torch::linear_scan``, whose registered gradient is the same scan
+run backwards in time (the kernel on the card), and attention through
+``_FlashAttention``: its forward keeps each row's log-sum-exp, its
+backward is ``flash_attention_bwd``'s kernel on the card and
+``ref.ref_flash_attention_backward`` on the CPU.  With grad off (serving)
+the kernels are called directly, as before.
+
 A fake tensor (``FakeTensorMode``, the dry run of ``launch/dryrun.py``)
-goes to the custom ops ``repro_torch::linear_scan`` and
-``repro_torch::flash_attention``, whose shape functions give the output
-without launching a kernel or running the plain version's loops; their
-FLOP formulas count attention as 4·B·Hq·D per live query-key pair and
-the scan as 0 (vector work, which the cost model does not count).  Real
-tensors never pass through the custom ops, so the plain versions and the
-kernels, and their launch counts, are what they were.
+goes to the custom ops ``repro_torch::linear_scan``,
+``repro_torch::flash_attention`` (o and lse) and
+``repro_torch::flash_attention_backward``, whose shape functions give the
+outputs without launching a kernel or running the plain versions' loops;
+their FLOP formulas count attention as 4·B·Hq·D per live query-key pair,
+its backward as 8·B·Hq·D (what the reference's differentiated scan
+performs, keeping its probabilities), and the scan as 0 (vector work,
+which the cost model does not count).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,13 +41,15 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.kernels import delta_mask as _dm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import flash_attention_sm90 as _fa90
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import page_digest as _pd
 from repro_torch.kernels import ref as _ref
 
 _KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
-            "flash_attention": _fa, "flash_attention_sm90": _fa90}
+            "flash_attention": _fa, "flash_attention_sm90": _fa90,
+            "flash_attention_bwd": _fab}
 
 
 def _refuse_distributed(name: str, *ts) -> None:
@@ -85,10 +97,17 @@ def _linear_scan_flops(a_shape, x_shape, *args, **kwargs) -> int:
     return 0
 
 
+def _recorded(*ts) -> bool:
+    """Whether autograd records a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + x_t over (B, T, D), with h_{-1} = 0.  DTensors
     are scanned on each rank's local (B, T, D) slices, T gathered whole
-    and x placed as a is: the recurrence is elementwise over B and D."""
+    and x placed as a is: the recurrence is elementwise over B and D.
+    Under autograd the call goes through the custom op, whose gradient
+    is the reversed scan (one more launch on the card)."""
     if isinstance(a, FakeTensor):
         return _linear_scan_op(a, x)
     if is_distributed(a):
@@ -100,6 +119,8 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
         h = linear_scan(a.redistribute(mesh, pl).to_local(), x.redistribute(mesh, pl).to_local())
         return DTensor.from_local(h, mesh, pl, run_check=False)
+    if _recorded(a, x):
+        return _linear_scan_op(a, x)
     return _scan(a, x)
 
 
@@ -108,32 +129,84 @@ def linear_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attention(q, k, v, causal, window, q_offset, softcap):
+def _attention(q, k, v, causal, window, q_offset, softcap, return_lse=False):
+    """o, or (o, lse) with ``return_lse``: the custom op's shape function on
+    fake tensors, the plain version on the CPU, the dtype's kernel on the
+    card."""
+    if isinstance(q, FakeTensor):
+        o, lse = _flash_attention_op(q, k, v, causal, window, q_offset, softcap)
+        return (o, lse) if return_lse else o
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap,
+              return_lse=return_lse)
     if q.device.type == "cpu":
-        return _ref.ref_flash_attention(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset, softcap=softcap)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward on the card: training over more than "
-            "4096 kv positions waits for a later slice")
+        return _ref.ref_flash_attention(q, k, v, **kw)
     kernel = (_fa90.flash_attention_sm90_cuda
               if q.dtype == k.dtype == v.dtype == torch.bfloat16 else _fa.flash_attention_cuda)
-    return kernel(q, k, v, causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+    return kernel(q, k, v, **kw)
+
+
+def _attention_backward(q, k, v, o, lse, do, causal, window, q_offset, softcap):
+    """(dq, dk, dv): the custom op's shape function on fake tensors, the
+    plain version on the CPU, the kernel on the card."""
+    if isinstance(q, FakeTensor):
+        return _flash_attention_backward_op(q, k, v, o, lse, do, causal, window, q_offset,
+                                            softcap)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+    if q.device.type == "cpu":
+        return _ref.ref_flash_attention_backward(q, k, v, o, lse, do, **kw)
+    return _fab.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention that autograd records: the forward keeps (q, k, v, o,
+    lse), the backward recomputes the probabilities from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap):
+        o, lse = _attention(q, k, v, causal, window, q_offset, softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, q_offset, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _attention_backward(q, k, v, o, lse, do.contiguous(), *ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def _check_attention_shapes(q, k, v):
+    B, Hq, Tq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} does not attend over k, v {tuple(k.shape)}")
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                         window: Optional[int], q_offset: int,
-                        softcap: Optional[float]) -> torch.Tensor:
-    return _attention(q, k, v, causal, window, q_offset, softcap)
+                        softcap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _attention(q, k, v, causal, window, q_offset, softcap, return_lse=True)
 
 
 @_flash_attention_op.register_fake
 def _(q, k, v, causal, window, q_offset, softcap):
-    B, Hq, Tq, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
-        raise ValueError(f"q {tuple(q.shape)} does not attend over k, v {tuple(k.shape)}")
-    return torch.empty_like(q)
+    _check_attention_shapes(q, k, v)
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def _flash_attention_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                 causal: bool, window: Optional[int], q_offset: int,
+                                 softcap: Optional[float]) -> List[torch.Tensor]:
+    return list(_attention_backward(q, k, v, o, lse, do, causal, window, q_offset, softcap))
+
+
+@_flash_attention_backward_op.register_fake
+def _(q, k, v, o, lse, do, causal, window, q_offset, softcap):
+    _check_attention_shapes(q, k, v)
+    return [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v)]
+
 
 
 def live_pairs(Tq: int, Tk: int, causal: bool, window: Optional[int], q_offset: int) -> int:
@@ -152,6 +225,17 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, q_offset, 
     return 4 * B * Hq * D * live_pairs(Tq, k_shape[2], causal, window, q_offset)
 
 
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _flash_attention_backward_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+                                    causal, window, q_offset, softcap, *args,
+                                    **kwargs) -> int:
+    """dV, dP, dQ and dK: four products of 2·D per live pair (the
+    probabilities kept from the forward, as the reference's scan keeps
+    them; the kernel recomputes S besides)."""
+    B, Hq, Tq, D = q_shape
+    return 8 * B * Hq * D * live_pairs(Tq, k_shape[2], causal, window, q_offset)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -167,15 +251,14 @@ def flash_attention(
     On the card, bfloat16 q, k and v go to the tensor-core kernel
     (``flash_attention_sm90``), which raises on what it does not take;
     any other call goes to ``flash_attention``'s kernel, which takes
-    float32 only and raises on anything else.  Forward only, as the TPU kernel: on the card a
-    call that autograd would record raises, since neither kernel has a
-    backward.
+    float32 only and raises on anything else.  A call that autograd
+    records also keeps each row's log-sum-exp, and its gradient is
+    ``flash_attention_bwd``'s kernel on the card (the plain version on
+    the CPU).
     """
     _refuse_distributed("flash_attention", q, k, v)
-    if isinstance(q, FakeTensor):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError("flash_attention has no backward: not traced under autograd")
-        return _flash_attention_op(q, k, v, causal, window, q_offset, softcap)
+    if _recorded(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset, softcap)
     return _attention(q, k, v, causal, window, q_offset, softcap)
 
 

@@ -7,13 +7,15 @@ JAX package's oracle of the same name.  ``ref_attention`` is also the
 dense attention of ``models.layers`` on every device, as
 ``repro.kernels.ref.ref_attention`` is in the reference;
 ``ref_flash_attention`` is the plain version of the flash kernel, the
-reference's blockwise (online-softmax) attention.
+reference's blockwise (online-softmax) attention, and
+``ref_flash_attention_backward`` the plain version of its backward kernel:
+the gradients the reference's ``jax.grad`` takes through that attention.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -114,7 +116,8 @@ def ref_flash_attention(
     q_offset: int = 0,
     softcap: Optional[float] = None,
     chunk: int = 1024,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Online-softmax GQA attention over ``chunk``-key slices, in float32.
 
     The plain version of ``flash_attention``, ported from the reference's
@@ -128,6 +131,10 @@ def ref_flash_attention(
     kernel skips dead tiles: for any other row the reference's update is
     ``p = 0`` and ``alpha = exp(0) = 1``, which leaves m, l and the
     accumulator exactly as they were.
+
+    With ``return_lse`` it also returns each row's log-sum-exp of its
+    live scores, ``m + log(l)``, float32 (B, Hq, Tq): ``-inf`` for a row
+    with no live key.  The backward recomputes the probabilities from it.
     """
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
@@ -164,8 +171,90 @@ def ref_flash_attention(
         acc[..., r0:r1, :] = (acc[..., r0:r1, :] * alpha[..., None]
                               + torch.einsum("bhgqk,bhkd->bhgqd", p, vj))
         m[..., r0:r1] = m_new
-    l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l[..., None]).reshape(B, Hq, Tq, D).to(q.dtype)
+    dead = l == 0.0
+    out = (acc / torch.where(dead, torch.ones_like(l), l)[..., None]).reshape(B, Hq, Tq, D)
+    out = out.to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(dead, torch.full_like(m, float("-inf")), m + torch.log(l))
+    return out, lse.reshape(B, Hq, Tq)
+
+
+def ref_flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+    chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``ref_flash_attention``'s output, the
+    plain version of ``flash_attention_bwd``.
+
+    ``o`` and ``lse`` are the forward's output and row log-sum-exp
+    (``return_lse``), ``do`` the output's gradient.  Over ``chunk``-key
+    slices in float32, each slice only for the rows that can see one of
+    its keys:
+
+        P  = exp(S - lse)        (0 where masked, and on a row with no live key)
+        dV = P^T dO,  dP = dO V^T,  dS = P * (dP - rowsum(dO * O))
+        dS *= 1 - (S / c)^2      (softcap c: S = c tanh(s / c))
+        dQ = D^-0.5 dS K,  dK = D^-0.5 dS^T Q
+
+    with dK and dV summed over the query heads of each kv head.  The
+    gradients come out in the inputs' dtypes, as the reference's
+    ``jax.grad`` of ``_blockwise_attention`` gives them.
+    """
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = D ** -0.5
+    qf = q.float().reshape(B, Hkv, group, Tq, D)
+    qs = qf * scale
+    dof = do.float().reshape(B, Hkv, group, Tq, D)
+    delta = (dof * o.float().reshape(B, Hkv, group, Tq, D)).sum(-1)
+    lse = lse.reshape(B, Hkv, group, Tq)
+    live_row = torch.isfinite(lse)
+    lse = torch.where(live_row, lse, torch.zeros_like(lse))
+    qpos = q_offset + torch.arange(Tq, device=q.device)
+    dq = torch.zeros((B, Hkv, group, Tq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Hkv, Tk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Hkv, Tk, D), dtype=torch.float32, device=q.device)
+    for j0 in range(0, Tk, chunk):
+        j1 = min(j0 + chunk, Tk)
+        r0 = max(0, j0 - q_offset) if causal else 0                  # qpos >= j0
+        r1 = Tq if window is None else min(Tq, j1 - 1 + window - q_offset)
+        if r0 >= r1:
+            continue
+        kj = k[:, :, j0:j1].float()
+        vj = v[:, :, j0:j1].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qs[..., r0:r1, :], kj)
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        kpos = torch.arange(j0, j1, device=q.device)
+        rpos = qpos[r0:r1, None]
+        mask = torch.ones((r1 - r0, j1 - j0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= rpos
+        if window is not None:
+            mask &= kpos[None, :] > rpos - window
+        mask = mask & live_row[..., r0:r1, None]
+        p = torch.exp(s - lse[..., r0:r1, None]).masked_fill(~mask, 0.0)
+        do_r = dof[..., r0:r1, :]
+        dv[:, :, j0:j1] += torch.einsum("bhgqk,bhgqd->bhkd", p, do_r)
+        ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", do_r, vj) - delta[..., r0:r1, None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dq[..., r0:r1, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kj) * scale
+        dk[:, :, j0:j1] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qf[..., r0:r1, :]) * scale
+    return dq.reshape(B, Hq, Tq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_linear_scan(

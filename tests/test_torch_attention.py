@@ -157,19 +157,21 @@ def test_ops_flash_attention_on_cpu_runs_the_plain_version(no_build):
     want = tref.ref_flash_attention(q, k, v, causal=True, window=30, q_offset=20)
     assert torch.equal(got, want)
     assert ops.launch_counts() == {"linear_scan": 0, "page_digest": 0, "delta_mask": 0,
-                                   "flash_attention": 0, "flash_attention_sm90": 0}
+                                   "flash_attention": 0, "flash_attention_sm90": 0,
+                                   "flash_attention_bwd": 0}
 
 
 def test_ops_flash_attention_refuses_autograd_off_the_cpu(no_build):
-    """The kernel is forward only: a call autograd would record on a
-    device other than the CPU raises before anything is built."""
+    """Off the CPU a call that autograd records takes the kernels too:
+    on the meta device it reaches the kernel's wrapper, whose check
+    raises before anything is built or launched, with grad on and off."""
     q, k, v = (torch.empty(1, 2, 8, 16, device="meta", requires_grad=True) for _ in range(3))
-    before = tfa.launches
-    with pytest.raises(NotImplementedError, match="4096"):
-        ops.flash_attention(q, k, v)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, v)      # recorded: _FlashAttention's forward
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, k, v)      # reaches the kernel's wrapper, which checks
-    assert tfa.launches == before
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("case", ["cpu_tensor", "dtype", "mixed_dtype", "head_dim", "groups",
