@@ -32,9 +32,11 @@ Phases (each one's failure fails the run):
    the encoder-decoder's three unmasked shapes over 32768 frames of 16
    heads of 64 in both dtypes: the encoder's self-attention (batch 1, v
    strided), the prefill's cross-attention (4, 16, 512, 64) and a decode
-   step's (4, 16, 1, 64); then ``flash_attention_bwd`` against the plain
-   backward (the same q, k, v, the dtype's forward kernel's o and lse, a
-   seeded do) over that sweep in both dtypes and layouts and over the
+   step's (4, 16, 1, 64); then the backward against the plain backward
+   (``flash_attention_bwd_sm90``, bf16 on the tensor cores, and
+   ``flash_attention_bwd``, float32 arithmetic, each on its dtype; the
+   same q, k, v, the dtype's forward kernel's o and lse, a seeded do) over
+   that sweep in both dtypes and layouts and over the
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
    2048, 64) over 8192 frames, no mask), per gradient within 1e-4
@@ -109,14 +111,18 @@ Phases (each one's failure fails the run):
    (bf16 params, fp32 AdamW state, remat ``"full"``), 3 steps, finite:
    the encoder's self-attention and every cross-attention through
    ``flash_attention_sm90`` twice a layer a step (the forward and its
-   recompute) and ``flash_attention_bwd`` once (3 x 96 and 3 x 48
-   launches), the decoder's self-attention over 2048 tokens dense;
+   recompute) and ``flash_attention_bwd_sm90`` once (3 x 96 and 3 x 48
+   launches), the decoder's self-attention over 2048 tokens dense, then
+   one more step under the profiler (top kernels, idle share);
    full-width h2o-danube3-4b (24 layers) trained 2 steps at 1 x 8192
    tokens, its published context (bf16 params, fp32 AdamW state, remat
    ``"full"``), once the dry run's one-device record of that step (fake
    tensors) fits the card: 2 x 48 ``flash_attention_sm90`` and 2 x 24
-   ``flash_attention_bwd`` launches, finite, step time, peak memory and
-   the device's idle share over one more step; full-width
+   ``flash_attention_bwd_sm90`` launches, finite, step time, peak memory
+   and the device's idle share over one more step; the same model cut to
+   4 layers in float32, one step at 1 x 8192 (remat ``"none"``): 4
+   ``flash_attention`` and 4 ``flash_attention_bwd`` launches, finite;
+   full-width
    recurrentgemma-2b trained at 2 x 2048: one batch's gradients with the
    kernel scan and with the plain scan on the card (loss and gradient norm
    within 1e-4, every RG-LRU layer's gradient of ``wx``, ``conv``,
@@ -175,7 +181,9 @@ Phases (each one's failure fails the run):
    2 x 16 x 16, olmoe-1b-7b ``prefill_32k``, granite-moe-1b-a400m and
    recurrentgemma-2b ``train_4k``, xlstm-350m ``decode_32k``,
    internvl2-76b ``prefill_32k``, seamless-m4t-large-v2 ``prefill_32k``
-   and ``train_4k``; then the reference's last three strategies:
+   (on 16 x 16 and 2 x 16 x 16, its temporaries under 3 GiB a device: the
+   meta tensor that asks for the memories' axis names holds no bytes) and
+   ``train_4k``; then the reference's last three strategies:
    qwen1.5-32b ``train_4k`` under ``tp_fsdp_uneven``, ``prefill_32k``
    under ``tp_serve_uneven`` (traced FLOPs at most 1.3 x the analytic
    count, both), ``decode_32k`` under ``tp_serve_hd`` (temporaries and
@@ -204,8 +212,10 @@ Phases (each one's failure fails the run):
    examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
    mesh serving, mesh encoder-decoder serving and mesh ``generate`` for
    ``flash_attention_sm90``, the float32 long and
-   encoder-decoder teacher forcing and the float32 mesh serve for
-   ``flash_attention``; ``launches_by_path``),
+   encoder-decoder teacher forcing, the float32 mesh serve and the
+   float32 training step for ``flash_attention``, the bf16 training steps
+   for ``flash_attention_bwd_sm90`` and the float32 one for
+   ``flash_attention_bwd``; ``launches_by_path``),
    its error against
    the plain version, its time, the plain version's time, the least time
    the card could take and, where one PyTorch call computes the same
@@ -217,10 +227,11 @@ Phases (each one's failure fails the run):
    ``flash_attention_sm90`` also at the encoder-decoder's three shapes
    (``seamless``: error, time, plain time, bound, and
    ``scaled_dot_product_attention`` with no mask); both forward rows also
-   time the call that writes the lse (``lse_ms``); and a
-   ``flash_attention_bwd`` row at the training phases' three shapes in
-   bf16 and danube's in float32 (bound 10 D flops a live pair; library:
-   SDPA's backward with the same mask), its launches by training path.
+   time the call that writes the lse (``lse_ms``); a
+   ``flash_attention_bwd_sm90`` row at the training phases' three shapes
+   in bf16 and a ``flash_attention_bwd`` row at danube's in float32
+   (bound 10 D flops a live pair at the dtype's rate; library: SDPA's
+   backward with the same mask), their launches by training path.
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
@@ -259,6 +270,8 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
+    flash_attention_bwd_sm90_cuda)
 from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
@@ -316,6 +329,7 @@ ENCDEC_TRAIN_FRAMES = 8192
 # training through the kernels: h2o-danube3-4b at its published context
 # (twice its window), recurrentgemma-2b's RG-LRU scan and its gradient
 LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 1, 8192, 2
+LONG_F32_LAYERS = 4       # the float32 backward's path: danube cut to 4 layers in float32
 RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 2, 2048, 2
 RG_PLAIN_RTOL = 1e-4            # loss and grad norm, kernel scan vs the plain scan
 # the digest tests' sweep (tests/test_torch_digest.py): word-domain pages,
@@ -443,7 +457,7 @@ def phase_build(state):
     for name in build.SOURCES:
         build.load(name)
         for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {len(build.SOURCES)} source(s) in {state['build_s']:.2f} s")
 
@@ -497,6 +511,11 @@ def attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, strided=False):
 def flash_kernel(dtype):
     """The attention kernel ``ops.flash_attention`` runs for ``dtype``."""
     return flash_attention_sm90_cuda if dtype == torch.bfloat16 else flash_attention_cuda
+
+
+def flash_bwd_kernel(dtype):
+    """The attention backward kernel ``ops`` runs for ``dtype``."""
+    return flash_attention_bwd_sm90_cuda if dtype == torch.bfloat16 else flash_attention_bwd_cuda
 
 
 def flash_case(q, k, v, **kw):
@@ -626,20 +645,22 @@ def phase_flash_vs_plain(state):
 
 
 def flash_bwd_case(q, k, v, seed, **kw):
-    """``flash_attention_bwd`` against the plain backward on the same q, k,
-    v, o, lse and a seeded do, o and lse from the dtype's forward kernel
-    (``return_lse``), whose lse is held to the plain forward's.  Two calls
-    must be bit-equal.  Returns (largest absolute error over the three
+    """The dtype's backward kernel (``flash_attention_bwd_sm90`` for bf16,
+    ``flash_attention_bwd`` for float32) against the plain backward on the
+    same q, k, v, o, lse and a seeded do, o and lse from the dtype's forward
+    kernel (``return_lse``), whose lse is held to the plain forward's.  Two
+    calls must be bit-equal.  Returns (largest absolute error over the three
     gradients, largest share of the per-gradient limit, lse error)."""
     o, lse = flash_kernel(q.dtype)(q, k, v, return_lse=True, **kw)
     _, lse_want = ref_flash_attention(q, k, v, return_lse=True, **kw)
     g = torch.Generator(device="cuda").manual_seed(seed)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
-    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    kernel = flash_bwd_kernel(q.dtype)
+    got = kernel(q, k, v, o, lse, do, **kw)
+    again = kernel(q, k, v, o, lse, do, **kw)
     want = ref_flash_attention_backward(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    what = f"flash_attention_bwd {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} {kw}"
+    what = f"{kernel.__name__} {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} {kw}"
     dead = torch.isinf(lse_want)
     if not torch.equal(torch.isinf(lse), dead) or bool((lse[dead] > 0).any()):
         raise AssertionError(f"{what}: lse's -inf rows differ from the plain version's")
@@ -689,12 +710,16 @@ def phase_flash_bwd_vs_plain(state):
     and the training shapes; then the scan's gradient through the custom
     op against autograd through the plain loop."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    worst_share, worst_lse, n = 0.0, 0.0, 0
+    share_by = {torch.float32: 0.0, torch.bfloat16: 0.0}   # the largest share of the limit
+    worst_lse, n = 0.0, 0
 
-    def record(dt, err, share, lse_err):
-        nonlocal worst_share, worst_lse, n
+    def record(dt, err, share, lse_err, what=None):
+        nonlocal worst_lse, n
         worst[dt], n = max(worst[dt], err), n + 1
-        worst_share, worst_lse = max(worst_share, share), max(worst_lse, lse_err)
+        share_by[dt], worst_lse = max(share_by[dt], share), max(worst_lse, lse_err)
+        if what is not None:
+            log(f"  {flash_bwd_kernel(dt).__name__} {what} {dt}: max abs err {err:.3e}, "
+                f"{share:.3f} of the limit")
 
     for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, dtype) in enumerate(FLASH_CASES):
         for dt in (dtype,) if dtype == torch.bfloat16 else (dtype, torch.bfloat16):
@@ -703,7 +728,8 @@ def phase_flash_bwd_vs_plain(state):
                                            strided=strided)
                 kw = dict(causal=causal, window=window, softcap=softcap,
                           q_offset=Tk - Tq if causal else 0)
-                record(dt, *flash_bwd_case(q, k, v, seed=400 + i, **kw)[:3])
+                record(dt, *flash_bwd_case(q, k, v, seed=400 + i, **kw)[:3],
+                       what=f"{tuple(q.shape)} kv {tuple(k.shape)} {kw} strided={strided}")
     for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap) in enumerate(FLASH_F32_CASES):
         for strided in (False, True):
             q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.float32, seed=360 + i,
@@ -716,7 +742,7 @@ def phase_flash_bwd_vs_plain(state):
         q, k, v = attention_inputs(1, 4, 2, 100, 100, 120, dt, seed=350)
         err, share, lse_err, (dq, _, _) = flash_bwd_case(q, k, v, seed=450, causal=True,
                                                          q_offset=-40)
-        record(dt, err, share, lse_err)
+        record(dt, err, share, lse_err, what="(1, 4, 100, 120) q_offset -40")
         if not torch.equal(dq[:, :, :40], torch.zeros_like(dq[:, :, :40])):
             raise AssertionError(f"{dt}: the dq of fully masked rows is not zero")
     log(f"  backward sweep: {n} cases")
@@ -728,16 +754,17 @@ def phase_flash_bwd_vs_plain(state):
                                        strided=True)
             err, share, lse_err, _ = flash_bwd_case(q, k, v, seed=453, **kw)
             record(dt, err, share, lse_err)
-            log(f"  flash_attention_bwd {name} q {qs} kv {ks} {dt} {kw}: max abs err "
+            log(f"  {flash_bwd_kernel(dt).__name__} {name} q {qs} kv {ks} {dt} {kw}: max abs err "
                 f"{err:.3e}, {share:.3f} of the limit, lse err {lse_err:.3e}")
             del q, k, v
             torch.cuda.empty_cache()
     state["flash_bwd_err"] = worst
-    state["flash_bwd_share"] = worst_share
-    log(f"kernel vs plain: attention backward in {n} cases, float32 worst "
-        f"{worst[torch.float32]:.3e}, bf16 worst {worst[torch.bfloat16]:.3e}, "
-        f"{worst_share:.3f} of the limits (float32 {FLASH_BWD_F32_REL} max|want|, bf16 "
-        f"{FLASH_BWD_BF16_REL:.3g} |want| + {FLASH_BWD_BF16_FLOOR} max|want|); lse worst "
+    state["flash_bwd_share"] = share_by
+    log(f"kernel vs plain: attention backward in {n} cases, float32 (flash_attention_bwd) worst "
+        f"{worst[torch.float32]:.3e} and {share_by[torch.float32]:.3f} of its limit "
+        f"({FLASH_BWD_F32_REL} max|want|), bf16 (flash_attention_bwd_sm90) worst "
+        f"{worst[torch.bfloat16]:.3e} and {share_by[torch.bfloat16]:.3f} of its limit "
+        f"({FLASH_BWD_BF16_REL:.3g} |want| + {FLASH_BWD_BF16_FLOOR} max|want|); lse worst "
         f"{worst_lse:.3e} (tol {FLASH_LSE_TOL}); two calls bit-equal everywhere")
 
     # the scan's gradient: the custom op (the reversed CUDA scan) against
@@ -1359,11 +1386,12 @@ def sdpa_bwd_ms(q, k, v, do, causal, window=None) -> float:
 
 
 def bwd_times(qs, ks, kw, dtype, seed):
-    """``flash_attention_bwd`` at one shape: its error against the plain
-    backward, its time, the plain version's, the bound (10 D flops a live
-    pair, S recomputed, over the dtype's peak, or each input read and each
-    gradient written once over the memory rate), SDPA's backward with the
-    same mask, and the forward's time with and without its lse."""
+    """The dtype's backward kernel at one shape (``flash_attention_bwd_sm90``
+    for bf16, ``flash_attention_bwd`` for float32): its error against the
+    plain backward, its time, the plain version's, the bound (10 D flops a
+    live pair, S recomputed, over the dtype's peak, or each input read and
+    each gradient written once over the memory rate), SDPA's backward with
+    the same mask, and the forward's time with and without its lse."""
     B, Hq, Tq, D = qs
     q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, dtype, seed=seed)
     err, share, lse_err, _ = flash_bwd_case(q, k, v, seed=seed + 1, **kw)
@@ -1382,7 +1410,7 @@ def bwd_times(qs, ks, kw, dtype, seed):
         "dtype": str(dtype).replace("torch.", ""),
         "mask": {key: val for key, val in kw.items()},
         "max_abs_err": err, "limit_share": share, "lse_err": lse_err,
-        "ms": cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), reps=3),
+        "ms": cuda_ms(lambda: flash_bwd_kernel(dtype)(q, k, v, o, lse, do, **kw), reps=3),
         "plain_ms": cuda_ms(lambda: ref_flash_attention_backward(q, k, v, o, lse, do, **kw),
                             reps=1),
         "bound_ms": max(ops_s, bytes_s) * 1e3,
@@ -1533,7 +1561,9 @@ def phase_kernel_times(state):
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
             f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"],
-            f"{LONG_ARCH} float32 mesh serve": state["mesh_serve_f32_launches"]},
+            f"{LONG_ARCH} float32 mesh serve": state["mesh_serve_f32_launches"],
+            f"{LONG_ARCH} train float32 ({LONG_F32_LAYERS} layers)":
+                state["train_long_f32"]["launches"]["flash_attention"]},
     }
     for name, dtype, rate, rate_name in (
             ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores"),
@@ -1574,45 +1604,56 @@ def phase_kernel_times(state):
         if name == "flash_attention_sm90":
             row["seamless"] = seamless_times()
 
-    # the backward at the training phases' three shapes in bf16 (their
-    # dtype), and at danube's in float32
+    # the backward: the bf16 tensor-core kernel at the training phases'
+    # three shapes (their dtype), the float32 kernel at danube's
     train = {name: bwd_times(qs, ks, kw, torch.bfloat16, seed=40 + i)
              for i, (name, qs, ks, kw) in enumerate(train_attention_shapes())}
-    dn_name, dn_q, dn_kv, dn_kw = train_attention_shapes()[0]
+    _, dn_q, dn_kv, dn_kw = train_attention_shapes()[0]
     f32 = bwd_times(dn_q, dn_kv, dn_kw, torch.float32, seed=50)
-    main = train[dn_name]
-    bwd_paths = {f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_bwd"],
-                 f"{ENCDEC_ARCH} train": state["train_encdec"]["launches"]["flash_attention_bwd"]}
-    kernels.append({
-        "name": "flash_attention_bwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/models/layers.py:159",
-        "replaces_note": "no TPU kernel: flash_attention_pallas (src/repro/kernels/"
-                         "flash_attention.py:105) is forward only; the reference trains "
-                         "through jax.grad of _blockwise_attention",
-        "launches": sum(bwd_paths.values()),
-        "launches_by_path": bwd_paths,
-        "max_abs_err": max([main["max_abs_err"], state["flash_bwd_err"][torch.bfloat16]]),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "library_call": "the backward of scaled_dot_product_attention with the same mask "
-                        "(efficient backend with the window-causal boolean mask; no mask: "
-                        "PyTorch's pick), kv heads repeated outside the timing",
-        "shape": main["shape"],
-        "dtype": main["dtype"],
-        "window": dn_kw.get("window"),
-        "limit_share": max(t["limit_share"] for t in train.values()),
-        "bound_basis": f"10*D flop per live (q, k) pair over {BF16_FLOP_PER_S:.3g} flop/s "
-                       f"(H100 SXM bf16 tensor cores; float32: {F32_FLOP_PER_S:.3g}, the "
-                       f"CUDA cores); q, k, v, o, do, lse read and dq, dk, dv written once over "
-                       f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
-        "train_shapes": train,
-        "float32": f32,
-    })
+    bwd_paths = {
+        "flash_attention_bwd_sm90": {
+            f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_bwd_sm90"],
+            f"{ENCDEC_ARCH} train":
+                state["train_encdec"]["launches"]["flash_attention_bwd_sm90"]},
+        "flash_attention_bwd": {
+            f"{LONG_ARCH} train float32 ({LONG_F32_LAYERS} layers)":
+                state["train_long_f32"]["launches"]["flash_attention_bwd"]},
+    }
+    for name, shapes, dtype, rate, rate_name in (
+            ("flash_attention_bwd_sm90", train, torch.bfloat16, BF16_FLOP_PER_S,
+             "bf16 tensor cores"),
+            ("flash_attention_bwd", {"danube float32": f32}, torch.float32, F32_FLOP_PER_S,
+             "float32 outside the tensor cores")):
+        main = next(iter(shapes.values()))   # danube's shape
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": "src/repro/models/layers.py:159",
+            "replaces_note": "no TPU kernel: flash_attention_pallas (src/repro/kernels/"
+                             "flash_attention.py:105) is forward only; the reference trains "
+                             "through jax.grad of _blockwise_attention",
+            "launches": sum(bwd_paths[name].values()),
+            "launches_by_path": bwd_paths[name],
+            "max_abs_err": max(main["max_abs_err"], state["flash_bwd_err"][dtype]),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_call": "the backward of scaled_dot_product_attention with the same mask "
+                            "(efficient backend with the window-causal boolean mask; no mask: "
+                            "PyTorch's pick), kv heads repeated outside the timing",
+            "shape": main["shape"],
+            "dtype": main["dtype"],
+            "window": dn_kw.get("window"),
+            "limit_share": max([t["limit_share"] for t in shapes.values()]
+                               + [state["flash_bwd_share"][dtype]]),
+            "bound_basis": f"10*D flop per live (q, k) pair over {rate:.3g} flop/s (H100 SXM "
+                           f"{rate_name}); q, k, v, o, do, lse read and dq, dk, dv written once "
+                           f"over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
+            "train_shapes": shapes,
+        })
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
@@ -1625,13 +1666,14 @@ def phase_kernel_times(state):
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bound_ms'] / t['ms']:.1%} of roofline), max abs err {t['max_abs_err']:.3e}, "
             f"on {state['smi']}")
-    for shape_name, t in list(next(k for k in kernels if k["name"] == "flash_attention_bwd")[
-            "train_shapes"].items()) + [("danube float32", f32)]:
-        log(f"flash_attention_bwd {shape_name} {t['shape']} {t['dtype']} {t['mask']}: kernel "
+    for shape_name, t in list(train.items()) + [("danube float32", f32)]:
+        log(f"{flash_bwd_kernel(getattr(torch, t['dtype'])).__name__} {shape_name} {t['shape']} "
+            f"{t['dtype']} {t['mask']}: kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA backward) "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-            f"{t['bound_ms'] / t['ms']:.1%} of roofline); forward {t['forward_ms']:.4f} ms, "
-            f"with lse {t['forward_lse_ms']:.4f} ms; max abs err {t['max_abs_err']:.3e}; "
+            f"{t['bound_ms'] / t['ms']:.1%} of roofline, {t['ms'] / t['library_ms']:.2f} x "
+            f"SDPA's); forward {t['forward_ms']:.4f} ms, with lse {t['forward_lse_ms']:.4f} ms; "
+            f"max abs err {t['max_abs_err']:.3e}, {t['limit_share']:.3f} of the limit; "
             f"on {state['smi']}")
     # the forward kernels against their times before they wrote the lse
     # (PERF.md's kernel table: 5.6412 ms bf16, 47.27 ms float32, danube shape)
@@ -2622,53 +2664,37 @@ def phase_teacher_forcing_encdec(state):
 
 
 def phase_train_encdec(state):
+    """Full-width seamless-m4t-large-v2 trained at 2 x 8192 frames and
+    2 x 2048 tokens: the encoder's self-attention and every cross-attention
+    go through ``flash_attention_sm90`` (forward, again in the recompute of
+    remat "full") and ``flash_attention_bwd_sm90``; then one more step
+    under the profiler."""
     cfg = get_config(ENCDEC_ARCH)
     _, reader = corpus_reader(TRAIN_BATCH, TRAIN_SEQ)
-    builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
-                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
-    step_fn = builder.train_step_fn()
-
-    # -- the main path: counts at 0 just before, read just after
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    train_state = builder.init_state(torch.Generator(device="cuda").manual_seed(22))
-    n_state = sum(t.numel() * t.element_size() for _, t in flatten_with_paths(train_state))
-    n_params = sum(t.numel() for t in tree_leaves(train_state["params"]))
-    log(f"encdec train: {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-        f"{n_params / 1e9:.3f} B params, state {n_state / 1e9:.2f} GB, {TRAIN_BATCH} x "
-        f"{ENCDEC_TRAIN_FRAMES} frames and {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full")
-    step_ms = []
+    batches = []
     for i in range(TRAIN_STEPS):
         tokens, labels = reader.next_batch()
-        batch = {"enc_embeds": frame_embeddings(TRAIN_BATCH, ENCDEC_TRAIN_FRAMES, cfg.d_model,
-                                                seed=23 + i),
-                 "tokens": torch.as_tensor(tokens, device="cuda"),
-                 "labels": torch.as_tensor(labels, device="cuda")}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_state, metrics = step_fn(train_state, batch)
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"  step {int(train_state['step'])}: loss {loss:.4f} grad norm {gnorm:.4f} in "
-            f"{step_ms[-1]:.1f} ms")
-        if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            raise AssertionError(f"non-finite loss {loss} or grad norm {gnorm}")
-    counts = ops.launch_counts()
+        batches.append({"enc_embeds": frame_embeddings(TRAIN_BATCH, ENCDEC_TRAIN_FRAMES,
+                                                       cfg.d_model, seed=23 + i),
+                        "tokens": torch.as_tensor(tokens, device="cuda"),
+                        "labels": torch.as_tensor(labels, device="cuda")})
+    builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    counts, rec = run_train_steps(
+        state, builder, batches, f"encdec train ({cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {ENCDEC_TRAIN_FRAMES} frames and {TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
+        seed=22)
     # every encoder layer and every decoder layer (its cross-attention) is
     # checkpointed: two forwards and one backward a layer a step
     n_att = cfg.n_enc_layers + cfg.n_layers
     expect_launches(counts, {"flash_attention_sm90": TRAIN_STEPS * 2 * n_att,
-                             "flash_attention_bwd": TRAIN_STEPS * n_att}, "encdec train")
-    peak = torch.cuda.max_memory_allocated()
-    state["train_encdec"] = {"step_ms": step_ms, "peak_gib": peak / 2**30,
-                             "state_gb": n_state / 1e9, "launches": counts}
-    log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
-        f"{peak / 2**30:.2f} GiB; launches {counts} (the encoder's self-attention and the "
+                             "flash_attention_bwd_sm90": TRAIN_STEPS * n_att}, "encdec train")
+    state["train_encdec"] = rec
+    log(f"  {TRAIN_STEPS * 2 * n_att} flash_attention_sm90 and {TRAIN_STEPS * n_att} "
+        f"flash_attention_bwd_sm90 launches (the encoder's self-attention and the "
         f"cross-attention over {ENCDEC_TRAIN_FRAMES} frames, forward twice under remat "
-        f"\"full\", and backward; the decoder's self-attention stays dense); on {state['smi']}")
-    del train_state, metrics, batch
+        f"\"full\", and backward; the decoder's self-attention stays dense), as expected")
+    del batches
     torch.cuda.empty_cache()
 
 
@@ -2775,7 +2801,7 @@ def phase_train_long(state):
     """Full-width h2o-danube3-4b trained at 1 x 8192 tokens, its published
     context and twice its window: every layer's attention goes through
     ``flash_attention_sm90`` (forward, again in the recompute of remat
-    "full") and ``flash_attention_bwd``.  First the dry run's one-device
+    "full") and ``flash_attention_bwd_sm90``.  First the dry run's one-device
     record of the step must fit the card."""
     cfg = get_config(LONG_ARCH)
     arg_b, temp_b = train_memory_estimate(cfg, LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, "full")
@@ -2794,12 +2820,33 @@ def phase_train_long(state):
     counts, rec = run_train_steps(state, builder, batches,
                                   f"long train ({LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ})", seed=24)
     fwd, bwd = train_launches(cfg, "swa", LONG_TRAIN_STEPS, builder.remat_policy)
-    expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd": bwd},
+    expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd_sm90": bwd},
                     "long train")
     rec.update(estimate_gib=(arg_b + temp_b) / 2**30)
     state["train_long"] = rec
-    log(f"  {fwd} flash_attention_sm90 and {bwd} flash_attention_bwd launches over "
+    log(f"  {fwd} flash_attention_sm90 and {bwd} flash_attention_bwd_sm90 launches over "
         f"{LONG_TRAIN_STEPS} steps of {cfg.n_layers} layers, as expected")
+
+
+def phase_train_long_f32(state):
+    """The float32 backward's path: h2o-danube3-4b at full width cut to
+    ``LONG_F32_LAYERS`` layers in float32 takes one step at 1 x 8192 (remat
+    "none"): every layer's attention through the float32 ``flash_attention``
+    and ``flash_attention_bwd``, finite loss and grad norm."""
+    cfg = dataclasses.replace(get_config(LONG_ARCH), n_layers=LONG_F32_LAYERS, dtype="float32")
+    _, reader = corpus_reader(LONG_TRAIN_BATCH, LONG_TRAIN_SEQ)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))]
+    builder = TrainStepBuilder(build_model(cfg), remat_policy="none",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    counts, rec = run_train_steps(state, builder, batches,
+                                  f"long train float32 ({LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ})",
+                                  seed=25)
+    fwd, bwd = train_launches(cfg, "swa", len(batches), builder.remat_policy)
+    expect_launches(counts, {"flash_attention": fwd, "flash_attention_bwd": bwd},
+                    "long train float32")
+    state["train_long_f32"] = rec
+    log(f"  {fwd} flash_attention and {bwd} flash_attention_bwd launches, as expected")
 
 
 def phase_train_rg(state):
@@ -2885,6 +2932,7 @@ DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
                  ("recurrentgemma-2b", "train_4k", "single")],
                 [("internvl2-76b", "prefill_32k", "single"),
                  ("seamless-m4t-large-v2", "prefill_32k", "single"),
+                 ("seamless-m4t-large-v2", "prefill_32k", "multi"),
                  ("seamless-m4t-large-v2", "train_4k", "single")],
                 # the reference's last three strategies: heads split unevenly
                 # (_uneven), the decode over a cache split on its head
@@ -2899,7 +2947,10 @@ DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
 # beyond the inputs, most all-gather GiB a device
 DRYRUN_BOUNDS = {("qwen1.5-32b", "train_4k", "tp_fsdp_uneven"): (1.3, None, None),
                  ("qwen1.5-32b", "prefill_32k", "tp_serve_uneven"): (1.3, None, None),
-                 ("qwen1.5-32b", "decode_32k", "tp_serve_hd"): (None, 1.0, 1.0)}
+                 ("qwen1.5-32b", "decode_32k", "tp_serve_hd"): (None, 1.0, 1.0),
+                 # the memories' stack is local: 1.75 GiB of temporaries, not the
+                 # 96 GiB meta tensor that asks for its axis names
+                 ("seamless-m4t-large-v2", "prefill_32k", "tp_serve"): (None, 3.0, None)}
 DRYRUN_TIMEOUT_S = 300
 ARG_BYTES_RTOL = 1e-3      # the (1, 1) record's inputs vs the train phase's state and batch
 # one process of the dry run: its cells, then (the last group) the (1, 1)
@@ -2924,7 +2975,7 @@ if smoke:
 
 
 def phase_dry_run(state):
-    """The port's dry run of twenty cells on fake 256- and 512-rank meshes,
+    """The port's dry run of twenty-one cells on fake 256- and 512-rank meshes,
     each group of cells in its own process (the fake process group must
     not meet this process's NCCL group), the groups in parallel."""
     out = os.path.join(ROOT, "experiments", "dryrun_torch", "smoke")
@@ -3136,6 +3187,7 @@ PHASES = [
     ("encdec decode vs teacher forcing", phase_teacher_forcing_encdec),
     ("encdec train", phase_train_encdec),
     ("long train", phase_train_long),
+    ("long train float32", phase_train_long_f32),
     ("recurrentgemma train", phase_train_rg),
     ("mesh group", phase_mesh_group),
     ("mesh train and checkpoint", phase_mesh_train),

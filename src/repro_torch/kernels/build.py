@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("linear_scan", "page_digest", "delta_mask", "flash_attention",
-           "flash_attention_sm90", "flash_attention_bwd")
+           "flash_attention_sm90", "flash_attention_bwd", "flash_attention_bwd_sm90")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -11,9 +11,9 @@
 //   ds_ij = p_ij (dp_ij - delta_i)  (times 1 - (s_ij / c)^2 under a softcap),
 //   dq_i = D^-0.5 sum_j ds_ij k_j,  dk_j = D^-0.5 sum_i ds_ij q_i,  dv_j = sum_i p_ij do_i,
 //
-// dk and dv summed over the G query heads of each kv head.  q, k, v, o and
-// do are float32 or bfloat16 (one type for all five); the arithmetic is
-// float32 and the gradients come out in the inputs' type.
+// dk and dv summed over the G query heads of each kv head.  q, k, v, o, do
+// and the gradients are float32, and so is the arithmetic; bfloat16 inputs
+// go to csrc/flash_attention_bwd_sm90.cu, on the tensor cores.
 //
 // Replaces no TPU kernel: repro/kernels/flash_attention.py is forward only,
 // and the reference trains through its jnp twin (models/layers.py
@@ -25,9 +25,8 @@
 // Bound: operations.  Each live (query, key) pair costs 10 * D flops here:
 // S recomputed (2D), dP (2D), dV, dK and dQ (2D each), against a few bytes
 // of q, k, v, o, do and the gradients per row; at a long sequence that is
-// far above the card's ridge point.  This first version runs float32 FMAs
-// on the CUDA cores, for both input types (the tensor cores' bf16 rate is
-// later work).
+// far above the card's ridge point.  It runs float32 FMAs on the CUDA
+// cores (67 TFLOP/s).
 //
 // Design (FlashAttention-2's backward, kept simple, with no atomics, so
 // that two calls on one input give bit-equal gradients):
@@ -52,7 +51,6 @@
 // row groups of a warp write distinct banks.  Columns past D are zero in
 // shared memory and never stored; rows past Tq or Tk are zero and masked.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -82,15 +80,10 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // DP: columns held in shared memory (D rounded up to 64, 128 or 256); BK
 // keys and BQ query rows a tile.
@@ -457,15 +450,14 @@ int dispatch(const Params& p, int64_t B, cudaStream_t stream) {
 
 // q: (B, Hq, Tq, D), k and v: (B, Hkv, Tk, D), o and dout: (B, Hq, Tq, D),
 // each with unit stride in D and the given strides (in elements) in its
-// first three dimensions, all float32 (bf16 == 0) or all bfloat16 (bf16 ==
-// 1); lse: contiguous float32 (B, Hq, Tq); delta: contiguous float32
-// (B, Hq, Tq) scratch; dq, dk, dv: contiguous, of q's, k's and v's shapes,
-// in the inputs' type.  1 <= D <= 256, Hq a multiple of Hkv.  Launches
+// first three dimensions, all float32; lse: contiguous float32
+// (B, Hq, Tq); delta: contiguous float32 (B, Hq, Tq) scratch; dq, dk, dv:
+// contiguous float32, of q's, k's and v's shapes.  1 <= D <= 256, Hq a multiple of Hkv.  Launches
 // three kernels on `stream` (two when Tk == 0: dk and dv are empty);
 // returns the first cudaError_t (0 on success).  The caller checks shapes,
 // types and devices.
 extern "C" int flash_attention_bwd(
-    int bf16, const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
     int64_t Hkv, int64_t Tq, int64_t Tk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_st,
     int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
@@ -491,5 +483,5 @@ extern "C" int flash_attention_bwd(
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
   p.softcap = softcap; p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(p, B, s) : dispatch<float>(p, B, s);
+  return dispatch<float>(p, B, s);
 }

@@ -1,0 +1,680 @@
+// GQA online-softmax (flash) attention, backward, for bfloat16 q, k, v, o
+// and do on Hopper's tensor cores: the gradients of
+//
+//   o[b, h, i] = sum_j p_ij v[b, h / G, j],   p_ij = exp(s_ij - lse_i),
+//   s_ij = D^-0.5 (q[b, h, i] . k[b, h / G, j]), optionally c tanh(s / c),
+//
+// over the live keys j of row i (j < Tk, causal j <= qpos, window
+// j > qpos - window, qpos = q_offset + i), given the forward's output o and
+// its row log-sum-exp lse (natural log, float32, -inf for a row with no live
+// key):
+//
+//   delta_i = sum_d do_id o_id,  dp_ij = do_i . v_j,
+//   ds_ij = p_ij (dp_ij - delta_i)  (times 1 - (s_ij / c)^2 under a softcap),
+//   dq_i = D^-0.5 sum_j ds_ij k_j,  dk_j = D^-0.5 sum_i ds_ij q_i,  dv_j = sum_i p_ij do_i,
+//
+// dk and dv summed over the G query heads of each kv head.  The gradients
+// come out in bfloat16; every sum is float32.
+//
+// Replaces no TPU kernel: repro/kernels/flash_attention.py is forward only,
+// and the reference trains through its jnp twin, whose gradient jax.grad
+// takes (repro/models/layers.py _blockwise_attention, :159).  This kernel is
+// that gradient on the card for bfloat16 inputs, for every attention over
+// more than 4096 kv positions in a training step; float32 inputs go to
+// csrc/flash_attention_bwd.cu.  Its plain version is
+// kernels/ref.py::ref_flash_attention_backward.
+//
+// Bound: operations.  The gradients need 8 D flops a live (query, key) pair
+// (dP, dV, dK, dQ) and this design executes 20 D' (D' = D rounded up to 64):
+// S and dP are recomputed in both passes, and dV, dK and dQ run twice, on
+// the two bf16 parts of P and dS (below).  Against a few bytes of q, k, v, o,
+// do and the gradients per row, that is far above the card's ridge point at
+// a long sequence, so every product is a wgmma on the bf16 tensor cores.
+//
+// Design (FlashAttention-3's backward building blocks, kept deterministic:
+// no atomics, one writer per gradient element, so two calls on one input
+// give bit-equal gradients, as the kill/restart resume needs):
+//   (a) stats_kernel: one warp a row writes delta = rowsum(do * o) in float32
+//       and the row's lse in log2 units, +inf for a row with no live key and
+//       for the rows that pad Tq to a multiple of 64: P = exp2(x - lse2) is
+//       then exactly 0 on those rows by that test, whatever x is, so their dq
+//       is exactly 0 and they add nothing to dk and dv.
+//   (b) dkdv_kernel: one block per (64 N keys, kv head, batch), N consumer
+//       warpgroups of 64 keys: three at a head width of 64, two up to 128,
+//       one above (and there dK and dV split by columns over two blocks,
+//       each recomputing S^T and dP^T, as 255 registers cannot hold both
+//       accumulators).  Its k and v tiles stay in shared memory; thread 0
+//       streams q, do (TMA) and lse2, delta (bulk copies) of the G query
+//       heads' live 64-row query tiles through a ring of stages, refilling
+//       a stage once every warp has released it and waiting on a warp that
+//       is behind only when the next tile is not issued yet, so the
+//       warpgroups drift apart and one's products overlap another's
+//       softmax.  Per tile S^T = K Q^T and dP^T = V dO^T are wgmma with
+//       both operands in shared memory (K-major, the forward's S = Q K^T
+//       with the roles swapped); P^T and dS^T then sit in the
+//       accumulator's registers in the layout of a bf16 A operand, so
+//       dV += P^T dO and dK += dS^T Q are wgmma with A from registers and
+//       dO, Q as MN-major B tiles (the forward's P V).
+//   (c) dq_kernel: one block per (64 N query rows, query head, batch), N
+//       warpgroups of 64 rows (three up to a head width of 128, one above)
+//       holding q and do; k and v stream through the ring as in (b).
+//       S = Q K^T, dP = dO V^T (shared-memory wgmma), then dQ += dS K with
+//       dS from registers.
+// Both passes walk only the tiles some of their rows or keys see (causal,
+// window, q_offset) and mask only the tiles that cross a mask edge.  q, k, v
+// and do are read by TMA through 4-d (D, T, heads, batch) tensor maps over
+// the tensors' own strides in 128-byte swizzled 64-column atoms; columns
+// past D come in as zeros (D = 120 reads as 128) and are never stored.
+// P and dS go to the tensor cores in two bf16 parts each, hi (x truncated)
+// and lo = bf16(x - hi), as the forward's P.  Rounded once, each broke the
+// gradients' limit (2^-7 |want| + 1e-3 max|want|) where the sums cancel:
+// dS put dk at 1.73 of it on the sweep's (2, 4, 64, 32) case, P put dv at
+// 1.20 at danube's training shape.  In two parts x is carried to ~2^-17
+// relative, at the cost of one more product each (14 D' flops a pair
+// become 20 D').  The scale D^-0.5 multiplies S in float32 and dq, dk once
+// at the end.
+
+#include <math_constants.h>
+
+#include "sm90_common.cuh"
+
+namespace {
+
+constexpr int kRows = 64;   // rows (keys or query rows) of one wgmma tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStatThreads = 256;
+
+// DP: the head width rounded up to a multiple of 64 (the width of the tiles)
+template <int DP>
+struct Cfg {
+  static constexpr int kNB = DP / kAtom;               // 64-column blocks of the head
+  // consumer warpgroups a block of (b) and of (c): three where 168
+  // registers a thread hold the accumulators (a few spilled), fewer where
+  // they are wider
+  static constexpr int kNK = DP <= 64 ? 3 : (DP <= 128 ? 2 : 1);
+  static constexpr int kNQ = DP <= 128 ? 3 : 1;
+  static constexpr int kStages = DP <= 64 ? 4 : (DP <= 192 ? 3 : 2);   // ring depth
+  static constexpr int kTile = kRows * DP * 2;         // bytes of one 64-row bf16 tile
+  // dK and dV blocks a key-tile block accumulates, and the blocks a key tile
+  // takes to cover the head
+  static constexpr int kNBo = DP <= 128 ? kNB : 2;
+  static constexpr int kSplits = (kNB + kNBo - 1) / kNBo;
+  // (b): kNK k and v tiles; a stage: q, do, 64 lse2 and 64 delta
+  static constexpr int kSmemKV =
+      1024 + 2 * kNK * kTile + kStages * (2 * kTile + 2 * kRows * 4) + 8 * (2 * kStages + 1);
+  // (c): kNQ q and do tiles; a stage: k, v
+  static constexpr int kSmemQ =
+      1024 + 2 * kNQ * kTile + 2 * kStages * kTile + 8 * (2 * kStages + 1);
+  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
+};
+
+struct Params {
+  const float* lse;          // (B, Hq, Tq) natural log, contiguous
+  float* lse2;               // (B, Hq, Tq_pad): lse in log2 units, +inf on dead rows
+  float* delta;              // (B, Hq, Tq_pad)
+  __nv_bfloat16* dq;         // contiguous (B, Hq, Tq, D)
+  __nv_bfloat16* dk;         // contiguous (B, Hkv, Tk, D)
+  __nv_bfloat16* dv;
+  int64_t Hq, Hkv, Tq, Tk, Tq_pad, D, group;
+  int64_t window, q_offset;
+  int causal, has_window, has_softcap;
+  float softcap, scale, scale_log2;
+};
+
+// whether the phase of parity `parity` has completed (the current phase or
+// the one before it), without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// thread 0, once its warp has released tile t of n: issue each later tile
+// up to t + S whose stage every warp has released (`next` is the next tile
+// to issue); wait on a warp that is behind only when tile t + 1 is not
+// issued yet
+template <int S, typename Issue>
+__device__ __forceinline__ void refill(uint64_t* empty, int t, int n, int& next, Issue issue) {
+  for (; next < n && next <= t + S; ++next) {
+    const int prev = next - S;                 // the last tile in next's stage
+    uint64_t* bar = &empty[prev % S];
+    const uint32_t ph = (prev / S) & 1;        // its phase: the current one or the one before
+    if (!mbar_test(bar, ph)) {
+      if (next > t + 1) break;
+      mbar_wait(bar, ph);
+    }
+    issue(next);
+  }
+}
+
+__device__ __forceinline__ bool key_live(const Params& p, int64_t qpos, int64_t kpos) {
+  return kpos < p.Tk && (!p.causal || kpos <= qpos) && (!p.has_window || kpos > qpos - p.window);
+}
+
+// p = exp(s' - lse) with s' the scaled (capped) score, from the raw score s
+// and the row's lse2; and the softcap's derivative factor
+__device__ __forceinline__ float prob(const Params& p, float s, float lse2, float& dcap) {
+  if (p.has_softcap) {
+    const float t = tanhf(s * p.scale / p.softcap);
+    dcap = 1.0f - t * t;
+    return ex2(fmaf(p.softcap * t, kLog2e, -lse2));
+  }
+  dcap = 1.0f;
+  return ex2(fmaf(s, p.scale_log2, -lse2));
+}
+
+// a 64 x 64 float32 accumulator as four k-steps of a bf16 A operand in two
+// parts: hi = d truncated to bf16 (its upper 16 bits, no conversion), lo =
+// bf16(d - hi), d - hi exact in float32, so hi + lo is d to ~2^-17.
+// Register r of step kk holds columns 16 kk + (r / 2) 8 + c2 of row
+// r0 + (r % 2) 8, i.e. d[8 kk + 2 r], d[8 kk + 2 r + 1] (first in the low half)
+__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&hi)[4][4],
+                                     uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = d[8 * kk + 2 * r];
+      const float c = d[8 * kk + 2 * r + 1];
+      const uint32_t ha = __float_as_uint(a) & 0xffff0000u;
+      const uint32_t hc = __float_as_uint(c) & 0xffff0000u;
+      hi[kk][r] = __byte_perm(ha, hc, 0x7632);
+      lo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha),
+                                                  c - __uint_as_float(hc)));
+    }
+}
+
+// S (or S^T) over the head width, 16 columns a step: a and b are 64-row
+// K-major tiles of DP columns
+template <int DP>
+__device__ __forceinline__ void gemm_ss(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss(d, desc(a + (kk / 4) * kRows * 128 + (kk % 4) * 32),
+             desc(b + (kk / 4) * kRows * 128 + (kk % 4) * 32), kk > 0);
+}
+
+// d += (hi + lo) . B[:, 64 nb ...] with A = hi + lo (64 x 64) from registers
+// and B a 64-row tile read MN-major: its column block nb
+__device__ __forceinline__ void gemm_rs(float (&d)[32], const uint32_t (&hi)[4][4],
+                                        const uint32_t (&lo)[4][4], uint32_t b, int nb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc(b + nb * kRows * 128 + kk * 16 * 128);
+    wgmma_rs(d, hi[kk], db, 1);
+    wgmma_rs(d, lo[kk], db, 1);
+  }
+}
+
+// two rows of a 64-row tile: bf16 pairs of d (times `mul`) at columns
+// 64 nb + 8 j + c2 < D of rows row0 and row0 + 8 below `rows`
+__device__ __forceinline__ void store_rows(__nv_bfloat16* g, const float (&d)[32], int nb,
+                                           int c2, int64_t row0, int64_t rows, int64_t D,
+                                           float mul) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = nb * kAtom + 8 * j + c2;   // D is even: col < D covers col + 1
+    if (col >= D) continue;
+    if (row0 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(g + row0 * D + col) =
+          __floats2bfloat162_rn(d[4 * j] * mul, d[4 * j + 1] * mul);
+    if (row0 + 8 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(g + (row0 + 8) * D + col) =
+          __floats2bfloat162_rn(d[4 * j + 2] * mul, d[4 * j + 3] * mul);
+  }
+}
+
+// (a) one warp a row of (B, Hq, Tq_pad): delta and lse2
+__global__ void __launch_bounds__(kStatThreads)
+stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, int64_t o_sb,
+             int64_t o_sh, int64_t o_st, int64_t do_sb, int64_t do_sh, int64_t do_st,
+             int64_t rows) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kStatThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int64_t i = row % p.Tq_pad, bh = row / p.Tq_pad, h = bh % p.Hq, b = bh / p.Hq;
+  float acc = 0.0f;
+  float l2 = CUDART_INF_F;
+  if (i < p.Tq) {
+    const int d = 8 * lane;   // 8 columns a lane, 16-byte loads (D and strides: multiples of 8)
+    if (d < p.D) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + b * o_sb + h * o_sh + i * o_st + d);
+      const uint4 gv =
+          *reinterpret_cast<const uint4*>(dout + b * do_sb + h * do_sh + i * do_st + d);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]);
+        const float2 gf = __bfloat1622float2(g2[e]);
+        acc = fmaf(of.x, gf.x, acc);
+        acc = fmaf(of.y, gf.y, acc);
+      }
+    }
+    const float l = p.lse[bh * p.Tq + i];
+    if (l != -CUDART_INF_F) l2 = l * kLog2e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    p.lse2[row] = l2;
+    p.delta[row] = acc;
+  }
+}
+
+// (b) dK and dV of kNK * 64 keys of one kv head
+template <int DP>
+__global__ void __launch_bounds__(128 * Cfg<DP>::kNK, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+            const Params p) {
+  using C = Cfg<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;                               // kNK k tiles
+  uint8_t* vs = ks + C::kNK * C::kTile;             // kNK v tiles
+  uint8_t* qs = vs + C::kNK * C::kTile;             // kStages q tiles
+  uint8_t* dos = qs + C::kStages * C::kTile;        // kStages do tiles
+  float* lse_s = reinterpret_cast<float*>(dos + C::kStages * C::kTile);   // kStages x 64
+  float* delta_s = lse_s + C::kStages * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + C::kStages * kRows);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* kbar = empty + C::kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int split = blockIdx.x % C::kSplits;
+  const int nb0 = split * C::kNBo;   // the first column block of dK and dV here
+  const int64_t kt = static_cast<int64_t>(blockIdx.x / C::kSplits) * (C::kNK * kRows);
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+
+  // the query tiles that see one of keys [kt, k_last]: the same for every
+  // query head of the group
+  const int64_t k_last = (kt + C::kNK * kRows < p.Tk ? kt + C::kNK * kRows : p.Tk) - 1;
+  int64_t i_lo = 0, i_hi = p.Tq;
+  if (p.causal && kt - p.q_offset > i_lo) i_lo = kt - p.q_offset;
+  if (p.has_window && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
+  i_lo = i_lo / kRows * kRows;
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - i_lo + kRows - 1) / kRows) : 0;
+  const int n_iter = static_cast<int>(p.group) * n_qt;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kNK * 4);   // lane 0 of every warp
+    }
+    mbar_init(kbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // iteration t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
+  auto issue = [&](int t) {
+    const int s = t % C::kStages;
+    const int h = static_cast<int>(hk * p.group + t / n_qt);
+    const int64_t q0 = i_lo + static_cast<int64_t>(t % n_qt) * kRows;
+    mbar_expect_tx(&full[s], 2 * C::kTile + 2 * kRows * 4);
+    for (int nb = 0; nb < C::kNB; ++nb) {
+      tma_load(qs + s * C::kTile + nb * kRows * 128, &qmap, &full[s], nb * kAtom,
+               static_cast<int>(q0), h, b);
+      tma_load(dos + s * C::kTile + nb * kRows * 128, &domap, &full[s], nb * kAtom,
+               static_cast<int>(q0), h, b);
+    }
+    const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
+    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
+    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kbar, 2 * C::kNK * C::kTile);
+    for (int c = 0; c < C::kNK; ++c)
+      for (int nb = 0; nb < C::kNB; ++nb) {
+        tma_load(ks + c * C::kTile + nb * kRows * 128, &kmap, kbar, nb * kAtom,
+                 static_cast<int>(kt + c * kRows), hk, b);
+        tma_load(vs + c * C::kTile + nb * kRows * 128, &vmap, kbar, nb * kAtom,
+                 static_cast<int>(kt + c * kRows), hk, b);
+      }
+    for (int t = 0; t < C::kStages && t < n_iter; ++t) issue(t);
+  }
+  int next = C::kStages < n_iter ? C::kStages : n_iter;   // thread 0: the next tile to issue
+
+  // ---- consumer warpgroup wg: keys kw ... kw + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's keys: kw + r0 and kw + r0 + 8
+  const int c2 = (lane & 3) * 2;           // and query columns 8j + c2, 8j + c2 + 1
+  const int64_t kw = kt + wg * kRows;
+  const uint32_t k_base = smem_u32(ks + wg * C::kTile);
+  const uint32_t v_base = smem_u32(vs + wg * C::kTile);
+
+  float dk[C::kNBo][32], dv[C::kNBo][32];
+#pragma unroll
+  for (int nb = 0; nb < C::kNBo; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.0f;
+
+  mbar_wait(kbar, 0);
+  for (int t = 0; t < n_iter; ++t) {
+    const int s = t % C::kStages;
+    const int64_t q0 = i_lo + static_cast<int64_t>(t % n_qt) * kRows;
+    const int64_t qa = p.q_offset + q0;                                      // first row
+    const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;   // last row
+    mbar_wait(&full[s], (t / C::kStages) & 1);
+    const bool dead = kw >= p.Tk || (p.causal && kw > qb) ||
+                      (p.has_window && kw + kRows - 1 <= qa - p.window);
+    if (!dead) {
+      const uint32_t q_base = smem_u32(qs + s * C::kTile);
+      const uint32_t do_base = smem_u32(dos + s * C::kTile);
+      // S^T = K Q^T, dP^T = V dO^T: keys by query rows
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
+      reg_fence(st);
+      reg_fence(dpt);
+      wgmma_fence();
+      gemm_ss<DP>(st, k_base, q_base);
+      gemm_ss<DP>(dpt, v_base, do_base);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(st);
+      reg_fence(dpt);
+
+      const bool all_live = kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
+                            (!p.has_window || kw > qb - p.window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i / 4) * 8 + c2 + (i & 1);   // the query row of st[i] in the tile
+        float dcap;
+        float pr = prob(p, st[i], lse_s[s * kRows + col], dcap);
+        if (!all_live && !key_live(p, qa + col, kw + r0 + ((i & 2) ? 8 : 0))) pr = 0.0f;
+        st[i] = pr;
+        dpt[i] = pr * (dpt[i] - delta_s[s * kRows + col]) * dcap;
+      }
+      // dV += P^T dO, then dK += dS^T Q, over this block's column blocks;
+      // dS^T goes to its A registers while the first products run
+      uint32_t ah[4][4], al[4][4];
+      to_a(st, ah, al);
+#pragma unroll
+      for (int nb = 0; nb < C::kNBo; ++nb) {
+        reg_fence(dv[nb]);
+        reg_fence(dk[nb]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int nb = 0; nb < C::kNBo; ++nb)
+        if (nb0 + nb < C::kNB) gemm_rs(dv[nb], ah, al, do_base, nb0 + nb);
+      wgmma_commit();
+      uint32_t bh[4][4], bl[4][4];
+      to_a(dpt, bh, bl);
+      wgmma_fence();
+#pragma unroll
+      for (int nb = 0; nb < C::kNBo; ++nb)
+        if (nb0 + nb < C::kNB) gemm_rs(dk[nb], bh, bl, q_base, nb0 + nb);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int nb = 0; nb < C::kNBo; ++nb) {
+        reg_fence(dv[nb]);
+        reg_fence(dk[nb]);
+      }
+    }
+    // this warp has finished reading stage s
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0) refill<C::kStages>(empty, t, n_iter, next, issue);
+    __syncwarp();
+  }
+
+  const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
+#pragma unroll
+  for (int nb = 0; nb < C::kNBo; ++nb) {
+    if (nb0 + nb >= C::kNB) continue;
+    store_rows(p.dk + off, dk[nb], nb0 + nb, c2, kw + r0, p.Tk, p.D, p.scale);
+    store_rows(p.dv + off, dv[nb], nb0 + nb, c2, kw + r0, p.Tk, p.D, 1.0f);
+  }
+}
+
+// (c) dQ of kNQ * 64 query rows of one query head
+template <int DP>
+__global__ void __launch_bounds__(128 * Cfg<DP>::kNQ, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+          const Params p) {
+  using C = Cfg<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                               // kNQ q tiles
+  uint8_t* dos = qs + C::kNQ * C::kTile;            // kNQ do tiles
+  uint8_t* ks = dos + C::kNQ * C::kTile;            // kStages k tiles
+  uint8_t* vs = ks + C::kStages * C::kTile;         // kStages v tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kTile);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* qbar = empty + C::kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  // the last query tiles see the most keys: start them first
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * (C::kNQ * kRows);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = static_cast<int>(h / p.group);
+
+  // the key tiles that any row of this block can see
+  const int64_t rows_end = q0 + C::kNQ * kRows < p.Tq ? q0 + C::kNQ * kRows : p.Tq;
+  const int64_t q_first = p.q_offset + q0;
+  const int64_t q_last = p.q_offset + rows_end - 1;
+  int64_t k_end = p.Tk;
+  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int64_t k_begin = 0;
+  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
+  k_begin = k_begin / kRows * kRows;
+  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + kRows - 1) / kRows) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kNQ * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int t) {
+    const int s = t % C::kStages;
+    mbar_expect_tx(&full[s], 2 * C::kTile);
+    const int kt = static_cast<int>(k_begin + static_cast<int64_t>(t) * kRows);
+    for (int nb = 0; nb < C::kNB; ++nb) {
+      tma_load(ks + s * C::kTile + nb * kRows * 128, &kmap, &full[s], nb * kAtom, kt, hk, b);
+      tma_load(vs + s * C::kTile + nb * kRows * 128, &vmap, &full[s], nb * kAtom, kt, hk, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * C::kNQ * C::kTile);
+    for (int c = 0; c < C::kNQ; ++c)
+      for (int nb = 0; nb < C::kNB; ++nb) {
+        tma_load(qs + c * C::kTile + nb * kRows * 128, &qmap, qbar, nb * kAtom,
+                 static_cast<int>(q0 + c * kRows), h, b);
+        tma_load(dos + c * C::kTile + nb * kRows * 128, &domap, qbar, nb * kAtom,
+                 static_cast<int>(q0 + c * kRows), h, b);
+      }
+    for (int t = 0; t < C::kStages && t < n_tiles; ++t) issue(t);
+  }
+  int next = C::kStages < n_tiles ? C::kStages : n_tiles;   // thread 0: the next tile to issue
+
+  // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's rows: r0 and r0 + 8
+  const int c2 = (lane & 3) * 2;           // and keys 8j + c2, 8j + c2 + 1
+  const int64_t wq0 = q0 + wg * kRows;
+  const int64_t qa = p.q_offset + wq0;
+  const int64_t qb = p.q_offset + (wq0 + kRows < p.Tq ? wq0 + kRows : p.Tq) - 1;
+  const int64_t pos0 = qa + r0;
+  const int64_t pos1 = pos0 + 8;
+  const uint32_t q_base = smem_u32(qs + wg * C::kTile);
+  const uint32_t do_base = smem_u32(dos + wg * C::kTile);
+  const int64_t srow = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + wq0 + r0;
+  const bool in0 = wq0 + r0 < p.Tq_pad, in1 = wq0 + r0 + 8 < p.Tq_pad;
+  const float l2_0 = in0 ? p.lse2[srow] : CUDART_INF_F;
+  const float l2_1 = in1 ? p.lse2[srow + 8] : CUDART_INF_F;
+  const float dl0 = in0 ? p.delta[srow] : 0.0f;
+  const float dl1 = in1 ? p.delta[srow + 8] : 0.0f;
+
+  float dq[C::kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < C::kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[nb][i] = 0.0f;
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % C::kStages;
+    const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
+    mbar_wait(&full[s], (t / C::kStages) & 1);
+    const bool dead = wq0 >= p.Tq || kt >= p.Tk || (p.causal && kt > qb) ||
+                      (p.has_window && kt + kRows - 1 <= qa - p.window);
+    if (!dead) {
+      const uint32_t k_base = smem_u32(ks + s * C::kTile);
+      const uint32_t v_base = smem_u32(vs + s * C::kTile);
+      // S = Q K^T, dP = dO V^T: query rows by keys
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+      reg_fence(sc);
+      reg_fence(dp);
+      wgmma_fence();
+      gemm_ss<DP>(sc, q_base, k_base);
+      gemm_ss<DP>(dp, do_base, v_base);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      const bool all_live = kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
+                            (!p.has_window || kt > qb - p.window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float dcap;
+        float pr = prob(p, sc[i], (i & 2) ? l2_1 : l2_0, dcap);
+        if (!all_live && !key_live(p, (i & 2) ? pos1 : pos0, kt + (i / 4) * 8 + c2 + (i & 1)))
+          pr = 0.0f;
+        sc[i] = pr * (dp[i] - ((i & 2) ? dl1 : dl0)) * dcap;
+      }
+      uint32_t dh[4][4], dl[4][4];
+      to_a(sc, dh, dl);
+
+      // dQ += dS K, one 64-column block of the head at a time
+#pragma unroll
+      for (int nb = 0; nb < C::kNB; ++nb) reg_fence(dq[nb]);
+      wgmma_fence();
+#pragma unroll
+      for (int nb = 0; nb < C::kNB; ++nb) gemm_rs(dq[nb], dh, dl, k_base, nb);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int nb = 0; nb < C::kNB; ++nb) reg_fence(dq[nb]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0) refill<C::kStages>(empty, t, n_tiles, next, issue);
+    __syncwarp();
+  }
+
+  __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
+#pragma unroll
+  for (int nb = 0; nb < C::kNB; ++nb) store_rows(dqg, dq[nb], nb, c2, wq0 + r0, p.Tq, p.D, p.scale);
+}
+
+template <int DP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
+  using C = Cfg<DP>;
+  static bool configured = false;   // the attributes are per kernel, set once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemKV);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemQ);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int64_t keys = C::kNK * kRows, rows = C::kNQ * kRows;
+  const dim3 grid_kv(static_cast<unsigned>((p.Tk + keys - 1) / keys * C::kSplits),
+                     static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
+  dkdv_kernel<DP><<<grid_kv, 128 * C::kNK, C::kSmemKV, stream>>>(qm, km, vm, dom, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((p.Tq + rows - 1) / rows), static_cast<unsigned>(p.Hq),
+                    static_cast<unsigned>(B));
+  dq_kernel<DP><<<grid_q, 128 * C::kNQ, C::kSmemQ, stream>>>(qm, km, vm, dom, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, o, dout: (B, Hq, Tq, D), k and v: (B, Hkv, Tk, D), bfloat16, each with
+// unit stride in D and the given strides (in elements) in its first three
+// dimensions, every base address and stride a multiple of 16 bytes; lse:
+// contiguous float32 (B, Hq, Tq), the forward's row log-sum-exp (-inf where
+// a row sees no key); stats: contiguous float32 scratch of 2 x B x Hq x
+// Tq_pad (Tq_pad = Tq rounded up to 64), 16-byte aligned; dq, dk, dv:
+// contiguous, of q's, k's and v's shapes, bfloat16.  8 <= D <= 256 with D a
+// multiple of 8, Hq a multiple of Hkv, Tk >= 1.  Launches three kernels on
+// `stream`; returns the first cudaError_t (0 on success;
+// cudaErrorInvalidValue for arguments the kernel does not take or a tensor
+// map CUDA refuses).  The caller checks shapes, types and devices.
+extern "C" int flash_attention_bwd_sm90(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* stats, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
+    int64_t Hkv, int64_t Tq, int64_t Tk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_st,
+    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
+    int64_t o_sb, int64_t o_sh, int64_t o_st, int64_t do_sb, int64_t do_sh, int64_t do_st,
+    int causal, int has_window, int64_t window, int64_t q_offset, int has_softcap,
+    float softcap, float scale, void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 ||
+      Hkv > 65535 || B > 65535 || Tk < 1 || Tq > 0x7fffff00 || Tk > 0x7fffffff)
+    return static_cast<int>(bad);
+  if (B == 0 || Hq == 0 || Tq == 0) return 0;
+  const int64_t DP = (D + 63) / 64 * 64;
+  CUtensorMap qm, km, vm, dom;
+  if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, kRows) ||
+      !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, kRows) ||
+      !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, kRows) ||
+      !make_map(&dom, dout, D, Tq, Hq, B, do_st, do_sh, do_sb, kRows))
+    return static_cast<int>(bad);
+  Params p;
+  p.Tq_pad = (Tq + kRows - 1) / kRows * kRows;
+  const int64_t stat_rows = B * Hq * p.Tq_pad;
+  p.lse = static_cast<const float*>(lse);
+  p.lse2 = static_cast<float*>(stats);
+  p.delta = p.lse2 + stat_rows;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.Hq = Hq; p.Hkv = Hkv; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
+  p.window = window; p.q_offset = q_offset;
+  p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
+  p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t warps = kStatThreads / 32;
+  stats_kernel<<<static_cast<unsigned>((stat_rows + warps - 1) / warps), kStatThreads, 0, s>>>(
+      p, static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), o_sb,
+      o_sh, o_st, do_sb, do_sh, do_st, stat_rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (DP) {
+    case 64: return launch<64>(qm, km, vm, dom, p, B, s);
+    case 128: return launch<128>(qm, km, vm, dom, p, B, s);
+    case 192: return launch<192>(qm, km, vm, dom, p, B, s);
+    default: return launch<256>(qm, km, vm, dom, p, B, s);
+  }
+}

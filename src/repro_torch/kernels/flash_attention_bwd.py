@@ -3,12 +3,13 @@
 Replaces no TPU kernel: ``repro/kernels/flash_attention.py`` is forward
 only, and the reference trains through ``models/layers.py::
 _blockwise_attention``, whose gradient ``jax.grad`` takes.  This is that
-gradient on the card, for float32 and bfloat16 inputs, with float32
-arithmetic.  The kernel (``csrc/flash_attention_bwd.cu``) is
-FlashAttention-2's backward in three launches: ``delta = rowsum(do * o)``,
-one block per key tile of a kv head that walks the query heads and tiles
-seeing its keys and writes dK and dV once, and one block per query tile
-that walks the live key tiles and writes dQ once.  Each recomputes the
+gradient on the card for float32 inputs, with float32 arithmetic
+(bfloat16 goes to ``flash_attention_bwd_sm90.py``, on the tensor cores).
+The kernel (``csrc/flash_attention_bwd.cu``) is FlashAttention-2's
+backward in three launches: ``delta = rowsum(do * o)``, one block per
+key tile of a kv head that walks the query heads and tiles seeing its
+keys and writes dK and dV once, and one block per query tile that walks
+the live key tiles and writes dQ once.  Each recomputes the
 probabilities from the forward's row log-sum-exp.  No atomics: two calls
 on one input give bit-equal gradients.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention_backward``.
@@ -38,7 +39,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention_bwd").flash_attention_bwd
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([ctypes.c_int] + [ptr] * 10 + [i64] * 6 + [i64] * 15
+        fn.argtypes = ([ptr] * 10 + [i64] * 6 + [i64] * 15
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
@@ -54,10 +55,10 @@ def _check(q, k, v, o, lse, do) -> None:
                          f"must have q's shape {tuple(q.shape)}")
     if o.stride(3) != 1 or do.stride(3) != 1:
         raise ValueError("flash_attention_bwd: o and do need unit stride in the head dimension")
-    dtypes = {t.dtype for t in (q, k, v, o, do)}
-    if len(dtypes) != 1 or dtypes.pop() not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention_bwd: q, k, v, o and do must be all float32 or all "
-                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}")
+    if any(t.dtype != torch.float32 for t in (q, k, v, o, do)):
+        raise TypeError(f"flash_attention_bwd: float32 q, k, v, o and do only (bfloat16 goes to "
+                        f"flash_attention_bwd_sm90), got {q.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{o.dtype}, {do.dtype}")
     if lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 {(B, Hq, Tq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
@@ -83,9 +84,9 @@ def flash_attention_bwd_cuda(
     q_offset: int = 0,
     softcap: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, o, do: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D), one dtype (float32
-    or bfloat16), unit stride in D; lse: contiguous float32 (B, Hq, Tq), the
-    forward's row log-sum-exp -> contiguous (dq, dk, dv) in that dtype."""
+    """q, o, do: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D), float32, unit
+    stride in D; lse: contiguous float32 (B, Hq, Tq), the forward's row
+    log-sum-exp -> contiguous float32 (dq, dk, dv)."""
     global launches
     _check(q, k, v, o, lse, do)
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
@@ -98,7 +99,7 @@ def flash_attention_bwd_cuda(
     delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Hq, k.shape[1], Tq, k.shape[2], D,

@@ -1,0 +1,132 @@
+"""CUDA kernel for the backward of GQA online-softmax (flash) attention on
+bf16 inputs, on Hopper's tensor cores (``flash_attention_bwd.py`` keeps
+the float32 backward).
+
+Replaces no TPU kernel: ``repro/kernels/flash_attention.py`` is forward
+only, and the reference trains through ``models/layers.py::
+_blockwise_attention``, whose gradient ``jax.grad`` takes.  This is that
+gradient on the card for bfloat16 q, k, v, o and do.  The kernel
+(``csrc/flash_attention_bwd_sm90.cu``) runs three launches: ``delta =
+rowsum(do * o)`` with the row lse in log2 units; one block per key tile
+of a kv head (64 keys a warpgroup) that walks the query heads and tiles
+seeing its keys and writes dK and dV once; one block per row tile of a
+query head (64 rows a warpgroup) that walks the live key tiles and
+writes dQ once.  Each recomputes S and dP, and every
+product (S, dP, dV, dK, dQ) is a ``wgmma`` on bf16 tiles that TMA loads,
+with float32 sums.  No atomics: two calls on one input give bit-equal
+gradients.  Its plain version is
+``repro_torch.kernels.ref.ref_flash_attention_backward``.
+
+``launches`` counts the wrapper's calls that launch the kernel (one a
+backward, its three launches together), and nothing else; a run reads it
+to show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as _fa
+
+launches = 0
+
+_fn = None
+
+_ROWS = 64   # the kernel's tile rows: the scratch pads Tq to a multiple of it
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = ([ptr] * 10 + [i64] * 6 + [i64] * 15
+                       + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v, o, lse, do) -> None:
+    _fa._check_shapes(q, k, v)
+    B, Hq, Tq, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd_sm90: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    if o.stride(3) != 1 or do.stride(3) != 1:
+        raise ValueError("flash_attention_bwd_sm90: o and do need unit stride in the head "
+                         "dimension")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, do)):
+        raise TypeError(f"flash_attention_bwd_sm90: bfloat16 q, k, v, o and do only, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}")
+    if lse.shape != (B, Hq, Tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd_sm90: lse must be contiguous float32 "
+                         f"{(B, Hq, Tq)}, got {lse.dtype} {tuple(lse.shape)}")
+    if D % 8:
+        raise ValueError(f"flash_attention_bwd_sm90: head width {D} is not a multiple of 8")
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    for name, t in named:
+        # TMA and 16-byte loads read rows from 16-byte aligned addresses; a
+        # size-1 dimension is never stepped, so its stride does not matter
+        if any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
+            raise ValueError(f"flash_attention_bwd_sm90: {name}'s strides {t.stride()} are "
+                             f"not multiples of 8 elements (16 bytes)")
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise ValueError(f"flash_attention_bwd_sm90: the kernel takes CUDA tensors on one "
+                         f"device, got {q.device}, {k.device}, {v.device}, {o.device}, "
+                         f"{lse.device}, {do.device}")
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd_sm90: {name} does not start on a 16-byte "
+                             f"boundary ({t.data_ptr():#x})")
+    if B > _fa._MAX_GRID_YZ or Hq > _fa._MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_bwd_sm90: batch {B} or {Hq} heads exceed "
+                         f"{_fa._MAX_GRID_YZ}")
+
+
+def flash_attention_bwd_sm90_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, o, do: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D), bfloat16 CUDA
+    tensors, unit stride in D, D a multiple of 8, strides multiples of 8;
+    lse: contiguous float32 (B, Hq, Tq), the forward's row log-sum-exp ->
+    contiguous bfloat16 (dq, dk, dv)."""
+    global launches
+    _check(q, k, v, o, lse, do)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    if dq.numel() == 0 or k.shape[2] == 0:   # no row, or no key: every row fully masked
+        dq.zero_()
+        return dq, dk.zero_(), dv.zero_()
+    fn = _kernel()
+    B, Hq, Tq, D = q.shape
+    tq_pad = -(-Tq // _ROWS) * _ROWS
+    stats = torch.empty((2, B, Hq, tq_pad), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Hq, k.shape[1], Tq, k.shape[2], D,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                 *do.stride()[:3],
+                 int(causal), int(window is not None), int(window or 0), int(q_offset),
+                 int(softcap is not None), float(softcap or 0.0), float(D ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_sm90: kernel launch failed with CUDA error "
+                           f"{err}")
+    launches += 1
+    return dq, dk, dv

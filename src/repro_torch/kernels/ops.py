@@ -12,8 +12,9 @@ and an input that requires grad) the scan goes through the custom op
 ``repro_torch::linear_scan``, whose registered gradient is the same scan
 run backwards in time (the kernel on the card), and attention through
 ``_FlashAttention``: its forward keeps each row's log-sum-exp, its
-backward is ``flash_attention_bwd``'s kernel on the card and
-``ref.ref_flash_attention_backward`` on the CPU.  With grad off (serving)
+backward is ``flash_attention_bwd_sm90``'s kernel on the card for
+bfloat16 (the tensor cores) and ``flash_attention_bwd``'s for float32,
+and ``ref.ref_flash_attention_backward`` on the CPU.  With grad off (serving)
 the kernels are called directly, as before.
 
 A fake tensor (``FakeTensorMode``, the dry run of ``launch/dryrun.py``)
@@ -42,6 +43,7 @@ from repro_torch.distributed.partitioning import is_distributed
 from repro_torch.kernels import delta_mask as _dm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
+from repro_torch.kernels import flash_attention_bwd_sm90 as _fab90
 from repro_torch.kernels import flash_attention_sm90 as _fa90
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import page_digest as _pd
@@ -49,7 +51,7 @@ from repro_torch.kernels import ref as _ref
 
 _KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
             "flash_attention": _fa, "flash_attention_sm90": _fa90,
-            "flash_attention_bwd": _fab}
+            "flash_attention_bwd": _fab, "flash_attention_bwd_sm90": _fab90}
 
 
 def _refuse_distributed(name: str, *ts) -> None:
@@ -147,14 +149,17 @@ def _attention(q, k, v, causal, window, q_offset, softcap, return_lse=False):
 
 def _attention_backward(q, k, v, o, lse, do, causal, window, q_offset, softcap):
     """(dq, dk, dv): the custom op's shape function on fake tensors, the
-    plain version on the CPU, the kernel on the card."""
+    plain version on the CPU, the dtype's kernel on the card (bfloat16 q:
+    the tensor-core kernel, which raises on what it does not take)."""
     if isinstance(q, FakeTensor):
         return _flash_attention_backward_op(q, k, v, o, lse, do, causal, window, q_offset,
                                             softcap)
     kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
     if q.device.type == "cpu":
         return _ref.ref_flash_attention_backward(q, k, v, o, lse, do, **kw)
-    return _fab.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    kernel = (_fab90.flash_attention_bwd_sm90_cuda if q.dtype == torch.bfloat16
+              else _fab.flash_attention_bwd_cuda)
+    return kernel(q, k, v, o, lse, do, **kw)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -253,8 +258,8 @@ def flash_attention(
     any other call goes to ``flash_attention``'s kernel, which takes
     float32 only and raises on anything else.  A call that autograd
     records also keeps each row's log-sum-exp, and its gradient is
-    ``flash_attention_bwd``'s kernel on the card (the plain version on
-    the CPU).
+    ``flash_attention_bwd_sm90``'s kernel on the card for bfloat16 and
+    ``flash_attention_bwd``'s for float32 (the plain version on the CPU).
     """
     _refuse_distributed("flash_attention", q, k, v)
     if _recorded(q, k, v):

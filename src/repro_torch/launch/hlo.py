@@ -138,7 +138,10 @@ class StepTrace(TorchDispatchMode):
 
     def _track(self, out) -> None:
         for t in tree_leaves(out):
-            if not isinstance(t, torch.Tensor):
+            # a tensor on the meta device (a shape asked for its axis names)
+            # holds no bytes on any device; a fake tensor's own device is
+            # the one it stands for, its storage's is always meta
+            if not isinstance(t, torch.Tensor) or t.device.type == "meta":
                 continue
             st = t.untyped_storage()
             key = id(st)

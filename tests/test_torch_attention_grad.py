@@ -337,8 +337,9 @@ def no_build(monkeypatch):
     return tfab
 
 
-@pytest.mark.parametrize("case", ["cpu_tensor", "meta_device", "half", "mixed_dtype",
-                                  "o_shape", "lse_shape", "lse_dtype", "do_stride", "head_dim"])
+@pytest.mark.parametrize("case", ["cpu_tensor", "meta_device", "half", "bfloat16",
+                                  "mixed_dtype", "o_shape", "lse_shape", "lse_dtype",
+                                  "do_stride", "head_dim"])
 def test_backward_wrapper_rejects_bad_inputs_before_building(case, no_build):
     q, k, v = torch.rand(1, 4, 8, 16), torch.rand(1, 2, 8, 16), torch.rand(1, 2, 8, 16)
     o, do, lse = torch.rand(1, 4, 8, 16), torch.rand(1, 4, 8, 16), torch.rand(1, 4, 8)
@@ -346,6 +347,8 @@ def test_backward_wrapper_rejects_bad_inputs_before_building(case, no_build):
         q, k, v, o, do, lse = (t.to("meta") for t in (q, k, v, o, do, lse))
     elif case == "half":
         q, k, v, o, do = (t.half() for t in (q, k, v, o, do))
+    elif case == "bfloat16":   # the tensor-core backward's inputs
+        q, k, v, o, do = (t.to(torch.bfloat16) for t in (q, k, v, o, do))
     elif case == "mixed_dtype":
         do = do.to(torch.bfloat16)
     elif case == "o_shape":
@@ -362,3 +365,56 @@ def test_backward_wrapper_rejects_bad_inputs_before_building(case, no_build):
     with pytest.raises((ValueError, TypeError)):
         no_build.flash_attention_bwd_cuda(q, k, v, o, lse, do)
     assert no_build.launches == before
+
+
+@pytest.fixture
+def no_build_sm90(monkeypatch):
+    """Fail the test if anything asks for the CUDA library (tensor-core
+    backward)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+
+    def refuse(name):
+        raise AssertionError(f"CUDA build of {name!r} requested")
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(build, "build_all", refuse)
+    monkeypatch.setattr(tfab90, "_fn", None)
+    return tfab90
+
+
+@pytest.mark.parametrize("case", ["cpu_tensor", "meta_device", "float32", "mixed_dtype",
+                                  "o_shape", "do_shape", "lse_shape", "lse_dtype",
+                                  "head_dim_not_8", "head_dim_over_256", "kv_stride"])
+def test_sm90_backward_wrapper_rejects_bad_inputs_before_building(case, no_build_sm90):
+    """The bf16 tensor-core backward refuses what its kernel does not take,
+    before any build and without counting a launch."""
+    bf = torch.bfloat16
+    q, k, v = (torch.rand(1, 4, 8, 16, dtype=bf), torch.rand(1, 2, 8, 16, dtype=bf),
+               torch.rand(1, 2, 8, 16, dtype=bf))
+    o, do, lse = torch.rand(1, 4, 8, 16, dtype=bf), torch.rand(1, 4, 8, 16, dtype=bf), \
+        torch.rand(1, 4, 8)
+    if case == "meta_device":
+        q, k, v, o, do, lse = (t.to("meta") for t in (q, k, v, o, do, lse))
+    elif case == "float32":
+        q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    elif case == "mixed_dtype":
+        do = do.float()
+    elif case == "o_shape":
+        o = o[:, :, :7]
+    elif case == "do_shape":
+        do = do[:, :3]
+    elif case == "lse_shape":
+        lse = lse[:, :2]
+    elif case == "lse_dtype":
+        lse = lse.double()
+    elif case == "head_dim_not_8":
+        q, k, v, o, do = (torch.rand(*t.shape[:3], 12, dtype=bf) for t in (q, k, v, o, do))
+    elif case == "head_dim_over_256":
+        q, k, v, o, do = (torch.rand(*t.shape[:3], 264, dtype=bf) for t in (q, k, v, o, do))
+    elif case == "kv_stride":
+        # a (B, Tk, Hkv, 20) projection cut to 16 columns: row stride 20 elements
+        k, v = (torch.rand(1, 8, 2, 20, dtype=bf)[..., :16].transpose(1, 2) for _ in range(2))
+    before = no_build_sm90.launches
+    with pytest.raises((ValueError, TypeError)):
+        no_build_sm90.flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do)
+    assert no_build_sm90.launches == before

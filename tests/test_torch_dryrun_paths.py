@@ -103,3 +103,32 @@ def test_strategy_cell_traces(tmp_path, arch, shape, strategy, flops_ratio, temp
     if gather_gib is not None:
         gathered = rec["collectives_hlo"]["bytes_by_op"].get("all-gather", 0)
         assert gathered <= gather_gib * GIB, rec["collectives_hlo"]
+
+
+def test_step_trace_does_not_count_meta_tensors():
+    """A tensor built on the meta device inside the trace (the encoder-
+    decoder asks ``memories_axes_for`` for names with one, at the stack's
+    global shape) holds no bytes: the peak counts only the fake tensors
+    that stand for the device's buffers."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import hlo as H
+
+    with FakeTensorMode():
+        trace = H.StepTrace()
+        with trace:
+            big = torch.empty((24, 32, 16, 32768, 64), device="meta")
+            small = torch.empty((1024, 256))
+        assert big.device.type == "meta"
+    assert trace.peak_bytes == small.numel() * small.element_size()
+
+
+def test_seamless_prefill_temporaries_leave_out_the_meta_shape(tmp_path):
+    """seamless-m4t-large-v2 ``prefill_32k`` on 16 x 16: its temporaries a
+    device stay under 3 GiB (1.5 GiB traced; 96 GiB while the meta tensor
+    of ``encdec.cross_memories`` was counted)."""
+    _dryrun(tmp_path, "seamless-m4t-large-v2", "prefill_32k", "single")
+    rec = _record(tmp_path, "seamless-m4t-large-v2", "prefill_32k", "single", "tp_serve")
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["memory"]["temp_bytes"] <= 3 * GIB, rec["memory"]
