@@ -39,7 +39,10 @@ Phases (each one's failure fails the run):
    that sweep in both dtypes and layouts and over the
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
-   2048, 64) over 8192 frames, no mask), per gradient within 1e-4
+   2048, 64) over 8192 frames, no mask) and each rank's local shard of
+   danube's step over a sequence split four ways (q (1, 32, 2048, 120) at
+   ``q_offset`` 0, 2048, 4096 and 6144 over all 8192 keys, both dtypes,
+   the forward's output too), per gradient within 1e-4
    max|want| (float32) and 2^-7 |want| + 1e-3 max|want| (bf16), two calls
    bit-equal, fully masked rows' dq exactly 0, each forward kernel's lse
    within 1e-4 of the plain one; and ``linear_scan``'s gradient through
@@ -170,7 +173,16 @@ Phases (each one's failure fails the run):
    within 1e-3 of that phase's (prefill time beside the no-mesh one);
    full-width xlstm-350m under ``tp_fsdp`` takes 2 steps at 2 x 512 from
    the state and batches of a no-mesh run, losses within 1e-4 relative;
-12. dry run: ``repro_torch.launch.dryrun`` in seven processes at once
+   first of them (``mesh long train``), full-width h2o-danube3-4b under
+   ``tp_fsdp`` (remat ``"full"``, no ``zero2``) takes the long train
+   phase's 2 steps at 1 x 8192, once the dry run's (1, 1) record of that
+   step leaves 4 GiB of the card free: as many ``flash_attention_sm90``
+   and ``flash_attention_bwd_sm90`` launches as that phase (on the local
+   shards), its losses within 1e-4 relative, its peak 4 GiB under the
+   card, step times and peak beside the no-mesh ones; the seamless mesh
+   serve runs under ``tp_fsdp_sp`` too, its launches the same and its
+   greedy tokens all the no-mesh run's;
+12. dry run: ``repro_torch.launch.dryrun`` in nine processes at once
    (their fake process groups apart from this one's NCCL group), on fake
    tensors over a fake 256-rank 16 x 16 mesh: olmo-1b ``train_4k``
    (``tp_fsdp``), qwen3-32b ``train_4k`` (both at one microbatch),
@@ -189,8 +201,14 @@ Phases (each one's failure fails the run):
    count, both), ``decode_32k`` under ``tp_serve_hd`` (temporaries and
    all-gathers under 1 GiB a device: no cache gathered),
    recurrentgemma-2b ``decode_32k`` (``tp_serve_hd``) and ``train_4k``
-   (``tp_fsdp_uneven``), h2o-danube3-4b ``long_500k`` (``tp_fsdp_sp``)
-   (train cells at one microbatch): each must be ``ok``; and a
+   (``tp_fsdp_uneven``), h2o-danube3-4b ``long_500k`` (``tp_fsdp_sp``);
+   then the configurations the port once did not run under a mesh:
+   h2o-danube3-4b ``train_1x8k`` (1 x 8192, ``tp_fsdp_sp``: 512 q rows a
+   rank), seamless-m4t-large-v2 ``decode_32k`` (``tp_serve_hd``), and
+   seamless, olmoe-1b-7b and xlstm-350m ``prefill_1x32k`` (1 x 32768,
+   ``tp_fsdp_sp``), the two shapes not in ``configs/shapes.py``
+   (``DRYRUN_SHAPES``) (train cells at one microbatch): each must be
+   ``ok`` and within its ``DRYRUN_BOUNDS``; and a
    (1, 1) record of the train phase's step (olmo-1b, 2 x 2048), whose
    input bytes must equal the bytes the train phase's state and batch
    hold on the card within 0.1 %, its temp-bytes estimate printed beside
@@ -210,11 +228,13 @@ Phases (each one's failure fails the run):
 15. the ``kernels`` line: per kernel, its launches on its paths (serving
    recurrentgemma-2b, without and with a mesh, and training it for ``linear_scan``, training, mesh training and the
    examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
-   mesh serving, mesh encoder-decoder serving and mesh ``generate`` for
-   ``flash_attention_sm90``, the float32 long and
+   mesh serving, mesh encoder-decoder serving (``tp_serve``,
+   ``tp_fsdp_sp``), mesh ``generate`` and training with and without a
+   mesh for ``flash_attention_sm90``, the float32 long and
    encoder-decoder teacher forcing, the float32 mesh serve and the
    float32 training step for ``flash_attention``, the bf16 training steps
-   for ``flash_attention_bwd_sm90`` and the float32 one for
+   (danube's also under a mesh) for ``flash_attention_bwd_sm90`` and the
+   float32 one for
    ``flash_attention_bwd``; ``launches_by_path``),
    its error against
    the plain version, its time, the plain version's time, the least time
@@ -704,11 +724,30 @@ def train_attention_shapes():
              dict(causal=False))]
 
 
+SPLIT_RANKS = 4          # danube's 1 x 8192 sequence split over a 4-way "data" axis
+
+
+def split_sequence_cases():
+    """(q offset, q shape, k/v shape, mask) of each rank's local attention
+    in danube's 1 x 8192 step with its sequence split over ``SPLIT_RANKS``
+    ranks (``tp_fsdp_sp``, ``layers._local_attention``): the rank's q rows,
+    offset by their first position, over all 8192 keys, so that the causal
+    mask hides keys after the rows and the window keys before them."""
+    dn = get_config(LONG_ARCH)
+    rows = LONG_TRAIN_SEQ // SPLIT_RANKS
+    return [(r * rows, (LONG_TRAIN_BATCH, dn.n_heads, rows, dn.head_dim),
+             (LONG_TRAIN_BATCH, dn.n_kv_heads, LONG_TRAIN_SEQ, dn.head_dim),
+             dict(causal=True, window=dn.window, q_offset=r * rows))
+            for r in range(SPLIT_RANKS)]
+
+
 def phase_flash_bwd_vs_plain(state):
     """The backward kernel and both forward kernels' lse against their
-    plain versions over the forward's sweep (both dtypes, both layouts)
-    and the training shapes; then the scan's gradient through the custom
-    op against autograd through the plain loop."""
+    plain versions over the forward's sweep (both dtypes, both layouts),
+    the training shapes and each rank's local shard of danube's step over
+    a sequence split four ways (the forward's output too); then the scan's
+    gradient through the custom op against autograd through the plain
+    loop."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     share_by = {torch.float32: 0.0, torch.bfloat16: 0.0}   # the largest share of the limit
     worst_lse, n = 0.0, 0
@@ -756,6 +795,24 @@ def phase_flash_bwd_vs_plain(state):
             record(dt, err, share, lse_err)
             log(f"  {flash_bwd_kernel(dt).__name__} {name} q {qs} kv {ks} {dt} {kw}: max abs err "
                 f"{err:.3e}, {share:.3f} of the limit, lse err {lse_err:.3e}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    # each rank's local shard of danube's step over a split sequence: the
+    # forward kernel (o against the plain version too), its lse and the
+    # backward at the rank's q offset
+    for r, (off, qs, ks, kw) in enumerate(split_sequence_cases()):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], dt,
+                                       seed=354 + r, strided=True)
+            ferr, _ = flash_case(q, k, v, **kw)
+            fwd_err = state.setdefault("flash_err", {torch.float32: 0.0, torch.bfloat16: 0.0})
+            fwd_err[dt] = max(fwd_err[dt], ferr)
+            err, share, lse_err, _ = flash_bwd_case(q, k, v, seed=454 + r, **kw)
+            record(dt, err, share, lse_err)
+            log(f"  {flash_kernel(dt).__name__} and {flash_bwd_kernel(dt).__name__} danube rank "
+                f"{r} of {SPLIT_RANKS} (q rows from {off}) q {qs} kv {ks} {dt}: forward max abs "
+                f"err {ferr:.3e}; backward {err:.3e}, {share:.3f} of the limit, lse err "
+                f"{lse_err:.3e}")
             del q, k, v
             torch.cuda.empty_cache()
     state["flash_bwd_err"] = worst
@@ -1554,9 +1611,12 @@ def phase_kernel_times(state):
             f"{LONG_ARCH} serve": state["long_launches"]["flash_attention_sm90"],
             f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_sm90"],
             f"{LONG_ARCH} mesh serve": state["mesh_serve_launches"],
-            f"{ENCDEC_ARCH} mesh serve": state["mesh_encdec_launches"],
+            **{f"{ENCDEC_ARCH} mesh serve ({k})": n
+               for k, n in state["mesh_encdec_launches"].items()},
             f"{LONG_ARCH} mesh generate": state["mesh_generate_launches"],
             f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_sm90"],
+            f"{LONG_ARCH} mesh train (tp_fsdp)":
+                state["mesh_train_long"]["launches"]["flash_attention_sm90"],
             f"{ENCDEC_ARCH} train": state["train_encdec"]["launches"]["flash_attention_sm90"]},
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
@@ -1613,6 +1673,8 @@ def phase_kernel_times(state):
     bwd_paths = {
         "flash_attention_bwd_sm90": {
             f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_bwd_sm90"],
+            f"{LONG_ARCH} mesh train (tp_fsdp)":
+                state["mesh_train_long"]["launches"]["flash_attention_bwd_sm90"],
             f"{ENCDEC_ARCH} train":
                 state["train_encdec"]["launches"]["flash_attention_bwd_sm90"]},
         "flash_attention_bwd": {
@@ -1955,71 +2017,86 @@ def phase_mesh_serve(state):
     torch.cuda.empty_cache()
 
 
+MESH_ENCDEC_STRATEGIES = ("tp_serve", "tp_fsdp_sp")
+
+
 def phase_mesh_serve_encdec(state):
-    """Full-width seamless-m4t-large-v2 under ``tp_serve``: the encdec
-    serve phase's frames and prompts, its memories placed on the mesh,
-    teacher-forced on that phase's greedy tokens and held to its logits;
-    every attention over the 32768 frames on the local shards."""
+    """Full-width seamless-m4t-large-v2 under ``tp_serve`` and under
+    ``tp_fsdp_sp``: the encdec serve phase's frames and prompts, its
+    memories placed on the mesh, teacher-forced on that phase's greedy
+    tokens and held to its logits; every attention over the 32768 frames
+    on the local shards (``tp_fsdp_sp``: the q rows' sequence named by the
+    rules, whole on the (1, 1) mesh), its greedy tokens the no-mesh run's."""
     cfg = get_config(ENCDEC_ARCH)
     model = build_model(cfg)
-    builder = TrainStepBuilder(model, state["mesh"], strategy="tp_serve")
-    params = model.init(torch.Generator(device="cuda").manual_seed(16))   # the serve phase's
-    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
     B, S, T0 = ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT
     batch = {"enc_embeds": frame_embeddings(B, S, cfg.d_model, seed=17),
              "tokens": torch.as_tensor(np.stack(prompts_for(seed=18, batch=B, length=T0))
                                        .astype(np.int64), device="cuda")}
     ref = state.pop("encdec_ref")
-    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
-    cache = builder.shard_cache(model.init_cache(B, T0 + ENCDEC_NEW, device="cuda"))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # -- the main path: counts at 0 just before, read just after
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, cache, mem = prefill(params, batch, cache)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    pre = ops.launch_counts()
-    outs = [logits]
-    t0 = time.perf_counter()
-    for i, tok in enumerate(ref["fed"]):
-        logits, cache = decode(params, tok, T0 + i, cache, mem)
-        outs.append(logits)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / len(ref["fed"])
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    want = (cfg.n_enc_layers + cfg.n_layers, cfg.n_enc_layers + cfg.n_layers * (1 + len(ref["fed"])))
-    if (pre["flash_attention_sm90"], counts["flash_attention_sm90"]) != want or \
-            counts["flash_attention"] != 0:
-        raise AssertionError(f"the mesh prefill launched {pre}, with the decode steps {counts}; "
-                             f"expected {want} flash_attention_sm90")
-    if not all(t.to_local().is_contiguous() and t.placements == mem[0].placements for t in mem):
-        raise AssertionError(f"memories {[t.placements for t in mem]}")
-    if not all(bool(torch.isfinite(a).all()) for a in outs):
-        raise AssertionError("non-finite mesh logits")
-    dlogit = max(float((a.float() - b.float()).abs().max()) for a, b in zip(outs, ref["logits"]))
-    same = float(torch.stack([(a.argmax(-1) == b.argmax(-1)).float().mean()
-                              for a, b in zip(outs, ref["logits"])]).mean())
-    if not dlogit <= MESH_ENCDEC_DLOGIT:
-        raise AssertionError(f"seamless mesh logits off the no-mesh run's by {dlogit:.3e} "
-                             f"(limit {MESH_ENCDEC_DLOGIT})")
-    state["mesh_serve_encdec"] = r = {
-        "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms, "max_dlogit": dlogit,
-        "greedy_same": same, "peak_gib": peak, "launches": counts["flash_attention_sm90"],
-        "no_mesh_prefill_ms": state["serve_encdec"]["prefill_ms"],
-        "no_mesh_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
-    state["mesh_encdec_launches"] = counts["flash_attention_sm90"]
-    log(f"mesh encdec serve: {cfg.name} tp_serve, {B}x{S} frames + {B}x{T0} tokens prefill "
-        f"{prefill_ms:.2f} ms (first call; no mesh {r['no_mesh_prefill_ms']:.2f}, median of 3), "
-        f"{pre['flash_attention_sm90']} flash_attention_sm90 launches on the local shards; "
-        f"{len(ref['fed'])} teacher-forced decode steps {step_ms:.2f} ms/step (no mesh "
-        f"{r['no_mesh_decode_ms_per_step']:.2f}), {counts['flash_attention_sm90']} launches in "
-        f"all; memories placed {mem[0].placements}; max |dlogit| vs no mesh {dlogit:.3e} "
-        f"(limit {MESH_ENCDEC_DLOGIT}), greedy tokens equal {same:.4f}; peak {peak:.2f} GiB; "
-        f"on {state['smi']}")
-    del params, outs, ref, cache, mem, logits, batch
+    state["mesh_serve_encdec"], state["mesh_encdec_launches"] = {}, {}
+    for strategy in MESH_ENCDEC_STRATEGIES:
+        builder = TrainStepBuilder(model, state["mesh"], strategy=strategy)
+        params = model.init(torch.Generator(device="cuda").manual_seed(16))   # the serve phase's
+        params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+        prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+        cache = builder.shard_cache(model.init_cache(B, T0 + ENCDEC_NEW, device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # -- the main path: counts at 0 just before, read just after
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache, mem = prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre = ops.launch_counts()
+        outs = [logits]
+        t0 = time.perf_counter()
+        for i, tok in enumerate(ref["fed"]):
+            logits, cache = decode(params, tok, T0 + i, cache, mem)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / len(ref["fed"])
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = (cfg.n_enc_layers + cfg.n_layers,
+                cfg.n_enc_layers + cfg.n_layers * (1 + len(ref["fed"])))
+        if (pre["flash_attention_sm90"], counts["flash_attention_sm90"]) != want or \
+                counts["flash_attention"] != 0:
+            raise AssertionError(f"the {strategy} mesh prefill launched {pre}, with the decode "
+                                 f"steps {counts}; expected {want} flash_attention_sm90")
+        if not all(t.to_local().is_contiguous() and t.placements == mem[0].placements
+                   for t in mem):
+            raise AssertionError(f"memories {[t.placements for t in mem]}")
+        if not all(bool(torch.isfinite(a).all()) for a in outs):
+            raise AssertionError("non-finite mesh logits")
+        dlogit = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(outs, ref["logits"]))
+        same = float(torch.stack([(a.argmax(-1) == b.argmax(-1)).float().mean()
+                                  for a, b in zip(outs, ref["logits"])]).mean())
+        if not dlogit <= MESH_ENCDEC_DLOGIT:
+            raise AssertionError(f"seamless {strategy} mesh logits off the no-mesh run's by "
+                                 f"{dlogit:.3e} (limit {MESH_ENCDEC_DLOGIT})")
+        if strategy == "tp_fsdp_sp" and same != 1.0:
+            raise AssertionError(f"seamless tp_fsdp_sp greedy tokens equal the no-mesh run's "
+                                 f"in {same:.4f} of positions")
+        state["mesh_serve_encdec"][strategy] = r = {
+            "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms, "max_dlogit": dlogit,
+            "greedy_same": same, "peak_gib": peak, "launches": counts["flash_attention_sm90"],
+            "no_mesh_prefill_ms": state["serve_encdec"]["prefill_ms"],
+            "no_mesh_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
+        state["mesh_encdec_launches"][strategy] = counts["flash_attention_sm90"]
+        log(f"mesh encdec serve: {cfg.name} {strategy}, {B}x{S} frames + {B}x{T0} tokens "
+            f"prefill {prefill_ms:.2f} ms (first call; no mesh {r['no_mesh_prefill_ms']:.2f}, "
+            f"median of 3), {pre['flash_attention_sm90']} flash_attention_sm90 launches on the "
+            f"local shards; {len(ref['fed'])} teacher-forced decode steps {step_ms:.2f} ms/step "
+            f"(no mesh {r['no_mesh_decode_ms_per_step']:.2f}), {counts['flash_attention_sm90']} "
+            f"launches in all; memories placed {mem[0].placements}; max |dlogit| vs no mesh "
+            f"{dlogit:.3e} (limit {MESH_ENCDEC_DLOGIT}), greedy tokens equal {same:.4f}; peak "
+            f"{peak:.2f} GiB; on {state['smi']}")
+        del params, outs, cache, mem, logits
+        torch.cuda.empty_cache()
+    del ref, batch
     torch.cuda.empty_cache()
 
 
@@ -2746,13 +2823,14 @@ def run_train_steps(state, builder, batches, what, seed):
     log(f"{what}: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}, {n_params / 1e9:.3f} B params, state "
         f"{n_state / 1e9:.2f} GB, remat {builder.remat_policy}")
-    step_ms = []
+    step_ms, losses = [], []
     for batch in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         train_state, metrics = step_fn(train_state, batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
         log(f"  step {int(train_state['step'])}: loss {loss:.4f} grad norm {gnorm:.4f} in "
             f"{step_ms[-1]:.1f} ms")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
@@ -2761,7 +2839,8 @@ def run_train_steps(state, builder, batches, what, seed):
     peak = torch.cuda.max_memory_allocated()
     (train_state, _), wall_ms, dev_ms, idle, top = device_idle_share(
         lambda: step_fn(train_state, batches[-1]))
-    rec = {"step_ms": step_ms, "peak_gib": peak / 2**30, "state_gb": n_state / 1e9,
+    rec = {"step_ms": step_ms, "losses": losses, "peak_gib": peak / 2**30,
+           "state_gb": n_state / 1e9,
            "params_b": n_params / 1e9, "profiled_step_ms": wall_ms, "device_ms": dev_ms,
            "idle_share": idle, "top_kernels": top, "launches": counts}
     log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
@@ -2847,6 +2926,89 @@ def phase_train_long_f32(state):
                     "long train float32")
     state["train_long_f32"] = rec
     log(f"  {fwd} flash_attention and {bwd} flash_attention_bwd launches, as expected")
+
+
+MESH_LONG_HEADROOM_GIB = 4.0     # the mesh long step's record and peak leave this much free
+_MESH_RECORD_SCRIPT = """
+import functools, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch.dryrun import trace_cell
+from repro_torch.launch.mesh import make_mesh
+arch, seq, batch, strategy, remat = sys.argv[1:6]
+rec = trace_cell(get_config(arch), ShapeCell("smoke_train", "train", int(seq), int(batch)), 1,
+                 functools.partial(make_mesh, (1, 1), ("data", "model"), device="cuda"),
+                 strategy, remat=remat, accum=1, device="cuda")
+print(json.dumps(rec["memory"]))
+"""
+
+
+def mesh_train_record(cfg, batch, seq, strategy, remat):
+    """The dry run's (1, 1) record of a train step under ``strategy``
+    (fake tensors over a fake one-rank group, traced in a process of its
+    own: the fake group must not meet this process's NCCL group): the
+    bytes of its inputs and the peak of its temporaries."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    run = subprocess.run([sys.executable, "-c", _MESH_RECORD_SCRIPT, cfg.name, str(seq),
+                          str(batch), strategy, remat], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=DRYRUN_TIMEOUT_S)
+    if run.returncode != 0:
+        raise AssertionError(f"the (1, 1) record of {cfg.name} exited {run.returncode}:\n"
+                             f"{run.stderr[-3000:]}")
+    mem = json.loads(run.stdout.strip().splitlines()[-1])
+    return mem["argument_bytes"], mem["temp_bytes"]
+
+
+def phase_mesh_train_long(state):
+    """Full-width h2o-danube3-4b trained at 1 x 8192 under ``tp_fsdp`` on the
+    (1, 1) mesh (remat "full", no zero2): the long train phase's seed and
+    batches, every layer's attention through ``flash_attention_sm90`` and
+    ``flash_attention_bwd_sm90`` on the local shards of ``_local_attention``,
+    as many launches as that phase and its losses.  First the dry run's
+    (1, 1) record of the step must leave ``MESH_LONG_HEADROOM_GIB`` of the
+    card free; so must the run's peak."""
+    cfg = get_config(LONG_ARCH)
+    arg_b, temp_b = mesh_train_record(cfg, LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, "tp_fsdp", "full")
+    card_b = torch.cuda.get_device_properties(0).total_memory
+    headroom = MESH_LONG_HEADROOM_GIB * 2**30
+    log(f"  dry run, (1, 1) mesh, tp_fsdp: inputs {arg_b / 1e9:.2f} GB + temporaries "
+        f"{temp_b / 1e9:.2f} GB = {(arg_b + temp_b) / 2**30:.2f} GiB of the card's "
+        f"{card_b / 2**30:.2f} GiB")
+    if arg_b + temp_b > card_b - headroom:
+        raise AssertionError(f"{cfg.name} at {LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ} under a mesh "
+                             f"leaves under {MESH_LONG_HEADROOM_GIB} GiB of the card by the dry "
+                             f"run's estimate")
+    _, reader = corpus_reader(LONG_TRAIN_BATCH, LONG_TRAIN_SEQ)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))
+               for _ in range(LONG_TRAIN_STEPS)]
+    builder = TrainStepBuilder(build_model(cfg), state["mesh"], strategy="tp_fsdp",
+                               remat_policy="full",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    # the main path (run_train_steps: counts at 0 just before, read just after)
+    counts, rec = run_train_steps(state, builder, batches,
+                                  f"mesh long train ({LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ}, "
+                                  f"tp_fsdp)", seed=24)       # the long train phase's seed
+    fwd, bwd = train_launches(cfg, "swa", LONG_TRAIN_STEPS, builder.remat_policy)
+    ref = state["train_long"]
+    expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd_sm90": bwd},
+                    "mesh long train")
+    if counts != ref["launches"]:
+        raise AssertionError(f"mesh long train launched {counts}, the long train phase "
+                             f"{ref['launches']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref["losses"]))
+    if not loss_rel <= MESH_LOSS_RTOL:
+        raise AssertionError(f"mesh long losses {rec['losses']} vs no-mesh {ref['losses']}")
+    if rec["peak_gib"] * 2**30 > card_b - headroom:
+        raise AssertionError(f"mesh long train peak {rec['peak_gib']:.2f} GiB leaves under "
+                             f"{MESH_LONG_HEADROOM_GIB} GiB of the card")
+    rec.update(estimate_gib=(arg_b + temp_b) / 2**30, loss_rel=loss_rel)
+    state["mesh_train_long"] = rec
+    log(f"  mesh long train: losses {rec['losses']} vs no-mesh {ref['losses']} (max rel "
+        f"{loss_rel:.3e}); step ms {', '.join(f'{m:.1f}' for m in rec['step_ms'])} vs no-mesh "
+        f"{', '.join(f'{m:.1f}' for m in ref['step_ms'])}; peak {rec['peak_gib']:.2f} vs "
+        f"{ref['peak_gib']:.2f} GiB; {fwd} flash_attention_sm90 and {bwd} "
+        f"flash_attention_bwd_sm90 launches, as the long train phase's; on {state['smi']}")
 
 
 def phase_train_rg(state):
@@ -2942,7 +3104,20 @@ DRYRUN_CELLS = [[("qwen3-32b", "train_4k", "single")],
                  ("qwen1.5-32b", "decode_32k", "single", "tp_serve_hd"),
                  ("recurrentgemma-2b", "decode_32k", "single", "tp_serve_hd"),
                  ("recurrentgemma-2b", "train_4k", "single", "tp_fsdp_uneven"),
-                 ("h2o-danube-3-4b", "long_500k", "single", "tp_fsdp_sp")]]
+                 ("h2o-danube-3-4b", "long_500k", "single", "tp_fsdp_sp")],
+                # the configurations the port once did not run under a mesh:
+                # training past 4096 kv positions on a split sequence (512 q
+                # rows a rank), the encoder-decoder's memories split on their
+                # head dimension, and the encoder-decoder, the MoE and xLSTM
+                # over a sequence split 16 ways
+                [("h2o-danube-3-4b", "train_1x8k", "single", "tp_fsdp_sp"),
+                 ("seamless-m4t-large-v2", "decode_32k", "single", "tp_serve_hd")],
+                [("seamless-m4t-large-v2", "prefill_1x32k", "single", "tp_fsdp_sp"),
+                 ("olmoe-1b-7b", "prefill_1x32k", "single", "tp_fsdp_sp"),
+                 ("xlstm-350m", "prefill_1x32k", "single", "tp_fsdp_sp")]]
+# cells of shapes that ``configs/shapes.py`` (the reference's) does not
+# list: name -> (step, sequence, global batch)
+DRYRUN_SHAPES = {"train_1x8k": ("train", 8192, 1), "prefill_1x32k": ("prefill", 32768, 1)}
 # bounds of the strategy cells: most traced / analytic FLOPs, most temp GiB
 # beyond the inputs, most all-gather GiB a device
 DRYRUN_BOUNDS = {("qwen1.5-32b", "train_4k", "tp_fsdp_uneven"): (1.3, None, None),
@@ -2950,7 +3125,18 @@ DRYRUN_BOUNDS = {("qwen1.5-32b", "train_4k", "tp_fsdp_uneven"): (1.3, None, None
                  ("qwen1.5-32b", "decode_32k", "tp_serve_hd"): (None, 1.0, 1.0),
                  # the memories' stack is local: 1.75 GiB of temporaries, not the
                  # 96 GiB meta tensor that asks for its axis names
-                 ("seamless-m4t-large-v2", "prefill_32k", "tp_serve"): (None, 3.0, None)}
+                 ("seamless-m4t-large-v2", "prefill_32k", "tp_serve"): (None, 3.0, None),
+                 # 512 q rows a rank (traced 0.105 of the analytic count, which
+                 # splits the work over "model" and the batch, never the
+                 # sequence: 16 x the rank's share); 0.89 GiB, 2.51 GiB gathered
+                 ("h2o-danube-3-4b", "train_1x8k", "tp_fsdp_sp"): (0.2, 2.0, 4.0),
+                 # no memory gathered: 0.07 GiB of temporaries, 0.061 all-gathered
+                 ("seamless-m4t-large-v2", "decode_32k", "tp_serve_hd"): (None, 1.0, 1.0),
+                 # a split sequence: 0.82 / 6.79 / 1.99 GiB of temporaries; the
+                 # residual stream and the scans gather it (8.8, 0.8, 11.7 GiB)
+                 ("seamless-m4t-large-v2", "prefill_1x32k", "tp_fsdp_sp"): (None, 2.0, 12.0),
+                 ("olmoe-1b-7b", "prefill_1x32k", "tp_fsdp_sp"): (None, 10.0, 2.0),
+                 ("xlstm-350m", "prefill_1x32k", "tp_fsdp_sp"): (None, 4.0, 16.0)}
 DRYRUN_TIMEOUT_S = 300
 ARG_BYTES_RTOL = 1e-3      # the (1, 1) record's inputs vs the train phase's state and batch
 # one process of the dry run: its cells, then (the last group) the (1, 1)
@@ -2962,9 +3148,11 @@ from repro_torch.configs.shapes import ShapeCell
 from repro_torch.launch.dryrun import run_cell, trace_cell
 from repro_torch.launch.mesh import make_mesh
 cells, out, smoke = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3] == "1"
+shapes = json.loads(sys.argv[4])
 for arch, shape, mesh, *strategy in cells:
     run_cell(arch, shape, mesh, (strategy or ["auto"])[0], out,
-             accum=1 if shape.startswith("train") else None, device="cuda", timeout_s=%d)
+             accum=1 if shape.startswith("train") else None, device="cuda", timeout_s=%d,
+             cell=ShapeCell(shape, *shapes[shape]) if shape in shapes else None)
 if smoke:
     rec = trace_cell(get_config(%r), ShapeCell("smoke_train", "train", %d, %d), 1,
                      functools.partial(make_mesh, (1, 1), ("data", "model"), device="cuda"),
@@ -2975,14 +3163,15 @@ if smoke:
 
 
 def phase_dry_run(state):
-    """The port's dry run of twenty-one cells on fake 256- and 512-rank meshes,
+    """The port's dry run of twenty-six cells on fake 256- and 512-rank meshes,
     each group of cells in its own process (the fake process group must
     not meet this process's NCCL group), the groups in parallel."""
     out = os.path.join(ROOT, "experiments", "dryrun_torch", "smoke")
     os.makedirs(out, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
     procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(cells), out,
-                               "1" if i == len(DRYRUN_CELLS) - 1 else "0"],
+                               "1" if i == len(DRYRUN_CELLS) - 1 else "0",
+                               json.dumps(DRYRUN_SHAPES)],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for i, cells in enumerate(DRYRUN_CELLS)]
@@ -3190,6 +3379,7 @@ PHASES = [
     ("long train float32", phase_train_long_f32),
     ("recurrentgemma train", phase_train_rg),
     ("mesh group", phase_mesh_group),
+    ("mesh long train", phase_mesh_train_long),
     ("mesh train and checkpoint", phase_mesh_train),
     ("mesh collective", phase_mesh_collective),
     ("mesh serve", phase_mesh_serve),

@@ -87,10 +87,10 @@ def _alarm(signum, frame):
 
 def trace_cell(cfg, cell: ShapeCell, world_size: int, make_mesh: Callable, strategy: str,
                remat: str = "full", accum: Optional[int] = None,
-               device: str = "cuda") -> dict:
-    """Trace one cell as rank 0 of a fake group of ``world_size`` ranks,
-    on the mesh ``make_mesh()`` lays over it; the record's measured fields
-    (no ``status``)."""
+               device: str = "cuda", rank: int = 0) -> dict:
+    """Trace one cell as rank ``rank`` (0 unless named) of a fake group of
+    ``world_size`` ranks, on the mesh ``make_mesh()`` lays over it; the
+    record's measured fields (no ``status``)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -98,7 +98,7 @@ def trace_cell(cfg, cell: ShapeCell, world_size: int, make_mesh: Callable, strat
     from repro_torch.launch.specs import build_cell
 
     t0 = time.time()
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
     try:
         mesh = make_mesh()
         prog = build_cell(cfg, cell, mesh, strategy=strategy, remat_policy=remat,
@@ -150,11 +150,13 @@ def trace_cell(cfg, cell: ShapeCell, world_size: int, make_mesh: Callable, strat
 def run_cell(arch: str, shape_name: str, mesh_kind: str, strategy: str,
              out_dir: str, remat: str = "full", accum=None,
              moe_group=None, tag_suffix: str = "", device: str = "cuda",
-             timeout_s: int = CELL_TIMEOUT_S) -> dict:
+             timeout_s: int = CELL_TIMEOUT_S, cell: Optional[ShapeCell] = None) -> dict:
+    """One cell's record, written to ``out_dir``; ``cell`` traces a shape
+    that ``SHAPES`` does not list (named ``shape_name``)."""
     cfg = get_config(arch)
     if moe_group is not None:
         cfg = dataclasses.replace(cfg, moe_group=moe_group)
-    cell = SHAPES[shape_name]
+    cell = cell or SHAPES[shape_name]
     ok, why = applicable(cfg, cell)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,

@@ -409,13 +409,14 @@ def _local_attention(q, k, v, *, kv_positions, q_offset, **kw):
     guard replicated k and v) each rank takes the kv heads its local q
     heads read, ``h // group`` for q head h; and over a split sequence k
     and v are whole, the local q rows offset by their first position.
-    Those gradients of k and v are partial sums over the ranks.  A decode
-    step over a cache split on its head dimension (``tp_serve_hd``) goes to
-    ``_head_dim_attention``."""
+    Those gradients of k and v are partial sums over the ranks.  A k split
+    on its head dimension (``tp_serve_hd``: a decode step's cache, or the
+    encoder-decoder's memories in every cross-attention) goes to
+    ``_head_dim_attention``, which never gathers it."""
     from torch.distributed.tensor import Partial, Replicate
 
-    if kv_positions is not None and any(p.is_shard(3) for p in k.placements):
-        return _head_dim_attention(q, k, v, kv_positions=kv_positions, **kw)
+    if any(p.is_shard(3) for p in k.placements):
+        return _head_dim_attention(q, k, v, kv_positions=kv_positions, q_offset=q_offset, **kw)
     mesh = q.device_mesh
     B, Hq, Tq, D = q.shape
     Hkv = k.shape[1]
@@ -449,17 +450,26 @@ def _local_attention(q, k, v, *, kv_positions, q_offset, **kw):
     return PT.from_local(out, mesh, qp, q.shape)
 
 
-def _head_dim_attention(q, k, v, *, kv_positions, q_positions, causal, window, softcap):
-    """A decode step over a cache split on its head dimension
-    (``tp_serve_hd``, where kv_heads does not divide "model"): q is split
-    as the cache (its heads whole), each rank's dot products over its
-    slice of the head dimension are partial scores, all-reduced (a sum)
-    over the axes that split it before the softcap, mask and softmax, and
-    the output ``p @ v`` stays split on the head dimension, as the cache,
-    for ``project_out``.  The cache is never gathered."""
+def _head_dim_attention(q, k, v, *, kv_positions, q_positions, q_offset, causal, window,
+                        softcap):
+    """Attention over k and v split on their head dimension
+    (``tp_serve_hd``, where kv_heads does not divide "model"): a decode
+    step's cache, or the encoder-decoder's memories.  q is split as k (its
+    heads whole), each rank's dot products over its slice of the head
+    dimension are partial scores, all-reduced (a sum) over the axes that
+    split it before the softcap, mask and softmax, and the output
+    ``p @ v`` stays split on the head dimension, as k and v, for
+    ``project_out``.  k and v are never gathered.  Without
+    ``kv_positions`` (the memories) the mask takes key j at position j and
+    query i at ``q_offset + i``; the scores are dense, so a memory over
+    ``BLOCKWISE_KV_THRESHOLD`` frames takes (B, H, Tq, S) float32 scores
+    a rank, a decode step's (B, H, 1, S)."""
     from torch.distributed.tensor import Partial, Replicate
 
     mesh = k.device_mesh
+    if kv_positions is None:
+        kv_positions = torch.arange(k.shape[2], device=k.to_local().device)
+        q_positions = q_offset + torch.arange(q.shape[2], device=kv_positions.device)
     cp = tuple(p if p.is_shard(0) or p.is_shard(3) else Replicate() for p in k.placements)
     ql, kl, vl = (t.redistribute(mesh, cp).to_local() for t in (q, k, v))
     partial = tuple(Partial() if p.is_shard(3) else p for p in cp)
@@ -572,8 +582,12 @@ def apply_cross_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                           memory_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """Decoder cross-attention over precomputed encoder K/V: no RoPE, no
     mask.  A memory longer than ``BLOCKWISE_KV_THRESHOLD`` goes to
-    ``ops.flash_attention``, in the prefill and in every decode step."""
-    q = constrain(torch.einsum("btd,dhk->bhtk", x, p["wq"]), "batch", "heads_act", None, None)
+    ``ops.flash_attention``, in the prefill and in every decode step.  The
+    projections go through ``project_heads``/``project_out``, as the
+    self-attention's, so heads split unevenly or on the head dimension
+    stay on local slices; q keeps a sequence split (``tp_fsdp_sp``), as
+    the self-attention's does."""
+    q = constrain(project_heads(x, p["wq"]), "batch", "heads_act", "seq", None)
     k, v = memory_kv
     out = attention_core(q, k, v, causal=False, window=None, q_offset=0, softcap=None)
     return project_out(out, p["wo"])
@@ -584,9 +598,7 @@ def cross_attention_memory(p: Dict, cfg: ModelConfig,
     """(K, V) of the encoder output for one cross-attention block, each
     (B, Hkv, S, Dh): views of the projections' (B, S, Hkv, Dh) results,
     whose strides the attention kernels take as they are."""
-    k = torch.einsum("btd,dhk->bhtk", enc_out, p["wk"])
-    v = torch.einsum("btd,dhk->bhtk", enc_out, p["wv"])
-    return k, v
+    return project_heads(enc_out, p["wk"]), project_heads(enc_out, p["wv"])
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict:

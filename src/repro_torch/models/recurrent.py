@@ -294,9 +294,14 @@ def apply_mlstm(
     # under a mesh the products over the split "rnn" width are partial
     # sums, reduced here to the heads' layout (and the gates whole) before
     # the scan's nonlinear ops: left partial, DTensor reduces them onto
-    # whichever dimension it picks, the chunk's time steps included
-    q, k, v = (constrain(torch.einsum("btr,rhk->bhtk", xi_act, p[w]), "batch", "heads_act",
-                         None, None) for w in ("wq", "wk", "wv"))
+    # whichever dimension it picks, the chunk's time steps included.  The
+    # product is the reference's einsum("btr,rhk->bhtk") as a matmul
+    # broadcast over the heads: einsum's backward views the permuted
+    # gradient of its (b t, h k) result, which DTensor runs as a view of the
+    # local tensor and which fails where the batch is not split (a batch
+    # of 1 on "data" of 2, as ``tp_fsdp_sp`` serves it)
+    q, k, v = (constrain(torch.matmul(xi_act[:, None], p[w].transpose(0, 1)), "batch",
+                         "heads_act", None, None) for w in ("wq", "wk", "wv"))
     q = q * (dh ** -0.5)
     gates = constrain(xi.float() @ p["w_if"], "batch", None, None) + p["b_if"]
     log_i, log_f = gates.chunk(2, dim=-1)                  # (B,T,H)

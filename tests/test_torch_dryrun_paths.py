@@ -24,6 +24,10 @@ at most 1.3 x the analytic count, which counts the padded split), and the
 ``decode_32k`` of qwen1.5-32b and recurrentgemma-2b under ``tp_serve_hd``
 (the caches split on their head dimension: no cache gathered, under 1 GiB
 of all-gathers a device, and nothing beyond the inputs but 1 GiB).
+
+One reduced cell traces a step past 4096 kv positions on a split
+sequence as two ranks of a fake 2 x 2 mesh: each rank's attention FLOPs
+follow its own ``q_offset`` (``test_long_sp_train_flops_follow_q_offset``).
 """
 
 import json
@@ -132,3 +136,46 @@ def test_seamless_prefill_temporaries_leave_out_the_meta_shape(tmp_path):
     rec = _record(tmp_path, "seamless-m4t-large-v2", "prefill_32k", "single", "tp_serve")
     assert rec["status"] == "ok", rec.get("error")
     assert rec["memory"]["temp_bytes"] <= 3 * GIB, rec["memory"]
+
+
+LONG_SP_SCRIPT = """
+import dataclasses, functools, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch.dryrun import trace_cell
+from repro_torch.launch.mesh import make_mesh
+cfg = dataclasses.replace(get_config("h2o-danube-3-4b").reduced(), window=4096)
+rec = trace_cell(cfg, ShapeCell("train_4160", "train", 4160, 1), 4,
+                 functools.partial(make_mesh, (2, 2), ("data", "model"), device="cpu"),
+                 "tp_fsdp_sp", remat="none", accum=1, device="cpu", rank=int(sys.argv[1]))
+json.dump(rec, sys.stdout)
+"""
+
+
+def test_long_sp_train_flops_follow_q_offset():
+    """A reduced h2o-danube3-4b step at 4160 tokens (its window of 4096)
+    under ``tp_fsdp_sp`` with a batch of 1, traced on fake tensors over a
+    fake 2 x 2 mesh as rank 0 and as rank 2: each rank holds 2080 q rows
+    of 2 heads over the whole 4160 keys, and the recorded attention's FLOPs
+    are those of its own rows' live pairs, at its ``q_offset`` (0 and
+    2080): 4 D a pair forward, 8 D backward, for each of the 2 layers."""
+    from repro_torch.kernels.ops import live_pairs
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    procs = {rank: subprocess.Popen([sys.executable, "-c", LONG_SP_SCRIPT, str(rank)], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    cwd=ROOT)
+             for rank in (0, 2)}       # one fake group a process
+    recs = {}
+    for rank, p in procs.items():
+        out, err = p.communicate(timeout=DRYRUN_TIMEOUT)
+        assert p.returncode == 0, err[-3000:]
+        recs[rank] = json.loads(out)
+    for rank, q_offset in ((0, 0), (2, 2080)):
+        flops = recs[rank]["cost_hlo_raw"]
+        pairs = 2 * live_pairs(2080, 4160, causal=True, window=4096, q_offset=q_offset)
+        assert flops["flops repro_torch.flash_attention"] == 4 * 2 * 16 * pairs
+        assert flops["flops repro_torch.flash_attention_backward"] == 8 * 2 * 16 * pairs
+    # the second half's rows see the whole window: more pairs than the first's
+    assert live_pairs(2080, 4160, causal=True, window=4096, q_offset=2080) > \
+        live_pairs(2080, 4160, causal=True, window=4096, q_offset=0)

@@ -9,6 +9,7 @@ does not resolve)::
     python tests/torch_mesh_worker.py paths IN.npz OUT_DIR
     python tests/torch_mesh_worker.py splice-heads IN.npz OUT_DIR    # WORLD_SIZE=4
     python tests/torch_mesh_worker.py strategies IN.npz OUT_DIR      # WORLD_SIZE=4
+    python tests/torch_mesh_worker.py configs IN.npz OUT_DIR         # WORLD_SIZE=4
     python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
         train-main LOSSES.json --mesh 2x1 --device cpu ...
     python -m torch.distributed.run --nproc-per-node 2 tests/torch_mesh_worker.py \\
@@ -48,7 +49,11 @@ spliced in and an even vocabulary that "model" splits) and
 reduced recurrentgemma-2b and of reduced qwen1.5-32b with 3 heads, which
 "model" does not divide, their other dimensions split over "data").  With ``strategies``, four ranks on mesh (2, 2) run the last
 three strategies of the reference, each case through the port's entry
-points (see ``strategies_main``).  With
+points (see ``strategies_main``).  With ``configs``, four ranks on mesh
+(2, 2) run the configurations that the port once did not run under a
+mesh (training past 4096 kv positions, the encoder-decoder under
+``_uneven``, ``tp_serve_hd`` and ``tp_fsdp_sp``, the MoE and xLSTM over a
+split sequence; see ``configs_main``).  With
 ``train-main`` it runs ``repro_torch.launch.train.main``
 with the arguments that follow, under the launcher, and rank 0 writes the
 losses; with ``train-resume`` it runs it three times: 6 steps, then 3
@@ -304,12 +309,13 @@ def serve_steps(npz, meta, out, mesh, name, arch, strategy, over):
 
 class _ConstrainSpy:
     """Records the placements of the first output of ``lm``'s ``constrain``
-    (the embedding's, (B, T, D)) while installed."""
+    (the embedding's, (B, T, D); or of ``module``'s) while installed."""
 
-    def __init__(self):
-        from repro_torch.models import lm
+    def __init__(self, module=None):
+        if module is None:
+            from repro_torch.models import lm as module
 
-        self.lm, self.real, self.seen = lm, lm.constrain, []
+        self.lm, self.real, self.seen = module, module.constrain, []
 
     def __enter__(self):
         def spy(x, *names):
@@ -356,6 +362,178 @@ def strategies_main(in_path, out_dir) -> int:
                 train(npz, meta, out, square, case, strategy, False, 1, arch=arch, inputs=case,
                       over=meta["over"][case])
             out[f"{case}/embed_placements"] = np.asarray(spy.seen[0])
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, "out.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+class _FlashSpy:
+    """Records each call of ``ops.flash_attention`` (the recorded op on
+    local tensors) while installed: q's and k's shapes, ``q_offset``,
+    ``window``, and whether autograd records it."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.real, self.calls = ops, ops.flash_attention, []
+
+    def __enter__(self):
+        def spy(q, k, v, **kw):
+            self.calls.append([list(q.shape), list(k.shape), kw.get("q_offset", 0),
+                               kw.get("window"), self.ops._recorded(q, k, v)])
+            return self.real(q, k, v, **kw)
+
+        self.ops.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+class _HeadDimGatherSpy:
+    """Records each ``DTensor.redistribute`` made inside the encoder-decoder's
+    ``cross_memories`` or ``_decoder_cached`` while installed (where the
+    memories and the cache are made and read) that takes a tensor split on
+    its last (head) dimension to placements where it is not: a gather of
+    the head dimension.  Only tensors whose next-to-last dimension is one
+    of ``lengths`` (the memories' frames, the cache's slots) are recorded."""
+
+    def __init__(self, lengths):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models import encdec
+
+        self.cls, self.real, self.lengths, self.seen = DTensor, DTensor.redistribute, lengths, []
+        self.encdec, self.scopes, self.inside = encdec, ("cross_memories", "_decoder_cached"), 0
+
+    def __enter__(self):
+        real, lengths, seen = self.real, self.lengths, self.seen
+
+        def spy(t, device_mesh=None, placements=None, **kw):
+            last = t.ndim - 1
+            if (self.inside and t.ndim >= 4 and t.shape[-2] in lengths
+                    and placements is not None
+                    and any(p.is_shard(last) for p in t.placements)
+                    and not any(p.is_shard(last) for p in placements)):
+                seen.append([list(t.shape), str(t.placements), str(tuple(placements))])
+            return real(t, device_mesh, placements, **kw)
+
+        def scoped(fn):
+            def run(*a, **k):
+                self.inside += 1
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.inside -= 1
+            return run
+
+        self.fns = {name: getattr(self.encdec, name) for name in self.scopes}
+        for name, fn in self.fns.items():
+            setattr(self.encdec, name, scoped(fn))
+        self.cls.redistribute = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.redistribute = self.real
+        for name, fn in self.fns.items():
+            setattr(self.encdec, name, fn)
+
+
+class _RouteSpy:
+    """Records each call of ``moe.route`` while installed: its input (the
+    MoE layer's (B, T, D) rows) and the kept (token, choice) pairs, each
+    gathered whole."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real, self.x, self.kept = moe, moe.route, [], []
+
+    def __enter__(self):
+        from repro_torch.distributed.partitioning import full
+
+        def spy(p, cfg, x):
+            out = self.real(p, cfg, x)
+            self.x.append(full(x).detach().numpy())
+            self.kept.append(full(out[4]).numpy())
+            return out
+
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def serve_case(npz, meta, out, mesh, name, arch, strategy, over):
+    """A prefill of ``npz[<name>_in/tokens][:, :prefill[name]]`` (over
+    ``<name>_in/frames`` for the encoder-decoder) and teacher-forced decode
+    steps of the rest under ``strategy``: the logits of each, the
+    placements of the first cache leaf (and of the memories), and every
+    head-dimension gather of the memories or the cache."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    model = build_model(cfg)
+    builder = TrainStepBuilder(model, mesh, strategy=strategy)
+    params = tree_from(npz, name, model.abstract()[0])
+    params = builder.distribute(params, builder.param_shardings(params), src_data_rank=None)
+    toks = torch.from_numpy(npz[f"{name}_in/tokens"]).long()
+    batch = {"tokens": toks[:, :meta["prefill"][name]]}
+    if f"{name}_in/frames" in npz.files:
+        batch["enc_embeds"] = torch.from_numpy(npz[f"{name}_in/frames"])
+    B, T = toks.shape
+    cache = builder.shard_cache(model.init_cache(B, T + 4, device="cpu"))
+    lengths = {T + 4} | ({batch["enc_embeds"].shape[1]} if "enc_embeds" in batch else set())
+    prefill, decode = builder.prefill_step_fn(), builder.decode_step_fn()
+    with _HeadDimGatherSpy(lengths) as gathers:
+        logits, cache, *memories = prefill(params, batch, cache)
+        outs = [logits]
+        for t in range(batch["tokens"].shape[1], T):
+            logits, cache = decode(params, toks[:, t], t, cache, *memories)
+            outs.append(logits)
+    out[f"{name}/logits"] = torch.stack(outs).numpy()
+    first = next(t for _, t in flatten_with_paths(cache))
+    out[f"{name}/cache_placements"] = np.asarray(str(first.placements))
+    if memories:
+        out[f"{name}/memories_placements"] = np.asarray(str(memories[0][0].placements))
+    out[f"{name}/head_dim_gathers"] = np.asarray(json.dumps(gathers.seen))
+
+
+def configs_main(in_path, out_dir) -> int:
+    """The configurations the reference runs under a mesh that the port
+    once did not, on mesh (2, 2) of four ranks: each of ``meta["train"]``
+    one step (``train``), each of ``meta["serve"]`` a prefill and
+    teacher-forced decode steps (``serve_case``).  For every case the
+    placements of the embedding's constrained output (the encoder's first
+    norm's for the encoder-decoder), every rank's calls of
+    ``ops.flash_attention``, and each MoE routing's input and kept
+    pairs."""
+    from repro_torch.models import layers, lm
+
+    npz = np.load(in_path)
+    meta = json.loads(str(npz["meta"]))
+    dist.init_process_group("gloo")
+    out: dict = {}
+    try:
+        square = make_mesh((2, 2), ("data", "model"), device="cpu")
+        for kind in ("train", "serve"):
+            for case, (arch, strategy) in meta[kind].items():
+                # the encoder-decoder's first split activation is its first norm's
+                module = layers if arch == "seamless-m4t-large-v2" else lm
+                with _ConstrainSpy(module) as spy, _FlashSpy() as flash, _RouteSpy() as route:
+                    if kind == "train":
+                        train(npz, meta, out, square, case, strategy, False, 1, arch=arch,
+                              inputs=case, over=meta["over"][case])
+                    else:
+                        serve_case(npz, meta, out, square, case, arch, strategy,
+                                   meta["over"][case])
+                for i, (x, kept) in enumerate(zip(route.x, route.kept)):
+                    out[f"{case}/route_x/{i}"], out[f"{case}/route_kept/{i}"] = x, kept
+                calls = [None] * dist.get_world_size()
+                dist.all_gather_object(calls, flash.calls)
+                out[f"{case}/embed_placements"] = np.asarray(spy.seen[0])
+                out[f"{case}/flash_calls"] = np.asarray(json.dumps(calls))
         if dist.get_rank() == 0:
             np.savez(os.path.join(out_dir, "out.npz"), **out)
     finally:
@@ -443,6 +621,8 @@ def main() -> int:
         return splice_heads_main(sys.argv[2], sys.argv[3])
     if sys.argv[1] == "strategies":
         return strategies_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1] == "configs":
+        return configs_main(sys.argv[2], sys.argv[3])
     npz = np.load(sys.argv[1])
     out_dir = sys.argv[2]
     meta = json.loads(str(npz["meta"]))
