@@ -32,7 +32,12 @@ Phases (each one's failure fails the run):
    the encoder-decoder's three unmasked shapes over 32768 frames of 16
    heads of 64 in both dtypes: the encoder's self-attention (batch 1, v
    strided), the prefill's cross-attention (4, 16, 512, 64) and a decode
-   step's (4, 16, 1, 64); then the backward against the plain backward
+   step's (4, 16, 1, 64); the bf16 kernel's split path (its keys cut into
+   ranges, merged by ``flash_attention_merge``'s kernel) at those two
+   cross-attentions and at forced splits with rows and ranges that see no
+   key, each within the bf16 limit, its lse within 1e-5, two calls
+   bit-equal, and the merge kernel alone against ``ref_merge_attention``
+   on the plain partials; then the backward against the plain backward
    (``flash_attention_bwd_sm90``, bf16 on the tensor cores, and
    ``flash_attention_bwd``, float32 arithmetic, each on its dtype; the
    same q, k, v, the dtype's forward kernel's o and lse, a seeded do) over
@@ -292,12 +297,15 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E4
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     flash_attention_bwd_sm90_cuda)
-from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_merge import flash_attention_merge_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
+    flash_attention_sm90_cuda, split_count)
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
-                                     ref_flash_attention_backward, ref_linear_scan,
-                                     ref_page_digest)
+                                     ref_flash_attention_backward,
+                                     ref_flash_attention_partials, ref_linear_scan,
+                                     ref_merge_attention, ref_page_digest)
 from repro_torch.configs.shapes import ShapeCell  # noqa: E402
 from repro_torch.launch.costmodel import analytic_roofline  # noqa: E402
 from repro_torch.launch.hlo import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
@@ -414,6 +422,36 @@ FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0 ** -7, 1e-4
 FLASH_BWD_F32_REL = 1e-4
 FLASH_BWD_BF16_REL, FLASH_BWD_BF16_FLOOR = 2.0 ** -7, 1e-3
 FLASH_LSE_TOL = 1e-4
+# The bf16 kernel's split path (key ranges merged by a second kernel): its
+# row lse against the plain one's, float32 sums of the same products over
+# shorter ranges
+FLASH_SPLIT_LSE_TOL = 1e-5
+# bf16 cases of the kernel's configurations at a head width up to 64, each
+# at the wrapper's own key split (B, Hq, Hkv, Tq, Tk, D, causal, window,
+# softcap, q_offset): more than 64 rows (the producer/consumer kernel,
+# 128-key tiles; a window, softcap, GQA, D = 48 and 16, Tq off the 128-row
+# block, rows that see no key), and up to 64 rows (one warpgroup a block)
+FLASH_D64_CASES = [
+    (2, 8, 2, 300, 1500, 64, True, 100, None, 1200),
+    (1, 4, 2, 200, 4200, 64, True, 64, 30.0, 4000),
+    (1, 4, 1, 130, 300, 48, False, None, None, 0),
+    (2, 4, 4, 129, 129, 64, False, 17, None, 0),
+    (1, 4, 2, 300, 300, 64, True, None, None, -40),
+    (1, 2, 2, 1000, 1000, 16, True, None, None, 0),
+    (2, 4, 2, 64, 3000, 64, True, None, None, 2936),
+]
+# forced key splits (B, Hq, Hkv, Tq, Tk, D, causal, window, q_offset,
+# softcap, ranges): a causal window with rows before the first key and
+# ranges some rows see nothing of, a window past the last key (rows that
+# see no key at all), one warpgroup's causal window, a decode step with a
+# softcap, and GQA at D = 48 (the kernel splits keys at widths up to 64)
+FLASH_SPLIT_CASES = [
+    (1, 4, 2, 1500, 1600, 64, True, 600, -20, None, 2),
+    (1, 4, 2, 1200, 2048, 64, False, 1024, 2000, None, 3),
+    (2, 4, 2, 37, 5000, 64, True, 3000, 4963, None, 4),
+    (1, 4, 1, 1, 4100, 32, False, None, 0, 25.0, 8),
+    (2, 8, 2, 200, 3000, 48, False, None, 0, None, 5),
+]
 # H100 SXM data sheet (``repro_torch.launch.hlo``, the cost model's constants):
 # bf16 dense tensor-core rate (the least time of attention), HBM3 rate, and
 # the float32 rate outside the tensor cores
@@ -477,7 +515,8 @@ def phase_build(state):
     for name in build.SOURCES:
         build.load(name)
         for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
+            if any(w in line for w in ("registers", "spill", "entry function", "warning",
+                                       "setmaxnreg")):
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {len(build.SOURCES)} source(s) in {state['build_s']:.2f} s")
 
@@ -538,30 +577,94 @@ def flash_bwd_kernel(dtype):
     return flash_attention_bwd_sm90_cuda if dtype == torch.bfloat16 else flash_attention_bwd_cuda
 
 
-def flash_case(q, k, v, **kw):
-    """``ops.flash_attention`` on the card (the dtype's kernel) against the
-    plain version on the same inputs; returns the largest absolute
-    difference and, for bf16, the largest share of the scaled limit
-    ``FLASH_BF16_REL * |want| + FLASH_BF16_FLOOR`` (None for float32),
-    raising past either limit."""
-    got = ops.flash_attention(q, k, v, **kw)
-    want = ref_flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
+def held_to_plain(got, want, what):
+    """An attention output against its plain version's: the largest
+    absolute difference and, for bf16, the largest share of the scaled
+    limit ``FLASH_BF16_REL * |want| + FLASH_BF16_FLOOR`` (None for
+    float32), raising past either limit."""
     if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
-        raise AssertionError(f"flash_attention {tuple(q.shape)} {kw}: {got.shape} {got.dtype} "
-                             f"vs {want.shape} {want.dtype}, finite {bool(torch.isfinite(got).all())}")
+        raise AssertionError(f"{what}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}, "
+                             f"finite {bool(torch.isfinite(got).all())}")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    if not err <= FLASH_TOL[q.dtype]:
-        raise AssertionError(f"flash_attention {tuple(q.shape)} {q.dtype} {kw}: max abs err "
-                             f"{err:.3e} > {FLASH_TOL[q.dtype]}")
-    if q.dtype != torch.bfloat16:
+    if not err <= FLASH_TOL[got.dtype]:
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {FLASH_TOL[got.dtype]}")
+    if got.dtype != torch.bfloat16:
         return err, None
     share = float((diff / (FLASH_BF16_REL * want.float().abs() + FLASH_BF16_FLOOR)).max())
     if not share <= 1.0:
-        raise AssertionError(f"flash_attention {tuple(q.shape)} bf16 {kw}: |got - want| reaches "
-                             f"{share:.3f} x ({FLASH_BF16_REL:.3g} |want| + {FLASH_BF16_FLOOR})")
+        raise AssertionError(f"{what}: |got - want| reaches {share:.3f} x ({FLASH_BF16_REL:.3g} "
+                             f"|want| + {FLASH_BF16_FLOOR})")
     return err, share
+
+
+def flash_case(q, k, v, **kw):
+    """``ops.flash_attention`` on the card (the dtype's kernel) against the
+    plain version on the same inputs: ``held_to_plain``'s error and share."""
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    return held_to_plain(got, want, f"flash_attention {tuple(q.shape)} {q.dtype} {kw}")
+
+
+def lse_held_to_plain(lse, want, what):
+    """A row lse against the plain one: -inf exactly where the plain one's
+    is, the rest within ``FLASH_SPLIT_LSE_TOL``; returns the largest
+    difference."""
+    dead = torch.isinf(want)
+    if not torch.equal(torch.isneginf(lse), dead) or torch.isnan(lse).any():
+        raise AssertionError(f"{what}: lse -inf at {int(torch.isneginf(lse).sum())} rows, the "
+                             f"plain version's at {int(dead.sum())}")
+    err = float((lse - want)[~dead].abs().max()) if bool((~dead).any()) else 0.0
+    if not err <= FLASH_SPLIT_LSE_TOL:
+        raise AssertionError(f"{what}: lse off by {err:.3e} > {FLASH_SPLIT_LSE_TOL}")
+    return err
+
+
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def split_case(q, k, v, splits=None, **kw):
+    """The bf16 kernel with ``splits`` key ranges (None: the wrapper's own
+    choice) against the plain version: the output within the bf16 limit,
+    the lse by ``lse_held_to_plain``, rows that see no key exactly zero,
+    two calls bit-equal, and one merge launch a call when it splits.
+    Returns (max abs err, limit share, lse err, ranges)."""
+    B, Hq, Tq, D = q.shape
+    ranges = splits or split_count(B, Hq, Tq, k.shape[2], D, causal=kw["causal"],
+                                   window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+                                   sm_count=sm_count())
+    what = f"flash_attention_sm90 {tuple(q.shape)} kv {tuple(k.shape)} {kw}, {ranges} ranges"
+    before = ops.launch_counts()["flash_attention_merge"]
+    got, lse = flash_attention_sm90_cuda(q, k, v, return_lse=True, splits=splits, **kw)
+    again, lse_again = flash_attention_sm90_cuda(q, k, v, return_lse=True, splits=splits, **kw)
+    merges = ops.launch_counts()["flash_attention_merge"] - before
+    want, want_lse = ref_flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    if merges != (2 if ranges > 1 else 0):
+        raise AssertionError(f"{what}: {merges} merge launches in two calls")
+    if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
+        raise AssertionError(f"{what}: two calls differ")
+    err, share = held_to_plain(got, want, what)
+    lse_err = lse_held_to_plain(lse, want_lse, what)
+    dead = torch.isinf(want_lse)
+    if bool(dead.any()) and bool(got[dead].any()):
+        raise AssertionError(f"{what}: rows that see no key are not zero")
+    return err, share, lse_err, ranges
+
+
+def merge_case(o_s, lse_s):
+    """The merge kernel alone on partials (o_s, lse_s), against the plain
+    merge: bf16 output within the bf16 limit of the plain float32 merge
+    rounded once, lse by ``lse_held_to_plain``.  Returns (max abs err,
+    limit share, lse err)."""
+    got, lse = flash_attention_merge_cuda(o_s, lse_s, return_lse=True)
+    want, want_lse = ref_merge_attention(o_s, lse_s)
+    torch.cuda.synchronize()
+    what = f"flash_attention_merge {tuple(o_s.shape)}"
+    err, share = held_to_plain(got, want.to(torch.bfloat16), what)
+    return err, share, lse_held_to_plain(lse, want_lse, what)
 
 
 def long_shapes(cfg):
@@ -655,13 +758,53 @@ def phase_flash_vs_plain(state):
                 f"non-causal strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
             del q, k, v
             torch.cuda.empty_cache()
+    # the split path (key ranges, then the merge kernel): seamless's two
+    # cross-attentions at the wrapper's own split, the head width 64
+    # configurations, forced splits with ranges and rows that see no key;
+    # then the merge kernel alone on the plain partials
+    worst_lse, merge_worst = 0.0, [0.0, 0.0, 0.0]
+    cfg = get_config(ENCDEC_ARCH)
+    split_runs = [(f"seamless {name}", qs, ks, dict(causal=False), None, 254 + i)
+                  for i, (name, qs, ks, _) in enumerate(seamless_cases(cfg)[1:])]
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset) in \
+            enumerate(FLASH_D64_CASES):
+        split_runs.append(("D <= 64", (B, Hq, Tq, D), (B, Hkv, Tk, D),
+                           dict(causal=causal, window=window, softcap=softcap,
+                                q_offset=q_offset), None, 270 + i))
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, q_offset, softcap, ranges) in \
+            enumerate(FLASH_SPLIT_CASES):
+        split_runs.append(("forced split", (B, Hq, Tq, D), (B, Hkv, Tk, D),
+                           dict(causal=causal, window=window, softcap=softcap,
+                                q_offset=q_offset), ranges, 280 + i))
+    for what, qs, ks, kw, ranges, seed in split_runs:
+        q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], torch.bfloat16,
+                                   seed=seed)
+        err, share, lse_err, ranges = split_case(q, k, v, splits=ranges, **kw)
+        if what.startswith("seamless") and ranges == 1:
+            raise AssertionError(f"{what} {qs}: the wrapper does not split its keys")
+        worst[torch.bfloat16], n = max(worst[torch.bfloat16], err), n + 1
+        worst_share, worst_lse = max(worst_share, share), max(worst_lse, lse_err)
+        log(f"  flash_attention_sm90 {what} {qs} kv {ks} {kw}, {ranges} key ranges: max abs "
+            f"err {err:.3e}, bf16 limit share {share:.3f}, lse err {lse_err:.3e}, two calls "
+            f"bit-equal")
+        if ranges > 1:
+            m = merge_case(*ref_flash_attention_partials(q, k, v, ranges, **kw))
+            merge_worst = [max(a, b) for a, b in zip(merge_worst, m)]
+            log(f"  flash_attention_merge {what}, {ranges} ranges of the plain partials: max "
+                f"abs err {m[0]:.3e}, bf16 limit share {m[1]:.3f}, lse err {m[2]:.3e}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    state["flash_split_lse_err"] = worst_lse
+    state["merge_err"] = merge_worst
     state["flash_err"] = worst
     state["flash_bf16_share"] = worst_share
     log(f"kernel vs plain: attention in {n} cases, flash_attention (float32) worst "
         f"{worst[torch.float32]:.3e} (tol {FLASH_TOL[torch.float32]}), "
         f"flash_attention_sm90 (bf16) worst "
         f"{worst[torch.bfloat16]:.3e} (tol {FLASH_TOL[torch.bfloat16]}) and "
-        f"{worst_share:.3f} of {FLASH_BF16_REL:.3g} |want| + {FLASH_BF16_FLOOR}")
+        f"{worst_share:.3f} of {FLASH_BF16_REL:.3g} |want| + {FLASH_BF16_FLOOR}, split lse "
+        f"within {worst_lse:.3e} (tol {FLASH_SPLIT_LSE_TOL}); flash_attention_merge worst "
+        f"{merge_worst[0]:.3e}, {merge_worst[1]:.3f} of the bf16 limit, lse {merge_worst[2]:.3e}")
 
 
 def flash_bwd_case(q, k, v, seed, **kw):
@@ -1402,6 +1545,8 @@ def seamless_times():
         bytes_s = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S
         out[name] = {
             "shape": [list(qs), list(ks)],
+            "splits": split_count(B, Hq, Tq, ks[2], D, causal=False, window=None, q_offset=0,
+                                  sm_count=sm_count()),
             "max_abs_err": err,
             "bf16_limit_share": share,
             "ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, causal=False),
@@ -1414,6 +1559,39 @@ def seamless_times():
                 q, k, v), reps=3 if Tq > ENCDEC_PROMPT else 20),
         }
         del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def merge_times():
+    """``flash_attention_merge`` at the seamless serve path's two split
+    shapes (the decode step's and the prefill's cross-attention, at the
+    wrapper's own key ranges), on the plain version's partials: its error
+    against the plain merge, its time, the plain merge's, and the bound:
+    the partials read and the bf16 output written once over the memory
+    rate, or an FMA an element of o_s and an exp an element of lse_s over
+    the CUDA cores' float32 rate."""
+    out = {}
+    cfg = get_config(ENCDEC_ARCH)
+    for i, name in enumerate(("cross decode", "cross prefill")):
+        (B, Hq, Tq, D), ks = seamless_shapes(cfg)[name]
+        S = split_count(B, Hq, Tq, ks[2], D, causal=False, window=None, q_offset=0,
+                        sm_count=sm_count())
+        q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, torch.bfloat16, seed=60 + i)
+        o_s, lse_s = ref_flash_attention_partials(q, k, v, S, causal=False)
+        del q, k, v
+        err, share, lse_err = merge_case(o_s, lse_s)
+        nbytes = 4 * (o_s.numel() + lse_s.numel()) + 2 * B * Hq * Tq * D
+        ops_s = (2 * o_s.numel() + 2 * lse_s.numel()) / F32_FLOP_PER_S
+        out[name] = {
+            "shape": list(o_s.shape), "splits": S, "max_abs_err": err, "bf16_limit_share": share,
+            "lse_err": lse_err,
+            "ms": cuda_ms(lambda: flash_attention_merge_cuda(o_s, lse_s), reps=50),
+            "plain_ms": cuda_ms(lambda: ref_merge_attention(o_s, lse_s), reps=10),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops_s) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations",
+        }
+        del o_s, lse_s
         torch.cuda.empty_cache()
     return out
 
@@ -1663,6 +1841,36 @@ def phase_kernel_times(state):
         torch.cuda.empty_cache()
         if name == "flash_attention_sm90":
             row["seamless"] = seamless_times()
+            merge = merge_times()
+            main = merge["cross decode"]
+            merge_paths = {f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_merge"],
+                           **{f"{ENCDEC_ARCH} mesh serve ({k})": n
+                              for k, n in state["mesh_encdec_merges"].items()}}
+            kernels.append({
+                "name": "flash_attention_merge",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:105",
+                "replaces_note": "no TPU kernel of its own: flash_attention_pallas carries m, l "
+                                 "and the accumulator across its sequential key grid dimension in "
+                                 "scratch; the split path's blocks run in parallel, so a second "
+                                 "launch merges their key ranges",
+                "launches": sum(merge_paths.values()),
+                "launches_by_path": merge_paths,
+                "max_abs_err": max([t["max_abs_err"] for t in merge.values()]
+                                   + [state["merge_err"][0]]),
+                "lse_err": max([t["lse_err"] for t in merge.values()] + [state["merge_err"][2]]),
+                "ms": main["ms"],
+                "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": None,   # no one PyTorch call weighs partials by their lse
+                "shape": main["shape"],
+                "dtype": "float32 partials, bfloat16 out",
+                "bound_basis": f"o_s and lse_s read and o written once over {HBM_BYTES_PER_S:.3g} "
+                               f"B/s (H100 SXM HBM3)",
+                "shapes": merge,
+            })
 
     # the backward: the bf16 tensor-core kernel at the training phases'
     # three shapes (their dtype), the float32 kernel at danube's
@@ -1722,8 +1930,14 @@ def phase_kernel_times(state):
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_ms'] / k['ms']:.1%} of roofline), {k['launches']} launches on the "
             f"path, on {state['smi']}")
+    for shape_name, t in next(k for k in kernels if "shapes" in k)["shapes"].items():
+        log(f"flash_attention_merge seamless {shape_name} {t['shape']} ({t['splits']} ranges): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of roofline), max abs err "
+            f"{t['max_abs_err']:.3e}, lse err {t['lse_err']:.3e}, on {state['smi']}")
     for shape_name, t in next(k for k in kernels if "seamless" in k)["seamless"].items():
-        log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal: kernel "
+        log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal, "
+            f"{t['splits']} key ranges: kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA, no mask) "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bound_ms'] / t['ms']:.1%} of roofline), max abs err {t['max_abs_err']:.3e}, "
@@ -2035,6 +2249,7 @@ def phase_mesh_serve_encdec(state):
                                        .astype(np.int64), device="cuda")}
     ref = state.pop("encdec_ref")
     state["mesh_serve_encdec"], state["mesh_encdec_launches"] = {}, {}
+    state["mesh_encdec_merges"] = {}
     for strategy in MESH_ENCDEC_STRATEGIES:
         builder = TrainStepBuilder(model, state["mesh"], strategy=strategy)
         params = model.init(torch.Generator(device="cuda").manual_seed(16))   # the serve phase's
@@ -2061,10 +2276,12 @@ def phase_mesh_serve_encdec(state):
         peak = torch.cuda.max_memory_allocated() / 2**30
         want = (cfg.n_enc_layers + cfg.n_layers,
                 cfg.n_enc_layers + cfg.n_layers * (1 + len(ref["fed"])))
+        merges = encdec_merges(cfg, len(ref["fed"]))
         if (pre["flash_attention_sm90"], counts["flash_attention_sm90"]) != want or \
-                counts["flash_attention"] != 0:
+                counts["flash_attention"] != 0 or counts["flash_attention_merge"] != merges:
             raise AssertionError(f"the {strategy} mesh prefill launched {pre}, with the decode "
-                                 f"steps {counts}; expected {want} flash_attention_sm90")
+                                 f"steps {counts}; expected {want} flash_attention_sm90 and "
+                                 f"{merges} flash_attention_merge")
         if not all(t.to_local().is_contiguous() and t.placements == mem[0].placements
                    for t in mem):
             raise AssertionError(f"memories {[t.placements for t in mem]}")
@@ -2086,6 +2303,7 @@ def phase_mesh_serve_encdec(state):
             "no_mesh_prefill_ms": state["serve_encdec"]["prefill_ms"],
             "no_mesh_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
         state["mesh_encdec_launches"][strategy] = counts["flash_attention_sm90"]
+        state["mesh_encdec_merges"][strategy] = counts["flash_attention_merge"]
         log(f"mesh encdec serve: {cfg.name} {strategy}, {B}x{S} frames + {B}x{T0} tokens "
             f"prefill {prefill_ms:.2f} ms (first call; no mesh {r['no_mesh_prefill_ms']:.2f}, "
             f"median of 3), {pre['flash_attention_sm90']} flash_attention_sm90 launches on the "
@@ -2584,6 +2802,17 @@ def median_ms(fn, n=3):
     return sorted(ms)[n // 2], ms
 
 
+def encdec_merges(cfg, decode_steps):
+    """``flash_attention_merge`` launches of a seamless serve run over
+    ``ENCDEC_FRAMES`` frames: one for each cross-attention whose shape the
+    wrapper splits (the prefill's, then each decode step's)."""
+    def splits(name):
+        (B, Hq, Tq, D), ks = seamless_shapes(cfg)[name]
+        return split_count(B, Hq, Tq, ks[2], D, causal=False, window=None, q_offset=0,
+                           sm_count=sm_count()) > 1
+    return cfg.n_layers * (splits("cross prefill") + decode_steps * splits("cross decode"))
+
+
 def phase_serve_encdec(state):
     cfg = get_config(ENCDEC_ARCH)
     model = build_model(cfg)
@@ -2636,6 +2865,10 @@ def phase_serve_encdec(state):
                              f"times and flash_attention {counts['flash_attention']}, expected "
                              f"{want} ({cfg.n_enc_layers} + {cfg.n_layers} in the prefill, "
                              f"{cfg.n_layers} a decode step) and 0")
+    merges = encdec_merges(cfg, new - 1)
+    if counts["flash_attention_merge"] != merges or merges == 0:
+        raise AssertionError(f"flash_attention_merge launched {counts['flash_attention_merge']} "
+                             f"times, expected {merges} (a split cross-attention each)")
     new_tokens = torch.stack(out, dim=1)
     if not bool(finite) or new_tokens.shape != (B, new) or \
             not bool(((new_tokens >= 0) & (new_tokens < cfg.vocab_size)).all()):

@@ -21,22 +21,10 @@
 // score's dot and the value's multiply-add) against 2 * D bytes of q and
 // out per query and of k and v per key; at a long prompt that is far
 // above the card's ridge point, so the kernel runs both products as
-// wgmma on the bf16 tensor cores (989 TFLOP/s).
+// wgmma on the bf16 tensor cores (989 TFLOP/s).  A call with one query
+// row (a decode step's cross-attention) is bound by the bytes of k and v.
 //
-// Design (FlashAttention-3's building blocks, kept simple):
-// - One block per NC * 64 query rows of one (b, q-head): NC warpgroups of
-//   64 rows each, NC = 3 for head widths up to 128 (168 registers a
-//   thread) and 2 above (up to 255, for the wider accumulator).  Thread 0
-//   issues every TMA load: the q tiles and the first k/v tiles at the
-//   start, then each later k/v tile into the stage of the tile before
-//   last, once every warp has released that stage.  A third warpgroup of
-//   rows, rather than a producer warpgroup, makes each k/v tile serve
-//   more query rows.
-// - The block walks only the 64-key tiles that one of its rows can see
-//   (causal, window, q_offset), so a sliding window costs O(T * window), as
-//   the TPU kernel's pl.when skip makes it; a warpgroup skips the tiles
-//   none of its own rows sees, and masks only the tiles that cross a mask
-//   edge.
+// Shared by both configurations below (FlashAttention-3's building blocks):
 // - q, k and v arrive by TMA into a ring of stages in shared memory, in
 //   128-byte swizzled 64-column atoms: the head dimension is read as D
 //   columns of a 4-d tensor map (D, T, heads, batch) with the tensors' own
@@ -46,16 +34,20 @@
 //   stored.  Rows past Tq or Tk come in as zeros too.  A full mbarrier
 //   per stage says its tiles have landed, an empty one that every warp
 //   is done with them.
+// - A block walks only the key tiles that one of its rows can see (causal,
+//   window, q_offset), so a sliding window costs O(T * window), as the TPU
+//   kernel's pl.when skip makes it; tiles that cross a mask edge are masked
+//   element by element.
 // - S = q k^T is a wgmma with both operands in shared memory (K-major),
 //   accumulated in float32; the scale D^-0.5 is applied to S in float32,
 //   so q is not rounded again after scaling as it would be if the scaled
 //   q were fed to the tensor cores (the reference scales q in float32).
 // - The online softmax runs on the accumulator's registers: each thread
-//   holds two rows' 16 columns, so the row max and sum are two quad
-//   shuffles.  A probability is one FFMA and one exp2 (float32, MUFU) of
-//   the unscaled score; the reference point of the exponentials moves
-//   only when a row's max grows by more than 8 in exp2 units, so most
-//   tiles skip the accumulator's rescaling (the same softmax, with p < 256).
+//   holds two rows' columns, so the row max and sum are two quad shuffles.
+//   A probability is one FFMA and one exp2 (float32, MUFU) of the unscaled
+//   score; the reference point of the exponentials moves only when a row's
+//   max grows by more than 8 in exp2 units, so most tiles skip the
+//   accumulator's rescaling (the same softmax, with p < 256).
 // - P V is a wgmma with P from registers: the float32 accumulator of S has
 //   the register layout of the bf16 A operand, so P never goes through
 //   shared memory.  P rounded once to bf16 misses the per-element gate
@@ -63,8 +55,40 @@
 //   hi = bf16(p) and lo = bf16(p - hi), and P V is the sum of two wgmma
 //   (hi V + lo V, exact products, float32 sums): p is carried to ~2^-16
 //   relative, as close as a float32 p for the gate.
-// - Head widths up to 256 (multiples of 8): the accumulator is D / 64
-//   blocks of a 64 x 64 wgmma tile, each its own 32 registers a thread.
+//
+// Head widths above 64 (up to 256, multiples of 8; danube's 120): the first
+// design, unchanged.  One block per NC * 64 query rows of one (b, q-head),
+// NC warpgroups of 64 rows each, NC = 3 up to a width of 128 (168
+// registers a thread) and 2 above (up to 255, for the wider accumulator);
+// 64-key tiles.  Thread 0 issues every TMA load: the q tiles and the first
+// k/v tiles at the start, then each later k/v tile into the stage of the
+// tile before last, once every warp has released that stage.  A warpgroup
+// runs its products, waits, runs its softmax, and runs its next products.
+// The accumulator is D / 64 blocks of a 64 x 64 wgmma tile, each its own 32
+// registers a thread.
+//
+// Head widths up to 64 (seamless's 64): one block per NC * 64 query rows,
+// 128-key tiles (S is one m64n128k16 wgmma a 16-column step) and NC + 1
+// warpgroups: a producer whose one thread issues every TMA load into a ring
+// of five stages (it keeps 24 registers, setmaxnreg) and NC consumer
+// warpgroups of 64 rows, NC = 2 above 64 query rows and 1 up to 64 (a decode
+// step).  The two consumers take turns at the tensor cores (a named barrier
+// each): in its turn a consumer runs the previous tile's P V, then issues
+// this tile's S and passes the turn, so one consumer's softmax runs while
+// the other's products run (ping-pong).  Within a consumer the products
+// and the softmax do not overlap: ptxas compiles the consumers to the
+// launch's 168 registers a thread whatever setmaxnreg grants them at run
+// time, and S of the next tile beside this tile's two P parts and the
+// accumulator (160 registers) spilled and serialised every wgmma.
+//
+// Split keys (widths up to 64): a call with few blocks (fewer than two
+// waves, see flash_attention_sm90.py::split_count) cuts the live key span
+// into S contiguous ranges of whole 512-key chunks, and each block takes
+// one (row block, range).  It writes its range's output o_s = acc / l in
+// float32 and lse_s = m + log(l) (-inf and zeros for a row that sees no
+// key in the range) to scratch, and a second kernel of this file merges
+// them: lse = logsumexp_s lse_s, o = sum_s exp(lse_s - lse) o_s in
+// bfloat16.
 
 #include <math_constants.h>
 
@@ -73,9 +97,14 @@
 namespace {
 
 constexpr int kBM = 64;      // query rows per consumer warpgroup
-constexpr int kBN = 64;      // keys per tile
+constexpr int kBN = 64;      // keys per tile above a head width of 64
+constexpr int kSplitKeys = 512;   // a split range is a whole number of these chunks
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// ---------------------------------------------------------------------------
+// Head widths above 64: the first design, unchanged.
+// ---------------------------------------------------------------------------
 
 // DP: the head width rounded up to a multiple of 64 (the width of the tiles)
 template <int DP>
@@ -364,6 +393,488 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Head widths up to 64: a producer warpgroup, NC consumer warpgroups of 64
+// query rows, 128-key tiles, split keys.
+// ---------------------------------------------------------------------------
+
+namespace d64 {
+constexpr int kKeys = 128;                 // keys a tile
+constexpr int kQBytes = kBM * kAtom * 2;   // one consumer's q tile
+constexpr int kKVBytes = kKeys * kAtom * 2;
+constexpr int kProducerRegs = 24;
+
+// NC consumer warpgroups: 2 above 64 query rows, 1 up to 64 (a decode
+// step).  Three consumers (192 rows) were slower: at 512 threads ptxas
+// compiles them to 128 registers, and they spill.
+template <int NC>
+struct Cfg {
+  static constexpr int kNC = NC;
+  static constexpr int kRows = NC * kBM;             // query rows a block
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr int kConsumerRegs = 240;   // setmaxnreg: 128 * (24 + 2 * 240) <= 65536
+  static constexpr int kStages = 5;
+  static constexpr int kSmem =
+      1024 + NC * kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
+};
+}  // namespace d64
+
+struct D64Params {
+  void* o;
+  float* lse;        // (B, Hq, Tq) row log-sum-exp, or null: not written
+  float* o_part;     // split: (B, Hq, S, Tq, D) float32 o_s, else null
+  float* lse_part;   // split: (B, Hq, S, Tq) float32 lse_s
+  int64_t Hq, Tq, Tk, D;
+  int group;
+  int64_t window, q_offset;
+  int64_t split_lo;     // split ranges: chunks of kSplitKeys from split_lo
+  int split_chunks, splits;
+  int causal, has_window, has_softcap;
+  float softcap, scale, scale_log2;
+  float cap_scale;      // scale / softcap
+};
+
+struct TileRange {
+  int64_t begin;   // first key of the first tile
+  int n;           // tiles
+};
+
+// The TILE-key tiles that rows q0 .. rows_end - 1 can see within split
+// range s.  Range s starts at chunk floor(s * n / S) from split_lo and ends
+// where range s + 1 starts; the last range runs to the end of the keys.
+// Range bounds are multiples of 512 keys, so tiles never cross them.
+template <int TILE>
+__device__ __forceinline__ TileRange tile_range(const D64Params& p, int64_t q0, int64_t rows_end,
+                                                int s) {
+  const int64_t q_first = p.q_offset + q0;
+  const int64_t q_last = p.q_offset + rows_end - 1;
+  int64_t k_end = p.Tk;
+  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int64_t k_begin = 0;
+  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
+  k_begin = k_begin / TILE * TILE;
+  // 32-bit: the entry point holds splits * split_chunks under 2^31
+  const int64_t r_lo = p.split_lo + kSplitKeys * static_cast<int64_t>(s * p.split_chunks /
+                                                                     p.splits);
+  if (r_lo > k_begin) k_begin = r_lo;
+  if (s + 1 < p.splits) {
+    const int64_t r_hi =
+        p.split_lo + kSplitKeys * static_cast<int64_t>((s + 1) * p.split_chunks / p.splits);
+    if (r_hi < k_end) k_end = r_hi;
+  }
+  TileRange r;
+  r.begin = k_begin;
+  r.n = k_end > k_begin ? static_cast<int>((k_end - k_begin + TILE - 1) / TILE) : 0;
+  return r;
+}
+
+// One tile's online softmax on a thread's share of S = q k^T: N scores, the
+// columns 8j + c2 and 8j + c2 + 1 of rows r0 (sc[4j], sc[4j + 1]) and r0 + 8
+// (sc[4j + 2], sc[4j + 3]) for j < N / 4, a tile of 2N keys from kt; qa, qb:
+// the positions of the warpgroup's first and last rows, pos0, pos1 this
+// thread's.  Applies the softcap and the masks of a tile that crosses a mask
+// edge, moves the reference points m0, m1, turns sc into p in place and
+// updates l0, l1.  alpha0, alpha1 rescale the accumulator.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& p, int64_t kt,
+                                               int64_t qa, int64_t qb, int64_t pos0,
+                                               int64_t pos1, int c2, float f, float& m0,
+                                               float& m1, float& l0, float& l1, float& alpha0,
+                                               float& alpha1) {
+  constexpr int kTile = 2 * N;
+  const bool all_live = kt + kTile <= p.Tk && (!p.causal || kt + kTile - 1 <= qa) &&
+                        (!p.has_window || kt > qb - p.window);
+  // The softcap and the mask are uniform branches taken once a tile, not
+  // once an element (a branch an element costs more than the exponentials).
+  if (p.has_softcap) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) sc[i] = p.softcap * tanhf(sc[i] * p.cap_scale) * kLog2e;
+  }
+  if (!all_live) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int64_t kpos = kt + (i / 4) * 8 + c2 + (i & 1);
+      const int64_t qpos = (i & 2) ? pos1 : pos0;
+      const bool live = kpos < p.Tk && (!p.causal || kpos <= qpos) &&
+                        (!p.has_window || kpos > qpos - p.window);
+      sc[i] = live ? sc[i] : -CUDART_INF_F;
+    }
+  }
+  // the row max and sum in four independent chains each, so that the
+  // reductions do not wait on one long dependency chain
+  float mx[2][4] = {{m0, m0, m0, m0}, {m1, m1, m1, m1}};
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mx[(i >> 1) & 1][(i & 1) + 2 * ((i >> 2) & 1)] =
+        fmaxf(mx[(i >> 1) & 1][(i & 1) + 2 * ((i >> 2) & 1)], sc[i]);
+  float mx0 = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+  float mx1 = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+  // the four threads of a quad hold one row's columns
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  // The row max moves the reference point m of the exponentials only
+  // when it grows by more than 2^8 (in exp2 units): below that, p stays
+  // under 256 and the accumulator needs no rescaling.  A row that has
+  // seen no live key yet keeps m = -inf, alpha = 1 and p = 0.
+  const bool up0 = (mx0 - m0) * f > 8.0f;
+  const bool up1 = (mx1 - m1) * f > 8.0f;
+  alpha0 = up0 ? ex2((m0 - mx0) * f) : 1.0f;
+  alpha1 = up1 ? ex2((m1 - mx1) * f) : 1.0f;
+  if (up0) m0 = mx0;
+  if (up1) m1 = mx1;
+  const float mf0 = m0 == -CUDART_INF_F ? 0.0f : m0 * f;
+  const float mf1 = m1 == -CUDART_INF_F ? 0.0f : m1 * f;
+  float sum[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float pr = ex2(fmaf(sc[i], f, (i & 2) ? -mf1 : -mf0));
+    sc[i] = pr;
+    sum[(i >> 1) & 1][(i & 1) + 2 * ((i >> 2) & 1)] += pr;
+  }
+  l0 = l0 * alpha0 + ((sum[0][0] + sum[0][1]) + (sum[0][2] + sum[0][3]));
+  l1 = l1 * alpha1 + ((sum[1][0] + sum[1][1]) + (sum[1][2] + sum[1][3]));
+}
+
+// P = hi + lo, each bf16, in the A-operand layout: register r of the
+// 16-key step kk holds sc[8kk + 2r], sc[8kk + 2r + 1].  hi is p truncated
+// (the upper half of its bits, a byte permute), lo = bf16(p - hi), as the
+// backward kernel splits P: p is kept to ~2^-16 relative.
+template <int KK>
+__device__ __forceinline__ void split_p(const float (&sc)[8 * KK], uint32_t (&phi)[KK][4],
+                                        uint32_t (&plo)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = sc[8 * kk + 2 * r];
+      const float c = sc[8 * kk + 2 * r + 1];
+      const uint32_t ha = __float_as_uint(a) & 0xffff0000u;
+      const uint32_t hc = __float_as_uint(c) & 0xffff0000u;
+      phi[kk][r] = __byte_perm(ha, hc, 0x7632);
+      plo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha),
+                                                  c - __uint_as_float(hc)));
+    }
+}
+
+// out = acc / l for this thread's rows row0 and row0 + 8 (columns 8j + c2,
+// 8j + c2 + 1 of each 64-column block): bf16 o and the row lse, or in a
+// split this range's float32 o_s and lse_s.  A row with no live key has
+// l == 0 and comes out as zeros, its lse as -inf.
+template <int NB>
+__device__ __forceinline__ void store_rows(const D64Params& p, float (&o)[NB][32], float l0, float l1,
+                                           float m0, float m1, float f, int b, int h, int s,
+                                           int64_t row0, int c2, int lane) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // l >= 1 (the row max's own p) or 0: 1 / l by MUFU.RCP, no division's slow path
+  const float d0 = __fdividef(1.0f, l0 == 0.0f ? 1.0f : l0);
+  const float d1 = __fdividef(1.0f, l1 == 0.0f ? 1.0f : l1);
+  const int64_t row1 = row0 + 8;
+  // log-sum-exp of each row's scores: m f is in log2 units of the scaled score
+  const float lse0 = l0 == 0.0f ? -CUDART_INF_F : (m0 * f + log2f(l0)) * kLn2;
+  const float lse1 = l1 == 0.0f ? -CUDART_INF_F : (m1 * f + log2f(l1)) * kLn2;
+  const int64_t bh = static_cast<int64_t>(b) * p.Hq + h;
+  if (p.o_part == nullptr) {
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + bh * p.Tq * p.D;
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      float* lse = p.lse + bh * p.Tq;
+      if (row0 < p.Tq) lse[row0] = lse0;
+      if (row1 < p.Tq) lse[row1] = lse1;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = nb * kAtom + 8 * j + c2;   // D is even: col < D covers col + 1
+        if (col >= p.D) continue;
+        if (row0 < p.Tq)
+          *reinterpret_cast<__nv_bfloat162*>(og + row0 * p.D + col) =
+              __floats2bfloat162_rn(o[nb][4 * j] * d0, o[nb][4 * j + 1] * d0);
+        if (row1 < p.Tq)
+          *reinterpret_cast<__nv_bfloat162*>(og + row1 * p.D + col) =
+              __floats2bfloat162_rn(o[nb][4 * j + 2] * d1, o[nb][4 * j + 3] * d1);
+      }
+    return;
+  }
+  const int64_t part = (bh * p.splits + s) * p.Tq;
+  float* og = p.o_part + part * p.D;
+  if ((lane & 3) == 0) {
+    if (row0 < p.Tq) p.lse_part[part + row0] = lse0;
+    if (row1 < p.Tq) p.lse_part[part + row1] = lse1;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = nb * kAtom + 8 * j + c2;
+      if (col >= p.D) continue;
+      if (row0 < p.Tq)
+        *reinterpret_cast<float2*>(og + row0 * p.D + col) =
+            make_float2(o[nb][4 * j] * d0, o[nb][4 * j + 1] * d0);
+      if (row1 < p.Tq)
+        *reinterpret_cast<float2*>(og + row1 * p.D + col) =
+            make_float2(o[nb][4 * j + 2] * d1, o[nb][4 * j + 3] * d1);
+    }
+}
+
+// Width 64 or less, more than 64 query rows: a producer warpgroup and two
+// consumer warpgroups (see the top of the file).
+template <int NC>
+__global__ void __launch_bounds__(d64::Cfg<NC>::kThreads, 1)
+flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, const D64Params p) {
+  using namespace d64;
+  using C = d64::Cfg<NC>;
+  constexpr int kNC = C::kNC, kRows = C::kRows, kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                               // kNC q tiles
+  uint8_t* ks = qs + kNC * kQBytes;                 // kStages k tiles
+  uint8_t* vs = ks + kStages * kKVBytes;            // kStages v tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kKVBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int split = static_cast<int>(blockIdx.x % p.splits);
+  const int64_t n_rb = gridDim.x / p.splits;
+  const int64_t q0 = (n_rb - 1 - blockIdx.x / p.splits) * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.group;
+  const int64_t rows_end = q0 + kRows < p.Tq ? q0 + kRows : p.Tq;
+  const TileRange tr = tile_range<kKeys>(p, q0, rows_end, split);
+  const int n_tiles = tr.n;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kNC * 4);   // lane 0 of every consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kNC) {
+    // ---- producer: one thread keeps the ring full
+    regs_dealloc<kProducerRegs>();
+    if (tid == kNC * 128) {
+      mbar_expect_tx(qbar, kNC * kQBytes);
+      for (int c = 0; c < kNC; ++c)
+        tma_load(qs + c * kQBytes, &qmap, qbar, 0, static_cast<int>(q0 + c * kBM), h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kKVBytes);
+        const int kt = static_cast<int>(tr.begin + static_cast<int64_t>(t) * kKeys);
+        tma_load(ks + s * kKVBytes, &kmap, &full[s], 0, kt, hk, b);
+        tma_load(vs + s * kKVBytes, &vmap, &full[s], 0, kt, hk, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
+    regs_alloc<C::kConsumerRegs>();
+    const int lane = tid & 31;
+    const int warp = (tid / 32) & 3;
+    const int r0 = warp * 16 + lane / 4;
+    const int c2 = (lane & 3) * 2;
+    const int64_t wq0 = q0 + wg * kBM;
+    const int64_t qa = p.q_offset + wq0;
+    const int64_t qb = p.q_offset + (wq0 + kBM < p.Tq ? wq0 + kBM : p.Tq) - 1;
+    const int64_t pos0 = qa + r0;
+    const int64_t pos1 = pos0 + 8;
+    const uint32_t q_base = smem_u32(qs + wg * kQBytes);
+    const float f = p.has_softcap ? 1.0f : p.scale_log2;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+    float l0 = 0.0f, l1 = 0.0f;
+    float o[1][32];
+    float sc[64];
+    uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[0][i] = 0.0f;
+    // S = q k^T with the k tile in stage st; O += P_hi V + P_lo V with its v tile
+    auto issue_s = [&](int st) {
+      const uint32_t k_base = smem_u32(ks + st * kKVBytes);
+      wgmma_ss_n128_first(sc, desc(q_base), desc(k_base));
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk)
+        wgmma_ss_n128(sc, desc(q_base + kk * 32), desc(k_base + kk * 32), 1);
+    };
+    auto issue_pv = [&](int st) {
+      const uint32_t v_base = smem_u32(vs + st * kKVBytes);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dv = desc(v_base + kk * 16 * 128);
+        wgmma_rs(o[0], phi[kk], dv, 1);
+        wgmma_rs(o[0], plo[kk], dv, 1);
+      }
+    };
+    auto fence_pv = [&]() {
+      reg_fence(o[0]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        reg_fence(phi[kk]);
+        reg_fence(plo[kk]);
+      }
+    };
+    // this warp has finished reading stage st
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+    float alpha0, alpha1;
+    auto softmax = [&](int t) {
+      online_softmax(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys, qa, qb, pos0, pos1, c2,
+                     f, m0, m1, l0, l1, alpha0, alpha1);
+    };
+
+    // Ping-pong: named barrier 1 + w is consumer w's turn at the tensor
+    // cores, passed on to consumer w + 1 (mod NC).  In its turn a consumer
+    // runs the previous tile's P V, waits, issues this tile's S and passes
+    // the turn; the next consumer's products then run while this one waits
+    // for S and runs its softmax.  Every consumer takes n_tiles + 1 turns;
+    // the last one starts by passing the first turn to consumer 0 and does
+    // not pass its own last one, so every arrival is waited for.  Every
+    // wgmma is issued on a path without branches (tile 0's S alone, the
+    // last P V alone), and P V ends before S starts, so S can take the
+    // registers P leaves: the accumulator, S and the two P parts (160
+    // registers a thread) are never all live at once.
+    const int mine = 1 + wg;
+    const int other = 1 + (wg + 1) % NC;
+    mbar_wait(qbar, 0);
+    if (n_tiles > 0) {
+      if (NC > 1 && wg == NC - 1) bar_arrive(other, 2 * 128);
+      mbar_wait(&full[0], 0);
+      if (NC > 1) bar_sync(mine, 2 * 128);
+      wgmma_fence();
+      issue_s(0);
+      wgmma_commit();
+      if (NC > 1) bar_arrive(other, 2 * 128);
+      wgmma_wait_all();
+      reg_fence(sc);
+      softmax(0);
+      split_p(sc, phi, plo);
+      for (int t = 1; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const int sp = (t - 1) % kStages;   // the stage of tile t - 1
+        mbar_wait(&full[s], (t / kStages) & 1);
+        if (NC > 1) bar_sync(mine, 2 * 128);
+        fence_pv();
+        wgmma_fence();
+        issue_pv(sp);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_pv();
+        release(sp);
+        wgmma_fence();
+        issue_s(s);
+        wgmma_commit();
+        if (NC > 1) bar_arrive(other, 2 * 128);
+        wgmma_wait_all();
+        reg_fence(sc);
+        softmax(t);
+        // alpha is 1 on most tiles (the reference point moves rarely); the
+        // multiply costs less than a branch
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[0][i] *= (i & 2) ? alpha1 : alpha0;
+        split_p(sc, phi, plo);
+      }
+      const int sp = (n_tiles - 1) % kStages;
+      if (NC > 1) bar_sync(mine, 2 * 128);
+      fence_pv();
+      wgmma_fence();
+      issue_pv(sp);
+      wgmma_commit();
+      if (NC > 1 && wg != NC - 1) bar_arrive(other, 2 * 128);
+      wgmma_wait_all();
+      fence_pv();
+      release(sp);
+    }
+    store_rows(p, o, l0, l1, m0, m1, f, b, h, split, wq0 + r0, c2, lane);
+  }
+}
+
+// The split's merge: one warp a row (b, h, i), lse = logsumexp_s lse_s and
+// o = sum_s exp(lse_s - lse) o_s in float32, written in bfloat16; a row whose
+// every lse_s is -inf comes out as zeros and lse -inf.
+constexpr int kMergeWarps = 4;
+
+__global__ void __launch_bounds__(32 * kMergeWarps)
+flash_attention_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ lse_part,
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                             int64_t rows, int64_t Tq, int D, int S) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kMergeWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int64_t bh = row / Tq;
+  const int64_t i = row % Tq;
+  const float* ls = lse_part + bh * S * Tq + i;          // stride Tq over the ranges
+  const float* os = o_part + (bh * S * Tq + i) * D;      // stride Tq * D
+  float mx = -CUDART_INF_F;
+  for (int s = 0; s < S; ++s) mx = fmaxf(mx, ls[s * Tq]);
+  float total = -CUDART_INF_F;
+  if (mx != -CUDART_INF_F) {
+    float sum = 0.0f;
+    for (int s = 0; s < S; ++s) sum += expf(ls[s * Tq] - mx);
+    total = mx + logf(sum);
+  }
+  for (int col = 2 * lane; col < D; col += 64) {
+    float a0 = 0.0f, a1 = 0.0f;
+    if (total != -CUDART_INF_F) {
+      for (int s = 0; s < S; ++s) {
+        const float w = expf(ls[s * Tq] - total);
+        const float2 x = *reinterpret_cast<const float2*>(os + s * Tq * D + col);
+        a0 = fmaf(w, x.x, a0);
+        a1 = fmaf(w, x.y, a1);
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(o + row * D + col) = __floats2bfloat162_rn(a0, a1);
+  }
+  if (lse != nullptr && lane == 0) lse[row] = total;
+}
+
+int launch_merge(const float* o_part, const float* lse_part, void* o, float* lse, int64_t B,
+                 int64_t Hq, int64_t S, int64_t Tq, int64_t D, cudaStream_t stream) {
+  const int64_t rows = B * Hq * Tq;
+  const int64_t blocks = (rows + kMergeWarps - 1) / kMergeWarps;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_attention_merge_kernel<<<static_cast<unsigned>(blocks), 32 * kMergeWarps, 0, stream>>>(
+      o_part, lse_part, static_cast<__nv_bfloat16*>(o), lse, rows, Tq, static_cast<int>(D),
+      static_cast<int>(S));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int configure(Kernel kernel, int smem) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+template <int NC>
+int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+               const D64Params& p, int64_t B, cudaStream_t stream) {
+  using C = d64::Cfg<NC>;
+  static bool configured = false;   // the attribute is per kernel, set once
+  if (!configured) {
+    const int err = configure(flash_attention_d64_kernel<NC>, C::kSmem);
+    if (err != 0) return err;
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>((p.Tq + C::kRows - 1) / C::kRows * p.splits),
+                  static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  flash_attention_d64_kernel<NC><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q: (B, Hq, Tq, D), k and v: (B, Hkv, Tk, D), bfloat16, each with unit
@@ -372,9 +883,14 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 // contiguous (B, Hq, Tq, D) bfloat16.  8 <= D <= 256 with D a multiple of
 // 8, Hq a multiple of Hkv, Tk >= 1.  lse: contiguous float32 (B, Hq, Tq)
 // for each row's log-sum-exp (-inf where a row sees no key), or null.
-// Launches on `stream`; returns the cudaError_t of the launch (0 on
-// success; cudaErrorInvalidValue for arguments the kernel does not take or
-// a tensor map CUDA refuses).
+// splits: 1, or S > 1 ranges of the keys, range s starting split_lo +
+// 512 floor(s split_chunks / S) (split_chunks >= S), the last one running
+// to Tk; then o_part (B, Hq, S, Tq, D) and lse_part (B, Hq, S, Tq), both
+// contiguous float32, take each range's output, and a second launch
+// merges them into o (and lse).
+// Launches on `stream`; returns the cudaError_t of the first failed launch
+// (0 on success; cudaErrorInvalidValue for arguments the kernel does not
+// take or a tensor map CUDA refuses).
 // The caller checks shapes, types and devices.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
                                         int64_t B, int64_t Hq, int64_t Hkv, int64_t Tq,
@@ -383,31 +899,70 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         int64_t v_sb, int64_t v_sh, int64_t v_st, int causal,
                                         int has_window, int64_t window, int64_t q_offset,
                                         int has_softcap, float softcap, float scale,
-                                        void* lse, void* stream) {
+                                        void* lse, int64_t splits, int64_t split_lo,
+                                        int64_t split_chunks, void* o_part, void* lse_part,
+                                        void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
-      Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff)
+      Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff || splits < 1 || splits > 65535)
+    return static_cast<int>(bad);
+  if (splits > 1 && (o_part == nullptr || lse_part == nullptr || split_chunks < splits ||
+                     split_lo < 0 || split_lo % kSplitKeys != 0 ||
+                     splits * split_chunks > 0x7fffffff))
     return static_cast<int>(bad);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   const int64_t DP = (D + 63) / 64 * 64;
+  if (DP > 64 && splits > 1) return static_cast<int>(bad);   // split keys at D <= 64 only
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap qm, km, vm;
-  const int rows = 64;   // kBM == kBN
-  if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, rows) ||
-      !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, rows) ||
-      !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, rows))
+  const int kv_rows = DP == 64 ? d64::kKeys : kBN;
+  if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, kBM) ||
+      !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, kv_rows) ||
+      !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, kv_rows))
     return static_cast<int>(bad);
-  Params p;
+  if (DP > 64) {
+    Params p;
+    p.o = o;
+    p.lse = static_cast<float*>(lse);
+    p.Hq = Hq; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
+    p.window = window; p.q_offset = q_offset;
+    p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
+    p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
+    switch (DP) {
+      case 128: return launch<128>(qm, km, vm, p, B, s);
+      case 192: return launch<192>(qm, km, vm, p, B, s);
+      default: return launch<256>(qm, km, vm, p, B, s);
+    }
+  }
+  D64Params p;
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  p.Hq = Hq; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
+  p.o_part = splits > 1 ? static_cast<float*>(o_part) : nullptr;
+  p.lse_part = splits > 1 ? static_cast<float*>(lse_part) : nullptr;
+  p.Hq = Hq; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = static_cast<int>(Hq / Hkv);
   p.window = window; p.q_offset = q_offset;
+  p.splits = static_cast<int>(splits);
+  p.split_lo = splits > 1 ? split_lo : 0;
+  p.split_chunks = splits > 1 ? static_cast<int>(split_chunks) : 0;
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (DP) {
-    case 64: return launch<64>(qm, km, vm, p, B, s);
-    case 128: return launch<128>(qm, km, vm, p, B, s);
-    case 192: return launch<192>(qm, km, vm, p, B, s);
-    default: return launch<256>(qm, km, vm, p, B, s);
-  }
+  p.cap_scale = has_softcap ? scale / softcap : 0.0f;
+  // up to 64 query rows one consumer warpgroup a block, more two
+  const int err = Tq <= kBM ? launch_d64<1>(qm, km, vm, p, B, s) : launch_d64<2>(qm, km, vm, p, B, s);
+  if (err != 0 || splits == 1) return err;
+  return launch_merge(p.o_part, p.lse_part, o, p.lse, B, Hq, splits, Tq, D, s);
+}
+
+// The merge alone, on given partials: o_part (B, Hq, S, Tq, D) and lse_part
+// (B, Hq, S, Tq), contiguous float32, into contiguous bf16 o (B, Hq, Tq, D)
+// and, unless null, float32 lse (B, Hq, Tq).  D even, S >= 1.
+extern "C" int flash_attention_merge(const void* o_part, const void* lse_part, void* o, void* lse,
+                                     int64_t B, int64_t Hq, int64_t S, int64_t Tq, int64_t D,
+                                     void* stream) {
+  if (S < 1 || D < 2 || D % 2 != 0 || S > 0x7fffffff || D > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Hq == 0 || Tq == 0) return 0;
+  return launch_merge(static_cast<const float*>(o_part), static_cast<const float*>(lse_part), o,
+                      static_cast<float*>(lse), B, Hq, S, Tq, D,
+                      static_cast<cudaStream_t>(stream));
 }

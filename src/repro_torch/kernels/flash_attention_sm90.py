@@ -5,17 +5,31 @@ backward).
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` for
 bfloat16 q, k and v (``ops.flash_attention`` sends float32 inputs to
 ``flash_attention.py``'s kernel).  The kernel
-(``csrc/flash_attention_sm90.cu``) runs one block per 192 query rows (128
-above a head width of 128) of one (batch, query head), three (two)
-warpgroups of 64 rows: one thread keeps TMA loads of k and v tiles in
-flight while the warpgroups run q k^T and P V as ``wgmma`` on bf16 tiles,
-with P split into two bf16 parts and m, l and the accumulator in
-float32.  It walks only the live 64-key tiles.  With ``return_lse`` it
-also writes each row's log-sum-exp, which the backward reads.  Its plain
-version is ``repro_torch.kernels.ref.ref_flash_attention``.
+(``csrc/flash_attention_sm90.cu``) runs q k^T and P V as ``wgmma`` on bf16
+tiles that TMA brings into a ring in shared memory, with P split into two
+bf16 parts and m, l and the accumulator in float32, and walks only the live
+key tiles.  Above a head width of 64 a block holds 192 query rows (128
+above 128), three (two) warpgroups of 64 rows, and one thread keeps the k
+and v loads in flight.  At a width of 64 or less a block holds one
+warpgroup of 64 rows for up to 64 query rows (:func:`block_rows`), and
+otherwise 128 rows in two consumer warpgroups beside a producer warpgroup,
+over 128-key tiles, the consumers taking turns at the tensor cores so that
+one's softmax runs while the other's products run.
+With ``return_lse`` it also writes each row's log-sum-exp, which the
+backward reads.  Its plain version is
+``repro_torch.kernels.ref.ref_flash_attention``.
+
+At a width of 64 or less, a call with fewer than two waves of blocks (a
+decode step's cross-attention, a short prompt's) splits its live keys into
+ranges (:func:`split_count`, ``ref.split_ranges``): one block per (row
+block, range) writes the range's float32 output and lse, and a second
+kernel, ``flash_attention_merge.py``'s, merges them, both launched by one C
+call.  Their plain versions are ``ref.ref_flash_attention_partials`` and
+``ref.ref_merge_attention``.
 
 ``launches`` counts the kernel's launches, and nothing else; a run reads
-it to show that its path went through the kernel.
+it to show that its path went through the kernel.  A split call also adds
+one to ``flash_attention_merge.launches``.
 """
 
 from __future__ import annotations
@@ -27,10 +41,16 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_merge as _merge
+from repro_torch.kernels import ref as _ref
 
 launches = 0
+# a call splits its keys when it has fewer blocks than this many waves of
+# one block an SM, into enough ranges for about SPLIT_WAVES waves
+SPLIT_BELOW_WAVES, SPLIT_WAVES = 2, 4
 
 _fn = None
+_sm_counts = {}
 
 
 def _kernel():
@@ -40,7 +60,7 @@ def _kernel():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_float, ptr, ptr])
+                          ctypes.c_float, ctypes.c_float, ptr, i64, i64, i64, ptr, ptr, ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -71,6 +91,57 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"exceed {_fa._MAX_GRID_YZ}")
 
 
+def block_rows(Tq: int, D: int) -> int:
+    """Query rows a block of the kernel's configuration for Tq query rows of
+    head width D: at a width up to 64, 64 (one consumer warpgroup) up to 64
+    rows and 128 (two) above; above a width of 64, 192 up to 128 columns
+    and 128 above.  Every configuration runs one block an SM."""
+    if D <= 64:
+        return 64 if Tq <= 64 else 128
+    return 192 if D <= 128 else 128
+
+
+def split_count(B: int, Hq: int, Tq: int, Tk: int, D: int, *, causal: bool,
+                window: Optional[int], q_offset: int, sm_count: int) -> int:
+    """Key ranges S of a call: 1 above a head width of 64 (that
+    configuration does not split), and when its blocks (B x Hq x row
+    blocks, see :func:`block_rows`) make ``SPLIT_BELOW_WAVES`` waves of one
+    block an SM; below that enough ranges for ``SPLIT_WAVES`` waves, at
+    most one for each whole 512-key chunk of the live keys
+    (``ref.split_ranges``).  A pure function of the shape, the mask and the
+    SM count, so two calls of one shape split alike."""
+    blocks = B * Hq * -(-Tq // block_rows(Tq, D))
+    if D > 64 or blocks == 0 or blocks >= SPLIT_BELOW_WAVES * sm_count:
+        return 1
+    lo, hi = _ref.key_span(Tq, Tk, causal=causal, window=window, q_offset=q_offset)
+    chunks = (hi - lo) // _ref.SPLIT_KEYS
+    return max(1, min(-(-SPLIT_WAVES * sm_count // blocks), chunks))
+
+
+def split_plan(Tq: int, Tk: int, splits: int, *, causal: bool, window: Optional[int],
+               q_offset: int) -> Tuple[int, int]:
+    """(lo, chunks) that the kernel reads ``ref.split_ranges``'s ranges
+    from: range s starts at lo + 512 floor(s chunks / splits); (0, 0) for
+    one range.  Raises for more ranges than whole chunks."""
+    if splits < 1:
+        raise ValueError(f"flash_attention_sm90: {splits} key ranges")
+    if splits == 1:
+        return 0, 0
+    _ref.split_ranges(Tq, Tk, splits, causal=causal, window=window, q_offset=q_offset)
+    lo, hi = _ref.key_span(Tq, Tk, causal=causal, window=window, q_offset=q_offset)
+    chunks = (hi - lo) // _ref.SPLIT_KEYS
+    if splits * chunks >= 2 ** 31:     # the kernel computes range bounds in 32 bits
+        raise ValueError(f"flash_attention_sm90: {splits} ranges of {chunks} chunks")
+    return lo, chunks
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def flash_attention_sm90_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -81,11 +152,14 @@ def flash_attention_sm90_cuda(
     q_offset: int = 0,
     softcap: Optional[float] = None,
     return_lse: bool = False,
+    splits: Optional[int] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D) bfloat16 CUDA tensors, unit
     stride in D, D a multiple of 8 -> contiguous (B, Hq, Tq, D) bfloat16;
     with ``return_lse`` also each row's log-sum-exp, contiguous float32
-    (B, Hq, Tq), -inf where a row sees no key."""
+    (B, Hq, Tq), -inf where a row sees no key.  ``splits``: the key ranges
+    (default :func:`split_count`'s); more than one adds the merge's
+    launch."""
     global launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -95,17 +169,33 @@ def flash_attention_sm90_cuda(
     if k.shape[2] == 0:     # no key at all: every row is fully masked
         out.zero_()
         return (out, lse.fill_(float("-inf"))) if return_lse else out
-    fn = _kernel()
     B, Hq, Tq, D = q.shape
+    Tk = k.shape[2]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if splits is None:
+        splits = split_count(B, Hq, Tq, Tk, D, **kw, sm_count=_sm_count(q.device))
+    if splits > 1 and D > 64:
+        raise ValueError(f"flash_attention_sm90: key ranges at a head width up to 64 only, "
+                         f"got {D}")
+    lo, chunks = split_plan(Tq, Tk, splits, **kw)      # raises before any build
+    part = lse_part = None
+    if splits > 1:
+        part = torch.empty((B, Hq, splits, Tq, D), dtype=torch.float32, device=q.device)
+        lse_part = torch.empty((B, Hq, splits, Tq), dtype=torch.float32, device=q.device)
+    fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Hq, k.shape[1], Tq, k.shape[2], D,
+                 B, Hq, k.shape[1], Tq, Tk, D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window is not None), int(window or 0), int(q_offset),
                  int(softcap is not None), float(softcap or 0.0), float(D ** -0.5),
-                 lse.data_ptr() if return_lse else None, stream)
+                 lse.data_ptr() if return_lse else None, splits, lo, chunks,
+                 part.data_ptr() if part is not None else None,
+                 lse_part.data_ptr() if lse_part is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90: kernel launch failed with CUDA error {err}")
     launches += 1
+    if splits > 1:
+        _merge.launches += 1
     return (out, lse) if return_lse else out

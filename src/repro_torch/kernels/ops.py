@@ -44,6 +44,7 @@ from repro_torch.kernels import delta_mask as _dm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import flash_attention_bwd_sm90 as _fab90
+from repro_torch.kernels import flash_attention_merge as _fam
 from repro_torch.kernels import flash_attention_sm90 as _fa90
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import page_digest as _pd
@@ -51,6 +52,7 @@ from repro_torch.kernels import ref as _ref
 
 _KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
             "flash_attention": _fa, "flash_attention_sm90": _fa90,
+            "flash_attention_merge": _fam,
             "flash_attention_bwd": _fab, "flash_attention_bwd_sm90": _fab90}
 
 
@@ -254,7 +256,9 @@ def flash_attention(
     """GQA online-softmax attention, q: (B, Hq, Tq, D), k, v: (B, Hkv, Tk, D).
 
     On the card, bfloat16 q, k and v go to the tensor-core kernel
-    (``flash_attention_sm90``), which raises on what it does not take;
+    (``flash_attention_sm90``, which splits the keys of a call with few
+    blocks and merges them with ``flash_attention_merge``'s kernel), which
+    raises on what it does not take;
     any other call goes to ``flash_attention``'s kernel, which takes
     float32 only and raises on anything else.  A call that autograd
     records also keeps each row's log-sum-exp, and its gradient is

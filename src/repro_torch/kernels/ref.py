@@ -10,18 +10,24 @@ dense attention of ``models.layers`` on every device, as
 reference's blockwise (online-softmax) attention, and
 ``ref_flash_attention_backward`` the plain version of its backward kernel:
 the gradients the reference's ``jax.grad`` takes through that attention.
+``ref_flash_attention_partials`` and ``ref_merge_attention`` are the plain
+versions of the bf16 kernel's split path: each key range's output and row
+log-sum-exp, and their merge.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.hostdigest import DIGEST_SALT, digest_weights
 
 _M32 = 0xFFFFFFFF
+# a split range of the keys is a whole number of these chunks (eight of the
+# bf16 kernel's 64-key tiles, four of its 128-key ones)
+SPLIT_KEYS = 512
 # words per slice of the plain digest: bounds its int64 temporaries
 _DIGEST_SLICE_WORDS = 1 << 24
 
@@ -178,6 +184,76 @@ def ref_flash_attention(
         return out
     lse = torch.where(dead, torch.full_like(m, float("-inf")), m + torch.log(l))
     return out, lse.reshape(B, Hq, Tq)
+
+
+def key_span(Tq: int, Tk: int, *, causal: bool, window: Optional[int],
+             q_offset: int) -> Tuple[int, int]:
+    """[lo, hi): the keys that some row can see (the first row's window
+    start, rounded down to a whole ``SPLIT_KEYS`` chunk, to the last row's
+    causal end); lo == hi when no row sees a key."""
+    lo = max(0, q_offset - window + 1) if window is not None else 0
+    hi = min(Tk, q_offset + Tq) if causal else Tk
+    lo = lo // SPLIT_KEYS * SPLIT_KEYS
+    return lo, max(lo, hi)
+
+
+def split_ranges(Tq: int, Tk: int, splits: int, *, causal: bool, window: Optional[int],
+                 q_offset: int) -> List[Tuple[int, int]]:
+    """The key ranges [start, end) of a call split ``splits`` ways: the n
+    whole ``SPLIT_KEYS`` chunks of the live key span (``key_span``) go to
+    the ranges in order, range s taking chunks floor(s n / S) to
+    floor((s + 1) n / S), and the last range runs on to Tk.  Every range
+    holds at least one chunk, so ``splits`` may not exceed n.  One range is
+    the whole of the keys."""
+    if splits == 1:
+        return [(0, Tk)]
+    lo, hi = key_span(Tq, Tk, causal=causal, window=window, q_offset=q_offset)
+    n = (hi - lo) // SPLIT_KEYS
+    if not 1 <= splits <= n:
+        raise ValueError(f"{splits} key ranges of whole {SPLIT_KEYS}-key chunks: the live "
+                         f"keys [{lo}, {hi}) hold {n}")
+    starts = [lo + SPLIT_KEYS * (s * n // splits) for s in range(splits)]
+    return list(zip(starts, starts[1:] + [Tk]))
+
+
+def ref_flash_attention_partials(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    splits: int,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    softcap: Optional[float] = None,
+    chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each key range's attention, the plain version of the split kernel's
+    partials: for the ranges of ``split_ranges``, o_s (B, Hq, S, Tq, D)
+    and lse_s (B, Hq, S, Tq), both float32: ``ref_flash_attention`` over
+    the range's keys alone (at their own positions), so a row that sees
+    no key of a range has zeros and lse -inf there."""
+    outs, lses = [], []
+    for a, b in split_ranges(q.shape[2], k.shape[2], splits, causal=causal, window=window,
+                             q_offset=q_offset):
+        o, lse = ref_flash_attention(q.float(), k[:, :, a:b].float(), v[:, :, a:b].float(),
+                                     causal=causal, window=window, q_offset=q_offset - a,
+                                     softcap=softcap, chunk=chunk, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return torch.stack(outs, 2), torch.stack(lses, 2)
+
+
+def ref_merge_attention(o_s: torch.Tensor,
+                        lse_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge of key ranges' outputs, the plain version of the merge
+    kernel: lse = logsumexp_s lse_s and o = sum_s exp(lse_s - lse) o_s,
+    float32, from o_s (B, Hq, S, Tq, D) and lse_s (B, Hq, S, Tq).  A row
+    with no live key in any range comes out as zeros and lse -inf."""
+    lse = torch.logsumexp(lse_s.float(), dim=2)
+    ref = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    w = torch.exp(lse_s.float() - ref[:, :, None])
+    return (w[..., None] * o_s.float()).sum(2), lse
 
 
 def ref_flash_attention_backward(

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Times the bf16 attention kernel, ``flash_attention_sm90``, on one card.
+
+At the shapes the serving paths give it, bf16, random inputs from a seed:
+seamless-m4t-large-v2's encoder self-attention (4, 16, 32768, 64), its
+prefill's cross-attention (q (4, 16, 512, 64)) and a decode step's
+(q (4, 16, 1, 64)), both over 32768 frames, all unmasked; and
+h2o-danube3-4b's prefill attention, q (4, 32, 8192, 120) over k, v
+(4, 8, 8192, 120), causal with a 4096 window.  For each it prints one JSON
+line: the kernel's device time (CUDA events over back-to-back calls after
+a warm-up), its bound (4 D flops a live pair over the bf16 tensor-core
+rate, or q, k, v read and o written once over the memory rate, the larger),
+``scaled_dot_product_attention``'s time on the same inputs (no mask for
+seamless, PyTorch's pick of backend; for danube the window-causal boolean
+mask on the memory-efficient backend, kv heads repeated outside the
+timing), the largest difference from the first call's output to the
+plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
+and the card's name and power limit.
+
+Usage, from the root of a checkout::
+
+    python3 tools/time_flash_attention.py [--root DIR] [--reps N]
+
+``--root`` imports the port from another checkout's ``src/`` (its own
+kernels are built there), so one command can time two versions in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                help="checkout whose src/ holds the port to time (default: this one)")
+ap.add_argument("--reps", type=int, default=20, help="calls timed a shape (5 at the encoder)")
+ARGS = ap.parse_args()
+sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
+from repro_torch.kernels.ref import ref_flash_attention  # noqa: E402
+
+BF16_FLOP_PER_S, HBM_BYTES_PER_S = 989e12, 3.35e12      # H100 SXM data sheet
+# name, q shape, k/v shape, causal, window
+SHAPES = [
+    ("seamless cross decode", (4, 16, 1, 64), (4, 16, 32768, 64), False, None),
+    ("seamless cross prefill", (4, 16, 512, 64), (4, 16, 32768, 64), False, None),
+    ("seamless encoder", (4, 16, 32768, 64), (4, 16, 32768, 64), False, None),
+    ("danube prefill", (4, 32, 8192, 120), (4, 8, 8192, 120), True, 4096),
+]
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def live_pairs(Tq, Tk, causal, window):
+    pos = torch.arange(Tq, dtype=torch.int64)
+    hi = torch.minimum(pos, torch.tensor(Tk - 1)) if causal else torch.full((Tq,), Tk - 1)
+    lo = (pos - window + 1).clamp(min=0) if window is not None else torch.zeros(Tq, dtype=torch.int64)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def sdpa_ms(q, k, v, causal, window, reps):
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None and not causal:
+        return cuda_ms(lambda: sdpa(q, k, v), reps)
+    qpos = torch.arange(q.shape[2], device="cuda")[:, None]
+    kpos = torch.arange(k.shape[2], device="cuda")[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    group = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return cuda_ms(lambda: sdpa(q, ke, ve, attn_mask=mask), reps)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    build.build_all(["flash_attention_sm90"])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, qs, ks, causal, window in SHAPES:
+        q = torch.randn(qs, generator=g, device="cuda").bfloat16()
+        k = torch.randn(ks, generator=g, device="cuda").bfloat16()
+        v = torch.randn(ks, generator=g, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window)
+        reps = ARGS.reps if qs[2] < 32768 else max(1, ARGS.reps // 4)
+        err = None
+        if qs[2] * ks[2] <= 512 * 32768:
+            got = flash_attention_sm90_cuda(q, k, v, **kw)
+            err = float((got.float() - ref_flash_attention(q, k, v, **kw).float()).abs().max())
+        ms = cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, **kw), reps)
+        ops_s = 4 * qs[3] * qs[0] * qs[1] * live_pairs(qs[2], ks[2], causal, window) / BF16_FLOP_PER_S
+        bytes_s = (2 * q.numel() + k.numel() + v.numel()) * 2 / HBM_BYTES_PER_S
+        print(json.dumps({
+            "shape": name, "q": list(qs), "kv": list(ks), "root": os.path.abspath(ARGS.root),
+            "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "sdpa_ms": sdpa_ms(q, k, v, causal, window, reps), "max_abs_err": err,
+            "card": smi}), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()
