@@ -41,7 +41,10 @@ Phases (each one's failure fails the run):
    (``flash_attention_bwd_sm90``, bf16 on the tensor cores, and
    ``flash_attention_bwd``, float32 arithmetic, each on its dtype; the
    same q, k, v, the dtype's forward kernel's o and lse, a seeded do) over
-   that sweep in both dtypes and layouts and over the
+   that sweep in both dtypes and layouts, over bf16 cases at the edges of
+   the bf16 kernel's configuration for head widths up to 64 (no mask with
+   Tq and Tk off 64 and 128, GQA, causal with ``q_offset`` 100 and -40, a
+   24-key window, a softcap, one query row, D = 32; both layouts), over the
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
    2048, 64) over 8192 frames, no mask) and each rank's local shard of
@@ -50,7 +53,9 @@ Phases (each one's failure fails the run):
    the forward's output too), per gradient within 1e-4
    max|want| (float32) and 2^-7 |want| + 1e-3 max|want| (bf16), two calls
    bit-equal, fully masked rows' dq exactly 0, each forward kernel's lse
-   within 1e-4 of the plain one; and ``linear_scan``'s gradient through
+   within 1e-4 of the plain one, and the wrapper's plan of the bf16
+   kernel's blocks (``block_config``) equal to the compiled kernel's own
+   report at head widths 8 to 256; and ``linear_scan``'s gradient through
    the custom op (the reversed scan, two launches) against autograd
    through the plain loop at (4, 512, 2560) and (4, 8192, 2560) within
    1e-5;
@@ -296,7 +301,7 @@ from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
-    flash_attention_bwd_sm90_cuda)
+    block_config, flash_attention_bwd_sm90_cuda, kernel_blocks)
 from repro_torch.kernels.flash_attention_merge import flash_attention_merge_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
     flash_attention_sm90_cuda, split_count)
@@ -452,6 +457,24 @@ FLASH_SPLIT_CASES = [
     (1, 4, 1, 1, 4100, 32, False, None, 0, 25.0, 8),
     (2, 8, 2, 200, 3000, 48, False, None, 0, None, 5),
 ]
+# bf16 backward cases at the edges of the kernel's configuration for head
+# widths up to 64 (name, B, Hq, Hkv, Tq, Tk, D, mask), each with k, v
+# contiguous and strided: Tq and Tk off the 64-row tile and the 128-row
+# block, GQA, causal rows offset forward and back (rows before the first
+# key: dq exactly 0), a window inside one tile, a softcap, one query row,
+# D = 32
+FLASH_BWD_D64_CASES = [
+    ("no mask", 1, 4, 4, 200, 300, 64, dict(causal=False)),
+    ("GQA 4", 1, 8, 2, 200, 300, 64, dict(causal=False)),
+    ("causal q_offset 100", 1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=100)),
+    ("causal q_offset -40", 1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=-40)),
+    ("window 24", 1, 4, 2, 300, 300, 64, dict(causal=True, window=24)),
+    ("softcap 20", 1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=100, softcap=20.0)),
+    ("one query row", 1, 8, 2, 1, 1000, 64, dict(causal=False)),
+    ("D 32", 1, 4, 2, 200, 300, 32, dict(causal=True, q_offset=100)),
+]
+# head widths at which the bf16 backward's block plan is held to the kernel's
+BWD_BLOCK_WIDTHS = (8, 32, 64, 120, 136, 256)
 # H100 SXM data sheet (``repro_torch.launch.hlo``, the cost model's constants):
 # bf16 dense tensor-core rate (the least time of attention), HBM3 rate, and
 # the float32 rate outside the tensor cores
@@ -812,8 +835,9 @@ def flash_bwd_case(q, k, v, seed, **kw):
     ``flash_attention_bwd`` for float32) against the plain backward on the
     same q, k, v, o, lse and a seeded do, o and lse from the dtype's forward
     kernel (``return_lse``), whose lse is held to the plain forward's.  Two
-    calls must be bit-equal.  Returns (largest absolute error over the three
-    gradients, largest share of the per-gradient limit, lse error)."""
+    calls must be bit-equal, and rows that see no key must get a dq of
+    exactly 0.  Returns (largest absolute error over the three gradients,
+    largest share of the per-gradient limit, lse error, the gradients)."""
     o, lse = flash_kernel(q.dtype)(q, k, v, return_lse=True, **kw)
     _, lse_want = ref_flash_attention(q, k, v, return_lse=True, **kw)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -830,6 +854,8 @@ def flash_bwd_case(q, k, v, seed, **kw):
     lse_err = float((lse[~dead] - lse_want[~dead]).abs().max()) if bool((~dead).any()) else 0.0
     if not lse_err <= FLASH_LSE_TOL:
         raise AssertionError(f"{what}: lse max abs err {lse_err:.3e} > {FLASH_LSE_TOL}")
+    if bool(dead.any()) and bool(got[0][dead].any()):
+        raise AssertionError(f"{what}: the dq of rows that see no key is not exactly 0")
     err, share = 0.0, 0.0
     for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
         if a.shape != w.shape or a.dtype != w.dtype or not torch.isfinite(a).all():
@@ -927,6 +953,20 @@ def phase_flash_bwd_vs_plain(state):
         record(dt, err, share, lse_err, what="(1, 4, 100, 120) q_offset -40")
         if not torch.equal(dq[:, :, :40], torch.zeros_like(dq[:, :, :40])):
             raise AssertionError(f"{dt}: the dq of fully masked rows is not zero")
+    # bf16 at the edges of the configuration for head widths up to 64
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_BWD_D64_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=380 + i,
+                                       strided=strided)
+            record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=480 + i, **kw)[:3],
+                   what=f"D <= 64, {name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
+                        f"strided={strided}")
+    for D in BWD_BLOCK_WIDTHS:
+        if kernel_blocks(D) != block_config(D):
+            raise AssertionError(f"flash_attention_bwd_sm90 at D = {D}: the kernel runs "
+                                 f"{kernel_blocks(D)}, the wrapper plans {block_config(D)}")
+    log(f"  flash_attention_bwd_sm90's blocks as planned at D in {BWD_BLOCK_WIDTHS}: "
+        + "; ".join(f"{D}: {tuple(block_config(D))}" for D in BWD_BLOCK_WIDTHS))
     log(f"  backward sweep: {n} cases")
     # the training phases' shapes, in both dtypes, k and v strided as the
     # projection hands them over

@@ -39,27 +39,18 @@
 //       for the rows that pad Tq to a multiple of 64: P = exp2(x - lse2) is
 //       then exactly 0 on those rows by that test, whatever x is, so their dq
 //       is exactly 0 and they add nothing to dk and dv.
-//   (b) dkdv_kernel: one block per (64 N keys, kv head, batch), N consumer
-//       warpgroups of 64 keys: three at a head width of 64, two up to 128,
-//       one above (and there dK and dV split by columns over two blocks,
-//       each recomputing S^T and dP^T, as 255 registers cannot hold both
-//       accumulators).  Its k and v tiles stay in shared memory; thread 0
-//       streams q, do (TMA) and lse2, delta (bulk copies) of the G query
-//       heads' live 64-row query tiles through a ring of stages, refilling
-//       a stage once every warp has released it and waiting on a warp that
-//       is behind only when the next tile is not issued yet, so the
-//       warpgroups drift apart and one's products overlap another's
-//       softmax.  Per tile S^T = K Q^T and dP^T = V dO^T are wgmma with
-//       both operands in shared memory (K-major, the forward's S = Q K^T
-//       with the roles swapped); P^T and dS^T then sit in the
-//       accumulator's registers in the layout of a bf16 A operand, so
-//       dV += P^T dO and dK += dS^T Q are wgmma with A from registers and
-//       dO, Q as MN-major B tiles (the forward's P V).
-//   (c) dq_kernel: one block per (64 N query rows, query head, batch), N
-//       warpgroups of 64 rows (three up to a head width of 128, one above)
-//       holding q and do; k and v stream through the ring as in (b).
-//       S = Q K^T, dP = dO V^T (shared-memory wgmma), then dQ += dS K with
-//       dS from registers.
+//   (b) dK and dV: one block per key block of a kv head; it walks the G
+//       query heads' live 64-row query tiles, streamed through a ring of
+//       stages (q and do by TMA, lse2 and delta by bulk copies) while its k
+//       and v tiles stay in shared memory, and writes dK and dV once.  Per
+//       tile S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in
+//       shared memory (K-major, the forward's S = Q K^T with the roles
+//       swapped); P^T and dS^T then sit in the accumulator's registers in
+//       the layout of a bf16 A operand, so dV += P^T dO and dK += dS^T Q are
+//       wgmma with A from registers and dO, Q as MN-major B tiles.
+//   (c) dQ: one block per query-row block of a query head, holding q and do
+//       while k and v stream through the ring: S = Q K^T, dP = dO V^T
+//       (shared-memory wgmma), then dQ += dS K with dS from registers.
 // Both passes walk only the tiles some of their rows or keys see (causal,
 // window, q_offset) and mask only the tiles that cross a mask edge.  q, k, v
 // and do are read by TMA through 4-d (D, T, heads, batch) tensor maps over
@@ -73,6 +64,31 @@
 // relative, at the cost of one more product each (14 D' flops a pair
 // become 20 D').  The scale D^-0.5 multiplies S in float32 and dq, dk once
 // at the end.
+//
+// Head widths up to 64 (seamless's 64; namespace d64): both passes run a
+// block of a producer warp and two consumer warpgroups of 64 keys (b) or
+// 64 query rows (c), 288 threads.  The producer's one thread issues every
+// load into a ring of eight stages and is the only thread that waits for a
+// stage to empty.  The consumers take turns at the tensor cores (a named
+// barrier each): in its turn a consumer issues the previous tile's
+// gradient products and this tile's S and dP and passes the turn, so one
+// consumer's exponentials and two-part splits run while the other's
+// products run.  The softcap is a template argument and the mask a test
+// once a tile: a fully live tile's elements run without a branch, and
+// every wgmma is issued from branch-free code.  Three warps on one of the
+// SM's four register files give ptxas 168 registers a thread (an over-
+// allocation fails to launch); a block of 256 threads (255 registers, one
+// consumer thread issuing the loads without waiting) ran slower.
+//
+// Head widths above 64 (danube's 120, up to 256): the first design,
+// unchanged.  (b) has N consumer warpgroups of 64 keys, two up to a width
+// of 128 and one above (there dK and dV split by columns over two blocks,
+// each recomputing S^T and dP^T, as 255 registers cannot hold both
+// accumulators); (c) three warpgroups of 64 rows up to 128, one above.
+// Thread 0 issues the loads from inside the consumer loop, refilling a
+// stage once every warp has released it and waiting on a warp that is
+// behind only when the next tile is not issued yet, so the warpgroups
+// drift apart and one's products overlap another's softmax.
 
 #include <math_constants.h>
 
@@ -84,16 +100,18 @@ constexpr int kRows = 64;   // rows (keys or query rows) of one wgmma tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStatThreads = 256;
 
-// DP: the head width rounded up to a multiple of 64 (the width of the tiles)
+// Head widths above 64.  DP: the head width rounded up to a multiple of 64
+// (the width of the tiles), 128, 192 or 256; widths up to 64 have the
+// kernels of namespace d64 below.
 template <int DP>
 struct Cfg {
+  static_assert(DP >= 128, "widths up to 64 run the d64 kernels");
   static constexpr int kNB = DP / kAtom;               // 64-column blocks of the head
-  // consumer warpgroups a block of (b) and of (c): three where 168
-  // registers a thread hold the accumulators (a few spilled), fewer where
-  // they are wider
-  static constexpr int kNK = DP <= 64 ? 3 : (DP <= 128 ? 2 : 1);
+  // consumer warpgroups a block of (b) and of (c): fewer where the
+  // accumulators are wider
+  static constexpr int kNK = DP <= 128 ? 2 : 1;
   static constexpr int kNQ = DP <= 128 ? 3 : 1;
-  static constexpr int kStages = DP <= 64 ? 4 : (DP <= 192 ? 3 : 2);   // ring depth
+  static constexpr int kStages = DP <= 192 ? 3 : 2;   // ring depth
   static constexpr int kTile = kRows * DP * 2;         // bytes of one 64-row bf16 tile
   // dK and dV blocks a key-tile block accumulates, and the blocks a key tile
   // takes to cover the head
@@ -618,6 +636,547 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// Head widths up to 64: a producer warp and two consumer warpgroups that
+// take turns at the tensor cores.
+// ---------------------------------------------------------------------------
+
+namespace d64 {
+constexpr int kConsumers = 2;                     // consumer warpgroups a block
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 32;   // and one producer warp
+constexpr int kBlockRows = kConsumers * kRows;    // keys a (b) block, query rows a (c) block
+constexpr int kTile = kRows * kAtom * 2;          // one 64 x 64 bf16 tile
+constexpr int kStages = 8;                        // ring depth of both passes
+// (b): two k and two v tiles; a stage: q, do, 64 lse2 and 64 delta
+constexpr int kSmemKV = 1024 + 2 * kConsumers * kTile + kStages * (2 * kTile + 2 * kRows * 4) +
+                        8 * (2 * kStages + 1);
+// (c): two q and two do tiles; a stage: k, v
+constexpr int kSmemQ = 1024 + 2 * kConsumers * kTile + 2 * kStages * kTile + 8 * (2 * kStages + 1);
+static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
+
+// this configuration's own, so that the wider kernels compile from their
+// unchanged Params (launch_d64 fills it from theirs)
+struct Params {
+  const float* lse2;         // (B, Hq, Tq_pad): lse in log2 units, +inf on dead rows
+  const float* delta;        // (B, Hq, Tq_pad)
+  __nv_bfloat16* dq;         // contiguous (B, Hq, Tq, D)
+  __nv_bfloat16* dk;         // contiguous (B, Hkv, Tk, D)
+  __nv_bfloat16* dv;
+  int64_t Tq, Tk, Tq_pad, D, window, q_offset;
+  int Hq, Hkv, group;
+  int causal, has_window;
+  float scale, scale_log2;
+  float cap_scale, cap_log2;   // softcap: scale / c and c log2(e)
+};
+
+// d = A B^T over the 64 columns of the head, A and B 64-row K-major tiles;
+// d an output only
+__device__ __forceinline__ void gemm_ss64(float (&d)[32], uint32_t a, uint32_t b) {
+  wgmma_ss_first(d, desc(a), desc(b));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) wgmma_ss(d, desc(a + kk * 32), desc(b + kk * 32), 1);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_parts(uint32_t (&x)[4][N]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) reg_fence(x[kk]);
+}
+
+// p = exp(s' - lse) and ds = p (dp - delta) (times the softcap's
+// derivative) from the raw score s, in place
+template <bool CAP>
+__device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2, float delta,
+                                          const Params& p) {
+  if (CAP) {
+    const float t = tanhf(s * p.cap_scale);
+    const float pr = ex2(fmaf(t, p.cap_log2, -lse2));
+    dp = pr * (dp - delta) * (1.0f - t * t);
+    s = pr;
+  } else {
+    const float pr = ex2(fmaf(s, p.scale_log2, -lse2));
+    dp = pr * (dp - delta);
+    s = pr;
+  }
+}
+
+__device__ __forceinline__ bool live(const Params& p, int64_t qpos, int64_t kpos) {
+  return kpos < p.Tk && (!p.causal || kpos <= qpos) && (!p.has_window || kpos > qpos - p.window);
+}
+
+// (b) one tile: S^T and dP^T (keys r0, r0 + 8 by query columns 8 j + c2,
+// + 1) to P^T and dS^T in place; lse2, delta: the tile's 64 rows.  A tile
+// that crosses a mask edge (edge) zeroes the dead pairs: qa is the tile's
+// first query position, k0 this thread's first key.
+template <bool CAP>
+__device__ __forceinline__ void kv_probs(float (&st)[32], float (&dpt)[32], const float* lse2,
+                                         const float* delta, int c2, const Params& p, bool edge,
+                                         int64_t qa, int64_t k0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + c2);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      grad_elem<CAP>(st[4 * j + e], dpt[4 * j + e], (e & 1) ? l.y : l.x, (e & 1) ? dl.y : dl.x, p);
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool on = live(p, qa + (i / 4) * 8 + c2 + (i & 1), k0 + ((i & 2) ? 8 : 0));
+      st[i] = on ? st[i] : 0.0f;
+      dpt[i] = on ? dpt[i] : 0.0f;
+    }
+  }
+}
+
+// (c) one tile: S and dP (rows r0, r0 + 8 by keys 8 j + c2, + 1) to dS in
+// sc; pos0, pos1: the two rows' positions, kt the tile's first key
+template <bool CAP>
+__device__ __forceinline__ void q_probs(float (&sc)[32], float (&dp)[32], float l0, float l1,
+                                        float d0, float d1, int c2, const Params& p, bool edge,
+                                        int64_t pos0, int64_t pos1, int64_t kt) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    grad_elem<CAP>(sc[i], dp[i], (i & 2) ? l1 : l0, (i & 2) ? d1 : d0, p);
+    sc[i] = dp[i];
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (!live(p, (i & 2) ? pos1 : pos0, kt + (i / 4) * 8 + c2 + (i & 1))) sc[i] = 0.0f;
+  }
+}
+
+// (b) dK and dV of 128 keys of one kv head: consumer warpgroup w holds keys
+// kt + 64 w ... + 63
+template <bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+            const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;                               // kConsumers k tiles
+  uint8_t* vs = ks + kConsumers * kTile;            // kConsumers v tiles
+  uint8_t* qs = vs + kConsumers * kTile;            // kStages q tiles
+  uint8_t* dos = qs + kStages * kTile;              // kStages do tiles
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * kTile);   // kStages x 64
+  float* delta_s = lse_s + kStages * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kStages * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* kbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int64_t kt = static_cast<int64_t>(blockIdx.x) * kBlockRows;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+
+  // the 64-row query tiles that see one of keys [kt, k_last]: the same for
+  // every query head of the group
+  const int64_t k_last = (kt + kBlockRows < p.Tk ? kt + kBlockRows : p.Tk) - 1;
+  int64_t i_lo = 0, i_hi = p.Tq;
+  if (p.causal && kt - p.q_offset > i_lo) i_lo = kt - p.q_offset;
+  if (p.has_window && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
+  i_lo &= ~static_cast<int64_t>(kRows - 1);
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - i_lo + kRows - 1) / kRows) : 0;
+  const int n_iter = p.group * n_qt;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);   // lane 0 of every consumer warp
+    }
+    mbar_init(kbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
+  auto issue = [&](int t) {
+    const int s = t % kStages;
+    const int h = hk * p.group + t / n_qt;
+    const int64_t q0 = i_lo + static_cast<int64_t>(t % n_qt) * kRows;
+    mbar_expect_tx(&full[s], 2 * kTile + 2 * kRows * 4);
+    tma_load(qs + s * kTile, &qmap, &full[s], 0, static_cast<int>(q0), h, b);
+    tma_load(dos + s * kTile, &domap, &full[s], 0, static_cast<int>(q0), h, b);
+    const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
+    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
+    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
+  };
+  auto load_kv = [&]() {
+    mbar_expect_tx(kbar, 2 * kConsumers * kTile);
+    for (int c = 0; c < kConsumers; ++c) {
+      tma_load(ks + c * kTile, &kmap, kbar, 0, static_cast<int>(kt + c * kRows), hk, b);
+      tma_load(vs + c * kTile, &vmap, kbar, 0, static_cast<int>(kt + c * kRows), hk, b);
+    }
+  };
+  if (wg == kConsumers) {
+    // ---- producer: one thread streams the query tiles of every query head
+    // of the group through the ring
+    if (tid == kConsumerThreads) {
+      load_kv();
+      for (int t = 0; t < n_iter; ++t) {
+        if (t >= kStages) mbar_wait(&empty[t % kStages], ((t / kStages) - 1) & 1);
+        issue(t);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: keys kw ... kw + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's keys: kw + r0 and kw + r0 + 8
+  const int c2 = (lane & 3) * 2;           // and query columns 8j + c2, 8j + c2 + 1
+  const int64_t kw = kt + wg * kRows;
+  const uint32_t q_s0 = smem_u32(qs);
+  const uint32_t do_s0 = smem_u32(dos);
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  float st[32], dpt[32];
+  uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];   // P^T and dS^T in two bf16 parts
+  const uint32_t k_base = smem_u32(ks + wg * kTile);
+  const uint32_t v_base = smem_u32(vs + wg * kTile);
+  mbar_wait(kbar, 0);
+
+  // S^T = K Q^T and dP^T = V dO^T of the tile in stage s
+  auto issue_s = [&](int s) {
+    gemm_ss64(st, k_base, q_s0 + s * kTile);
+    gemm_ss64(dpt, v_base, do_s0 + s * kTile);
+  };
+  // dV += P^T dO, dK += dS^T Q of the tile in stage s
+  auto issue_grad = [&](int s) {
+    gemm_rs(dv, ph, pl, do_s0 + s * kTile, 0);
+    gemm_rs(dk, sh, sl, q_s0 + s * kTile, 0);
+  };
+  auto fence_grad = [&]() {
+    reg_fence(dv);
+    reg_fence(dk);
+    fence_parts(ph);
+    fence_parts(pl);
+    fence_parts(sh);
+    fence_parts(sl);
+  };
+  // this warp has finished reading stage s
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  // P^T and dS^T of the tile in stage s, query tile qt, in two bf16 parts
+  auto probs = [&](int s, int qt) {
+    reg_fence(st);
+    reg_fence(dpt);
+    const int64_t q0 = i_lo + static_cast<int64_t>(qt) * kRows;
+    const int64_t qa = p.q_offset + q0;                                          // first row
+    const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;  // last row
+    const bool edge = !(kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
+                        (!p.has_window || kw > qb - p.window));
+    kv_probs<CAP>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa, kw + r0);
+    to_a(st, ph, pl);
+    to_a(dpt, sh, sl);
+  };
+
+  // Ping-pong: named barrier 1 + w is consumer w's turn at the tensor
+  // cores, passed on to the other consumer.  In its turn a consumer runs
+  // the previous tile's dV and dK, waits for them, issues this tile's S^T
+  // and dP^T and passes the turn; the other consumer's products then run
+  // while this one waits for its own and turns S^T, dP^T into P^T, dS^T.
+  // (dV and dK of one tile in flight beside S^T and dP^T of the next need
+  // 192 registers for the operands alone, over the 168 ptxas gives a
+  // thread here, and spilled.)  Every consumer takes n_iter + 1 turns;
+  // consumer 1 starts by passing the first turn to consumer 0 and does not
+  // pass its own last one, so every arrival is waited for.  Every wgmma is
+  // issued from branch-free code (tile 0's S^T alone, the last dV and dK
+  // alone).  A tile none of a consumer's pairs sees runs as a masked tile:
+  // its P and dS are zero.
+  const int mine = 1 + wg;
+  const int other = 1 + (wg ^ 1);
+  if (n_iter > 0) {
+    if (wg == kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    mbar_wait(&full[0], 0);
+    bar_sync(mine, kConsumerThreads);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    probs(0, 0);
+    int qt = 0;
+    for (int t = 1; t < n_iter; ++t) {
+      const int s = t % kStages;
+      const int sp = (t - 1) % kStages;   // the stage of tile t - 1
+      if (++qt == n_qt) qt = 0;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      bar_sync(mine, kConsumerThreads);
+      fence_grad();
+      wgmma_fence();
+      issue_grad(sp);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_grad();
+      release(sp);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_commit();
+      bar_arrive(other, kConsumerThreads);
+      wgmma_wait_all();
+      probs(s, qt);
+    }
+    const int sp = (n_iter - 1) % kStages;
+    bar_sync(mine, kConsumerThreads);
+    fence_grad();
+    wgmma_fence();
+    issue_grad(sp);
+    wgmma_commit();
+    if (wg != kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    fence_grad();
+    release(sp);
+  }
+
+  const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
+  store_rows(p.dk + off, dk, 0, c2, kw + r0, p.Tk, p.D, p.scale);
+  store_rows(p.dv + off, dv, 0, c2, kw + r0, p.Tk, p.D, 1.0f);
+}
+
+// (c) dQ of 128 query rows of one query head: consumer warpgroup w holds
+// rows q0 + 64 w ... + 63
+template <bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+          const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                               // kConsumers q tiles
+  uint8_t* dos = qs + kConsumers * kTile;           // kConsumers do tiles
+  uint8_t* ks = dos + kConsumers * kTile;           // kStages k tiles
+  uint8_t* vs = ks + kStages * kTile;               // kStages v tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  // the last query rows see the most keys: start them first
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.group;
+
+  // the 64-key tiles that any row of this block can see
+  const int64_t rows_end = q0 + kBlockRows < p.Tq ? q0 + kBlockRows : p.Tq;
+  const int64_t q_first = p.q_offset + q0;
+  const int64_t q_last = p.q_offset + rows_end - 1;
+  int64_t k_end = p.Tk;
+  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int64_t k_begin = 0;
+  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
+  k_begin &= ~static_cast<int64_t>(kRows - 1);
+  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + kRows - 1) / kRows) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int t) {
+    const int s = t % kStages;
+    const int k0 = static_cast<int>(k_begin + static_cast<int64_t>(t) * kRows);
+    mbar_expect_tx(&full[s], 2 * kTile);
+    tma_load(ks + s * kTile, &kmap, &full[s], 0, k0, hk, b);
+    tma_load(vs + s * kTile, &vmap, &full[s], 0, k0, hk, b);
+  };
+  auto load_q = [&]() {
+    mbar_expect_tx(qbar, 2 * kConsumers * kTile);
+    for (int c = 0; c < kConsumers; ++c) {
+      tma_load(qs + c * kTile, &qmap, qbar, 0, static_cast<int>(q0 + c * kRows), h, b);
+      tma_load(dos + c * kTile, &domap, qbar, 0, static_cast<int>(q0 + c * kRows), h, b);
+    }
+  };
+  if (wg == kConsumers) {
+    // ---- producer: one thread streams the key tiles through the ring
+    if (tid == kConsumerThreads) {
+      load_q();
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t >= kStages) mbar_wait(&empty[t % kStages], ((t / kStages) - 1) & 1);
+        issue(t);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: query rows wq0 ... wq0 + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's rows: r0 and r0 + 8
+  const int c2 = (lane & 3) * 2;           // and keys 8j + c2, 8j + c2 + 1
+  const int64_t wq0 = q0 + wg * kRows;
+  const int64_t qa = p.q_offset + wq0;
+  const int64_t qb = p.q_offset + (wq0 + kRows < p.Tq ? wq0 + kRows : p.Tq) - 1;
+  const int64_t pos0 = qa + r0;
+  const int64_t pos1 = pos0 + 8;
+  const int64_t srow = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + wq0 + r0;
+  const bool in0 = wq0 + r0 < p.Tq_pad, in1 = wq0 + r0 + 8 < p.Tq_pad;
+  const float l2_0 = in0 ? p.lse2[srow] : CUDART_INF_F;
+  const float l2_1 = in1 ? p.lse2[srow + 8] : CUDART_INF_F;
+  const float dl0 = in0 ? p.delta[srow] : 0.0f;
+  const float dl1 = in1 ? p.delta[srow + 8] : 0.0f;
+  const uint32_t k_s0 = smem_u32(ks);
+  const uint32_t v_s0 = smem_u32(vs);
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  float sc[32], dp[32];
+  uint32_t dh[4][4], dl[4][4];   // dS in two bf16 parts
+  const uint32_t q_base = smem_u32(qs + wg * kTile);
+  const uint32_t do_base = smem_u32(dos + wg * kTile);
+  mbar_wait(qbar, 0);
+
+  // S = Q K^T and dP = dO V^T of the tile in stage s
+  auto issue_s = [&](int s) {
+    gemm_ss64(sc, q_base, k_s0 + s * kTile);
+    gemm_ss64(dp, do_base, v_s0 + s * kTile);
+  };
+  // dQ += dS K of the tile in stage s
+  auto issue_grad = [&](int s) { gemm_rs(dq, dh, dl, k_s0 + s * kTile, 0); };
+  auto fence_grad = [&]() {
+    reg_fence(dq);
+    fence_parts(dh);
+    fence_parts(dl);
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  auto probs = [&](int t) {
+    reg_fence(sc);
+    reg_fence(dp);
+    const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
+    const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
+                        (!p.has_window || kt > qb - p.window));
+    q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt);
+    to_a(sc, dh, dl);
+  };
+
+  // the turns of dkdv_kernel, over key tiles; here the previous tile's dQ
+  // and this tile's S and dP are issued together (dS in two parts, S, dP
+  // and dQ: 128 registers)
+  const int mine = 1 + wg;
+  const int other = 1 + (wg ^ 1);
+  if (n_tiles > 0) {
+    if (wg == kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    mbar_wait(&full[0], 0);
+    bar_sync(mine, kConsumerThreads);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    probs(0);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int sp = (t - 1) % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      bar_sync(mine, kConsumerThreads);
+      fence_grad();
+      wgmma_fence();
+      issue_grad(sp);
+      issue_s(s);
+      wgmma_commit();
+      bar_arrive(other, kConsumerThreads);
+      wgmma_wait_all();
+      fence_grad();
+      release(sp);
+      probs(t);
+    }
+    const int sp = (n_tiles - 1) % kStages;
+    bar_sync(mine, kConsumerThreads);
+    fence_grad();
+    wgmma_fence();
+    issue_grad(sp);
+    wgmma_commit();
+    if (wg != kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    fence_grad();
+    release(sp);
+  }
+
+  __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
+  store_rows(dqg, dq, 0, c2, wq0 + r0, p.Tq, p.D, p.scale);
+}
+
+template <bool CAP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
+  static bool configured = false;   // the attributes are per kernel, set once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<CAP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(dq_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid_kv(static_cast<unsigned>((p.Tk + kBlockRows - 1) / kBlockRows),
+                     static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
+  dkdv_kernel<CAP><<<grid_kv, kThreads, kSmemKV, stream>>>(qm, km, vm, dom, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((p.Tq + kBlockRows - 1) / kBlockRows),
+                    static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace d64
+
+// the D <= 64 kernels, their Params filled from the wide one's
+int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                const CUtensorMap& dom, const Params& w, int64_t B, cudaStream_t stream) {
+  d64::Params p;
+  p.lse2 = w.lse2;
+  p.delta = w.delta;
+  p.dq = w.dq;
+  p.dk = w.dk;
+  p.dv = w.dv;
+  p.Tq = w.Tq; p.Tk = w.Tk; p.Tq_pad = w.Tq_pad; p.D = w.D;
+  p.window = w.window; p.q_offset = w.q_offset;
+  p.Hq = static_cast<int>(w.Hq); p.Hkv = static_cast<int>(w.Hkv);
+  p.group = static_cast<int>(w.group);
+  p.causal = w.causal; p.has_window = w.has_window;
+  p.scale = w.scale; p.scale_log2 = w.scale_log2;
+  p.cap_scale = w.has_softcap ? w.scale / w.softcap : 0.0f;
+  p.cap_log2 = w.softcap * kLog2e;
+  return w.has_softcap ? d64::launch<true>(qm, km, vm, dom, p, B, stream)
+                       : d64::launch<false>(qm, km, vm, dom, p, B, stream);
+}
+
+int blocks(int64_t* out, int64_t keys, int64_t splits, int64_t kv_threads, int64_t rows,
+           int64_t q_threads) {
+  const int64_t v[8] = {keys, splits, kv_threads, rows, q_threads, kRows, kRows, kRows};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+template <int DP>
+int wide_blocks(int64_t* out) {
+  using C = Cfg<DP>;
+  return blocks(out, C::kNK * kRows, C::kSplits, 128 * C::kNK, C::kNQ * kRows, 128 * C::kNQ);
+}
+
 }  // namespace
 
 // q, o, dout: (B, Hq, Tq, D), k and v: (B, Hkv, Tk, D), bfloat16, each with
@@ -672,9 +1231,25 @@ extern "C" int flash_attention_bwd_sm90(
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (DP) {
-    case 64: return launch<64>(qm, km, vm, dom, p, B, s);
+    case 64: return launch_d64(qm, km, vm, dom, p, B, s);
     case 128: return launch<128>(qm, km, vm, dom, p, B, s);
     case 192: return launch<192>(qm, km, vm, dom, p, B, s);
     default: return launch<256>(qm, km, vm, dom, p, B, s);
+  }
+}
+
+// The blocks of both passes at head width D (8 <= D <= 256), which the
+// wrapper mirrors (flash_attention_bwd_sm90.py::block_config): out[0..7] =
+// keys a dK/dV block, the blocks that split one key block's columns,
+// threads a dK/dV block, query rows a dQ block, threads a dQ block, query
+// rows a tile of the dK/dV pass, keys a tile of the dQ pass, and the rows
+// the scratch pads Tq to.  Returns cudaErrorInvalidValue for another D.
+extern "C" int flash_attention_bwd_sm90_blocks(int64_t D, int64_t* out) {
+  if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 63) / 64 * 64) {
+    case 64: return blocks(out, d64::kBlockRows, 1, d64::kThreads, d64::kBlockRows, d64::kThreads);
+    case 128: return wide_blocks<128>(out);
+    case 192: return wide_blocks<192>(out);
+    default: return wide_blocks<256>(out);
   }
 }

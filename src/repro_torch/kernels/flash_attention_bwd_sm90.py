@@ -7,15 +7,21 @@ only, and the reference trains through ``models/layers.py::
 _blockwise_attention``, whose gradient ``jax.grad`` takes.  This is that
 gradient on the card for bfloat16 q, k, v, o and do.  The kernel
 (``csrc/flash_attention_bwd_sm90.cu``) runs three launches: ``delta =
-rowsum(do * o)`` with the row lse in log2 units; one block per key tile
-of a kv head (64 keys a warpgroup) that walks the query heads and tiles
-seeing its keys and writes dK and dV once; one block per row tile of a
-query head (64 rows a warpgroup) that walks the live key tiles and
-writes dQ once.  Each recomputes S and dP, and every
-product (S, dP, dV, dK, dQ) is a ``wgmma`` on bf16 tiles that TMA loads,
-with float32 sums.  No atomics: two calls on one input give bit-equal
-gradients.  Its plain version is
+rowsum(do * o)`` with the row lse in log2 units; one block per key block
+of a kv head that walks the query heads and 64-row tiles seeing its keys
+and writes dK and dV once; one block per query-row block of a query head
+that walks the live 64-key tiles and writes dQ once.  Each recomputes S
+and dP, and every product (S, dP, dV, dK, dQ) is a ``wgmma`` on bf16
+tiles that TMA loads, with float32 sums.  No atomics: two calls on one
+input give bit-equal gradients.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention_backward``.
+
+At a head width up to 64 (seamless's) each block is a producer warp that
+issues every load and two consumer warpgroups of 64 keys or rows that take
+turns at the tensor cores, so one's elementwise work runs while the other's
+products run; above 64 (danube's 120) the wider configuration's blocks of
+two or three warpgroups.  :func:`block_config` gives both, as the kernel's
+``flash_attention_bwd_sm90_blocks`` reports them (:func:`kernel_blocks`).
 
 ``launches`` counts the wrapper's calls that launch the kernel (one a
 backward, its three launches together), and nothing else; a run reads it
@@ -25,7 +31,7 @@ to show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +43,51 @@ launches = 0
 _fn = None
 
 _ROWS = 64   # the kernel's tile rows: the scratch pads Tq to a multiple of it
+
+
+class Blocks(NamedTuple):
+    """The kernel's blocks at one head width (``csrc/flash_attention_bwd_sm90.cu``,
+    ``flash_attention_bwd_sm90_blocks``)."""
+    kv_keys: int      # keys a dK/dV block
+    kv_splits: int    # blocks that split one key block's dK, dV columns
+    kv_threads: int
+    q_rows: int       # query rows a dQ block
+    q_threads: int
+    q_tile: int       # query rows a tile of the dK/dV pass
+    k_tile: int       # keys a tile of the dQ pass
+    pad: int          # the scratch pads Tq to a multiple of this
+
+
+def block_config(D: int) -> Blocks:
+    """The blocks the kernel runs at head width ``D``: up to 64 a producer
+    warp and two consumer warpgroups of 64 keys or rows (288 threads); above,
+    the wider configuration's 64-row warpgroups, two (dK, dV) and three (dQ)
+    up to 128, one above, where two blocks split a key block's columns."""
+    if not 8 <= D <= 256 or D % 8:
+        raise ValueError(f"flash_attention_bwd_sm90: head width {D} is not a multiple of 8 "
+                         f"in [8, 256]")
+    if D <= 64:
+        return Blocks(128, 1, 288, 128, 288, _ROWS, _ROWS, _ROWS)
+    if D <= 128:
+        return Blocks(128, 1, 256, 192, 384, _ROWS, _ROWS, _ROWS)
+    return Blocks(64, 2, 128, 64, 128, _ROWS, _ROWS, _ROWS)
+
+
+def stats_shape(B: int, Hq: int, Tq: int, D: int) -> Tuple[int, int, int, int]:
+    """The float32 scratch of lse2 and delta: (2, B, Hq, Tq padded)."""
+    pad = block_config(D).pad
+    return (2, B, Hq, -(-Tq // pad) * pad)
+
+
+def kernel_blocks(D: int) -> Blocks:
+    """The compiled kernel's own blocks at head width ``D`` (builds the
+    library: on the card only), to hold :func:`block_config` to."""
+    fn = build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int64, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int64 * len(Blocks._fields))()
+    if fn(D, ctypes.addressof(out)) != 0:
+        raise ValueError(f"flash_attention_bwd_sm90: head width {D} is not taken")
+    return Blocks(*out)
 
 
 def _kernel():
@@ -114,8 +165,7 @@ def flash_attention_bwd_sm90_cuda(
         return dq, dk.zero_(), dv.zero_()
     fn = _kernel()
     B, Hq, Tq, D = q.shape
-    tq_pad = -(-Tq // _ROWS) * _ROWS
-    stats = torch.empty((2, B, Hq, tq_pad), dtype=torch.float32, device=q.device)
+    stats = torch.empty(stats_shape(B, Hq, Tq, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),

@@ -418,3 +418,36 @@ def test_sm90_backward_wrapper_rejects_bad_inputs_before_building(case, no_build
     with pytest.raises((ValueError, TypeError)):
         no_build_sm90.flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do)
     assert no_build_sm90.launches == before
+
+
+# --------------------------------------- the tensor-core backward's blocks
+_D64 = (128, 1, 288, 128, 288, 64, 64, 64)     # a producer warp, two consumer warpgroups
+_D128 = (128, 1, 256, 192, 384, 64, 64, 64)    # danube's 120 reads as 128
+_WIDE = (64, 2, 128, 64, 128, 64, 64, 64)      # 192 and 256: two blocks split dK, dV
+
+
+@pytest.mark.parametrize("shape,blocks,stats", [
+    ((2, 16, 8192, 64), _D64, (2, 2, 16, 8192)),       # seamless's encoder
+    ((2, 16, 2048, 64), _D64, (2, 2, 16, 2048)),       # its cross-attention's queries
+    ((1, 8, 200, 32), _D64, (2, 1, 8, 256)),
+    ((1, 8, 1, 8), _D64, (2, 1, 8, 64)),
+    ((1, 32, 8192, 120), _D128, (2, 1, 32, 8192)),     # danube's
+    ((1, 4, 100, 136), _WIDE, (2, 1, 4, 128)),
+    ((2, 8, 130, 256), _WIDE, (2, 2, 8, 192)),
+])
+def test_backward_blocks_follow_the_kernels_configurations(shape, blocks, stats):
+    """The wrapper's plan of the bf16 backward's blocks (``chip_smoke.py``
+    holds ``block_config`` to the compiled kernel's own report on the card):
+    keys and rows a block, threads, tile widths, and the scratch it
+    allocates for q of ``shape`` (B, Hq, Tq, D)."""
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+    B, Hq, Tq, D = shape
+    assert tuple(tfab90.block_config(D)) == blocks
+    assert tfab90.stats_shape(B, Hq, Tq, D) == stats
+
+
+@pytest.mark.parametrize("D", [0, 12, 264])
+def test_backward_blocks_refuse_widths_the_kernel_does_not_take(D):
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+    with pytest.raises(ValueError):
+        tfab90.block_config(D)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the bf16 attention kernel, ``flash_attention_sm90``, on one card.
+"""Times the bf16 attention kernels, ``flash_attention_sm90`` and its backward, on one card.
 
 At the shapes the serving paths give it, bf16, random inputs from a seed:
 seamless-m4t-large-v2's encoder self-attention (4, 16, 32768, 64), its
@@ -17,9 +17,22 @@ timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
 and the card's name and power limit.
 
+The backward, ``flash_attention_bwd_sm90``, at the training phases' three
+shapes: seamless-m4t-large-v2's encoder (2, 16, 8192, 64) and its
+cross-attention, q (2, 16, 2048, 64) over 8192 frames, unmasked, and
+h2o-danube3-4b's (1, 32, 8192, 120) over (1, 8, 8192, 120), causal with a
+4096 window.  Each line gives its device time (the forward's o and lse as
+input, a seeded do), its bound (10 D flops a live pair, S recomputed, over
+the bf16 tensor-core rate, or q, k, v, o, do and lse read and the three
+gradients written once over the memory rate, the larger), and the time of
+``scaled_dot_product_attention``'s backward on the same inputs and mask
+(``chip_smoke.py::sdpa_bwd_ms``'s rule: no mask on PyTorch's pick of
+backend, else the boolean mask on the memory-efficient backend, kv heads
+repeated outside the timing).
+
 Usage, from the root of a checkout::
 
-    python3 tools/time_flash_attention.py [--root DIR] [--reps N]
+    python3 tools/time_flash_attention.py [--root DIR] [--reps N] [--what all|forward|backward]
 
 ``--root`` imports the port from another checkout's ``src/`` (its own
 kernels are built there), so one command can time two versions in turns.
@@ -37,12 +50,16 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                 help="checkout whose src/ holds the port to time (default: this one)")
 ap.add_argument("--reps", type=int, default=20, help="calls timed a shape (5 at the encoder)")
+ap.add_argument("--what", choices=("all", "forward", "backward"), default="all",
+                help="which kernels to time")
 ARGS = ap.parse_args()
 sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
 
 import torch  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
+    flash_attention_bwd_sm90_cuda)
 from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
 from repro_torch.kernels.ref import ref_flash_attention  # noqa: E402
 
@@ -53,6 +70,11 @@ SHAPES = [
     ("seamless cross prefill", (4, 16, 512, 64), (4, 16, 32768, 64), False, None),
     ("seamless encoder", (4, 16, 32768, 64), (4, 16, 32768, 64), False, None),
     ("danube prefill", (4, 32, 8192, 120), (4, 8, 8192, 120), True, 4096),
+]
+BWD_SHAPES = [
+    ("seamless encoder backward", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
+    ("seamless cross backward", (2, 16, 2048, 64), (2, 16, 8192, 64), False, None),
+    ("danube train backward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
 ]
 
 
@@ -89,13 +111,59 @@ def sdpa_ms(q, k, v, causal, window, reps):
         return cuda_ms(lambda: sdpa(q, ke, ve, attn_mask=mask), reps)
 
 
+def sdpa_bwd_ms(q, k, v, do, causal, window, reps):
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = q.shape[1] // k.shape[1]
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)))
+    mask, backends = None, [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    if causal or window is not None:
+        qpos = torch.arange(q.shape[2], device="cuda")[:, None]
+        kpos = torch.arange(k.shape[2], device="cuda")[None, :]
+        mask = kpos <= qpos if causal else torch.ones_like(kpos > qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        backends = [SDPBackend.EFFICIENT_ATTENTION]
+    with sdpa_kernel(backends):
+        out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+        return cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True),
+                       reps)
+
+
+def time_backward(g, smi):
+    for name, qs, ks, causal, window in BWD_SHAPES:
+        q = torch.randn(qs, generator=g, device="cuda").bfloat16()
+        k = torch.randn(ks, generator=g, device="cuda").bfloat16()
+        v = torch.randn(ks, generator=g, device="cuda").bfloat16()
+        do = torch.randn(qs, generator=g, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_sm90_cuda(q, k, v, return_lse=True, **kw)
+        reps = max(1, ARGS.reps // 4)
+        ms = cuda_ms(lambda: flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do, **kw), reps)
+        pairs = qs[0] * qs[1] * live_pairs(qs[2], ks[2], causal, window)
+        ops_s = 10 * qs[3] * pairs / BF16_FLOP_PER_S
+        bytes_s = ((4 * q.numel() + 4 * k.numel()) * 2 + 4 * lse.numel()) / HBM_BYTES_PER_S
+        print(json.dumps({
+            "shape": name, "q": list(qs), "kv": list(ks), "root": os.path.abspath(ARGS.root),
+            "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps), "card": smi}),
+            flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    build.build_all(["flash_attention_sm90"])
+    build.build_all(["flash_attention_sm90", "flash_attention_bwd_sm90"])
     g = torch.Generator(device="cuda").manual_seed(0)
+    if ARGS.what != "forward":
+        time_backward(g, smi)
+    if ARGS.what == "backward":
+        return
     for name, qs, ks, causal, window in SHAPES:
         q = torch.randn(qs, generator=g, device="cuda").bfloat16()
         k = torch.randn(ks, generator=g, device="cuda").bfloat16()
