@@ -44,7 +44,12 @@ Phases (each one's failure fails the run):
    that sweep in both dtypes and layouts, over bf16 cases at the edges of
    the bf16 kernel's configuration for head widths up to 64 (no mask with
    Tq and Tk off 64 and 128, GQA, causal with ``q_offset`` 100 and -40, a
-   24-key window, a softcap, one query row, D = 32; both layouts), over the
+   24-key window, a softcap, one query row, D = 32; both layouts), over
+   bf16 cases of both bf16 kernels' configuration for head widths 65-128
+   (D = 72, 96, 120, 128 with causal, ``q_offset`` 100 and -40, windows,
+   softcaps, no mask, one query row, Tq and Tk off 64 and 128, GQA groups
+   1 and 4) and one at 136 (the first design; both layouts, the forward's
+   output too), over the
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
    2048, 64) over 8192 frames, no mask) and each rank's local shard of
@@ -53,9 +58,9 @@ Phases (each one's failure fails the run):
    the forward's output too), per gradient within 1e-4
    max|want| (float32) and 2^-7 |want| + 1e-3 max|want| (bf16), two calls
    bit-equal, fully masked rows' dq exactly 0, each forward kernel's lse
-   within 1e-4 of the plain one, and the wrapper's plan of the bf16
-   kernel's blocks (``block_config``) equal to the compiled kernel's own
-   report at head widths 8 to 256; and ``linear_scan``'s gradient through
+   within 1e-4 of the plain one, and the wrappers' plans of the bf16
+   kernels' blocks (``block_config``, ``block_rows``) equal to the compiled
+   kernels' own reports at head widths 8 to 256; and ``linear_scan``'s gradient through
    the custom op (the reversed scan, two launches) against autograd
    through the plain loop at (4, 512, 2560) and (4, 8192, 2560) within
    1e-5;
@@ -304,7 +309,7 @@ from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     block_config, flash_attention_bwd_sm90_cuda, kernel_blocks)
 from repro_torch.kernels.flash_attention_merge import flash_attention_merge_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
-    flash_attention_sm90_cuda, split_count)
+    block_rows, flash_attention_sm90_cuda, kernel_rows, split_count)
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
@@ -473,8 +478,28 @@ FLASH_BWD_D64_CASES = [
     ("one query row", 1, 8, 2, 1, 1000, 64, dict(causal=False)),
     ("D 32", 1, 4, 2, 200, 300, 32, dict(causal=True, q_offset=100)),
 ]
-# head widths at which the bf16 backward's block plan is held to the kernel's
-BWD_BLOCK_WIDTHS = (8, 32, 64, 120, 136, 256)
+# bf16 cases of the kernels for head widths 65-128 (name, B, Hq, Hkv, Tq,
+# Tk, D, mask), forward and backward, each with k, v contiguous and strided:
+# D = 72, 96, 120 and 128 (columns past D read as zeros), Tq and Tk off the
+# 64- and 128-row tiles, GQA groups 1 and 4, causal rows offset forward and
+# back (rows before the first key: zeros, dq exactly 0), windows inside and
+# across tiles, softcaps, one query row; and one case at 136, the first
+# design's configuration
+FLASH_D128_CASES = [
+    ("D 72 causal q_offset 100, G 1", 1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
+    ("D 96 window 24, G 4", 1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
+    ("D 120 softcap 20", 1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=100, softcap=20.0)),
+    ("D 128 no mask", 2, 4, 4, 130, 333, 128, dict(causal=False)),
+    ("D 120 causal q_offset -40", 1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=-40)),
+    ("D 128 window 100 softcap 30", 1, 8, 2, 321, 1500, 128,
+     dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
+    ("D 96 one query row", 1, 8, 2, 1, 1000, 96, dict(causal=False)),
+    ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
+]
+# head widths at which the bf16 backward's block plan, and the forward's
+# rows a block at these query counts, are held to the kernels' own
+BWD_BLOCK_WIDTHS = (8, 32, 64, 72, 96, 120, 128, 136, 256)
+FWD_ROWS_TQ = (1, 64, 65, 8192)
 # H100 SXM data sheet (``repro_torch.launch.hlo``, the cost model's constants):
 # bf16 dense tensor-core rate (the least time of attention), HBM3 rate, and
 # the float32 rate outside the tensor cores
@@ -781,6 +806,25 @@ def phase_flash_vs_plain(state):
                 f"non-causal strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
             del q, k, v
             torch.cuda.empty_cache()
+    # bf16 at the edges of the configuration for head widths 65-128, and
+    # the wrapper's rows a block against the compiled kernel's
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=290 + i,
+                                       strided=strided)
+            err, share = flash_case(q, k, v, **kw)
+            worst[torch.bfloat16], n = max(worst[torch.bfloat16], err), n + 1
+            worst_share = max(worst_share, share)
+            log(f"  flash_attention_sm90 {name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
+                f"strided={strided}: max abs err {err:.3e}, bf16 limit share {share:.3f}")
+    for D in BWD_BLOCK_WIDTHS:
+        for Tq in FWD_ROWS_TQ:
+            if kernel_rows(Tq, D) != block_rows(Tq, D):
+                raise AssertionError(f"flash_attention_sm90 at Tq = {Tq}, D = {D}: the kernel "
+                                     f"holds {kernel_rows(Tq, D)} rows a block, the wrapper "
+                                     f"plans {block_rows(Tq, D)}")
+    log(f"  flash_attention_sm90's rows a block as planned at D in {BWD_BLOCK_WIDTHS}, Tq in "
+        f"{FWD_ROWS_TQ}")
     # the split path (key ranges, then the merge kernel): seamless's two
     # cross-attentions at the wrapper's own split, the head width 64
     # configurations, forced splits with ranges and rows that see no key;
@@ -961,6 +1005,13 @@ def phase_flash_bwd_vs_plain(state):
             record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=480 + i, **kw)[:3],
                    what=f"D <= 64, {name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
                         f"strided={strided}")
+    # bf16 at the edges of the configuration for head widths 65-128
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=390 + i,
+                                       strided=strided)
+            record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=490 + i, **kw)[:3],
+                   what=f"{name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} strided={strided}")
     for D in BWD_BLOCK_WIDTHS:
         if kernel_blocks(D) != block_config(D):
             raise AssertionError(f"flash_attention_bwd_sm90 at D = {D}: the kernel runs "
@@ -1876,6 +1927,10 @@ def phase_kernel_times(state):
         }
         if share is not None:
             row["bf16_limit_share"] = max(share, state["flash_bf16_share"])
+            row["kernels_by_width"] = {
+                "8-64": "flash_attention_d64_kernel<1 or 2 consumers>",
+                "65-128": "flash_attention_d128_kernel<softcap>",
+                "136-256": "flash_attention_sm90_kernel<192 or 256>"}
         kernels.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -1964,6 +2019,11 @@ def phase_kernel_times(state):
                            f"over {HBM_BYTES_PER_S:.3g} B/s (H100 SXM HBM3)",
             "train_shapes": shapes,
         })
+        if dtype == torch.bfloat16:
+            kernels[-1]["kernels_by_width"] = {
+                "8-64": "stats_kernel, d64::dkdv_kernel<softcap>, d64::dq_kernel<softcap>",
+                "65-128": "stats_kernel, d128::dkdv_kernel<softcap>, d128::dq_kernel<softcap>",
+                "136-256": "stats_kernel, dkdv_kernel<192 or 256>, dq_kernel<192 or 256>"}
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
@@ -1991,12 +2051,13 @@ def phase_kernel_times(state):
             f"SDPA's); forward {t['forward_ms']:.4f} ms, with lse {t['forward_lse_ms']:.4f} ms; "
             f"max abs err {t['max_abs_err']:.3e}, {t['limit_share']:.3f} of the limit; "
             f"on {state['smi']}")
-    # the forward kernels against their times before they wrote the lse
-    # (PERF.md's kernel table: 5.6412 ms bf16, 47.27 ms float32, danube shape)
-    for name, before in (("flash_attention_sm90", 5.6412), ("flash_attention", 47.27)):
+    # the forward kernels against PERF.md's kernel table before the kernels
+    # for head widths 65-128 (the first design's 5.7025 ms bf16; 48.09 ms
+    # float32, unchanged), danube shape
+    for name, before in (("flash_attention_sm90", 5.7025), ("flash_attention", 48.09)):
         k = next(k for k in kernels if k["name"] == name)
         log(f"{name} at the danube serving shape: {k['ms']:.4f} ms ({k['ms'] / before:.3f} x "
-            f"{before} ms before the lse output), with lse {k['lse_ms']:.4f} ms")
+            f"{before} ms in PERF.md's table before), with lse {k['lse_ms']:.4f} ms")
     k = kernels[0]
     log(f"linear_scan {k['long_shape']} float32: kernel {k['long_ms']:.4f} ms, plain "
         f"{k['long_plain_ms']:.4f} ms, bound {k['long_bound_ms']:.4f} ms "

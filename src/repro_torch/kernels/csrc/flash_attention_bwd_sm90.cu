@@ -80,15 +80,27 @@
 // allocation fails to launch); a block of 256 threads (255 registers, one
 // consumer thread issuing the loads without waiting) ran slower.
 //
-// Head widths above 64 (danube's 120, up to 256): the first design,
-// unchanged.  (b) has N consumer warpgroups of 64 keys, two up to a width
-// of 128 and one above (there dK and dV split by columns over two blocks,
-// each recomputing S^T and dP^T, as 255 registers cannot hold both
-// accumulators); (c) three warpgroups of 64 rows up to 128, one above.
-// Thread 0 issues the loads from inside the consumer loop, refilling a
-// stage once every warp has released it and waiting on a warp that is
-// behind only when the next tile is not issued yet, so the warpgroups
-// drift apart and one's products overlap another's softmax.
+// Head widths 65-128 (danube's 120; namespace d128): the turns of the D <=
+// 64 kernels over tiles of the head's two 64-column atoms, the softcap a
+// template argument, the mask a test once a tile.  (c) is a producer
+// warpgroup, whose one thread issues every load into a ring of five stages
+// and alone waits for stages to empty, and two consumer warpgroups of 64
+// query rows; a consumer runs the previous tile's dQ, waits, then issues
+// this tile's S and dP.  (b) is two consumer warpgroups of 64 keys and no
+// producer: their dK and dV take 128 registers a thread, and with a
+// producer warpgroup (384 threads) ptxas plans the wgmma pipeline for 168
+// registers a thread whatever setmaxnreg grants, and serialised every wgmma
+// and spilled (its "C7512 ... insufficient register resources"); at 256
+// threads it has 255.  There thread 0 issues the loads after passing its
+// warpgroup's turn, and waits for a stage to empty only for the tile its
+// warpgroup needs next, which the turns have released by then.
+//
+// Head widths 136-256: the first design, unchanged.  (b) has one consumer
+// warpgroup of 64 keys, whose dK and dV split by columns over two blocks
+// (each recomputing S^T and dP^T, as 255 registers cannot hold both
+// accumulators); (c) one warpgroup of 64 rows.  Thread 0 issues the loads
+// from inside the consumer loop, refilling a stage once every warp has
+// released it.
 
 #include <math_constants.h>
 
@@ -100,22 +112,21 @@ constexpr int kRows = 64;   // rows (keys or query rows) of one wgmma tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStatThreads = 256;
 
-// Head widths above 64.  DP: the head width rounded up to a multiple of 64
-// (the width of the tiles), 128, 192 or 256; widths up to 64 have the
-// kernels of namespace d64 below.
+// Head widths above 128.  DP: the head width rounded up to a multiple of 64
+// (the width of the tiles), 192 or 256; widths up to 128 have the kernels
+// of namespaces d64 and d128 below.
 template <int DP>
 struct Cfg {
-  static_assert(DP >= 128, "widths up to 64 run the d64 kernels");
+  static_assert(DP >= 192, "widths up to 128 run the d64 and d128 kernels");
   static constexpr int kNB = DP / kAtom;               // 64-column blocks of the head
-  // consumer warpgroups a block of (b) and of (c): fewer where the
-  // accumulators are wider
-  static constexpr int kNK = DP <= 128 ? 2 : 1;
-  static constexpr int kNQ = DP <= 128 ? 3 : 1;
+  // consumer warpgroups a block of (b) and of (c)
+  static constexpr int kNK = 1;
+  static constexpr int kNQ = 1;
   static constexpr int kStages = DP <= 192 ? 3 : 2;   // ring depth
   static constexpr int kTile = kRows * DP * 2;         // bytes of one 64-row bf16 tile
   // dK and dV blocks a key-tile block accumulates, and the blocks a key tile
   // takes to cover the head
-  static constexpr int kNBo = DP <= 128 ? kNB : 2;
+  static constexpr int kNBo = 2;
   static constexpr int kSplits = (kNB + kNBo - 1) / kNBo;
   // (b): kNK k and v tiles; a stage: q, do, 64 lse2 and 64 delta
   static constexpr int kSmemKV =
@@ -657,7 +668,7 @@ constexpr int kSmemQ = 1024 + 2 * kConsumers * kTile + 2 * kStages * kTile + 8 *
 static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
 
 // this configuration's own, so that the wider kernels compile from their
-// unchanged Params (launch_d64 fills it from theirs)
+// unchanged Params (narrow fills it from theirs); the d128 kernels take it too
 struct Params {
   const float* lse2;         // (B, Hq, Tq_pad): lse in log2 units, +inf on dead rows
   const float* delta;        // (B, Hq, Tq_pad)
@@ -1143,9 +1154,485 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 
 }  // namespace d64
 
-// the D <= 64 kernels, their Params filled from the wide one's
-int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-                const CUtensorMap& dom, const Params& w, int64_t B, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// Head widths 65-128 (danube's 120): two consumer warpgroups that take turns
+// at the tensor cores, the turns of the D <= 64 kernels over tiles of the
+// head's two 64-column atoms; (c) beside a producer warpgroup.
+// ---------------------------------------------------------------------------
+
+namespace d128 {
+using d64::Params;   // the D <= 64 kernels' own, filled alike (narrow below)
+constexpr int kConsumers = 2;                     // consumer warpgroups a block
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 128;  // (c): and one producer warpgroup
+constexpr int kBlockRows = kConsumers * kRows;    // keys a (b) block, query rows a (c) block
+constexpr int kNB = 2;                            // 64-column atoms of the head
+constexpr int kTile = kRows * kNB * kAtom * 2;    // one 64 x 128 bf16 tile, atom nb at 8 KB nb
+// setmaxnreg in (c): the producer gives up registers so that each consumer
+// thread holds 240; 24 + 2 x 240 is the 3 x 168 a thread the launch allocates
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kStagesKV = 4;                      // ring depth of (b): q, do, lse2, delta
+constexpr int kStagesQ = 5;                       // ring depth of (c): k, v
+// (b): two k and two v tiles; a stage: q, do, 64 lse2 and 64 delta
+constexpr int kSmemKV = 1024 + 2 * kConsumers * kTile +
+                        kStagesKV * (2 * kTile + 2 * kRows * 4) + 8 * (2 * kStagesKV + 1);
+// (c): two q and two do tiles; a stage: k, v
+constexpr int kSmemQ = 1024 + 2 * kConsumers * kTile + 2 * kStagesQ * kTile + 8 * (2 * kStagesQ + 1);
+static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
+
+// d = A B^T over the head's 128 columns, A and B 64-row K-major tiles of
+// two atoms; d an output only
+__device__ __forceinline__ void gemm_ss128(float (&d)[32], uint32_t a, uint32_t b) {
+  a = opaque(a);
+  b = opaque(b);
+  wgmma_ss_first(d, desc(a), desc(b));
+#pragma unroll
+  for (int kk = 1; kk < 8; ++kk) {
+    const uint32_t off = (kk / 4) * kRows * 128 + (kk % 4) * 32;
+    wgmma_ss(d, desc(a + off), desc(b + off), 1);
+  }
+}
+
+// (b) dK and dV of 128 keys of one kv head: consumer warpgroup w holds keys
+// kt + 64 w ... + 63, its dK and dV (64 x 128 float32 each) in 128
+// registers a thread.  No producer: with one, ptxas plans the wgmma
+// pipeline for the 168 registers a thread of 384 (whatever setmaxnreg
+// grants), and the two accumulators beside the parts do not fit it, so it
+// serialised every wgmma and spilled.  Thread 0 issues the loads, without
+// holding its warpgroup's turn and without waiting on the other warpgroup
+// (refill below).
+template <bool CAP>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+            const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;                               // kConsumers k tiles
+  uint8_t* vs = ks + kConsumers * kTile;            // kConsumers v tiles
+  uint8_t* qs = vs + kConsumers * kTile;            // kStagesKV q tiles
+  uint8_t* dos = qs + kStagesKV * kTile;            // kStagesKV do tiles
+  float* lse_s = reinterpret_cast<float*>(dos + kStagesKV * kTile);   // kStagesKV x 64
+  float* delta_s = lse_s + kStagesKV * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kStagesKV * kRows);
+  uint64_t* empty = full + kStagesKV;
+  uint64_t* kbar = empty + kStagesKV;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int64_t kt = static_cast<int64_t>(blockIdx.x) * kBlockRows;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+
+  // the 64-row query tiles that see one of keys [kt, k_last]: the same for
+  // every query head of the group
+  const int64_t k_last = (kt + kBlockRows < p.Tk ? kt + kBlockRows : p.Tk) - 1;
+  int64_t i_lo = 0, i_hi = p.Tq;
+  if (p.causal && kt - p.q_offset > i_lo) i_lo = kt - p.q_offset;
+  if (p.has_window && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
+  i_lo &= ~static_cast<int64_t>(kRows - 1);
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - i_lo + kRows - 1) / kRows) : 0;
+  const int n_iter = p.group * n_qt;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStagesKV; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);   // lane 0 of every consumer warp
+    }
+    mbar_init(kbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
+  auto issue = [&](int t) {
+    const int s = t % kStagesKV;
+    const int h = hk * p.group + t / n_qt;
+    const int q0 = static_cast<int>(i_lo) + (t % n_qt) * kRows;
+    mbar_expect_tx(&full[s], 2 * kTile + 2 * kRows * 4);
+    for (int nb = 0; nb < kNB; ++nb) {
+      tma_load(qs + s * kTile + nb * kRows * 128, &qmap, &full[s], nb * kAtom, q0, h, b);
+      tma_load(dos + s * kTile + nb * kRows * 128, &domap, &full[s], nb * kAtom, q0, h, b);
+    }
+    const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
+    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
+    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
+  };
+  int next = kStagesKV < n_iter ? kStagesKV : n_iter;   // thread 0: the next tile to issue
+  if (tid == 0) {
+    mbar_expect_tx(kbar, 2 * kConsumers * kTile);
+    for (int c = 0; c < kConsumers; ++c)
+      for (int nb = 0; nb < kNB; ++nb) {
+        const int k0 = static_cast<int>(kt + c * kRows);
+        tma_load(ks + c * kTile + nb * kRows * 128, &kmap, kbar, nb * kAtom, k0, hk, b);
+        tma_load(vs + c * kTile + nb * kRows * 128, &vmap, kbar, nb * kAtom, k0, hk, b);
+      }
+    for (int t = 0; t < next; ++t) issue(t);
+  }
+  // thread 0: issue every later tile whose stage both warpgroups have
+  // released, waiting only for the stage of tile `need` (the next one its
+  // warpgroup waits for).  The warpgroups take turns, one at most a tile
+  // ahead, so that stage (of tile need - 4) is free by then: the wait never
+  // holds in practice, and is there so that no order of events can hang.
+  auto refill = [&](int need) {
+    if (tid != 0) return;
+    for (; next < n_iter; ++next) {
+      const int prev = next - kStagesKV;   // the last tile in next's stage
+      uint64_t* bar = &empty[prev % kStagesKV];
+      const uint32_t ph = (prev / kStagesKV) & 1;
+      if (!mbar_test(bar, ph)) {
+        if (next > need) break;
+        mbar_wait(bar, ph);
+      }
+      issue(next);
+    }
+  };
+
+  // ---- consumer warpgroup wg: keys kw ... kw + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's keys: kw + r0 and kw + r0 + 8
+  const int c2 = (lane & 3) * 2;           // and query columns 8j + c2, 8j + c2 + 1
+  const int64_t kw = kt + wg * kRows;
+  const uint32_t q_s0 = smem_u32(qs);
+  const uint32_t do_s0 = smem_u32(dos);
+
+  float dk[kNB][32], dv[kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.0f;
+  float st[32], dpt[32];
+  uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];   // P^T and dS^T in two bf16 parts
+  const uint32_t k_base = smem_u32(ks + wg * kTile);
+  const uint32_t v_base = smem_u32(vs + wg * kTile);
+  mbar_wait(kbar, 0);
+
+  // S^T = K Q^T and dP^T = V dO^T of the tile in stage s
+  auto issue_s = [&](int s) {
+    gemm_ss128(st, k_base, q_s0 + s * kTile);
+    gemm_ss128(dpt, v_base, do_s0 + s * kTile);
+  };
+  // dV += P^T dO, dK += dS^T Q of the tile in stage s, atom by atom
+  auto issue_grad = [&](int s) {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) gemm_rs(dv[nb], ph, pl, do_s0 + s * kTile, nb);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) gemm_rs(dk[nb], sh, sl, q_s0 + s * kTile, nb);
+  };
+  auto fence_grad = [&]() {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      reg_fence(dv[nb]);
+      reg_fence(dk[nb]);
+    }
+    d64::fence_parts(ph);
+    d64::fence_parts(pl);
+    d64::fence_parts(sh);
+    d64::fence_parts(sl);
+  };
+  // this warp has finished reading stage s
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  // P^T and dS^T of the tile in stage s, query tile qt, in two bf16 parts
+  auto probs = [&](int s, int qt) {
+    reg_fence(st);
+    reg_fence(dpt);
+    const int64_t q0 = i_lo + static_cast<int64_t>(qt) * kRows;
+    const int64_t qa = p.q_offset + q0;                                          // first row
+    const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;  // last row
+    const bool edge = !(kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
+                        (!p.has_window || kw > qb - p.window));
+    d64::kv_probs<CAP>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa,
+                       kw + r0);
+    to_a(st, ph, pl);
+    to_a(dpt, sh, sl);
+  };
+
+  // The turns of d64::dkdv_kernel: in its turn a consumer runs the previous
+  // tile's dV and dK, waits for them, issues this tile's S^T and dP^T and
+  // passes the turn.  (The two accumulators, S^T, dP^T and the previous
+  // tile's parts together would be 256 registers.)
+  const int mine = 1 + wg;
+  const int other = 1 + (wg ^ 1);
+  if (n_iter > 0) {
+    if (wg == kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    mbar_wait(&full[0], 0);
+    bar_sync(mine, kConsumerThreads);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    bar_arrive(other, kConsumerThreads);
+    refill(1);
+    __syncwarp();
+    wgmma_wait_all();
+    probs(0, 0);
+    int qt = 0, s = 0, sp = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (int t = 1; t < n_iter; ++t) {
+      sp = s;                                 // the stage of tile t - 1
+      if (++s == kStagesKV) { s = 0; phase ^= 1; }
+      if (++qt == n_qt) qt = 0;
+      mbar_wait(&full[s], phase);
+      bar_sync(mine, kConsumerThreads);
+      fence_grad();
+      wgmma_fence();
+      issue_grad(sp);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_grad();
+      release(sp);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_commit();
+      bar_arrive(other, kConsumerThreads);
+      refill(t + 1);
+      __syncwarp();
+      wgmma_wait_all();
+      probs(s, qt);
+    }
+    bar_sync(mine, kConsumerThreads);
+    fence_grad();
+    wgmma_fence();
+    issue_grad(s);
+    wgmma_commit();
+    if (wg != kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    fence_grad();
+    release(s);
+  }
+
+  const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+    store_rows(p.dk + off, dk[nb], nb, c2, kw + r0, p.Tk, p.D, p.scale);
+    store_rows(p.dv + off, dv[nb], nb, c2, kw + r0, p.Tk, p.D, 1.0f);
+  }
+}
+
+// (c) dQ of 128 query rows of one query head: consumer warpgroup w holds
+// rows q0 + 64 w ... + 63
+template <bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+          const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                               // kConsumers q tiles
+  uint8_t* dos = qs + kConsumers * kTile;           // kConsumers do tiles
+  uint8_t* ks = dos + kConsumers * kTile;           // kStagesQ k tiles
+  uint8_t* vs = ks + kStagesQ * kTile;              // kStagesQ v tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStagesQ * kTile);
+  uint64_t* empty = full + kStagesQ;
+  uint64_t* qbar = empty + kStagesQ;
+
+  const int tid = threadIdx.x;
+  // the role of this thread's warpgroup, the same in every lane
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // the last query rows see the most keys: start them first
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.group;
+
+  // the 64-key tiles that any row of this block can see
+  const int64_t rows_end = q0 + kBlockRows < p.Tq ? q0 + kBlockRows : p.Tq;
+  const int64_t q_first = p.q_offset + q0;
+  const int64_t q_last = p.q_offset + rows_end - 1;
+  int64_t k_end = p.Tk;
+  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int64_t k_begin = 0;
+  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
+  k_begin &= ~static_cast<int64_t>(kRows - 1);
+  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + kRows - 1) / kRows) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStagesQ; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread streams the key tiles through the ring
+    regs_dealloc<kProducerRegs>();
+    if (tid == kConsumerThreads) {
+      mbar_expect_tx(qbar, 2 * kConsumers * kTile);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int nb = 0; nb < kNB; ++nb) {
+          const int r = static_cast<int>(q0 + c * kRows);
+          tma_load(qs + c * kTile + nb * kRows * 128, &qmap, qbar, nb * kAtom, r, h, b);
+          tma_load(dos + c * kTile + nb * kRows * 128, &domap, qbar, nb * kAtom, r, h, b);
+        }
+      int s = 0;
+      uint32_t phase = 0;
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t >= kStagesQ) mbar_wait(&empty[s], phase ^ 1);
+        const int k0 = static_cast<int>(k_begin) + t * kRows;
+        mbar_expect_tx(&full[s], 2 * kTile);
+        for (int nb = 0; nb < kNB; ++nb) {
+          tma_load(ks + s * kTile + nb * kRows * 128, &kmap, &full[s], nb * kAtom, k0, hk, b);
+          tma_load(vs + s * kTile + nb * kRows * 128, &vmap, &full[s], nb * kAtom, k0, hk, b);
+        }
+        if (++s == kStagesQ) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+  regs_alloc<kConsumerRegs>();
+
+  // ---- consumer warpgroup wg: query rows wq0 ... wq0 + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's rows: r0 and r0 + 8
+  const int c2 = (lane & 3) * 2;           // and keys 8j + c2, 8j + c2 + 1
+  const int64_t wq0 = q0 + wg * kRows;
+  const int64_t qa = p.q_offset + wq0;
+  const int64_t qb = p.q_offset + (wq0 + kRows < p.Tq ? wq0 + kRows : p.Tq) - 1;
+  const int64_t pos0 = qa + r0;
+  const int64_t pos1 = pos0 + 8;
+  const int64_t srow = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + wq0 + r0;
+  const bool in0 = wq0 + r0 < p.Tq_pad, in1 = wq0 + r0 + 8 < p.Tq_pad;
+  const float l2_0 = in0 ? p.lse2[srow] : CUDART_INF_F;
+  const float l2_1 = in1 ? p.lse2[srow + 8] : CUDART_INF_F;
+  const float dl0 = in0 ? p.delta[srow] : 0.0f;
+  const float dl1 = in1 ? p.delta[srow + 8] : 0.0f;
+  const uint32_t k_s0 = smem_u32(ks);
+  const uint32_t v_s0 = smem_u32(vs);
+
+  float dq[kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[nb][i] = 0.0f;
+  float sc[32], dp[32];
+  uint32_t dh[4][4], dl[4][4];   // dS in two bf16 parts
+  const uint32_t q_base = smem_u32(qs + wg * kTile);
+  const uint32_t do_base = smem_u32(dos + wg * kTile);
+  mbar_wait(qbar, 0);
+
+  // S = Q K^T and dP = dO V^T of the tile in stage s
+  auto issue_s = [&](int s) {
+    gemm_ss128(sc, q_base, k_s0 + s * kTile);
+    gemm_ss128(dp, do_base, v_s0 + s * kTile);
+  };
+  // dQ += dS K of the tile in stage s, atom by atom
+  auto issue_grad = [&](int s) {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) gemm_rs(dq[nb], dh, dl, k_s0 + s * kTile, nb);
+  };
+  auto fence_grad = [&]() {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) reg_fence(dq[nb]);
+    d64::fence_parts(dh);
+    d64::fence_parts(dl);
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  auto probs = [&](int t) {
+    reg_fence(sc);
+    reg_fence(dp);
+    const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
+    const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
+                        (!p.has_window || kt > qb - p.window));
+    d64::q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt);
+    to_a(sc, dh, dl);
+  };
+
+  // the turns of dkdv_kernel, over key tiles: the previous tile's dQ, a
+  // wait, then this tile's S and dP (issued together, the accumulator, the
+  // previous dS in two parts, S and dP would be 160 registers in flight,
+  // over what ptxas plans the wgmma pipeline for at 384 threads)
+  const int mine = 1 + wg;
+  const int other = 1 + (wg ^ 1);
+  if (n_tiles > 0) {
+    if (wg == kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    mbar_wait(&full[0], 0);
+    bar_sync(mine, kConsumerThreads);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    probs(0);
+    int s = 0, sp = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (int t = 1; t < n_tiles; ++t) {
+      sp = s;
+      if (++s == kStagesQ) { s = 0; phase ^= 1; }
+      mbar_wait(&full[s], phase);
+      bar_sync(mine, kConsumerThreads);
+      fence_grad();
+      wgmma_fence();
+      issue_grad(sp);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_grad();
+      release(sp);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_commit();
+      bar_arrive(other, kConsumerThreads);
+      wgmma_wait_all();
+      probs(t);
+    }
+    bar_sync(mine, kConsumerThreads);
+    fence_grad();
+    wgmma_fence();
+    issue_grad(s);
+    wgmma_commit();
+    if (wg != kConsumers - 1) bar_arrive(other, kConsumerThreads);
+    wgmma_wait_all();
+    fence_grad();
+    release(s);
+  }
+
+  __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) store_rows(dqg, dq[nb], nb, c2, wq0 + r0, p.Tq, p.D, p.scale);
+}
+
+// (the kernels' names qualified: d64::Params would bring d64's in by
+// argument-dependent lookup)
+template <bool CAP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
+  static bool configured = false;   // the attributes are per kernel, set once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(d128::dkdv_kernel<CAP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(d128::dq_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid_kv(static_cast<unsigned>((p.Tk + kBlockRows - 1) / kBlockRows),
+                     static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
+  d128::dkdv_kernel<CAP><<<grid_kv, kConsumerThreads, kSmemKV, stream>>>(qm, km, vm, dom, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((p.Tq + kBlockRows - 1) / kBlockRows),
+                    static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  d128::dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace d128
+
+// the Params of the D <= 128 kernels, filled from the wide one's
+d64::Params narrow(const Params& w) {
   d64::Params p;
   p.lse2 = w.lse2;
   p.delta = w.delta;
@@ -1160,8 +1647,7 @@ int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
   p.scale = w.scale; p.scale_log2 = w.scale_log2;
   p.cap_scale = w.has_softcap ? w.scale / w.softcap : 0.0f;
   p.cap_log2 = w.softcap * kLog2e;
-  return w.has_softcap ? d64::launch<true>(qm, km, vm, dom, p, B, stream)
-                       : d64::launch<false>(qm, km, vm, dom, p, B, stream);
+  return p;
 }
 
 int blocks(int64_t* out, int64_t keys, int64_t splits, int64_t kv_threads, int64_t rows,
@@ -1231,8 +1717,16 @@ extern "C" int flash_attention_bwd_sm90(
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (DP) {
-    case 64: return launch_d64(qm, km, vm, dom, p, B, s);
-    case 128: return launch<128>(qm, km, vm, dom, p, B, s);
+    case 64: {
+      const d64::Params n = narrow(p);
+      return p.has_softcap ? d64::launch<true>(qm, km, vm, dom, n, B, s)
+                           : d64::launch<false>(qm, km, vm, dom, n, B, s);
+    }
+    case 128: {
+      const d64::Params n = narrow(p);
+      return p.has_softcap ? d128::launch<true>(qm, km, vm, dom, n, B, s)
+                           : d128::launch<false>(qm, km, vm, dom, n, B, s);
+    }
     case 192: return launch<192>(qm, km, vm, dom, p, B, s);
     default: return launch<256>(qm, km, vm, dom, p, B, s);
   }
@@ -1248,7 +1742,9 @@ extern "C" int flash_attention_bwd_sm90_blocks(int64_t D, int64_t* out) {
   if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch ((D + 63) / 64 * 64) {
     case 64: return blocks(out, d64::kBlockRows, 1, d64::kThreads, d64::kBlockRows, d64::kThreads);
-    case 128: return wide_blocks<128>(out);
+    case 128:
+      return blocks(out, d128::kBlockRows, 1, d128::kConsumerThreads, d128::kBlockRows,
+                    d128::kThreads);
     case 192: return wide_blocks<192>(out);
     default: return wide_blocks<256>(out);
   }

@@ -56,16 +56,31 @@
 //   (hi V + lo V, exact products, float32 sums): p is carried to ~2^-16
 //   relative, as close as a float32 p for the gate.
 //
-// Head widths above 64 (up to 256, multiples of 8; danube's 120): the first
-// design, unchanged.  One block per NC * 64 query rows of one (b, q-head),
-// NC warpgroups of 64 rows each, NC = 3 up to a width of 128 (168
-// registers a thread) and 2 above (up to 255, for the wider accumulator);
-// 64-key tiles.  Thread 0 issues every TMA load: the q tiles and the first
-// k/v tiles at the start, then each later k/v tile into the stage of the
-// tile before last, once every warp has released that stage.  A warpgroup
-// runs its products, waits, runs its softmax, and runs its next products.
-// The accumulator is D / 64 blocks of a 64 x 64 wgmma tile, each its own 32
-// registers a thread.
+// Head widths 136-256 (multiples of 8): the first design, unchanged.  One
+// block per 128 query rows of one (b, q-head), two warpgroups of 64 rows
+// each (up to 255 registers a thread); 64-key tiles.  Thread 0 issues every
+// TMA load: the q tiles and the first k/v tiles at the start, then each
+// later k/v tile into the stage of the tile before last, once every warp has
+// released that stage.  A warpgroup runs its products, waits, runs its
+// softmax, and runs its next products.  The accumulator is D / 64 blocks of
+// a 64 x 64 wgmma tile, each its own 32 registers a thread.
+//
+// Head widths 65-128 (danube's 120; namespace d128): the structure of the
+// widths up to 64 below, over the head's two 64-column atoms.  One block per
+// 128 query rows, 128-key tiles (S is one m64n128k16 wgmma a 16-column step,
+// eight steps) and three warpgroups: a producer whose one thread issues every
+// TMA load into a ring of three stages, and two consumers of 64 rows that
+// take turns at the tensor cores.  The softcap is a template argument and
+// the mask a test once a tile (online_softmax).  A consumer's products and
+// its softmax do not overlap: with a producer warpgroup the block has 384
+// threads, and ptxas plans the wgmma pipeline for the 168 registers a thread
+// that allows, whatever setmaxnreg grants the consumers at run time (it
+// does allocate up to the 240 granted, but serialises every wgmma of a
+// kernel whose operands in flight do not fit 168: "C7512 ... insufficient
+// register resources").  The accumulator (64 registers), S and the two P
+// parts (64 each) are never all live.  64-key tiles, and two consumers with
+// no producer (256 threads, the products of one tile overlapping the
+// softmax of the next), were slower.
 //
 // Head widths up to 64 (seamless's 64): one block per NC * 64 query rows,
 // 128-key tiles (S is one m64n128k16 wgmma a 16-column step) and NC + 1
@@ -109,11 +124,12 @@ constexpr float kLn2 = 0.6931471805599453f;
 // DP: the head width rounded up to a multiple of 64 (the width of the tiles)
 template <int DP>
 struct Cfg {
-  // warpgroups, 64 query rows each: three at 168 registers a thread, two
-  // (up to 255 registers) where the accumulator is wider than 128 columns
-  static constexpr int kNC = DP <= 128 ? 3 : 2;
+  static_assert(DP >= 192, "widths up to 128 run flash_attention_d64_kernel and _d128_kernel");
+  // warpgroups, 64 query rows each (up to 255 registers a thread, for the
+  // wide accumulator)
+  static constexpr int kNC = 2;
   static constexpr int kThreads = 128 * kNC;
-  static constexpr int kStages = DP <= 128 ? 4 : (DP <= 192 ? 3 : 2);   // k/v ring depth
+  static constexpr int kStages = DP <= 192 ? 3 : 2;   // k/v ring depth
   static constexpr int kNB = DP / kAtom;                   // 64-column blocks
   static constexpr int kQBytes = kBM * DP * 2;             // one warpgroup's q tile
   static constexpr int kKVBytes = kBN * DP * 2;            // one k (or v) tile
@@ -474,8 +490,9 @@ __device__ __forceinline__ TileRange tile_range(const D64Params& p, int64_t q0, 
 // the positions of the warpgroup's first and last rows, pos0, pos1 this
 // thread's.  Applies the softcap and the masks of a tile that crosses a mask
 // edge, moves the reference points m0, m1, turns sc into p in place and
-// updates l0, l1.  alpha0, alpha1 rescale the accumulator.
-template <int N>
+// updates l0, l1.  alpha0, alpha1 rescale the accumulator.  CAP: 1 or 0
+// where the caller fixes the softcap at compile time, else p.has_softcap.
+template <int N, int CAP = -1>
 __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& p, int64_t kt,
                                                int64_t qa, int64_t qb, int64_t pos0,
                                                int64_t pos1, int c2, float f, float& m0,
@@ -486,7 +503,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& 
                         (!p.has_window || kt > qb - p.window);
   // The softcap and the mask are uniform branches taken once a tile, not
   // once an element (a branch an element costs more than the exponentials).
-  if (p.has_softcap) {
+  if (CAP < 0 ? p.has_softcap != 0 : CAP != 0) {
 #pragma unroll
     for (int i = 0; i < N; ++i) sc[i] = p.softcap * tanhf(sc[i] * p.cap_scale) * kLog2e;
   }
@@ -803,6 +820,221 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head widths 65-128 (danube's 120): a producer warpgroup and two consumer
+// warpgroups of 64 query rows, 128-key tiles of the head's two 64-column
+// atoms.
+// ---------------------------------------------------------------------------
+
+namespace d128 {
+constexpr int kKeys = 128;                     // keys a tile
+constexpr int kNB = 2;                         // 64-column atoms of the head
+constexpr int kQBytes = kBM * kNB * kAtom * 2;     // one consumer's q tile, atom nb at 8 KB nb
+constexpr int kKVBytes = kKeys * kNB * kAtom * 2;  // one k (or v) tile, atom nb at 16 KB nb
+constexpr int kConsumers = 2;
+constexpr int kRows = kConsumers * kBM;        // query rows a block
+constexpr int kThreads = 128 * (kConsumers + 1);
+// setmaxnreg: 24 + 2 x 240 is the 3 x 168 a thread the launch allocates
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kStages = 3;
+constexpr int kSmem = 1024 + kConsumers * kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
+static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+}  // namespace d128
+
+// Width 65-128: a producer warpgroup and two consumer warpgroups (see the
+// top of the file).  The softcap is a template argument; D64Params carries
+// the call (no key splits).
+template <bool CAP>
+__global__ void __launch_bounds__(d128::kThreads, 1)
+flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap, const D64Params p) {
+  using namespace d128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                               // kConsumers q tiles
+  uint8_t* ks = qs + kConsumers * kQBytes;          // kStages k tiles
+  uint8_t* vs = ks + kStages * kKVBytes;            // kStages v tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kKVBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  // the role of this thread's warpgroup, the same in every lane
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // the last query rows see the most keys: start them first
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.group;
+  const int64_t rows_end = q0 + kRows < p.Tq ? q0 + kRows : p.Tq;
+  const TileRange tr = tile_range<kKeys>(p, q0, rows_end, 0);
+  const int n_tiles = tr.n;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);   // lane 0 of every consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full
+    regs_dealloc<kProducerRegs>();
+    if (tid == kConsumers * 128) {
+      mbar_expect_tx(qbar, kConsumers * kQBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int nb = 0; nb < kNB; ++nb)
+          tma_load(qs + c * kQBytes + nb * kBM * 128, &qmap, qbar, nb * kAtom,
+                   static_cast<int>(q0 + c * kBM), h, b);
+      int s = 0;
+      uint32_t phase = 0;
+#pragma unroll 1
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t >= kStages) mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], 2 * kKVBytes);
+        const int kt = static_cast<int>(tr.begin) + t * kKeys;
+        for (int nb = 0; nb < kNB; ++nb) {
+          tma_load(ks + s * kKVBytes + nb * kKeys * 128, &kmap, &full[s], nb * kAtom, kt, hk, b);
+          tma_load(vs + s * kKVBytes + nb * kKeys * 128, &vmap, &full[s], nb * kAtom, kt, hk, b);
+        }
+        if (++s == kStages) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+  regs_alloc<kConsumerRegs>();
+
+  // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;
+  const int c2 = (lane & 3) * 2;
+  const int64_t wq0 = q0 + wg * kBM;
+  const int64_t qa = p.q_offset + wq0;
+  const int64_t qb = p.q_offset + (wq0 + kBM < p.Tq ? wq0 + kBM : p.Tq) - 1;
+  const int64_t pos0 = qa + r0;
+  const int64_t pos1 = pos0 + 8;
+  const uint32_t q_base = smem_u32(qs + wg * kQBytes);
+  const float f = CAP ? 1.0f : p.scale_log2;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+  float l0 = 0.0f, l1 = 0.0f;
+  float o[kNB][32];
+  float sc[64];
+  uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.0f;
+  // S = q k^T over the head's two atoms with the k tile in stage st
+  auto issue_s = [&](int st) {
+    const uint32_t k_base = smem_u32(ks + st * kKVBytes);
+    const uint32_t q_base_t = opaque(q_base);
+    wgmma_ss_n128_first(sc, desc(q_base_t), desc(k_base));
+#pragma unroll
+    for (int kk = 1; kk < 8; ++kk)
+      wgmma_ss_n128(sc, desc(q_base_t + (kk / 4) * kBM * 128 + (kk % 4) * 32),
+                    desc(k_base + (kk / 4) * kKeys * 128 + (kk % 4) * 32), 1);
+  };
+  // O += P_hi V + P_lo V with the v tile in stage st, atom by atom
+  auto issue_pv = [&](int st) {
+    const uint32_t v_base = smem_u32(vs + st * kKVBytes);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dv = desc(v_base + nb * kKeys * 128 + kk * 16 * 128);
+        wgmma_rs(o[nb], phi[kk], dv, 1);
+        wgmma_rs(o[nb], plo[kk], dv, 1);
+      }
+  };
+  auto fence_pv = [&]() {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) reg_fence(o[nb]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      reg_fence(phi[kk]);
+      reg_fence(plo[kk]);
+    }
+  };
+  // this warp has finished reading stage st
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  float alpha0, alpha1;
+  auto softmax = [&](int t) {
+    online_softmax<64, CAP>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys, qa, qb, pos0, pos1, c2,
+                   f, m0, m1, l0, l1, alpha0, alpha1);
+  };
+  auto rescale = [&]() {
+    // alpha is 1 on most tiles (the reference point moves rarely); the
+    // multiply costs less than a branch
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[nb][i] *= (i & 2) ? alpha1 : alpha0;
+  };
+
+  // Ping-pong, as flash_attention_d64_kernel's: named barrier 1 + w is
+  // consumer w's turn at the tensor cores.
+  const int mine = 1 + wg;
+  const int other = 1 + (wg ^ 1);
+  mbar_wait(qbar, 0);
+  if (n_tiles > 0) {
+    if (wg == kConsumers - 1) bar_arrive(other, kConsumers * 128);
+    mbar_wait(&full[0], 0);
+    bar_sync(mine, kConsumers * 128);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    bar_arrive(other, kConsumers * 128);
+    wgmma_wait_all();
+    reg_fence(sc);
+    softmax(0);
+    split_p(sc, phi, plo);
+    int s = 0, sp = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (int t = 1; t < n_tiles; ++t) {
+      sp = s;                                 // the stage of tile t - 1
+      if (++s == kStages) { s = 0; phase ^= 1; }
+      mbar_wait(&full[s], phase);
+      bar_sync(mine, kConsumers * 128);
+      fence_pv();
+      wgmma_fence();
+      issue_pv(sp);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_pv();
+      release(sp);
+      wgmma_fence();
+      issue_s(s);
+      wgmma_commit();
+      bar_arrive(other, kConsumers * 128);
+      wgmma_wait_all();
+      reg_fence(sc);
+      softmax(t);
+      rescale();
+      split_p(sc, phi, plo);
+    }
+    bar_sync(mine, kConsumers * 128);
+    fence_pv();
+    wgmma_fence();
+    issue_pv(s);
+    wgmma_commit();
+    if (wg != kConsumers - 1) bar_arrive(other, kConsumers * 128);
+    wgmma_wait_all();
+    fence_pv();
+    release(s);
+  }
+  store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
+}
+
 // The split's merge: one warp a row (b, h, i), lse = logsumexp_s lse_s and
 // o = sum_s exp(lse_s - lse) o_s in float32, written in bfloat16; a row whose
 // every lse_s is -inf comes out as zeros and lse -inf.
@@ -857,6 +1089,21 @@ template <typename Kernel>
 int configure(Kernel kernel, int smem) {
   return static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+template <bool CAP>
+int launch_d128(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                const D64Params& p, int64_t B, cudaStream_t stream) {
+  static bool configured = false;   // the attribute is per kernel, set once
+  if (!configured) {
+    const int err = configure(flash_attention_d128_kernel<CAP>, d128::kSmem);
+    if (err != 0) return err;
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>((p.Tq + d128::kRows - 1) / d128::kRows),
+                  static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  flash_attention_d128_kernel<CAP><<<grid, d128::kThreads, d128::kSmem, stream>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NC>
@@ -915,12 +1162,12 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   if (DP > 64 && splits > 1) return static_cast<int>(bad);   // split keys at D <= 64 only
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap qm, km, vm;
-  const int kv_rows = DP == 64 ? d64::kKeys : kBN;
+  const int kv_rows = DP == 64 ? d64::kKeys : (DP == 128 ? d128::kKeys : kBN);
   if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, kBM) ||
       !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, kv_rows) ||
       !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, kv_rows))
     return static_cast<int>(bad);
-  if (DP > 64) {
+  if (DP > 128) {
     Params p;
     p.o = o;
     p.lse = static_cast<float*>(lse);
@@ -928,11 +1175,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     p.window = window; p.q_offset = q_offset;
     p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
     p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
-    switch (DP) {
-      case 128: return launch<128>(qm, km, vm, p, B, s);
-      case 192: return launch<192>(qm, km, vm, p, B, s);
-      default: return launch<256>(qm, km, vm, p, B, s);
-    }
+    return DP == 192 ? launch<192>(qm, km, vm, p, B, s) : launch<256>(qm, km, vm, p, B, s);
   }
   D64Params p;
   p.o = o;
@@ -947,6 +1190,8 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
   p.cap_scale = has_softcap ? scale / softcap : 0.0f;
+  if (DP == 128)
+    return has_softcap ? launch_d128<true>(qm, km, vm, p, B, s) : launch_d128<false>(qm, km, vm, p, B, s);
   // up to 64 query rows one consumer warpgroup a block, more two
   const int err = Tq <= kBM ? launch_d64<1>(qm, km, vm, p, B, s) : launch_d64<2>(qm, km, vm, p, B, s);
   if (err != 0 || splits == 1) return err;
@@ -965,4 +1210,15 @@ extern "C" int flash_attention_merge(const void* o_part, const void* lse_part, v
   return launch_merge(static_cast<const float*>(o_part), static_cast<const float*>(lse_part), o,
                       static_cast<float*>(lse), B, Hq, S, Tq, D,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The query rows a block of the kernel that takes Tq rows of head width D
+// holds (8 <= D <= 256, D a multiple of 8), which the wrapper mirrors
+// (flash_attention_sm90.py::block_rows); cudaErrorInvalidValue for another D.
+extern "C" int flash_attention_sm90_rows(int64_t Tq, int64_t D, int64_t* rows) {
+  if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t DP = (D + 63) / 64 * 64;
+  *rows = DP == 64 ? (Tq <= kBM ? d64::Cfg<1>::kRows : d64::Cfg<2>::kRows)
+                   : (DP == 128 ? d128::kRows : Cfg<192>::kNC * kBM);
+  return 0;
 }

@@ -108,6 +108,14 @@ __device__ __forceinline__ void reg_fence(uint32_t (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// x, opaque to the compiler: a tile's base address passed through it where
+// a loop issues wgmma keeps the descriptors computed from it (64-bit, one a
+// 16-column step) from being hoisted out of the loop into registers
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads: wait
 // for all of them, or arrive without waiting
 __device__ __forceinline__ void bar_sync(int id, int threads) {

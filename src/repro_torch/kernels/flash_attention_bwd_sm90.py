@@ -19,9 +19,12 @@ input give bit-equal gradients.  Its plain version is
 At a head width up to 64 (seamless's) each block is a producer warp that
 issues every load and two consumer warpgroups of 64 keys or rows that take
 turns at the tensor cores, so one's elementwise work runs while the other's
-products run; above 64 (danube's 120) the wider configuration's blocks of
-two or three warpgroups.  :func:`block_config` gives both, as the kernel's
-``flash_attention_bwd_sm90_blocks`` reports them (:func:`kernel_blocks`).
+products run; from 65 to 128 (danube's 120) two such consumer warpgroups
+over the head's two 64-column atoms, the dQ pass's beside a producer
+warpgroup, the dK/dV pass's alone (one of their threads issues the loads);
+above 128 the first design's blocks of one warpgroup.  :func:`block_config`
+gives each, as the kernel's ``flash_attention_bwd_sm90_blocks`` reports
+them (:func:`kernel_blocks`).
 
 ``launches`` counts the wrapper's calls that launch the kernel (one a
 backward, its three launches together), and nothing else; a run reads it
@@ -60,16 +63,17 @@ class Blocks(NamedTuple):
 
 def block_config(D: int) -> Blocks:
     """The blocks the kernel runs at head width ``D``: up to 64 a producer
-    warp and two consumer warpgroups of 64 keys or rows (288 threads); above,
-    the wider configuration's 64-row warpgroups, two (dK, dV) and three (dQ)
-    up to 128, one above, where two blocks split a key block's columns."""
+    warp and two consumer warpgroups of 64 keys or rows (288 threads); up to
+    128 two consumer warpgroups, alone in a dK/dV block (256 threads) and
+    beside a producer warpgroup in a dQ block (384); above, one 64-row
+    warpgroup, two blocks splitting a key block's dK, dV columns."""
     if not 8 <= D <= 256 or D % 8:
         raise ValueError(f"flash_attention_bwd_sm90: head width {D} is not a multiple of 8 "
                          f"in [8, 256]")
     if D <= 64:
         return Blocks(128, 1, 288, 128, 288, _ROWS, _ROWS, _ROWS)
     if D <= 128:
-        return Blocks(128, 1, 256, 192, 384, _ROWS, _ROWS, _ROWS)
+        return Blocks(128, 1, 256, 128, 384, _ROWS, _ROWS, _ROWS)
     return Blocks(64, 2, 128, 64, 128, _ROWS, _ROWS, _ROWS)
 
 

@@ -8,13 +8,14 @@ bfloat16 q, k and v (``ops.flash_attention`` sends float32 inputs to
 (``csrc/flash_attention_sm90.cu``) runs q k^T and P V as ``wgmma`` on bf16
 tiles that TMA brings into a ring in shared memory, with P split into two
 bf16 parts and m, l and the accumulator in float32, and walks only the live
-key tiles.  Above a head width of 64 a block holds 192 query rows (128
-above 128), three (two) warpgroups of 64 rows, and one thread keeps the k
-and v loads in flight.  At a width of 64 or less a block holds one
-warpgroup of 64 rows for up to 64 query rows (:func:`block_rows`), and
-otherwise 128 rows in two consumer warpgroups beside a producer warpgroup,
-over 128-key tiles, the consumers taking turns at the tensor cores so that
-one's softmax runs while the other's products run.
+key tiles.  At a width of 64 or less a block holds one warpgroup of 64
+rows for up to 64 query rows (:func:`block_rows`), and otherwise 128 rows
+in two consumer warpgroups beside a producer warpgroup, over 128-key tiles,
+the consumers taking turns at the tensor cores so that one's softmax runs
+while the other's products run; from 65 to 128 columns (danube's 120) the
+same over the head's two 64-column atoms, for any number of rows.  Above
+128 columns a block holds 128 query rows in two warpgroups of the first
+design, and one thread keeps the k and v loads in flight.
 With ``return_lse`` it also writes each row's log-sum-exp, which the
 backward reads.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention``.
@@ -94,11 +95,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def block_rows(Tq: int, D: int) -> int:
     """Query rows a block of the kernel's configuration for Tq query rows of
     head width D: at a width up to 64, 64 (one consumer warpgroup) up to 64
-    rows and 128 (two) above; above a width of 64, 192 up to 128 columns
-    and 128 above.  Every configuration runs one block an SM."""
-    if D <= 64:
-        return 64 if Tq <= 64 else 128
-    return 192 if D <= 128 else 128
+    rows and 128 (two) above; above a width of 64, 128 (two consumer
+    warpgroups beside a producer up to 128 columns, two warpgroups of the
+    first design above).  Every configuration runs one block an SM."""
+    if D <= 64 and Tq <= 64:
+        return 64
+    return 128
+
+
+def kernel_rows(Tq: int, D: int) -> int:
+    """The compiled kernel's own rows a block for Tq rows of width ``D``
+    (``flash_attention_sm90_rows``; builds the library: on the card only),
+    to hold :func:`block_rows` to."""
+    fn = build.load("flash_attention_sm90").flash_attention_sm90_rows
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = ctypes.c_int64()
+    if fn(Tq, D, ctypes.addressof(rows)) != 0:
+        raise ValueError(f"flash_attention_sm90: head width {D} is not taken")
+    return rows.value
 
 
 def split_count(B: int, Hq: int, Tq: int, Tk: int, D: int, *, causal: bool,

@@ -422,8 +422,10 @@ def test_sm90_backward_wrapper_rejects_bad_inputs_before_building(case, no_build
 
 # --------------------------------------- the tensor-core backward's blocks
 _D64 = (128, 1, 288, 128, 288, 64, 64, 64)     # a producer warp, two consumer warpgroups
-_D128 = (128, 1, 256, 192, 384, 64, 64, 64)    # danube's 120 reads as 128
-_WIDE = (64, 2, 128, 64, 128, 64, 64, 64)      # 192 and 256: two blocks split dK, dV
+# 65-128 (danube's 120 reads as 128): two consumer warpgroups, the dQ pass's
+# beside a producer warpgroup
+_D128 = (128, 1, 256, 128, 384, 64, 64, 64)
+_WIDE = (64, 2, 128, 64, 128, 64, 64, 64)      # 136-256: two blocks split dK, dV
 
 
 @pytest.mark.parametrize("shape,blocks,stats", [
@@ -432,6 +434,10 @@ _WIDE = (64, 2, 128, 64, 128, 64, 64, 64)      # 192 and 256: two blocks split d
     ((1, 8, 200, 32), _D64, (2, 1, 8, 256)),
     ((1, 8, 1, 8), _D64, (2, 1, 8, 64)),
     ((1, 32, 8192, 120), _D128, (2, 1, 32, 8192)),     # danube's
+    ((1, 4, 200, 72), _D128, (2, 1, 4, 256)),
+    ((2, 8, 130, 96), _D128, (2, 2, 8, 192)),
+    ((1, 8, 1, 120), _D128, (2, 1, 8, 64)),
+    ((1, 4, 333, 128), _D128, (2, 1, 4, 384)),
     ((1, 4, 100, 136), _WIDE, (2, 1, 4, 128)),
     ((2, 8, 130, 256), _WIDE, (2, 2, 8, 192)),
 ])
@@ -446,7 +452,7 @@ def test_backward_blocks_follow_the_kernels_configurations(shape, blocks, stats)
     assert tfab90.stats_shape(B, Hq, Tq, D) == stats
 
 
-@pytest.mark.parametrize("D", [0, 12, 264])
+@pytest.mark.parametrize("D", [0, 12, 68, 124, 132, 264])
 def test_backward_blocks_refuse_widths_the_kernel_does_not_take(D):
     from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
     with pytest.raises(ValueError):

@@ -189,6 +189,8 @@ def test_split_plan_refuses_more_ranges_than_chunks(splits):
 
 
 @pytest.mark.parametrize("Tq,D,want", [(1, 64, 64), (64, 32, 64), (65, 64, 128), (32768, 64, 128),
-                                       (1, 120, 192), (8192, 128, 192), (100, 256, 128)])
+                                       (1, 120, 128), (8192, 128, 128), (100, 256, 128),
+                                       (200, 72, 128), (64, 96, 128), (8192, 120, 128),
+                                       (333, 128, 128), (300, 136, 128)])
 def test_block_rows_follow_the_kernels_configurations(Tq, D, want):
     assert tfa90.block_rows(Tq, D) == want

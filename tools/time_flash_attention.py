@@ -6,7 +6,8 @@ seamless-m4t-large-v2's encoder self-attention (4, 16, 32768, 64), its
 prefill's cross-attention (q (4, 16, 512, 64)) and a decode step's
 (q (4, 16, 1, 64)), both over 32768 frames, all unmasked; and
 h2o-danube3-4b's prefill attention, q (4, 32, 8192, 120) over k, v
-(4, 8, 8192, 120), causal with a 4096 window.  For each it prints one JSON
+(4, 8, 8192, 120), causal with a 4096 window, and its training step's
+forward, q (1, 32, 8192, 120) over (1, 8, 8192, 120).  For each it prints one JSON
 line: the kernel's device time (CUDA events over back-to-back calls after
 a warm-up), its bound (4 D flops a live pair over the bf16 tensor-core
 rate, or q, k, v read and o written once over the memory rate, the larger),
@@ -30,6 +31,13 @@ gradients written once over the memory rate, the larger), and the time of
 backend, else the boolean mask on the memory-efficient backend, kv heads
 repeated outside the timing).
 
+First it prints, for each attention kernel it compiled (both sources are
+built anew in a fresh checkout), ptxas's registers a thread and spill bytes,
+whether ptxas serialised its wgmma ("C7512 ... insufficient register
+resources"), and the highest register its SASS names (``cuobjdump``, where
+the toolkit has it): ptxas reports the budget of the launch, while a
+warpgroup's code after ``setmaxnreg.inc`` may use more.
+
 Usage, from the root of a checkout::
 
     python3 tools/time_flash_attention.py [--root DIR] [--reps N] [--what all|forward|backward]
@@ -43,6 +51,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -70,6 +80,7 @@ SHAPES = [
     ("seamless cross prefill", (4, 16, 512, 64), (4, 16, 32768, 64), False, None),
     ("seamless encoder", (4, 16, 32768, 64), (4, 16, 32768, 64), False, None),
     ("danube prefill", (4, 32, 8192, 120), (4, 8, 8192, 120), True, 4096),
+    ("danube train forward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
 ]
 BWD_SHAPES = [
     ("seamless encoder backward", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
@@ -130,6 +141,64 @@ def sdpa_bwd_ms(q, k, v, do, causal, window, reps):
                        reps)
 
 
+def demangle(names):
+    """C++ names of mangled kernel symbols (unchanged without ``c++filt``)."""
+    if not names or shutil.which("c++filt") is None:
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True)
+    return out.stdout.splitlines()
+
+
+def sass_max_registers(name):
+    """{mangled kernel: highest register its SASS names} for built source
+    ``name``, or {} where ``cuobjdump`` is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
+                          text=True).stdout
+    top, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            top[kernel] = -1
+        elif kernel is not None:
+            for r in re.findall(r"\bR(\d+)\b", line):
+                top[kernel] = max(top[kernel], int(r))
+    return top
+
+
+def ptxas_report(logs, smi):
+    """One JSON line a kernel compiled now: ptxas's registers and spill
+    bytes, wgmma serialisation, the SASS's highest register."""
+    for name, log in logs.items():
+        rows, serialised, kernel = {}, {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = m.group(1)
+                rows[kernel] = {}
+                continue
+            m = re.search(r"serialized due to (.*) for the function '(\S+)'", line)
+            if m:
+                serialised[m.group(2)] = m.group(1)
+            if kernel is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rows[kernel]["spill_stores"], rows[kernel]["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[kernel]["registers"] = int(m.group(1))
+        top = sass_max_registers(name)
+        for kernel, readable in zip(rows, demangle(list(rows))):
+            print(json.dumps({"ptxas": readable, "source": name, **rows[kernel],
+                              "wgmma_serialised": serialised.get(kernel, False),
+                              "sass_max_register": top.get(kernel),
+                              "root": os.path.abspath(ARGS.root), "card": smi}), flush=True)
+
+
 def time_backward(g, smi):
     for name, qs, ks, causal, window in BWD_SHAPES:
         q = torch.randn(qs, generator=g, device="cuda").bfloat16()
@@ -158,7 +227,7 @@ def main():
         raise SystemExit("no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    build.build_all(["flash_attention_sm90", "flash_attention_bwd_sm90"])
+    ptxas_report(build.build_all(["flash_attention_sm90", "flash_attention_bwd_sm90"]), smi)
     g = torch.Generator(device="cuda").manual_seed(0)
     if ARGS.what != "forward":
         time_backward(g, smi)
