@@ -33,11 +33,11 @@ Phases (each one's failure fails the run):
    heads of 64 in both dtypes: the encoder's self-attention (batch 1, v
    strided), the prefill's cross-attention (4, 16, 512, 64) and a decode
    step's (4, 16, 1, 64); the bf16 kernel's split path (its keys cut into
-   ranges, merged by ``flash_attention_merge``'s kernel) at those two
-   cross-attentions and at forced splits with rows and ranges that see no
-   key, each within the bf16 limit, its lse within 1e-5, two calls
-   bit-equal, and the merge kernel alone against ``ref_merge_attention``
-   on the plain partials; then the backward against the plain backward
+   ranges, merged in the same launch by the last block of each row block
+   to finish) at those two cross-attentions and at forced splits with rows
+   and ranges that see no key, each within the bf16 limit, its lse within
+   1e-5, two calls bit-equal, one split launch a call; then the backward
+   against the plain backward
    (``flash_attention_bwd_sm90``, bf16 on the tensor cores, and
    ``flash_attention_bwd``, float32 arithmetic, each on its dtype; the
    same q, k, v, the dtype's forward kernel's o and lse, a seeded do) over
@@ -49,7 +49,10 @@ Phases (each one's failure fails the run):
    (D = 72, 96, 120, 128 with causal, ``q_offset`` 100 and -40, windows,
    softcaps, no mask, one query row, Tq and Tk off 64 and 128, GQA groups
    1 and 4) and one at 136 (the first design; both layouts, the forward's
-   output too), over the
+   output too), over float32 cases at the float32 backward's tiles
+   (``FLASH_BWD_F32_CASES``: D = 1, 33 and 256, a tile-interior case and a
+   window edge inside a tile, both with a softcap, GQA, causal rows
+   offset back; both layouts), over the
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
    2048, 64) over 8192 frames, no mask) and each rank's local shard of
@@ -60,7 +63,9 @@ Phases (each one's failure fails the run):
    bit-equal, fully masked rows' dq exactly 0, each forward kernel's lse
    within 1e-4 of the plain one, and the wrappers' plans of the bf16
    kernels' blocks (``block_config``, ``block_rows``) equal to the compiled
-   kernels' own reports at head widths 8 to 256; and ``linear_scan``'s gradient through
+   kernels' own reports at head widths 8 to 256, and the float32
+   backward's (``flash_attention_bwd.block_config``) at 8, 33, 64, 120,
+   128 and 256; and ``linear_scan``'s gradient through
    the custom op (the reversed scan, two launches) against autograd
    through the plain loop at (4, 512, 2560) and (4, 8192, 2560) within
    1e-5;
@@ -261,10 +266,14 @@ Phases (each one's failure fails the run):
    boolean mask in the kernel's dtype, which the port never calls);
    ``flash_attention_sm90`` also at the encoder-decoder's three shapes
    (``seamless``: error, time, plain time, bound, and
-   ``scaled_dot_product_attention`` with no mask); both forward rows also
+   ``scaled_dot_product_attention`` with no mask) and, at its two split
+   cross-attentions, the split call (the merge in the same launch) beside
+   the same call with ``splits=1`` (``split``, with the split launches by
+   serving path); both forward rows also
    time the call that writes the lse (``lse_ms``); a
    ``flash_attention_bwd_sm90`` row at the training phases' three shapes
-   in bf16 and a ``flash_attention_bwd`` row at danube's in float32
+   in bf16 and a ``flash_attention_bwd`` row at danube's and at
+   seamless's encoder (2, 16, 8192, 64) in float32
    (bound 10 D flops a live pair at the dtype's rate; library: SDPA's
    backward with the same mask), their launches by training path.
 
@@ -302,20 +311,19 @@ from repro_torch.data import ByteTokenizer, CorpusWriter, ShardedReader  # noqa:
 from repro_torch.distributed.collectives import compressed_grad_mean  # noqa: E402
 from repro_torch.distributed.partitioning import full as whole  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fa_bwd_f32  # noqa: E402
 from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     block_config, flash_attention_bwd_sm90_cuda, kernel_blocks)
-from repro_torch.kernels.flash_attention_merge import flash_attention_merge_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
     block_rows, flash_attention_sm90_cuda, kernel_rows, split_count)
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
                                      ref_flash_attention_backward,
-                                     ref_flash_attention_partials, ref_linear_scan,
-                                     ref_merge_attention, ref_page_digest)
+                                     ref_linear_scan, ref_page_digest)
 from repro_torch.configs.shapes import ShapeCell  # noqa: E402
 from repro_torch.launch.costmodel import analytic_roofline  # noqa: E402
 from repro_torch.launch.hlo import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
@@ -432,7 +440,7 @@ FLASH_BF16_REL, FLASH_BF16_FLOOR = 2.0 ** -7, 1e-4
 FLASH_BWD_F32_REL = 1e-4
 FLASH_BWD_BF16_REL, FLASH_BWD_BF16_FLOOR = 2.0 ** -7, 1e-3
 FLASH_LSE_TOL = 1e-4
-# The bf16 kernel's split path (key ranges merged by a second kernel): its
+# The bf16 kernel's split path (key ranges merged in the same launch): its
 # row lse against the plain one's, float32 sums of the same products over
 # shorter ranges
 FLASH_SPLIT_LSE_TOL = 1e-5
@@ -454,13 +462,16 @@ FLASH_D64_CASES = [
 # softcap, ranges): a causal window with rows before the first key and
 # ranges some rows see nothing of, a window past the last key (rows that
 # see no key at all), one warpgroup's causal window, a decode step with a
-# softcap, and GQA at D = 48 (the kernel splits keys at widths up to 64)
+# softcap, and GQA at D = 48 (the kernel splits keys at widths up to 64);
+# then more ranges of 128 rows than the merge stages in shared memory (its
+# path from L2), with a row block of 72 rows
 FLASH_SPLIT_CASES = [
     (1, 4, 2, 1500, 1600, 64, True, 600, -20, None, 2),
     (1, 4, 2, 1200, 2048, 64, False, 1024, 2000, None, 3),
     (2, 4, 2, 37, 5000, 64, True, 3000, 4963, None, 4),
     (1, 4, 1, 1, 4100, 32, False, None, 0, 25.0, 8),
     (2, 8, 2, 200, 3000, 48, False, None, 0, None, 5),
+    (1, 4, 2, 200, 4000, 64, False, None, 0, None, 6),
 ]
 # bf16 backward cases at the edges of the kernel's configuration for head
 # widths up to 64 (name, B, Hq, Hkv, Tq, Tk, D, mask), each with k, v
@@ -496,9 +507,29 @@ FLASH_D128_CASES = [
     ("D 96 one query row", 1, 8, 2, 1, 1000, 96, dict(causal=False)),
     ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
 ]
+# float32 backward cases at the edges of its tiles (name, B, Hq, Hkv, Tq,
+# Tk, D, mask), each with k, v contiguous and strided (4-byte copies where
+# a stride or D is off 16 bytes): D = 1 and 33 (columns past D zero), 256
+# (32-key tiles) with a window and a softcap; a softcap on tiles every row
+# sees whole (no mask, Tq and Tk multiples of 64: no mask test runs) and on
+# a window whose edge falls inside a tile; GQA 4 with Tq and Tk off the
+# tile; causal rows offset back (rows before the first key: dq exactly 0)
+FLASH_BWD_F32_CASES = [
+    ("D 1 causal", 1, 4, 2, 130, 150, 1, dict(causal=True, q_offset=20)),
+    ("D 33 causal q_offset 100", 1, 4, 2, 200, 300, 33, dict(causal=True, q_offset=100)),
+    ("D 256 window 40 softcap 25", 1, 4, 2, 100, 160, 256,
+     dict(causal=True, window=40, q_offset=60, softcap=25.0)),
+    ("interior softcap 20", 2, 4, 2, 128, 192, 64, dict(causal=False, softcap=20.0)),
+    ("window edge 100 in a tile, softcap 30", 1, 8, 2, 321, 700, 120,
+     dict(causal=True, window=100, q_offset=379, softcap=30.0)),
+    ("GQA 4 no mask", 1, 8, 2, 77, 333, 120, dict(causal=False)),
+    ("causal q_offset -40", 1, 4, 2, 200, 300, 128, dict(causal=True, q_offset=-40)),
+]
 # head widths at which the bf16 backward's block plan, and the forward's
-# rows a block at these query counts, are held to the kernels' own
+# rows a block at these query counts, are held to the kernels' own; and
+# those of the float32 backward's plan
 BWD_BLOCK_WIDTHS = (8, 32, 64, 72, 96, 120, 128, 136, 256)
+F32_BWD_BLOCK_WIDTHS = (8, 33, 64, 120, 128, 256)
 FWD_ROWS_TQ = (1, 64, 65, 8192)
 # H100 SXM data sheet (``repro_torch.launch.hlo``, the cost model's constants):
 # bf16 dense tensor-core rate (the least time of attention), HBM3 rate, and
@@ -677,21 +708,22 @@ def split_case(q, k, v, splits=None, **kw):
     """The bf16 kernel with ``splits`` key ranges (None: the wrapper's own
     choice) against the plain version: the output within the bf16 limit,
     the lse by ``lse_held_to_plain``, rows that see no key exactly zero,
-    two calls bit-equal, and one merge launch a call when it splits.
-    Returns (max abs err, limit share, lse err, ranges)."""
+    two calls bit-equal, and one split launch a call when it splits (the
+    merge runs in that launch).  Returns (max abs err, limit share, lse
+    err, ranges)."""
     B, Hq, Tq, D = q.shape
     ranges = splits or split_count(B, Hq, Tq, k.shape[2], D, causal=kw["causal"],
                                    window=kw.get("window"), q_offset=kw.get("q_offset", 0),
                                    sm_count=sm_count())
     what = f"flash_attention_sm90 {tuple(q.shape)} kv {tuple(k.shape)} {kw}, {ranges} ranges"
-    before = ops.launch_counts()["flash_attention_merge"]
+    before = ops.split_launches()
     got, lse = flash_attention_sm90_cuda(q, k, v, return_lse=True, splits=splits, **kw)
     again, lse_again = flash_attention_sm90_cuda(q, k, v, return_lse=True, splits=splits, **kw)
-    merges = ops.launch_counts()["flash_attention_merge"] - before
+    split_calls = ops.split_launches() - before
     want, want_lse = ref_flash_attention(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
-    if merges != (2 if ranges > 1 else 0):
-        raise AssertionError(f"{what}: {merges} merge launches in two calls")
+    if split_calls != (2 if ranges > 1 else 0):
+        raise AssertionError(f"{what}: {split_calls} split launches in two calls")
     if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
         raise AssertionError(f"{what}: two calls differ")
     err, share = held_to_plain(got, want, what)
@@ -700,19 +732,6 @@ def split_case(q, k, v, splits=None, **kw):
     if bool(dead.any()) and bool(got[dead].any()):
         raise AssertionError(f"{what}: rows that see no key are not zero")
     return err, share, lse_err, ranges
-
-
-def merge_case(o_s, lse_s):
-    """The merge kernel alone on partials (o_s, lse_s), against the plain
-    merge: bf16 output within the bf16 limit of the plain float32 merge
-    rounded once, lse by ``lse_held_to_plain``.  Returns (max abs err,
-    limit share, lse err)."""
-    got, lse = flash_attention_merge_cuda(o_s, lse_s, return_lse=True)
-    want, want_lse = ref_merge_attention(o_s, lse_s)
-    torch.cuda.synchronize()
-    what = f"flash_attention_merge {tuple(o_s.shape)}"
-    err, share = held_to_plain(got, want.to(torch.bfloat16), what)
-    return err, share, lse_held_to_plain(lse, want_lse, what)
 
 
 def long_shapes(cfg):
@@ -825,11 +844,10 @@ def phase_flash_vs_plain(state):
                                      f"plans {block_rows(Tq, D)}")
     log(f"  flash_attention_sm90's rows a block as planned at D in {BWD_BLOCK_WIDTHS}, Tq in "
         f"{FWD_ROWS_TQ}")
-    # the split path (key ranges, then the merge kernel): seamless's two
+    # the split path (key ranges merged in the same launch): seamless's two
     # cross-attentions at the wrapper's own split, the head width 64
-    # configurations, forced splits with ranges and rows that see no key;
-    # then the merge kernel alone on the plain partials
-    worst_lse, merge_worst = 0.0, [0.0, 0.0, 0.0]
+    # configurations, forced splits with ranges and rows that see no key
+    worst_lse = 0.0
     cfg = get_config(ENCDEC_ARCH)
     split_runs = [(f"seamless {name}", qs, ks, dict(causal=False), None, 254 + i)
                   for i, (name, qs, ks, _) in enumerate(seamless_cases(cfg)[1:])]
@@ -854,15 +872,9 @@ def phase_flash_vs_plain(state):
         log(f"  flash_attention_sm90 {what} {qs} kv {ks} {kw}, {ranges} key ranges: max abs "
             f"err {err:.3e}, bf16 limit share {share:.3f}, lse err {lse_err:.3e}, two calls "
             f"bit-equal")
-        if ranges > 1:
-            m = merge_case(*ref_flash_attention_partials(q, k, v, ranges, **kw))
-            merge_worst = [max(a, b) for a, b in zip(merge_worst, m)]
-            log(f"  flash_attention_merge {what}, {ranges} ranges of the plain partials: max "
-                f"abs err {m[0]:.3e}, bf16 limit share {m[1]:.3f}, lse err {m[2]:.3e}")
         del q, k, v
         torch.cuda.empty_cache()
     state["flash_split_lse_err"] = worst_lse
-    state["merge_err"] = merge_worst
     state["flash_err"] = worst
     state["flash_bf16_share"] = worst_share
     log(f"kernel vs plain: attention in {n} cases, flash_attention (float32) worst "
@@ -870,8 +882,7 @@ def phase_flash_vs_plain(state):
         f"flash_attention_sm90 (bf16) worst "
         f"{worst[torch.bfloat16]:.3e} (tol {FLASH_TOL[torch.bfloat16]}) and "
         f"{worst_share:.3f} of {FLASH_BF16_REL:.3g} |want| + {FLASH_BF16_FLOOR}, split lse "
-        f"within {worst_lse:.3e} (tol {FLASH_SPLIT_LSE_TOL}); flash_attention_merge worst "
-        f"{merge_worst[0]:.3e}, {merge_worst[1]:.3f} of the bf16 limit, lse {merge_worst[2]:.3e}")
+        f"within {worst_lse:.3e} (tol {FLASH_SPLIT_LSE_TOL})")
 
 
 def flash_bwd_case(q, k, v, seed, **kw):
@@ -1012,12 +1023,26 @@ def phase_flash_bwd_vs_plain(state):
                                        strided=strided)
             record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=490 + i, **kw)[:3],
                    what=f"{name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} strided={strided}")
+    # float32 at the edges of the float32 backward's tiles
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_BWD_F32_CASES):
+        for strided in (False, True):
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.float32, seed=600 + i,
+                                       strided=strided)
+            record(torch.float32, *flash_bwd_case(q, k, v, seed=620 + i, **kw)[:3],
+                   what=f"{name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} strided={strided}")
     for D in BWD_BLOCK_WIDTHS:
         if kernel_blocks(D) != block_config(D):
             raise AssertionError(f"flash_attention_bwd_sm90 at D = {D}: the kernel runs "
                                  f"{kernel_blocks(D)}, the wrapper plans {block_config(D)}")
     log(f"  flash_attention_bwd_sm90's blocks as planned at D in {BWD_BLOCK_WIDTHS}: "
         + "; ".join(f"{D}: {tuple(block_config(D))}" for D in BWD_BLOCK_WIDTHS))
+    for D in F32_BWD_BLOCK_WIDTHS:
+        if fa_bwd_f32.kernel_blocks(D) != fa_bwd_f32.block_config(D):
+            raise AssertionError(f"flash_attention_bwd at D = {D}: the kernel runs "
+                                 f"{fa_bwd_f32.kernel_blocks(D)}, the wrapper plans "
+                                 f"{fa_bwd_f32.block_config(D)}")
+    log(f"  flash_attention_bwd's blocks as planned at D in {F32_BWD_BLOCK_WIDTHS}: "
+        + "; ".join(f"{D}: {tuple(fa_bwd_f32.block_config(D))}" for D in F32_BWD_BLOCK_WIDTHS))
     log(f"  backward sweep: {n} cases")
     # the training phases' shapes, in both dtypes, k and v strided as the
     # projection hands them over
@@ -1654,35 +1679,27 @@ def seamless_times():
     return out
 
 
-def merge_times():
-    """``flash_attention_merge`` at the seamless serve path's two split
-    shapes (the decode step's and the prefill's cross-attention, at the
-    wrapper's own key ranges), on the plain version's partials: its error
-    against the plain merge, its time, the plain merge's, and the bound:
-    the partials read and the bf16 output written once over the memory
-    rate, or an FMA an element of o_s and an exp an element of lse_s over
-    the CUDA cores' float32 rate."""
+def split_times():
+    """``flash_attention_sm90`` at the seamless serve path's two split
+    cross-attentions, a decode step's q (4, 16, 1, 64) and the prefill's
+    q (4, 16, 512, 64) over 32768 frames, unmasked: ``split_case``'s check
+    of the call at the wrapper's own key ranges (one launch that also
+    merges them), its time, and the time of the same call with
+    ``splits=1``."""
     out = {}
     cfg = get_config(ENCDEC_ARCH)
     for i, name in enumerate(("cross decode", "cross prefill")):
         (B, Hq, Tq, D), ks = seamless_shapes(cfg)[name]
-        S = split_count(B, Hq, Tq, ks[2], D, causal=False, window=None, q_offset=0,
-                        sm_count=sm_count())
         q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, torch.bfloat16, seed=60 + i)
-        o_s, lse_s = ref_flash_attention_partials(q, k, v, S, causal=False)
-        del q, k, v
-        err, share, lse_err = merge_case(o_s, lse_s)
-        nbytes = 4 * (o_s.numel() + lse_s.numel()) + 2 * B * Hq * Tq * D
-        ops_s = (2 * o_s.numel() + 2 * lse_s.numel()) / F32_FLOP_PER_S
+        err, share, lse_err, ranges = split_case(q, k, v, causal=False)
         out[name] = {
-            "shape": list(o_s.shape), "splits": S, "max_abs_err": err, "bf16_limit_share": share,
-            "lse_err": lse_err,
-            "ms": cuda_ms(lambda: flash_attention_merge_cuda(o_s, lse_s), reps=50),
-            "plain_ms": cuda_ms(lambda: ref_merge_attention(o_s, lse_s), reps=10),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops_s) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations",
+            "shape": [[B, Hq, Tq, D], list(ks)], "splits": ranges, "max_abs_err": err,
+            "bf16_limit_share": share, "lse_err": lse_err,
+            "ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, causal=False), reps=50),
+            "unsplit_ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, causal=False,
+                                                                    splits=1), reps=50),
         }
-        del o_s, lse_s
+        del q, k, v
         torch.cuda.empty_cache()
     return out
 
@@ -1928,7 +1945,7 @@ def phase_kernel_times(state):
         if share is not None:
             row["bf16_limit_share"] = max(share, state["flash_bf16_share"])
             row["kernels_by_width"] = {
-                "8-64": "flash_attention_d64_kernel<1 or 2 consumers>",
+                "8-64": "flash_attention_d64_kernel<1 or 2 consumers, split>",
                 "65-128": "flash_attention_d128_kernel<softcap>",
                 "136-256": "flash_attention_sm90_kernel<192 or 256>"}
         kernels.append(row)
@@ -1936,43 +1953,20 @@ def phase_kernel_times(state):
         torch.cuda.empty_cache()
         if name == "flash_attention_sm90":
             row["seamless"] = seamless_times()
-            merge = merge_times()
-            main = merge["cross decode"]
-            merge_paths = {f"{ENCDEC_ARCH} serve": state["encdec_launches"]["flash_attention_merge"],
-                           **{f"{ENCDEC_ARCH} mesh serve ({k})": n
-                              for k, n in state["mesh_encdec_merges"].items()}}
-            kernels.append({
-                "name": "flash_attention_merge",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:105",
-                "replaces_note": "no TPU kernel of its own: flash_attention_pallas carries m, l "
-                                 "and the accumulator across its sequential key grid dimension in "
-                                 "scratch; the split path's blocks run in parallel, so a second "
-                                 "launch merges their key ranges",
-                "launches": sum(merge_paths.values()),
-                "launches_by_path": merge_paths,
-                "max_abs_err": max([t["max_abs_err"] for t in merge.values()]
-                                   + [state["merge_err"][0]]),
-                "lse_err": max([t["lse_err"] for t in merge.values()] + [state["merge_err"][2]]),
-                "ms": main["ms"],
-                "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"],
-                "library_ms": None,   # no one PyTorch call weighs partials by their lse
-                "shape": main["shape"],
-                "dtype": "float32 partials, bfloat16 out",
-                "bound_basis": f"o_s and lse_s read and o written once over {HBM_BYTES_PER_S:.3g} "
-                               f"B/s (H100 SXM HBM3)",
-                "shapes": merge,
-            })
+            row["split"] = split_times()
+            row["split_launches_by_path"] = {
+                f"{ENCDEC_ARCH} serve": state["encdec_splits"],
+                **{f"{ENCDEC_ARCH} mesh serve ({k})": n
+                   for k, n in state["mesh_encdec_splits"].items()}}
 
     # the backward: the bf16 tensor-core kernel at the training phases'
-    # three shapes (their dtype), the float32 kernel at danube's
+    # three shapes (their dtype), the float32 kernel at danube's and at
+    # seamless's encoder
     train = {name: bwd_times(qs, ks, kw, torch.bfloat16, seed=40 + i)
              for i, (name, qs, ks, kw) in enumerate(train_attention_shapes())}
-    _, dn_q, dn_kv, dn_kw = train_attention_shapes()[0]
-    f32 = bwd_times(dn_q, dn_kv, dn_kw, torch.float32, seed=50)
+    (_, dn_q, dn_kv, dn_kw), (_, enc_q, enc_kv, enc_kw), _ = train_attention_shapes()
+    f32 = {"danube float32": bwd_times(dn_q, dn_kv, dn_kw, torch.float32, seed=50),
+           "seamless encoder float32": bwd_times(enc_q, enc_kv, enc_kw, torch.float32, seed=51)}
     bwd_paths = {
         "flash_attention_bwd_sm90": {
             f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_bwd_sm90"],
@@ -1987,7 +1981,7 @@ def phase_kernel_times(state):
     for name, shapes, dtype, rate, rate_name in (
             ("flash_attention_bwd_sm90", train, torch.bfloat16, BF16_FLOP_PER_S,
              "bf16 tensor cores"),
-            ("flash_attention_bwd", {"danube float32": f32}, torch.float32, F32_FLOP_PER_S,
+            ("flash_attention_bwd", f32, torch.float32, F32_FLOP_PER_S,
              "float32 outside the tensor cores")):
         main = next(iter(shapes.values()))   # danube's shape
         kernels.append({
@@ -2030,11 +2024,11 @@ def phase_kernel_times(state):
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_ms'] / k['ms']:.1%} of roofline), {k['launches']} launches on the "
             f"path, on {state['smi']}")
-    for shape_name, t in next(k for k in kernels if "shapes" in k)["shapes"].items():
-        log(f"flash_attention_merge seamless {shape_name} {t['shape']} ({t['splits']} ranges): "
-            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of roofline), max abs err "
-            f"{t['max_abs_err']:.3e}, lse err {t['lse_err']:.3e}, on {state['smi']}")
+    for shape_name, t in next(k for k in kernels if "split" in k)["split"].items():
+        log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal: "
+            f"{t['splits']} key ranges merged in the launch {t['ms']:.4f} ms, unsplit "
+            f"{t['unsplit_ms']:.4f} ms; max abs err {t['max_abs_err']:.3e}, lse err "
+            f"{t['lse_err']:.3e}, on {state['smi']}")
     for shape_name, t in next(k for k in kernels if "seamless" in k)["seamless"].items():
         log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal, "
             f"{t['splits']} key ranges: kernel "
@@ -2042,7 +2036,7 @@ def phase_kernel_times(state):
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bound_ms'] / t['ms']:.1%} of roofline), max abs err {t['max_abs_err']:.3e}, "
             f"on {state['smi']}")
-    for shape_name, t in list(train.items()) + [("danube float32", f32)]:
+    for shape_name, t in list(train.items()) + list(f32.items()):
         log(f"{flash_bwd_kernel(getattr(torch, t['dtype'])).__name__} {shape_name} {t['shape']} "
             f"{t['dtype']} {t['mask']}: kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA backward) "
@@ -2350,7 +2344,7 @@ def phase_mesh_serve_encdec(state):
                                        .astype(np.int64), device="cuda")}
     ref = state.pop("encdec_ref")
     state["mesh_serve_encdec"], state["mesh_encdec_launches"] = {}, {}
-    state["mesh_encdec_merges"] = {}
+    state["mesh_encdec_splits"] = {}
     for strategy in MESH_ENCDEC_STRATEGIES:
         builder = TrainStepBuilder(model, state["mesh"], strategy=strategy)
         params = model.init(torch.Generator(device="cuda").manual_seed(16))   # the serve phase's
@@ -2373,16 +2367,16 @@ def phase_mesh_serve_encdec(state):
             outs.append(logits)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / len(ref["fed"])
-        counts = ops.launch_counts()
+        counts, split_calls = ops.launch_counts(), ops.split_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         want = (cfg.n_enc_layers + cfg.n_layers,
                 cfg.n_enc_layers + cfg.n_layers * (1 + len(ref["fed"])))
-        merges = encdec_merges(cfg, len(ref["fed"]))
+        splits = encdec_splits(cfg, len(ref["fed"]))
         if (pre["flash_attention_sm90"], counts["flash_attention_sm90"]) != want or \
-                counts["flash_attention"] != 0 or counts["flash_attention_merge"] != merges:
+                counts["flash_attention"] != 0 or split_calls != splits:
             raise AssertionError(f"the {strategy} mesh prefill launched {pre}, with the decode "
-                                 f"steps {counts}; expected {want} flash_attention_sm90 and "
-                                 f"{merges} flash_attention_merge")
+                                 f"steps {counts} and {split_calls} split calls; expected "
+                                 f"{want} flash_attention_sm90, {splits} of them split")
         if not all(t.to_local().is_contiguous() and t.placements == mem[0].placements
                    for t in mem):
             raise AssertionError(f"memories {[t.placements for t in mem]}")
@@ -2404,7 +2398,7 @@ def phase_mesh_serve_encdec(state):
             "no_mesh_prefill_ms": state["serve_encdec"]["prefill_ms"],
             "no_mesh_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
         state["mesh_encdec_launches"][strategy] = counts["flash_attention_sm90"]
-        state["mesh_encdec_merges"][strategy] = counts["flash_attention_merge"]
+        state["mesh_encdec_splits"][strategy] = split_calls
         log(f"mesh encdec serve: {cfg.name} {strategy}, {B}x{S} frames + {B}x{T0} tokens "
             f"prefill {prefill_ms:.2f} ms (first call; no mesh {r['no_mesh_prefill_ms']:.2f}, "
             f"median of 3), {pre['flash_attention_sm90']} flash_attention_sm90 launches on the "
@@ -2903,10 +2897,11 @@ def median_ms(fn, n=3):
     return sorted(ms)[n // 2], ms
 
 
-def encdec_merges(cfg, decode_steps):
-    """``flash_attention_merge`` launches of a seamless serve run over
-    ``ENCDEC_FRAMES`` frames: one for each cross-attention whose shape the
-    wrapper splits (the prefill's, then each decode step's)."""
+def encdec_splits(cfg, decode_steps):
+    """``flash_attention_sm90`` launches of a seamless serve run over
+    ``ENCDEC_FRAMES`` frames that split their keys (and merge them in the
+    launch): one for each cross-attention whose shape the wrapper splits
+    (the prefill's, then each decode step's)."""
     def splits(name):
         (B, Hq, Tq, D), ks = seamless_shapes(cfg)[name]
         return split_count(B, Hq, Tq, ks[2], D, causal=False, window=None, q_offset=0,
@@ -2957,6 +2952,7 @@ def phase_serve_encdec(state):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    state["encdec_splits"] = ops.split_launches()
     peak = torch.cuda.max_memory_allocated()
     state["encdec_launches"] = counts
     log(f"  prefill + {new - 1} decode steps: {new} new tokens a row in {wall:.3f} s (first "
@@ -2966,10 +2962,10 @@ def phase_serve_encdec(state):
                              f"times and flash_attention {counts['flash_attention']}, expected "
                              f"{want} ({cfg.n_enc_layers} + {cfg.n_layers} in the prefill, "
                              f"{cfg.n_layers} a decode step) and 0")
-    merges = encdec_merges(cfg, new - 1)
-    if counts["flash_attention_merge"] != merges or merges == 0:
-        raise AssertionError(f"flash_attention_merge launched {counts['flash_attention_merge']} "
-                             f"times, expected {merges} (a split cross-attention each)")
+    splits = encdec_splits(cfg, new - 1)
+    if state["encdec_splits"] != splits or splits == 0:
+        raise AssertionError(f"{state['encdec_splits']} flash_attention_sm90 launches split their "
+                             f"keys, expected {splits} (a split cross-attention each)")
     new_tokens = torch.stack(out, dim=1)
     if not bool(finite) or new_tokens.shape != (B, new) or \
             not bool(((new_tokens >= 0) & (new_tokens < cfg.vocab_size)).all()):

@@ -9,9 +9,8 @@
 * ``flash_attention``: GQA online-softmax attention, forward (prefill
   over more than 4096 kv positions), ``csrc/flash_attention.cu`` for
   float32 and ``csrc/flash_attention_sm90.cu`` for bf16 (whose split path
-  merges key ranges with ``flash_attention_merge``'s kernel, in the same
-  source); its backward, ``csrc/flash_attention_bwd.cu`` and
-  ``csrc/flash_attention_bwd_sm90.cu``.
+  merges its key ranges in the same launch); its backward,
+  ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``.
 
 Each is CUDA C++ built with ``nvcc`` and bound with ``ctypes``
 (``build.py``).  Callers use ``repro_torch.kernels.ops``: it sends a CPU

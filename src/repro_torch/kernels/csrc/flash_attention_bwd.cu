@@ -18,42 +18,94 @@
 // Replaces no TPU kernel: repro/kernels/flash_attention.py is forward only,
 // and the reference trains through its jnp twin (models/layers.py
 // _blockwise_attention), whose gradient jax.grad takes.  This kernel is
-// that gradient on the card, for every attention over more than 4096 kv
-// positions in a training step.  Its plain version is
+// that gradient on the card, for every float32 attention over more than
+// 4096 kv positions in a training step.  Its plain version is
 // kernels/ref.py::ref_flash_attention_backward.
 //
-// Bound: operations.  Each live (query, key) pair costs 10 * D flops here:
-// S recomputed (2D), dP (2D), dV, dK and dQ (2D each), against a few bytes
+// Bound: operations.  Each live (query, key) pair costs 10 * D flops: S
+// recomputed (2D), dP (2D), dV, dK and dQ (2D each), against a few bytes
 // of q, k, v, o, do and the gradients per row; at a long sequence that is
 // far above the card's ridge point.  It runs float32 FMAs on the CUDA
-// cores (67 TFLOP/s).
+// cores (67 TFLOP/s), where every instruction that is not an FMA takes an
+// issue slot from one.
 //
-// Design (FlashAttention-2's backward, kept simple, with no atomics, so
-// that two calls on one input give bit-equal gradients):
-//   (a) delta_kernel: delta = rowsum(do * o), one warp a row, float32.
+// Three launches, no atomics (two calls on one input give bit-equal
+// gradients, one writer per gradient element):
+//   (a) delta_kernel: delta = rowsum(do * o), one warp a row.
 //   (b) dkdv_kernel: one block per (key tile of BK keys, kv head, batch).
-//       K and V of its tile stay in shared memory; it walks the G query
-//       heads of its kv head and, for each, the BQ-row query tiles that
-//       see one of its keys (the causal and window limits, with
-//       q_offset), loading q, do, lse and delta of each.  From them it
-//       recomputes S, P = exp(S - lse) and dP = do V^T, puts P and dS in
-//       shared memory, and accumulates dV += P^T do and dK += dS^T q in
-//       registers; it writes dK and dV once.
+//       K and V of its tile stay in shared memory while it walks the G
+//       query heads of its kv head and, for each, the BQ-row query tiles
+//       that see one of its keys (causal and window limits, with
+//       q_offset).  Per tile it recomputes S = q k^T and dP = do v^T, turns
+//       them into P and dS in shared memory, and accumulates dV += P^T do
+//       and dK += dS^T q in registers; it writes dK and dV once.
 //   (c) dq_kernel: one block per (query tile of BQ rows, query head,
 //       batch): q, do, lse and delta stay in shared memory while it walks
-//       the live key tiles, recomputes S, P, dP and dS as (b) does, and
-//       accumulates dQ += dS K in registers; it writes dQ once.
-// 256 threads a block as 16 x 16: for the score tile, thread (ty, tx)
-// holds rows ty + 16i and keys tx + 16j; for the gradient tiles, rows
-// ty + 16i and the float4 columns 4 (tx + 16jj).  Shared rows are padded by
-// one float4, so that sixteen lanes reading sixteen rows hit distinct
-// banks; the score tiles' rows are padded by 16 floats, so that the two
-// row groups of a warp write distinct banks.  Columns past D are zero in
-// shared memory and never stored; rows past Tq or Tk are zero and masked.
+//       the live key tiles, recomputes S, dP and dS as (b) does, and
+//       accumulates dQ += dS k in registers; it writes dQ once.
+// Both passes recompute S and dP: 14 D' flops executed a live pair against
+// the bound's 10 D (D' = D rounded up to 64, 128 or 256 columns in the
+// gradient products; the score products stop at D rounded up to 8).
+//
+// Design for the card.  256 threads a block, one block an SM (the
+// accumulators need up to ~230 registers a thread).  Tiles (Pass): at D' =
+// 128 both passes take 64 query rows by 64 keys; at D' = 64 a dK/dV block
+// holds 128 keys against 64-row query tiles and a dQ block 128 rows against
+// 64-key tiles, so that a thread's register tile stays 64 products wide; at
+// D' = 256, 32 by 32.
+// - Loads: the tiles a pass walks (q, do, lse and delta of the next query
+//   tile in (b); k and v of the next key tile in (c)) come in through
+//   cp.async into a two-stage ring, issued before this tile's arithmetic,
+//   so they overlap it; one barrier a tile separates the stages.  16-byte
+//   copies where D, the strides and the bases allow, else 4-byte copies.
+//   Dead tiles are never loaded; rows past Tq or Tk are zero-filled.
+// - Register tiles.  Thread (a, b), a = 4 (warp / 2) + lane / 8 and
+//   b = 8 (warp % 2) + lane % 8, holds the score rows a + 16i by keys
+//   b + 16j: each float4 read of q or do along D feeds 4 NJ FMAs, each of
+//   k or v 4 MI (16 at D' <= 128).  In (b) it then holds keys KPT a ..
+//   KPT a + KPT - 1 by the float4 columns b + 16jj of dK and dV, reading a
+//   row of P and of dS as vectors and q, do as float4 (64 FMAs from 6
+//   reads at D' = 128); in (c) rows RPT a .. of dQ by the same columns,
+//   reading dS^T (the transpose, so a thread's rows are one vector) and k.
+//   The row loops of the products step by 8, so that every swizzle below
+//   is a constant of the unrolled body.  A warp spans 4 values of a and 8
+//   of b, so every read is one shared memory wavefront.  Rows of q, do, k
+//   and v are D' floats whose 16-byte chunks are XOR-swizzled by row & 7;
+//   P and dS by (row & 3) << 1 and dS^T by key & 7, so neither their writes
+//   nor their reads conflict.
+// - The masks once a tile: a tile that every row of the block sees whole
+//   runs no test; a tile on a mask edge tests two small integers an element
+//   against bounds computed once a row.  A row with lse = -inf (it sees no
+//   key) and a padding row take lse2 = +inf, so their p is exactly 0 and
+//   their dq exactly 0.  The softcap is a template argument.
+// - The exponential is ex2 of one FFMA: s (D^-0.5 log2 e) - lse log2 e.
+//
+// What bounds it (tools/profile_flash_attention.py, PERF.md): the S and dP
+// loop, 8 FMAs a float4 read, in both passes; the copies are hidden and the
+// masks cost little.
+//
+// Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
+// every warp of (b) and (c) adds the SM clocks it spends in each phase of
+// the tile loop to flash_bwd_phase_clocks[pass]: waiting for the tile's
+// copies (and the barrier), issuing the next tile's copies, the S and dP
+// loop, the softmax and masks (with the P, dS stores and their barrier),
+// the gradient products.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#ifdef FLASH_PHASE_CLOCKS
+__device__ unsigned long long flash_bwd_phase_clocks[2][5];
+#define PHASE(k)                       \
+  {                                    \
+    const long long now = clock64();   \
+    phase_clocks[k] += now - phase_at; \
+    phase_at = now;                    \
+  }
+#else
+#define PHASE(k)
+#endif
 
 namespace {
 
@@ -61,292 +113,463 @@ constexpr int kThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
   const float* lse;   // (B, Hq, Tq) contiguous
   float* delta;       // (B, Hq, Tq) contiguous, written by (a)
-  void* dq;           // contiguous (B, Hq, Tq, D)
-  void* dk;           // contiguous (B, Hkv, Tk, D)
-  void* dv;
+  float* dq;          // contiguous (B, Hq, Tq, D)
+  float* dk;          // contiguous (B, Hkv, Tk, D)
+  float* dv;
   int64_t Hq, Hkv, Tq, Tk, D, group;
   int64_t q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   int64_t o_sb, o_sh, o_st, do_sb, do_sh, do_st;
   int64_t window, q_offset;
-  int causal, has_window, has_softcap;
+  int causal, has_window, vec;
   float softcap, scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// DP: columns held in shared memory (D rounded up to 64, 128 or 256); BK
-// keys and BQ query rows a tile.
-template <int DP, int BK, int BQ>
-struct Layout {
-  static constexpr int kS = DP + 4;     // row stride of q, do, k, v tiles (floats)
-  static constexpr int kSP = BK + 16;   // row stride of the P and dS tiles
-  static constexpr int kMI = BQ / 16;   // score rows a thread
-  static constexpr int kNJ = BK / 16;   // score keys a thread
-  static constexpr int kNC = DP / 64;   // gradient float4 columns a thread
-  static constexpr int kRow = BQ * kS;
-  static constexpr int kKey = BK * kS;
-  static constexpr int kTile = BQ * kSP;
-  // q, do [BQ][kS]; k, v [BK][kS]; p, ds [BQ][kSP]; lse, delta [BQ]
-  static constexpr size_t kSmem = sizeof(float) * (2 * kRow + 2 * kKey + 2 * kTile + 2 * BQ);
-  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+// One pass's tiles: BQ query rows by BK keys of DP columns (D rounded up to
+// 64, 128 or 256).
+template <int DP_, int BQ_, int BK_>
+struct Pass {
+  static constexpr int DP = DP_, BQ = BQ_, BK = BK_;
+  static constexpr int MI = BQ / 16;    // score rows a thread
+  static constexpr int NJ = BK / 16;    // score keys a thread
+  static constexpr int KPT = BK / 16;   // dK, dV keys a thread
+  static constexpr int RPT = BQ / 16;   // dQ rows a thread
+  static constexpr int NC = DP / 64;    // gradient float4 columns a thread
+  static constexpr int kRow = BQ * DP;  // floats of a q or do tile
+  static constexpr int kKey = BK * DP;  // floats of a k or v tile
+  static constexpr int kScore = BQ * BK;
+  // (b): k, v [BK][DP]; q, do [2][BQ][DP]; p, ds [BQ][BK]; lse, delta [2][BQ]
+  static constexpr size_t kSmemKV = sizeof(float) * (2 * kKey + 4 * kRow + 2 * kScore + 4 * BQ);
+  // (c): q, do [BQ][DP]; k, v [2][BK][DP]; ds^T [BK][BQ]; lse, delta [BQ]
+  static constexpr size_t kSmemQ = sizeof(float) * (2 * kRow + 4 * kKey + kScore + 2 * BQ);
 };
 
-// rows [0, n) of a (rows, D) view with row stride `rs` into shared rows of
-// `stride` floats, as float32; rows [n, rows) as zeros.  Columns past D are
-// left alone (zero from the start).
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int stride, int rows, const T* src,
-                                          int64_t rs, int n, int D) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    dst[r * stride + c] = r < n ? to_f(src[r * rs + c]) : 0.0f;
+// The passes at DP columns: (b)'s and (c)'s tiles
+template <int DP>
+struct Cfg {
+  using KV = Pass<DP, DP == 256 ? 32 : 64, DP == 256 ? 32 : (DP == 64 ? 128 : 64)>;
+  using Q = Pass<DP, DP == 256 ? 32 : (DP == 64 ? 128 : 64), DP == 256 ? 32 : 64>;
+  static_assert(KV::kSmemKV <= 232448 && Q::kSmemQ <= 232448, "over the 227 KB a block may use");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 2^x, one MUFU instruction (relative error ~2^-22; subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Offsets in floats.  A row of q, do, k or v: DP floats, chunk c at
+// c ^ (row & 7).  P and dS [BQ][BK]: chunk c of row r at c ^ ((r & 3) << 1).
+// dS^T [BK][BQ]: chunk c of key k at c ^ (k & 7).
+template <int DP>
+__device__ __forceinline__ int row_at(int r, int chunk) {
+  return r * DP + ((chunk ^ (r & 7)) << 2);
+}
+template <int BK>
+__device__ __forceinline__ int score_at(int r, int key) {
+  return r * BK + ((((key >> 2) ^ ((r & 3) << 1))) << 2) + (key & 3);
+}
+template <int BQ>
+__device__ __forceinline__ int score_t_at(int key, int r) {
+  return key * BQ + ((((r >> 2) ^ (key & 7))) << 2) + (r & 3);
+}
+
+// N consecutive floats from index `first` of a swizzled row at `row` whose
+// chunks sit at chunk ^ swz (float4s, or a float2 for N = 2)
+template <int N>
+__device__ __forceinline__ void load_vec(const float* row, int first, int swz, float (&out)[N]) {
+  if constexpr (N == 2) {
+    const float2 x =
+        *reinterpret_cast<const float2*>(row + (((first >> 2) ^ swz) << 2) + (first & 3));
+    out[0] = x.x;
+    out[1] = x.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) {
+      const float4 x = *reinterpret_cast<const float4*>(row + ((((first >> 2) + c) ^ swz) << 2));
+      out[4 * c] = x.x;
+      out[4 * c + 1] = x.y;
+      out[4 * c + 2] = x.z;
+      out[4 * c + 3] = x.w;
+    }
   }
 }
 
-__device__ __forceinline__ bool key_live(const Params& p, int64_t qpos, int64_t kpos) {
-  return kpos < p.Tk && (!p.causal || kpos <= qpos) && (!p.has_window || kpos > qpos - p.window);
+// Copy rows [0, ROWS) of a (rows, D) view into swizzled shared rows of DP
+// floats, row r from src + r * rs for r < n and zeros past n.  Columns past
+// D are not written (zero from the start).  16-byte copies take a fixed
+// chunk a thread, its source pointer stepping a row stride at a time.
+template <int DP, int ROWS>
+__device__ __forceinline__ void copy_rows(float* dst, int n, const float* src, int64_t rs, int D,
+                                          bool vec) {
+  constexpr int kC = DP / 4;               // chunks a row
+  constexpr int kStep = kThreads / kC;     // rows a pass of the block
+  static_assert(ROWS % kStep == 0, "whole passes");
+  const int tid = threadIdx.x;
+  if (vec) {
+    const int c = tid % kC, r0 = tid / kC;
+    if (4 * c >= D) return;
+    const float* from = src + r0 * rs + 4 * c;
+    const int64_t step = kStep * rs;
+#pragma unroll
+    for (int m = 0; m < ROWS / kStep; ++m, from += step) {
+      const int r = r0 + kStep * m;
+      cp_async16(dst + row_at<DP>(r, c), r < n ? from : src, r < n ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < ROWS * D; i += kThreads) {
+      const int r = i / D, c = i - r * D;
+      cp_async4(dst + row_at<DP>(r, c >> 2) + (c & 3), r < n ? src + r * rs + c : src,
+                r < n ? 4 : 0);
+    }
+  }
 }
 
-// The score tile of BQ query rows by BK keys, from q, do, k and v in
-// shared memory: P at p_s and dS at ds_s (unscaled: dq and dk take D^-0.5
-// at the end).  Rows at or past Tq, keys at or past Tk, masked pairs and
-// rows with lse = -inf give 0.
-template <int DP, int BK, int BQ>
-__device__ __forceinline__ void score_tile(const Params& p, const float* qs, const float* dos,
-                                           const float* ks, const float* vs, const float* lse_s,
-                                           const float* delta_s, float* p_s, float* ds_s,
-                                           int64_t q0, int64_t kt) {
-  using L = Layout<DP, BK, BQ>;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[L::kMI][L::kNJ], dp[L::kMI][L::kNJ];
+// lse and delta of rows [0, BQ) from row q0 of head row `bh`: zeros past n
+template <int BQ>
+__device__ __forceinline__ void copy_stats(float* lse_s, float* delta_s, const Params& p,
+                                           int64_t bh, int64_t q0, int n) {
+  const int tid = threadIdx.x;
+  if (tid < 2 * BQ) {
+    const int r = tid % BQ;
+    const float* src = (tid < BQ ? p.lse : p.delta) + bh * p.Tq + q0;
+    cp_async4((tid < BQ ? lse_s : delta_s) + r, r < n ? src + r : src, r < n ? 4 : 0);
+  }
+}
+
+// Does every row of query tile q0 (n rows) see every key of key tile kt
+// (BK keys)?  Then the tile runs no mask test.
+template <int BK>
+__device__ __forceinline__ bool tile_interior(const Params& p, int64_t q0, int n, int64_t kt) {
+  const int64_t q_first = p.q_offset + q0, q_last = p.q_offset + q0 + n - 1;
+  return kt + BK <= p.Tk && (!p.causal || kt + BK - 1 <= q_first) &&
+         (!p.has_window || kt > q_last - p.window);
+}
+
+// The score tile of BQ query rows (q, do at qs, dos) by BK keys (k, v at
+// ks, vs): thread (a, b) computes s and dp of rows a + 16i, keys b + 16j,
+// over d4 float4 chunks of D (d4 even; chunks past D are zero).  Rows
+// a + 16i share a & 7, keys b + 16j share b & 7, so a chunk's swizzled
+// offset is one XOR for all of a thread's rows and one for its keys.
+template <class T>
+__device__ __forceinline__ void score_tile(const float* qs, const float* dos, const float* ks,
+                                           const float* vs, int d4, int a, int b,
+                                           float (&s)[T::MI][T::NJ], float (&dp)[T::MI][T::NJ]) {
+  constexpr int DP = T::DP;
 #pragma unroll
-  for (int i = 0; i < L::kMI; ++i)
+  for (int i = 0; i < T::MI; ++i)
 #pragma unroll
-    for (int j = 0; j < L::kNJ; ++j) s[i][j] = dp[i][j] = 0.0f;
-  const int d4 = (static_cast<int>(p.D) + 3) >> 2;
-  for (int c = 0; c < d4; ++c) {
-    float4 a[L::kMI], g[L::kMI];
+    for (int j = 0; j < T::NJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+  const float* q_a = qs + a * DP;
+  const float* g_a = dos + a * DP;
+  const float* k_b = ks + b * DP;
+  const float* v_b = vs + b * DP;
+  const int xa = a & 7, xb = b & 7;
+#pragma unroll 2
+  for (int ch = 0; ch < d4; ch += 2) {
 #pragma unroll
-    for (int i = 0; i < L::kMI; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * L::kS + 4 * c);
-      g[i] = *reinterpret_cast<const float4*>(dos + (ty + 16 * i) * L::kS + 4 * c);
-    }
+    for (int h = 0; h < 2; ++h) {
+      const int oa = ((ch + h) ^ xa) << 2, ob = ((ch + h) ^ xb) << 2;
+      float4 qa[T::MI], ga[T::MI];
 #pragma unroll
-    for (int j = 0; j < L::kNJ; ++j) {
-      const float4 kk = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * L::kS + 4 * c);
-      const float4 vv = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * L::kS + 4 * c);
-#pragma unroll
-      for (int i = 0; i < L::kMI; ++i) {
-        s[i][j] = fmaf(a[i].x, kk.x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, kk.y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, kk.z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, kk.w, s[i][j]);
-        dp[i][j] = fmaf(g[i].x, vv.x, dp[i][j]);
-        dp[i][j] = fmaf(g[i].y, vv.y, dp[i][j]);
-        dp[i][j] = fmaf(g[i].z, vv.z, dp[i][j]);
-        dp[i][j] = fmaf(g[i].w, vv.w, dp[i][j]);
+      for (int i = 0; i < T::MI; ++i) {
+        qa[i] = *reinterpret_cast<const float4*>(q_a + 16 * i * DP + oa);
+        ga[i] = *reinterpret_cast<const float4*>(g_a + 16 * i * DP + oa);
       }
-    }
-  }
 #pragma unroll
-  for (int i = 0; i < L::kMI; ++i) {
-    const int r = ty + 16 * i;
-    const int64_t qi = q0 + r;
-    const float lse2 = lse_s[r] * kLog2e;
-    const bool row_live = qi < p.Tq && lse_s[r] != -CUDART_INF_F;
+      for (int j = 0; j < T::NJ; ++j) {
+        const float4 kk = *reinterpret_cast<const float4*>(k_b + 16 * j * DP + ob);
+        const float4 vv = *reinterpret_cast<const float4*>(v_b + 16 * j * DP + ob);
 #pragma unroll
-    for (int j = 0; j < L::kNJ; ++j) {
-      const int kc = tx + 16 * j;
-      float pr = 0.0f, ds = 0.0f;
-      if (row_live && key_live(p, p.q_offset + qi, kt + kc)) {
-        float x = s[i][j] * p.scale;
-        float dcap = 1.0f;
-        if (p.has_softcap) {
-          const float t = tanhf(x / p.softcap);
-          x = p.softcap * t;
-          dcap = 1.0f - t * t;
+        for (int i = 0; i < T::MI; ++i) {
+          s[i][j] = fmaf(qa[i].x, kk.x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kk.y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kk.z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kk.w, s[i][j]);
+          dp[i][j] = fmaf(ga[i].x, vv.x, dp[i][j]);
+          dp[i][j] = fmaf(ga[i].y, vv.y, dp[i][j]);
+          dp[i][j] = fmaf(ga[i].z, vv.z, dp[i][j]);
+          dp[i][j] = fmaf(ga[i].w, vv.w, dp[i][j]);
         }
-        pr = exp2f(fmaf(x, kLog2e, -lse2));
-        ds = pr * (dp[i][j] - delta_s[r]) * dcap;
       }
-      p_s[r * L::kSP + kc] = pr;
-      ds_s[r * L::kSP + kc] = ds;
     }
   }
 }
 
-template <typename T>
+// s and dp of the tile (q0, kt) into p and ds in place: rows a + 16i, keys
+// b + 16j.  lse_s, delta_s: the tile's rows' statistics, n of them live.
+// Masks only when the tile is not interior.
+template <class T, bool CAP>
+__device__ __forceinline__ void softmax_tile(const Params& p, const float* lse_s,
+                                             const float* delta_s, int64_t q0, int n, int64_t kt,
+                                             int a, int b, float (&s)[T::MI][T::NJ],
+                                             float (&dp)[T::MI][T::NJ]) {
+  const bool edge = !tile_interior<T::BK>(p, q0, n, kt);
+  const float c = p.scale * kLog2e;
+  const float cap_in = p.scale / p.softcap;
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i) {
+    const int r = a + 16 * i;
+    const float lse = lse_s[r];
+    // +inf: p = 0 on a row that sees no key and on a padding row
+    const float lse2 = r < n && lse != -CUDART_INF_F ? lse * kLog2e : CUDART_INF_F;
+    const float delta = delta_s[r];
+    int lo = 0, hi = T::BK - 1;   // this row's live keys of the tile, relative to kt
+    if (edge) {
+      const int64_t qpos = p.q_offset + q0 + r;
+      int64_t h = p.Tk - 1 - kt;
+      if (p.causal && qpos - kt < h) h = qpos - kt;
+      const int64_t l = p.has_window ? qpos - p.window + 1 - kt : 0;
+      hi = h < -1 ? -1 : (h > T::BK ? T::BK : static_cast<int>(h));
+      lo = l < 0 ? 0 : (l > T::BK ? T::BK : static_cast<int>(l));
+    }
+#pragma unroll
+    for (int j = 0; j < T::NJ; ++j) {
+      const int kc = b + 16 * j;
+      float pr, ds;
+      if (CAP) {
+        const float t = tanhf(s[i][j] * cap_in);
+        pr = ex2(fmaf(p.softcap * t, kLog2e, -lse2));
+        ds = pr * (dp[i][j] - delta) * (1.0f - t * t);
+      } else {
+        pr = ex2(fmaf(s[i][j], c, -lse2));
+        ds = pr * (dp[i][j] - delta);
+      }
+      if (edge && (kc < lo || kc > hi)) pr = ds = 0.0f;
+      s[i][j] = pr;
+      dp[i][j] = ds;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const Params p, int64_t rows) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int64_t i = row % p.Tq, bh = row / p.Tq, h = bh % p.Hq, b = bh / p.Hq;
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_st;
-  const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + i * p.do_st;
+  const float* o = p.o + b * p.o_sb + h * p.o_sh + i * p.o_st;
+  const float* g = p.dout + b * p.do_sb + h * p.do_sh + i * p.do_st;
   float acc = 0.0f;
-  for (int d = lane; d < p.D; d += 32) acc = fmaf(to_f(o[d]), to_f(g[d]), acc);
+  for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.delta[row] = acc;
 }
 
-template <typename T, int DP, int BK, int BQ>
+// the float4 columns b + 16jj (jj < NC) of a thread's gradient rows, as
+// floats 4 (b + 16jj) .. + 3, stored to the row at `out` (D columns)
+template <int NC>
+__device__ __forceinline__ void store_row(float* out, const float (&x)[4 * NC], float scale,
+                                          int b, int D) {
+#pragma unroll
+  for (int jj = 0; jj < NC; ++jj) {
+    const int col = 4 * (b + 16 * jj);
+    if (col >= D) continue;
+    if ((D & 3) == 0) {
+      *reinterpret_cast<float4*>(out + col) =
+          make_float4(x[4 * jj] * scale, x[4 * jj + 1] * scale, x[4 * jj + 2] * scale,
+                      x[4 * jj + 3] * scale);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < D) out[col + e] = x[4 * jj + e] * scale;
+    }
+  }
+}
+
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const Params p) {
-  using L = Layout<DP, BK, BQ>;
+  using T = typename Cfg<DP>::KV;
+  constexpr int BK = T::BK, BQ = T::BQ, KPT = T::KPT, NC = T::NC;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + L::kRow;
-  float* ks = dos + L::kRow;
-  float* vs = ks + L::kKey;
-  float* p_s = vs + L::kKey;
-  float* ds_s = p_s + L::kTile;
-  float* lse_s = ds_s + L::kTile;
-  float* delta_s = lse_s + BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + T::kKey;
+  float* qs = vs + T::kKey;           // [2][BQ][DP]
+  float* dos = qs + 2 * T::kRow;      // [2][BQ][DP]
+  float* ps = dos + 2 * T::kRow;      // [BQ][BK]
+  float* dss = ps + T::kScore;        // [BQ][BK]
+  float* lse_s = dss + T::kScore;     // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;    // [2][BQ]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int a = 4 * (warp >> 1) + (lane >> 3), b = 8 * (warp & 1) + (lane & 7);
   const int D = static_cast<int>(p.D);
+  const int d4 = ((D + 3) >> 2) + (((D + 3) >> 2) & 1);   // float4 chunks, even
   const int64_t kt = static_cast<int64_t>(blockIdx.x) * BK;
-  const int64_t hk = blockIdx.y, b = blockIdx.z;
+  const int64_t hk = blockIdx.y, bz = blockIdx.z;
+  const int nk = static_cast<int>(p.Tk - kt < BK ? p.Tk - kt : BK);
 
-  for (int i = tid; i < static_cast<int>(L::kSmem / 16); i += kThreads)
+  for (int i = tid; i < static_cast<int>(T::kSmemKV / 16); i += kThreads)
     smem4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   __syncthreads();
-  const int nk = static_cast<int>(p.Tk - kt < BK ? p.Tk - kt : BK);
-  load_rows(ks, L::kS, BK, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + kt * p.k_st,
-            p.k_st, nk, D);
-  load_rows(vs, L::kS, BK, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + kt * p.v_st,
-            p.v_st, nk, D);
 
-  // the query rows that see one of keys [kt, kt + nk)
+  // the query rows that see one of keys [kt, kt + nk), in whole tiles
   int64_t i_lo = 0, i_hi = p.Tq;
   if (p.causal && kt - p.q_offset > i_lo) i_lo = kt - p.q_offset;
   if (p.has_window && kt + nk - 1 + p.window - p.q_offset < i_hi)
     i_hi = kt + nk - 1 + p.window - p.q_offset;
   i_lo = i_lo / BQ * BQ;
+  const int64_t n_qt = i_hi > i_lo ? (i_hi - i_lo + BQ - 1) / BQ : 0;
+  const int64_t tiles = p.group * n_qt;   // (head, query tile) pairs, head-major
 
-  float dk[L::kNJ][L::kNC][4], dv[L::kNJ][L::kNC][4];
-#pragma unroll
-  for (int i = 0; i < L::kNJ; ++i)
-#pragma unroll
-    for (int jj = 0; jj < L::kNC; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[i][jj][e] = dv[i][jj][e] = 0.0f;
+  auto load_tile = [&](int64_t h, int64_t q0, int stage) {
+    const int n = static_cast<int>(p.Tq - q0 < BQ ? p.Tq - q0 : BQ);
+    copy_rows<DP, BQ>(qs + stage * T::kRow, n, p.q + bz * p.q_sb + h * p.q_sh + q0 * p.q_st,
+                      p.q_st, D, p.vec);
+    copy_rows<DP, BQ>(dos + stage * T::kRow, n,
+                      p.dout + bz * p.do_sb + h * p.do_sh + q0 * p.do_st, p.do_st, D, p.vec);
+    copy_stats<BQ>(lse_s + stage * BQ, delta_s + stage * BQ, p, bz * p.Hq + h, q0, n);
+  };
+  copy_rows<DP, BK>(ks, nk, p.k + bz * p.k_sb + hk * p.k_sh + kt * p.k_st, p.k_st, D, p.vec);
+  copy_rows<DP, BK>(vs, nk, p.v + bz * p.v_sb + hk * p.v_sh + kt * p.v_st, p.v_st, D, p.vec);
+  if (tiles > 0) load_tile(hk * p.group, i_lo, 0);
+  cp_async_commit();
 
-  for (int64_t g = 0; g < p.group; ++g) {
-    const int64_t h = hk * p.group + g;
-    const float* lse_h = p.lse + (b * p.Hq + h) * p.Tq;
-    const float* delta_h = p.delta + (b * p.Hq + h) * p.Tq;
-    for (int64_t q0 = i_lo; q0 < i_hi; q0 += BQ) {
-      const int nq = static_cast<int>(p.Tq - q0 < BQ ? p.Tq - q0 : BQ);
-      __syncthreads();   // every thread is done with the last tile's q, do, p and ds
-      load_rows(qs, L::kS, BQ,
-                static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st, nq, D);
-      load_rows(dos, L::kS, BQ,
-                static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + q0 * p.do_st,
-                p.do_st, nq, D);
-      for (int r = tid; r < BQ; r += kThreads) {
-        lse_s[r] = r < nq ? lse_h[q0 + r] : -CUDART_INF_F;
-        delta_s[r] = r < nq ? delta_h[q0 + r] : 0.0f;
+  float dk[KPT][4 * NC], dv[KPT][4 * NC];
+#pragma unroll
+  for (int u = 0; u < KPT; ++u)
+#pragma unroll
+    for (int e = 0; e < 4 * NC; ++e) dk[u][e] = dv[u][e] = 0.0f;
+
+#ifdef FLASH_PHASE_CLOCKS
+  long long phase_clocks[5] = {0, 0, 0, 0, 0};
+  long long phase_at = clock64();
+#endif
+  int stage = 0;
+  int64_t h = hk * p.group, q0 = i_lo;   // this tile's head and first row
+  for (int64_t t = 0; t < tiles; ++t, stage ^= 1) {
+    const int n = static_cast<int>(p.Tq - q0 < BQ ? p.Tq - q0 : BQ);
+    // the next tile: the next query tile of this head, or the first of the next head
+    const bool head_ends = q0 + BQ >= i_lo + n_qt * BQ;
+    const int64_t h_next = head_ends ? h + 1 : h, q0_next = head_ends ? i_lo : q0 + BQ;
+    cp_async_wait_all();
+    __syncthreads();   // tile t has landed for all; every thread is done with tile t - 1
+    PHASE(0)
+    if (t + 1 < tiles) load_tile(h_next, q0_next, stage ^ 1);
+    cp_async_commit();
+    PHASE(1)
+    const float* qst = qs + stage * T::kRow;
+    const float* dost = dos + stage * T::kRow;
+    float s[T::MI][T::NJ], dp[T::MI][T::NJ];
+    score_tile<T>(qst, dost, ks, vs, d4, a, b, s, dp);
+    PHASE(2)
+    softmax_tile<T, CAP>(p, lse_s + stage * BQ, delta_s + stage * BQ, q0, n, kt, a, b, s, dp);
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < T::NJ; ++j) {
+        ps[score_at<BK>(a + 16 * i, b + 16 * j)] = s[i][j];
+        dss[score_at<BK>(a + 16 * i, b + 16 * j)] = dp[i][j];
       }
-      __syncthreads();
-      score_tile<DP, BK, BQ>(p, qs, dos, ks, vs, lse_s, delta_s, p_s, ds_s, q0, kt);
-      __syncthreads();
-      // dV += P^T do, dK += dS^T q: keys ty + 16i, columns 4 (tx + 16jj)
-      for (int r = 0; r < nq; ++r) {
-        float pv[L::kNJ], dsv[L::kNJ];
-        float4 gv[L::kNC], qv[L::kNC];
+    __syncthreads();   // P and dS of the tile are whole
+    PHASE(3)
+    // dV += P^T do, dK += dS^T q: keys KPT a + u, columns 4 (b + 16jj) + e;
+    // rows r8 + k, k < 8, so that r & 7 = k
+#pragma unroll 1
+    for (int r8 = 0; r8 < BQ; r8 += 8) {
 #pragma unroll
-        for (int i = 0; i < L::kNJ; ++i) {
-          pv[i] = p_s[r * L::kSP + ty + 16 * i];
-          dsv[i] = ds_s[r * L::kSP + ty + 16 * i];
+      for (int k = 0; k < 8; ++k) {
+        const int r = r8 + k;
+        float pv[KPT], dsv[KPT];
+        load_vec<KPT>(ps + r * BK, KPT * a, (k & 3) << 1, pv);
+        load_vec<KPT>(dss + r * BK, KPT * a, (k & 3) << 1, dsv);
+        float4 gq[NC], gd[NC];
+#pragma unroll
+        for (int jj = 0; jj < NC; ++jj) {
+          const int off = r * DP + ((((b ^ k) + 16 * jj)) << 2);
+          gq[jj] = *reinterpret_cast<const float4*>(qst + off);
+          gd[jj] = *reinterpret_cast<const float4*>(dost + off);
         }
 #pragma unroll
-        for (int jj = 0; jj < L::kNC; ++jj) {
-          gv[jj] = *reinterpret_cast<const float4*>(dos + r * L::kS + 4 * (tx + 16 * jj));
-          qv[jj] = *reinterpret_cast<const float4*>(qs + r * L::kS + 4 * (tx + 16 * jj));
-        }
+        for (int u = 0; u < KPT; ++u)
 #pragma unroll
-        for (int i = 0; i < L::kNJ; ++i)
-#pragma unroll
-          for (int jj = 0; jj < L::kNC; ++jj) {
-            dv[i][jj][0] = fmaf(pv[i], gv[jj].x, dv[i][jj][0]);
-            dv[i][jj][1] = fmaf(pv[i], gv[jj].y, dv[i][jj][1]);
-            dv[i][jj][2] = fmaf(pv[i], gv[jj].z, dv[i][jj][2]);
-            dv[i][jj][3] = fmaf(pv[i], gv[jj].w, dv[i][jj][3]);
-            dk[i][jj][0] = fmaf(dsv[i], qv[jj].x, dk[i][jj][0]);
-            dk[i][jj][1] = fmaf(dsv[i], qv[jj].y, dk[i][jj][1]);
-            dk[i][jj][2] = fmaf(dsv[i], qv[jj].z, dk[i][jj][2]);
-            dk[i][jj][3] = fmaf(dsv[i], qv[jj].w, dk[i][jj][3]);
+          for (int jj = 0; jj < NC; ++jj) {
+            dv[u][4 * jj + 0] = fmaf(pv[u], gd[jj].x, dv[u][4 * jj + 0]);
+            dv[u][4 * jj + 1] = fmaf(pv[u], gd[jj].y, dv[u][4 * jj + 1]);
+            dv[u][4 * jj + 2] = fmaf(pv[u], gd[jj].z, dv[u][4 * jj + 2]);
+            dv[u][4 * jj + 3] = fmaf(pv[u], gd[jj].w, dv[u][4 * jj + 3]);
+            dk[u][4 * jj + 0] = fmaf(dsv[u], gq[jj].x, dk[u][4 * jj + 0]);
+            dk[u][4 * jj + 1] = fmaf(dsv[u], gq[jj].y, dk[u][4 * jj + 1]);
+            dk[u][4 * jj + 2] = fmaf(dsv[u], gq[jj].z, dk[u][4 * jj + 2]);
+            dk[u][4 * jj + 3] = fmaf(dsv[u], gq[jj].w, dk[u][4 * jj + 3]);
           }
       }
     }
+    PHASE(4)
+    h = h_next;
+    q0 = q0_next;
   }
+  cp_async_wait_all();   // no copy outlives the block
+#ifdef FLASH_PHASE_CLOCKS
+  if (lane == 0)
+    for (int k = 0; k < 5; ++k)
+      atomicAdd(&flash_bwd_phase_clocks[0][k], static_cast<unsigned long long>(phase_clocks[k]));
+#endif
 
-  T* dkg = static_cast<T*>(p.dk) + ((b * p.Hkv + hk) * p.Tk + kt) * p.D;
-  T* dvg = static_cast<T*>(p.dv) + ((b * p.Hkv + hk) * p.Tk + kt) * p.D;
+  float* dkg = p.dk + ((bz * p.Hkv + hk) * p.Tk + kt) * p.D;
+  float* dvg = p.dv + ((bz * p.Hkv + hk) * p.Tk + kt) * p.D;
 #pragma unroll
-  for (int i = 0; i < L::kNJ; ++i) {
-    const int r = ty + 16 * i;
+  for (int u = 0; u < KPT; ++u) {
+    const int r = KPT * a + u;
     if (r >= nk) continue;
-#pragma unroll
-    for (int jj = 0; jj < L::kNC; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * (tx + 16 * jj) + e;
-        if (col < D) {
-          dkg[r * p.D + col] = from_f<T>(dk[i][jj][e] * p.scale);
-          dvg[r * p.D + col] = from_f<T>(dv[i][jj][e]);
-        }
-      }
+    store_row<NC>(dkg + r * p.D, dk[u], p.scale, b, D);
+    store_row<NC>(dvg + r * p.D, dv[u], 1.0f, b, D);
   }
 }
 
-template <typename T, int DP, int BK, int BQ>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const Params p) {
-  using L = Layout<DP, BK, BQ>;
+  using T = typename Cfg<DP>::Q;
+  constexpr int BK = T::BK, BQ = T::BQ, RPT = T::RPT, NC = T::NC;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + L::kRow;
-  float* ks = dos + L::kRow;
-  float* vs = ks + L::kKey;
-  float* p_s = vs + L::kKey;
-  float* ds_s = p_s + L::kTile;
-  float* lse_s = ds_s + L::kTile;
-  float* delta_s = lse_s + BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float* dos = qs + T::kRow;
+  float* ks = dos + T::kRow;          // [2][BK][DP]
+  float* vs = ks + 2 * T::kKey;       // [2][BK][DP]
+  float* dst = vs + 2 * T::kKey;      // [BK][BQ], dS transposed
+  float* lse_s = dst + T::kScore;     // [BQ]
+  float* delta_s = lse_s + BQ;        // [BQ]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int a = 4 * (warp >> 1) + (lane >> 3), b = 8 * (warp & 1) + (lane & 7);
   const int D = static_cast<int>(p.D);
+  const int d4 = ((D + 3) >> 2) + (((D + 3) >> 2) & 1);
   // the last query tiles see the most keys: start them first
   const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BQ;
-  const int64_t h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  const int64_t h = blockIdx.y, bz = blockIdx.z, hk = h / p.group;
   const int nq = static_cast<int>(p.Tq - q0 < BQ ? p.Tq - q0 : BQ);
 
-  for (int i = tid; i < static_cast<int>(L::kSmem / 16); i += kThreads)
+  for (int i = tid; i < static_cast<int>(T::kSmemQ / 16); i += kThreads)
     smem4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   __syncthreads();
-  load_rows(qs, L::kS, BQ, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_st,
-            p.q_st, nq, D);
-  load_rows(dos, L::kS, BQ,
-            static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + q0 * p.do_st, p.do_st,
-            nq, D);
-  const float* lse_h = p.lse + (b * p.Hq + h) * p.Tq;
-  const float* delta_h = p.delta + (b * p.Hq + h) * p.Tq;
-  for (int r = tid; r < BQ; r += kThreads) {
-    lse_s[r] = r < nq ? lse_h[q0 + r] : -CUDART_INF_F;
-    delta_s[r] = r < nq ? delta_h[q0 + r] : 0.0f;
-  }
 
   // the key tiles that any row of this block can see
   const int64_t q_first = p.q_offset + q0, q_last = p.q_offset + q0 + nq - 1;
@@ -356,106 +579,148 @@ dq_kernel(const Params p) {
   if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
   k_begin = k_begin / BK * BK;
 
-  float dq[L::kMI][L::kNC][4];
-#pragma unroll
-  for (int i = 0; i < L::kMI; ++i)
-#pragma unroll
-    for (int jj = 0; jj < L::kNC; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[i][jj][e] = 0.0f;
+  const float* kg = p.k + bz * p.k_sb + hk * p.k_sh;
+  const float* vg = p.v + bz * p.v_sb + hk * p.v_sh;
+  auto load_kv = [&](int64_t kt, int stage) {
+    const int n = static_cast<int>(p.Tk - kt < BK ? p.Tk - kt : BK);
+    copy_rows<DP, BK>(ks + stage * T::kKey, n, kg + kt * p.k_st, p.k_st, D, p.vec);
+    copy_rows<DP, BK>(vs + stage * T::kKey, n, vg + kt * p.v_st, p.v_st, D, p.vec);
+  };
+  copy_rows<DP, BQ>(qs, nq, p.q + bz * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st, D, p.vec);
+  copy_rows<DP, BQ>(dos, nq, p.dout + bz * p.do_sb + h * p.do_sh + q0 * p.do_st, p.do_st, D,
+                    p.vec);
+  copy_stats<BQ>(lse_s, delta_s, p, bz * p.Hq + h, q0, nq);
+  if (k_begin < k_end) load_kv(k_begin, 0);
+  cp_async_commit();
 
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  for (int64_t kt = k_begin; kt < k_end; kt += BK) {
-    const int nk = static_cast<int>(p.Tk - kt < BK ? p.Tk - kt : BK);
-    __syncthreads();   // every thread is done with the last tile's k and ds
-    load_rows(ks, L::kS, BK, kg + kt * p.k_st, p.k_st, nk, D);
-    load_rows(vs, L::kS, BK, vg + kt * p.v_st, p.v_st, nk, D);
-    __syncthreads();
-    score_tile<DP, BK, BQ>(p, qs, dos, ks, vs, lse_s, delta_s, p_s, ds_s, q0, kt);
-    __syncthreads();
-    // dQ += dS K: rows ty + 16i, columns 4 (tx + 16jj)
-    for (int c = 0; c < nk; ++c) {
-      float dsv[L::kMI];
-      float4 kv[L::kNC];
+  float dq[RPT][4 * NC];
 #pragma unroll
-      for (int i = 0; i < L::kMI; ++i) dsv[i] = ds_s[(ty + 16 * i) * L::kSP + c];
+  for (int u = 0; u < RPT; ++u)
 #pragma unroll
-      for (int jj = 0; jj < L::kNC; ++jj)
-        kv[jj] = *reinterpret_cast<const float4*>(ks + c * L::kS + 4 * (tx + 16 * jj));
-#pragma unroll
-      for (int i = 0; i < L::kMI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < L::kNC; ++jj) {
-          dq[i][jj][0] = fmaf(dsv[i], kv[jj].x, dq[i][jj][0]);
-          dq[i][jj][1] = fmaf(dsv[i], kv[jj].y, dq[i][jj][1]);
-          dq[i][jj][2] = fmaf(dsv[i], kv[jj].z, dq[i][jj][2]);
-          dq[i][jj][3] = fmaf(dsv[i], kv[jj].w, dq[i][jj][3]);
-        }
-    }
-  }
+    for (int e = 0; e < 4 * NC; ++e) dq[u][e] = 0.0f;
 
-  T* dqg = static_cast<T*>(p.dq) + ((b * p.Hq + h) * p.Tq + q0) * p.D;
+#ifdef FLASH_PHASE_CLOCKS
+  long long phase_clocks[5] = {0, 0, 0, 0, 0};
+  long long phase_at = clock64();
+#endif
+  int stage = 0;
+  for (int64_t kt = k_begin; kt < k_end; kt += BK, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt has landed for all; every thread is done with tile kt - BK
+    PHASE(0)
+    if (kt + BK < k_end) load_kv(kt + BK, stage ^ 1);
+    cp_async_commit();
+    PHASE(1)
+    const float* kst = ks + stage * T::kKey;
+    float s[T::MI][T::NJ], dp[T::MI][T::NJ];
+    score_tile<T>(qs, dos, kst, vs + stage * T::kKey, d4, a, b, s, dp);
+    PHASE(2)
+    softmax_tile<T, CAP>(p, lse_s, delta_s, q0, nq, kt, a, b, s, dp);
 #pragma unroll
-  for (int i = 0; i < L::kMI; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= nq) continue;
+    for (int i = 0; i < T::MI; ++i)
 #pragma unroll
-    for (int jj = 0; jj < L::kNC; ++jj)
+      for (int j = 0; j < T::NJ; ++j) dst[score_t_at<BQ>(b + 16 * j, a + 16 * i)] = dp[i][j];
+    __syncthreads();   // dS of the tile is whole
+    PHASE(3)
+    // dQ += dS k: rows RPT a + u, columns 4 (b + 16jj) + e; keys c8 + k,
+    // k < 8, so that c & 7 = k
+#pragma unroll 1
+    for (int c8 = 0; c8 < BK; c8 += 8) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * (tx + 16 * jj) + e;
-        if (col < D) dqg[r * p.D + col] = from_f<T>(dq[i][jj][e] * p.scale);
+      for (int k = 0; k < 8; ++k) {
+        const int c = c8 + k;
+        float dsv[RPT];
+        load_vec<RPT>(dst + c * BQ, RPT * a, k, dsv);
+        float4 kv[NC];
+#pragma unroll
+        for (int jj = 0; jj < NC; ++jj)
+          kv[jj] = *reinterpret_cast<const float4*>(kst + c * DP + (((b ^ k) + 16 * jj) << 2));
+#pragma unroll
+        for (int u = 0; u < RPT; ++u)
+#pragma unroll
+          for (int jj = 0; jj < NC; ++jj) {
+            dq[u][4 * jj + 0] = fmaf(dsv[u], kv[jj].x, dq[u][4 * jj + 0]);
+            dq[u][4 * jj + 1] = fmaf(dsv[u], kv[jj].y, dq[u][4 * jj + 1]);
+            dq[u][4 * jj + 2] = fmaf(dsv[u], kv[jj].z, dq[u][4 * jj + 2]);
+            dq[u][4 * jj + 3] = fmaf(dsv[u], kv[jj].w, dq[u][4 * jj + 3]);
+          }
       }
+    }
+    PHASE(4)
+  }
+  cp_async_wait_all();
+#ifdef FLASH_PHASE_CLOCKS
+  if (lane == 0)
+    for (int k = 0; k < 5; ++k)
+      atomicAdd(&flash_bwd_phase_clocks[1][k], static_cast<unsigned long long>(phase_clocks[k]));
+#endif
+
+  float* dqg = p.dq + ((bz * p.Hq + h) * p.Tq + q0) * p.D;
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int r = RPT * a + u;
+    if (r < nq) store_row<NC>(dqg + r * p.D, dq[u], p.scale, b, D);
   }
 }
 
-template <typename T, int DP, int BK, int BQ>
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int DP, bool CAP>
 int launch(const Params& p, int64_t B, cudaStream_t stream) {
-  using L = Layout<DP, BK, BQ>;
+  using KV = typename Cfg<DP>::KV;
+  using Q = typename Cfg<DP>::Q;
+  cudaError_t err = configure(dkdv_kernel<DP, CAP>, KV::kSmemKV);
+  if (err == cudaSuccess) err = configure(dq_kernel<DP, CAP>, Q::kSmemQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t rows = B * p.Hq * p.Tq;
   const int64_t warps = kThreads / 32;
-  delta_kernel<T><<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0, stream>>>(
-      p, rows);
-  cudaError_t err = cudaGetLastError();
+  delta_kernel<<<static_cast<unsigned>((rows + warps - 1) / warps), kThreads, 0, stream>>>(p,
+                                                                                          rows);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.Tk > 0) {
-    err = cudaFuncSetAttribute(dkdv_kernel<T, DP, BK, BQ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(L::kSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid_kv(static_cast<unsigned>((p.Tk + BK - 1) / BK),
+    const dim3 grid_kv(static_cast<unsigned>((p.Tk + KV::BK - 1) / KV::BK),
                        static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
-    dkdv_kernel<T, DP, BK, BQ><<<grid_kv, kThreads, L::kSmem, stream>>>(p);
+    dkdv_kernel<DP, CAP><<<grid_kv, kThreads, KV::kSmemKV, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = cudaFuncSetAttribute(dq_kernel<T, DP, BK, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L::kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(static_cast<unsigned>((p.Tq + BQ - 1) / BQ), static_cast<unsigned>(p.Hq),
-                    static_cast<unsigned>(B));
-  dq_kernel<T, DP, BK, BQ><<<grid_q, kThreads, L::kSmem, stream>>>(p);
+  const dim3 grid_q(static_cast<unsigned>((p.Tq + Q::BQ - 1) / Q::BQ),
+                    static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  dq_kernel<DP, CAP><<<grid_q, kThreads, Q::kSmemQ, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Params& p, int64_t B, cudaStream_t stream) {
-  if (p.D <= 64) return launch<T, 64, 64, 64>(p, B, stream);
-  if (p.D <= 128) return launch<T, 128, 64, 64>(p, B, stream);
-  return launch<T, 256, 32, 32>(p, B, stream);
+template <int DP>
+int dispatch(const Params& p, bool softcap, int64_t B, cudaStream_t stream) {
+  return softcap ? launch<DP, true>(p, B, stream) : launch<DP, false>(p, B, stream);
+}
+
+int head_pad(int64_t D) { return D <= 64 ? 64 : (D <= 128 ? 128 : 256); }
+
+template <int DP>
+void blocks(int64_t* out) {
+  out[0] = DP;
+  out[1] = Cfg<DP>::KV::BK;
+  out[2] = Cfg<DP>::KV::BQ;
+  out[3] = Cfg<DP>::Q::BQ;
+  out[4] = Cfg<DP>::Q::BK;
+  out[5] = kThreads;
 }
 
 }  // namespace
-
 // q: (B, Hq, Tq, D), k and v: (B, Hkv, Tk, D), o and dout: (B, Hq, Tq, D),
 // each with unit stride in D and the given strides (in elements) in its
 // first three dimensions, all float32; lse: contiguous float32
 // (B, Hq, Tq); delta: contiguous float32 (B, Hq, Tq) scratch; dq, dk, dv:
-// contiguous float32, of q's, k's and v's shapes.  1 <= D <= 256, Hq a multiple of Hkv.  Launches
-// three kernels on `stream` (two when Tk == 0: dk and dv are empty);
-// returns the first cudaError_t (0 on success).  The caller checks shapes,
-// types and devices.
+// contiguous float32, of q's, k's and v's shapes.  1 <= D <= 256, Hq a
+// multiple of Hkv.  Launches three kernels on `stream` (two when Tk == 0:
+// dk and dv are empty); returns the first cudaError_t (0 on success).  The
+// caller checks shapes, types and devices.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
@@ -469,10 +734,16 @@ extern "C" int flash_attention_bwd(
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<const float*>(o);
+  p.dout = static_cast<const float*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
-  p.dq = dq; p.dk = dk; p.dv = dv;
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
   p.Hq = Hq; p.Hkv = Hkv; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_st = q_st;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
@@ -480,8 +751,46 @@ extern "C" int flash_attention_bwd(
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
   p.do_sb = do_sb; p.do_sh = do_sh; p.do_st = do_st;
   p.window = window; p.q_offset = q_offset;
-  p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
-  p.softcap = softcap; p.scale = scale;
+  p.causal = causal; p.has_window = has_window;
+  p.softcap = has_softcap ? softcap : 1.0f; p.scale = scale;
+  // 16-byte copies need D, every stride and every base on 16-byte boundaries
+  const int64_t strides =
+      q_sb | q_sh | q_st | k_sb | k_sh | k_st | v_sb | v_sh | v_st | do_sb | do_sh | do_st | D;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  p.vec = (strides & 3) == 0 && (bases & 15) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch<float>(p, B, s);
+  const bool cap = has_softcap != 0;
+  switch (head_pad(D)) {
+    case 64: return dispatch<64>(p, cap, B, s);
+    case 128: return dispatch<128>(p, cap, B, s);
+    default: return dispatch<256>(p, cap, B, s);
+  }
 }
+
+// The blocks the kernels run at head width D (1 <= D <= 256), which the
+// wrapper mirrors (flash_attention_bwd.py::block_config): out = {columns
+// held, keys a dK/dV block, query rows of its tiles, query rows a dQ block,
+// keys of its tiles, threads a block}; cudaErrorInvalidValue for another D.
+extern "C" int flash_attention_bwd_blocks(int64_t D, int64_t* out) {
+  if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_pad(D)) {
+    case 64: blocks<64>(out); break;
+    case 128: blocks<128>(out); break;
+    default: blocks<256>(out);
+  }
+  return 0;
+}
+
+#ifdef FLASH_PHASE_CLOCKS
+// copies the two passes' five phase sums out ((b) then (c)), or zeroes
+// them when `out` is null; returns the cudaError_t
+extern "C" int flash_bwd_phase_clocks_read(unsigned long long* out) {
+  if (out == nullptr) {
+    const unsigned long long zero[2][5] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(flash_bwd_phase_clocks, zero, sizeof(zero)));
+  }
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, flash_bwd_phase_clocks, sizeof(flash_bwd_phase_clocks)));
+}
+#endif

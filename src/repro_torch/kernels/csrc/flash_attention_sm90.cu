@@ -101,9 +101,11 @@
 // into S contiguous ranges of whole 512-key chunks, and each block takes
 // one (row block, range).  It writes its range's output o_s = acc / l in
 // float32 and lse_s = m + log(l) (-inf and zeros for a row that sees no
-// key in the range) to scratch, and a second kernel of this file merges
-// them: lse = logsumexp_s lse_s, o = sum_s exp(lse_s - lse) o_s in
-// bfloat16.
+// key in the range) to scratch, and the last block of a row block to finish
+// its range (an arrival counter a row block) merges them in the same
+// launch: lse = logsumexp_s lse_s, o = sum_s exp(lse_s - lse) o_s in
+// bfloat16 (merge_ranges).  Split is a template argument, so the kernel
+// that does not split compiles without the merge.
 
 #include <math_constants.h>
 
@@ -448,6 +450,7 @@ struct D64Params {
   int causal, has_window, has_softcap;
   float softcap, scale, scale_log2;
   float cap_scale;      // scale / softcap
+  unsigned* arrivals;   // split: one zeroed counter a (batch, head, row block)
 };
 
 struct TileRange {
@@ -640,9 +643,157 @@ __device__ __forceinline__ void store_rows(const D64Params& p, float (&o)[NB][32
     }
 }
 
-// Width 64 or less, more than 64 query rows: a producer warpgroup and two
-// consumer warpgroups (see the top of the file).
+// 1 if `pred` holds for any of the `threads` threads at named barrier `id`,
+// which it also waits at, as bar_sync does
+__device__ __forceinline__ bool bar_any(int id, int threads, bool pred) {
+  int out;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.s32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(out)
+      : "r"(static_cast<int>(pred)), "r"(id), "r"(threads)
+      : "memory");
+  return out != 0;
+}
+
+constexpr int kMergeBar = 3;   // the consumers' named barrier (1 + w are their turns)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// The split's merge, run by the NC consumer warpgroups of every block of a
+// split call once it has written its range's o_s and lse_s.  After a
+// barrier of the consumers, thread 0 counts the block's arrival at its row
+// block's counter with an acquire-release atomicInc (it releases the whole
+// block's partials, as the barrier ordered them before it, and acquires the
+// other ranges'); atomicInc wraps the count to 0 at the last of the S
+// ranges, so the counters stay zero between calls.  The block that arrives
+// last merges the row block's rows over the ranges in range order, with the
+// arithmetic of a warp a row: lse = logsumexp_s lse_s and
+// o = sum_s exp(lse_s - lse) o_s in float32, written in bfloat16; a row
+// whose every lse_s is -inf comes out as zeros and lse -inf.  Where the
+// row block's partials fit the k and v ring (free once the tiles are done:
+// up to 4 ranges of 128 rows of 64 columns, hundreds of a decode step's
+// row), they come in by cp.async all at once, one trip to L2, and the merge
+// runs from shared memory, a warp a row; else a warp a row reads them from
+// L2.  The partials are read through L2 (cp.async.cg, ld.global.cg), where
+// the other blocks wrote them.  The block's indices are read again here
+// (volatile), not kept in registers across the tile loop.
 template <int NC>
+__device__ __forceinline__ void merge_ranges(const D64Params& p) {
+  using C = d64::Cfg<NC>;
+  constexpr int kThreadsC = NC * 128;
+  constexpr int kStageFloats = 2 * C::kStages * d64::kKVBytes / 4;
+  unsigned tid, bx, nbx, h, b;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tid));
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(bx));
+  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(nbx));
+  asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(h));
+  asm volatile("mov.u32 %0, %%ctaid.z;\n" : "=r"(b));
+  bar_sync(kMergeBar, kThreadsC);   // every consumer thread has stored its o_s and lse_s
+  const int S = p.splits;
+  const int64_t bh = static_cast<int64_t>(b) * p.Hq + h;
+  const unsigned n_rb = nbx / S, rb = bx / S;
+  bool last = false;
+  if (tid == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
+                 : "=r"(old)
+                 : "l"(p.arrivals + bh * n_rb + rb), "r"(S - 1)
+                 : "memory");
+    last = old == static_cast<unsigned>(S - 1);
+  }
+  if (!bar_any(kMergeBar, kThreadsC, last)) return;
+  const int64_t Tq = p.Tq;
+  const int64_t q0 = static_cast<int64_t>(n_rb - 1 - rb) * C::kRows;
+  const int rows = static_cast<int>(q0 + C::kRows < Tq ? C::kRows : Tq - q0);
+  const int D = static_cast<int>(p.D);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int col = 2 * lane;
+  const float* ls = p.lse_part + bh * S * Tq + q0;        // range s, row q0 + r at s Tq + r
+  const float* os = p.o_part + (bh * S * Tq + q0) * D;    // range s, row q0 + r at (s Tq + r) D
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + (bh * Tq + q0) * D;
+  const int l_floats = (S * rows + 3) & ~3;
+  if (static_cast<int64_t>(S) * rows * D + l_floats + rows <= kStageFloats) {
+    extern __shared__ uint8_t smem_raw[];
+    float* lw = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) +
+                                         NC * d64::kQBytes);   // [S][rows] lse_s, then weights
+    float* o_s = lw + l_floats;                                // [S][rows][D]
+    float* lse = o_s + S * rows * D;                           // [rows]
+    for (int s = 0; s < S; ++s) {
+      for (int r = tid; r < rows; r += kThreadsC) cp_async4(lw + s * rows + r, ls + s * Tq + r);
+      for (int i = tid; i < rows * D / 4; i += kThreadsC)
+        cp_async16(o_s + s * rows * D + 4 * i, os + s * Tq * D + 4 * i);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    bar_sync(kMergeBar, kThreadsC);
+    for (int r = tid; r < rows; r += kThreadsC) {
+      float mx = -CUDART_INF_F;
+      for (int s = 0; s < S; ++s) mx = fmaxf(mx, lw[s * rows + r]);
+      float total = -CUDART_INF_F;
+      if (mx != -CUDART_INF_F) {
+        float sum = 0.0f;
+        for (int s = 0; s < S; ++s) sum += expf(lw[s * rows + r] - mx);
+        total = mx + logf(sum);
+      }
+      for (int s = 0; s < S; ++s) lw[s * rows + r] = expf(lw[s * rows + r] - total);
+      lse[r] = total;
+    }
+    bar_sync(kMergeBar, kThreadsC);
+    if (col < D)
+      for (int r = warp; r < rows; r += kThreadsC / 32) {
+        float a0 = 0.0f, a1 = 0.0f;
+        for (int s = 0; s < S; ++s) {
+          const float w = lw[s * rows + r];
+          const float2 x = *reinterpret_cast<const float2*>(o_s + (s * rows + r) * D + col);
+          a0 = fmaf(w, x.x, a0);
+          a1 = fmaf(w, x.y, a1);
+        }
+        const bool seen = lse[r] != -CUDART_INF_F;
+        *reinterpret_cast<__nv_bfloat162*>(og + r * D + col) =
+            __floats2bfloat162_rn(seen ? a0 : 0.0f, seen ? a1 : 0.0f);
+      }
+    if (p.lse != nullptr)
+      for (int r = tid; r < rows; r += kThreadsC) p.lse[bh * Tq + q0 + r] = lse[r];
+    return;
+  }
+  // more than the ring holds: a warp a row, reading the partials from L2
+  for (int r = warp; r < rows; r += kThreadsC / 32) {
+    float mx = -CUDART_INF_F;
+    for (int s = 0; s < S; ++s) mx = fmaxf(mx, __ldcg(ls + s * Tq + r));
+    float total = -CUDART_INF_F;
+    if (mx != -CUDART_INF_F) {
+      float sum = 0.0f;
+      for (int s = 0; s < S; ++s) sum += expf(__ldcg(ls + s * Tq + r) - mx);
+      total = mx + logf(sum);
+    }
+    if (col < D) {
+      float a0 = 0.0f, a1 = 0.0f;
+      if (total != -CUDART_INF_F)
+        for (int s = 0; s < S; ++s) {
+          const float w = expf(__ldcg(ls + s * Tq + r) - total);
+          const float2 x = __ldcg(reinterpret_cast<const float2*>(os + (s * Tq + r) * D + col));
+          a0 = fmaf(w, x.x, a0);
+          a1 = fmaf(w, x.y, a1);
+        }
+      *reinterpret_cast<__nv_bfloat162*>(og + r * D + col) = __floats2bfloat162_rn(a0, a1);
+    }
+    if (p.lse != nullptr && lane == 0) p.lse[bh * Tq + q0 + r] = total;
+  }
+}
+
+// Width 64 or less, more than 64 query rows: a producer warpgroup and two
+// consumer warpgroups (see the top of the file).  SPLIT: the call cuts its
+// keys into ranges, and the blocks merge them (merge_ranges).
+template <int NC, bool SPLIT>
 __global__ void __launch_bounds__(d64::Cfg<NC>::kThreads, 1)
 flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -817,6 +968,7 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
       release(sp);
     }
     store_rows(p, o, l0, l1, m0, m1, f, b, h, split, wq0 + r0, c2, lane);
+    if constexpr (SPLIT) merge_ranges<NC>(p);
   }
 }
 
@@ -1035,56 +1187,6 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
 }
 
-// The split's merge: one warp a row (b, h, i), lse = logsumexp_s lse_s and
-// o = sum_s exp(lse_s - lse) o_s in float32, written in bfloat16; a row whose
-// every lse_s is -inf comes out as zeros and lse -inf.
-constexpr int kMergeWarps = 4;
-
-__global__ void __launch_bounds__(32 * kMergeWarps)
-flash_attention_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ lse_part,
-                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                             int64_t rows, int64_t Tq, int D, int S) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kMergeWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int64_t bh = row / Tq;
-  const int64_t i = row % Tq;
-  const float* ls = lse_part + bh * S * Tq + i;          // stride Tq over the ranges
-  const float* os = o_part + (bh * S * Tq + i) * D;      // stride Tq * D
-  float mx = -CUDART_INF_F;
-  for (int s = 0; s < S; ++s) mx = fmaxf(mx, ls[s * Tq]);
-  float total = -CUDART_INF_F;
-  if (mx != -CUDART_INF_F) {
-    float sum = 0.0f;
-    for (int s = 0; s < S; ++s) sum += expf(ls[s * Tq] - mx);
-    total = mx + logf(sum);
-  }
-  for (int col = 2 * lane; col < D; col += 64) {
-    float a0 = 0.0f, a1 = 0.0f;
-    if (total != -CUDART_INF_F) {
-      for (int s = 0; s < S; ++s) {
-        const float w = expf(ls[s * Tq] - total);
-        const float2 x = *reinterpret_cast<const float2*>(os + s * Tq * D + col);
-        a0 = fmaf(w, x.x, a0);
-        a1 = fmaf(w, x.y, a1);
-      }
-    }
-    *reinterpret_cast<__nv_bfloat162*>(o + row * D + col) = __floats2bfloat162_rn(a0, a1);
-  }
-  if (lse != nullptr && lane == 0) lse[row] = total;
-}
-
-int launch_merge(const float* o_part, const float* lse_part, void* o, float* lse, int64_t B,
-                 int64_t Hq, int64_t S, int64_t Tq, int64_t D, cudaStream_t stream) {
-  const int64_t rows = B * Hq * Tq;
-  const int64_t blocks = (rows + kMergeWarps - 1) / kMergeWarps;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_merge_kernel<<<static_cast<unsigned>(blocks), 32 * kMergeWarps, 0, stream>>>(
-      o_part, lse_part, static_cast<__nv_bfloat16*>(o), lse, rows, Tq, static_cast<int>(D),
-      static_cast<int>(S));
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename Kernel>
 int configure(Kernel kernel, int smem) {
   return static_cast<int>(
@@ -1106,19 +1208,19 @@ int launch_d128(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap&
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC>
+template <int NC, bool SPLIT>
 int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                const D64Params& p, int64_t B, cudaStream_t stream) {
   using C = d64::Cfg<NC>;
   static bool configured = false;   // the attribute is per kernel, set once
   if (!configured) {
-    const int err = configure(flash_attention_d64_kernel<NC>, C::kSmem);
+    const int err = configure(flash_attention_d64_kernel<NC, SPLIT>, C::kSmem);
     if (err != 0) return err;
     configured = true;
   }
   const dim3 grid(static_cast<unsigned>((p.Tq + C::kRows - 1) / C::kRows * p.splits),
                   static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  flash_attention_d64_kernel<NC><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
+  flash_attention_d64_kernel<NC, SPLIT><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1133,9 +1235,11 @@ int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
 // splits: 1, or S > 1 ranges of the keys, range s starting split_lo +
 // 512 floor(s split_chunks / S) (split_chunks >= S), the last one running
 // to Tk; then o_part (B, Hq, S, Tq, D) and lse_part (B, Hq, S, Tq), both
-// contiguous float32, take each range's output, and a second launch
-// merges them into o (and lse).
-// Launches on `stream`; returns the cudaError_t of the first failed launch
+// contiguous float32, take each range's output, and the same launch merges
+// them into o (and lse), counting arrivals in `arrivals`: B Hq ceil(Tq /
+// rows a block) zeroed uint32 (flash_attention_sm90_rows), zero again when
+// the launch ends, used by no other launch in flight.
+// Launches on `stream`; returns the cudaError_t of the launch
 // (0 on success; cudaErrorInvalidValue for arguments the kernel does not
 // take or a tensor map CUDA refuses).
 // The caller checks shapes, types and devices.
@@ -1148,12 +1252,13 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         int has_softcap, float softcap, float scale,
                                         void* lse, int64_t splits, int64_t split_lo,
                                         int64_t split_chunks, void* o_part, void* lse_part,
-                                        void* stream) {
+                                        void* arrivals, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff || splits < 1 || splits > 65535)
     return static_cast<int>(bad);
-  if (splits > 1 && (o_part == nullptr || lse_part == nullptr || split_chunks < splits ||
+  if (splits > 1 && (o_part == nullptr || lse_part == nullptr || arrivals == nullptr ||
+                     split_chunks < splits ||
                      split_lo < 0 || split_lo % kSplitKeys != 0 ||
                      splits * split_chunks > 0x7fffffff))
     return static_cast<int>(bad);
@@ -1190,26 +1295,15 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
   p.cap_scale = has_softcap ? scale / softcap : 0.0f;
+  p.arrivals = splits > 1 ? static_cast<unsigned*>(arrivals) : nullptr;
   if (DP == 128)
     return has_softcap ? launch_d128<true>(qm, km, vm, p, B, s) : launch_d128<false>(qm, km, vm, p, B, s);
   // up to 64 query rows one consumer warpgroup a block, more two
-  const int err = Tq <= kBM ? launch_d64<1>(qm, km, vm, p, B, s) : launch_d64<2>(qm, km, vm, p, B, s);
-  if (err != 0 || splits == 1) return err;
-  return launch_merge(p.o_part, p.lse_part, o, p.lse, B, Hq, splits, Tq, D, s);
-}
-
-// The merge alone, on given partials: o_part (B, Hq, S, Tq, D) and lse_part
-// (B, Hq, S, Tq), contiguous float32, into contiguous bf16 o (B, Hq, Tq, D)
-// and, unless null, float32 lse (B, Hq, Tq).  D even, S >= 1.
-extern "C" int flash_attention_merge(const void* o_part, const void* lse_part, void* o, void* lse,
-                                     int64_t B, int64_t Hq, int64_t S, int64_t Tq, int64_t D,
-                                     void* stream) {
-  if (S < 1 || D < 2 || D % 2 != 0 || S > 0x7fffffff || D > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Hq == 0 || Tq == 0) return 0;
-  return launch_merge(static_cast<const float*>(o_part), static_cast<const float*>(lse_part), o,
-                      static_cast<float*>(lse), B, Hq, S, Tq, D,
-                      static_cast<cudaStream_t>(stream));
+  if (Tq <= kBM)
+    return splits > 1 ? launch_d64<1, true>(qm, km, vm, p, B, s)
+                      : launch_d64<1, false>(qm, km, vm, p, B, s);
+  return splits > 1 ? launch_d64<2, true>(qm, km, vm, p, B, s)
+                    : launch_d64<2, false>(qm, km, vm, p, B, s);
 }
 
 // The query rows a block of the kernel that takes Tq rows of head width D

@@ -14,6 +14,14 @@ probabilities from the forward's row log-sum-exp.  No atomics: two calls
 on one input give bit-equal gradients.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention_backward``.
 
+On Hopper each pass brings the next tile in through ``cp.async`` into a
+two-stage ring while it computes this one, keeps register tiles whose
+shared-memory reads each feed 16 FMAs or more (8 above a width of 128),
+tests the masks only on a tile on a mask edge, and takes the softcap as a
+template argument.
+:func:`block_config` gives its blocks at a head width, as the kernel's
+``flash_attention_bwd_blocks`` reports them (:func:`kernel_blocks`).
+
 ``launches`` counts the wrapper's calls that launch the kernel (one a
 backward, its three launches together), and nothing else; a run reads it
 to show that its path went through the kernel.
@@ -22,7 +30,7 @@ to show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +40,41 @@ from repro_torch.kernels import flash_attention as _fa
 launches = 0
 
 _fn = None
+
+
+class Blocks(NamedTuple):
+    """The tiles of both passes at one head width."""
+    head_pad: int   # columns held in shared memory: D rounded up to 64, 128 or 256
+    kv_keys: int    # keys a dK/dV block
+    kv_rows: int    # query rows of a dK/dV block's tiles
+    q_rows: int     # query rows a dQ block
+    q_keys: int     # keys of a dQ block's tiles
+    threads: int
+
+
+def block_config(D: int) -> Blocks:
+    """The blocks the kernel runs at head width ``D`` (1 to 256): up to 64
+    columns a dK/dV block of 128 keys over 64-row query tiles and a dQ
+    block of 128 rows over 64-key tiles; up to 128, 64 by 64 in both; above,
+    32 by 32.  256 threads, one block an SM."""
+    if not 1 <= D <= 256:
+        raise ValueError(f"flash_attention_bwd: head width {D} is not in [1, 256]")
+    if D <= 64:
+        return Blocks(64, 128, 64, 128, 64, 256)
+    if D <= 128:
+        return Blocks(128, 64, 64, 64, 64, 256)
+    return Blocks(256, 32, 32, 32, 32, 256)
+
+
+def kernel_blocks(D: int) -> Blocks:
+    """The compiled kernel's own blocks at head width ``D`` (builds the
+    library: on the card only), to hold :func:`block_config` to."""
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int64, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int64 * len(Blocks._fields))()
+    if fn(D, ctypes.addressof(out)) != 0:
+        raise ValueError(f"flash_attention_bwd: head width {D} is not taken")
+    return Blocks(*out)
 
 
 def _kernel():

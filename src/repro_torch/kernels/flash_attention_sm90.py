@@ -23,14 +23,16 @@ backward reads.  Its plain version is
 At a width of 64 or less, a call with fewer than two waves of blocks (a
 decode step's cross-attention, a short prompt's) splits its live keys into
 ranges (:func:`split_count`, ``ref.split_ranges``): one block per (row
-block, range) writes the range's float32 output and lse, and a second
-kernel, ``flash_attention_merge.py``'s, merges them, both launched by one C
-call.  Their plain versions are ``ref.ref_flash_attention_partials`` and
+block, range) writes the range's float32 output and lse, and the last
+block of each row block to finish merges the ranges, in the same launch
+(it finds that it is last by an arrival counter that the wrapper keeps
+zeroed, one a row block, a buffer per device and stream).  The plain
+versions are ``ref.ref_flash_attention_partials`` and
 ``ref.ref_merge_attention``.
 
 ``launches`` counts the kernel's launches, and nothing else; a run reads
-it to show that its path went through the kernel.  A split call also adds
-one to ``flash_attention_merge.launches``.
+it to show that its path went through the kernel.  ``split_launches``
+counts those of them that split their keys (and merged them).
 """
 
 from __future__ import annotations
@@ -42,16 +44,17 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import flash_attention_merge as _merge
 from repro_torch.kernels import ref as _ref
 
 launches = 0
+split_launches = 0
 # a call splits its keys when it has fewer blocks than this many waves of
 # one block an SM, into enough ranges for about SPLIT_WAVES waves
 SPLIT_BELOW_WAVES, SPLIT_WAVES = 2, 4
 
 _fn = None
 _sm_counts = {}
+_arrivals = {}      # (device index, stream) -> zeroed uint32 arrival counters
 
 
 def _kernel():
@@ -61,7 +64,8 @@ def _kernel():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_float, ptr, i64, i64, i64, ptr, ptr, ptr])
+                          ctypes.c_float, ctypes.c_float, ptr, i64, i64, i64, ptr, ptr, ptr,
+                          ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -150,6 +154,18 @@ def split_plan(Tq: int, Tk: int, splits: int, *, causal: bool, window: Optional[
     return lo, chunks
 
 
+def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """``n`` or more zeroed arrival counters for split calls on ``stream``.
+    A split launch leaves every counter it used at zero, so the buffer is
+    zeroed once and kept; calls on one stream run in order, and another
+    stream gets a buffer of its own."""
+    key = (device.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _arrivals[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
 def _sm_count(device: torch.device) -> int:
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _sm_counts:
@@ -173,9 +189,9 @@ def flash_attention_sm90_cuda(
     stride in D, D a multiple of 8 -> contiguous (B, Hq, Tq, D) bfloat16;
     with ``return_lse`` also each row's log-sum-exp, contiguous float32
     (B, Hq, Tq), -inf where a row sees no key.  ``splits``: the key ranges
-    (default :func:`split_count`'s); more than one adds the merge's
-    launch."""
-    global launches
+    (default :func:`split_count`'s); with more than one the launch also
+    merges them."""
+    global launches, split_launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if return_lse else None
@@ -193,13 +209,15 @@ def flash_attention_sm90_cuda(
         raise ValueError(f"flash_attention_sm90: key ranges at a head width up to 64 only, "
                          f"got {D}")
     lo, chunks = split_plan(Tq, Tk, splits, **kw)      # raises before any build
-    part = lse_part = None
-    if splits > 1:
-        part = torch.empty((B, Hq, splits, Tq, D), dtype=torch.float32, device=q.device)
-        lse_part = torch.empty((B, Hq, splits, Tq), dtype=torch.float32, device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = lse_part = arrivals = None
+        if splits > 1:
+            part = torch.empty((B, Hq, splits, Tq, D), dtype=torch.float32, device=q.device)
+            lse_part = torch.empty((B, Hq, splits, Tq), dtype=torch.float32, device=q.device)
+            arrivals = _arrival_counters(q.device, stream,
+                                         B * Hq * -(-Tq // block_rows(Tq, D)))
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, k.shape[1], Tq, Tk, D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -207,10 +225,11 @@ def flash_attention_sm90_cuda(
                  int(softcap is not None), float(softcap or 0.0), float(D ** -0.5),
                  lse.data_ptr() if return_lse else None, splits, lo, chunks,
                  part.data_ptr() if part is not None else None,
-                 lse_part.data_ptr() if lse_part is not None else None, stream)
+                 lse_part.data_ptr() if lse_part is not None else None,
+                 arrivals.data_ptr() if arrivals is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90: kernel launch failed with CUDA error {err}")
     launches += 1
     if splits > 1:
-        _merge.launches += 1
+        split_launches += 1
     return (out, lse) if return_lse else out

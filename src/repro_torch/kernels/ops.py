@@ -44,7 +44,6 @@ from repro_torch.kernels import delta_mask as _dm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import flash_attention_bwd_sm90 as _fab90
-from repro_torch.kernels import flash_attention_merge as _fam
 from repro_torch.kernels import flash_attention_sm90 as _fa90
 from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import page_digest as _pd
@@ -52,7 +51,6 @@ from repro_torch.kernels import ref as _ref
 
 _KERNELS = {"linear_scan": _ls, "page_digest": _pd, "delta_mask": _dm,
             "flash_attention": _fa, "flash_attention_sm90": _fa90,
-            "flash_attention_merge": _fam,
             "flash_attention_bwd": _fab, "flash_attention_bwd_sm90": _fab90}
 
 
@@ -257,7 +255,7 @@ def flash_attention(
 
     On the card, bfloat16 q, k and v go to the tensor-core kernel
     (``flash_attention_sm90``, which splits the keys of a call with few
-    blocks and merges them with ``flash_attention_merge``'s kernel), which
+    blocks and merges them in the same launch), which
     raises on what it does not take;
     any other call goes to ``flash_attention``'s kernel, which takes
     float32 only and raises on anything else.  A call that autograd
@@ -324,6 +322,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+def split_launches() -> int:
+    """``flash_attention_sm90`` launches since the last
+    :func:`reset_launch_counts` that split their keys into ranges (and
+    merged them in the same launch)."""
+    return _fa90.split_launches
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    _fa90.split_launches = 0

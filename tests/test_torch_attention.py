@@ -158,7 +158,6 @@ def test_ops_flash_attention_on_cpu_runs_the_plain_version(no_build):
     assert torch.equal(got, want)
     assert ops.launch_counts() == {"linear_scan": 0, "page_digest": 0, "delta_mask": 0,
                                    "flash_attention": 0, "flash_attention_sm90": 0,
-                                   "flash_attention_merge": 0,
                                    "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0}
 
 

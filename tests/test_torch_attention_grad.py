@@ -457,3 +457,28 @@ def test_backward_blocks_refuse_widths_the_kernel_does_not_take(D):
     from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
     with pytest.raises(ValueError):
         tfab90.block_config(D)
+
+
+# ------------------------------------------- the float32 backward's blocks
+@pytest.mark.parametrize("D,blocks", [
+    (1, (64, 128, 64, 128, 64, 256)), (8, (64, 128, 64, 128, 64, 256)),
+    (33, (64, 128, 64, 128, 64, 256)),
+    (64, (64, 128, 64, 128, 64, 256)),                 # seamless's
+    (65, (128, 64, 64, 64, 64, 256)), (120, (128, 64, 64, 64, 64, 256)),   # danube's 120
+    (128, (128, 64, 64, 64, 64, 256)), (129, (256, 32, 32, 32, 32, 256)),
+    (256, (256, 32, 32, 32, 32, 256)),
+])
+def test_float32_backward_blocks_follow_the_kernels_configurations(D, blocks):
+    """The wrapper's plan of the float32 backward's blocks (``chip_smoke.py``
+    holds ``block_config`` to the compiled kernel's own report on the card):
+    columns held, a dK/dV block's keys and its tiles' rows, a dQ block's rows
+    and its tiles' keys, threads."""
+    from repro_torch.kernels import flash_attention_bwd as tfab
+    assert tuple(tfab.block_config(D)) == blocks
+
+
+@pytest.mark.parametrize("D", [0, 257])
+def test_float32_backward_blocks_refuse_widths_the_kernel_does_not_take(D):
+    from repro_torch.kernels import flash_attention_bwd as tfab
+    with pytest.raises(ValueError):
+        tfab.block_config(D)

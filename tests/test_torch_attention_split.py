@@ -3,14 +3,15 @@
 A call of ``flash_attention_sm90`` with few blocks cuts its live keys into
 ranges (``flash_attention_sm90.split_count``, ``ref.split_ranges``), one
 block per (row block, range) writes the range's float32 output and row
-log-sum-exp, and a merge kernel combines them.  The kernels run only on
-the card (``chip_smoke.py`` holds them to these plain versions there);
-these tests hold the plain versions, ``ref.ref_flash_attention_partials``
-and ``ref.ref_merge_attention``, to ``ref.ref_flash_attention`` and to the
-reference's Pallas kernel in interpret mode (2e-5 in float32, the
-tolerance of ``tests/test_kernels.py``), and the choice of ranges to the
-shapes the serving and training paths give the kernel.  Inputs are made
-with numpy from a seed.
+log-sum-exp, and the last block of each row block to finish merges them.
+The kernel runs only on the card (``chip_smoke.py`` holds it to these
+plain versions there); these tests hold the plain versions,
+``ref.ref_flash_attention_partials`` and ``ref.ref_merge_attention``, to
+``ref.ref_flash_attention`` and to the reference's Pallas kernel in
+interpret mode (2e-5 in float32, the tolerance of
+``tests/test_kernels.py``), and the choice of ranges to the shapes the
+serving and training paths give the kernel.  Inputs are made with numpy
+from a seed.
 """
 
 import numpy as np
@@ -51,6 +52,8 @@ SPLIT_CASES = {
     "window_past_last_key": (1, 2, 1, 1200, 2048, 16, False, 1024, 2000, None, 3),
     "softcap": (1, 2, 1, 37, 3000, 16, False, None, 0, 20.0, 2),
     "gqa_window": (2, 4, 2, 64, 2600, 32, True, 700, 2536, None, 2),
+    # a decode step over 9 ranges, the seamless decode's count, merged in order
+    "decode_9_ranges": (1, 4, 2, 1, 9 * 512 + 300, 64, False, None, 0, None, 9),
 }
 
 

@@ -177,7 +177,6 @@ def test_cpu_dispatch_never_builds(no_build):
     assert d.shape == (3, 2) and not bool(m.any())
     assert ops.launch_counts() == {"linear_scan": 0, "page_digest": 0, "delta_mask": 0,
                                    "flash_attention": 0, "flash_attention_sm90": 0,
-                                   "flash_attention_merge": 0,
                                    "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0}
 
 

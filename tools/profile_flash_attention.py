@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where the float32 ``flash_attention`` kernel spends its time, on one card.
+"""Where the float32 attention kernels spend their time, on one card.
 
-Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` a second time
-with ``-DFLASH_PHASE_CLOCKS`` (every warp adds up the SM clocks it spends
-in each phase of its tile loop), runs it at the long serving path's shape
-in float32 (h2o-danube3-4b: q (4, 32, 8192, 120), k and v (4, 8, 8192,
-120), window 4096) and prints, beside the kernel's time with and without
-the clocks:
+The forward: builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` a
+second time with ``-DFLASH_PHASE_CLOCKS`` (every warp adds up the SM clocks
+it spends in each phase of its tile loop), runs it at the long serving
+path's shape in float32 (h2o-danube3-4b: q (4, 32, 8192, 120), k and v
+(4, 8, 8192, 120), window 4096) and prints, beside the kernel's time with
+and without the clocks:
 
 - each phase's share of the warps' clocks: waiting at the tile barrier,
   issuing the next tile's copies, the score loop, the softmax, the P.V
@@ -15,13 +15,21 @@ the clocks:
   their FMAs fill (each of an SM's four schedulers issues one warp
   instruction a clock, and hosts a quarter of the block's warps).
 
+The backward: the same for ``csrc/flash_attention_bwd.cu`` at danube's
+training shape in float32 (q (1, 32, 8192, 120), k and v (1, 8, 8192,
+120), window 4096), for each of its two passes (dK/dV and dQ): waiting
+for the tile's copies (with the tile barrier), issuing the next tile's
+copies, the S and dP loop, the softmax and masks (with the P and dS
+stores and their barrier), the gradient products.
+
 Usage, from the root of a checkout::
 
-    python3 tools/profile_flash_attention.py
+    python3 tools/profile_flash_attention.py [--what all|forward|backward]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -36,24 +44,31 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 
 ARCH, BATCH, T = "h2o-danube-3-4b", 4, 8192
+TRAIN_BATCH = 1
 PHASES = ("barrier", "copy issue", "score loop", "softmax", "P.V loop")
 ROWS_PER_WARP, ROWS_PER_THREAD, SCHEDULERS = 8, 4, 4   # csrc/flash_attention.cu
+BWD_PASSES = ("dK/dV", "dQ")
+BWD_PHASES = ("copy wait", "copy issue", "S and dP", "softmax and masks", "gradient products")
+BWD_WARPS = 8                                          # csrc/flash_attention_bwd.cu
 
 
-def build_clocked():
-    out = build.BUILD_DIR / "libflash_attention_clocks.so"
+def build_clocked(source, entry, argtypes, reader):
+    """``source`` built with the phase clocks: (its entry point, its clock reader)."""
+    out = build.BUILD_DIR / f"lib{source}_clocks.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-DFLASH_PHASE_CLOCKS", "-o", str(out),
-                    str(build.CSRC / "flash_attention.cu")], check=True, capture_output=True)
+                    str(build.CSRC / f"{source}.cu")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    fn = lib.flash_attention_fwd
-    fn.argtypes = fa._kernel().argtypes
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    lib.flash_phase_clocks_read.argtypes = [ctypes.c_void_p]
-    lib.flash_phase_clocks_read.restype = ctypes.c_int
-    return fn, lib.flash_phase_clocks_read
+    read = getattr(lib, reader)
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    return fn, read
 
 
 def warp_tiles(tile, Tq, Tk, window, BK):
@@ -81,12 +96,7 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+def profile_forward(smi):
     cfg = get_config(ARCH)
     Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     g = torch.Generator(device="cuda").manual_seed(12)
@@ -96,7 +106,8 @@ def main() -> int:
     run = lambda: fa.flash_attention_cuda(q, k, v, causal=True, window=window)  # noqa: E731
     plain_ms = cuda_ms(run)
 
-    fn, clocks_read = build_clocked()
+    fn, clocks_read = build_clocked("flash_attention", "flash_attention_fwd",
+                                    fa._kernel().argtypes, "flash_phase_clocks_read")
     saved, fa._fn = fa._kernel(), fn   # the wrapper, launching the clocked build
     try:
         clocked_ms = cuda_ms(run)
@@ -128,6 +139,104 @@ def main() -> int:
         extra = (f", its FMAs fill {row['fma_issue_share'][name]:.1%} of the issue slots"
                  if name in fma else "")
         print(f"  {name}: {share:.1%} of the warps' clocks{extra}")
+
+
+def bwd_tiles(blocks, Tq, Tk, group, window):
+    """(dK/dV, dQ) tiles the backward's passes walk for one (batch, kv
+    head), causal with q_offset 0, as csrc/flash_attention_bwd.cu walks
+    them."""
+    BK, BQ = blocks.kv_keys, blocks.kv_rows
+    kv = 0
+    for kt in range(0, Tk, BK):
+        nk = min(BK, Tk - kt)
+        lo = kt // BQ * BQ
+        hi = min(Tq, kt + nk - 1 + window) if window is not None else Tq
+        kv += group * max(0, -(-(hi - lo) // BQ))
+    BQ, BK = blocks.q_rows, blocks.q_keys
+    q = 0
+    for q0 in range(0, Tq, BQ):
+        last = min(q0 + BQ, Tq) - 1
+        begin = max(0, q0 - window + 1) // BK * BK if window is not None else 0
+        q += group * -(-(min(Tk, last + 1) - begin) // BK)
+    return kv, q
+
+
+def profile_backward(smi):
+    cfg = get_config(ARCH)
+    Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((TRAIN_BATCH, Hq, T, D), generator=g, device="cuda")
+    k = torch.randn((TRAIN_BATCH, Hkv, T, D), generator=g, device="cuda")
+    v = torch.randn((TRAIN_BATCH, Hkv, T, D), generator=g, device="cuda")
+    do = torch.randn((TRAIN_BATCH, Hq, T, D), generator=g, device="cuda")
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=window, return_lse=True)
+    run = lambda: fab.flash_attention_bwd_cuda(q, k, v, o, lse, do,  # noqa: E731
+                                               causal=True, window=window)
+    plain_ms = cuda_ms(run)
+
+    fn, clocks_read = build_clocked("flash_attention_bwd", "flash_attention_bwd",
+                                    fab._kernel().argtypes, "flash_bwd_phase_clocks_read")
+    saved, fab._fn = fab._kernel(), fn   # the wrapper, launching the clocked build
+    try:
+        clocked_ms = cuda_ms(run)
+        clocks_read(None)
+        run()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 10)()
+        clocks_read(buf)
+    finally:
+        fab._fn = saved
+    clocks = [list(buf)[:5], list(buf)[5:]]
+
+    blocks = fab.block_config(D)
+    NC, chunks = blocks.head_pad // 64, -(-D // 8) * 2    # float4 chunks of D, rounded up to even
+    # FMAs a thread (a warp's FMA instructions) a tile: s and dp over the
+    # chunks, then dV and dK (or dQ) over the tile's rows (or keys)
+    kv_score = chunks * (blocks.kv_rows // 16) * (blocks.kv_keys // 16) * 8
+    q_score = chunks * (blocks.q_rows // 16) * (blocks.q_keys // 16) * 8
+    fma = {"dK/dV": {"S and dP": kv_score,
+                     "gradient products": blocks.kv_rows * (blocks.kv_keys // 16) * NC * 8},
+           "dQ": {"S and dP": q_score,
+                  "gradient products": blocks.q_keys * (blocks.q_rows // 16) * NC * 4}}
+    tiles = dict(zip(BWD_PASSES, bwd_tiles(blocks, T, T, Hq // Hkv, window)))
+    per_scheduler = BWD_WARPS // SCHEDULERS
+    row = {"device": smi, "shape": [[TRAIN_BATCH, Hq, T, D], [TRAIN_BATCH, Hkv, T, D]],
+           "window": window, "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms,
+           "blocks": blocks._asdict(), "passes": {}}
+    for i, name in enumerate(BWD_PASSES):
+        c = clocks[i]
+        n = tiles[name] * TRAIN_BATCH * Hkv * BWD_WARPS   # (warp, tile) pairs
+        row["passes"][name] = {
+            "tiles": tiles[name] * TRAIN_BATCH * Hkv,
+            "phase_share": {p: x / sum(c) for p, x in zip(BWD_PHASES, c)},
+            "clocks_per_warp_tile": {p: x / n for p, x in zip(BWD_PHASES, c)},
+            "fma_issue_share": {p: n * f * per_scheduler / c[BWD_PHASES.index(p)]
+                                for p, f in fma[name].items()}}
+    print(json.dumps(row))
+    print(f"flash_attention_bwd float32 {row['shape']} window {window}: {plain_ms:.3f} ms "
+          f"({clocked_ms:.3f} ms with the phase clocks), on {smi}")
+    for name, r in row["passes"].items():
+        print(f"  {name} pass, {r['tiles']} tiles:")
+        for p, share in r["phase_share"].items():
+            extra = (f", its FMAs fill {r['fma_issue_share'][p]:.1%} of the issue slots"
+                     if p in r["fma_issue_share"] else "")
+            print(f"    {p}: {share:.1%} of the warps' clocks, "
+                  f"{r['clocks_per_warp_tile'][p]:.0f} a warp a tile{extra}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--what", choices=("all", "forward", "backward"), default="all")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    if args.what != "backward":
+        profile_forward(smi)
+    if args.what != "forward":
+        profile_backward(smi)
     return 0
 
 

@@ -66,8 +66,7 @@ def top_kernels(prof, n=12):
 PORT_KERNELS = {"linear_scan": "linear_scan_f32_kernel", "page_digest": "page_digest_kernel",
                 "delta_mask": "delta_mask_kernel", "flash_attention": "flash_attention_kernel<",
                 "flash_attention_sm90": "flash_attention_sm90_kernel",
-                "flash_attention_sm90 (D <= 64)": "flash_attention_d64_kernel",
-                "flash_attention_merge": "flash_attention_merge_kernel"}
+                "flash_attention_sm90 (D <= 64)": "flash_attention_d64_kernel"}
 
 
 def port_kernel_ms(prof):

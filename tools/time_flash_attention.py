@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the bf16 attention kernels, ``flash_attention_sm90`` and its backward, on one card.
+"""Times the attention kernels, ``flash_attention_sm90`` and both backwards, on one card.
 
 At the shapes the serving paths give it, bf16, random inputs from a seed:
 seamless-m4t-large-v2's encoder self-attention (4, 16, 32768, 64), its
@@ -31,7 +31,19 @@ gradients written once over the memory rate, the larger), and the time of
 backend, else the boolean mask on the memory-efficient backend, kv heads
 repeated outside the timing).
 
-First it prints, for each attention kernel it compiled (both sources are
+The float32 backward, ``flash_attention_bwd``, at h2o-danube3-4b's
+training shape in float32 (as above) and seamless-m4t-large-v2's encoder
+(2, 16, 8192, 64), unmasked: its device time, its bound (10 D flops a
+live pair over the float32 rate outside the tensor cores, 67 TFLOP/s, or
+the bytes, the larger), and ``scaled_dot_product_attention``'s float32
+backward on the same inputs and mask.
+
+The split path of ``flash_attention_sm90`` at seamless's two cross-attentions
+(a decode step's q (4, 16, 1, 64) and the prefill's q (4, 16, 512, 64) over
+32768 frames): the call at the wrapper's own key ranges, and the same call
+with ``splits=1``.
+
+First it prints, for each attention kernel it compiled (the sources are
 built anew in a fresh checkout), ptxas's registers a thread and spill bytes,
 whether ptxas serialised its wgmma ("C7512 ... insufficient register
 resources"), and the highest register its SASS names (``cuobjdump``, where
@@ -40,7 +52,8 @@ warpgroup's code after ``setmaxnreg.inc`` may use more.
 
 Usage, from the root of a checkout::
 
-    python3 tools/time_flash_attention.py [--root DIR] [--reps N] [--what all|forward|backward]
+    python3 tools/time_flash_attention.py [--root DIR] [--reps N]
+        [--what all|forward|backward|float32-backward|split]
 
 ``--root`` imports the port from another checkout's ``src/`` (its own
 kernels are built there), so one command can time two versions in turns.
@@ -60,20 +73,24 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                 help="checkout whose src/ holds the port to time (default: this one)")
 ap.add_argument("--reps", type=int, default=20, help="calls timed a shape (5 at the encoder)")
-ap.add_argument("--what", choices=("all", "forward", "backward"), default="all",
-                help="which kernels to time")
+ap.add_argument("--what", choices=("all", "forward", "backward", "float32-backward", "split"),
+                default="all", help="which kernels to time (backward: the bf16 one)")
 ARGS = ap.parse_args()
 sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
 
 import torch  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     flash_attention_bwd_sm90_cuda)
-from repro_torch.kernels.flash_attention_sm90 import flash_attention_sm90_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
+    flash_attention_sm90_cuda, split_count)
 from repro_torch.kernels.ref import ref_flash_attention  # noqa: E402
 
-BF16_FLOP_PER_S, HBM_BYTES_PER_S = 989e12, 3.35e12      # H100 SXM data sheet
+# H100 SXM data sheet: bf16 tensor cores, float32 outside them, HBM3
+BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 # name, q shape, k/v shape, causal, window
 SHAPES = [
     ("seamless cross decode", (4, 16, 1, 64), (4, 16, 32768, 64), False, None),
@@ -87,6 +104,11 @@ BWD_SHAPES = [
     ("seamless cross backward", (2, 16, 2048, 64), (2, 16, 8192, 64), False, None),
     ("danube train backward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
 ]
+F32_BWD_SHAPES = [
+    ("danube train backward float32", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
+    ("seamless encoder backward float32", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
+]
+SPLIT_SHAPES = SHAPES[:2]       # seamless's two cross-attentions, which the wrapper splits
 
 
 def cuda_ms(fn, reps):
@@ -199,21 +221,27 @@ def ptxas_report(logs, smi):
                               "root": os.path.abspath(ARGS.root), "card": smi}), flush=True)
 
 
-def time_backward(g, smi):
-    for name, qs, ks, causal, window in BWD_SHAPES:
-        q = torch.randn(qs, generator=g, device="cuda").bfloat16()
-        k = torch.randn(ks, generator=g, device="cuda").bfloat16()
-        v = torch.randn(ks, generator=g, device="cuda").bfloat16()
-        do = torch.randn(qs, generator=g, device="cuda").bfloat16()
+def time_backward(g, smi, shapes, dtype):
+    """The dtype's backward kernel at each of ``shapes``."""
+    forward, backward, rate = ((flash_attention_sm90_cuda, flash_attention_bwd_sm90_cuda,
+                                BF16_FLOP_PER_S) if dtype == torch.bfloat16 else
+                               (flash_attention_cuda, flash_attention_bwd_cuda, F32_FLOP_PER_S))
+    for name, qs, ks, causal, window in shapes:
+        q = torch.randn(qs, generator=g, device="cuda").to(dtype)
+        k = torch.randn(ks, generator=g, device="cuda").to(dtype)
+        v = torch.randn(ks, generator=g, device="cuda").to(dtype)
+        do = torch.randn(qs, generator=g, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window)
-        o, lse = flash_attention_sm90_cuda(q, k, v, return_lse=True, **kw)
+        o, lse = forward(q, k, v, return_lse=True, **kw)
         reps = max(1, ARGS.reps // 4)
-        ms = cuda_ms(lambda: flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do, **kw), reps)
+        ms = cuda_ms(lambda: backward(q, k, v, o, lse, do, **kw), reps)
         pairs = qs[0] * qs[1] * live_pairs(qs[2], ks[2], causal, window)
-        ops_s = 10 * qs[3] * pairs / BF16_FLOP_PER_S
-        bytes_s = ((4 * q.numel() + 4 * k.numel()) * 2 + 4 * lse.numel()) / HBM_BYTES_PER_S
+        ops_s = 10 * qs[3] * pairs / rate
+        bytes_s = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                   + 4 * lse.numel()) / HBM_BYTES_PER_S
         print(json.dumps({
-            "shape": name, "q": list(qs), "kv": list(ks), "root": os.path.abspath(ARGS.root),
+            "shape": name, "q": list(qs), "kv": list(ks), "dtype": str(dtype)[6:],
+            "root": os.path.abspath(ARGS.root),
             "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps), "card": smi}),
@@ -222,16 +250,43 @@ def time_backward(g, smi):
         torch.cuda.empty_cache()
 
 
+def time_split(g, smi):
+    """The bf16 kernel at the split shapes: at the wrapper's own key ranges
+    (one launch that also merges them) and with ``splits=1``."""
+    for name, qs, ks, causal, window in SPLIT_SHAPES:
+        q = torch.randn(qs, generator=g, device="cuda").bfloat16()
+        k = torch.randn(ks, generator=g, device="cuda").bfloat16()
+        v = torch.randn(ks, generator=g, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window)
+        ranges = split_count(qs[0], qs[1], qs[2], ks[2], qs[3], causal=causal, window=window,
+                             q_offset=0, sm_count=torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+        print(json.dumps({
+            "shape": f"{name} split", "q": list(qs), "kv": list(ks),
+            "root": os.path.abspath(ARGS.root), "splits": ranges,
+            "ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, **kw), ARGS.reps * 5),
+            "unsplit_ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, splits=1, **kw),
+                                  ARGS.reps * 5),
+            "card": smi}), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    ptxas_report(build.build_all(["flash_attention_sm90", "flash_attention_bwd_sm90"]), smi)
+    ptxas_report(build.build_all(["flash_attention_sm90", "flash_attention_bwd_sm90",
+                                  "flash_attention_bwd"]), smi)
     g = torch.Generator(device="cuda").manual_seed(0)
-    if ARGS.what != "forward":
-        time_backward(g, smi)
-    if ARGS.what == "backward":
+    if ARGS.what in ("all", "backward"):
+        time_backward(g, smi, BWD_SHAPES, torch.bfloat16)
+    if ARGS.what in ("all", "float32-backward"):
+        time_backward(g, smi, F32_BWD_SHAPES, torch.float32)
+    if ARGS.what in ("all", "split"):
+        time_split(g, smi)
+    if ARGS.what not in ("all", "forward"):
         return
     for name, qs, ks, causal, window in SHAPES:
         q = torch.randn(qs, generator=g, device="cuda").bfloat16()
