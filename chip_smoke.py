@@ -48,14 +48,19 @@ Phases (each one's failure fails the run):
    bf16 cases of both bf16 kernels' configuration for head widths 65-128
    (D = 72, 96, 120, 128 with causal, ``q_offset`` 100 and -40, windows,
    softcaps, no mask, one query row, Tq and Tk off 64 and 128, GQA groups
-   1 and 4) and one at 136 (the first design; both layouts, the forward's
+   1 and 4) and of their configuration for head widths 136-256
+   (``FLASH_D256_CASES``: recurrentgemma's 10 query heads over one kv head
+   of 256 with windows of 100 and 2048 past 4096 keys, D = 136, 192, 200
+   and 224, groups 1, 2, 3, 4 and 10, causal with ``q_offset`` 100 and
+   -40, softcaps, no mask, one query row; both layouts, the forward's
    output too), over float32 cases at the float32 backward's tiles
    (``FLASH_BWD_F32_CASES``: D = 1, 33 and 256, a tile-interior case and a
    window edge inside a tile, both with a softcap, GQA, causal rows
    offset back; both layouts), over the
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
-   2048, 64) over 8192 frames, no mask) and each rank's local shard of
+   2048, 64) over 8192 frames, no mask; recurrentgemma (1, 10, 8192, 256)
+   over (1, 1, 8192, 256), causal, window 2048) and each rank's local shard of
    danube's step over a sequence split four ways (q (1, 32, 2048, 120) at
    ``q_offset`` 0, 2048, 4096 and 6144 over all 8192 keys, both dtypes,
    the forward's output too), per gradient within 1e-4
@@ -89,7 +94,17 @@ Phases (each one's failure fails the run):
    layers in float32, an 8160-token prefill (kernel) and 32 single-step
    decodes (no kernel) against one forward over the 8192 tokens
    (kernel): the last 32 positions' logits within 2e-2; float32 inputs
-   run the float32 ``flash_attention``;
+   run the float32 ``flash_attention``; then recurrentgemma-2b past its
+   4096-token dense limit: ``generate`` at full width in bf16, 4 prompts
+   of 32768 tokens (the repo's ``prefill_32k`` sequence, its batch cut
+   from 32 to 4), 32 new tokens: exactly 8 ``flash_attention_sm90``
+   launches (one per local layer, D = 256, MQA, window 2048) and 18
+   ``linear_scan`` launches in each prefill, none in decode (the 2048-slot
+   window cache); the prefill time (median of 3), the decode rate and the
+   peak memory; and its 4-layer float32 copy (rglru, rglru, local, rglru)
+   at 2 x 8192, an 8160-token prefill and 32 decodes against one forward
+   (2e-2; one float32 ``flash_attention`` launch and 3 scans in the
+   forward and in the prefill, none in decode);
 8. train: ``repro_torch.launch.train.main`` at its default size (6
    steps, two checkpoints: every leaf digested twice and masked once);
    then full-width olmo-1b (bf16 params, fp32 AdamW state, 1.18 B
@@ -146,12 +161,16 @@ Phases (each one's failure fails the run):
    4 layers in float32, one step at 1 x 8192 (remat ``"none"``): 4
    ``flash_attention`` and 4 ``flash_attention_bwd`` launches, finite;
    full-width
-   recurrentgemma-2b trained at 2 x 2048: one batch's gradients with the
-   kernel scan and with the plain scan on the card (loss and gradient norm
+   recurrentgemma-2b trained at 1 x 8192 (remat ``"full"``), or at the
+   longest multiple of 512 past 4096 tokens whose dry-run record (one
+   device, fake tensors) leaves 4 GiB of the card free: one batch's
+   gradients with the kernels, with the plain scan (loss and gradient norm
    within 1e-4, every RG-LRU layer's gradient of ``wx``, ``conv``,
-   ``w_a``, ``w_i``, ``lam`` nonzero and finite; 18 + 16 + 18
-   ``linear_scan`` launches: forward, recompute, backward), then 2 steps
-   (2 x 52 launches);
+   ``w_a``, ``w_i``, ``lam`` nonzero and finite) and with the plain
+   attention (``ref_flash_attention`` and its plain backward; within
+   2^-7); 18 + 16 + 18 ``linear_scan``, 8 + 8 ``flash_attention_sm90`` and
+   8 ``flash_attention_bwd_sm90`` launches a step (forward, recompute,
+   backward), then 2 steps, one more profiled;
 11. the mesh paths, on a (1, 1) ("data", "model") ``DeviceMesh`` over a
    one-rank NCCL group (``repro_torch.distributed``): full-width olmo-1b
    under ``tp_fsdp`` + ``zero2`` with ``accum=2`` takes two steps at
@@ -246,14 +265,16 @@ Phases (each one's failure fails the run):
    fork adds no data page, the trunk restores byte-equal after the
    branches; their saves launch ``page_digest`` and ``delta_mask``;
 15. the ``kernels`` line: per kernel, its launches on its paths (serving
-   recurrentgemma-2b, without and with a mesh, and training it for ``linear_scan``, training, mesh training and the
+   recurrentgemma-2b, without and with a mesh, and training it for
+   ``linear_scan``, training, mesh training and the
    examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
    mesh serving, mesh encoder-decoder serving (``tp_serve``,
-   ``tp_fsdp_sp``), mesh ``generate`` and training with and without a
-   mesh for ``flash_attention_sm90``, the float32 long and
-   encoder-decoder teacher forcing, the float32 mesh serve and the
-   float32 training step for ``flash_attention``, the bf16 training steps
-   (danube's also under a mesh) for ``flash_attention_bwd_sm90`` and the
+   ``tp_fsdp_sp``), mesh ``generate``, recurrentgemma's long serving and
+   training with and without a mesh for ``flash_attention_sm90``, the
+   float32 long, recurrentgemma and encoder-decoder teacher forcing, the
+   float32 mesh serve and the float32 training step for
+   ``flash_attention``, the bf16 training steps (danube's also under a
+   mesh, recurrentgemma's) for ``flash_attention_bwd_sm90`` and the
    float32 one for
    ``flash_attention_bwd``; ``launches_by_path``),
    its error against
@@ -264,14 +285,16 @@ Phases (each one's failure fails the run):
    for both attention
    kernels, ``scaled_dot_product_attention`` with the window-causal
    boolean mask in the kernel's dtype, which the port never calls);
-   ``flash_attention_sm90`` also at the encoder-decoder's three shapes
+   ``flash_attention_sm90`` also at recurrentgemma's serving and training
+   shapes (``recurrentgemma``: error, time, plain time, bound, SDPA with
+   the window mask) and at the encoder-decoder's three shapes
    (``seamless``: error, time, plain time, bound, and
    ``scaled_dot_product_attention`` with no mask) and, at its two split
    cross-attentions, the split call (the merge in the same launch) beside
    the same call with ``splits=1`` (``split``, with the split launches by
    serving path); both forward rows also
    time the call that writes the lse (``lse_ms``); a
-   ``flash_attention_bwd_sm90`` row at the training phases' three shapes
+   ``flash_attention_bwd_sm90`` row at the training phases' four shapes
    in bf16 and a ``flash_attention_bwd`` row at danube's and at
    seamless's encoder (2, 16, 8192, 64) in float32
    (bound 10 D flops a live pair at the dtype's rate; library: SDPA's
@@ -376,8 +399,25 @@ ENCDEC_TRAIN_FRAMES = 8192
 # (twice its window), recurrentgemma-2b's RG-LRU scan and its gradient
 LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 1, 8192, 2
 LONG_F32_LAYERS = 4       # the float32 backward's path: danube cut to 4 layers in float32
-RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 2, 2048, 2
+# recurrentgemma-2b past its 4096-token dense limit: served at the repo's
+# prefill_32k sequence (configs/shapes.py) with the batch cut from 32 to 4,
+# as seamless's is; teacher forcing at 2 x 8192 on 4 layers, (rglru, rglru,
+# local, rglru), in float32; trained at 1 x 8192
+RG_LONG_BATCH, RG_LONG_PROMPT, RG_LONG_NEW = 4, 32768, 32
+RG_TF_LAYERS, RG_TF_LEN, RG_TF_PREFILL = 4, 8192, 8160
+RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 1, 8192, 2
+# what the dry run's record of that step must leave free of the card's
+# 79.18 GiB: at 1 x 7680 its 78.23 GiB left 0.95 and the first gradients ran
+# out of memory; at 1 x 7168 its 75.54 left 3.64, and the second step ran out
+# (6.84 GiB asked for, 6.95 GiB reserved by PyTorch but unallocated)
+RG_TRAIN_HEADROOM_GIB = 4.0
 RG_PLAIN_RTOL = 1e-4            # loss and grad norm, kernel scan vs the plain scan
+# loss and grad norm of one batch, the bf16 attention kernels vs the plain
+# attention: the two round float32 sums of the same products to bf16 at the
+# attention's output and gradients, one bf16 ulp apart at most per element
+# (the kernels' own gate, 2^-7 |want|); a loss and a norm average such
+# differences, so they are held to the same relative bound
+RG_ATTN_RTOL = 2.0 ** -7
 # the digest tests' sweep (tests/test_torch_digest.py): word-domain pages,
 # byte cases (page bytes, total bytes) and leaves at 4096-byte pages
 DIGEST_WORD_SHAPES = [(1, 512), (3, 512), (8, 1024), (17, 1536)]
@@ -495,7 +535,7 @@ FLASH_BWD_D64_CASES = [
 # 64- and 128-row tiles, GQA groups 1 and 4, causal rows offset forward and
 # back (rows before the first key: zeros, dq exactly 0), windows inside and
 # across tiles, softcaps, one query row; and one case at 136, the first
-# design's configuration
+# width of the next configuration
 FLASH_D128_CASES = [
     ("D 72 causal q_offset 100, G 1", 1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
     ("D 96 window 24, G 4", 1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
@@ -506,6 +546,28 @@ FLASH_D128_CASES = [
      dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
     ("D 96 one query row", 1, 8, 2, 1, 1000, 96, dict(causal=False)),
     ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
+]
+# bf16 cases of the kernels for head widths 136-256 (name, B, Hq, Hkv, Tq,
+# Tk, D, mask), forward and backward, each with k, v contiguous and strided:
+# recurrentgemma's MQA (10 query heads over one kv head, D = 256) with a
+# window inside a 64-key tile and with its own 2048 window past 4096 keys;
+# D = 192, 200 and 224 (atoms past D zeroed, columns past D read as zeros),
+# Tq and Tk off the 64- and 128-row tiles, groups 1, 3 (the forward's
+# blocks of one head), 4 and 10 (two heads a block), causal rows offset
+# forward and back (rows before the first key: zeros, dq exactly 0), a
+# softcap, one query row
+FLASH_D256_CASES = [
+    ("D 256 MQA 10, window 100", 1, 10, 1, 300, 300, 256, dict(causal=True, window=100)),
+    ("D 256 MQA 10, window 2048", 1, 10, 1, 4200, 4200, 256, dict(causal=True, window=2048)),
+    ("D 256 no mask, GQA 4", 2, 8, 2, 130, 333, 256, dict(causal=False)),
+    ("D 192 softcap 20", 1, 8, 2, 200, 300, 192, dict(causal=True, q_offset=100, softcap=20.0)),
+    ("D 200 window 24 q_offset -40", 1, 4, 2, 300, 300, 200,
+     dict(causal=True, window=24, q_offset=-40)),
+    ("D 256 window 100 softcap 30", 1, 8, 2, 321, 1500, 256,
+     dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
+    ("D 256 one query row", 1, 10, 1, 1, 1000, 256, dict(causal=False)),
+    ("D 256 GQA 3 causal q_offset 100", 1, 6, 2, 200, 300, 256, dict(causal=True, q_offset=100)),
+    ("D 224 no mask, G 1", 1, 4, 4, 130, 200, 224, dict(causal=False)),
 ]
 # float32 backward cases at the edges of its tiles (name, B, Hq, Hkv, Tq,
 # Tk, D, mask), each with k, v contiguous and strided (4-byte copies where
@@ -825,9 +887,9 @@ def phase_flash_vs_plain(state):
                 f"non-causal strided={strided}: max abs err {err:.3e}, bf16 limit share {share}")
             del q, k, v
             torch.cuda.empty_cache()
-    # bf16 at the edges of the configuration for head widths 65-128, and
-    # the wrapper's rows a block against the compiled kernel's
-    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES):
+    # bf16 at the edges of the configurations for head widths 65-128 and
+    # 136-256, and the wrapper's rows a block against the compiled kernel's
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES + FLASH_D256_CASES):
         for strided in (False, True):
             q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=290 + i,
                                        strided=strided)
@@ -933,11 +995,13 @@ def flash_bwd_case(q, k, v, seed, **kw):
 
 
 def train_attention_shapes():
-    """(name, q shape, k/v shape, mask) of the attention calls of the two
+    """(name, q shape, k/v shape, mask) of the attention calls of the
     training phases: danube's self-attention at 1 x 8192 (causal, window
     4096), seamless's encoder self-attention at 2 x 8192 frames and its
-    cross-attention of 2 x 2048 tokens over them (no mask)."""
-    dn, sm = get_config(LONG_ARCH), get_config(ENCDEC_ARCH)
+    cross-attention of 2 x 2048 tokens over them (no mask), and
+    recurrentgemma's local attention at 1 x 8192 (10 query heads over one kv
+    head of 256, causal, window 2048)."""
+    dn, sm, rg = get_config(LONG_ARCH), get_config(ENCDEC_ARCH), get_config(ARCH)
     kv = (TRAIN_BATCH, sm.n_kv_heads, ENCDEC_TRAIN_FRAMES, sm.head_dim)
     return [("danube", (LONG_TRAIN_BATCH, dn.n_heads, LONG_TRAIN_SEQ, dn.head_dim),
              (LONG_TRAIN_BATCH, dn.n_kv_heads, LONG_TRAIN_SEQ, dn.head_dim),
@@ -945,7 +1009,10 @@ def train_attention_shapes():
             ("seamless encoder", (kv[0], sm.n_heads, ENCDEC_TRAIN_FRAMES, sm.head_dim), kv,
              dict(causal=False)),
             ("seamless cross", (kv[0], sm.n_heads, TRAIN_SEQ, sm.head_dim), kv,
-             dict(causal=False))]
+             dict(causal=False)),
+            ("recurrentgemma", (RG_TRAIN_BATCH, rg.n_heads, RG_TRAIN_SEQ, rg.head_dim),
+             (RG_TRAIN_BATCH, rg.n_kv_heads, RG_TRAIN_SEQ, rg.head_dim),
+             dict(causal=True, window=rg.window))]
 
 
 SPLIT_RANKS = 4          # danube's 1 x 8192 sequence split over a 4-way "data" axis
@@ -1016,8 +1083,8 @@ def phase_flash_bwd_vs_plain(state):
             record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=480 + i, **kw)[:3],
                    what=f"D <= 64, {name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
                         f"strided={strided}")
-    # bf16 at the edges of the configuration for head widths 65-128
-    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES):
+    # bf16 at the edges of the configurations for head widths 65-128 and 136-256
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES + FLASH_D256_CASES):
         for strided in (False, True):
             q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=390 + i,
                                        strided=strided)
@@ -1292,39 +1359,41 @@ def phase_teacher_forcing(state):
     torch.cuda.empty_cache()
 
 
-def phase_serve_long(state):
-    cfg = get_config(LONG_ARCH)
+def serve_long_path(state, cfg, batch, prompt, new, seed, want, what):
+    """``generate`` on ``batch`` x ``prompt``-token prompts + ``new`` tokens of
+    ``cfg`` at full width, bf16 weights from ``seed``: the main path's launch
+    counts (at 0 just before, read just after) must be ``want`` in the
+    prefill and none in decode, which runs over the window cache; then the
+    prefill timed warm (median of 3) and the decode steps, teacher-forced
+    on their own greedy tokens.  Returns (generate's launches, its outputs,
+    the prefill's and each decode step's logits with the tokens fed, the
+    phase's record)."""
     model = build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"long serve: {cfg.name} {cfg.n_layers} layers ({cfg.block_pattern[0]}, window "
+    log(f"{what}: {cfg.name} {cfg.n_layers} layers ({', '.join(cfg.block_pattern)}, window "
         f"{cfg.window}), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
         f"{n_params / 1e9:.3f} B params")
-    prompts = prompts_for(seed=4, batch=LONG_BATCH, length=LONG_PROMPT)
-    max_len = LONG_PROMPT + LONG_NEW
+    prompts = prompts_for(seed=seed + 1, batch=batch, length=prompt)
+    max_len = prompt + new
 
     # -- the main path: counts at 0 just before, read just after
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    outs = generate(model, params, prompts, max_new=LONG_NEW, max_len=max_len, device="cuda")
+    outs = generate(model, params, prompts, max_new=new, max_len=max_len, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    state["long_launches"] = counts
-    state["long_outs"] = outs        # the mesh generate phase's reference
-    log(f"  generate: {LONG_BATCH}x{LONG_PROMPT} prompt + {LONG_NEW} new tokens in {wall:.3f} s "
-        f"(first call); launches {counts}")
-    if counts["flash_attention_sm90"] != cfg.n_layers or counts["flash_attention"] != 0:
-        raise AssertionError(f"flash_attention_sm90 launched {counts['flash_attention_sm90']} "
-                             f"times and flash_attention {counts['flash_attention']}, expected "
-                             f"{cfg.n_layers} and 0 (bf16: one tensor-core launch per layer, "
-                             f"in the prefill)")
+    log(f"  generate: {batch}x{prompt} prompt + {new} new tokens in {wall:.3f} s (first call); "
+        f"launches {counts}")
+    expect_launches(counts, want, f"{what}: generate (bf16: the attention kernel once a "
+                                  f"local layer, in the prefill)")
     for p, o in zip(prompts, outs):
-        if o.shape != (LONG_PROMPT + LONG_NEW,) or not np.array_equal(o[:LONG_PROMPT], p):
+        if o.shape != (prompt + new,) or not np.array_equal(o[:prompt], p):
             raise AssertionError(f"bad output shape {o.shape} or prompt not preserved")
         if not ((o >= 0) & (o < cfg.vocab_size)).all():
             raise AssertionError("token outside the vocabulary")
@@ -1334,28 +1403,25 @@ def phase_serve_long(state):
     with torch.inference_mode():
         prefill_ms = []
         for _ in range(3):
-            cache = model.init_cache(LONG_BATCH, max_len, device="cuda")
+            cache = model.init_cache(batch, max_len, device="cuda")
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = model.prefill(params, {"tokens": tokens}, cache)
             torch.cuda.synchronize()
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            c = ops.launch_counts()
-            if c["flash_attention_sm90"] != cfg.n_layers or c["flash_attention"] != 0:
-                raise AssertionError(f"prefill launched {c}")
+            expect_launches(ops.launch_counts(), want, f"{what}: prefill")
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite prefill logits")
         tok = torch.argmax(logits, dim=-1)
         finite = torch.ones((), dtype=torch.bool, device="cuda")
-        # the mesh serve phase is teacher-forced on these tokens and held to these logits
-        ref = state["long_ref"] = {"logits": [logits], "fed": []}
+        ref = {"logits": [logits], "fed": []}
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(LONG_NEW):   # no host sync inside the loop, as in generate
+        for i in range(new):   # no host sync inside the loop, as in generate
             ref["fed"].append(tok)
-            logits, cache = model.decode_step(params, tok, LONG_PROMPT + i, cache)
+            logits, cache = model.decode_step(params, tok, prompt + i, cache)
             ref["logits"].append(logits)
             finite &= torch.isfinite(logits).all()
             tok = torch.argmax(logits, dim=-1)
@@ -1363,31 +1429,65 @@ def phase_serve_long(state):
         decode_s = time.perf_counter() - t0
         if not bool(finite):
             raise AssertionError("non-finite decode logits")
-        c = ops.launch_counts()
-        if c["flash_attention"] != 0 or c["flash_attention_sm90"] != 0:
-            raise AssertionError("a decode step over the window cache launched a kernel")
-    state["serve_long"] = {
+        expect_launches(ops.launch_counts(), {}, f"{what}: decode over the window cache")
+    rec = {
         "prefill_ms": sorted(prefill_ms)[1],
-        "decode_tok_s": LONG_BATCH * LONG_NEW / decode_s,
-        "decode_ms_per_step": decode_s * 1e3 / LONG_NEW,
+        "decode_tok_s": batch * new / decode_s,
+        "decode_ms_per_step": decode_s * 1e3 / new,
         "peak_gib": peak / 2**30,
         "generate_first_call_s": wall,
+        "launches": counts,
     }
-    r = state["serve_long"]
-    log(f"  prefill {LONG_BATCH}x{LONG_PROMPT}: {r['prefill_ms']:.2f} ms (median of 3: "
-        f"{', '.join(f'{m:.2f}' for m in prefill_ms)}); decode {r['decode_tok_s']:.1f} tok/s "
-        f"({r['decode_ms_per_step']:.2f} ms/step, batch {LONG_BATCH}, window cache "
-        f"{cfg.window}); peak memory {r['peak_gib']:.2f} GiB; on {state['smi']}")
+    log(f"  prefill {batch}x{prompt}: {rec['prefill_ms']:.2f} ms (median of 3: "
+        f"{', '.join(f'{m:.2f}' for m in prefill_ms)}); decode {rec['decode_tok_s']:.1f} tok/s "
+        f"({rec['decode_ms_per_step']:.2f} ms/step, batch {batch}, window cache "
+        f"{cfg.window}); peak memory {rec['peak_gib']:.2f} GiB; on {state['smi']}")
     del params, model, cache, logits
     torch.cuda.empty_cache()
+    return counts, outs, ref, rec
 
 
-def phase_teacher_forcing_long(state):
-    cfg = dataclasses.replace(get_config(LONG_ARCH), n_layers=4, dtype="float32")
+def phase_serve_long(state):
+    """Full-width h2o-danube3-4b at 4 x 8192 + 32: every layer's attention
+    through ``flash_attention_sm90`` in the prefill."""
+    cfg = get_config(LONG_ARCH)
+    counts, outs, ref, rec = serve_long_path(
+        state, cfg, LONG_BATCH, LONG_PROMPT, LONG_NEW, seed=3,
+        want={"flash_attention_sm90": cfg.n_layers}, what="long serve")
+    state["long_launches"] = counts
+    state["long_outs"] = outs        # the mesh generate phase's reference
+    state["long_ref"] = ref          # the mesh serve phase is teacher-forced on these
+    state["serve_long"] = rec
+
+
+def attention_layers(cfg, kind):
+    """The layers of ``kind`` in ``cfg``'s pattern, repeated over its depth."""
+    return sum(1 for i in range(cfg.n_layers)
+               if cfg.block_pattern[i % len(cfg.block_pattern)] == kind)
+
+
+def phase_serve_long_rg(state):
+    """Full-width recurrentgemma-2b at 4 x 32768 + 32: each local layer's
+    attention (10 query heads of 256 over one kv head, window 2048) through
+    ``flash_attention_sm90`` once in the prefill, each RG-LRU's scan through
+    ``linear_scan``; decode over the 2048-slot window cache launches none."""
+    cfg = state["cfg"]
+    counts, _, _, rec = serve_long_path(
+        state, cfg, RG_LONG_BATCH, RG_LONG_PROMPT, RG_LONG_NEW, seed=70,
+        want={"flash_attention_sm90": attention_layers(cfg, "local"),
+              "linear_scan": attention_layers(cfg, "rglru")},
+        what="recurrentgemma long serve")
+    state["serve_long_rg"] = rec
+
+
+def teacher_forcing_path(cfg, B, T, T0, seed, what):
+    """``cfg`` (float32) prefilled on T0 tokens of a seeded batch and decoded
+    on the rest, each step's logits against one forward over all T: the
+    largest |dlogit| and the launch counts of the forward, the prefill and
+    the decode steps."""
     model = build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(5))
-    B, T, T0 = 2, LONG_PROMPT, LONG_TF_PREFILL
-    g = torch.Generator(device="cuda").manual_seed(6)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device="cuda")
     with torch.inference_mode():
         ops.reset_launch_counts()
@@ -1395,31 +1495,57 @@ def phase_teacher_forcing_long(state):
         h = LM.apply_stack_train(params, cfg, x, torch.arange(T, device="cuda"))[0]
         full = LM._logits(params, cfg, h[:, T0 - 1:])      # positions T0-1 .. T-1
         del x, h
-        fwd = ops.launch_counts()["flash_attention"]
+        fwd = ops.launch_counts()
         cache = model.init_cache(B, T + 4, device="cuda")
         ops.reset_launch_counts()
         lg, cache = model.prefill(params, {"tokens": toks[:, :T0]}, cache)
-        pre = ops.launch_counts()["flash_attention"]
+        pre = ops.launch_counts()
         errs = [float((lg - full[:, 0]).abs().max())]
+        ops.reset_launch_counts()
         for t in range(T0, T):
             lg, cache = model.decode_step(params, toks[:, t], t, cache)
             errs.append(float((lg - full[:, t - T0 + 1]).abs().max()))
-        dec = ops.launch_counts()["flash_attention"] - pre
-        sm90 = ops.launch_counts()["flash_attention_sm90"]
-    state["teacher_long_err"] = max(errs)
-    state["long_tf_launches"] = fwd + pre
-    log(f"long teacher forcing: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"float32, prefill {T0} + {T - T0} decode steps vs one forward over {T}: max "
-        f"|dlogit| {max(errs):.3e} (tol {TEACHER_TOL}); flash_attention launches: forward "
-        f"{fwd}, prefill {pre}, decode {dec}")
-    if (fwd, pre, dec, sm90) != (cfg.n_layers, cfg.n_layers, 0, 0):
-        raise AssertionError(f"expected {cfg.n_layers} float32 launches in the forward and "
-                             f"the prefill, none in decode and no bf16 kernel, got {fwd}, "
-                             f"{pre}, {dec}, {sm90}")
+        dec = ops.launch_counts()
+    log(f"{what}: {cfg.name} {cfg.n_layers} layers ({', '.join(cfg.block_pattern)}), d_model "
+        f"{cfg.d_model}, float32, prefill {T0} + {T - T0} decode steps vs one forward over {T}: "
+        f"max |dlogit| {max(errs):.3e} (tol {TEACHER_TOL}); launches: forward {fwd}, prefill "
+        f"{pre}, decode {dec}")
     if not max(errs) < TEACHER_TOL:
         raise AssertionError(f"decode disagrees with the full forward: {errs}")
     del params, model, cache, full
     torch.cuda.empty_cache()
+    return max(errs), fwd, pre, dec
+
+
+def phase_teacher_forcing_long(state):
+    """h2o-danube3-4b cut to 4 layers in float32 at 2 x 8192: every layer's
+    attention through the float32 ``flash_attention`` in the forward and
+    the prefill, none in decode."""
+    cfg = dataclasses.replace(get_config(LONG_ARCH), n_layers=4, dtype="float32")
+    err, fwd, pre, dec = teacher_forcing_path(cfg, 2, LONG_PROMPT, LONG_TF_PREFILL, seed=5,
+                                              what="long teacher forcing")
+    for counts, where in ((fwd, "forward"), (pre, "prefill")):
+        expect_launches(counts, {"flash_attention": cfg.n_layers}, f"long teacher forcing {where}")
+    expect_launches(dec, {}, "long teacher forcing decode")
+    state["teacher_long_err"] = err
+    state["long_tf_launches"] = fwd["flash_attention"] + pre["flash_attention"]
+
+
+def phase_teacher_forcing_long_rg(state):
+    """recurrentgemma-2b cut to (rglru, rglru, local, rglru) in float32 at
+    2 x 8192: the local layer's attention (D = 256, MQA, window 2048)
+    through the float32 ``flash_attention`` in the forward and the prefill,
+    the RG-LRUs' scans through ``linear_scan``, none in decode."""
+    cfg = dataclasses.replace(state["cfg"], n_layers=RG_TF_LAYERS, dtype="float32")
+    err, fwd, pre, dec = teacher_forcing_path(cfg, 2, RG_TF_LEN, RG_TF_PREFILL, seed=72,
+                                              what="recurrentgemma long teacher forcing")
+    want = {"flash_attention": attention_layers(cfg, "local"),
+            "linear_scan": attention_layers(cfg, "rglru")}
+    for counts, where in ((fwd, "forward"), (pre, "prefill")):
+        expect_launches(counts, want, f"recurrentgemma long teacher forcing {where}")
+    expect_launches(dec, {}, "recurrentgemma long teacher forcing decode")
+    state["teacher_long_rg_err"] = err
+    state["rg_tf_launches"] = fwd["flash_attention"] + pre["flash_attention"]
 
 
 def digest_case(t: torch.Tensor, psize: int) -> int:
@@ -1679,6 +1805,44 @@ def seamless_times():
     return out
 
 
+def rg_shapes(cfg):
+    """(name, q shape, k/v shape) of recurrentgemma's local attention over
+    more than 4096 keys: the long serve phase's prefill and the training
+    step's forward."""
+    return [(name, (B, cfg.n_heads, T, cfg.head_dim), (B, cfg.n_kv_heads, T, cfg.head_dim))
+            for name, B, T in (("serve prefill", RG_LONG_BATCH, RG_LONG_PROMPT),
+                               ("train forward", RG_TRAIN_BATCH, RG_TRAIN_SEQ))]
+
+
+def rg_times():
+    """``flash_attention_sm90`` at recurrentgemma's two shapes (bf16, causal,
+    window 2048, 10 query heads over one kv head of 256): its error against
+    the plain version, its time, the plain version's, the bound, and
+    ``scaled_dot_product_attention`` with the window-causal mask."""
+    out = {}
+    cfg = get_config(ARCH)
+    for i, (name, qs, ks) in enumerate(rg_shapes(cfg)):
+        B, Hq, Tq, D = qs
+        q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, torch.bfloat16, seed=64 + i)
+        kw = dict(causal=True, window=cfg.window)
+        err, share = flash_case(q, k, v, **kw)
+        pairs = live_pairs(Tq, ks[2], causal=True, window=cfg.window, q_offset=0) * B * Hq
+        ops_s = 4 * D * pairs / BF16_FLOP_PER_S
+        bytes_s = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S
+        out[name] = {
+            "shape": [list(qs), list(ks)], "window": cfg.window, "live_pairs": pairs,
+            "max_abs_err": err, "bf16_limit_share": share,
+            "ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, **kw), reps=5),
+            "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=1),
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "library_ms": sdpa_ms(q, k, v, cfg.window),
+        }
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def split_times():
     """``flash_attention_sm90`` at the seamless serve path's two split
     cross-attentions, a decode step's q (4, 16, 1, 64) and the prefill's
@@ -1903,13 +2067,18 @@ def phase_kernel_times(state):
             f"{LONG_ARCH} train": state["train_long"]["launches"]["flash_attention_sm90"],
             f"{LONG_ARCH} mesh train (tp_fsdp)":
                 state["mesh_train_long"]["launches"]["flash_attention_sm90"],
-            f"{ENCDEC_ARCH} train": state["train_encdec"]["launches"]["flash_attention_sm90"]},
+            f"{ENCDEC_ARCH} train": state["train_encdec"]["launches"]["flash_attention_sm90"],
+            f"{ARCH} serve ({RG_LONG_BATCH} x {RG_LONG_PROMPT})":
+                state["serve_long_rg"]["launches"]["flash_attention_sm90"],
+            f"{ARCH} train ({RG_TRAIN_BATCH} x {state['train_rg']['seq']})":
+                state["train_rg"]["launches"]["flash_attention_sm90"]},
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
             f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"],
             f"{LONG_ARCH} float32 mesh serve": state["mesh_serve_f32_launches"],
             f"{LONG_ARCH} train float32 ({LONG_F32_LAYERS} layers)":
-                state["train_long_f32"]["launches"]["flash_attention"]},
+                state["train_long_f32"]["launches"]["flash_attention"],
+            f"{ARCH} teacher forcing ({RG_TF_LAYERS} layers, D = 256)": state["rg_tf_launches"]},
     }
     for name, dtype, rate, rate_name in (
             ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores"),
@@ -1947,11 +2116,12 @@ def phase_kernel_times(state):
             row["kernels_by_width"] = {
                 "8-64": "flash_attention_d64_kernel<1 or 2 consumers, split>",
                 "65-128": "flash_attention_d128_kernel<softcap>",
-                "136-256": "flash_attention_sm90_kernel<192 or 256>"}
+                "136-256": "flash_attention_d256_kernel<softcap>"}
         kernels.append(row)
         del q, k, v
         torch.cuda.empty_cache()
         if name == "flash_attention_sm90":
+            row["recurrentgemma"] = rg_times()
             row["seamless"] = seamless_times()
             row["split"] = split_times()
             row["split_launches_by_path"] = {
@@ -1964,7 +2134,7 @@ def phase_kernel_times(state):
     # seamless's encoder
     train = {name: bwd_times(qs, ks, kw, torch.bfloat16, seed=40 + i)
              for i, (name, qs, ks, kw) in enumerate(train_attention_shapes())}
-    (_, dn_q, dn_kv, dn_kw), (_, enc_q, enc_kv, enc_kw), _ = train_attention_shapes()
+    (_, dn_q, dn_kv, dn_kw), (_, enc_q, enc_kv, enc_kw), *_ = train_attention_shapes()
     f32 = {"danube float32": bwd_times(dn_q, dn_kv, dn_kw, torch.float32, seed=50),
            "seamless encoder float32": bwd_times(enc_q, enc_kv, enc_kw, torch.float32, seed=51)}
     bwd_paths = {
@@ -1973,7 +2143,9 @@ def phase_kernel_times(state):
             f"{LONG_ARCH} mesh train (tp_fsdp)":
                 state["mesh_train_long"]["launches"]["flash_attention_bwd_sm90"],
             f"{ENCDEC_ARCH} train":
-                state["train_encdec"]["launches"]["flash_attention_bwd_sm90"]},
+                state["train_encdec"]["launches"]["flash_attention_bwd_sm90"],
+            f"{ARCH} train ({RG_TRAIN_BATCH} x {state['train_rg']['seq']})":
+                state["train_rg"]["launches"]["flash_attention_bwd_sm90"]},
         "flash_attention_bwd": {
             f"{LONG_ARCH} train float32 ({LONG_F32_LAYERS} layers)":
                 state["train_long_f32"]["launches"]["flash_attention_bwd"]},
@@ -2017,7 +2189,7 @@ def phase_kernel_times(state):
             kernels[-1]["kernels_by_width"] = {
                 "8-64": "stats_kernel, d64::dkdv_kernel<softcap>, d64::dq_kernel<softcap>",
                 "65-128": "stats_kernel, d128::dkdv_kernel<softcap>, d128::dq_kernel<softcap>",
-                "136-256": "stats_kernel, dkdv_kernel<192 or 256>, dq_kernel<192 or 256>"}
+                "136-256": "stats_kernel, d256::dkdv_kernel<softcap>, d256::dq_kernel<softcap>"}
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
@@ -2029,6 +2201,12 @@ def phase_kernel_times(state):
             f"{t['splits']} key ranges merged in the launch {t['ms']:.4f} ms, unsplit "
             f"{t['unsplit_ms']:.4f} ms; max abs err {t['max_abs_err']:.3e}, lse err "
             f"{t['lse_err']:.3e}, on {state['smi']}")
+    for shape_name, t in next(k for k in kernels if "recurrentgemma" in k)["recurrentgemma"].items():
+        log(f"flash_attention_sm90 recurrentgemma {shape_name} {t['shape']} bfloat16 causal, "
+            f"window {t['window']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library (SDPA, window mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of roofline), max abs err "
+            f"{t['max_abs_err']:.3e}, on {state['smi']}")
     for shape_name, t in next(k for k in kernels if "seamless" in k)["seamless"].items():
         log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal, "
             f"{t['splits']} key ranges: kernel "
@@ -3341,32 +3519,83 @@ def phase_mesh_train_long(state):
         f"flash_attention_bwd_sm90 launches, as the long train phase's; on {state['smi']}")
 
 
+class _PlainAttention(torch.autograd.Function):
+    """``ops.flash_attention`` under autograd with the kernels' plain
+    versions on the card: the forward ``ref_flash_attention`` (keeping o and
+    lse), the backward ``ref_flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        o, lse = ref_flash_attention(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ref_flash_attention_backward(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def phase_train_rg(state):
-    """Full-width recurrentgemma-2b trained at 2 x 2048: every RG-LRU's
-    scan and its gradient go through ``linear_scan``'s kernel.  First the
-    gradients of one batch with the kernel and with the plain scan on the
-    card (loss and gradient norm within 1e-4, every RG-LRU leaf's gradient
-    nonzero and finite), then the steps."""
+    """Full-width recurrentgemma-2b trained at 1 x 8192, or the longest
+    multiple of 512 past 4096 tokens whose dry-run record (one device) of
+    the step leaves ``RG_TRAIN_HEADROOM_GIB`` of the card free (remat
+    "full", bf16 params, float32 AdamW
+    state): every RG-LRU's scan and its gradient go
+    through ``linear_scan``'s kernel, every local layer's attention (10
+    query heads of 256 over one kv head, window 2048) through
+    ``flash_attention_sm90`` (again in the recompute) and
+    ``flash_attention_bwd_sm90``.  Then the gradients of one batch with the
+    kernels, with the plain scan (loss and gradient norm within 1e-4, every
+    RG-LRU leaf's gradient nonzero and finite) and with the plain attention
+    (within ``RG_ATTN_RTOL``); then the steps."""
     cfg = state["cfg"]
-    _, reader = corpus_reader(RG_TRAIN_BATCH, RG_TRAIN_SEQ)
+    budget = torch.cuda.get_device_properties(0).total_memory - RG_TRAIN_HEADROOM_GIB * 2**30
+    seq, temp_at = RG_TRAIN_SEQ, {}
+    while True:
+        arg_b, temp_b = train_memory_estimate(cfg, RG_TRAIN_BATCH, seq, "full")
+        temp_at[seq] = temp_b
+        log(f"  dry run, one device, {RG_TRAIN_BATCH} x {seq}: inputs {arg_b / 1e9:.2f} GB + "
+            f"temporaries {temp_b / 1e9:.2f} GB = {(arg_b + temp_b) / 2**30:.2f} GiB, "
+            f"{RG_TRAIN_HEADROOM_GIB} GiB to stay free of the card's "
+            f"{(budget / 2**30 + RG_TRAIN_HEADROOM_GIB):.2f} GiB")
+        if arg_b + temp_b <= budget:
+            break
+        # the longest multiple of 512 past the dense limit that fits: the
+        # temporaries grow in proportion to the sequence (the logits and the
+        # activations of one batch row), so the first record predicts it
+        # and the next one checks it
+        fit = int((budget - arg_b) / temp_at[RG_TRAIN_SEQ] * RG_TRAIN_SEQ) // 512 * 512
+        seq = min(seq - 512, fit)
+        if seq <= 4096:
+            raise AssertionError(f"{cfg.name} does not fit one card past 4096 tokens by the "
+                                 f"dry run's estimate")
+    if seq != RG_TRAIN_SEQ:
+        log(f"  cut to {RG_TRAIN_BATCH} x {seq}: {RG_TRAIN_SEQ} does not fit by the estimate")
+    _, reader = corpus_reader(RG_TRAIN_BATCH, seq)
     batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
                                                for a in reader.next_batch())))
                for _ in range(RG_TRAIN_STEPS)]
     builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
                                opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
     fwd, bwd = train_launches(cfg, "rglru", 1, builder.remat_policy)
+    fa_fwd, fa_bwd = train_launches(cfg, "local", 1, builder.remat_policy)
+    scans = {"linear_scan": fwd + bwd}
+    attention = {"flash_attention_sm90": fa_fwd, "flash_attention_bwd_sm90": fa_bwd}
 
     grads_fn = builder.grads_fn()
     probe = builder.init_state(torch.Generator(device="cuda").manual_seed(25))
     ops.reset_launch_counts()
     loss_k, grads_k = grads_fn(probe, batches[0])
-    expect_launches(ops.launch_counts(), {"linear_scan": fwd + bwd}, "recurrentgemma gradients")
+    expect_launches(ops.launch_counts(), {**scans, **attention}, "recurrentgemma gradients")
     norm_k = float(global_norm(grads_k))
     paths = [p for p, _ in flatten_with_paths(probe["params"])]
     rglru = [(p, g) for p, g in zip(paths, grads_k)
              if p.split("/")[-1] in ("wx", "conv", "w_a", "w_i", "lam") and "mixer" in p]
-    n_rglru = sum(1 for i in range(cfg.n_layers)
-                  if cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru")
+    n_rglru = attention_layers(cfg, "rglru")
     n_leaves = sum(k == "rglru" for k in cfg.block_pattern + LM._pattern_layout(cfg)[1])
     if len(rglru) != 5 * n_leaves:
         raise AssertionError(f"RG-LRU leaves {[p for p, _ in rglru]}")
@@ -3376,32 +3605,52 @@ def phase_train_rg(state):
         if not (bool(torch.isfinite(g).all()) and bool((per_layer > 0).all())):
             raise AssertionError(f"RG-LRU gradient {p}: finite {bool(torch.isfinite(g).all())}, "
                                  f"per-layer max |g| {per_layer.tolist()}")
-    del grads_k
-    with _swap(ops, "linear_scan", lambda a, x: ref_linear_scan(a, x)):
-        ops.reset_launch_counts()
-        loss_p, grads_p = grads_fn(probe, batches[0])
-        expect_launches(ops.launch_counts(), {}, "recurrentgemma gradients, plain scan")
-    norm_p = float(global_norm(grads_p))
-    loss_k, loss_p = float(loss_k), float(loss_p)
-    del grads_p, probe
+    del grads_k, rglru
+    loss_k = float(loss_k)
+
+    def plain(name, fn, want):
+        """loss, grad norm of the same batch with ops.``name`` swapped for ``fn``"""
+        with _swap(ops, name, fn):
+            ops.reset_launch_counts()
+            loss, grads = grads_fn(probe, batches[0])
+            expect_launches(ops.launch_counts(), want, f"recurrentgemma gradients, plain {name}")
+        norm = float(global_norm(grads))
+        del grads
+        torch.cuda.empty_cache()
+        return float(loss), norm
+
+    loss_p, norm_p = plain("linear_scan", lambda a, x: ref_linear_scan(a, x), attention)
+    loss_a, norm_a = plain("flash_attention", lambda q, k, v, **kw: _PlainAttention.apply(
+        q, k, v, kw["causal"], kw["window"], kw["q_offset"], kw["softcap"]), scans)
+    del probe
     torch.cuda.empty_cache()
     loss_rel, norm_rel = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
+    attn_loss_rel, attn_norm_rel = abs(loss_k - loss_a) / abs(loss_a), abs(norm_k - norm_a) / norm_a
     log(f"  {n_rglru} RG-LRU layers: loss {loss_k:.6f} (plain scan {loss_p:.6f}, rel "
         f"{loss_rel:.2e}), grad norm {norm_k:.6f} (plain scan {norm_p:.6f}, rel {norm_rel:.2e}); "
-        f"{len(rglru)} RG-LRU leaves, every layer's gradient nonzero and finite")
+        f"{5 * n_leaves} RG-LRU leaves, every layer's gradient nonzero and finite")
+    log(f"  {attention_layers(cfg, 'local')} local attention layers: plain attention loss "
+        f"{loss_a:.6f} (rel {attn_loss_rel:.2e}), grad norm {norm_a:.6f} (rel "
+        f"{attn_norm_rel:.2e}), tol {RG_ATTN_RTOL:.3g}")
     if not (loss_rel <= RG_PLAIN_RTOL and norm_rel <= RG_PLAIN_RTOL):
         raise AssertionError(f"kernel scan vs plain scan: loss rel {loss_rel:.2e}, grad norm "
                              f"rel {norm_rel:.2e} > {RG_PLAIN_RTOL}")
+    if not (attn_loss_rel <= RG_ATTN_RTOL and attn_norm_rel <= RG_ATTN_RTOL):
+        raise AssertionError(f"attention kernels vs plain attention: loss rel "
+                             f"{attn_loss_rel:.2e}, grad norm rel {attn_norm_rel:.2e} > "
+                             f"{RG_ATTN_RTOL:.3g}")
 
     counts, rec = run_train_steps(state, builder, batches,
-                                  f"recurrentgemma train ({RG_TRAIN_BATCH} x {RG_TRAIN_SEQ})",
-                                  seed=26)
-    expect_launches(counts, {"linear_scan": RG_TRAIN_STEPS * (fwd + bwd)},
+                                  f"recurrentgemma train ({RG_TRAIN_BATCH} x {seq})", seed=26)
+    expect_launches(counts, {name: RG_TRAIN_STEPS * n for name, n in {**scans, **attention}.items()},
                     "recurrentgemma train")
-    rec.update(loss_rel=loss_rel, grad_norm_rel=norm_rel)
+    rec.update(loss_rel=loss_rel, grad_norm_rel=norm_rel, attention_loss_rel=attn_loss_rel,
+               attention_grad_norm_rel=attn_norm_rel, estimate_gib=(arg_b + temp_b) / 2**30,
+               seq=seq)
     state["train_rg"] = rec
-    log(f"  {RG_TRAIN_STEPS} x ({fwd} + {bwd}) linear_scan launches (forward with the "
-        f"recompute, backward), as expected")
+    log(f"  {RG_TRAIN_STEPS} x ({fwd} + {bwd}) linear_scan, {RG_TRAIN_STEPS} x {fa_fwd} "
+        f"flash_attention_sm90 and {RG_TRAIN_STEPS} x {fa_bwd} flash_attention_bwd_sm90 "
+        f"launches (forward with the recompute, backward), as expected")
 
 
 # ------------------------------------------------- launch tooling, examples
@@ -3695,6 +3944,8 @@ PHASES = [
     ("decode vs teacher forcing", phase_teacher_forcing),
     ("long-context serve", phase_serve_long),
     ("long decode vs teacher forcing", phase_teacher_forcing_long),
+    ("recurrentgemma long serve", phase_serve_long_rg),
+    ("recurrentgemma long decode vs teacher forcing", phase_teacher_forcing_long_rg),
     ("train entry point", phase_train_entry),
     ("train and checkpoint", phase_train),
     ("moe serve", phase_serve_moe),

@@ -95,47 +95,73 @@
 // warpgroup's turn, and waits for a stage to empty only for the tile its
 // warpgroup needs next, which the turns have released by then.
 //
-// Head widths 136-256: the first design, unchanged.  (b) has one consumer
-// warpgroup of 64 keys, whose dK and dV split by columns over two blocks
-// (each recomputing S^T and dP^T, as 255 registers cannot hold both
-// accumulators); (c) one warpgroup of 64 rows.  Thread 0 issues the loads
-// from inside the consumer loop, refilling a stage once every warp has
-// released it.
+// Head widths 136-256 (recurrentgemma's 256; namespace d256; narrower heads
+// read as 256 columns, the atoms past D zeroed in shared memory once and
+// never loaded): a block of both passes is two consumer warpgroups over one
+// 64-row tile of keys (b) or query rows (c), 256 threads, no producer.  The
+// gradients of 64 rows by 256 columns are 128 float32 registers a thread
+// each, so the two warpgroups split their columns: consumer w holds dK and
+// dV (b), or dQ (c), of the head's atoms 2 w and 2 w + 1.  Each tile's S and
+// dP are computed once between them, consumer w taking the 32 query columns
+// (b) or keys (c) 32 w ... + 31 (m64n32k16 wgmma), and its P and dS go
+// into shared memory as the two bf16 parts of a 64 x 64 K-major A operand,
+// which both consumers' gradient products read (wgmma with A and B from
+// shared memory; one m64n128k16 covers a consumer's two atoms, so a step
+// reads A once for 128 columns).  A tile is: S and dP (whose wait also ends the previous
+// tile's gradient products), P and dS, a barrier of both consumers (the
+// parts are free), the parts stored, a barrier, and the gradient products
+// issued and left running, with the next tile's loads: issued before the
+// P and dS work instead, they slowed its shared-memory traffic more than
+// they gained.  The rings have two stages of 64 KB (the parts and the
+// resident tiles take the rest); in (c) v runs a tile further ahead than k.
+// So the dK/dV pass does 12 D' flops a pair; splitting dK and dV by
+// columns over two blocks, each recomputing S^T and dP^T, does 16 D'.  A
+// dK/dV block loops over the G query heads: at recurrentgemma's MQA
+// training shape, (1, 1, 8192) keys make 128 blocks, one wave on 132 SMs,
+// so no block splits its heads.
+//
+// Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
+// every warp of the d256 passes (b) and (c) adds the SM clocks it spends in
+// each phase of the tile loop to flash_bwd_sm90_phase_clocks[pass]
+// (kClockPhases below).
 
 #include <math_constants.h>
 
 #include "sm90_common.cuh"
+
+#ifdef FLASH_PHASE_CLOCKS
+// waiting for the tile's loads; S and dP issued; S and dP waited for (the
+// wait also ends the previous tile's gradient products); the stage released
+// and the next tile issued; P and dS; the barrier before the parts; the
+// parts stored; their proxy fence; their barrier; the gradient products
+// issued
+constexpr int kClockPhases = 10;
+__device__ unsigned long long flash_bwd_sm90_phase_clocks[2][kClockPhases];
+#define PHASE(k)                       \
+  {                                    \
+    const long long now = clock64();   \
+    phase_clocks[k] += now - phase_at; \
+    phase_at = now;                    \
+  }
+#define PHASE_START                                  \
+  long long phase_clocks[kClockPhases] = {};         \
+  long long phase_at = clock64();
+#define PHASE_END(pass)                                                              \
+  if ((threadIdx.x & 31) == 0)                                                       \
+    for (int k = 0; k < kClockPhases; ++k)                                           \
+      atomicAdd(&flash_bwd_sm90_phase_clocks[pass][k],                               \
+                static_cast<unsigned long long>(phase_clocks[k]));
+#else
+#define PHASE(k)
+#define PHASE_START
+#define PHASE_END(pass)
+#endif
 
 namespace {
 
 constexpr int kRows = 64;   // rows (keys or query rows) of one wgmma tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kStatThreads = 256;
-
-// Head widths above 128.  DP: the head width rounded up to a multiple of 64
-// (the width of the tiles), 192 or 256; widths up to 128 have the kernels
-// of namespaces d64 and d128 below.
-template <int DP>
-struct Cfg {
-  static_assert(DP >= 192, "widths up to 128 run the d64 and d128 kernels");
-  static constexpr int kNB = DP / kAtom;               // 64-column blocks of the head
-  // consumer warpgroups a block of (b) and of (c)
-  static constexpr int kNK = 1;
-  static constexpr int kNQ = 1;
-  static constexpr int kStages = DP <= 192 ? 3 : 2;   // ring depth
-  static constexpr int kTile = kRows * DP * 2;         // bytes of one 64-row bf16 tile
-  // dK and dV blocks a key-tile block accumulates, and the blocks a key tile
-  // takes to cover the head
-  static constexpr int kNBo = 2;
-  static constexpr int kSplits = (kNB + kNBo - 1) / kNBo;
-  // (b): kNK k and v tiles; a stage: q, do, 64 lse2 and 64 delta
-  static constexpr int kSmemKV =
-      1024 + 2 * kNK * kTile + kStages * (2 * kTile + 2 * kRows * 4) + 8 * (2 * kStages + 1);
-  // (c): kNQ q and do tiles; a stage: k, v
-  static constexpr int kSmemQ =
-      1024 + 2 * kNQ * kTile + 2 * kStages * kTile + 8 * (2 * kStages + 1);
-  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
-};
 
 struct Params {
   const float* lse;          // (B, Hq, Tq) natural log, contiguous
@@ -149,54 +175,6 @@ struct Params {
   int causal, has_window, has_softcap;
   float softcap, scale, scale_log2;
 };
-
-// whether the phase of parity `parity` has completed (the current phase or
-// the one before it), without waiting
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// thread 0, once its warp has released tile t of n: issue each later tile
-// up to t + S whose stage every warp has released (`next` is the next tile
-// to issue); wait on a warp that is behind only when tile t + 1 is not
-// issued yet
-template <int S, typename Issue>
-__device__ __forceinline__ void refill(uint64_t* empty, int t, int n, int& next, Issue issue) {
-  for (; next < n && next <= t + S; ++next) {
-    const int prev = next - S;                 // the last tile in next's stage
-    uint64_t* bar = &empty[prev % S];
-    const uint32_t ph = (prev / S) & 1;        // its phase: the current one or the one before
-    if (!mbar_test(bar, ph)) {
-      if (next > t + 1) break;
-      mbar_wait(bar, ph);
-    }
-    issue(next);
-  }
-}
-
-__device__ __forceinline__ bool key_live(const Params& p, int64_t qpos, int64_t kpos) {
-  return kpos < p.Tk && (!p.causal || kpos <= qpos) && (!p.has_window || kpos > qpos - p.window);
-}
-
-// p = exp(s' - lse) with s' the scaled (capped) score, from the raw score s
-// and the row's lse2; and the softcap's derivative factor
-__device__ __forceinline__ float prob(const Params& p, float s, float lse2, float& dcap) {
-  if (p.has_softcap) {
-    const float t = tanhf(s * p.scale / p.softcap);
-    dcap = 1.0f - t * t;
-    return ex2(fmaf(p.softcap * t, kLog2e, -lse2));
-  }
-  dcap = 1.0f;
-  return ex2(fmaf(s, p.scale_log2, -lse2));
-}
 
 // a 64 x 64 float32 accumulator as four k-steps of a bf16 A operand in two
 // parts: hi = d truncated to bf16 (its upper 16 bits, no conversion), lo =
@@ -217,16 +195,6 @@ __device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&hi)[4][4],
       lo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha),
                                                   c - __uint_as_float(hc)));
     }
-}
-
-// S (or S^T) over the head width, 16 columns a step: a and b are 64-row
-// K-major tiles of DP columns
-template <int DP>
-__device__ __forceinline__ void gemm_ss(float (&d)[32], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss(d, desc(a + (kk / 4) * kRows * 128 + (kk % 4) * 32),
-             desc(b + (kk / 4) * kRows * 128 + (kk % 4) * 32), kk > 0);
 }
 
 // d += (hi + lo) . B[:, 64 nb ...] with A = hi + lo (64 x 64) from registers
@@ -296,357 +264,6 @@ stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, 
     p.delta[row] = acc;
   }
 }
-
-// (b) dK and dV of kNK * 64 keys of one kv head
-template <int DP>
-__global__ void __launch_bounds__(128 * Cfg<DP>::kNK, 1)
-dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-            const Params p) {
-  using C = Cfg<DP>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* ks = smem;                               // kNK k tiles
-  uint8_t* vs = ks + C::kNK * C::kTile;             // kNK v tiles
-  uint8_t* qs = vs + C::kNK * C::kTile;             // kStages q tiles
-  uint8_t* dos = qs + C::kStages * C::kTile;        // kStages do tiles
-  float* lse_s = reinterpret_cast<float*>(dos + C::kStages * C::kTile);   // kStages x 64
-  float* delta_s = lse_s + C::kStages * kRows;
-  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + C::kStages * kRows);
-  uint64_t* empty = full + C::kStages;
-  uint64_t* kbar = empty + C::kStages;
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int split = blockIdx.x % C::kSplits;
-  const int nb0 = split * C::kNBo;   // the first column block of dK and dV here
-  const int64_t kt = static_cast<int64_t>(blockIdx.x / C::kSplits) * (C::kNK * kRows);
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-
-  // the query tiles that see one of keys [kt, k_last]: the same for every
-  // query head of the group
-  const int64_t k_last = (kt + C::kNK * kRows < p.Tk ? kt + C::kNK * kRows : p.Tk) - 1;
-  int64_t i_lo = 0, i_hi = p.Tq;
-  if (p.causal && kt - p.q_offset > i_lo) i_lo = kt - p.q_offset;
-  if (p.has_window && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
-  i_lo = i_lo / kRows * kRows;
-  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - i_lo + kRows - 1) / kRows) : 0;
-  const int n_iter = static_cast<int>(p.group) * n_qt;
-
-  if (tid == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], C::kNK * 4);   // lane 0 of every warp
-    }
-    mbar_init(kbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // iteration t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
-  auto issue = [&](int t) {
-    const int s = t % C::kStages;
-    const int h = static_cast<int>(hk * p.group + t / n_qt);
-    const int64_t q0 = i_lo + static_cast<int64_t>(t % n_qt) * kRows;
-    mbar_expect_tx(&full[s], 2 * C::kTile + 2 * kRows * 4);
-    for (int nb = 0; nb < C::kNB; ++nb) {
-      tma_load(qs + s * C::kTile + nb * kRows * 128, &qmap, &full[s], nb * kAtom,
-               static_cast<int>(q0), h, b);
-      tma_load(dos + s * C::kTile + nb * kRows * 128, &domap, &full[s], nb * kAtom,
-               static_cast<int>(q0), h, b);
-    }
-    const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
-    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
-    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
-  };
-  if (tid == 0) {
-    mbar_expect_tx(kbar, 2 * C::kNK * C::kTile);
-    for (int c = 0; c < C::kNK; ++c)
-      for (int nb = 0; nb < C::kNB; ++nb) {
-        tma_load(ks + c * C::kTile + nb * kRows * 128, &kmap, kbar, nb * kAtom,
-                 static_cast<int>(kt + c * kRows), hk, b);
-        tma_load(vs + c * C::kTile + nb * kRows * 128, &vmap, kbar, nb * kAtom,
-                 static_cast<int>(kt + c * kRows), hk, b);
-      }
-    for (int t = 0; t < C::kStages && t < n_iter; ++t) issue(t);
-  }
-  int next = C::kStages < n_iter ? C::kStages : n_iter;   // thread 0: the next tile to issue
-
-  // ---- consumer warpgroup wg: keys kw ... kw + 63
-  const int lane = tid & 31;
-  const int warp = (tid / 32) & 3;
-  const int r0 = warp * 16 + lane / 4;     // this thread's keys: kw + r0 and kw + r0 + 8
-  const int c2 = (lane & 3) * 2;           // and query columns 8j + c2, 8j + c2 + 1
-  const int64_t kw = kt + wg * kRows;
-  const uint32_t k_base = smem_u32(ks + wg * C::kTile);
-  const uint32_t v_base = smem_u32(vs + wg * C::kTile);
-
-  float dk[C::kNBo][32], dv[C::kNBo][32];
-#pragma unroll
-  for (int nb = 0; nb < C::kNBo; ++nb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.0f;
-
-  mbar_wait(kbar, 0);
-  for (int t = 0; t < n_iter; ++t) {
-    const int s = t % C::kStages;
-    const int64_t q0 = i_lo + static_cast<int64_t>(t % n_qt) * kRows;
-    const int64_t qa = p.q_offset + q0;                                      // first row
-    const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;   // last row
-    mbar_wait(&full[s], (t / C::kStages) & 1);
-    const bool dead = kw >= p.Tk || (p.causal && kw > qb) ||
-                      (p.has_window && kw + kRows - 1 <= qa - p.window);
-    if (!dead) {
-      const uint32_t q_base = smem_u32(qs + s * C::kTile);
-      const uint32_t do_base = smem_u32(dos + s * C::kTile);
-      // S^T = K Q^T, dP^T = V dO^T: keys by query rows
-      float st[32], dpt[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
-      reg_fence(st);
-      reg_fence(dpt);
-      wgmma_fence();
-      gemm_ss<DP>(st, k_base, q_base);
-      gemm_ss<DP>(dpt, v_base, do_base);
-      wgmma_commit();
-      wgmma_wait_all();
-      reg_fence(st);
-      reg_fence(dpt);
-
-      const bool all_live = kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
-                            (!p.has_window || kw > qb - p.window);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = (i / 4) * 8 + c2 + (i & 1);   // the query row of st[i] in the tile
-        float dcap;
-        float pr = prob(p, st[i], lse_s[s * kRows + col], dcap);
-        if (!all_live && !key_live(p, qa + col, kw + r0 + ((i & 2) ? 8 : 0))) pr = 0.0f;
-        st[i] = pr;
-        dpt[i] = pr * (dpt[i] - delta_s[s * kRows + col]) * dcap;
-      }
-      // dV += P^T dO, then dK += dS^T Q, over this block's column blocks;
-      // dS^T goes to its A registers while the first products run
-      uint32_t ah[4][4], al[4][4];
-      to_a(st, ah, al);
-#pragma unroll
-      for (int nb = 0; nb < C::kNBo; ++nb) {
-        reg_fence(dv[nb]);
-        reg_fence(dk[nb]);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int nb = 0; nb < C::kNBo; ++nb)
-        if (nb0 + nb < C::kNB) gemm_rs(dv[nb], ah, al, do_base, nb0 + nb);
-      wgmma_commit();
-      uint32_t bh[4][4], bl[4][4];
-      to_a(dpt, bh, bl);
-      wgmma_fence();
-#pragma unroll
-      for (int nb = 0; nb < C::kNBo; ++nb)
-        if (nb0 + nb < C::kNB) gemm_rs(dk[nb], bh, bl, q_base, nb0 + nb);
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int nb = 0; nb < C::kNBo; ++nb) {
-        reg_fence(dv[nb]);
-        reg_fence(dk[nb]);
-      }
-    }
-    // this warp has finished reading stage s
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-    if (tid == 0) refill<C::kStages>(empty, t, n_iter, next, issue);
-    __syncwarp();
-  }
-
-  const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
-#pragma unroll
-  for (int nb = 0; nb < C::kNBo; ++nb) {
-    if (nb0 + nb >= C::kNB) continue;
-    store_rows(p.dk + off, dk[nb], nb0 + nb, c2, kw + r0, p.Tk, p.D, p.scale);
-    store_rows(p.dv + off, dv[nb], nb0 + nb, c2, kw + r0, p.Tk, p.D, 1.0f);
-  }
-}
-
-// (c) dQ of kNQ * 64 query rows of one query head
-template <int DP>
-__global__ void __launch_bounds__(128 * Cfg<DP>::kNQ, 1)
-dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-          const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-          const Params p) {
-  using C = Cfg<DP>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* qs = smem;                               // kNQ q tiles
-  uint8_t* dos = qs + C::kNQ * C::kTile;            // kNQ do tiles
-  uint8_t* ks = dos + C::kNQ * C::kTile;            // kStages k tiles
-  uint8_t* vs = ks + C::kStages * C::kTile;         // kStages v tiles
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kTile);
-  uint64_t* empty = full + C::kStages;
-  uint64_t* qbar = empty + C::kStages;
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  // the last query tiles see the most keys: start them first
-  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * (C::kNQ * kRows);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = static_cast<int>(h / p.group);
-
-  // the key tiles that any row of this block can see
-  const int64_t rows_end = q0 + C::kNQ * kRows < p.Tq ? q0 + C::kNQ * kRows : p.Tq;
-  const int64_t q_first = p.q_offset + q0;
-  const int64_t q_last = p.q_offset + rows_end - 1;
-  int64_t k_end = p.Tk;
-  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
-  int64_t k_begin = 0;
-  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
-  k_begin = k_begin / kRows * kRows;
-  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + kRows - 1) / kRows) : 0;
-
-  if (tid == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], C::kNQ * 4);
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  auto issue = [&](int t) {
-    const int s = t % C::kStages;
-    mbar_expect_tx(&full[s], 2 * C::kTile);
-    const int kt = static_cast<int>(k_begin + static_cast<int64_t>(t) * kRows);
-    for (int nb = 0; nb < C::kNB; ++nb) {
-      tma_load(ks + s * C::kTile + nb * kRows * 128, &kmap, &full[s], nb * kAtom, kt, hk, b);
-      tma_load(vs + s * C::kTile + nb * kRows * 128, &vmap, &full[s], nb * kAtom, kt, hk, b);
-    }
-  };
-  if (tid == 0) {
-    mbar_expect_tx(qbar, 2 * C::kNQ * C::kTile);
-    for (int c = 0; c < C::kNQ; ++c)
-      for (int nb = 0; nb < C::kNB; ++nb) {
-        tma_load(qs + c * C::kTile + nb * kRows * 128, &qmap, qbar, nb * kAtom,
-                 static_cast<int>(q0 + c * kRows), h, b);
-        tma_load(dos + c * C::kTile + nb * kRows * 128, &domap, qbar, nb * kAtom,
-                 static_cast<int>(q0 + c * kRows), h, b);
-      }
-    for (int t = 0; t < C::kStages && t < n_tiles; ++t) issue(t);
-  }
-  int next = C::kStages < n_tiles ? C::kStages : n_tiles;   // thread 0: the next tile to issue
-
-  // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
-  const int lane = tid & 31;
-  const int warp = (tid / 32) & 3;
-  const int r0 = warp * 16 + lane / 4;     // this thread's rows: r0 and r0 + 8
-  const int c2 = (lane & 3) * 2;           // and keys 8j + c2, 8j + c2 + 1
-  const int64_t wq0 = q0 + wg * kRows;
-  const int64_t qa = p.q_offset + wq0;
-  const int64_t qb = p.q_offset + (wq0 + kRows < p.Tq ? wq0 + kRows : p.Tq) - 1;
-  const int64_t pos0 = qa + r0;
-  const int64_t pos1 = pos0 + 8;
-  const uint32_t q_base = smem_u32(qs + wg * C::kTile);
-  const uint32_t do_base = smem_u32(dos + wg * C::kTile);
-  const int64_t srow = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + wq0 + r0;
-  const bool in0 = wq0 + r0 < p.Tq_pad, in1 = wq0 + r0 + 8 < p.Tq_pad;
-  const float l2_0 = in0 ? p.lse2[srow] : CUDART_INF_F;
-  const float l2_1 = in1 ? p.lse2[srow + 8] : CUDART_INF_F;
-  const float dl0 = in0 ? p.delta[srow] : 0.0f;
-  const float dl1 = in1 ? p.delta[srow + 8] : 0.0f;
-
-  float dq[C::kNB][32];
-#pragma unroll
-  for (int nb = 0; nb < C::kNB; ++nb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dq[nb][i] = 0.0f;
-
-  mbar_wait(qbar, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % C::kStages;
-    const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
-    mbar_wait(&full[s], (t / C::kStages) & 1);
-    const bool dead = wq0 >= p.Tq || kt >= p.Tk || (p.causal && kt > qb) ||
-                      (p.has_window && kt + kRows - 1 <= qa - p.window);
-    if (!dead) {
-      const uint32_t k_base = smem_u32(ks + s * C::kTile);
-      const uint32_t v_base = smem_u32(vs + s * C::kTile);
-      // S = Q K^T, dP = dO V^T: query rows by keys
-      float sc[32], dp[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
-      reg_fence(sc);
-      reg_fence(dp);
-      wgmma_fence();
-      gemm_ss<DP>(sc, q_base, k_base);
-      gemm_ss<DP>(dp, do_base, v_base);
-      wgmma_commit();
-      wgmma_wait_all();
-      reg_fence(sc);
-      reg_fence(dp);
-
-      const bool all_live = kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
-                            (!p.has_window || kt > qb - p.window);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        float dcap;
-        float pr = prob(p, sc[i], (i & 2) ? l2_1 : l2_0, dcap);
-        if (!all_live && !key_live(p, (i & 2) ? pos1 : pos0, kt + (i / 4) * 8 + c2 + (i & 1)))
-          pr = 0.0f;
-        sc[i] = pr * (dp[i] - ((i & 2) ? dl1 : dl0)) * dcap;
-      }
-      uint32_t dh[4][4], dl[4][4];
-      to_a(sc, dh, dl);
-
-      // dQ += dS K, one 64-column block of the head at a time
-#pragma unroll
-      for (int nb = 0; nb < C::kNB; ++nb) reg_fence(dq[nb]);
-      wgmma_fence();
-#pragma unroll
-      for (int nb = 0; nb < C::kNB; ++nb) gemm_rs(dq[nb], dh, dl, k_base, nb);
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int nb = 0; nb < C::kNB; ++nb) reg_fence(dq[nb]);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-    if (tid == 0) refill<C::kStages>(empty, t, n_tiles, next, issue);
-    __syncwarp();
-  }
-
-  __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
-#pragma unroll
-  for (int nb = 0; nb < C::kNB; ++nb) store_rows(dqg, dq[nb], nb, c2, wq0 + r0, p.Tq, p.D, p.scale);
-}
-
-template <int DP>
-int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
-  using C = Cfg<DP>;
-  static bool configured = false;   // the attributes are per kernel, set once
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemKV);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmemQ);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int64_t keys = C::kNK * kRows, rows = C::kNQ * kRows;
-  const dim3 grid_kv(static_cast<unsigned>((p.Tk + keys - 1) / keys * C::kSplits),
-                     static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
-  dkdv_kernel<DP><<<grid_kv, 128 * C::kNK, C::kSmemKV, stream>>>(qm, km, vm, dom, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(static_cast<unsigned>((p.Tq + rows - 1) / rows), static_cast<unsigned>(p.Hq),
-                    static_cast<unsigned>(B));
-  dq_kernel<DP><<<grid_q, 128 * C::kNQ, C::kSmemQ, stream>>>(qm, km, vm, dom, p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // ---------------------------------------------------------------------------
 // Head widths up to 64: a producer warp and two consumer warpgroups that
@@ -718,15 +335,15 @@ __device__ __forceinline__ bool live(const Params& p, int64_t qpos, int64_t kpos
 }
 
 // (b) one tile: S^T and dP^T (keys r0, r0 + 8 by query columns 8 j + c2,
-// + 1) to P^T and dS^T in place; lse2, delta: the tile's 64 rows.  A tile
-// that crosses a mask edge (edge) zeroes the dead pairs: qa is the tile's
-// first query position, k0 this thread's first key.
-template <bool CAP>
-__device__ __forceinline__ void kv_probs(float (&st)[32], float (&dpt)[32], const float* lse2,
+// + 1, N / 4 columns of 8) to P^T and dS^T in place; lse2, delta: the rows
+// of those columns.  A tile that crosses a mask edge (edge) zeroes the dead
+// pairs: qa is the first column's query position, k0 this thread's first key.
+template <bool CAP, int N>
+__device__ __forceinline__ void kv_probs(float (&st)[N], float (&dpt)[N], const float* lse2,
                                          const float* delta, int c2, const Params& p, bool edge,
                                          int64_t qa, int64_t k0) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + c2);
     const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c2);
 #pragma unroll
@@ -735,7 +352,7 @@ __device__ __forceinline__ void kv_probs(float (&st)[32], float (&dpt)[32], cons
   }
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < N; ++i) {
       const bool on = live(p, qa + (i / 4) * 8 + c2 + (i & 1), k0 + ((i & 2) ? 8 : 0));
       st[i] = on ? st[i] : 0.0f;
       dpt[i] = on ? dpt[i] : 0.0f;
@@ -743,20 +360,21 @@ __device__ __forceinline__ void kv_probs(float (&st)[32], float (&dpt)[32], cons
   }
 }
 
-// (c) one tile: S and dP (rows r0, r0 + 8 by keys 8 j + c2, + 1) to dS in
-// sc; pos0, pos1: the two rows' positions, kt the tile's first key
-template <bool CAP>
-__device__ __forceinline__ void q_probs(float (&sc)[32], float (&dp)[32], float l0, float l1,
+// (c) one tile: S and dP (rows r0, r0 + 8 by keys 8 j + c2, + 1, N / 4
+// columns of 8) to dS in sc; pos0, pos1: the two rows' positions, kt the
+// first column's key
+template <bool CAP, int N>
+__device__ __forceinline__ void q_probs(float (&sc)[N], float (&dp)[N], float l0, float l1,
                                         float d0, float d1, int c2, const Params& p, bool edge,
                                         int64_t pos0, int64_t pos1, int64_t kt) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     grad_elem<CAP>(sc[i], dp[i], (i & 2) ? l1 : l0, (i & 2) ? d1 : d0, p);
     sc[i] = dp[i];
   }
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < N; ++i)
       if (!live(p, (i & 2) ? pos1 : pos0, kt + (i / 4) * 8 + c2 + (i & 1))) sc[i] = 0.0f;
   }
 }
@@ -1631,6 +1249,463 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 
 }  // namespace d128
 
+// ---------------------------------------------------------------------------
+// Head widths 136-256 (recurrentgemma's 256): two consumer warpgroups over
+// one 64-row block, each holding half of the gradient's columns and
+// computing half of S and dP, the bf16 parts of P and dS shared in shared
+// memory.
+// ---------------------------------------------------------------------------
+
+namespace d256 {
+using d64::Params;   // filled by narrow, as the D <= 128 kernels'
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers;
+constexpr int kNB = 4;                        // 64-column atoms of the head
+constexpr int kNBw = kNB / kConsumers;        // atoms of the gradient a consumer holds
+constexpr int kHalf = kRows / kConsumers;     // columns of S (and dP) a consumer computes
+constexpr int kAtomBytes = kRows * 128;       // one atom of a 64-row tile
+constexpr int kTile = kNB * kAtomBytes;       // one 64 x 256 bf16 tile
+constexpr int kPart = kAtomBytes;             // one 64 x 64 bf16 part of P or dS
+constexpr int kStages = 2;                    // ring depth of both passes
+constexpr int kBarFree = 1, kBarReady = 2;    // the consumers' named barriers
+// (b): k and v, then the ring's q and do tiles; the parts P^T hi, lo and
+// dS^T hi, lo; a stage's 64 lse2 and 64 delta
+constexpr int kSmemKV = 1024 + (2 + 2 * kStages) * kTile + 4 * kPart + kStages * 2 * kRows * 4 +
+                        8 * (kStages + 1);
+// (c): q and do, then the k and v rings' tiles; the parts dS hi and lo
+constexpr int kSmemQ = 1024 + (2 + 2 * kStages) * kTile + 2 * kPart + 8 * (2 * kStages + 1);
+static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
+static_assert(kStages == 2, "a tile's stage is the other one of the tile before");
+
+// zero the atoms past the head's first na of `n` consecutive tiles: TMA
+// loads only those na, and the others add nothing to S or dP
+__device__ __forceinline__ void zero_atoms(uint8_t* tiles, int n, int na, int tid) {
+  if (na >= kNB) return;
+  const int words = (kNB - na) * kAtomBytes / 16;   // 16-byte words a tile
+  for (int i = tid; i < n * words; i += kThreads)
+    reinterpret_cast<uint4*>(tiles + (i / words) * kTile + na * kAtomBytes)[i % words] =
+        make_uint4(0u, 0u, 0u, 0u);
+  fence_async_shared();
+}
+
+// d = A B^T over the head's four atoms for 32 rows of B: A and B 64-row
+// K-major tiles, b the address of B's row 32 w; d an output only
+__device__ __forceinline__ void gemm_half(float (&d)[16], uint32_t a, uint32_t b) {
+  a = opaque(a);
+  b = opaque(b);
+  wgmma_ss_n32_first(d, desc(a), desc(b));
+#pragma unroll
+  for (int kk = 1; kk < 4 * kNB; ++kk) {
+    const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+    wgmma_ss_n32(d, desc(a + off), desc(b + off), 1);
+  }
+}
+
+// four 8 x 8 bf16 matrices into shared memory: lanes 8 m ... 8 m + 7 give
+// the addresses of matrix m's rows, and register m of each lane holds its
+// fragment of matrix m (row lane / 4, columns 2 (lane % 4) and + 1), the
+// layout of a wgmma accumulator's 8-column groups
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// a warp's share of a 64 x 32 float32 accumulator (its 16 rows, columns
+// col0 ... col0 + 31) into the 64 x 64 bf16 parts hi and lo of an A
+// operand, K-major and 128-byte swizzled (16-byte chunk c of row r at chunk
+// c ^ (r & 7)), one stmatrix of four 8 x 8 matrices a part and 8 rows:
+// hi = x truncated, lo = bf16(x - hi), as to_a splits
+__device__ __forceinline__ void put_parts(uint32_t hi, uint32_t lo, const float (&d)[16], int warp,
+                                          int lane, int col0) {
+  uint32_t h[2][4], l[2][4];   // [rows 8 e ...][8-column group j]
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = d[4 * j + 2 * e];
+      const float c = d[4 * j + 2 * e + 1];
+      const uint32_t ha = __float_as_uint(a) & 0xffff0000u;
+      const uint32_t hc = __float_as_uint(c) & 0xffff0000u;
+      h[e][j] = __byte_perm(ha, hc, 0x7632);
+      l[e][j] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha), c - __uint_as_float(hc)));
+    }
+  // this lane's row: row lane % 8 of matrix lane / 8, the column group
+  // col0 / 8 + lane / 8
+  const int i = lane & 7;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = warp * 16 + 8 * e + i;
+    const uint32_t off = row * 128 + ((((col0 >> 3) + (lane >> 3)) ^ i) << 4);
+    stmatrix_x4(hi + off, h[e]);
+    stmatrix_x4(lo + off, l[e]);
+  }
+}
+
+// d[i] += (hi + lo) . B[:, atom nb0 + i] for i < kNBw (= 2): hi, lo the 64 x
+// 64 parts of A in shared memory (K-major), B a 64-row tile read MN-major,
+// both atoms in one m64n128k16 (a step reads A once for 128 columns)
+static_assert(kNBw == 2, "a consumer's two atoms are one 128-column wgmma");
+__device__ __forceinline__ void gemm_parts(float (&d)[kNBw][32], uint32_t hi, uint32_t lo,
+                                           uint32_t b, int nb0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_mn(b + nb0 * kAtomBytes + kk * 16 * 128, kAtomBytes);
+    wgmma_ss_tb_n128(d, desc(hi + kk * 32), db);
+    wgmma_ss_tb_n128(d, desc(lo + kk * 32), db);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][32]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(d[i]);
+}
+
+// (b) dK and dV of 64 keys of one kv head.  Consumer w computes S^T and
+// dP^T for query columns 32 w ... + 31 of each tile and holds dK and dV of
+// the head's atoms 2 w and 2 w + 1 (128 registers a thread).  Per tile: S^T
+// and dP^T (which also waits for the previous tile's dV and dK), P^T and
+// dS^T, a barrier (both consumers' previous dV, dK have read the parts),
+// the parts stored, a barrier, then dV += P^T dO and dK += dS^T Q issued
+// and left running, and thread 0 issues tile t + 1's loads into the stage of
+// tile t - 1, which every warp's wait before the barriers has freed.
+template <bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+            const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;                                // the k tile
+  uint8_t* vs = ks + kTile;                          // the v tile
+  uint8_t* qs = vs + kTile;                          // kStages q tiles
+  uint8_t* dos = qs + kStages * kTile;               // kStages do tiles
+  uint8_t* parts = dos + kStages * kTile;            // P^T hi, lo, dS^T hi, lo
+  float* lse_s = reinterpret_cast<float*>(parts + 4 * kPart);   // kStages x 64
+  float* delta_s = lse_s + kStages * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kStages * kRows);
+  uint64_t* kbar = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int64_t kt = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+
+  // the 64-row query tiles that see one of keys [kt, k_last]: the same for
+  // every query head of the group
+  const int64_t k_last = (kt + kRows < p.Tk ? kt + kRows : p.Tk) - 1;
+  int64_t i_lo = 0, i_hi = p.Tq;
+  if (p.causal && kt - p.q_offset > i_lo) i_lo = kt - p.q_offset;
+  if (p.has_window && k_last + p.window - p.q_offset < i_hi) i_hi = k_last + p.window - p.q_offset;
+  i_lo &= ~static_cast<int64_t>(kRows - 1);
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - i_lo + kRows - 1) / kRows) : 0;
+  const int n_iter = p.group * n_qt;
+  const int na = static_cast<int>((p.D + kAtom - 1) / kAtom);
+  zero_atoms(ks, 2 + 2 * kStages, na, tid);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_init(kbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
+  auto issue = [&](int t) {
+    const int s = t % kStages;
+    const int h = hk * p.group + t / n_qt;
+    const int q0 = static_cast<int>(i_lo) + (t % n_qt) * kRows;
+    mbar_expect_tx(&full[s], 2 * na * kAtomBytes + 2 * kRows * 4);
+    for (int nb = 0; nb < na; ++nb) {
+      tma_load(qs + s * kTile + nb * kAtomBytes, &qmap, &full[s], nb * kAtom, q0, h, b);
+      tma_load(dos + s * kTile + nb * kAtomBytes, &domap, &full[s], nb * kAtom, q0, h, b);
+    }
+    const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
+    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
+    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kbar, 2 * na * kAtomBytes);
+    for (int nb = 0; nb < na; ++nb) {
+      tma_load(ks + nb * kAtomBytes, &kmap, kbar, nb * kAtom, static_cast<int>(kt), hk, b);
+      tma_load(vs + nb * kAtomBytes, &vmap, kbar, nb * kAtom, static_cast<int>(kt), hk, b);
+    }
+    for (int t = 0; t < kStages && t < n_iter; ++t) issue(t);
+  }
+
+  // ---- consumer warpgroup wg: query columns col0 ... col0 + 31 of S^T
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's keys: kt + r0 and kt + r0 + 8
+  const int c2 = (lane & 3) * 2;           // and query columns col0 + 8j + c2, + 1
+  const int col0 = wg * kHalf;
+  const uint32_t k_base = smem_u32(ks);
+  const uint32_t v_base = smem_u32(vs);
+  const uint32_t ph = smem_u32(parts), pl = ph + kPart, sh = pl + kPart, sl = sh + kPart;
+  float dk[kNBw][32], dv[kNBw][32];
+#pragma unroll
+  for (int i = 0; i < kNBw; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[i][e] = dv[i][e] = 0.0f;
+  float st[16], dpt[16];
+  mbar_wait(kbar, 0);
+
+  int s = 0, qt = 0;
+  uint32_t phase = 0;
+  PHASE_START
+#pragma unroll 1
+  for (int t = 0; t < n_iter; ++t) {
+    mbar_wait(&full[s], phase);
+    PHASE(0)
+    const uint32_t q_s = smem_u32(qs + s * kTile);
+    const uint32_t do_s = smem_u32(dos + s * kTile);
+    wgmma_fence();
+    gemm_half(st, k_base, q_s + col0 * 128);
+    gemm_half(dpt, v_base, do_s + col0 * 128);
+    wgmma_commit();
+    PHASE(1)
+    wgmma_wait_all();
+    fence_acc(dk);
+    fence_acc(dv);
+    reg_fence(st);
+    reg_fence(dpt);
+    PHASE(2)
+    const int64_t q0 = i_lo + static_cast<int64_t>(qt) * kRows;
+    const int64_t qa = p.q_offset + q0;                                          // first row
+    const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;  // last row
+    const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
+                        (!p.has_window || kt > qb - p.window));
+    PHASE(3)
+    d64::kv_probs<CAP>(st, dpt, lse_s + s * kRows + col0, delta_s + s * kRows + col0, c2, p,
+                       edge, qa + col0, kt + r0);
+    PHASE(4)
+    bar_sync(kBarFree, kThreads);
+    PHASE(5)
+    put_parts(ph, pl, st, warp, lane, col0);
+    put_parts(sh, sl, dpt, warp, lane, col0);
+    PHASE(6)
+    fence_async_shared();
+    PHASE(7)
+    bar_sync(kBarReady, kThreads);
+    PHASE(8)
+    wgmma_fence();
+    gemm_parts(dv, ph, pl, do_s, kNBw * wg);
+    gemm_parts(dk, sh, sl, q_s, kNBw * wg);
+    wgmma_commit();
+    // the previous tile's stage (its dV, dK, S^T and dP^T ended at every
+    // warp's wait before the barriers): tile t + 1 loads into it while this
+    // tile's products run.  Issued earlier, at that wait, the loads slowed
+    // the P, dS and part stores that share the SM's shared memory with them
+    // more than they gained (PERF.md)
+    if (tid == 0 && t > 0 && t + 1 < n_iter) issue(t + 1);
+    // dV and dK end within this tile: left in flight across the next
+    // tile's S^T and dP^T they made ptxas serialise every wgmma (C7515),
+    // and the next tile's loads take longer than they do
+    wgmma_wait_all();
+    fence_acc(dk);
+    fence_acc(dv);
+    PHASE(9)
+    if (++s == kStages) { s = 0; phase ^= 1; }
+    if (++qt == n_qt) qt = 0;
+  }
+  wgmma_wait_all();
+  fence_acc(dk);
+  fence_acc(dv);
+  PHASE(2)
+  PHASE_END(0)
+
+  const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
+#pragma unroll
+  for (int i = 0; i < kNBw; ++i) {
+    store_rows(p.dk + off, dk[i], kNBw * wg + i, c2, kt + r0, p.Tk, p.D, p.scale);
+    store_rows(p.dv + off, dv[i], kNBw * wg + i, c2, kt + r0, p.Tk, p.D, 1.0f);
+  }
+}
+
+// (c) dQ of 64 query rows of one query head.  Consumer w computes S and dP
+// for keys 32 w ... + 31 of each tile and holds dQ of the head's atoms 2 w
+// and 2 w + 1 (64 registers a thread); a tile runs as (b)'s, with dS in
+// two parts shared.  k and v have rings of their own: v serves only dP, so
+// its stage is free once S and dP are, and v runs two tiles ahead.
+template <bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+          const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                                // the q tile
+  uint8_t* dos = qs + kTile;                         // the do tile
+  uint8_t* ks = dos + kTile;                         // kStages k tiles
+  uint8_t* vs = ks + kStages * kTile;                // kStages v tiles
+  uint8_t* parts = vs + kStages * kTile;             // dS hi, lo
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(parts + 2 * kPart);
+  uint64_t* vfull = kfull + kStages;
+  uint64_t* qbar = vfull + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // the last query rows see the most keys: start them first
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.group;
+
+  // the 64-key tiles that any row of this block can see
+  const int64_t rows_end = q0 + kRows < p.Tq ? q0 + kRows : p.Tq;
+  const int64_t q_first = p.q_offset + q0;
+  const int64_t q_last = p.q_offset + rows_end - 1;
+  int64_t k_end = p.Tk;
+  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int64_t k_begin = 0;
+  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
+  k_begin &= ~static_cast<int64_t>(kRows - 1);
+  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + kRows - 1) / kRows) : 0;
+  const int na = static_cast<int>((p.D + kAtom - 1) / kAtom);
+  zero_atoms(qs, 2 + 2 * kStages, na, tid);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // key tile t's k (or v) tile into its ring's stage t % kStages
+  auto issue = [&](uint8_t* ring, const CUtensorMap* map, uint64_t* full, int t) {
+    const int s = t % kStages;
+    const int k0 = static_cast<int>(k_begin) + t * kRows;
+    mbar_expect_tx(&full[s], na * kAtomBytes);
+    for (int nb = 0; nb < na; ++nb)
+      tma_load(ring + s * kTile + nb * kAtomBytes, map, &full[s], nb * kAtom, k0, hk, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * na * kAtomBytes);
+    for (int nb = 0; nb < na; ++nb) {
+      tma_load(qs + nb * kAtomBytes, &qmap, qbar, nb * kAtom, static_cast<int>(q0), h, b);
+      tma_load(dos + nb * kAtomBytes, &domap, qbar, nb * kAtom, static_cast<int>(q0), h, b);
+    }
+    for (int t = 0; t < kStages && t < n_tiles; ++t) {
+      issue(ks, &kmap, kfull, t);
+      issue(vs, &vmap, vfull, t);
+    }
+  }
+
+  // ---- consumer warpgroup wg: keys col0 ... col0 + 31 of each tile's S
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;     // this thread's rows: r0 and r0 + 8
+  const int c2 = (lane & 3) * 2;           // and keys col0 + 8j + c2, + 1
+  const int col0 = wg * kHalf;
+  const int64_t qa = p.q_offset + q0;
+  const int64_t qb = p.q_offset + rows_end - 1;
+  const int64_t pos0 = qa + r0;
+  const int64_t pos1 = pos0 + 8;
+  // rows past Tq are below Tq_pad, where lse2 is +inf: P and dS are 0 there
+  const int64_t srow = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0 + r0;
+  const float l2_0 = p.lse2[srow], l2_1 = p.lse2[srow + 8];
+  const float dl0 = p.delta[srow], dl1 = p.delta[srow + 8];
+  const uint32_t q_base = smem_u32(qs);
+  const uint32_t do_base = smem_u32(dos);
+  const uint32_t dh = smem_u32(parts), dl = dh + kPart;
+  float dq[kNBw][32];
+#pragma unroll
+  for (int i = 0; i < kNBw; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[i][e] = 0.0f;
+  float sc[16], dp[16];
+  mbar_wait(qbar, 0);
+
+  int s = 0;
+  uint32_t phase = 0;
+  PHASE_START
+#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(&kfull[s], phase);
+    mbar_wait(&vfull[s], phase);
+    PHASE(0)
+    const uint32_t k_s = smem_u32(ks + s * kTile);
+    const uint32_t v_s = smem_u32(vs + s * kTile);
+    wgmma_fence();   // (no register fence on dQ, in flight: as in (b))
+    gemm_half(sc, q_base, k_s + col0 * 128);
+    gemm_half(dp, do_base, v_s + col0 * 128);
+    wgmma_commit();
+    PHASE(1)
+    wgmma_wait_all();
+    fence_acc(dq);
+    reg_fence(sc);
+    reg_fence(dp);
+    PHASE(2)
+    const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
+    const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
+                        (!p.has_window || kt > qb - p.window));
+    PHASE(3)
+    d64::q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt + col0);
+    PHASE(4)
+    bar_sync(kBarFree, kThreads);
+    PHASE(5)
+    put_parts(dh, dl, sc, warp, lane, col0);
+    PHASE(6)
+    fence_async_shared();
+    PHASE(7)
+    bar_sync(kBarReady, kThreads);
+    PHASE(8)
+    wgmma_fence();
+    gemm_parts(dq, dh, dl, k_s, kNBw * wg);
+    wgmma_commit();
+    // every warp's wait before the barriers ended the previous tile's dQ and
+    // this tile's S and dP: k of tile t + 1 goes into the previous tile's k
+    // stage, v of tile t + 2 into this tile's v stage (v serves dP alone),
+    // while this tile's dQ runs
+    if (tid == 0) {
+      if (t > 0 && t + 1 < n_tiles) issue(ks, &kmap, kfull, t + 1);
+      if (t + 2 < n_tiles) issue(vs, &vmap, vfull, t + 2);
+    }
+    PHASE(9)
+    if (++s == kStages) { s = 0; phase ^= 1; }
+  }
+  wgmma_wait_all();
+  fence_acc(dq);
+  PHASE(2)
+  PHASE_END(1)
+
+  __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
+#pragma unroll
+  for (int i = 0; i < kNBw; ++i)
+    store_rows(dqg, dq[i], kNBw * wg + i, c2, q0 + r0, p.Tq, p.D, p.scale);
+}
+
+template <bool CAP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
+  static bool configured = false;   // the attributes are per kernel, set once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(d256::dkdv_kernel<CAP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(d256::dq_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemQ);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid_kv(static_cast<unsigned>((p.Tk + kRows - 1) / kRows),
+                     static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
+  d256::dkdv_kernel<CAP><<<grid_kv, kThreads, kSmemKV, stream>>>(qm, km, vm, dom, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(static_cast<unsigned>((p.Tq + kRows - 1) / kRows),
+                    static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  d256::dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace d256
+
 // the Params of the D <= 128 kernels, filled from the wide one's
 d64::Params narrow(const Params& w) {
   d64::Params p;
@@ -1657,11 +1732,6 @@ int blocks(int64_t* out, int64_t keys, int64_t splits, int64_t kv_threads, int64
   return 0;
 }
 
-template <int DP>
-int wide_blocks(int64_t* out) {
-  using C = Cfg<DP>;
-  return blocks(out, C::kNK * kRows, C::kSplits, 128 * C::kNK, C::kNQ * kRows, 128 * C::kNQ);
-}
 
 }  // namespace
 
@@ -1727,8 +1797,11 @@ extern "C" int flash_attention_bwd_sm90(
       return p.has_softcap ? d128::launch<true>(qm, km, vm, dom, n, B, s)
                            : d128::launch<false>(qm, km, vm, dom, n, B, s);
     }
-    case 192: return launch<192>(qm, km, vm, dom, p, B, s);
-    default: return launch<256>(qm, km, vm, dom, p, B, s);
+    default: {
+      const d64::Params n = narrow(p);
+      return p.has_softcap ? d256::launch<true>(qm, km, vm, dom, n, B, s)
+                           : d256::launch<false>(qm, km, vm, dom, n, B, s);
+    }
   }
 }
 
@@ -1745,7 +1818,19 @@ extern "C" int flash_attention_bwd_sm90_blocks(int64_t D, int64_t* out) {
     case 128:
       return blocks(out, d128::kBlockRows, 1, d128::kConsumerThreads, d128::kBlockRows,
                     d128::kThreads);
-    case 192: return wide_blocks<192>(out);
-    default: return wide_blocks<256>(out);
+    default: return blocks(out, kRows, 1, d256::kThreads, kRows, d256::kThreads);
   }
 }
+
+#ifdef FLASH_PHASE_CLOCKS
+// copies the d256 passes' phase sums out ((b) then (c), kClockPhases each),
+// or zeroes them when `out` is null; returns the cudaError_t
+extern "C" int flash_bwd_sm90_phase_clocks_read(unsigned long long* out) {
+  if (out == nullptr) {
+    const unsigned long long zero[2][kClockPhases] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(flash_bwd_sm90_phase_clocks, zero, sizeof(zero)));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, flash_bwd_sm90_phase_clocks,
+                                               sizeof(flash_bwd_sm90_phase_clocks)));
+}
+#endif

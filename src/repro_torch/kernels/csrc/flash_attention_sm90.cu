@@ -56,14 +56,25 @@
 //   (hi V + lo V, exact products, float32 sums): p is carried to ~2^-16
 //   relative, as close as a float32 p for the gate.
 //
-// Head widths 136-256 (multiples of 8): the first design, unchanged.  One
-// block per 128 query rows of one (b, q-head), two warpgroups of 64 rows
-// each (up to 255 registers a thread); 64-key tiles.  Thread 0 issues every
-// TMA load: the q tiles and the first k/v tiles at the start, then each
-// later k/v tile into the stage of the tile before last, once every warp has
-// released that stage.  A warpgroup runs its products, waits, runs its
-// softmax, and runs its next products.  The accumulator is D / 64 blocks of
-// a 64 x 64 wgmma tile, each its own 32 registers a thread.
+// Head widths 136-256 (recurrentgemma's 256; namespace d256): two consumer
+// warpgroups of 64 query rows that take turns at the tensor cores, over the
+// same 64 rows of two query heads of a kv head where the group is even
+// (each k and v tile, read once, serves both heads: recurrentgemma's ten
+// query heads over one kv head re-read k and v ten times a row block) and
+// else over 128 rows of one head; 64-key tiles of the head's four
+// 64-column atoms (narrower heads read as 256 columns: the atoms past D are
+// zeroed in shared memory once and never loaded).  The accumulator of 64 x 256 float32 is 128
+// registers a thread, S and the two P parts 32 each: a producer warpgroup
+// (384 threads) or warp (288, three warps on one of the SM's four register
+// files) would leave ptxas 168 registers a thread to plan the wgmma
+// pipeline for, so the block is the two consumers alone (256 threads, 255
+// registers), and in its turn a consumer issues the previous tile's P V and
+// this tile's S together.  Its thread 0 issues every TMA load after passing
+// its turn, without waiting unless the stage of a tile its warpgroup needs
+// next is still held.  k and v have rings of their own (two and three
+// stages of 32 KB beside 64 KB of q): a k tile is released once both
+// consumers' S has read it, a v tile once their P V has, so the next S's
+// tile loads while the P V of the one before is still to run.
 //
 // Head widths 65-128 (danube's 120; namespace d128): the structure of the
 // widths up to 64 below, over the head's two 64-column atoms.  One block per
@@ -114,302 +125,9 @@
 namespace {
 
 constexpr int kBM = 64;      // query rows per consumer warpgroup
-constexpr int kBN = 64;      // keys per tile above a head width of 64
 constexpr int kSplitKeys = 512;   // a split range is a whole number of these chunks
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------------------
-// Head widths above 64: the first design, unchanged.
-// ---------------------------------------------------------------------------
-
-// DP: the head width rounded up to a multiple of 64 (the width of the tiles)
-template <int DP>
-struct Cfg {
-  static_assert(DP >= 192, "widths up to 128 run flash_attention_d64_kernel and _d128_kernel");
-  // warpgroups, 64 query rows each (up to 255 registers a thread, for the
-  // wide accumulator)
-  static constexpr int kNC = 2;
-  static constexpr int kThreads = 128 * kNC;
-  static constexpr int kStages = DP <= 192 ? 3 : 2;   // k/v ring depth
-  static constexpr int kNB = DP / kAtom;                   // 64-column blocks
-  static constexpr int kQBytes = kBM * DP * 2;             // one warpgroup's q tile
-  static constexpr int kKVBytes = kBN * DP * 2;            // one k (or v) tile
-  static constexpr int kSmem =
-      1024 + kNC * kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
-};
-
-struct Params {
-  void* o;
-  float* lse;   // (B, Hq, Tq) row log-sum-exp, or null: not written
-  int64_t Hq, Tq, Tk, D, group;
-  int64_t window, q_offset;
-  int causal, has_window, has_softcap;
-  float softcap, scale, scale_log2;
-};
-
-template <int DP>
-__global__ void __launch_bounds__(Cfg<DP>::kThreads, 1)
-flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
-                            const __grid_constant__ CUtensorMap kmap,
-                            const __grid_constant__ CUtensorMap vmap, const Params p) {
-  using C = Cfg<DP>;
-  extern __shared__ uint8_t smem_raw[];
-  // swizzle atoms and wgmma descriptors want 1024-byte aligned tiles
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* qs = smem;                                   // kNC q tiles
-  uint8_t* ks = qs + C::kNC * C::kQBytes;               // kStages k tiles
-  uint8_t* vs = ks + C::kStages * C::kKVBytes;          // kStages v tiles
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kKVBytes);
-  uint64_t* empty = full + C::kStages;
-  uint64_t* qbar = empty + C::kStages;
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  // the last query tiles see the most keys: start them first
-  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * (C::kNC * kBM);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = static_cast<int>(h / p.group);
-
-  // the key tiles that any row of this block can see
-  const int64_t rows_end = q0 + C::kNC * kBM < p.Tq ? q0 + C::kNC * kBM : p.Tq;
-  const int64_t q_first = p.q_offset + q0;
-  const int64_t q_last = p.q_offset + rows_end - 1;
-  int64_t k_end = p.Tk;
-  if (p.causal && q_last + 1 < k_end) k_end = q_last + 1;
-  int64_t k_begin = 0;
-  if (p.has_window && q_first - p.window + 1 > 0) k_begin = q_first - p.window + 1;
-  k_begin = k_begin / kBN * kBN;
-  const int n_tiles = k_end > k_begin ? static_cast<int>((k_end - k_begin + kBN - 1) / kBN) : 0;
-
-  if (tid == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], C::kNC * 4);   // lane 0 of every warp
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // thread 0 issues the q tiles and the first kStages k/v tiles; later
-  // tiles it issues from inside the loop below, into the stage of the tile
-  // before last once every warp has released it
-  auto issue_kv = [&](int t) {
-    const int s = t % C::kStages;
-    mbar_expect_tx(&full[s], 2 * C::kKVBytes);
-    const int kt = static_cast<int>(k_begin + static_cast<int64_t>(t) * kBN);
-    for (int nb = 0; nb < C::kNB; ++nb) {
-      tma_load(ks + s * C::kKVBytes + nb * kBN * 128, &kmap, &full[s], nb * kAtom, kt, hk, b);
-      tma_load(vs + s * C::kKVBytes + nb * kBN * 128, &vmap, &full[s], nb * kAtom, kt, hk, b);
-    }
-  };
-  if (tid == 0) {
-    mbar_expect_tx(qbar, C::kNC * C::kQBytes);
-    for (int c = 0; c < C::kNC; ++c)
-      for (int nb = 0; nb < C::kNB; ++nb)
-        tma_load(qs + c * C::kQBytes + nb * kBM * 128, &qmap, qbar, nb * kAtom,
-                 static_cast<int>(q0 + c * kBM), h, b);
-    for (int t = 0; t < C::kStages && t < n_tiles; ++t) issue_kv(t);
-  }
-
-  // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
-  const int lane = tid & 31;
-  const int warp = (tid / 32) & 3;
-  const int r0 = warp * 16 + lane / 4;     // this thread's rows: r0 and r0 + 8
-  const int c2 = (lane & 3) * 2;           // and columns 8j + c2, 8j + c2 + 1
-  const int64_t wq0 = q0 + wg * kBM;
-  const int64_t qa = p.q_offset + wq0;                                   // first row
-  const int64_t qb = p.q_offset + (wq0 + kBM < p.Tq ? wq0 + kBM : p.Tq) - 1;   // last row
-  const int64_t pos0 = qa + r0;
-  const int64_t pos1 = pos0 + 8;
-  const uint32_t q_base = smem_u32(qs + wg * C::kQBytes);
-
-  float o[C::kNB][32];
-#pragma unroll
-  for (int nb = 0; nb < C::kNB; ++nb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[nb][i] = 0.0f;
-  // Scores stay unscaled (or capped, then in log2 units); f turns them into
-  // log2 units, so each probability is one FFMA and one exp2:
-  // p = exp2(f s - f m).  m is the reference point of the exponentials.
-  const float f = p.has_softcap ? 1.0f : p.scale_log2;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-  float l0 = 0.0f, l1 = 0.0f;         // this thread's share of the row sums
-
-  mbar_wait(qbar, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % C::kStages;
-    const int64_t kt = k_begin + static_cast<int64_t>(t) * kBN;
-    mbar_wait(&full[s], (t / C::kStages) & 1);
-    const bool dead = wq0 >= p.Tq || kt >= p.Tk || (p.causal && kt > qb) ||
-                      (p.has_window && kt + kBN - 1 <= qa - p.window);
-    if (!dead) {
-      const uint32_t k_base = smem_u32(ks + s * C::kKVBytes);
-      const uint32_t v_base = smem_u32(vs + s * C::kKVBytes);
-
-      // S = q k^T over the head width, 16 columns a step
-      float sc[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
-      reg_fence(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss(sc, desc(q_base + (kk / 4) * kBM * 128 + (kk % 4) * 32),
-                 desc(k_base + (kk / 4) * kBN * 128 + (kk % 4) * 32), kk > 0);
-      wgmma_commit();
-      wgmma_wait_all();
-      reg_fence(sc);
-
-      // softcap, masks of the tiles that cross a mask edge, row max
-      const bool all_live = kt + kBN <= p.Tk && (!p.causal || kt + kBN - 1 <= qa) &&
-                            (!p.has_window || kt > qb - p.window);
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        float x = sc[i];
-        if (p.has_softcap) x = p.softcap * tanhf(x * p.scale / p.softcap) * kLog2e;
-        if (!all_live) {
-          const int64_t kpos = kt + (i / 4) * 8 + c2 + (i & 1);
-          const int64_t qpos = (i & 2) ? pos1 : pos0;
-          const bool live = kpos < p.Tk && (!p.causal || kpos <= qpos) &&
-                            (!p.has_window || kpos > qpos - p.window);
-          if (!live) x = -CUDART_INF_F;
-        }
-        sc[i] = x;
-        if (i & 2) mx1 = fmaxf(mx1, x);
-        else mx0 = fmaxf(mx0, x);
-      }
-      // the four threads of a quad hold one row's 64 columns
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      // The row max moves the reference point m of the exponentials only
-      // when it grows by more than 2^8 (in exp2 units): below that, p stays
-      // under 256 and the accumulator needs no rescaling.  A row that has
-      // seen no live key yet keeps m = -inf, alpha = 1 and p = 0.
-      const bool up0 = (mx0 - m0) * f > 8.0f;
-      const bool up1 = (mx1 - m1) * f > 8.0f;
-      const float alpha0 = up0 ? ex2((m0 - mx0) * f) : 1.0f;
-      const float alpha1 = up1 ? ex2((m1 - mx1) * f) : 1.0f;
-      if (up0) m0 = mx0;
-      if (up1) m1 = mx1;
-      const float mf0 = m0 == -CUDART_INF_F ? 0.0f : m0 * f;
-      const float mf1 = m1 == -CUDART_INF_F ? 0.0f : m1 * f;
-      float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const float pr = ex2(fmaf(sc[i], f, (i & 2) ? -mf1 : -mf0));
-        sc[i] = pr;
-        if (i & 2) sum1 += pr;
-        else sum0 += pr;
-      }
-      l0 = l0 * alpha0 + sum0;
-      l1 = l1 * alpha1 + sum1;
-      if (__any_sync(0xffffffffu, up0 || up1)) {
-#pragma unroll
-        for (int nb = 0; nb < C::kNB; ++nb)
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[nb][i] *= (i & 2) ? alpha1 : alpha0;
-      }
-
-      // P = hi + lo, each bf16, in the A-operand layout: register r of the
-      // 16-key step kk holds sc[8kk + 2r], sc[8kk + 2r + 1]
-      uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float a = sc[8 * kk + 2 * r];
-          const float c = sc[8 * kk + 2 * r + 1];
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
-          const float2 hf = __bfloat1622float2(hi);
-          phi[kk][r] = pack_bf16(hi);
-          plo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - hf.x, c - hf.y));
-        }
-
-      // O += P_hi V + P_lo V, one 64-column block of the head at a time
-#pragma unroll
-      for (int nb = 0; nb < C::kNB; ++nb) reg_fence(o[nb]);
-      wgmma_fence();
-#pragma unroll
-      for (int nb = 0; nb < C::kNB; ++nb)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint64_t dv = desc(v_base + nb * kBN * 128 + kk * 16 * 128);
-          wgmma_rs(o[nb], phi[kk], dv, 1);
-          wgmma_rs(o[nb], plo[kk], dv, 1);
-        }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int nb = 0; nb < C::kNB; ++nb) reg_fence(o[nb]);
-    }
-    // this warp has finished reading stage s
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-    if (tid == 0 && t >= 1 && t - 1 + C::kStages < n_tiles) {
-      mbar_wait(&empty[(t - 1) % C::kStages], ((t - 1) / C::kStages) & 1);
-      issue_kv(t - 1 + C::kStages);
-    }
-    __syncwarp();
-  }
-
-  // out = acc / l; a row with no live key has l == 0 and comes out as zeros
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float d0 = l0 == 0.0f ? 1.0f : l0;
-  const float d1 = l1 == 0.0f ? 1.0f : l1;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
-                      (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
-  const int64_t row0 = wq0 + r0;
-  const int64_t row1 = row0 + 8;
-  // log-sum-exp of each row's scores: m f is in log2 units of the scaled score
-  if (p.lse != nullptr && (lane & 3) == 0) {
-    float* lse = p.lse + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq;
-    if (row0 < p.Tq) lse[row0] = l0 == 0.0f ? -CUDART_INF_F : (m0 * f + log2f(l0)) * kLn2;
-    if (row1 < p.Tq) lse[row1] = l1 == 0.0f ? -CUDART_INF_F : (m1 * f + log2f(l1)) * kLn2;
-  }
-#pragma unroll
-  for (int nb = 0; nb < C::kNB; ++nb)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = nb * kAtom + 8 * j + c2;   // D is even: col < D covers col + 1
-      if (col >= p.D) continue;
-      if (row0 < p.Tq)
-        *reinterpret_cast<__nv_bfloat162*>(og + row0 * p.D + col) =
-            __floats2bfloat162_rn(o[nb][4 * j] / d0, o[nb][4 * j + 1] / d0);
-      if (row1 < p.Tq)
-        *reinterpret_cast<__nv_bfloat162*>(og + row1 * p.D + col) =
-            __floats2bfloat162_rn(o[nb][4 * j + 2] / d1, o[nb][4 * j + 3] / d1);
-    }
-}
-
-template <int DP>
-int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const Params& p,
-           int64_t B, cudaStream_t stream) {
-  using C = Cfg<DP>;
-  static bool configured = false;   // the attribute is per kernel, set once
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_attention_sm90_kernel<DP>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 C::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int64_t rows = C::kNC * kBM;
-  const dim3 grid(static_cast<unsigned>((p.Tq + rows - 1) / rows), static_cast<unsigned>(p.Hq),
-                  static_cast<unsigned>(B));
-  flash_attention_sm90_kernel<DP><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // Head widths up to 64: a producer warpgroup, NC consumer warpgroups of 64
@@ -1187,6 +905,271 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
 }
 
+// ---------------------------------------------------------------------------
+// Head widths 136-256 (recurrentgemma's 256): two consumer warpgroups of 64
+// query rows that take turns at the tensor cores, 64-key tiles of the
+// head's four 64-column atoms, k and v in rings of their own.
+// ---------------------------------------------------------------------------
+
+namespace d256 {
+constexpr int kKeys = 64;                          // keys a tile
+constexpr int kNB = 4;                             // 64-column atoms of the head
+constexpr int kAtomBytes = kKeys * 128;            // one atom of a 64-row tile
+constexpr int kTileBytes = kNB * kAtomBytes;       // a consumer's q tile, a k or a v tile
+constexpr int kConsumers = 2;
+// query rows a block: the consumers' 64 each of one head, or (an even
+// group) 64 rows of two query heads, the same (row, head) pairs a block
+constexpr int kRows = kConsumers * kBM;
+constexpr int kThreads = 128 * kConsumers;
+constexpr int kStagesK = 2;
+constexpr int kStagesV = 3;
+constexpr int kBuffers = kConsumers + kStagesK + kStagesV;
+constexpr int kSmem = 1024 + kBuffers * kTileBytes + 8 * (2 * (kStagesK + kStagesV) + 1);
+static_assert(kBM == kKeys, "q, k and v tiles share one layout");
+static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+}  // namespace d256
+
+// Width 136-256: two consumer warpgroups and no producer (see the top of
+// the file).  The softcap is a template argument; D64Params carries the
+// call (no key splits).
+template <bool CAP>
+__global__ void __launch_bounds__(d256::kThreads, 1)
+flash_attention_d256_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap, const D64Params p) {
+  using namespace d256;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                               // kConsumers q tiles
+  uint8_t* ks = qs + kConsumers * kTileBytes;       // kStagesK k tiles
+  uint8_t* vs = ks + kStagesK * kTileBytes;         // kStagesV v tiles
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(vs + kStagesV * kTileBytes);
+  uint64_t* kempty = kfull + kStagesK;
+  uint64_t* vfull = kempty + kStagesK;
+  uint64_t* vempty = vfull + kStagesV;
+  uint64_t* qbar = vempty + kStagesV;
+
+  const int tid = threadIdx.x;
+  // the warpgroup of this thread, the same in every lane
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // An even group: the consumers take the same 64 rows of two query heads
+  // of one kv head, so that each k and v tile serves both (half the k and
+  // v bytes a flop of the other layout, where they take 64 rows each of
+  // one head)
+  const bool pair = p.group % 2 == 0;
+  const int rows = pair ? kBM : kRows;
+  // the last query rows see the most keys: start them first
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * rows;
+  const int h0 = pair ? 2 * blockIdx.y : blockIdx.y;   // the block's first query head
+  const int b = blockIdx.z;
+  const int hk = h0 / p.group;
+  const int64_t rows_end = q0 + rows < p.Tq ? q0 + rows : p.Tq;
+  const TileRange tr = tile_range<kKeys>(p, q0, rows_end, 0);
+  const int n_tiles = tr.n;
+  // the head's atoms that hold a column below D: TMA loads only these, and
+  // the others of every buffer are zeroed once here (they add nothing to S)
+  const int na = static_cast<int>((p.D + kAtom - 1) / kAtom);
+  if (na < kNB) {
+    const int words = (kNB - na) * kAtomBytes / 16;   // 16-byte words a buffer
+    for (int i = tid; i < kBuffers * words; i += kThreads)
+      reinterpret_cast<uint4*>(qs + (i / words) * kTileBytes + na * kAtomBytes)[i % words] =
+          make_uint4(0u, 0u, 0u, 0u);
+    fence_async_shared();
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < kStagesK; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], kConsumers * 4);   // lane 0 of every warp
+    }
+    for (int s = 0; s < kStagesV; ++s) {
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], kConsumers * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // k (or v) tile t into its stage of the k (v) ring
+  auto issue = [&](uint8_t* ring, const CUtensorMap* map, uint64_t* full, int stages, int t) {
+    const int s = t % stages;
+    mbar_expect_tx(&full[s], na * kAtomBytes);
+    const int kt = static_cast<int>(tr.begin) + t * kKeys;
+    for (int nb = 0; nb < na; ++nb)
+      tma_load(ring + s * kTileBytes + nb * kAtomBytes, map, &full[s], nb * kAtom, kt, hk, b);
+  };
+  int next_k = kStagesK < n_tiles ? kStagesK : n_tiles;   // thread 0: the next tiles to issue
+  int next_v = kStagesV < n_tiles ? kStagesV : n_tiles;
+  if (tid == 0) {
+    mbar_expect_tx(qbar, kConsumers * na * kAtomBytes);
+    for (int c = 0; c < kConsumers; ++c)
+      for (int nb = 0; nb < na; ++nb)
+        tma_load(qs + c * kTileBytes + nb * kAtomBytes, &qmap, qbar, nb * kAtom,
+                 static_cast<int>(pair ? q0 : q0 + c * kBM), pair ? h0 + c : h0, b);
+    for (int t = 0; t < next_k; ++t) issue(ks, &kmap, kfull, kStagesK, t);
+    for (int t = 0; t < next_v; ++t) issue(vs, &vmap, vfull, kStagesV, t);
+  }
+  // thread 0: issue every later k and v tile whose stage both warpgroups
+  // have released, waiting only for the stage of a tile its warpgroup
+  // needs next (k of tile need_k, v of need_v), which the turns have
+  // released by then: a wait never holds for long, and none can hang
+  auto refill_ring = [&](uint8_t* ring, const CUtensorMap* map, uint64_t* full,
+                         uint64_t* empty, int stages, int& next, int need) {
+    for (; next < n_tiles; ++next) {
+      const int prev = next - stages;   // the last tile in next's stage
+      uint64_t* bar = &empty[prev % stages];
+      const uint32_t ph = (prev / stages) & 1;
+      if (!mbar_test(bar, ph)) {
+        if (next > need) break;
+        mbar_wait(bar, ph);
+      }
+      issue(ring, map, full, stages, next);
+    }
+  };
+  auto refill = [&](int need_k, int need_v) {
+    if (tid != 0) return;
+    refill_ring(ks, &kmap, kfull, kempty, kStagesK, next_k, need_k);
+    refill_ring(vs, &vmap, vfull, vempty, kStagesV, next_v, need_v);
+  };
+
+  // ---- consumer warpgroup wg: query rows wq0 ... wq0 + 63 of head h
+  const int lane = tid & 31;
+  const int warp = (tid / 32) & 3;
+  const int r0 = warp * 16 + lane / 4;
+  const int c2 = (lane & 3) * 2;
+  const int64_t wq0 = pair ? q0 : q0 + wg * kBM;
+  const int h = pair ? h0 + wg : h0;
+  const int64_t qa = p.q_offset + wq0;
+  const int64_t qb = p.q_offset + (wq0 + kBM < p.Tq ? wq0 + kBM : p.Tq) - 1;
+  const int64_t pos0 = qa + r0;
+  const int64_t pos1 = pos0 + 8;
+  const uint32_t q_base = smem_u32(qs + wg * kTileBytes);
+  const float f = CAP ? 1.0f : p.scale_log2;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+  float l0 = 0.0f, l1 = 0.0f;
+  float o[kNB][32];
+  float sc[32];
+  uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.0f;
+  // S = q k^T over the head's four atoms with the k tile in stage st
+  auto issue_s = [&](int st) {
+    const uint32_t k_base = smem_u32(ks + st * kTileBytes);
+    const uint32_t q_base_t = opaque(q_base);
+    wgmma_ss_first(sc, desc(q_base_t), desc(k_base));
+#pragma unroll
+    for (int kk = 1; kk < 4 * kNB; ++kk) {
+      const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+      wgmma_ss(sc, desc(q_base_t + off), desc(k_base + off), 1);
+    }
+  };
+  // O += P_hi V + P_lo V with the v tile in stage st, atom by atom
+  auto issue_pv = [&](int st) {
+    const uint32_t v_base = smem_u32(vs + st * kTileBytes);
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = desc(v_base + nb * kAtomBytes + kk * 16 * 128);
+        wgmma_rs(o[nb], phi[kk], dv, 1);
+        wgmma_rs(o[nb], plo[kk], dv, 1);
+      }
+  };
+  auto fence_pv = [&]() {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) reg_fence(o[nb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      reg_fence(phi[kk]);
+      reg_fence(plo[kk]);
+    }
+  };
+  // this warp has finished reading stage st of a ring
+  auto release = [&](uint64_t* empty, int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  float alpha0, alpha1;
+  auto softmax = [&](int t) {
+    online_softmax<32, CAP>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys, qa, qb, pos0,
+                            pos1, c2, f, m0, m1, l0, l1, alpha0, alpha1);
+  };
+  // 128 multiplies a thread: skipped where no row of the warp moved its
+  // reference point (most tiles), a branch the whole warp takes alike
+  auto rescale = [&]() {
+    if (!__any_sync(0xffffffffu, alpha0 != 1.0f || alpha1 != 1.0f)) return;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[nb][i] *= (i & 2) ? alpha1 : alpha0;
+  };
+
+  // Turns, as flash_attention_d128_kernel's (named barrier 1 + w is
+  // consumer w's), but in its turn a consumer issues the previous tile's
+  // P V and this tile's S together and waits for both after passing the
+  // turn: at 256 threads the accumulator (128 registers), the two P parts
+  // (32) and S (32) fit the 255 a thread ptxas plans for.
+  const int mine = 1 + wg;
+  const int other = 1 + (wg ^ 1);
+  mbar_wait(qbar, 0);
+  if (n_tiles > 0) {
+    if (wg == kConsumers - 1) bar_arrive(other, kThreads);
+    mbar_wait(&kfull[0], 0);
+    bar_sync(mine, kThreads);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    bar_arrive(other, kThreads);
+    refill(1, 0);
+    __syncwarp();
+    wgmma_wait_all();
+    reg_fence(sc);
+    release(kempty, 0);
+    softmax(0);
+    split_p(sc, phi, plo);
+    int sk = 0, sv = 0;            // the k stage of tile t, the v stage of tile t - 1
+    uint32_t phk = 0, phv = 0;
+#pragma unroll 1
+    for (int t = 1; t < n_tiles; ++t) {
+      if (++sk == kStagesK) { sk = 0; phk ^= 1; }
+      mbar_wait(&vfull[sv], phv);
+      mbar_wait(&kfull[sk], phk);
+      bar_sync(mine, kThreads);
+      fence_pv();
+      wgmma_fence();
+      issue_pv(sv);
+      issue_s(sk);
+      wgmma_commit();
+      bar_arrive(other, kThreads);
+      refill(t + 1, t);
+      __syncwarp();
+      wgmma_wait_all();
+      fence_pv();
+      reg_fence(sc);
+      release(vempty, sv);
+      release(kempty, sk);
+      if (++sv == kStagesV) { sv = 0; phv ^= 1; }
+      softmax(t);
+      rescale();
+      split_p(sc, phi, plo);
+    }
+    mbar_wait(&vfull[sv], phv);
+    bar_sync(mine, kThreads);
+    fence_pv();
+    wgmma_fence();
+    issue_pv(sv);
+    wgmma_commit();
+    if (wg != kConsumers - 1) bar_arrive(other, kThreads);
+    wgmma_wait_all();
+    fence_pv();
+    release(vempty, sv);
+  }
+  store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
+}
+
 template <typename Kernel>
 int configure(Kernel kernel, int smem) {
   return static_cast<int>(
@@ -1205,6 +1188,24 @@ int launch_d128(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap&
   const dim3 grid(static_cast<unsigned>((p.Tq + d128::kRows - 1) / d128::kRows),
                   static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
   flash_attention_d128_kernel<CAP><<<grid, d128::kThreads, d128::kSmem, stream>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool CAP>
+int launch_d256(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                const D64Params& p, int64_t B, cudaStream_t stream) {
+  static bool configured = false;   // the attribute is per kernel, set once
+  if (!configured) {
+    const int err = configure(flash_attention_d256_kernel<CAP>, d256::kSmem);
+    if (err != 0) return err;
+    configured = true;
+  }
+  // an even group: 64 rows of two query heads a block, else 128 rows of one
+  const bool pair = p.group % 2 == 0;
+  const int64_t rows = pair ? kBM : d256::kRows;
+  const dim3 grid(static_cast<unsigned>((p.Tq + rows - 1) / rows),
+                  static_cast<unsigned>(pair ? p.Hq / 2 : p.Hq), static_cast<unsigned>(B));
+  flash_attention_d256_kernel<CAP><<<grid, d256::kThreads, d256::kSmem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1267,21 +1268,11 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   if (DP > 64 && splits > 1) return static_cast<int>(bad);   // split keys at D <= 64 only
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap qm, km, vm;
-  const int kv_rows = DP == 64 ? d64::kKeys : (DP == 128 ? d128::kKeys : kBN);
+  const int kv_rows = DP == 64 ? d64::kKeys : (DP == 128 ? d128::kKeys : d256::kKeys);
   if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, kBM) ||
       !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, kv_rows) ||
       !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, kv_rows))
     return static_cast<int>(bad);
-  if (DP > 128) {
-    Params p;
-    p.o = o;
-    p.lse = static_cast<float*>(lse);
-    p.Hq = Hq; p.Tq = Tq; p.Tk = Tk; p.D = D; p.group = Hq / Hkv;
-    p.window = window; p.q_offset = q_offset;
-    p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
-    p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
-    return DP == 192 ? launch<192>(qm, km, vm, p, B, s) : launch<256>(qm, km, vm, p, B, s);
-  }
   D64Params p;
   p.o = o;
   p.lse = static_cast<float*>(lse);
@@ -1296,6 +1287,8 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
   p.cap_scale = has_softcap ? scale / softcap : 0.0f;
   p.arrivals = splits > 1 ? static_cast<unsigned*>(arrivals) : nullptr;
+  if (DP > 128)
+    return has_softcap ? launch_d256<true>(qm, km, vm, p, B, s) : launch_d256<false>(qm, km, vm, p, B, s);
   if (DP == 128)
     return has_softcap ? launch_d128<true>(qm, km, vm, p, B, s) : launch_d128<false>(qm, km, vm, p, B, s);
   // up to 64 query rows one consumer warpgroup a block, more two
@@ -1313,6 +1306,6 @@ extern "C" int flash_attention_sm90_rows(int64_t Tq, int64_t D, int64_t* rows) {
   if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t DP = (D + 63) / 64 * 64;
   *rows = DP == 64 ? (Tq <= kBM ? d64::Cfg<1>::kRows : d64::Cfg<2>::kRows)
-                   : (DP == 128 ? d128::kRows : Cfg<192>::kNC * kBM);
+                   : (DP == 128 ? d128::kRows : d256::kRows);
   return 0;
 }

@@ -22,7 +22,10 @@ turns at the tensor cores, so one's elementwise work runs while the other's
 products run; from 65 to 128 (danube's 120) two such consumer warpgroups
 over the head's two 64-column atoms, the dQ pass's beside a producer
 warpgroup, the dK/dV pass's alone (one of their threads issues the loads);
-above 128 the first design's blocks of one warpgroup.  :func:`block_config`
+from 136 to 256 (recurrentgemma's 256) two consumer warpgroups over one
+64-row tile of keys or query rows, each holding half of the gradient's
+columns and computing half of each tile's S and dP, whose bf16 parts both
+read from shared memory.  :func:`block_config`
 gives each, as the kernel's ``flash_attention_bwd_sm90_blocks`` reports
 them (:func:`kernel_blocks`).
 
@@ -65,8 +68,9 @@ def block_config(D: int) -> Blocks:
     """The blocks the kernel runs at head width ``D``: up to 64 a producer
     warp and two consumer warpgroups of 64 keys or rows (288 threads); up to
     128 two consumer warpgroups, alone in a dK/dV block (256 threads) and
-    beside a producer warpgroup in a dQ block (384); above, one 64-row
-    warpgroup, two blocks splitting a key block's dK, dV columns."""
+    beside a producer warpgroup in a dQ block (384); above, two consumer
+    warpgroups over one 64-row tile of keys or rows (256 threads), each
+    holding half of the gradient's columns."""
     if not 8 <= D <= 256 or D % 8:
         raise ValueError(f"flash_attention_bwd_sm90: head width {D} is not a multiple of 8 "
                          f"in [8, 256]")
@@ -74,7 +78,7 @@ def block_config(D: int) -> Blocks:
         return Blocks(128, 1, 288, 128, 288, _ROWS, _ROWS, _ROWS)
     if D <= 128:
         return Blocks(128, 1, 256, 128, 384, _ROWS, _ROWS, _ROWS)
-    return Blocks(64, 2, 128, 64, 128, _ROWS, _ROWS, _ROWS)
+    return Blocks(64, 1, 256, 64, 256, _ROWS, _ROWS, _ROWS)
 
 
 def stats_shape(B: int, Hq: int, Tq: int, D: int) -> Tuple[int, int, int, int]:

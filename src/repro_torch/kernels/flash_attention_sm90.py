@@ -13,9 +13,12 @@ rows for up to 64 query rows (:func:`block_rows`), and otherwise 128 rows
 in two consumer warpgroups beside a producer warpgroup, over 128-key tiles,
 the consumers taking turns at the tensor cores so that one's softmax runs
 while the other's products run; from 65 to 128 columns (danube's 120) the
-same over the head's two 64-column atoms, for any number of rows.  Above
-128 columns a block holds 128 query rows in two warpgroups of the first
-design, and one thread keeps the k and v loads in flight.
+same over the head's two 64-column atoms, for any number of rows.  From
+136 to 256 columns (recurrentgemma's 256) a block holds 128 query rows in
+two consumer warpgroups alone, over 64-key tiles of the head's four atoms,
+taking turns at the tensor cores (64 rows of two query heads of a kv head
+where the group is even, so that each k and v tile serves both); one of
+their threads keeps the k and v loads in flight, in rings of their own.
 With ``return_lse`` it also writes each row's log-sum-exp, which the
 backward reads.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention``.
@@ -100,8 +103,10 @@ def block_rows(Tq: int, D: int) -> int:
     """Query rows a block of the kernel's configuration for Tq query rows of
     head width D: at a width up to 64, 64 (one consumer warpgroup) up to 64
     rows and 128 (two) above; above a width of 64, 128 (two consumer
-    warpgroups beside a producer up to 128 columns, two warpgroups of the
-    first design above).  Every configuration runs one block an SM."""
+    warpgroups beside a producer up to 128 columns, two alone above, where
+    an even group's block holds 64 rows of two query heads instead: 128
+    (row, head) pairs all the same).  Every configuration runs one block an
+    SM."""
     if D <= 64 and Tq <= 64:
         return 64
     return 128

@@ -389,7 +389,7 @@ def _slice(arch):
     return _SLICE[arch]
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "olmo-1b", "recurrentgemma-2b"])
 def test_long_prompt_generate_matches_jax(arch):
     cfg, params, prompts, jlogits, want = _slice(arch)
     model = build_model(cfg)

@@ -229,6 +229,24 @@ def test_danube_step_past_4096_matches_jax(monkeypatch):
     assert calls == [("_FlashAttentionBackward", LONG_T)] * cfg.n_layers
 
 
+def test_recurrentgemma_step_past_4096_matches_jax(monkeypatch):
+    """Reduced recurrentgemma-2b (rglru, rglru, local, rglru; 4 heads over
+    one kv head, window 8) at 1 x 4100 tokens: the local layer's attention
+    is blockwise, the RG-LRUs' scans are the custom op's."""
+    arch = "recurrentgemma-2b"
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    assert cfg.block_pattern[:3] == ("rglru", "rglru", "local") and cfg.n_kv_heads == 1
+    rng = np.random.default_rng(23)
+    toks = rng.integers(0, cfg.vocab_size, (1, LONG_T + 1)).astype(np.int32)
+    tokens, labels = toks[:, :-1], toks[:, 1:].copy()
+    calls = _count_attention(monkeypatch)
+    _loss_and_grads_match(arch, jcfg, cfg,
+                          {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
+                          {"tokens": torch.from_numpy(tokens).long(),
+                           "labels": torch.from_numpy(labels).long()})
+    assert calls == [("_FlashAttentionBackward", LONG_T)]
+
+
 def test_seamless_step_past_4096_frames_matches_jax(monkeypatch):
     """Reduced seamless-m4t-large-v2 (2 + 2 layers) over 4100 frames and
     12 tokens: the encoder's self-attention and every cross-attention are
@@ -425,7 +443,9 @@ _D64 = (128, 1, 288, 128, 288, 64, 64, 64)     # a producer warp, two consumer w
 # 65-128 (danube's 120 reads as 128): two consumer warpgroups, the dQ pass's
 # beside a producer warpgroup
 _D128 = (128, 1, 256, 128, 384, 64, 64, 64)
-_WIDE = (64, 2, 128, 64, 128, 64, 64, 64)      # 136-256: two blocks split dK, dV
+# 136-256 (recurrentgemma's 256): two consumer warpgroups over one 64-row
+# tile, each holding half of the gradient's columns
+_WIDE = (64, 1, 256, 64, 256, 64, 64, 64)
 
 
 @pytest.mark.parametrize("shape,blocks,stats", [
@@ -440,6 +460,7 @@ _WIDE = (64, 2, 128, 64, 128, 64, 64, 64)      # 136-256: two blocks split dK, d
     ((1, 4, 333, 128), _D128, (2, 1, 4, 384)),
     ((1, 4, 100, 136), _WIDE, (2, 1, 4, 128)),
     ((2, 8, 130, 256), _WIDE, (2, 2, 8, 192)),
+    ((1, 10, 8192, 256), _WIDE, (2, 1, 10, 8192)),     # recurrentgemma's training step
 ])
 def test_backward_blocks_follow_the_kernels_configurations(shape, blocks, stats):
     """The wrapper's plan of the bf16 backward's blocks (``chip_smoke.py``

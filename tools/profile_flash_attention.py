@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the float32 attention kernels spend their time, on one card.
+"""Where the attention kernels spend their time, on one card.
 
 The forward: builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` a
 second time with ``-DFLASH_PHASE_CLOCKS`` (every warp adds up the SM clocks
@@ -22,9 +22,18 @@ for the tile's copies (with the tile barrier), issuing the next tile's
 copies, the S and dP loop, the softmax and masks (with the P and dS
 stores and their barrier), the gradient products.
 
+The bf16 backward at head widths 136-256: the same for
+``csrc/flash_attention_bwd_sm90.cu``'s ``d256`` passes at recurrentgemma-2b's
+training shape (q (1, 10, 8192, 256), k and v (1, 1, 8192, 256), window
+2048): waiting for the tile's loads, S and dP issued, S and dP waited for
+(the wait also ends the previous tile's gradient products), the stage
+released and the next tile issued, P and dS, the barrier before the shared
+parts, the parts stored, their proxy fence, their barrier, the gradient
+products issued.
+
 Usage, from the root of a checkout::
 
-    python3 tools/profile_flash_attention.py [--what all|forward|backward]
+    python3 tools/profile_flash_attention.py [--what all|forward|backward|bf16-backward]
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd_sm90 as fab90  # noqa: E402
+from repro_torch.kernels import flash_attention_sm90 as fa90  # noqa: E402
 
 ARCH, BATCH, T = "h2o-danube-3-4b", 4, 8192
 TRAIN_BATCH = 1
@@ -53,6 +64,11 @@ ROWS_PER_WARP, ROWS_PER_THREAD, SCHEDULERS = 8, 4, 4   # csrc/flash_attention.cu
 BWD_PASSES = ("dK/dV", "dQ")
 BWD_PHASES = ("copy wait", "copy issue", "S and dP", "softmax and masks", "gradient products")
 BWD_WARPS = 8                                          # csrc/flash_attention_bwd.cu
+BF16_ARCH = "recurrentgemma-2b"                        # the d256 passes' shape
+BF16_PHASES = ("load wait", "S and dP issued", "S and dP waited", "release and issue",
+               "P and dS", "parts barrier", "parts stored", "parts fence", "ready barrier",
+               "gradient products issued")
+BF16_WARPS = 8                                         # csrc/flash_attention_bwd_sm90.cu, d256
 
 
 def build_clocked(source, entry, argtypes, reader):
@@ -224,19 +240,80 @@ def profile_backward(smi):
                   f"{r['clocks_per_warp_tile'][p]:.0f} a warp a tile{extra}")
 
 
+def d256_tiles(Tq, Tk, group, window, rows=64):
+    """(dK/dV, dQ) 64-row tiles the d256 passes walk for one (batch, kv
+    head), causal with q_offset 0."""
+    kv = sum(group * -(-(min(Tq, kt + rows - 1 + window) - kt) // rows)
+             for kt in range(0, Tk, rows))
+    q = sum(group * -(-(min(Tk, q0 + rows) - max(0, q0 - window + 1) // rows * rows) // rows)
+            for q0 in range(0, Tq, rows))
+    return kv, q
+
+
+def profile_bf16_backward(smi):
+    cfg = get_config(BF16_ARCH)
+    Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, do = (torch.randn((TRAIN_BATCH, Hq, T, D), generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((TRAIN_BATCH, Hkv, T, D), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    o, lse = fa90.flash_attention_sm90_cuda(q, k, v, causal=True, window=window,
+                                            return_lse=True)
+    run = lambda: fab90.flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do,  # noqa: E731
+                                                      causal=True, window=window)
+    plain_ms = cuda_ms(run)
+    fn, clocks_read = build_clocked("flash_attention_bwd_sm90", "flash_attention_bwd_sm90",
+                                    fab90._kernel().argtypes, "flash_bwd_sm90_phase_clocks_read")
+    n = len(BF16_PHASES)
+    saved, fab90._fn = fab90._kernel(), fn   # the wrapper, launching the clocked build
+    try:
+        clocked_ms = cuda_ms(run)
+        clocks_read(None)
+        run()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (2 * n))()
+        clocks_read(buf)
+    finally:
+        fab90._fn = saved
+    clocks = [list(buf)[:n], list(buf)[n:]]
+    tiles = dict(zip(BWD_PASSES, d256_tiles(T, T, Hq // Hkv, window)))
+    row = {"device": smi, "shape": [[TRAIN_BATCH, Hq, T, D], [TRAIN_BATCH, Hkv, T, D]],
+           "window": window, "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms,
+           "passes": {}}
+    for i, name in enumerate(BWD_PASSES):
+        c = clocks[i]
+        pairs = tiles[name] * TRAIN_BATCH * Hkv * BF16_WARPS   # (warp, tile) pairs
+        row["passes"][name] = {
+            "tiles": tiles[name] * TRAIN_BATCH * Hkv,
+            "phase_share": {p: x / sum(c) for p, x in zip(BF16_PHASES, c)},
+            "clocks_per_warp_tile": {p: x / pairs for p, x in zip(BF16_PHASES, c)}}
+    print(json.dumps(row))
+    print(f"flash_attention_bwd_sm90 bf16 {row['shape']} window {window}: {plain_ms:.3f} ms "
+          f"({clocked_ms:.3f} ms with the phase clocks), on {smi}")
+    for name, r in row["passes"].items():
+        print(f"  {name} pass, {r['tiles']} tiles:")
+        for p, share in r["phase_share"].items():
+            print(f"    {p}: {share:.1%} of the warps' clocks, "
+                  f"{r['clocks_per_warp_tile'][p]:.0f} a warp a tile")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", choices=("all", "forward", "backward"), default="all")
+    ap.add_argument("--what", choices=("all", "forward", "backward", "bf16-backward"),
+                    default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if args.what != "backward":
+    if args.what in ("all", "forward"):
         profile_forward(smi)
-    if args.what != "forward":
+    if args.what in ("all", "backward"):
         profile_backward(smi)
+    if args.what in ("all", "bf16-backward"):
+        profile_bf16_backward(smi)
     return 0
 
 

@@ -7,25 +7,30 @@ prefill's cross-attention (q (4, 16, 512, 64)) and a decode step's
 (q (4, 16, 1, 64)), both over 32768 frames, all unmasked; and
 h2o-danube3-4b's prefill attention, q (4, 32, 8192, 120) over k, v
 (4, 8, 8192, 120), causal with a 4096 window, and its training step's
-forward, q (1, 32, 8192, 120) over (1, 8, 8192, 120).  For each it prints one JSON
+forward, q (1, 32, 8192, 120) over (1, 8, 8192, 120); recurrentgemma-2b's
+prefill attention, q (4, 10, 32768, 256) over k, v (4, 1, 32768, 256),
+causal with a 2048 window, and its training step's forward, q (1, 10,
+8192, 256) over (1, 1, 8192, 256).  For each it prints one JSON
 line: the kernel's device time (CUDA events over back-to-back calls after
 a warm-up), its bound (4 D flops a live pair over the bf16 tensor-core
 rate, or q, k, v read and o written once over the memory rate, the larger),
 ``scaled_dot_product_attention``'s time on the same inputs (no mask for
-seamless, PyTorch's pick of backend; for danube the window-causal boolean
+seamless, PyTorch's pick of backend; for the others the window-causal boolean
 mask on the memory-efficient backend, kv heads repeated outside the
 timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
 and the card's name and power limit.
 
-The backward, ``flash_attention_bwd_sm90``, at the training phases' three
+The backward, ``flash_attention_bwd_sm90``, at the training phases' four
 shapes: seamless-m4t-large-v2's encoder (2, 16, 8192, 64) and its
-cross-attention, q (2, 16, 2048, 64) over 8192 frames, unmasked, and
+cross-attention, q (2, 16, 2048, 64) over 8192 frames, unmasked,
 h2o-danube3-4b's (1, 32, 8192, 120) over (1, 8, 8192, 120), causal with a
-4096 window.  Each line gives its device time (the forward's o and lse as
+4096 window, and recurrentgemma-2b's (1, 10, 8192, 256) over (1, 1, 8192,
+256), causal with a 2048 window.  Each line gives its device time (the forward's o and lse as
 input, a seeded do), its bound (10 D flops a live pair, S recomputed, over
 the bf16 tensor-core rate, or q, k, v, o, do and lse read and the three
-gradients written once over the memory rate, the larger), and the time of
+gradients written once over the memory rate, the larger), each of its
+launches' device time (``torch.profiler``), and the time of
 ``scaled_dot_product_attention``'s backward on the same inputs and mask
 (``chip_smoke.py::sdpa_bwd_ms``'s rule: no mask on PyTorch's pick of
 backend, else the boolean mask on the memory-efficient backend, kv heads
@@ -53,10 +58,12 @@ warpgroup's code after ``setmaxnreg.inc`` may use more.
 Usage, from the root of a checkout::
 
     python3 tools/time_flash_attention.py [--root DIR] [--reps N]
-        [--what all|forward|backward|float32-backward|split]
+        [--what all|forward|backward|float32-backward|split] [--only TEXT]
 
 ``--root`` imports the port from another checkout's ``src/`` (its own
 kernels are built there), so one command can time two versions in turns.
+``--only`` keeps the shapes whose name holds TEXT (``recurrentgemma``: the
+head-width-256 shapes alone).
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspat
 ap.add_argument("--reps", type=int, default=20, help="calls timed a shape (5 at the encoder)")
 ap.add_argument("--what", choices=("all", "forward", "backward", "float32-backward", "split"),
                 default="all", help="which kernels to time (backward: the bf16 one)")
+ap.add_argument("--only", default="", help="time only the shapes whose name holds this text")
 ARGS = ap.parse_args()
 sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
 
@@ -98,11 +106,14 @@ SHAPES = [
     ("seamless encoder", (4, 16, 32768, 64), (4, 16, 32768, 64), False, None),
     ("danube prefill", (4, 32, 8192, 120), (4, 8, 8192, 120), True, 4096),
     ("danube train forward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
+    ("recurrentgemma prefill", (4, 10, 32768, 256), (4, 1, 32768, 256), True, 2048),
+    ("recurrentgemma train forward", (1, 10, 8192, 256), (1, 1, 8192, 256), True, 2048),
 ]
 BWD_SHAPES = [
     ("seamless encoder backward", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
     ("seamless cross backward", (2, 16, 2048, 64), (2, 16, 8192, 64), False, None),
     ("danube train backward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
+    ("recurrentgemma train backward", (1, 10, 8192, 256), (1, 1, 8192, 256), True, 2048),
 ]
 F32_BWD_SHAPES = [
     ("danube train backward float32", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
@@ -163,6 +174,21 @@ def sdpa_bwd_ms(q, k, v, do, causal, window, reps):
                        reps)
 
 
+def launch_ms(fn, reps):
+    """{kernel name: device ms a call} of ``fn`` under ``torch.profiler``,
+    over ``reps`` calls after a warm-up (the launches of one call apart)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def demangle(names):
     """C++ names of mangled kernel symbols (unchanged without ``c++filt``)."""
     if not names or shutil.which("c++filt") is None:
@@ -202,7 +228,7 @@ def ptxas_report(logs, smi):
                 kernel = m.group(1)
                 rows[kernel] = {}
                 continue
-            m = re.search(r"serialized due to (.*) for the function '(\S+)'", line)
+            m = re.search(r"serialized due to (.*?) (?:for|in) the function '(\S+)'", line)
             if m:
                 serialised[m.group(2)] = m.group(1)
             if kernel is None:
@@ -227,6 +253,8 @@ def time_backward(g, smi, shapes, dtype):
                                 BF16_FLOP_PER_S) if dtype == torch.bfloat16 else
                                (flash_attention_cuda, flash_attention_bwd_cuda, F32_FLOP_PER_S))
     for name, qs, ks, causal, window in shapes:
+        if ARGS.only not in name:
+            continue
         q = torch.randn(qs, generator=g, device="cuda").to(dtype)
         k = torch.randn(ks, generator=g, device="cuda").to(dtype)
         v = torch.randn(ks, generator=g, device="cuda").to(dtype)
@@ -244,6 +272,7 @@ def time_backward(g, smi, shapes, dtype):
             "root": os.path.abspath(ARGS.root),
             "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "launches_ms": launch_ms(lambda: backward(q, k, v, o, lse, do, **kw), reps),
             "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps), "card": smi}),
             flush=True)
         del q, k, v, do, o, lse
@@ -254,6 +283,8 @@ def time_split(g, smi):
     """The bf16 kernel at the split shapes: at the wrapper's own key ranges
     (one launch that also merges them) and with ``splits=1``."""
     for name, qs, ks, causal, window in SPLIT_SHAPES:
+        if ARGS.only not in name:
+            continue
         q = torch.randn(qs, generator=g, device="cuda").bfloat16()
         k = torch.randn(ks, generator=g, device="cuda").bfloat16()
         v = torch.randn(ks, generator=g, device="cuda").bfloat16()
@@ -289,6 +320,8 @@ def main():
     if ARGS.what not in ("all", "forward"):
         return
     for name, qs, ks, causal, window in SHAPES:
+        if ARGS.only not in name:
+            continue
         q = torch.randn(qs, generator=g, device="cuda").bfloat16()
         k = torch.randn(ks, generator=g, device="cuda").bfloat16()
         v = torch.randn(ks, generator=g, device="cuda").bfloat16()
