@@ -48,7 +48,8 @@ Phases (each one's failure fails the run):
    bf16 cases of both bf16 kernels' configuration for head widths 65-128
    (D = 72, 96, 120, 128 with causal, ``q_offset`` 100 and -40, windows,
    softcaps, no mask, one query row, Tq and Tk off 64 and 128, GQA groups
-   1 and 4) and of their configuration for head widths 136-256
+   1 and 4, and olmo's plain causal MHA at D = 128 over 1100 keys) and of
+   their configuration for head widths 136-256
    (``FLASH_D256_CASES``: recurrentgemma's 10 query heads over one kv head
    of 256 with windows of 100 and 2048 past 4096 keys, D = 136, 192, 200
    and 224, groups 1, 2, 3, 4 and 10, causal with ``q_offset`` 100 and
@@ -60,7 +61,8 @@ Phases (each one's failure fails the run):
    training phases' shapes (danube (1, 32, 8192, 120) over (1, 8, 8192,
    120), causal, window 4096; seamless (2, 16, 8192, 64) and q (2, 16,
    2048, 64) over 8192 frames, no mask; recurrentgemma (1, 10, 8192, 256)
-   over (1, 1, 8192, 256), causal, window 2048) and each rank's local shard of
+   over (1, 1, 8192, 256), causal, window 2048; olmo (2, 16, 8192, 128),
+   plain causal) and each rank's local shard of
    danube's step over a sequence split four ways (q (1, 32, 2048, 120) at
    ``q_offset`` 0, 2048, 4096 and 6144 over all 8192 keys, both dtypes,
    the forward's output too), per gradient within 1e-4
@@ -104,7 +106,12 @@ Phases (each one's failure fails the run):
    peak memory; and its 4-layer float32 copy (rglru, rglru, local, rglru)
    at 2 x 8192, an 8160-token prefill and 32 decodes against one forward
    (2e-2; one float32 ``flash_attention`` launch and 3 scans in the
-   forward and in the prefill, none in decode);
+   forward and in the prefill, none in decode); then olmo-1b the same way
+   (full causal attention, 16 heads of 128, no window): 4 x 32768 + 32 in
+   bf16, exactly 16 ``flash_attention_sm90`` launches a prefill and none
+   in decode (``_cache_attention`` over 32800 slots), and a 4-layer float32
+   copy at 2 x 8192 (4 float32 ``flash_attention`` launches in the forward
+   and 4 in the prefill, none in decode);
 8. train: ``repro_torch.launch.train.main`` at its default size (6
    steps, two checkpoints: every leaf digested twice and masked once);
    then full-width olmo-1b (bf16 params, fp32 AdamW state, 1.18 B
@@ -170,7 +177,12 @@ Phases (each one's failure fails the run):
    attention (``ref_flash_attention`` and its plain backward; within
    2^-7); 18 + 16 + 18 ``linear_scan``, 8 + 8 ``flash_attention_sm90`` and
    8 ``flash_attention_bwd_sm90`` launches a step (forward, recompute,
-   backward), then 2 steps, one more profiled;
+   backward), then 2 steps, one more profiled; full-width olmo-1b trained
+   at 2 x 8192 (remat ``"full"``), cut the same way if its record does not
+   fit: one batch's gradients with the kernels (every one finite) and with
+   the plain attention (loss and gradient norm within 2^-7), then 2 steps
+   of 32 ``flash_attention_sm90`` and 16 ``flash_attention_bwd_sm90``
+   launches, one more profiled;
 11. the mesh paths, on a (1, 1) ("data", "model") ``DeviceMesh`` over a
    one-rank NCCL group (``repro_torch.distributed``): full-width olmo-1b
    under ``tp_fsdp`` + ``zero2`` with ``accum=2`` takes two steps at
@@ -269,12 +281,13 @@ Phases (each one's failure fails the run):
    ``linear_scan``, training, mesh training and the
    examples for ``page_digest`` and ``delta_mask``, long-context, encoder-decoder,
    mesh serving, mesh encoder-decoder serving (``tp_serve``,
-   ``tp_fsdp_sp``), mesh ``generate``, recurrentgemma's long serving and
-   training with and without a mesh for ``flash_attention_sm90``, the
-   float32 long, recurrentgemma and encoder-decoder teacher forcing, the
+   ``tp_fsdp_sp``), mesh ``generate``, recurrentgemma's and olmo's long
+   serving and training, danube's training with and without a mesh for
+   ``flash_attention_sm90``, the float32 long, recurrentgemma, olmo and
+   encoder-decoder teacher forcing, the
    float32 mesh serve and the float32 training step for
    ``flash_attention``, the bf16 training steps (danube's also under a
-   mesh, recurrentgemma's) for ``flash_attention_bwd_sm90`` and the
+   mesh, recurrentgemma's, olmo's) for ``flash_attention_bwd_sm90`` and the
    float32 one for
    ``flash_attention_bwd``; ``launches_by_path``),
    its error against
@@ -287,18 +300,23 @@ Phases (each one's failure fails the run):
    boolean mask in the kernel's dtype, which the port never calls);
    ``flash_attention_sm90`` also at recurrentgemma's serving and training
    shapes (``recurrentgemma``: error, time, plain time, bound, SDPA with
-   the window mask) and at the encoder-decoder's three shapes
+   the window mask), at olmo's (``olmo``: error, time, plain time, bound,
+   and ``scaled_dot_product_attention(is_causal=True)`` with no mask tensor
+   under each of the cuDNN, flash and memory-efficient backends alone,
+   each one's time or "refused", the fastest as ``library_ms``) and at the
+   encoder-decoder's three shapes
    (``seamless``: error, time, plain time, bound, and
    ``scaled_dot_product_attention`` with no mask) and, at its two split
    cross-attentions, the split call (the merge in the same launch) beside
    the same call with ``splits=1`` (``split``, with the split launches by
    serving path); both forward rows also
    time the call that writes the lse (``lse_ms``); a
-   ``flash_attention_bwd_sm90`` row at the training phases' four shapes
+   ``flash_attention_bwd_sm90`` row at the training phases' five shapes
    in bf16 and a ``flash_attention_bwd`` row at danube's and at
    seamless's encoder (2, 16, 8192, 64) in float32
    (bound 10 D flops a live pair at the dtype's rate; library: SDPA's
-   backward with the same mask), their launches by training path.
+   backward with the same mask, at olmo's plain causal mask under each
+   backend as above), their launches by training path.
 
 It prints one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``; without a card it exits non-zero and
@@ -411,6 +429,14 @@ RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 1, 8192, 2
 # out of memory; at 1 x 7168 its 75.54 left 3.64, and the second step ran out
 # (6.84 GiB asked for, 6.95 GiB reserved by PyTorch but unallocated)
 RG_TRAIN_HEADROOM_GIB = 4.0
+# olmo-1b past its 4096-token dense limit, full causal attention at D = 128
+# (16 heads over 16 kv heads, no window): served at the repo's prefill_32k
+# sequence with the batch cut from 32 to 4, as recurrentgemma's is; teacher
+# forcing at 2 x 8192 on 4 layers in float32; trained at 2 x 8192, or the
+# longest multiple of 512 whose dry-run record leaves RG_TRAIN_HEADROOM_GIB free
+OLMO_LONG_BATCH, OLMO_LONG_PROMPT, OLMO_LONG_NEW = 4, 32768, 32
+OLMO_TF_LAYERS, OLMO_TF_LEN, OLMO_TF_PREFILL = 4, 8192, 8160
+OLMO_TRAIN_BATCH, OLMO_TRAIN_SEQ, OLMO_TRAIN_STEPS = 2, 8192, 2
 RG_PLAIN_RTOL = 1e-4            # loss and grad norm, kernel scan vs the plain scan
 # loss and grad norm of one batch, the bf16 attention kernels vs the plain
 # attention: the two round float32 sums of the same products to bf16 at the
@@ -534,8 +560,9 @@ FLASH_BWD_D64_CASES = [
 # D = 72, 96, 120 and 128 (columns past D read as zeros), Tq and Tk off the
 # 64- and 128-row tiles, GQA groups 1 and 4, causal rows offset forward and
 # back (rows before the first key: zeros, dq exactly 0), windows inside and
-# across tiles, softcaps, one query row; and one case at 136, the first
-# width of the next configuration
+# across tiles, softcaps, one query row; one case at 136, the first width of
+# the next configuration; and olmo-1b's plain causal MHA at D = 128 over
+# nine 128-key tiles (row blocks walking 1 to 9 live tiles)
 FLASH_D128_CASES = [
     ("D 72 causal q_offset 100, G 1", 1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
     ("D 96 window 24, G 4", 1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
@@ -546,6 +573,7 @@ FLASH_D128_CASES = [
      dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
     ("D 96 one query row", 1, 8, 2, 1, 1000, 96, dict(causal=False)),
     ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
+    ("D 128 causal, G 1", 1, 4, 4, 1100, 1100, 128, dict(causal=True)),
 ]
 # bf16 cases of the kernels for head widths 136-256 (name, B, Hq, Hkv, Tq,
 # Tk, D, mask), forward and backward, each with k, v contiguous and strided:
@@ -998,10 +1026,12 @@ def train_attention_shapes():
     """(name, q shape, k/v shape, mask) of the attention calls of the
     training phases: danube's self-attention at 1 x 8192 (causal, window
     4096), seamless's encoder self-attention at 2 x 8192 frames and its
-    cross-attention of 2 x 2048 tokens over them (no mask), and
+    cross-attention of 2 x 2048 tokens over them (no mask),
     recurrentgemma's local attention at 1 x 8192 (10 query heads over one kv
-    head of 256, causal, window 2048)."""
+    head of 256, causal, window 2048) and olmo-1b's at 2 x 8192 (16 heads of
+    128, plain causal)."""
     dn, sm, rg = get_config(LONG_ARCH), get_config(ENCDEC_ARCH), get_config(ARCH)
+    om = get_config(TRAIN_ARCH)
     kv = (TRAIN_BATCH, sm.n_kv_heads, ENCDEC_TRAIN_FRAMES, sm.head_dim)
     return [("danube", (LONG_TRAIN_BATCH, dn.n_heads, LONG_TRAIN_SEQ, dn.head_dim),
              (LONG_TRAIN_BATCH, dn.n_kv_heads, LONG_TRAIN_SEQ, dn.head_dim),
@@ -1012,7 +1042,10 @@ def train_attention_shapes():
              dict(causal=False)),
             ("recurrentgemma", (RG_TRAIN_BATCH, rg.n_heads, RG_TRAIN_SEQ, rg.head_dim),
              (RG_TRAIN_BATCH, rg.n_kv_heads, RG_TRAIN_SEQ, rg.head_dim),
-             dict(causal=True, window=rg.window))]
+             dict(causal=True, window=rg.window)),
+            ("olmo", (OLMO_TRAIN_BATCH, om.n_heads, OLMO_TRAIN_SEQ, om.head_dim),
+             (OLMO_TRAIN_BATCH, om.n_kv_heads, OLMO_TRAIN_SEQ, om.head_dim),
+             dict(causal=True))]
 
 
 SPLIT_RANKS = 4          # danube's 1 x 8192 sequence split over a 4-way "data" axis
@@ -1363,7 +1396,8 @@ def serve_long_path(state, cfg, batch, prompt, new, seed, want, what):
     """``generate`` on ``batch`` x ``prompt``-token prompts + ``new`` tokens of
     ``cfg`` at full width, bf16 weights from ``seed``: the main path's launch
     counts (at 0 just before, read just after) must be ``want`` in the
-    prefill and none in decode, which runs over the window cache; then the
+    prefill and none in decode, which runs over the cache (``_cache_attention``,
+    a window's slots or all ``prompt + new``); then the
     prefill timed warm (median of 3) and the decode steps, teacher-forced
     on their own greedy tokens.  Returns (generate's launches, its outputs,
     the prefill's and each decode step's logits with the tokens fed, the
@@ -1429,7 +1463,7 @@ def serve_long_path(state, cfg, batch, prompt, new, seed, want, what):
         decode_s = time.perf_counter() - t0
         if not bool(finite):
             raise AssertionError("non-finite decode logits")
-        expect_launches(ops.launch_counts(), {}, f"{what}: decode over the window cache")
+        expect_launches(ops.launch_counts(), {}, f"{what}: decode over the cache")
     rec = {
         "prefill_ms": sorted(prefill_ms)[1],
         "decode_tok_s": batch * new / decode_s,
@@ -1440,8 +1474,8 @@ def serve_long_path(state, cfg, batch, prompt, new, seed, want, what):
     }
     log(f"  prefill {batch}x{prompt}: {rec['prefill_ms']:.2f} ms (median of 3: "
         f"{', '.join(f'{m:.2f}' for m in prefill_ms)}); decode {rec['decode_tok_s']:.1f} tok/s "
-        f"({rec['decode_ms_per_step']:.2f} ms/step, batch {batch}, window cache "
-        f"{cfg.window}); peak memory {rec['peak_gib']:.2f} GiB; on {state['smi']}")
+        f"({rec['decode_ms_per_step']:.2f} ms/step, batch {batch}, cache of "
+        f"{cfg.window or max_len} slots); peak memory {rec['peak_gib']:.2f} GiB; on {state['smi']}")
     del params, model, cache, logits
     torch.cuda.empty_cache()
     return counts, outs, ref, rec
@@ -1478,6 +1512,19 @@ def phase_serve_long_rg(state):
               "linear_scan": attention_layers(cfg, "rglru")},
         what="recurrentgemma long serve")
     state["serve_long_rg"] = rec
+
+
+def phase_serve_long_olmo(state):
+    """Full-width olmo-1b at 4 x 32768 + 32: every layer's attention (16
+    heads of 128, MHA, plain causal, no window) through
+    ``flash_attention_sm90`` once in the prefill; decode over the
+    32800-slot cache launches none."""
+    cfg = get_config(TRAIN_ARCH)
+    counts, _, _, rec = serve_long_path(
+        state, cfg, OLMO_LONG_BATCH, OLMO_LONG_PROMPT, OLMO_LONG_NEW, seed=80,
+        want={"flash_attention_sm90": attention_layers(cfg, "attn")},
+        what="olmo long serve")
+    state["serve_long_olmo"] = rec
 
 
 def teacher_forcing_path(cfg, B, T, T0, seed, what):
@@ -1546,6 +1593,21 @@ def phase_teacher_forcing_long_rg(state):
     expect_launches(dec, {}, "recurrentgemma long teacher forcing decode")
     state["teacher_long_rg_err"] = err
     state["rg_tf_launches"] = fwd["flash_attention"] + pre["flash_attention"]
+
+
+def phase_teacher_forcing_long_olmo(state):
+    """olmo-1b cut to 4 layers in float32 at 2 x 8192: every layer's
+    attention (D = 128, plain causal) through the float32 ``flash_attention``
+    in the forward and the prefill, none in decode."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=OLMO_TF_LAYERS, dtype="float32")
+    err, fwd, pre, dec = teacher_forcing_path(cfg, 2, OLMO_TF_LEN, OLMO_TF_PREFILL, seed=82,
+                                              what="olmo long teacher forcing")
+    for counts, where in ((fwd, "forward"), (pre, "prefill")):
+        expect_launches(counts, {"flash_attention": cfg.n_layers},
+                        f"olmo long teacher forcing {where}")
+    expect_launches(dec, {}, "olmo long teacher forcing decode")
+    state["teacher_long_olmo_err"] = err
+    state["olmo_tf_launches"] = fwd["flash_attention"] + pre["flash_attention"]
 
 
 def digest_case(t: torch.Tensor, psize: int) -> int:
@@ -1772,6 +1834,66 @@ def sdpa_ms(q, k, v, window) -> float:
             q, ke, ve, attn_mask=mask), reps=5)
 
 
+SDPA_CAUSAL_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_causal_ms(q, k, v, do=None, reps=3):
+    """Device ms of ``scaled_dot_product_attention(q, k, v, is_causal=True)``
+    with no mask tensor (its backward where ``do`` is given) under each of
+    SDPA's cuDNN, flash and memory-efficient backends alone, the kv heads
+    repeated to the query heads outside the timing: {backend: ms, or
+    "refused" where it does not take the call}.  ``is_causal`` aligns the
+    mask top-left, which is the port's causal mask only at Tq = Tk and
+    ``q_offset`` 0: the caller's to hold.  The yardstick only: the port
+    never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if q.shape[2] != k.shape[2]:
+        raise ValueError(f"is_causal aligns top-left: Tq {q.shape[2]} != Tk {k.shape[2]}")
+    group = q.shape[1] // k.shape[1]
+    qq, kk, vv = (t.detach().clone().requires_grad_(do is not None) for t in (
+        q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name in SDPA_CAUSAL_BACKENDS:
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                if do is None:
+                    out[name] = cuda_ms(lambda: sdpa(qq, kk, vv, is_causal=True), reps)
+                else:
+                    o = sdpa(qq, kk, vv, is_causal=True)
+                    out[name] = cuda_ms(lambda: torch.autograd.grad(
+                        o, (qq, kk, vv), do, retain_graph=True), reps)
+            except RuntimeError as e:        # "No available kernel", or the backend's own refusal
+                out[name] = "refused"
+                log(f"  SDPA {name} refused {tuple(q.shape)} is_causal=True"
+                    f"{' backward' if do is not None else ''}: {str(e).splitlines()[0][:160]}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_line(times):
+    """``sdpa_causal_ms``'s result as text: each backend's ms or refusal."""
+    return ", ".join(f"{name} {ms if ms == 'refused' else f'{ms:.4f} ms'}"
+                     for name, ms in times.items())
+
+
+def fastest(times):
+    """(backend, ms) of the fastest backend that ran in ``sdpa_causal_ms``'s
+    result."""
+    ran = {name: ms for name, ms in times.items() if ms != "refused"}
+    if not ran:
+        raise AssertionError(f"every SDPA backend refused the call: {times}")
+    name = min(ran, key=ran.get)
+    return name, ran[name]
+
+
+def is_plain_causal(qs, ks, kw):
+    """True where SDPA's ``is_causal`` is the port's mask: causal, no window,
+    no softcap, Tq = Tk and ``q_offset`` 0."""
+    return bool(kw.get("causal") and kw.get("window") is None and kw.get("softcap") is None
+                and kw.get("q_offset", 0) == 0 and qs[2] == ks[2])
+
+
 def seamless_times():
     """``flash_attention_sm90`` at the encoder-decoder's three shapes over
     32768 frames (bf16, no mask): its error against the plain version, its
@@ -1805,39 +1927,43 @@ def seamless_times():
     return out
 
 
-def rg_shapes(cfg):
-    """(name, q shape, k/v shape) of recurrentgemma's local attention over
-    more than 4096 keys: the long serve phase's prefill and the training
-    step's forward."""
+def serve_train_shapes(cfg, serve, train):
+    """(name, q shape, k/v shape) of ``cfg``'s attention over more than
+    4096 keys: a long serve phase's prefill at ``serve`` = (batch, tokens)
+    and a training step's forward at ``train``."""
     return [(name, (B, cfg.n_heads, T, cfg.head_dim), (B, cfg.n_kv_heads, T, cfg.head_dim))
-            for name, B, T in (("serve prefill", RG_LONG_BATCH, RG_LONG_PROMPT),
-                               ("train forward", RG_TRAIN_BATCH, RG_TRAIN_SEQ))]
+            for name, (B, T) in (("serve prefill", serve), ("train forward", train))]
 
 
-def rg_times():
-    """``flash_attention_sm90`` at recurrentgemma's two shapes (bf16, causal,
-    window 2048, 10 query heads over one kv head of 256): its error against
-    the plain version, its time, the plain version's, the bound, and
-    ``scaled_dot_product_attention`` with the window-causal mask."""
+def long_times(shapes, kw, seed):
+    """``flash_attention_sm90`` at each (name, q shape, k/v shape) of
+    ``shapes`` (bf16) under the causal mask ``kw``: its error against the
+    plain version, its time, the plain version's, the bound (4 D flops a
+    live pair), and ``scaled_dot_product_attention`` on the same inputs:
+    ``is_causal=True`` under each backend where that is the mask
+    (``sdpa_causal_ms``, the fastest as ``library_ms``), else the
+    window-causal boolean mask (``sdpa_ms``)."""
     out = {}
-    cfg = get_config(ARCH)
-    for i, (name, qs, ks) in enumerate(rg_shapes(cfg)):
+    for i, (name, qs, ks) in enumerate(shapes):
         B, Hq, Tq, D = qs
-        q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, torch.bfloat16, seed=64 + i)
-        kw = dict(causal=True, window=cfg.window)
+        q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, torch.bfloat16, seed=seed + i)
         err, share = flash_case(q, k, v, **kw)
-        pairs = live_pairs(Tq, ks[2], causal=True, window=cfg.window, q_offset=0) * B * Hq
+        pairs = live_pairs(Tq, ks[2], causal=True, window=kw["window"], q_offset=0) * B * Hq
         ops_s = 4 * D * pairs / BF16_FLOP_PER_S
         bytes_s = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S
-        out[name] = {
-            "shape": [list(qs), list(ks)], "window": cfg.window, "live_pairs": pairs,
+        row = out[name] = {
+            "shape": [list(qs), list(ks)], "window": kw["window"], "live_pairs": pairs,
             "max_abs_err": err, "bf16_limit_share": share,
             "ms": cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, **kw), reps=5),
             "plain_ms": cuda_ms(lambda: ref_flash_attention(q, k, v, **kw), reps=1),
             "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": sdpa_ms(q, k, v, cfg.window),
         }
+        if is_plain_causal(qs, ks, kw):
+            row["library_backends"] = sdpa_causal_ms(q, k, v)
+            row["library_backend"], row["library_ms"] = fastest(row["library_backends"])
+        else:
+            row["library_ms"] = sdpa_ms(q, k, v, kw["window"])
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -1898,7 +2024,9 @@ def bwd_times(qs, ks, kw, dtype, seed):
     plain backward, its time, the plain version's, the bound (10 D flops a
     live pair, S recomputed, over the dtype's peak, or each input read and
     each gradient written once over the memory rate), SDPA's backward with
-    the same mask, and the forward's time with and without its lse."""
+    the same mask (a plain causal mask: ``is_causal`` with no mask tensor
+    under each backend, the fastest that ran), and the forward's time with
+    and without its lse."""
     B, Hq, Tq, D = qs
     q, k, v = attention_inputs(B, Hq, ks[1], Tq, ks[2], D, dtype, seed=seed)
     err, share, lse_err, _ = flash_bwd_case(q, k, v, seed=seed + 1, **kw)
@@ -1922,11 +2050,15 @@ def bwd_times(qs, ks, kw, dtype, seed):
                             reps=1),
         "bound_ms": max(ops_s, bytes_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "library_ms": sdpa_bwd_ms(q, k, v, do, kw["causal"], kw.get("window")),
         "forward_ms": cuda_ms(lambda: kernel(q, k, v, **kw), reps=3),
         "forward_lse_ms": cuda_ms(lambda: kernel(q, k, v, return_lse=True, **kw), reps=3),
         "live_pairs": pairs,
     }
+    if is_plain_causal(qs, ks, kw):
+        row["library_backends"] = sdpa_causal_ms(q, k, v, do)
+        row["library_backend"], row["library_ms"] = fastest(row["library_backends"])
+    else:
+        row["library_ms"] = sdpa_bwd_ms(q, k, v, do, kw["causal"], kw.get("window"))
     del q, k, v, o, lse, do
     torch.cuda.empty_cache()
     return row
@@ -2071,14 +2203,20 @@ def phase_kernel_times(state):
             f"{ARCH} serve ({RG_LONG_BATCH} x {RG_LONG_PROMPT})":
                 state["serve_long_rg"]["launches"]["flash_attention_sm90"],
             f"{ARCH} train ({RG_TRAIN_BATCH} x {state['train_rg']['seq']})":
-                state["train_rg"]["launches"]["flash_attention_sm90"]},
+                state["train_rg"]["launches"]["flash_attention_sm90"],
+            f"{TRAIN_ARCH} serve ({OLMO_LONG_BATCH} x {OLMO_LONG_PROMPT})":
+                state["serve_long_olmo"]["launches"]["flash_attention_sm90"],
+            f"{TRAIN_ARCH} train ({OLMO_TRAIN_BATCH} x {state['train_olmo']['seq']})":
+                state["train_olmo"]["launches"]["flash_attention_sm90"]},
         "flash_attention": {
             f"{LONG_ARCH} teacher forcing": state["long_tf_launches"],
             f"{ENCDEC_ARCH} teacher forcing": state["encdec_tf_launches"],
             f"{LONG_ARCH} float32 mesh serve": state["mesh_serve_f32_launches"],
             f"{LONG_ARCH} train float32 ({LONG_F32_LAYERS} layers)":
                 state["train_long_f32"]["launches"]["flash_attention"],
-            f"{ARCH} teacher forcing ({RG_TF_LAYERS} layers, D = 256)": state["rg_tf_launches"]},
+            f"{ARCH} teacher forcing ({RG_TF_LAYERS} layers, D = 256)": state["rg_tf_launches"],
+            f"{TRAIN_ARCH} teacher forcing ({OLMO_TF_LAYERS} layers, D = 128)":
+                state["olmo_tf_launches"]},
     }
     for name, dtype, rate, rate_name in (
             ("flash_attention_sm90", torch.bfloat16, BF16_FLOP_PER_S, "bf16 tensor cores"),
@@ -2121,7 +2259,15 @@ def phase_kernel_times(state):
         del q, k, v
         torch.cuda.empty_cache()
         if name == "flash_attention_sm90":
-            row["recurrentgemma"] = rg_times()
+            rg, om = get_config(ARCH), get_config(TRAIN_ARCH)
+            row["recurrentgemma"] = long_times(
+                serve_train_shapes(rg, (RG_LONG_BATCH, RG_LONG_PROMPT),
+                                   (RG_TRAIN_BATCH, RG_TRAIN_SEQ)),
+                dict(causal=True, window=rg.window), seed=64)
+            row["olmo"] = long_times(
+                serve_train_shapes(om, (OLMO_LONG_BATCH, OLMO_LONG_PROMPT),
+                               (OLMO_TRAIN_BATCH, OLMO_TRAIN_SEQ)),
+                dict(causal=True, window=om.window), seed=88)
             row["seamless"] = seamless_times()
             row["split"] = split_times()
             row["split_launches_by_path"] = {
@@ -2145,7 +2291,9 @@ def phase_kernel_times(state):
             f"{ENCDEC_ARCH} train":
                 state["train_encdec"]["launches"]["flash_attention_bwd_sm90"],
             f"{ARCH} train ({RG_TRAIN_BATCH} x {state['train_rg']['seq']})":
-                state["train_rg"]["launches"]["flash_attention_bwd_sm90"]},
+                state["train_rg"]["launches"]["flash_attention_bwd_sm90"],
+            f"{TRAIN_ARCH} train ({OLMO_TRAIN_BATCH} x {state['train_olmo']['seq']})":
+                state["train_olmo"]["launches"]["flash_attention_bwd_sm90"]},
         "flash_attention_bwd": {
             f"{LONG_ARCH} train float32 ({LONG_F32_LAYERS} layers)":
                 state["train_long_f32"]["launches"]["flash_attention_bwd"]},
@@ -2201,12 +2349,16 @@ def phase_kernel_times(state):
             f"{t['splits']} key ranges merged in the launch {t['ms']:.4f} ms, unsplit "
             f"{t['unsplit_ms']:.4f} ms; max abs err {t['max_abs_err']:.3e}, lse err "
             f"{t['lse_err']:.3e}, on {state['smi']}")
-    for shape_name, t in next(k for k in kernels if "recurrentgemma" in k)["recurrentgemma"].items():
-        log(f"flash_attention_sm90 recurrentgemma {shape_name} {t['shape']} bfloat16 causal, "
-            f"window {t['window']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"library (SDPA, window mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of roofline), max abs err "
-            f"{t['max_abs_err']:.3e}, on {state['smi']}")
+    sm90 = next(k for k in kernels if "olmo" in k)
+    for arch, shape_name, t in [(arch, n, t) for arch in ("recurrentgemma", "olmo")
+                                for n, t in sm90[arch].items()]:
+        library = (f"SDPA is_causal {sdpa_line(t['library_backends'])}: fastest "
+                   f"{t['library_backend']}" if "library_backends" in t else "SDPA, window mask")
+        log(f"flash_attention_sm90 {arch} {shape_name} {t['shape']} bfloat16 causal, window "
+            f"{t['window']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"({library}) {t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.2f} x its time), "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of "
+            f"roofline), max abs err {t['max_abs_err']:.3e}, on {state['smi']}")
     for shape_name, t in next(k for k in kernels if "seamless" in k)["seamless"].items():
         log(f"flash_attention_sm90 seamless {shape_name} {t['shape']} bfloat16 non-causal, "
             f"{t['splits']} key ranges: kernel "
@@ -2215,9 +2367,11 @@ def phase_kernel_times(state):
             f"{t['bound_ms'] / t['ms']:.1%} of roofline), max abs err {t['max_abs_err']:.3e}, "
             f"on {state['smi']}")
     for shape_name, t in list(train.items()) + list(f32.items()):
+        backends = (f", is_causal {sdpa_line(t['library_backends'])}"
+                    if "library_backends" in t else "")
         log(f"{flash_bwd_kernel(getattr(torch, t['dtype'])).__name__} {shape_name} {t['shape']} "
             f"{t['dtype']} {t['mask']}: kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA backward) "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (SDPA backward{backends}) "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{t['bound_ms'] / t['ms']:.1%} of roofline, {t['ms'] / t['library_ms']:.2f} x "
             f"SDPA's); forward {t['forward_ms']:.4f} ms, with lse {t['forward_lse_ms']:.4f} ms; "
@@ -3539,6 +3693,55 @@ class _PlainAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def plain_attention(q, k, v, **kw):
+    """``ops.flash_attention``'s signature over ``_PlainAttention``."""
+    return _PlainAttention.apply(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+                                 kw["softcap"])
+
+
+def plain_grads(grads_fn, probe, batch, name, fn, want, what):
+    """Loss and global gradient norm of ``batch`` with ops.``name`` swapped
+    for its plain version ``fn``, the other kernels' launches ``want``."""
+    with _swap(ops, name, fn):
+        ops.reset_launch_counts()
+        loss, grads = grads_fn(probe, batch)
+        expect_launches(ops.launch_counts(), want, f"{what}, plain {name}")
+    norm = float(global_norm(grads))
+    del grads
+    torch.cuda.empty_cache()
+    return float(loss), norm
+
+
+def fit_train_seq(cfg, batch, seq):
+    """``seq``, or the longest multiple of 512 past 4096 tokens below it,
+    whose dry-run record (one device) of a ``batch`` x seq step at remat
+    "full" leaves ``RG_TRAIN_HEADROOM_GIB`` of the card free; returns (seq,
+    the record's input bytes, its temporaries)."""
+    budget = torch.cuda.get_device_properties(0).total_memory - RG_TRAIN_HEADROOM_GIB * 2**30
+    first, temp_first = seq, None
+    while True:
+        arg_b, temp_b = train_memory_estimate(cfg, batch, seq, "full")
+        temp_first = temp_first or temp_b
+        log(f"  dry run, one device, {batch} x {seq}: inputs {arg_b / 1e9:.2f} GB + "
+            f"temporaries {temp_b / 1e9:.2f} GB = {(arg_b + temp_b) / 2**30:.2f} GiB, "
+            f"{RG_TRAIN_HEADROOM_GIB} GiB to stay free of the card's "
+            f"{(budget / 2**30 + RG_TRAIN_HEADROOM_GIB):.2f} GiB")
+        if arg_b + temp_b <= budget:
+            break
+        # the longest multiple of 512 past the dense limit that fits: the
+        # temporaries grow in proportion to the sequence (the logits and the
+        # activations of one batch row), so the first record predicts it
+        # and the next one checks it
+        fit = int((budget - arg_b) / temp_first * first) // 512 * 512
+        seq = min(seq - 512, fit)
+        if seq <= 4096:
+            raise AssertionError(f"{cfg.name} does not fit one card past 4096 tokens by the "
+                                 f"dry run's estimate")
+    if seq != first:
+        log(f"  cut to {batch} x {seq}: {first} does not fit by the estimate")
+    return seq, arg_b, temp_b
+
+
 def phase_train_rg(state):
     """Full-width recurrentgemma-2b trained at 1 x 8192, or the longest
     multiple of 512 past 4096 tokens whose dry-run record (one device) of
@@ -3553,28 +3756,7 @@ def phase_train_rg(state):
     RG-LRU leaf's gradient nonzero and finite) and with the plain attention
     (within ``RG_ATTN_RTOL``); then the steps."""
     cfg = state["cfg"]
-    budget = torch.cuda.get_device_properties(0).total_memory - RG_TRAIN_HEADROOM_GIB * 2**30
-    seq, temp_at = RG_TRAIN_SEQ, {}
-    while True:
-        arg_b, temp_b = train_memory_estimate(cfg, RG_TRAIN_BATCH, seq, "full")
-        temp_at[seq] = temp_b
-        log(f"  dry run, one device, {RG_TRAIN_BATCH} x {seq}: inputs {arg_b / 1e9:.2f} GB + "
-            f"temporaries {temp_b / 1e9:.2f} GB = {(arg_b + temp_b) / 2**30:.2f} GiB, "
-            f"{RG_TRAIN_HEADROOM_GIB} GiB to stay free of the card's "
-            f"{(budget / 2**30 + RG_TRAIN_HEADROOM_GIB):.2f} GiB")
-        if arg_b + temp_b <= budget:
-            break
-        # the longest multiple of 512 past the dense limit that fits: the
-        # temporaries grow in proportion to the sequence (the logits and the
-        # activations of one batch row), so the first record predicts it
-        # and the next one checks it
-        fit = int((budget - arg_b) / temp_at[RG_TRAIN_SEQ] * RG_TRAIN_SEQ) // 512 * 512
-        seq = min(seq - 512, fit)
-        if seq <= 4096:
-            raise AssertionError(f"{cfg.name} does not fit one card past 4096 tokens by the "
-                                 f"dry run's estimate")
-    if seq != RG_TRAIN_SEQ:
-        log(f"  cut to {RG_TRAIN_BATCH} x {seq}: {RG_TRAIN_SEQ} does not fit by the estimate")
+    seq, arg_b, temp_b = fit_train_seq(cfg, RG_TRAIN_BATCH, RG_TRAIN_SEQ)
     _, reader = corpus_reader(RG_TRAIN_BATCH, seq)
     batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
                                                for a in reader.next_batch())))
@@ -3608,20 +3790,11 @@ def phase_train_rg(state):
     del grads_k, rglru
     loss_k = float(loss_k)
 
-    def plain(name, fn, want):
-        """loss, grad norm of the same batch with ops.``name`` swapped for ``fn``"""
-        with _swap(ops, name, fn):
-            ops.reset_launch_counts()
-            loss, grads = grads_fn(probe, batches[0])
-            expect_launches(ops.launch_counts(), want, f"recurrentgemma gradients, plain {name}")
-        norm = float(global_norm(grads))
-        del grads
-        torch.cuda.empty_cache()
-        return float(loss), norm
-
-    loss_p, norm_p = plain("linear_scan", lambda a, x: ref_linear_scan(a, x), attention)
-    loss_a, norm_a = plain("flash_attention", lambda q, k, v, **kw: _PlainAttention.apply(
-        q, k, v, kw["causal"], kw["window"], kw["q_offset"], kw["softcap"]), scans)
+    loss_p, norm_p = plain_grads(grads_fn, probe, batches[0], "linear_scan",
+                                 lambda a, x: ref_linear_scan(a, x), attention,
+                                 "recurrentgemma gradients")
+    loss_a, norm_a = plain_grads(grads_fn, probe, batches[0], "flash_attention",
+                                 plain_attention, scans, "recurrentgemma gradients")
     del probe
     torch.cuda.empty_cache()
     loss_rel, norm_rel = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
@@ -3651,6 +3824,63 @@ def phase_train_rg(state):
     log(f"  {RG_TRAIN_STEPS} x ({fwd} + {bwd}) linear_scan, {RG_TRAIN_STEPS} x {fa_fwd} "
         f"flash_attention_sm90 and {RG_TRAIN_STEPS} x {fa_bwd} flash_attention_bwd_sm90 "
         f"launches (forward with the recompute, backward), as expected")
+
+
+
+def phase_train_long_olmo(state):
+    """Full-width olmo-1b trained at 2 x 8192, or the longest multiple of
+    512 whose dry-run record leaves ``RG_TRAIN_HEADROOM_GIB`` of the card
+    free (remat "full", bf16 params, float32 AdamW state): every layer's
+    attention (16 heads of 128, plain causal) through ``flash_attention_sm90``
+    (again in the recompute) and ``flash_attention_bwd_sm90``.  First the
+    gradients of one batch with the kernels (every one finite) and with the
+    plain attention: loss and gradient norm within ``RG_ATTN_RTOL``; then
+    the steps."""
+    cfg = get_config(TRAIN_ARCH)
+    seq, arg_b, temp_b = fit_train_seq(cfg, OLMO_TRAIN_BATCH, OLMO_TRAIN_SEQ)
+    _, reader = corpus_reader(OLMO_TRAIN_BATCH, seq)
+    batches = [dict(zip(("tokens", "labels"), (torch.as_tensor(a, device="cuda")
+                                               for a in reader.next_batch())))
+               for _ in range(OLMO_TRAIN_STEPS)]
+    builder = TrainStepBuilder(build_model(cfg), remat_policy="full",
+                               opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100))
+    fwd, bwd = train_launches(cfg, "attn", 1, builder.remat_policy)
+    attention = {"flash_attention_sm90": fwd, "flash_attention_bwd_sm90": bwd}
+
+    grads_fn = builder.grads_fn()
+    probe = builder.init_state(torch.Generator(device="cuda").manual_seed(84))
+    ops.reset_launch_counts()
+    loss_k, grads_k = grads_fn(probe, batches[0])
+    expect_launches(ops.launch_counts(), attention, "olmo gradients")
+    norm_k = float(global_norm(grads_k))
+    paths = [p for p, _ in flatten_with_paths(probe["params"])]
+    bad = [p for p, g in zip(paths, grads_k) if not bool(torch.isfinite(g).all())]
+    if bad or not np.isfinite(norm_k):
+        raise AssertionError(f"olmo gradients not finite: {bad}, norm {norm_k}")
+    del grads_k
+    loss_k = float(loss_k)
+    loss_a, norm_a = plain_grads(grads_fn, probe, batches[0], "flash_attention",
+                                 plain_attention, {}, "olmo gradients")
+    del probe
+    torch.cuda.empty_cache()
+    loss_rel, norm_rel = abs(loss_k - loss_a) / abs(loss_a), abs(norm_k - norm_a) / norm_a
+    log(f"  {attention_layers(cfg, 'attn')} attention layers: loss {loss_k:.6f} (plain attention "
+        f"{loss_a:.6f}, rel {loss_rel:.2e}), grad norm {norm_k:.6f} (plain attention "
+        f"{norm_a:.6f}, rel {norm_rel:.2e}), tol {RG_ATTN_RTOL:.3g}; {len(paths)} gradients "
+        f"finite")
+    if not (loss_rel <= RG_ATTN_RTOL and norm_rel <= RG_ATTN_RTOL):
+        raise AssertionError(f"attention kernels vs plain attention: loss rel {loss_rel:.2e}, "
+                             f"grad norm rel {norm_rel:.2e} > {RG_ATTN_RTOL:.3g}")
+
+    counts, rec = run_train_steps(state, builder, batches,
+                                  f"olmo long train ({OLMO_TRAIN_BATCH} x {seq})", seed=86)
+    expect_launches(counts, {name: OLMO_TRAIN_STEPS * n for name, n in attention.items()},
+                    "olmo long train")
+    rec.update(attention_loss_rel=loss_rel, attention_grad_norm_rel=norm_rel,
+               estimate_gib=(arg_b + temp_b) / 2**30, seq=seq)
+    state["train_olmo"] = rec
+    log(f"  {OLMO_TRAIN_STEPS} x {fwd} flash_attention_sm90 and {OLMO_TRAIN_STEPS} x {bwd} "
+        f"flash_attention_bwd_sm90 launches (forward with the recompute, backward), as expected")
 
 
 # ------------------------------------------------- launch tooling, examples
@@ -3946,6 +4176,8 @@ PHASES = [
     ("long decode vs teacher forcing", phase_teacher_forcing_long),
     ("recurrentgemma long serve", phase_serve_long_rg),
     ("recurrentgemma long decode vs teacher forcing", phase_teacher_forcing_long_rg),
+    ("olmo long serve", phase_serve_long_olmo),
+    ("olmo long decode vs teacher forcing", phase_teacher_forcing_long_olmo),
     ("train entry point", phase_train_entry),
     ("train and checkpoint", phase_train),
     ("moe serve", phase_serve_moe),
@@ -3959,6 +4191,7 @@ PHASES = [
     ("long train", phase_train_long),
     ("long train float32", phase_train_long_f32),
     ("recurrentgemma train", phase_train_rg),
+    ("olmo long train", phase_train_long_olmo),
     ("mesh group", phase_mesh_group),
     ("mesh long train", phase_mesh_train_long),
     ("mesh train and checkpoint", phase_mesh_train),

@@ -17,7 +17,8 @@ These tests hold, with inputs made by numpy from a seed:
   scaled to the gradient);
 * the plain row log-sum-exp to a direct ``logsumexp`` of the masked scores;
 * the loss and every parameter gradient of a reduced danube decoder
-  (2 layers, GQA, window) at 4100 tokens and of a reduced seamless at 4100
+  (2 layers, GQA, window) at 4100 tokens, of a reduced olmo-1b (2 layers,
+  MHA, plain causal) at 4100 tokens and of a reduced seamless at 4100
   frames to ``jax.value_and_grad`` of the reference at 1e-5
   (``tests/test_torch_train.py``);
 * the scan's gradient through ``ops.linear_scan`` to ``jax.grad`` of the
@@ -247,6 +248,24 @@ def test_recurrentgemma_step_past_4096_matches_jax(monkeypatch):
     assert calls == [("_FlashAttentionBackward", LONG_T)]
 
 
+def test_olmo_step_past_4096_matches_jax(monkeypatch):
+    """Reduced olmo-1b (2 layers, 4 heads over 4 kv heads, full causal
+    attention, no window) at 1 x 4100 tokens: both layers' attention is
+    blockwise under the plain causal mask."""
+    arch = "olmo-1b"
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    assert cfg.n_layers == 2 and cfg.window is None and cfg.n_kv_heads == cfg.n_heads
+    rng = np.random.default_rng(33)
+    toks = rng.integers(0, cfg.vocab_size, (1, LONG_T + 1)).astype(np.int32)
+    tokens, labels = toks[:, :-1], toks[:, 1:].copy()
+    calls = _count_attention(monkeypatch)
+    _loss_and_grads_match(arch, jcfg, cfg,
+                          {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
+                          {"tokens": torch.from_numpy(tokens).long(),
+                           "labels": torch.from_numpy(labels).long()})
+    assert calls == [("_FlashAttentionBackward", LONG_T)] * cfg.n_layers
+
+
 def test_seamless_step_past_4096_frames_matches_jax(monkeypatch):
     """Reduced seamless-m4t-large-v2 (2 + 2 layers) over 4100 frames and
     12 tokens: the encoder's self-attention and every cross-attention are
@@ -458,6 +477,7 @@ _WIDE = (64, 1, 256, 64, 256, 64, 64, 64)
     ((2, 8, 130, 96), _D128, (2, 2, 8, 192)),
     ((1, 8, 1, 120), _D128, (2, 1, 8, 64)),
     ((1, 4, 333, 128), _D128, (2, 1, 4, 384)),
+    ((2, 16, 8192, 128), _D128, (2, 2, 16, 8192)),     # olmo-1b's training step
     ((1, 4, 100, 136), _WIDE, (2, 1, 4, 128)),
     ((2, 8, 130, 256), _WIDE, (2, 2, 8, 192)),
     ((1, 10, 8192, 256), _WIDE, (2, 1, 10, 8192)),     # recurrentgemma's training step

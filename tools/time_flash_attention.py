@@ -10,14 +10,19 @@ h2o-danube3-4b's prefill attention, q (4, 32, 8192, 120) over k, v
 forward, q (1, 32, 8192, 120) over (1, 8, 8192, 120); recurrentgemma-2b's
 prefill attention, q (4, 10, 32768, 256) over k, v (4, 1, 32768, 256),
 causal with a 2048 window, and its training step's forward, q (1, 10,
-8192, 256) over (1, 1, 8192, 256).  For each it prints one JSON
+8192, 256) over (1, 1, 8192, 256); olmo-1b's prefill attention, (4, 16,
+32768, 128) over the same, plain causal (no window), and its training
+step's forward, (2, 16, 8192, 128).  For each it prints one JSON
 line: the kernel's device time (CUDA events over back-to-back calls after
 a warm-up), its bound (4 D flops a live pair over the bf16 tensor-core
 rate, or q, k, v read and o written once over the memory rate, the larger),
 ``scaled_dot_product_attention``'s time on the same inputs (no mask for
-seamless, PyTorch's pick of backend; for the others the window-causal boolean
-mask on the memory-efficient backend, kv heads repeated outside the
-timing), the largest difference from the first call's output to the
+seamless, PyTorch's pick of backend; a plain causal mask, olmo's, as
+``is_causal=True`` with no mask tensor under each of the cuDNN, flash and
+memory-efficient backends alone, each one's time or "refused" in
+``sdpa_backends`` and the fastest that ran as ``sdpa_ms``; for the windowed
+shapes the window-causal boolean mask on the memory-efficient backend, kv
+heads repeated outside the timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
 and the card's name and power limit.
 
@@ -25,16 +30,18 @@ The backward, ``flash_attention_bwd_sm90``, at the training phases' four
 shapes: seamless-m4t-large-v2's encoder (2, 16, 8192, 64) and its
 cross-attention, q (2, 16, 2048, 64) over 8192 frames, unmasked,
 h2o-danube3-4b's (1, 32, 8192, 120) over (1, 8, 8192, 120), causal with a
-4096 window, and recurrentgemma-2b's (1, 10, 8192, 256) over (1, 1, 8192,
-256), causal with a 2048 window.  Each line gives its device time (the forward's o and lse as
+4096 window, recurrentgemma-2b's (1, 10, 8192, 256) over (1, 1, 8192,
+256), causal with a 2048 window, and olmo-1b's (2, 16, 8192, 128), plain
+causal.  Each line gives its device time (the forward's o and lse as
 input, a seeded do), its bound (10 D flops a live pair, S recomputed, over
 the bf16 tensor-core rate, or q, k, v, o, do and lse read and the three
 gradients written once over the memory rate, the larger), each of its
 launches' device time (``torch.profiler``), and the time of
 ``scaled_dot_product_attention``'s backward on the same inputs and mask
-(``chip_smoke.py::sdpa_bwd_ms``'s rule: no mask on PyTorch's pick of
-backend, else the boolean mask on the memory-efficient backend, kv heads
-repeated outside the timing).
+(``chip_smoke.py``'s rules: no mask on PyTorch's pick of backend; a plain
+causal mask as ``is_causal=True`` under each backend alone, ``sdpa_bwd_ms``
+the fastest; else the boolean mask on the memory-efficient backend, kv
+heads repeated outside the timing).
 
 The float32 backward, ``flash_attention_bwd``, at h2o-danube3-4b's
 training shape in float32 (as above) and seamless-m4t-large-v2's encoder
@@ -63,7 +70,7 @@ Usage, from the root of a checkout::
 ``--root`` imports the port from another checkout's ``src/`` (its own
 kernels are built there), so one command can time two versions in turns.
 ``--only`` keeps the shapes whose name holds TEXT (``recurrentgemma``: the
-head-width-256 shapes alone).
+head-width-256 shapes alone; ``olmo``: the three plain causal D = 128 shapes).
 """
 
 from __future__ import annotations
@@ -108,12 +115,15 @@ SHAPES = [
     ("danube train forward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
     ("recurrentgemma prefill", (4, 10, 32768, 256), (4, 1, 32768, 256), True, 2048),
     ("recurrentgemma train forward", (1, 10, 8192, 256), (1, 1, 8192, 256), True, 2048),
+    ("olmo prefill", (4, 16, 32768, 128), (4, 16, 32768, 128), True, None),
+    ("olmo train forward", (2, 16, 8192, 128), (2, 16, 8192, 128), True, None),
 ]
 BWD_SHAPES = [
     ("seamless encoder backward", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
     ("seamless cross backward", (2, 16, 2048, 64), (2, 16, 8192, 64), False, None),
     ("danube train backward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
     ("recurrentgemma train backward", (1, 10, 8192, 256), (1, 1, 8192, 256), True, 2048),
+    ("olmo train backward", (2, 16, 8192, 128), (2, 16, 8192, 128), True, None),
 ]
 F32_BWD_SHAPES = [
     ("danube train backward float32", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
@@ -139,6 +149,37 @@ def live_pairs(Tq, Tk, causal, window):
     hi = torch.minimum(pos, torch.tensor(Tk - 1)) if causal else torch.full((Tq,), Tk - 1)
     lo = (pos - window + 1).clamp(min=0) if window is not None else torch.zeros(Tq, dtype=torch.int64)
     return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def sdpa_causal(q, k, v, do, reps):
+    """{"sdpa_ms", "sdpa_backend", "sdpa_backends"}: ``scaled_dot_product_attention``
+    with ``is_causal=True`` and no mask tensor (its backward where ``do`` is
+    given) under each of the cuDNN, flash and memory-efficient backends
+    alone, "refused" where one does not take the call, and the fastest that
+    ran; kv heads repeated outside the timing.  ``is_causal`` aligns the mask
+    top-left: the port's mask at Tq = Tk."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    assert q.shape[2] == k.shape[2], "is_causal is the port's mask only at Tq = Tk"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    group = q.shape[1] // k.shape[1]
+    qq, kk, vv = (t.detach().clone().requires_grad_(do is not None) for t in (
+        q, k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)))
+    times = {}
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION"):
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                if do is None:
+                    times[name] = cuda_ms(lambda: sdpa(qq, kk, vv, is_causal=True), reps)
+                else:
+                    o = sdpa(qq, kk, vv, is_causal=True)
+                    times[name] = cuda_ms(lambda: torch.autograd.grad(
+                        o, (qq, kk, vv), do, retain_graph=True), reps)
+            except RuntimeError:
+                times[name] = "refused"
+        torch.cuda.empty_cache()
+    ran = {name: ms for name, ms in times.items() if ms != "refused"}
+    best = min(ran, key=ran.get) if ran else None
+    return {"sdpa_ms": ran.get(best), "sdpa_backend": best, "sdpa_backends": times}
 
 
 def sdpa_ms(q, k, v, causal, window, reps):
@@ -273,8 +314,10 @@ def time_backward(g, smi, shapes, dtype):
             "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "launches_ms": launch_ms(lambda: backward(q, k, v, o, lse, do, **kw), reps),
-            "sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps), "card": smi}),
-            flush=True)
+            **({key.replace("sdpa", "sdpa_bwd"): val for key, val in
+                sdpa_causal(q, k, v, do, reps).items()} if causal and window is None else
+               {"sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps)}),
+            "card": smi}), flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
 
@@ -338,8 +381,9 @@ def main():
             "shape": name, "q": list(qs), "kv": list(ks), "root": os.path.abspath(ARGS.root),
             "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "sdpa_ms": sdpa_ms(q, k, v, causal, window, reps), "max_abs_err": err,
-            "card": smi}), flush=True)
+            **(sdpa_causal(q, k, v, None, reps) if causal and window is None else
+               {"sdpa_ms": sdpa_ms(q, k, v, causal, window, reps)}),
+            "max_abs_err": err, "card": smi}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
 
