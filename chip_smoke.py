@@ -48,7 +48,10 @@ Phases (each one's failure fails the run):
    bf16 cases of both bf16 kernels' configuration for head widths 65-128
    (D = 72, 96, 120, 128 with causal, ``q_offset`` 100 and -40, windows,
    softcaps, no mask, one query row, Tq and Tk off 64 and 128, GQA groups
-   1 and 4, and olmo's plain causal MHA at D = 128 over 1100 keys) and of
+   1 and 4, and olmo's plain causal MHA at D = 128 over 1100 keys; the
+   65-128 cases again under ``FLASH_FP16_SCALES``, whose products run on
+   fp16 copies: do times 2^-16, q at 1e5 with k at 1e-5 and the other way
+   round, v at 1e-6) and of
    their configuration for head widths 136-256
    (``FLASH_D256_CASES``: recurrentgemma's 10 query heads over one kv head
    of 256 with windows of 100 and 2048 past 4096 keys, D = 136, 192, 200
@@ -357,7 +360,7 @@ from repro_torch.kernels.delta_mask import delta_mask_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
-    block_config, flash_attention_bwd_sm90_cuda, kernel_blocks)
+    block_config, converts_to_fp16, flash_attention_bwd_sm90_cuda, kernel_blocks)
 from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
     block_rows, flash_attention_sm90_cuda, kernel_rows, split_count)
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
@@ -575,6 +578,13 @@ FLASH_D128_CASES = [
     ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
     ("D 128 causal, G 1", 1, 4, 4, 1100, 1100, 128, dict(causal=True)),
 ]
+# input scales (q, k, v, do) under which the backward runs FLASH_D128_CASES'
+# head widths 65-128 again (their products on fp16 copies, each times a
+# power of two of its own): do at a mean loss's gradient size; q above
+# fp16's largest value (65504) with k below its normal range (6.1e-5), the
+# scores unchanged, and the other way round; v below fp16's normal range
+FLASH_FP16_SCALES = {"do 2^-16": (1, 1, 1, 2.0 ** -16), "q 1e5, k 1e-5": (1e5, 1e-5, 1, 1),
+                     "q 1e-5, k 1e5": (1e-5, 1e5, 1, 1), "v 1e-6": (1, 1, 1e-6, 1)}
 # bf16 cases of the kernels for head widths 136-256 (name, B, Hq, Hkv, Tq,
 # Tk, D, mask), forward and backward, each with k, v contiguous and strided:
 # recurrentgemma's MQA (10 query heads over one kv head, D = 256) with a
@@ -723,14 +733,15 @@ def prompts_for(seed, batch=BATCH, length=PROMPT_LEN):
     return out
 
 
-def attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, strided=False):
+def attention_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, strided=False, scales=(1, 1, 1)):
     """q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D), as views of (B, Tk, Hkv, D)
-    tensors when ``strided`` (the layout a projection einsum hands over)."""
+    tensors when ``strided`` (the layout a projection einsum hands over);
+    standard normal times ``scales`` (q, k, v)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, Hq, Tq, D), generator=g, device="cuda").to(dtype)
+    q = (torch.randn((B, Hq, Tq, D), generator=g, device="cuda") * scales[0]).to(dtype)
     kv_shape = (B, Tk, Hkv, D) if strided else (B, Hkv, Tk, D)
-    k = torch.randn(kv_shape, generator=g, device="cuda").to(dtype)
-    v = torch.randn(kv_shape, generator=g, device="cuda").to(dtype)
+    k = (torch.randn(kv_shape, generator=g, device="cuda") * scales[1]).to(dtype)
+    v = (torch.randn(kv_shape, generator=g, device="cuda") * scales[2]).to(dtype)
     if strided:
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     return q, k, v
@@ -975,10 +986,11 @@ def phase_flash_vs_plain(state):
         f"within {worst_lse:.3e} (tol {FLASH_SPLIT_LSE_TOL})")
 
 
-def flash_bwd_case(q, k, v, seed, **kw):
+def flash_bwd_case(q, k, v, seed, do_scale=1.0, **kw):
     """The dtype's backward kernel (``flash_attention_bwd_sm90`` for bf16,
     ``flash_attention_bwd`` for float32) against the plain backward on the
-    same q, k, v, o, lse and a seeded do, o and lse from the dtype's forward
+    same q, k, v, o, lse and a seeded do (standard normal times
+    ``do_scale``), o and lse from the dtype's forward
     kernel (``return_lse``), whose lse is held to the plain forward's.  Two
     calls must be bit-equal, and rows that see no key must get a dq of
     exactly 0.  Returns (largest absolute error over the three gradients,
@@ -986,7 +998,7 @@ def flash_bwd_case(q, k, v, seed, **kw):
     o, lse = flash_kernel(q.dtype)(q, k, v, return_lse=True, **kw)
     _, lse_want = ref_flash_attention(q, k, v, return_lse=True, **kw)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    do = (torch.randn(q.shape, generator=g, device="cuda") * do_scale).to(q.dtype)
     kernel = flash_bwd_kernel(q.dtype)
     got = kernel(q, k, v, o, lse, do, **kw)
     again = kernel(q, k, v, o, lse, do, **kw)
@@ -1076,9 +1088,11 @@ def phase_flash_bwd_vs_plain(state):
     share_by = {torch.float32: 0.0, torch.bfloat16: 0.0}   # the largest share of the limit
     worst_lse, n = 0.0, 0
 
-    def record(dt, err, share, lse_err, what=None):
+    def record(dt, err, share, lse_err, what=None, scaled=False):
+        # a scaled case's error is in its inputs' units: its share counts, its
+        # absolute error does not enter the dtype's worst
         nonlocal worst_lse, n
-        worst[dt], n = max(worst[dt], err), n + 1
+        worst[dt], n = (worst[dt] if scaled else max(worst[dt], err)), n + 1
         share_by[dt], worst_lse = max(share_by[dt], share), max(worst_lse, lse_err)
         if what is not None:
             log(f"  {flash_bwd_kernel(dt).__name__} {what} {dt}: max abs err {err:.3e}, "
@@ -1123,6 +1137,19 @@ def phase_flash_bwd_vs_plain(state):
                                        strided=strided)
             record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=490 + i, **kw)[:3],
                    what=f"{name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} strided={strided}")
+    # bf16 at 65-128 again under FLASH_FP16_SCALES' input scales, k and v
+    # contiguous and strided in turns
+    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES):
+        if not converts_to_fp16(D):
+            continue
+        for j, (scale_name, (cq, ck, cv, cdo)) in enumerate(FLASH_FP16_SCALES.items()):
+            strided = (i + j) % 2 == 1
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=390 + i,
+                                       strided=strided, scales=(cq, ck, cv))
+            record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=490 + i, do_scale=cdo,
+                                                   **kw)[:3],
+                   what=f"{name}, {scale_name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
+                        f"strided={strided}", scaled=True)
     # float32 at the edges of the float32 backward's tiles
     for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_BWD_F32_CASES):
         for strided in (False, True):
@@ -2336,8 +2363,15 @@ def phase_kernel_times(state):
         if dtype == torch.bfloat16:
             kernels[-1]["kernels_by_width"] = {
                 "8-64": "stats_kernel, d64::dkdv_kernel<softcap>, d64::dq_kernel<softcap>",
-                "65-128": "stats_kernel, d128::dkdv_kernel<softcap>, d128::dq_kernel<softcap>",
+                "65-128": "absmax_kernel, convert_kernel, stats_kernel (with do's conversion), "
+                          "d128::dkdv_kernel<softcap>, d128::dq_kernel<softcap> (fp16 operands)",
                 "136-256": "stats_kernel, d256::dkdv_kernel<softcap>, d256::dq_kernel<softcap>"}
+            # the calls among ``launches`` that ran on fp16 copies (five launches each)
+            kernels[-1]["fp16_launches_by_path"] = {
+                path: state[key]["bwd_fp16_launches"] for path, key in zip(
+                    bwd_paths[name], ("train_long", "mesh_train_long", "train_encdec",
+                                      "train_rg", "train_olmo"))}
+            kernels[-1]["fp16_launches"] = sum(kernels[-1]["fp16_launches_by_path"].values())
     state["kernels"] = kernels
     for k in kernels:
         log(f"{k['name']} {k['shape']} {k['dtype']}: kernel {k['ms']:.4f} ms, plain "
@@ -3428,6 +3462,8 @@ def phase_train_encdec(state):
     n_att = cfg.n_enc_layers + cfg.n_layers
     expect_launches(counts, {"flash_attention_sm90": TRAIN_STEPS * 2 * n_att,
                              "flash_attention_bwd_sm90": TRAIN_STEPS * n_att}, "encdec train")
+    expect_fp16_launches(rec["bwd_fp16_launches"], TRAIN_STEPS * n_att, cfg.head_dim,
+                         "encdec train")
     state["train_encdec"] = rec
     log(f"  {TRAIN_STEPS * 2 * n_att} flash_attention_sm90 and {TRAIN_STEPS * n_att} "
         f"flash_attention_bwd_sm90 launches (the encoder's self-attention and the "
@@ -3498,16 +3534,19 @@ def run_train_steps(state, builder, batches, what, seed):
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"non-finite loss {loss} or grad norm {gnorm}")
     counts = ops.launch_counts()
+    fp16 = ops.bwd_fp16_launches()
     peak = torch.cuda.max_memory_allocated()
     (train_state, _), wall_ms, dev_ms, idle, top = device_idle_share(
         lambda: step_fn(train_state, batches[-1]))
     rec = {"step_ms": step_ms, "losses": losses, "peak_gib": peak / 2**30,
            "state_gb": n_state / 1e9,
            "params_b": n_params / 1e9, "profiled_step_ms": wall_ms, "device_ms": dev_ms,
-           "idle_share": idle, "top_kernels": top, "launches": counts}
+           "idle_share": idle, "top_kernels": top, "launches": counts,
+           "bwd_fp16_launches": fp16}
     log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
         f"{rec['peak_gib']:.2f} GiB; profiled step {wall_ms:.1f} ms, device {dev_ms:.1f} ms, "
-        f"idle {idle:.1%}; launches {counts}; on {state['smi']}")
+        f"idle {idle:.1%}; launches {counts}, {fp16} of the backward's on fp16 copies; on "
+        f"{state['smi']}")
     for name, n, ms in top:
         log(f"    {ms:9.2f} ms ({ms / dev_ms:.1%})  x{n:<5d} {name}")
     del train_state, metrics
@@ -3519,6 +3558,16 @@ def expect_launches(counts, want, what):
     full = {name: want.get(name, 0) for name in counts}
     if counts != full:
         raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def expect_fp16_launches(fp16, bwd, head_dim, what):
+    """``flash_attention_bwd_sm90``'s calls on fp16 copies (``fp16``, from
+    ``ops.bwd_fp16_launches``) out of its ``bwd`` calls at ``head_dim``:
+    every one at head widths 65-128, none at the others."""
+    want = bwd if converts_to_fp16(head_dim) else 0
+    if fp16 != want:
+        raise AssertionError(f"{what}: {fp16} flash_attention_bwd_sm90 calls on fp16 copies, "
+                             f"expected {want} of {bwd} at head width {head_dim}")
 
 
 def train_memory_estimate(cfg, batch, seq, remat):
@@ -3563,6 +3612,7 @@ def phase_train_long(state):
     fwd, bwd = train_launches(cfg, "swa", LONG_TRAIN_STEPS, builder.remat_policy)
     expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd_sm90": bwd},
                     "long train")
+    expect_fp16_launches(rec["bwd_fp16_launches"], bwd, cfg.head_dim, "long train")
     rec.update(estimate_gib=(arg_b + temp_b) / 2**30)
     state["train_long"] = rec
     log(f"  {fwd} flash_attention_sm90 and {bwd} flash_attention_bwd_sm90 launches over "
@@ -3655,6 +3705,7 @@ def phase_mesh_train_long(state):
     ref = state["train_long"]
     expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd_sm90": bwd},
                     "mesh long train")
+    expect_fp16_launches(rec["bwd_fp16_launches"], bwd, cfg.head_dim, "mesh long train")
     if counts != ref["launches"]:
         raise AssertionError(f"mesh long train launched {counts}, the long train phase "
                              f"{ref['launches']}")
@@ -3773,6 +3824,8 @@ def phase_train_rg(state):
     ops.reset_launch_counts()
     loss_k, grads_k = grads_fn(probe, batches[0])
     expect_launches(ops.launch_counts(), {**scans, **attention}, "recurrentgemma gradients")
+    expect_fp16_launches(ops.bwd_fp16_launches(), fa_bwd, cfg.head_dim,
+                         "recurrentgemma gradients")
     norm_k = float(global_norm(grads_k))
     paths = [p for p, _ in flatten_with_paths(probe["params"])]
     rglru = [(p, g) for p, g in zip(paths, grads_k)
@@ -3852,6 +3905,7 @@ def phase_train_long_olmo(state):
     ops.reset_launch_counts()
     loss_k, grads_k = grads_fn(probe, batches[0])
     expect_launches(ops.launch_counts(), attention, "olmo gradients")
+    expect_fp16_launches(ops.bwd_fp16_launches(), bwd, cfg.head_dim, "olmo gradients")
     norm_k = float(global_norm(grads_k))
     paths = [p for p, _ in flatten_with_paths(probe["params"])]
     bad = [p for p, g in zip(paths, grads_k) if not bool(torch.isfinite(g).all())]
@@ -3876,6 +3930,8 @@ def phase_train_long_olmo(state):
                                   f"olmo long train ({OLMO_TRAIN_BATCH} x {seq})", seed=86)
     expect_launches(counts, {name: OLMO_TRAIN_STEPS * n for name, n in attention.items()},
                     "olmo long train")
+    expect_fp16_launches(rec["bwd_fp16_launches"], OLMO_TRAIN_STEPS * bwd, cfg.head_dim,
+                         "olmo long train")
     rec.update(attention_loss_rel=loss_rel, attention_grad_norm_rel=norm_rel,
                estimate_gib=(arg_b + temp_b) / 2**30, seq=seq)
     state["train_olmo"] = rec

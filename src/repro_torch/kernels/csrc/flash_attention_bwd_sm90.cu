@@ -25,11 +25,12 @@
 // kernels/ref.py::ref_flash_attention_backward.
 //
 // Bound: operations.  The gradients need 8 D flops a live (query, key) pair
-// (dP, dV, dK, dQ) and this design executes 20 D' (D' = D rounded up to 64):
-// S and dP are recomputed in both passes, and dV, dK and dQ run twice, on
-// the two bf16 parts of P and dS (below).  Against a few bytes of q, k, v, o,
-// do and the gradients per row, that is far above the card's ridge point at
-// a long sequence, so every product is a wgmma on the bf16 tensor cores.
+// (dP, dV, dK, dQ), 10 D with S recomputed; against a few bytes of q, k, v,
+// o, do and the gradients per row that is far above the card's ridge point
+// at a long sequence, so every product is a wgmma on the tensor cores.  This
+// design executes 14 D' flops a pair at head widths 65-128 (D' = D rounded
+// up to 64: S and dP in both passes, dV, dK and dQ once) and 20 D' at the
+// others, where P and dS go to the tensor cores in two bf16 parts (below).
 //
 // Design (FlashAttention-3's backward building blocks, kept deterministic:
 // no atomics, one writer per gradient element, so two calls on one input
@@ -56,14 +57,40 @@
 // and do are read by TMA through 4-d (D, T, heads, batch) tensor maps over
 // the tensors' own strides in 128-byte swizzled 64-column atoms; columns
 // past D come in as zeros (D = 120 reads as 128) and are never stored.
-// P and dS go to the tensor cores in two bf16 parts each, hi (x truncated)
-// and lo = bf16(x - hi), as the forward's P.  Rounded once, each broke the
-// gradients' limit (2^-7 |want| + 1e-3 max|want|) where the sums cancel:
-// dS put dk at 1.73 of it on the sweep's (2, 4, 64, 32) case, P put dv at
-// 1.20 at danube's training shape.  In two parts x is carried to ~2^-17
-// relative, at the cost of one more product each (14 D' flops a pair
-// become 20 D').  The scale D^-0.5 multiplies S in float32 and dq, dk once
-// at the end.
+// At head widths up to 64 and from 136, P and dS go to the tensor cores in
+// two bf16 parts each, hi (x truncated) and lo = bf16(x - hi), as the
+// forward's P.  Rounded once to bf16 (2^-8 relative), each broke the
+// gradients' limit (2^-7 |want| + 1e-3 max|want|) where the sums cancel: dS
+// put dk at 1.73 of it on the sweep's (2, 4, 64, 32) case, P put dv at 1.20
+// at danube's training shape.  In two parts x is carried to ~2^-17
+// relative, at the cost of one more product each (14 D' flops a pair become
+// 20 D').  The scale D^-0.5 multiplies S in float32 and dq, dk once at the
+// end.
+//
+// Head widths 65-128 instead run every product on fp16 operands (wgmma
+// .f16.f16, at the bf16 rate), P and dS rounded once to fp16 (2^-11
+// relative).  Two launches first copy q, k and v to fp16, each times a power
+// of two 2^e of its own, e = 15 - floor(log2 max|x|) (fp16_exponent: the
+// largest value lands in [2^15, 65280], under fp16's 65504, and every value
+// of 2^-32 max|x| or more converts exactly, a bf16 value having 8
+// significant bits), and stats_kernel converts do as it reads it.  Products
+// of such operands are exact in the float32 sums, so S and dP are the bf16
+// design's times 2^(eq + ek) and 2^(ev + ed), undone in float32 where S
+// already takes D^-0.5 (Fp16Scales).  P goes as P 2^15 (exp2 of x - lse2 +
+// 15, P <= 1), and dS as P 2^15 (dP - delta) 2^(ev + ed - 40): |dS| <= 2 D
+// max|do| max|v|, so at D <= 128 it stays under 2^15 (1 + 2^-7), while a
+// real step's dS sits far above fp16's smallest normal (2^-14) whatever the
+// sizes of do and v (a mean loss's gradient, do ~ 2^-16, included).  The
+// three gradients' sums are scaled back as they are stored.  So the dK/dV
+// pass does 8 D' flops a pair and dQ 6 D', 14 D' in all against 20 D'.  Why
+// not one bf16 rounding: its 2^-8 broke the limit (above); fp16's 2^-11
+// does not, and the scales take fp16's narrower range out of play.  A
+// float32 emulation of this arithmetic (tests/test_torch_attention_grad.py)
+// gives at most 0.84 of the limit at chip_smoke.py's FLASH_D128_CASES (do at
+// O(1) and times 2^-16, q and k at 1e5 and 1e-5, v at 1e-6).  The forward
+// keeps its two parts: its limit, 2^-7 |want| + 1e-4 with no max|want|
+// term, is missed by one fp16 rounding of P on causal rows that see few
+// keys (tools/emulate_fp16_attention.py).
 //
 // Head widths up to 64 (seamless's 64; namespace d64): both passes run a
 // block of a producer warp and two consumer warpgroups of 64 keys (b) or
@@ -80,20 +107,23 @@
 // allocation fails to launch); a block of 256 threads (255 registers, one
 // consumer thread issuing the loads without waiting) ran slower.
 //
-// Head widths 65-128 (danube's 120; namespace d128): the turns of the D <=
-// 64 kernels over tiles of the head's two 64-column atoms, the softcap a
-// template argument, the mask a test once a tile.  (c) is a producer
-// warpgroup, whose one thread issues every load into a ring of five stages
-// and alone waits for stages to empty, and two consumer warpgroups of 64
-// query rows; a consumer runs the previous tile's dQ, waits, then issues
-// this tile's S and dP.  (b) is two consumer warpgroups of 64 keys and no
-// producer: their dK and dV take 128 registers a thread, and with a
-// producer warpgroup (384 threads) ptxas plans the wgmma pipeline for 168
-// registers a thread whatever setmaxnreg grants, and serialised every wgmma
-// and spilled (its "C7512 ... insufficient register resources"); at 256
-// threads it has 255.  There thread 0 issues the loads after passing its
-// warpgroup's turn, and waits for a stage to empty only for the tile its
-// warpgroup needs next, which the turns have released by then.
+// Head widths 65-128 (danube's 120, olmo's 128; namespace d128): the turns
+// of the D <= 64 kernels over tiles of the head's two 64-column atoms, on
+// the fp16 copies, the softcap a template argument, the mask a test once a
+// tile.  (c) is a producer warpgroup, whose one thread issues every load
+// into a ring of five stages and alone waits for stages to empty, and two
+// consumer warpgroups of 64 query rows; a consumer runs the previous tile's
+// dQ, waits, then issues this tile's S and dP (issued beside the dQ, they
+// made ptxas serialise the pass's wgmma: below).  (b) is two consumer
+// warpgroups of 64 keys and no producer: their dK and dV take 128 registers
+// a thread, and with a producer warpgroup (384 threads) ptxas plans the
+// wgmma pipeline for 168 registers a thread whatever setmaxnreg grants, and
+// serialised every wgmma and spilled (its "C7512 ... insufficient register
+// resources"); at 256 threads it has 255.  There thread 0 issues the loads
+// after passing its warpgroup's turn, and waits for a stage to empty only
+// for the tile its warpgroup needs next, which the turns have released by
+// then.  The gradient products are one m64n128k16 a 16-row step over both
+// atoms of the B tile (MN-major), P^T, dS^T or dS from registers.
 //
 // Head widths 136-256 (recurrentgemma's 256; namespace d256; narrower heads
 // read as 256 columns, the atoms past D zeroed in shared memory once and
@@ -176,6 +206,154 @@ struct Params {
   float softcap, scale, scale_log2;
 };
 
+// ---------------------------------------------------------------------------
+// Head widths 65-128 run every product on fp16 copies of q, k, v and do, each
+// times a power of two of its own (fp16_exponent): (a0) absmax_kernel
+// reduces each tensor's largest |x| to partial maxima, (a1) convert_kernel
+// writes the copies of q, k and v and the scales below, and stats_kernel
+// converts do as it reads it.
+// ---------------------------------------------------------------------------
+
+constexpr int kConvThreads = 256;
+constexpr int kConvBlocks = 256;   // blocks a tensor in (a0): its partial maxima
+constexpr int kPShift = 15;        // P goes to fp16 as P 2^15 (<= 2^15, under fp16's 65504)
+constexpr int kDsShift = 40;       // and dS as P 2^15 (dP - delta) 2^(ev + ed - 40)
+constexpr float kDpMul = 0x1p-40f;   // 2^-kDsShift
+
+// written by (a1), read by stats_kernel and the d128 passes
+struct Fp16Scales {
+  float mul_do;      // 2^ed: do's conversion
+  float delta_mul;   // 2^(ev + ed - kDsShift): delta into the units of dP's sums times kDpMul
+  float s_log2;      // scale log2(e) 2^-(eq + ek): S's sums to log2 units
+  float cap_scale;   // scale / c 2^-(eq + ek) (softcap c)
+  float dq_mul, dk_mul, dv_mul;   // the gradients' sums to their values (dq, dk times scale)
+};
+// the scratch of the conversion, in floats: the partial maxima of q, k, v
+// and do, then Fp16Scales (flash_attention_bwd_sm90_aux_floats reports it)
+constexpr int kAuxFloats = 4 * kConvBlocks + 8;
+static_assert(sizeof(Fp16Scales) <= 8 * sizeof(float), "Fp16Scales outgrew its scratch");
+
+// The power of two e that takes bf16 values of largest magnitude m (given by
+// a float's bits) into fp16: 2^15 <= m 2^e <= 65280 (bf16's largest
+// mantissa), so nothing overflows fp16's 65504, and every value of 2^-32 m
+// or more converts exactly (an fp16 normal, or a subnormal multiple of
+// 2^-24: a bf16 value has 8 significant bits).  At most 127 (m zero or
+// below 2^-112: m 2^127 < 2^15 then).  The wrapper's fp16_exponent mirrors it.
+__device__ __forceinline__ int fp16_exponent(uint32_t m) {
+  const int e8 = static_cast<int>((m >> 23) & 0xff);
+  return e8 == 0 ? 127 : min(142 - e8, 127);
+}
+
+// 2^e, -126 <= e <= 127
+__device__ __forceinline__ float exp2i(int e) { return __int_as_float((e + 127) << 23); }
+
+// one (B, H, T, D) bf16 tensor, unit stride in D: its element strides and rows B H T
+struct Src16 {
+  const __nv_bfloat16* x;
+  int64_t sb, sh, st, H, T, rows;
+};
+struct ConvArgs {
+  Src16 t[4];        // q, k, v, do
+  __half* out[4];    // their fp16 copies, contiguous (B, H, T, D)
+  int64_t D;
+};
+
+// f(row, its first element) for this block's share of t's rows, a
+// contiguous range walked 16 rows at a time, a half-warp a row: the row's
+// (batch, head, position) found by division once, then stepped
+template <class F>
+__device__ __forceinline__ void for_rows(const Src16& t, F f) {
+  const int64_t per = (t.rows + gridDim.x - 1) / gridDim.x;
+  const int64_t last = static_cast<int64_t>(blockIdx.x + 1) * per;
+  const int64_t end = last < t.rows ? last : t.rows;
+  int64_t row = static_cast<int64_t>(blockIdx.x) * per + threadIdx.x / 16;
+  if (row >= end) return;
+  int64_t i = row % t.T, h = (row / t.T) % t.H, b = row / t.T / t.H;
+  for (; row < end; row += 16) {
+    f(row, t.x + b * t.sb + h * t.sh + i * t.st);
+    for (i += 16; i >= t.T; i -= t.T)
+      if (++h == t.H) { h = 0; ++b; }
+  }
+}
+
+// the largest of x over the block's threads (unsigned: float bits of magnitudes)
+__device__ __forceinline__ uint32_t block_max(uint32_t x) {
+  __shared__ uint32_t warp_max[kConvThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x / 32] = x;
+  __syncthreads();
+  x = 0;
+#pragma unroll
+  for (int w = 0; w < kConvThreads / 32; ++w) x = max(x, warp_max[w]);
+  return x;
+}
+
+// (a0) block (i, t): the largest |x| of its share of tensor t's rows
+// (for_rows), as a float's bits, into parts[t][i].  8 columns a lane; bf16
+// magnitudes compare as unsigned integers (a NaN above every number).
+__global__ void __launch_bounds__(kConvThreads)
+absmax_kernel(const __grid_constant__ ConvArgs a, uint32_t* parts) {
+  const int col = 8 * (threadIdx.x & 15);
+  uint32_t m = 0;   // two bf16 magnitudes
+  if (col < a.D)
+    for_rows(a.t[blockIdx.y], [&](int64_t, const __nv_bfloat16* x0) {
+      const uint4 x = *reinterpret_cast<const uint4*>(x0 + col);
+      m = __vmaxu2(m, x.x & 0x7fff7fffu);
+      m = __vmaxu2(m, x.y & 0x7fff7fffu);
+      m = __vmaxu2(m, x.z & 0x7fff7fffu);
+      m = __vmaxu2(m, x.w & 0x7fff7fffu);
+    });
+  m = block_max(max(m & 0xffffu, m >> 16) << 16);
+  if (threadIdx.x == 0) parts[blockIdx.y * kConvBlocks + blockIdx.x] = m;
+}
+
+// (a1) block (i, t): its share of tensor t's (q, k or v) rows, times 2^e_t,
+// to fp16; block (0, 0) also writes the Fp16Scales.  Every block reduces the
+// partial maxima of all four tensors (4 KB), so that no launch of its own
+// has to.
+__global__ void __launch_bounds__(kConvThreads)
+convert_kernel(const __grid_constant__ ConvArgs a, const uint32_t* parts, Fp16Scales* sc, float scale,
+               float softcap, int has_softcap) {
+  __shared__ int e_s[4];
+  if (threadIdx.x < 4 * 32) {   // warp w: tensor w's partial maxima
+    const int w = threadIdx.x / 32;
+    uint32_t m = 0;
+    for (int i = threadIdx.x & 31; i < kConvBlocks; i += 32) m = max(m, parts[w * kConvBlocks + i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((threadIdx.x & 31) == 0) e_s[w] = fp16_exponent(m);
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    const int eq = e_s[0], ek = e_s[1], ev = e_s[2], ed = e_s[3];
+    const int ds = ev + ed + kPShift - kDsShift;   // dS's fp16 values are dS 2^ds
+    sc->mul_do = exp2i(ed);
+    sc->delta_mul = ldexpf(1.0f, ev + ed - kDsShift);
+    sc->s_log2 = ldexpf(scale * kLog2e, -(eq + ek));
+    sc->cap_scale = has_softcap ? ldexpf(scale / softcap, -(eq + ek)) : 0.0f;
+    sc->dq_mul = ldexpf(scale, -(ds + ek));
+    sc->dk_mul = ldexpf(scale, -(ds + eq));
+    sc->dv_mul = ldexpf(1.0f, -(kPShift + ed));
+  }
+  __half* out = a.out[blockIdx.y];
+  const float mul = exp2i(e_s[blockIdx.y]);
+  const int col = 8 * (threadIdx.x & 15);
+  if (col >= a.D) return;
+  for_rows(a.t[blockIdx.y], [&](int64_t row, const __nv_bfloat16* x0) {
+    const uint4 x = *reinterpret_cast<const uint4*>(x0 + col);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    uint4 h;
+    uint32_t* hw = reinterpret_cast<uint32_t*>(&h);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(x2[e]);
+      hw[e] = pack_f16(f.x * mul, f.y * mul);
+    }
+    *reinterpret_cast<uint4*>(out + row * a.D + col) = h;
+  });
+}
+
 // a 64 x 64 float32 accumulator as four k-steps of a bf16 A operand in two
 // parts: hi = d truncated to bf16 (its upper 16 bits, no conversion), lo =
 // bf16(d - hi), d - hi exact in float32, so hi + lo is d to ~2^-17.
@@ -227,11 +405,14 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* g, const float (&d)[32
   }
 }
 
-// (a) one warp a row of (B, Hq, Tq_pad): delta and lse2
+// (a) one warp a row of (B, Hq, Tq_pad): delta and lse2.  With f16 (the
+// D 65-128 passes) also do's fp16 copy, do 2^ed, into do16; delta goes in
+// the units of those passes' dP sums (delta_mul) and lse2 less kPShift,
+// so that exp2(x - lse2) is P 2^15.
 __global__ void __launch_bounds__(kStatThreads)
 stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, int64_t o_sb,
              int64_t o_sh, int64_t o_st, int64_t do_sb, int64_t do_sh, int64_t do_st,
-             int64_t rows) {
+             int64_t rows, const Fp16Scales* f16, __half* do16) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kStatThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -246,22 +427,27 @@ stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, 
           *reinterpret_cast<const uint4*>(dout + b * do_sb + h * do_sh + i * do_st + d);
       const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
       const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const float mul = f16 != nullptr ? f16->mul_do : 0.0f;
+      uint4 hv;
+      uint32_t* hw = reinterpret_cast<uint32_t*>(&hv);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float2 of = __bfloat1622float2(o2[e]);
         const float2 gf = __bfloat1622float2(g2[e]);
         acc = fmaf(of.x, gf.x, acc);
         acc = fmaf(of.y, gf.y, acc);
+        hw[e] = pack_f16(gf.x * mul, gf.y * mul);
       }
+      if (f16 != nullptr) *reinterpret_cast<uint4*>(do16 + (bh * p.Tq + i) * p.D + d) = hv;
     }
     const float l = p.lse[bh * p.Tq + i];
-    if (l != -CUDART_INF_F) l2 = l * kLog2e;
+    if (l != -CUDART_INF_F) l2 = l * kLog2e - (f16 != nullptr ? kPShift : 0);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
     p.lse2[row] = l2;
-    p.delta[row] = acc;
+    p.delta[row] = f16 != nullptr ? acc * f16->delta_mul : acc;
   }
 }
 
@@ -785,7 +971,7 @@ constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kThreads = kConsumerThreads + 128;  // (c): and one producer warpgroup
 constexpr int kBlockRows = kConsumers * kRows;    // keys a (b) block, query rows a (c) block
 constexpr int kNB = 2;                            // 64-column atoms of the head
-constexpr int kTile = kRows * kNB * kAtom * 2;    // one 64 x 128 bf16 tile, atom nb at 8 KB nb
+constexpr int kTile = kRows * kNB * kAtom * 2;    // one 64 x 128 fp16 tile, atom nb at 8 KB nb
 // setmaxnreg in (c): the producer gives up registers so that each consumer
 // thread holds 240; 24 + 2 x 240 is the 3 x 168 a thread the launch allocates
 constexpr int kProducerRegs = 24;
@@ -799,16 +985,97 @@ constexpr int kSmemKV = 1024 + 2 * kConsumers * kTile +
 constexpr int kSmemQ = 1024 + 2 * kConsumers * kTile + 2 * kStagesQ * kTile + 8 * (2 * kStagesQ + 1);
 static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
 
-// d = A B^T over the head's 128 columns, A and B 64-row K-major tiles of
-// two atoms; d an output only
+// d = A B^T over the head's 128 columns, A and B 64-row K-major fp16 tiles
+// of two atoms; d an output only
 __device__ __forceinline__ void gemm_ss128(float (&d)[32], uint32_t a, uint32_t b) {
   a = opaque(a);
   b = opaque(b);
-  wgmma_ss_first(d, desc(a), desc(b));
+  wgmma_ss_first_f16(d, desc(a), desc(b));
 #pragma unroll
   for (int kk = 1; kk < 8; ++kk) {
     const uint32_t off = (kk / 4) * kRows * 128 + (kk % 4) * 32;
-    wgmma_ss(d, desc(a + off), desc(b + off), 1);
+    wgmma_ss_f16(d, desc(a + off), desc(b + off), 1);
+  }
+}
+
+// a 64 x 64 float32 accumulator as four k-steps of an fp16 A operand, each
+// value rounded once (cvt.rn.f16x2.f32); register r of step kk holds
+// d[8 kk + 2 r], d[8 kk + 2 r + 1] (to_a's layout)
+__device__ __forceinline__ void to_a16(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_f16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// d += A . B over the head's 128 columns: A (64 x 64 fp16) from registers, B
+// a 64-row fp16 tile of two atoms read MN-major, one m64n128k16 a k-step
+__device__ __forceinline__ void gemm_rs128(float (&d)[kNB][32], const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n128_f16(d, a[kk], desc_mn(b + kk * 16 * 128, kRows * 128));
+}
+
+// P' = P 2^15 and dS' = P' (dP - delta) 2^-40 (times the softcap's
+// derivative) from the sums of S and dP over the fp16 copies, in place:
+// lse2 and delta are stats_kernel's for these passes, s_log2 and cap_scale
+// Fp16Scales'
+template <bool CAP>
+__device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2, float delta,
+                                          float s_log2, float cap_scale, const Params& p) {
+  if (CAP) {
+    const float t = tanhf(s * cap_scale);
+    const float pr = ex2(fmaf(t, p.cap_log2, -lse2));
+    dp = pr * fmaf(dp, kDpMul, -delta) * (1.0f - t * t);
+    s = pr;
+  } else {
+    const float pr = ex2(fmaf(s, s_log2, -lse2));
+    dp = pr * fmaf(dp, kDpMul, -delta);
+    s = pr;
+  }
+}
+
+// (b) one tile: d64::kv_probs over grad_elem above
+template <bool CAP>
+__device__ __forceinline__ void kv_probs(float (&st)[32], float (&dpt)[32], const float* lse2,
+                                         const float* delta, int c2, const Params& p,
+                                         float s_log2, float cap_scale, bool edge, int64_t qa,
+                                         int64_t k0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + c2);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      grad_elem<CAP>(st[4 * j + e], dpt[4 * j + e], (e & 1) ? l.y : l.x, (e & 1) ? dl.y : dl.x,
+                     s_log2, cap_scale, p);
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool on = d64::live(p, qa + (i / 4) * 8 + c2 + (i & 1), k0 + ((i & 2) ? 8 : 0));
+      st[i] = on ? st[i] : 0.0f;
+      dpt[i] = on ? dpt[i] : 0.0f;
+    }
+  }
+}
+
+// (c) one tile: d64::q_probs over grad_elem above (dS' in sc)
+template <bool CAP>
+__device__ __forceinline__ void q_probs(float (&sc)[32], float (&dp)[32], float l0, float l1,
+                                        float d0, float d1, int c2, const Params& p,
+                                        float s_log2, float cap_scale, bool edge, int64_t pos0,
+                                        int64_t pos1, int64_t kt) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    grad_elem<CAP>(sc[i], dp[i], (i & 2) ? l1 : l0, (i & 2) ? d1 : d0, s_log2, cap_scale, p);
+    sc[i] = dp[i];
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (!d64::live(p, (i & 2) ? pos1 : pos0, kt + (i / 4) * 8 + c2 + (i & 1))) sc[i] = 0.0f;
   }
 }
 
@@ -824,7 +1091,7 @@ template <bool CAP>
 __global__ void __launch_bounds__(kConsumerThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-            const Params p) {
+            const Params p, const Fp16Scales* __restrict__ f16) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;                               // kConsumers k tiles
@@ -922,7 +1189,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[nb][i] = dv[nb][i] = 0.0f;
   float st[32], dpt[32];
-  uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];   // P^T and dS^T in two bf16 parts
+  uint32_t ph[4][4], sh[4][4];   // P'^T and dS'^T in fp16
+  const float s_log2 = f16->s_log2;
+  const float cap_scale = CAP ? f16->cap_scale : 0.0f;
   const uint32_t k_base = smem_u32(ks + wg * kTile);
   const uint32_t v_base = smem_u32(vs + wg * kTile);
   mbar_wait(kbar, 0);
@@ -932,12 +1201,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     gemm_ss128(st, k_base, q_s0 + s * kTile);
     gemm_ss128(dpt, v_base, do_s0 + s * kTile);
   };
-  // dV += P^T dO, dK += dS^T Q of the tile in stage s, atom by atom
+  // dV += P'^T dO, dK += dS'^T Q of the tile in stage s
   auto issue_grad = [&](int s) {
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) gemm_rs(dv[nb], ph, pl, do_s0 + s * kTile, nb);
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) gemm_rs(dk[nb], sh, sl, q_s0 + s * kTile, nb);
+    gemm_rs128(dv, ph, do_s0 + s * kTile);
+    gemm_rs128(dk, sh, q_s0 + s * kTile);
   };
   auto fence_grad = [&]() {
 #pragma unroll
@@ -946,16 +1213,14 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       reg_fence(dk[nb]);
     }
     d64::fence_parts(ph);
-    d64::fence_parts(pl);
     d64::fence_parts(sh);
-    d64::fence_parts(sl);
   };
   // this warp has finished reading stage s
   auto release = [&](int s) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   };
-  // P^T and dS^T of the tile in stage s, query tile qt, in two bf16 parts
+  // P'^T and dS'^T of the tile in stage s, query tile qt, in fp16
   auto probs = [&](int s, int qt) {
     reg_fence(st);
     reg_fence(dpt);
@@ -964,16 +1229,17 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;  // last row
     const bool edge = !(kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
                         (!p.has_window || kw > qb - p.window));
-    d64::kv_probs<CAP>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa,
-                       kw + r0);
-    to_a(st, ph, pl);
-    to_a(dpt, sh, sl);
+    kv_probs<CAP>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, s_log2, cap_scale, edge,
+                  qa, kw + r0);
+    to_a16(st, ph);
+    to_a16(dpt, sh);
   };
 
   // The turns of d64::dkdv_kernel: in its turn a consumer runs the previous
   // tile's dV and dK, waits for them, issues this tile's S^T and dP^T and
-  // passes the turn.  (The two accumulators, S^T, dP^T and the previous
-  // tile's parts together would be 256 registers.)
+  // passes the turn.  (Issued together, the two accumulators, S^T, dP^T and
+  // the previous tile's P'^T and dS'^T are 224 registers of operands:
+  // ptxas spilled at 255 and the pass ran 3-4 % slower; PERF.md.)
   const int mine = 1 + wg;
   const int other = 1 + (wg ^ 1);
   if (n_iter > 0) {
@@ -1025,10 +1291,11 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 
   const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
+  const float dk_mul = f16->dk_mul, dv_mul = f16->dv_mul;
 #pragma unroll
   for (int nb = 0; nb < kNB; ++nb) {
-    store_rows(p.dk + off, dk[nb], nb, c2, kw + r0, p.Tk, p.D, p.scale);
-    store_rows(p.dv + off, dv[nb], nb, c2, kw + r0, p.Tk, p.D, 1.0f);
+    store_rows(p.dk + off, dk[nb], nb, c2, kw + r0, p.Tk, p.D, dk_mul);
+    store_rows(p.dv + off, dv[nb], nb, c2, kw + r0, p.Tk, p.D, dv_mul);
   }
 }
 
@@ -1038,7 +1305,7 @@ template <bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-          const Params p) {
+          const Params p, const Fp16Scales* __restrict__ f16) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;                               // kConsumers q tiles
@@ -1133,7 +1400,9 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[nb][i] = 0.0f;
   float sc[32], dp[32];
-  uint32_t dh[4][4], dl[4][4];   // dS in two bf16 parts
+  uint32_t dh[4][4];   // dS' in fp16
+  const float s_log2 = f16->s_log2;
+  const float cap_scale = CAP ? f16->cap_scale : 0.0f;
   const uint32_t q_base = smem_u32(qs + wg * kTile);
   const uint32_t do_base = smem_u32(dos + wg * kTile);
   mbar_wait(qbar, 0);
@@ -1143,16 +1412,12 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     gemm_ss128(sc, q_base, k_s0 + s * kTile);
     gemm_ss128(dp, do_base, v_s0 + s * kTile);
   };
-  // dQ += dS K of the tile in stage s, atom by atom
-  auto issue_grad = [&](int s) {
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) gemm_rs(dq[nb], dh, dl, k_s0 + s * kTile, nb);
-  };
+  // dQ += dS' K of the tile in stage s
+  auto issue_grad = [&](int s) { gemm_rs128(dq, dh, k_s0 + s * kTile); };
   auto fence_grad = [&]() {
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb) reg_fence(dq[nb]);
     d64::fence_parts(dh);
-    d64::fence_parts(dl);
   };
   auto release = [&](int s) {
     __syncwarp();
@@ -1164,14 +1429,15 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
     const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
                         (!p.has_window || kt > qb - p.window));
-    d64::q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt);
-    to_a(sc, dh, dl);
+    q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, s_log2, cap_scale, edge, pos0, pos1, kt);
+    to_a16(sc, dh);
   };
 
   // the turns of dkdv_kernel, over key tiles: the previous tile's dQ, a
-  // wait, then this tile's S and dP (issued together, the accumulator, the
-  // previous dS in two parts, S and dP would be 160 registers in flight,
-  // over what ptxas plans the wgmma pipeline for at 384 threads)
+  // wait, then this tile's S and dP.  Issued together (the accumulator, the
+  // previous dS, S and dP: 144 registers in flight) they made ptxas
+  // serialise every wgmma of the pass at 384 threads (C7512), and the pass
+  // took 2.33 ms against 1.22 at olmo's training shape (PERF.md)
   const int mine = 1 + wg;
   const int other = 1 + (wg ^ 1);
   if (n_tiles > 0) {
@@ -1218,15 +1484,17 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   }
 
   __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
+  const float dq_mul = f16->dq_mul;
 #pragma unroll
-  for (int nb = 0; nb < kNB; ++nb) store_rows(dqg, dq[nb], nb, c2, wq0 + r0, p.Tq, p.D, p.scale);
+  for (int nb = 0; nb < kNB; ++nb) store_rows(dqg, dq[nb], nb, c2, wq0 + r0, p.Tq, p.D, dq_mul);
 }
 
 // (the kernels' names qualified: d64::Params would bring d64's in by
 // argument-dependent lookup)
 template <bool CAP>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
+           const CUtensorMap& dom, const Params& p, const Fp16Scales* f16, int64_t B,
+           cudaStream_t stream) {
   static bool configured = false;   // the attributes are per kernel, set once
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(d128::dkdv_kernel<CAP>,
@@ -1238,12 +1506,12 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   }
   const dim3 grid_kv(static_cast<unsigned>((p.Tk + kBlockRows - 1) / kBlockRows),
                      static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
-  d128::dkdv_kernel<CAP><<<grid_kv, kConsumerThreads, kSmemKV, stream>>>(qm, km, vm, dom, p);
+  d128::dkdv_kernel<CAP><<<grid_kv, kConsumerThreads, kSmemKV, stream>>>(qm, km, vm, dom, p, f16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(static_cast<unsigned>((p.Tq + kBlockRows - 1) / kBlockRows),
                     static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  d128::dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p);
+  d128::dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p, f16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1741,31 +2009,48 @@ int blocks(int64_t* out, int64_t keys, int64_t splits, int64_t kv_threads, int64
 // contiguous float32 (B, Hq, Tq), the forward's row log-sum-exp (-inf where
 // a row sees no key); stats: contiguous float32 scratch of 2 x B x Hq x
 // Tq_pad (Tq_pad = Tq rounded up to 64), 16-byte aligned; dq, dk, dv:
-// contiguous, of q's, k's and v's shapes, bfloat16.  8 <= D <= 256 with D a
-// multiple of 8, Hq a multiple of Hkv, Tk >= 1.  Launches three kernels on
-// `stream`; returns the first cudaError_t (0 on success;
-// cudaErrorInvalidValue for arguments the kernel does not take or a tensor
-// map CUDA refuses).  The caller checks shapes, types and devices.
+// contiguous, of q's, k's and v's shapes, bfloat16.  At 64 < D <= 128 also
+// q16, k16, v16, do16: contiguous fp16 scratch of q's, k's, v's and q's
+// shapes, and aux: float32 scratch of kAuxFloats, all 16-byte aligned (null
+// at other widths).  8 <= D <= 256 with D a multiple of 8, Hq a multiple of
+// Hkv, Tk >= 1.  Launches three kernels on `stream` (five at 64 < D <= 128:
+// the maxima and q, k, v's conversion first); returns the first cudaError_t
+// (0 on success; cudaErrorInvalidValue for arguments the kernel does not
+// take or a tensor map CUDA refuses).  The caller checks shapes, types and
+// devices.
 extern "C" int flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* stats, void* dq, void* dk, void* dv, int64_t B, int64_t Hq,
-    int64_t Hkv, int64_t Tq, int64_t Tk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_st,
-    int64_t k_sb, int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st,
-    int64_t o_sb, int64_t o_sh, int64_t o_st, int64_t do_sb, int64_t do_sh, int64_t do_st,
-    int causal, int has_window, int64_t window, int64_t q_offset, int has_softcap,
-    float softcap, float scale, void* stream) {
+    const void* lse, void* stats, void* dq, void* dk, void* dv, void* q16, void* k16,
+    void* v16, void* do16, void* aux, int64_t B, int64_t Hq, int64_t Hkv, int64_t Tq,
+    int64_t Tk, int64_t D, int64_t q_sb, int64_t q_sh, int64_t q_st, int64_t k_sb,
+    int64_t k_sh, int64_t k_st, int64_t v_sb, int64_t v_sh, int64_t v_st, int64_t o_sb,
+    int64_t o_sh, int64_t o_st, int64_t do_sb, int64_t do_sh, int64_t do_st, int causal,
+    int has_window, int64_t window, int64_t q_offset, int has_softcap, float softcap,
+    float scale, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 ||
       Hkv > 65535 || B > 65535 || Tk < 1 || Tq > 0x7fffff00 || Tk > 0x7fffffff)
     return static_cast<int>(bad);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   const int64_t DP = (D + 63) / 64 * 64;
-  CUtensorMap qm, km, vm, dom;
-  if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, kRows) ||
-      !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, kRows) ||
-      !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, kRows) ||
-      !make_map(&dom, dout, D, Tq, Hq, B, do_st, do_sh, do_sb, kRows))
+  const bool f16 = DP == 128;
+  if (f16 && (q16 == nullptr || k16 == nullptr || v16 == nullptr || do16 == nullptr ||
+              aux == nullptr))
     return static_cast<int>(bad);
+  CUtensorMap qm, km, vm, dom;
+  if (f16) {   // the fp16 copies, contiguous
+    const CUtensorMapDataType h = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    if (!make_map(&qm, q16, D, Tq, Hq, B, D, Tq * D, Hq * Tq * D, kRows, h) ||
+        !make_map(&km, k16, D, Tk, Hkv, B, D, Tk * D, Hkv * Tk * D, kRows, h) ||
+        !make_map(&vm, v16, D, Tk, Hkv, B, D, Tk * D, Hkv * Tk * D, kRows, h) ||
+        !make_map(&dom, do16, D, Tq, Hq, B, D, Tq * D, Hq * Tq * D, kRows, h))
+      return static_cast<int>(bad);
+  } else if (!make_map(&qm, q, D, Tq, Hq, B, q_st, q_sh, q_sb, kRows) ||
+             !make_map(&km, k, D, Tk, Hkv, B, k_st, k_sh, k_sb, kRows) ||
+             !make_map(&vm, v, D, Tk, Hkv, B, v_st, v_sh, v_sb, kRows) ||
+             !make_map(&dom, dout, D, Tq, Hq, B, do_st, do_sh, do_sb, kRows)) {
+    return static_cast<int>(bad);
+  }
   Params p;
   p.Tq_pad = (Tq + kRows - 1) / kRows * kRows;
   const int64_t stat_rows = B * Hq * p.Tq_pad;
@@ -1780,30 +2065,49 @@ extern "C" int flash_attention_bwd_sm90(
   p.causal = causal; p.has_window = has_window; p.has_softcap = has_softcap;
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* parts = static_cast<uint32_t*>(aux);
+  Fp16Scales* sc = f16 ? reinterpret_cast<Fp16Scales*>(parts + 4 * kConvBlocks) : nullptr;
+  if (f16) {
+    const auto src = [](const void* x, int64_t sb, int64_t sh, int64_t st, int64_t H,
+                        int64_t T, int64_t B) {
+      return Src16{static_cast<const __nv_bfloat16*>(x), sb, sh, st, H, T, B * H * T};
+    };
+    const ConvArgs a{{src(q, q_sb, q_sh, q_st, Hq, Tq, B), src(k, k_sb, k_sh, k_st, Hkv, Tk, B),
+                      src(v, v_sb, v_sh, v_st, Hkv, Tk, B),
+                      src(dout, do_sb, do_sh, do_st, Hq, Tq, B)},
+                     {static_cast<__half*>(q16), static_cast<__half*>(k16),
+                      static_cast<__half*>(v16), static_cast<__half*>(do16)},
+                     D};
+    absmax_kernel<<<dim3(kConvBlocks, 4), kConvThreads, 0, s>>>(a, parts);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    convert_kernel<<<dim3(kConvBlocks, 3), kConvThreads, 0, s>>>(a, parts, sc, scale, softcap,
+                                                                  has_softcap);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int64_t warps = kStatThreads / 32;
   stats_kernel<<<static_cast<unsigned>((stat_rows + warps - 1) / warps), kStatThreads, 0, s>>>(
       p, static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), o_sb,
-      o_sh, o_st, do_sb, do_sh, do_st, stat_rows);
+      o_sh, o_st, do_sb, do_sh, do_st, stat_rows, sc, static_cast<__half*>(do16));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const d64::Params n = narrow(p);
   switch (DP) {
-    case 64: {
-      const d64::Params n = narrow(p);
+    case 64:
       return p.has_softcap ? d64::launch<true>(qm, km, vm, dom, n, B, s)
                            : d64::launch<false>(qm, km, vm, dom, n, B, s);
-    }
-    case 128: {
-      const d64::Params n = narrow(p);
-      return p.has_softcap ? d128::launch<true>(qm, km, vm, dom, n, B, s)
-                           : d128::launch<false>(qm, km, vm, dom, n, B, s);
-    }
-    default: {
-      const d64::Params n = narrow(p);
+    case 128:
+      return p.has_softcap ? d128::launch<true>(qm, km, vm, dom, n, sc, B, s)
+                           : d128::launch<false>(qm, km, vm, dom, n, sc, B, s);
+    default:
       return p.has_softcap ? d256::launch<true>(qm, km, vm, dom, n, B, s)
                            : d256::launch<false>(qm, km, vm, dom, n, B, s);
-    }
   }
 }
+
+// the floats of the scratch `aux` at 64 < D <= 128
+extern "C" int flash_attention_bwd_sm90_aux_floats() { return kAuxFloats; }
 
 // The blocks of both passes at head width D (8 <= D <= 256), which the
 // wrapper mirrors (flash_attention_bwd_sm90.py::block_config): out[0..7] =

@@ -2,16 +2,19 @@
 // (flash_attention_sm90.cu, forward; flash_attention_bwd_sm90.cu, backward):
 // mbarriers, named barriers, TMA loads of 128-byte swizzled 64-column bf16
 // atoms through a 4-d (D, T, heads, batch) tensor map, wgmma descriptors,
-// the wgmma forms the kernels use (m64n64k16 with A from shared memory or
-// registers, m64n128k16 and m64n32k16 with both from shared memory, B K- or
-// (m64n128k16) MN-major; float32 accumulators), register reallocation between
-// warpgroups, and the tensor map's encoding through the CUDA runtime.
+// the wgmma forms the kernels use (bf16: m64n64k16 with A from shared memory
+// or registers, m64n128k16 and m64n32k16 with both from shared memory, B K-
+// or (m64n128k16) MN-major; fp16: m64n64k16 from shared memory and
+// m64n128k16 with A from registers and B MN-major; float32 accumulators),
+// register reallocation between warpgroups, and the tensor map's encoding
+// through the CUDA runtime.
 // Included once per source, each built into its own library.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -314,6 +317,65 @@ __device__ __forceinline__ void wgmma_ss_tb_n128(float (&d)[2][32], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// wgmma_ss and wgmma_ss_first on fp16 operands
+__device__ __forceinline__ void wgmma_ss_f16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_first_f16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d (64 x 128 float32, two 64-column halves) += A (64 x 16 fp16, four
+// registers a thread in the layout of a float32 accumulator's 16 columns) .
+// B (16 x 128 fp16, shared memory, MN-major: two 64-column atoms, desc_mn)
+__device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[2][32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[0][4]), "+f"(d[0][5]),
+        "+f"(d[0][6]), "+f"(d[0][7]), "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]), "+f"(d[0][16]),
+        "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]), "+f"(d[0][20]), "+f"(d[0][21]),
+        "+f"(d[0][22]), "+f"(d[0][23]), "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]),
+        "+f"(d[0][27]), "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[1][4]), "+f"(d[1][5]),
+        "+f"(d[1][6]), "+f"(d[1][7]), "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]), "+f"(d[1][16]),
+        "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]),
+        "+f"(d[1][22]), "+f"(d[1][23]), "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]),
+        "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // makes this thread's ordinary stores to shared memory visible to the
 // asynchronous proxy (wgmma operands, TMA), once a barrier orders them
 __device__ __forceinline__ void fence_async_shared() {
@@ -322,6 +384,13 @@ __device__ __forceinline__ void fence_async_shared() {
 
 // two floats as the packed bf16 pair of a wgmma A register (first in the low half)
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// two floats as the packed fp16 pair of a wgmma A register (first in the low
+// half), each rounded once to nearest (cvt.rn.f16x2.f32)
+__device__ __forceinline__ uint32_t pack_f16(float a, float b) {
+  __half2 x = __floats2half2_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
@@ -360,12 +429,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// (D, T, heads, batch) bf16 view with element strides st, sh, sb; boxes of
-// 64 columns x `rows` rows, 128-byte swizzled, zeros past every edge.  A
+// (D, T, heads, batch) view of 16-bit elements (bf16 unless `type` says
+// otherwise) with element strides st, sh, sb; boxes of 64 columns x `rows`
+// rows, 128-byte swizzled, zeros past every edge.  A
 // dimension of size 1 is never stepped, so its stride is replaced by a
 // valid one (TMA wants strides that are multiples of 16 bytes).
 bool make_map(CUtensorMap* map, const void* base, int64_t D, int64_t T, int64_t H, int64_t B,
-              int64_t st, int64_t sh, int64_t sb, int rows) {
+              int64_t st, int64_t sh, int64_t sb, int rows,
+              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const int64_t dummy = (D * 2 + 15) / 16 * 16;
@@ -376,7 +447,7 @@ bool make_map(CUtensorMap* map, const void* base, int64_t D, int64_t T, int64_t 
                                  static_cast<cuuint64_t>(B == 1 ? dummy : sb * 2)};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(kAtom), static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

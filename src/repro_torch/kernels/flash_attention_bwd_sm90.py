@@ -11,27 +11,36 @@ rowsum(do * o)`` with the row lse in log2 units; one block per key block
 of a kv head that walks the query heads and 64-row tiles seeing its keys
 and writes dK and dV once; one block per query-row block of a query head
 that walks the live 64-key tiles and writes dQ once.  Each recomputes S
-and dP, and every product (S, dP, dV, dK, dQ) is a ``wgmma`` on bf16
-tiles that TMA loads, with float32 sums.  No atomics: two calls on one
-input give bit-equal gradients.  Its plain version is
+and dP, and every product (S, dP, dV, dK, dQ) is a ``wgmma`` on tiles
+that TMA loads, with float32 sums.  No atomics: two calls on one input
+give bit-equal gradients.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention_backward``.
 
 At a head width up to 64 (seamless's) each block is a producer warp that
 issues every load and two consumer warpgroups of 64 keys or rows that take
 turns at the tensor cores, so one's elementwise work runs while the other's
-products run; from 65 to 128 (danube's 120) two such consumer warpgroups
-over the head's two 64-column atoms, the dQ pass's beside a producer
-warpgroup, the dK/dV pass's alone (one of their threads issues the loads);
-from 136 to 256 (recurrentgemma's 256) two consumer warpgroups over one
-64-row tile of keys or query rows, each holding half of the gradient's
+products run; from 65 to 128 (danube's 120, olmo's 128) two such consumer
+warpgroups over the head's two 64-column atoms, the dQ pass's beside a
+producer warpgroup, the dK/dV pass's alone (one of their threads issues the
+loads); from 136 to 256 (recurrentgemma's 256) two consumer warpgroups over
+one 64-row tile of keys or query rows, each holding half of the gradient's
 columns and computing half of each tile's S and dP, whose bf16 parts both
-read from shared memory.  :func:`block_config`
-gives each, as the kernel's ``flash_attention_bwd_sm90_blocks`` reports
-them (:func:`kernel_blocks`).
+read from shared memory.  :func:`block_config` gives each, as the kernel's
+``flash_attention_bwd_sm90_blocks`` reports them (:func:`kernel_blocks`).
+
+From 65 to 128 every product runs on fp16 operands: two more launches
+first take the largest |x| of q, k, v and do and write fp16 copies of q, k
+and v, each times a power of two of its own (:func:`fp16_exponent`; the
+stats launch converts do), and P and dS go to the tensor cores rounded once
+to fp16, where the other widths carry them as two bf16 parts.
+:func:`fp16_copy` is the conversion's plain version.  The wrapper allocates
+the copies and the conversion's scratch (its size the library's
+``flash_attention_bwd_sm90_aux_floats``).
 
 ``launches`` counts the wrapper's calls that launch the kernel (one a
-backward, its three launches together), and nothing else; a run reads it
-to show that its path went through the kernel.
+backward, its three or five launches together), and nothing else;
+``fp16_launches`` the calls among them that converted to fp16.  A run
+reads them to show that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -45,8 +54,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _fa
 
 launches = 0
+fp16_launches = 0
 
 _fn = None
+_aux_floats = None   # the float32 scratch of the fp16 conversion, as the library reports it
 
 _ROWS = 64   # the kernel's tile rows: the scratch pads Tq to a multiple of it
 
@@ -81,6 +92,31 @@ def block_config(D: int) -> Blocks:
     return Blocks(64, 1, 256, 64, 256, _ROWS, _ROWS, _ROWS)
 
 
+def converts_to_fp16(D: int) -> bool:
+    """Whether the kernel runs its products on fp16 copies at head width ``D``."""
+    return 64 < D <= 128
+
+
+def fp16_exponent(amax: torch.Tensor) -> torch.Tensor:
+    """The power of two ``e`` (int32, ``amax``'s shape) by which the kernel
+    multiplies a bf16 tensor whose largest magnitude is ``amax`` (a bf16
+    value) before rounding it to fp16: ``2^15 <= amax 2^e <= 65280``, so
+    nothing overflows fp16's 65504 and every value of ``2^-32 amax`` or
+    more converts exactly (a bf16 value has 8 significant bits, fp16's
+    subnormals are multiples of 2^-24); at most 127, where ``amax`` is 0 or
+    below 2^-112.  ``csrc/flash_attention_bwd_sm90.cu::fp16_exponent``
+    mirrors it on the float's bits."""
+    e8 = (amax.float().abs().view(torch.int32) >> 23) & 0xFF
+    return torch.where(e8 == 0, 127, (142 - e8).clamp(max=127)).to(torch.int32)
+
+
+def fp16_copy(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the kernel's conversion of a bf16 tensor: (``x
+    2^e`` rounded to fp16, ``e``), ``e = fp16_exponent(max |x|)``."""
+    e = fp16_exponent(x.abs().max())
+    return (x.float() * torch.exp2(e.float())).half(), e
+
+
 def stats_shape(B: int, Hq: int, Tq: int, D: int) -> Tuple[int, int, int, int]:
     """The float32 scratch of lse2 and delta: (2, B, Hq, Tq padded)."""
     pad = block_config(D).pad
@@ -99,11 +135,15 @@ def kernel_blocks(D: int) -> Blocks:
 
 
 def _kernel():
-    global _fn
+    global _fn, _aux_floats
     if _fn is None:
-        fn = build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90
+        lib = build.load("flash_attention_bwd_sm90")
+        aux = lib.flash_attention_bwd_sm90_aux_floats
+        aux.argtypes, aux.restype = [], ctypes.c_int
+        _aux_floats = aux()
+        fn = lib.flash_attention_bwd_sm90
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([ptr] * 10 + [i64] * 6 + [i64] * 15
+        fn.argtypes = ([ptr] * 15 + [i64] * 6 + [i64] * 15
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
@@ -165,7 +205,7 @@ def flash_attention_bwd_sm90_cuda(
     tensors, unit stride in D, D a multiple of 8, strides multiples of 8;
     lse: contiguous float32 (B, Hq, Tq), the forward's row log-sum-exp ->
     contiguous bfloat16 (dq, dk, dv)."""
-    global launches
+    global launches, fp16_launches
     _check(q, k, v, o, lse, do)
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
     if dq.numel() == 0 or k.shape[2] == 0:   # no row, or no key: every row fully masked
@@ -174,10 +214,15 @@ def flash_attention_bwd_sm90_cuda(
     fn = _kernel()
     B, Hq, Tq, D = q.shape
     stats = torch.empty(stats_shape(B, Hq, Tq, D), dtype=torch.float32, device=q.device)
+    f16 = converts_to_fp16(D)
+    # the fp16 copies of q, k, v and do and the conversion's scratch
+    half = ([torch.empty(t.shape, dtype=torch.float16, device=t.device) for t in (q, k, v, do)]
+            + [torch.empty(_aux_floats, dtype=torch.float32, device=q.device)]) if f16 else []
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 *([t.data_ptr() for t in half] if f16 else [None] * 5),
                  B, Hq, k.shape[1], Tq, k.shape[2], D,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  *do.stride()[:3],
@@ -187,4 +232,5 @@ def flash_attention_bwd_sm90_cuda(
         raise RuntimeError(f"flash_attention_bwd_sm90: kernel launch failed with CUDA error "
                            f"{err}")
     launches += 1
+    fp16_launches += f16
     return dq, dk, dv

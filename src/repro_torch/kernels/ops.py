@@ -329,7 +329,15 @@ def split_launches() -> int:
     return _fa90.split_launches
 
 
+def bwd_fp16_launches() -> int:
+    """``flash_attention_bwd_sm90`` calls since the last
+    :func:`reset_launch_counts` that ran their products on fp16 copies
+    (head widths 65-128: two more launches, the maxima and the conversion)."""
+    return _fab90.fp16_launches
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
     _fa90.split_launches = 0
+    _fab90.fp16_launches = 0

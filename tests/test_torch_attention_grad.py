@@ -26,7 +26,14 @@ These tests hold, with inputs made by numpy from a seed:
   reduced recurrentgemma's gradients at 1e-5, its scan recorded by the
   custom op;
 * the dry run: a fake-tensor train step past 4096 kv positions traces,
-  counting the backward's 8 B Hq D FLOPs a live pair.
+  counting the backward's 8 B Hq D FLOPs a live pair;
+* the bf16 backward's fp16 operands at head widths 65-128: its scale rule
+  (``flash_attention_bwd_sm90.fp16_exponent``) converts every bf16 value
+  within 2^-30 of a tensor's largest exactly and overflows nowhere, and a
+  float32 emulation of the kernel's arithmetic (scaled fp16 copies, P and
+  dS rounded once to fp16) stays within ``chip_smoke.py``'s backward limit
+  (2^-7 |want| + 1e-3 max|want|) of the plain backward at the shapes of
+  its ``FLASH_D128_CASES``.
 """
 
 import numpy as np
@@ -491,6 +498,7 @@ def test_backward_blocks_follow_the_kernels_configurations(shape, blocks, stats)
     B, Hq, Tq, D = shape
     assert tuple(tfab90.block_config(D)) == blocks
     assert tfab90.stats_shape(B, Hq, Tq, D) == stats
+    assert tfab90.converts_to_fp16(D) == (blocks == _D128)   # the 65-128 passes alone
 
 
 @pytest.mark.parametrize("D", [0, 12, 68, 124, 132, 264])
@@ -523,3 +531,128 @@ def test_float32_backward_blocks_refuse_widths_the_kernel_does_not_take(D):
     from repro_torch.kernels import flash_attention_bwd as tfab
     with pytest.raises(ValueError):
         tfab.block_config(D)
+
+
+# -------------------- the fp16 operands of the bf16 backward at 65-128
+def _bf16_values(top):
+    """Every finite bf16 value of magnitude ``top`` (a bf16 value) or less,
+    both signs, as a bf16 tensor."""
+    bits = torch.arange(0, 0x8000, dtype=torch.int32)
+    x = (bits << 16).view(torch.float32).to(torch.bfloat16)   # exact: the low bits are 0
+    x = x[torch.isfinite(x) & (x.float() <= float(top))]
+    return torch.cat([x, -x])
+
+
+@pytest.mark.parametrize("top", [1e-8, 1.0, 3e38])
+def test_fp16_scale_converts_near_the_max_exactly_and_never_overflows(top):
+    """The kernel's conversion of a bf16 tensor to fp16 (``fp16_copy``: times
+    2^e, ``fp16_exponent`` of its largest magnitude): back in float32 every
+    value within 2^-30 of the largest is exact, and no value overflows fp16
+    (at largest magnitudes 1e-8, 1, and 3e38, far above fp16's 65504)."""
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+    m = torch.tensor(top, dtype=torch.bfloat16)
+    x = _bf16_values(m)
+    h, e = tfab90.fp16_copy(x)
+    assert h.dtype == torch.float16 and bool(torch.isfinite(h).all())
+    assert float(h.float().abs().max()) <= 65280.0            # fp16's largest is 65504
+    assert int(e) == int(tfab90.fp16_exponent(m)) == 15 - int(np.floor(np.log2(float(m))))
+    back = h.float() * torch.exp2(-e.float())
+    near = x.float().abs() >= float(m) * 2.0 ** -30
+    assert int(near.sum()) > 60 * 128                         # 30 binades, 128 values each
+    assert torch.equal(back[near], x.float()[near])
+
+
+def test_fp16_exponent_stays_in_range():
+    """Zero and magnitudes below 2^-112 take 2^127 (the largest the kernel
+    multiplies by); the rest 15 - floor(log2 max)."""
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+    m = torch.tensor([0.0, 2.0 ** -120, 2.0 ** -112, 2.0 ** -100, 1.5, 65504.0, 3e38])
+    assert tfab90.fp16_exponent(m).tolist() == [127, 127, 127, 115, 15, 0, -112]
+
+
+def _emulated_fp16_backward(q, k, v, o, lse, do, causal=True, window=None, q_offset=0,
+                            softcap=None):
+    """The arithmetic of ``csrc/flash_attention_bwd_sm90.cu``'s passes at
+    head widths 65-128, in float32 on the CPU: S and dP from the scaled fp16
+    copies (exact products, float32 sums), P' = P 2^15 from the stats
+    launch's lse less 15 (log2 units), dS' = P' (dP 2^-40 - delta 2^(ev + ed
+    - 40)), P' and dS' rounded once to fp16, the three gradients' sums
+    scaled back; bf16 gradients."""
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk, G = k.shape[1], k.shape[2], Hq // k.shape[1]
+    (q16, eq), (k16, ek), (v16, ev), (do16, ed) = (tfab90.fp16_copy(t) for t in (q, k, v, do))
+    eq, ek, ev, ed = (int(e) for e in (eq, ek, ev, ed))
+    scale, log2e = D ** -0.5, 1.4426950408889634
+    qf = q16.float().reshape(B, Hkv, G, Tq, D)
+    dof = do16.float().reshape(B, Hkv, G, Tq, D)
+    kf, vf = k16.float()[:, :, None], v16.float()[:, :, None]
+    s = qf @ kf.transpose(-1, -2)                                  # (B, Hkv, G, Tq, Tk)
+    lse2 = (lse.float() * log2e - 15).reshape(B, Hkv, G, Tq, 1)
+    lse2 = torch.where(torch.isinf(lse2), torch.inf, lse2)         # dead rows: P = 0
+    if softcap is None:
+        p = torch.exp2(s * (scale * log2e * 2.0 ** -(eq + ek)) - lse2)
+    else:
+        t = torch.tanh(s * (scale / softcap * 2.0 ** -(eq + ek)))
+        p = torch.exp2(t * (softcap * log2e) - lse2)
+    qpos = q_offset + torch.arange(Tq)[:, None]
+    kpos = torch.arange(Tk)[None, :]
+    live = torch.ones(Tq, Tk, dtype=torch.bool)
+    if causal:
+        live &= kpos <= qpos
+    if window is not None:
+        live &= kpos > qpos - window
+    p = torch.where(live, p, 0.0)
+    delta = (do.float() * o.float()).sum(-1).reshape(B, Hkv, G, Tq, 1) * 2.0 ** (ev + ed - 40)
+    ds = p * (dof @ vf.transpose(-1, -2) * 2.0 ** -40 - delta)
+    if softcap is not None:
+        ds = ds * (1 - t * t)
+    p16, ds16 = p.half().float(), ds.half().float()
+    e_ds = ev + ed + 15 - 40                                       # dS' = dS 2^e_ds
+    dq = (ds16 @ kf) * (scale * 2.0 ** -(e_ds + ek))
+    dk = (ds16.transpose(-1, -2) @ qf).sum(2) * (scale * 2.0 ** -(e_ds + eq))
+    dv = (p16.transpose(-1, -2) @ dof).sum(2) * 2.0 ** -(15 + ed)
+    return (dq.reshape(B, Hq, Tq, D).bfloat16(), dk.bfloat16(), dv.bfloat16())
+
+
+# chip_smoke.py's FLASH_D128_CASES at head widths 65-128 (B, Hq, Hkv, Tq, Tk,
+# D, mask)
+_D128_CASES = [
+    (1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
+    (1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
+    (1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=100, softcap=20.0)),
+    (2, 4, 4, 130, 333, 128, dict(causal=False)),
+    (1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=-40)),
+    (1, 8, 2, 321, 1500, 128, dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
+    (1, 8, 2, 1, 1000, 96, dict(causal=False)),
+    (1, 4, 4, 1100, 1100, 128, dict(causal=True)),
+]
+# input scales (q, k, v, do): do at O(1) and at a mean loss's gradient size;
+# q above fp16's largest value with k below its normal range, scores unchanged
+# (and the other way round); v below fp16's normal range
+_FP16_SCALES = {"do 1": (1, 1, 1, 1), "do 2^-16": (1, 1, 1, 2.0 ** -16),
+                "q 1e5 k 1e-5": (1e5, 1e-5, 1, 1), "q 1e-5 k 1e5": (1e-5, 1e5, 1, 1),
+                "v 1e-6": (1, 1, 1e-6, 1)}
+
+
+@pytest.mark.parametrize("scales", list(_FP16_SCALES))
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _D128_CASES)
+def test_fp16_backward_emulation_within_the_chip_limit(B, Hq, Hkv, Tq, Tk, D, kw, scales):
+    """The kernel's arithmetic at 65-128 (fp16 operands, P and dS rounded
+    once) against the plain backward, per gradient within 2^-7 |want| +
+    1e-3 max|want| (``chip_smoke.py``'s FLASH_BWD_BF16_REL and _FLOOR, the
+    limit the card holds the kernel to); rows that see no key get dq 0."""
+    rng = np.random.default_rng(Tq * 7 + Tk + D)
+    bf = torch.bfloat16
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * c).to(bf)
+                   for shape, c in zip(((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D),
+                                        (B, Hq, Tq, D)), _FP16_SCALES[scales]))
+    o, lse = tref.ref_flash_attention(q, k, v, return_lse=True, **kw)
+    got = _emulated_fp16_backward(q, k, v, o, lse, do, **kw)
+    want = tref.ref_flash_attention_backward(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff, wf = (g.float() - w.float()).abs(), w.float().abs()
+        share = float((diff / (2.0 ** -7 * wf + 1e-3 * wf.max())).max())
+        assert share <= 1.0, f"{name}: {share:.3f} of the limit"
+    dead = torch.isinf(lse)
+    assert not got[0][dead].any()

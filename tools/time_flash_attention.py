@@ -16,11 +16,12 @@ step's forward, (2, 16, 8192, 128).  For each it prints one JSON
 line: the kernel's device time (CUDA events over back-to-back calls after
 a warm-up), its bound (4 D flops a live pair over the bf16 tensor-core
 rate, or q, k, v read and o written once over the memory rate, the larger),
-``scaled_dot_product_attention``'s time on the same inputs (no mask for
-seamless, PyTorch's pick of backend; a plain causal mask, olmo's, as
-``is_causal=True`` with no mask tensor under each of the cuDNN, flash and
+``scaled_dot_product_attention``'s time on the same inputs (no mask,
+seamless's, and a plain causal mask, olmo's, as ``is_causal=False`` or
+``True`` with no mask tensor under each of the cuDNN, flash and
 memory-efficient backends alone, each one's time or "refused" in
-``sdpa_backends`` and the fastest that ran as ``sdpa_ms``; for the windowed
+``sdpa_backends`` and the fastest that ran as ``sdpa_ms``; with no mask also
+PyTorch's own pick of backend, ``sdpa_pick_ms``; for the windowed
 shapes the window-causal boolean mask on the memory-efficient backend, kv
 heads repeated outside the timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
@@ -38,10 +39,10 @@ the bf16 tensor-core rate, or q, k, v, o, do and lse read and the three
 gradients written once over the memory rate, the larger), each of its
 launches' device time (``torch.profiler``), and the time of
 ``scaled_dot_product_attention``'s backward on the same inputs and mask
-(``chip_smoke.py``'s rules: no mask on PyTorch's pick of backend; a plain
-causal mask as ``is_causal=True`` under each backend alone, ``sdpa_bwd_ms``
-the fastest; else the boolean mask on the memory-efficient backend, kv
-heads repeated outside the timing).
+(no mask or a plain causal mask: each backend alone as above,
+``sdpa_bwd_backends``, ``sdpa_bwd_ms`` the fastest, and with no mask
+PyTorch's pick, ``sdpa_bwd_pick_ms``; else the boolean mask on the
+memory-efficient backend, kv heads repeated outside the timing).
 
 The float32 backward, ``flash_attention_bwd``, at h2o-danube3-4b's
 training shape in float32 (as above) and seamless-m4t-large-v2's encoder
@@ -151,15 +152,15 @@ def live_pairs(Tq, Tk, causal, window):
     return int((hi - lo + 1).clamp(min=0).sum())
 
 
-def sdpa_causal(q, k, v, do, reps):
+def sdpa_backends(q, k, v, do, reps, causal):
     """{"sdpa_ms", "sdpa_backend", "sdpa_backends"}: ``scaled_dot_product_attention``
-    with ``is_causal=True`` and no mask tensor (its backward where ``do`` is
+    with no mask tensor, ``is_causal=causal`` (its backward where ``do`` is
     given) under each of the cuDNN, flash and memory-efficient backends
     alone, "refused" where one does not take the call, and the fastest that
     ran; kv heads repeated outside the timing.  ``is_causal`` aligns the mask
     top-left: the port's mask at Tq = Tk."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    assert q.shape[2] == k.shape[2], "is_causal is the port's mask only at Tq = Tk"
+    assert not causal or q.shape[2] == k.shape[2], "is_causal is the port's mask only at Tq = Tk"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     group = q.shape[1] // k.shape[1]
     qq, kk, vv = (t.detach().clone().requires_grad_(do is not None) for t in (
@@ -169,9 +170,9 @@ def sdpa_causal(q, k, v, do, reps):
         with sdpa_kernel([getattr(SDPBackend, name)]):
             try:
                 if do is None:
-                    times[name] = cuda_ms(lambda: sdpa(qq, kk, vv, is_causal=True), reps)
+                    times[name] = cuda_ms(lambda: sdpa(qq, kk, vv, is_causal=causal), reps)
                 else:
-                    o = sdpa(qq, kk, vv, is_causal=True)
+                    o = sdpa(qq, kk, vv, is_causal=causal)
                     times[name] = cuda_ms(lambda: torch.autograd.grad(
                         o, (qq, kk, vv), do, retain_graph=True), reps)
             except RuntimeError:
@@ -315,8 +316,11 @@ def time_backward(g, smi, shapes, dtype):
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "launches_ms": launch_ms(lambda: backward(q, k, v, o, lse, do, **kw), reps),
             **({key.replace("sdpa", "sdpa_bwd"): val for key, val in
-                sdpa_causal(q, k, v, do, reps).items()} if causal and window is None else
+                sdpa_backends(q, k, v, do, reps, causal).items()} if window is None else
                {"sdpa_bwd_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps)}),
+            # unmasked: PyTorch's own pick of backend too (the earlier yardstick)
+            **({"sdpa_bwd_pick_ms": sdpa_bwd_ms(q, k, v, do, causal, window, reps)}
+               if not causal and window is None else {}),
             "card": smi}), flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
@@ -381,8 +385,10 @@ def main():
             "shape": name, "q": list(qs), "kv": list(ks), "root": os.path.abspath(ARGS.root),
             "ms": ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            **(sdpa_causal(q, k, v, None, reps) if causal and window is None else
+            **(sdpa_backends(q, k, v, None, reps, causal) if window is None else
                {"sdpa_ms": sdpa_ms(q, k, v, causal, window, reps)}),
+            **({"sdpa_pick_ms": sdpa_ms(q, k, v, causal, window, reps)}
+               if not causal and window is None else {}),
             "max_abs_err": err, "card": smi}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
