@@ -49,9 +49,12 @@ Phases (each one's failure fails the run):
    (D = 72, 96, 120, 128 with causal, ``q_offset`` 100 and -40, windows,
    softcaps, no mask, one query row, Tq and Tk off 64 and 128, GQA groups
    1 and 4, and olmo's plain causal MHA at D = 128 over 1100 keys; the
-   65-128 cases again under ``FLASH_FP16_SCALES``, whose products run on
-   fp16 copies: do times 2^-16, q at 1e5 with k at 1e-5 and the other way
-   round, v at 1e-6) and of
+   up-to-64 and 65-128 cases again under ``FLASH_FP16_SCALES``, whose
+   products run on fp16 copies: do times 2^-16, q at 1e5 with k at 1e-5 and
+   the other way round, v at 1e-6; the forward's 65-128 cases, and
+   ``FLASH_D128_ONE_PART_CASES`` whose rows see 1024 keys or more, again
+   under those scales of q, k and v, each case's row blocks that take P V
+   in one fp16 part counted) and of
    their configuration for head widths 136-256
    (``FLASH_D256_CASES``: recurrentgemma's 10 query heads over one kv head
    of 256 with windows of 100 and 2048 past 4096 keys, D = 136, 192, 200
@@ -362,7 +365,7 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # 
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     block_config, converts_to_fp16, flash_attention_bwd_sm90_cuda, kernel_blocks)
 from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
-    block_rows, flash_attention_sm90_cuda, kernel_rows, split_count)
+    block_rows, flash_attention_sm90_cuda, kernel_rows, one_part_blocks, split_count)
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
@@ -578,6 +581,21 @@ FLASH_D128_CASES = [
     ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
     ("D 128 causal, G 1", 1, 4, 4, 1100, 1100, 128, dict(causal=True)),
 ]
+# bf16 forward cases whose rows see 1024 keys or more, where the kernel for
+# head widths 65-128 takes P V in one fp16 part (name, B, Hq, Hkv, Tq, Tk, D,
+# mask), each with k, v contiguous and strided: D = 72, 96, 120 and 128, GQA
+# groups 1 and 4, causal rows offset forward (the first row block in two
+# bf16 parts), a window, a softcap, no mask, and a window that the last
+# rows' keys fall out of past Tk (the last row block in two parts)
+FLASH_D128_ONE_PART_CASES = [
+    ("D 72 causal q_offset 950, G 1", 1, 4, 4, 200, 1150, 72, dict(causal=True, q_offset=950)),
+    ("D 96 window 1500, G 4", 1, 8, 2, 2500, 2500, 96, dict(causal=True, window=1500)),
+    ("D 120 softcap 20 q_offset 1000", 1, 8, 2, 300, 1300, 120,
+     dict(causal=True, q_offset=1000, softcap=20.0)),
+    ("D 128 no mask over 1100 keys", 2, 4, 4, 130, 1100, 128, dict(causal=False)),
+    ("D 128 window 1200 past the last key", 1, 4, 2, 1500, 1300, 128,
+     dict(causal=False, window=1200)),
+]
 # input scales (q, k, v, do) under which the backward runs FLASH_D128_CASES'
 # head widths 65-128 again (their products on fp16 copies, each times a
 # power of two of its own): do at a mean loss's gradient size; q above
@@ -585,6 +603,9 @@ FLASH_D128_CASES = [
 # scores unchanged, and the other way round; v below fp16's normal range
 FLASH_FP16_SCALES = {"do 2^-16": (1, 1, 1, 2.0 ** -16), "q 1e5, k 1e-5": (1e5, 1e-5, 1, 1),
                      "q 1e-5, k 1e5": (1e-5, 1e5, 1, 1), "v 1e-6": (1, 1, 1e-6, 1)}
+# and those of q, k and v under which the forward runs them again (its row
+# blocks whose rows all see 1024 keys take P V against v's fp16 copy)
+FLASH_FWD_FP16_SCALES = {name: c[:3] for name, c in FLASH_FP16_SCALES.items() if c[:3] != (1, 1, 1)}
 # bf16 cases of the kernels for head widths 136-256 (name, B, Hq, Hkv, Tq,
 # Tk, D, mask), forward and backward, each with k, v contiguous and strided:
 # recurrentgemma's MQA (10 query heads over one kv head, D = 256) with a
@@ -927,16 +948,35 @@ def phase_flash_vs_plain(state):
             del q, k, v
             torch.cuda.empty_cache()
     # bf16 at the edges of the configurations for head widths 65-128 and
-    # 136-256, and the wrapper's rows a block against the compiled kernel's
-    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES + FLASH_D256_CASES):
-        for strided in (False, True):
-            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=290 + i,
-                                       strided=strided)
-            err, share = flash_case(q, k, v, **kw)
-            worst[torch.bfloat16], n = max(worst[torch.bfloat16], err), n + 1
-            worst_share = max(worst_share, share)
-            log(f"  flash_attention_sm90 {name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
-                f"strided={strided}: max abs err {err:.3e}, bf16 limit share {share:.3f}")
+    # 136-256 and on rows that see 1024 keys, then the 65-128 cases under
+    # FLASH_FWD_FP16_SCALES (k and v contiguous and strided in turns), and
+    # the wrapper's rows a block against the compiled kernel's
+    cases = FLASH_D128_CASES + FLASH_D256_CASES + FLASH_D128_ONE_PART_CASES
+    runs = [(name, case, False, (1, 1, 1), strided, 290 + i)
+            for i, (name, *case) in enumerate(cases) for strided in (False, True)]
+    runs += [(f"{name}, {scale_name}", case, True, scales, (i + j) % 2 == 1, 290 + i)
+             for i, (name, *case) in enumerate(cases) if 64 < case[5] <= 128
+             for j, (scale_name, scales) in enumerate(FLASH_FWD_FP16_SCALES.items())]
+    fp16_calls = 0
+    for name, (B, Hq, Hkv, Tq, Tk, D, kw), scaled, scales, strided, seed in runs:
+        q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=seed,
+                                   strided=strided, scales=scales)
+        before = ops.fwd_fp16_launches()
+        err, share = flash_case(q, k, v, **kw)
+        lo, hi = one_part_blocks(Tq, Tk, D, causal=kw["causal"], window=kw.get("window"),
+                                 q_offset=kw.get("q_offset", 0))
+        if ops.fwd_fp16_launches() - before != int(hi > lo):
+            raise AssertionError(f"flash_attention_sm90 {name}: {ops.fwd_fp16_launches() - before}"
+                                 f" calls counted with one fp16 part, {hi - lo} such row blocks")
+        fp16_calls += hi > lo
+        # a scaled case's error is in its inputs' units: its share counts
+        worst[torch.bfloat16] = worst[torch.bfloat16] if scaled else max(worst[torch.bfloat16],
+                                                                          err)
+        n, worst_share = n + 1, max(worst_share, share)
+        log(f"  flash_attention_sm90 {name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
+            f"strided={strided}: max abs err {err:.3e}, bf16 limit share {share:.3f}; "
+            f"{hi - lo} of {-(-Tq // block_rows(Tq, D))} row blocks in one fp16 part")
+    log(f"  flash_attention_sm90 at 65-128: {fp16_calls} calls with row blocks in one fp16 part")
     for D in BWD_BLOCK_WIDTHS:
         for Tq in FWD_ROWS_TQ:
             if kernel_rows(Tq, D) != block_rows(Tq, D):
@@ -1137,16 +1177,20 @@ def phase_flash_bwd_vs_plain(state):
                                        strided=strided)
             record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=490 + i, **kw)[:3],
                    what=f"{name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} strided={strided}")
-    # bf16 at 65-128 again under FLASH_FP16_SCALES' input scales, k and v
-    # contiguous and strided in turns
-    for i, (name, B, Hq, Hkv, Tq, Tk, D, kw) in enumerate(FLASH_D128_CASES):
+    # bf16 up to 64 and at 65-128 again under FLASH_FP16_SCALES' input
+    # scales, k and v contiguous and strided in turns
+    scaled_cases = [(name, case, 380 + i, 480 + i) for i, (name, *case) in
+                    enumerate(FLASH_BWD_D64_CASES)]
+    scaled_cases += [(name, case, 390 + i, 490 + i) for i, (name, *case) in
+                     enumerate(FLASH_D128_CASES)]
+    for i, (name, (B, Hq, Hkv, Tq, Tk, D, kw), seed, do_seed) in enumerate(scaled_cases):
         if not converts_to_fp16(D):
             continue
         for j, (scale_name, (cq, ck, cv, cdo)) in enumerate(FLASH_FP16_SCALES.items()):
             strided = (i + j) % 2 == 1
-            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=390 + i,
+            q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=seed,
                                        strided=strided, scales=(cq, ck, cv))
-            record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=490 + i, do_scale=cdo,
+            record(torch.bfloat16, *flash_bwd_case(q, k, v, seed=do_seed, do_scale=cdo,
                                                    **kw)[:3],
                    what=f"{name}, {scale_name}: {tuple(q.shape)} kv {tuple(k.shape)} {kw} "
                         f"strided={strided}", scaled=True)
@@ -1448,11 +1492,14 @@ def serve_long_path(state, cfg, batch, prompt, new, seed, want, what):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    fp16 = ops.fwd_fp16_launches()
     peak = torch.cuda.max_memory_allocated()
     log(f"  generate: {batch}x{prompt} prompt + {new} new tokens in {wall:.3f} s (first call); "
-        f"launches {counts}")
+        f"launches {counts}, {fp16} of flash_attention_sm90's with row blocks in one fp16 part")
     expect_launches(counts, want, f"{what}: generate (bf16: the attention kernel once a "
                                   f"local layer, in the prefill)")
+    expect_fwd_fp16_launches(fp16, counts["flash_attention_sm90"], cfg.head_dim,
+                             f"{what}: generate")
     for p, o in zip(prompts, outs):
         if o.shape != (prompt + new,) or not np.array_equal(o[:prompt], p):
             raise AssertionError(f"bad output shape {o.shape} or prompt not preserved")
@@ -1498,6 +1545,7 @@ def serve_long_path(state, cfg, batch, prompt, new, seed, want, what):
         "peak_gib": peak / 2**30,
         "generate_first_call_s": wall,
         "launches": counts,
+        "fwd_fp16_launches": fp16,
     }
     log(f"  prefill {batch}x{prompt}: {rec['prefill_ms']:.2f} ms (median of 3: "
         f"{', '.join(f'{m:.2f}' for m in prefill_ms)}); decode {rec['decode_tok_s']:.1f} tok/s "
@@ -2280,8 +2328,21 @@ def phase_kernel_times(state):
             row["bf16_limit_share"] = max(share, state["flash_bf16_share"])
             row["kernels_by_width"] = {
                 "8-64": "flash_attention_d64_kernel<1 or 2 consumers, split>",
-                "65-128": "flash_attention_d128_kernel<softcap>",
+                "65-128": "absmax_kernel, convert_kernel (v's fp16 copy), "
+                          "flash_attention_d128_kernel<softcap, one fp16 part> over the row "
+                          "blocks whose rows all see 1024 keys, <softcap, two bf16 parts> over "
+                          "the others",
                 "136-256": "flash_attention_d256_kernel<softcap>"}
+            # the calls among ``launches`` with row blocks in one fp16 part
+            row["fp16_launches_by_path"] = {
+                path: state[key]["fwd_fp16_launches"] for path, key in (
+                    (f"{LONG_ARCH} serve", "serve_long"),
+                    (f"{LONG_ARCH} train", "train_long"),
+                    (f"{TRAIN_ARCH} serve ({OLMO_LONG_BATCH} x {OLMO_LONG_PROMPT})",
+                     "serve_long_olmo"),
+                    (f"{TRAIN_ARCH} train ({OLMO_TRAIN_BATCH} x {state['train_olmo']['seq']})",
+                     "train_olmo"))}
+            row["fp16_launches"] = sum(row["fp16_launches_by_path"].values())
         kernels.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -2362,7 +2423,8 @@ def phase_kernel_times(state):
         })
         if dtype == torch.bfloat16:
             kernels[-1]["kernels_by_width"] = {
-                "8-64": "stats_kernel, d64::dkdv_kernel<softcap>, d64::dq_kernel<softcap>",
+                "8-64": "absmax_kernel, convert_kernel, stats_kernel (with do's conversion), "
+                        "d64::dkdv_kernel<softcap>, d64::dq_kernel<softcap> (fp16 operands)",
                 "65-128": "absmax_kernel, convert_kernel, stats_kernel (with do's conversion), "
                           "d128::dkdv_kernel<softcap>, d128::dq_kernel<softcap> (fp16 operands)",
                 "136-256": "stats_kernel, d256::dkdv_kernel<softcap>, d256::dq_kernel<softcap>"}
@@ -3464,6 +3526,8 @@ def phase_train_encdec(state):
                              "flash_attention_bwd_sm90": TRAIN_STEPS * n_att}, "encdec train")
     expect_fp16_launches(rec["bwd_fp16_launches"], TRAIN_STEPS * n_att, cfg.head_dim,
                          "encdec train")
+    expect_fwd_fp16_launches(rec["fwd_fp16_launches"], TRAIN_STEPS * 2 * n_att, cfg.head_dim,
+                             "encdec train")
     state["train_encdec"] = rec
     log(f"  {TRAIN_STEPS * 2 * n_att} flash_attention_sm90 and {TRAIN_STEPS * n_att} "
         f"flash_attention_bwd_sm90 launches (the encoder's self-attention and the "
@@ -3535,6 +3599,7 @@ def run_train_steps(state, builder, batches, what, seed):
             raise AssertionError(f"non-finite loss {loss} or grad norm {gnorm}")
     counts = ops.launch_counts()
     fp16 = ops.bwd_fp16_launches()
+    fwd_fp16 = ops.fwd_fp16_launches()
     peak = torch.cuda.max_memory_allocated()
     (train_state, _), wall_ms, dev_ms, idle, top = device_idle_share(
         lambda: step_fn(train_state, batches[-1]))
@@ -3542,11 +3607,11 @@ def run_train_steps(state, builder, batches, what, seed):
            "state_gb": n_state / 1e9,
            "params_b": n_params / 1e9, "profiled_step_ms": wall_ms, "device_ms": dev_ms,
            "idle_share": idle, "top_kernels": top, "launches": counts,
-           "bwd_fp16_launches": fp16}
+           "bwd_fp16_launches": fp16, "fwd_fp16_launches": fwd_fp16}
     log(f"  step: {', '.join(f'{m:.1f}' for m in step_ms)} ms; peak device memory "
         f"{rec['peak_gib']:.2f} GiB; profiled step {wall_ms:.1f} ms, device {dev_ms:.1f} ms, "
-        f"idle {idle:.1%}; launches {counts}, {fp16} of the backward's on fp16 copies; on "
-        f"{state['smi']}")
+        f"idle {idle:.1%}; launches {counts}, {fp16} of the backward's on fp16 copies, "
+        f"{fwd_fp16} of the forward's with row blocks in one fp16 part; on {state['smi']}")
     for name, n, ms in top:
         log(f"    {ms:9.2f} ms ({ms / dev_ms:.1%})  x{n:<5d} {name}")
     del train_state, metrics
@@ -3563,11 +3628,23 @@ def expect_launches(counts, want, what):
 def expect_fp16_launches(fp16, bwd, head_dim, what):
     """``flash_attention_bwd_sm90``'s calls on fp16 copies (``fp16``, from
     ``ops.bwd_fp16_launches``) out of its ``bwd`` calls at ``head_dim``:
-    every one at head widths 65-128, none at the others."""
+    every one at head widths up to 128, none at the others."""
     want = bwd if converts_to_fp16(head_dim) else 0
     if fp16 != want:
         raise AssertionError(f"{what}: {fp16} flash_attention_bwd_sm90 calls on fp16 copies, "
                              f"expected {want} of {bwd} at head width {head_dim}")
+
+
+def expect_fwd_fp16_launches(fp16, fwd, head_dim, what):
+    """``flash_attention_sm90``'s calls with row blocks in one fp16 part
+    (``fp16``, from ``ops.fwd_fp16_launches``) out of its ``fwd`` calls at
+    ``head_dim`` on a path past 4096 tokens: every one at head widths
+    65-128 (each has row blocks whose rows all see 1024 keys), none at the
+    others."""
+    want = fwd if 64 < head_dim <= 128 else 0
+    if fp16 != want:
+        raise AssertionError(f"{what}: {fp16} flash_attention_sm90 calls with row blocks in one "
+                             f"fp16 part, expected {want} of {fwd} at head width {head_dim}")
 
 
 def train_memory_estimate(cfg, batch, seq, remat):
@@ -3613,6 +3690,7 @@ def phase_train_long(state):
     expect_launches(counts, {"flash_attention_sm90": fwd, "flash_attention_bwd_sm90": bwd},
                     "long train")
     expect_fp16_launches(rec["bwd_fp16_launches"], bwd, cfg.head_dim, "long train")
+    expect_fwd_fp16_launches(rec["fwd_fp16_launches"], fwd, cfg.head_dim, "long train")
     rec.update(estimate_gib=(arg_b + temp_b) / 2**30)
     state["train_long"] = rec
     log(f"  {fwd} flash_attention_sm90 and {bwd} flash_attention_bwd_sm90 launches over "
@@ -3906,6 +3984,7 @@ def phase_train_long_olmo(state):
     loss_k, grads_k = grads_fn(probe, batches[0])
     expect_launches(ops.launch_counts(), attention, "olmo gradients")
     expect_fp16_launches(ops.bwd_fp16_launches(), bwd, cfg.head_dim, "olmo gradients")
+    expect_fwd_fp16_launches(ops.fwd_fp16_launches(), fwd, cfg.head_dim, "olmo gradients")
     norm_k = float(global_norm(grads_k))
     paths = [p for p, _ in flatten_with_paths(probe["params"])]
     bad = [p for p, g in zip(paths, grads_k) if not bool(torch.isfinite(g).all())]
@@ -3932,6 +4011,8 @@ def phase_train_long_olmo(state):
                     "olmo long train")
     expect_fp16_launches(rec["bwd_fp16_launches"], OLMO_TRAIN_STEPS * bwd, cfg.head_dim,
                          "olmo long train")
+    expect_fwd_fp16_launches(rec["fwd_fp16_launches"], OLMO_TRAIN_STEPS * fwd, cfg.head_dim,
+                             "olmo long train")
     rec.update(attention_loss_rel=loss_rel, attention_grad_norm_rel=norm_rel,
                estimate_gib=(arg_b + temp_b) / 2**30, seq=seq)
     state["train_olmo"] = rec

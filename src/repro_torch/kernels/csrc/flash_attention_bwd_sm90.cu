@@ -28,18 +28,20 @@
 // (dP, dV, dK, dQ), 10 D with S recomputed; against a few bytes of q, k, v,
 // o, do and the gradients per row that is far above the card's ridge point
 // at a long sequence, so every product is a wgmma on the tensor cores.  This
-// design executes 14 D' flops a pair at head widths 65-128 (D' = D rounded
-// up to 64: S and dP in both passes, dV, dK and dQ once) and 20 D' at the
-// others, where P and dS go to the tensor cores in two bf16 parts (below).
+// design executes 14 D' flops a pair at head widths up to 128 (D' = D
+// rounded up to 64: S and dP in both passes, dV, dK and dQ once), on fp16
+// operands, and 20 D' from 136, where P and dS go to the tensor cores in
+// two bf16 parts (below).
 //
 // Design (FlashAttention-3's backward building blocks, kept deterministic:
 // no atomics, one writer per gradient element, so two calls on one input
 // give bit-equal gradients, as the kill/restart resume needs):
-//   (a) stats_kernel: one warp a row writes delta = rowsum(do * o) in float32
-//       and the row's lse in log2 units, +inf for a row with no live key and
-//       for the rows that pad Tq to a multiple of 64: P = exp2(x - lse2) is
-//       then exactly 0 on those rows by that test, whatever x is, so their dq
-//       is exactly 0 and they add nothing to dk and dv.
+//   (a) stats_kernel: a warp a row (eight lanes at D <= 64) writes delta =
+//       rowsum(do * o) in float32 and the row's lse in log2 units, +inf for
+//       a row with no live key and for the rows that pad Tq to a multiple
+//       of 64: P = exp2(x - lse2) is then exactly 0 on those rows by that
+//       test, whatever x is, so their dq is exactly 0 and they add nothing
+//       to dk and dv.
 //   (b) dK and dV: one block per key block of a kv head; it walks the G
 //       query heads' live 64-row query tiles, streamed through a ring of
 //       stages (q and do by TMA, lse2 and delta by bulk copies) while its k
@@ -57,9 +59,9 @@
 // and do are read by TMA through 4-d (D, T, heads, batch) tensor maps over
 // the tensors' own strides in 128-byte swizzled 64-column atoms; columns
 // past D come in as zeros (D = 120 reads as 128) and are never stored.
-// At head widths up to 64 and from 136, P and dS go to the tensor cores in
-// two bf16 parts each, hi (x truncated) and lo = bf16(x - hi), as the
-// forward's P.  Rounded once to bf16 (2^-8 relative), each broke the
+// From head width 136, P and dS go to the tensor cores in two bf16 parts
+// each, hi (x truncated) and lo = bf16(x - hi), as the forward's P on its
+// short rows.  Rounded once to bf16 (2^-8 relative), each broke the
 // gradients' limit (2^-7 |want| + 1e-3 max|want|) where the sums cancel: dS
 // put dk at 1.73 of it on the sweep's (2, 4, 64, 32) case, P put dv at 1.20
 // at danube's training shape.  In two parts x is carried to ~2^-17
@@ -67,7 +69,7 @@
 // 20 D').  The scale D^-0.5 multiplies S in float32 and dq, dk once at the
 // end.
 //
-// Head widths 65-128 instead run every product on fp16 operands (wgmma
+// Head widths up to 128 instead run every product on fp16 operands (wgmma
 // .f16.f16, at the bf16 rate), P and dS rounded once to fp16 (2^-11
 // relative).  Two launches first copy q, k and v to fp16, each times a power
 // of two 2^e of its own, e = 15 - floor(log2 max|x|) (fp16_exponent: the
@@ -86,20 +88,22 @@
 // not one bf16 rounding: its 2^-8 broke the limit (above); fp16's 2^-11
 // does not, and the scales take fp16's narrower range out of play.  A
 // float32 emulation of this arithmetic (tests/test_torch_attention_grad.py)
-// gives at most 0.84 of the limit at chip_smoke.py's FLASH_D128_CASES (do at
-// O(1) and times 2^-16, q and k at 1e5 and 1e-5, v at 1e-6).  The forward
-// keeps its two parts: its limit, 2^-7 |want| + 1e-4 with no max|want|
-// term, is missed by one fp16 rounding of P on causal rows that see few
-// keys (tools/emulate_fp16_attention.py).
+// gives at most 0.877 of the limit at chip_smoke.py's FLASH_BWD_D64_CASES
+// and 0.84 at its FLASH_D128_CASES (do at O(1) and times 2^-16, q and k at
+// 1e5 and 1e-5, v at 1e-6).  The forward (flash_attention_sm90.cu) rounds
+// P once to fp16 only on rows that see 1024 keys or more: its limit,
+// 2^-7 |want| + 1e-4 with no max|want| term, is missed on rows that see
+// fewer, whose outputs average fewer rounded values
+// (tools/emulate_fp16_attention.py).
 //
-// Head widths up to 64 (seamless's 64; namespace d64): both passes run a
-// block of a producer warp and two consumer warpgroups of 64 keys (b) or
-// 64 query rows (c), 288 threads.  The producer's one thread issues every
+// Head widths up to 64 (seamless's 64; namespace d64), on the fp16 copies:
+// both passes run a block of a producer warp and two consumer warpgroups of
+// 64 keys (b) or 64 query rows (c), 288 threads.  The producer's one thread issues every
 // load into a ring of eight stages and is the only thread that waits for a
 // stage to empty.  The consumers take turns at the tensor cores (a named
 // barrier each): in its turn a consumer issues the previous tile's
 // gradient products and this tile's S and dP and passes the turn, so one
-// consumer's exponentials and two-part splits run while the other's
+// consumer's exponentials and fp16 roundings run while the other's
 // products run.  The softcap is a template argument and the mask a test
 // once a tile: a fully live tile's elements run without a branch, and
 // every wgmma is issued from branch-free code.  Three warps on one of the
@@ -207,20 +211,18 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// Head widths 65-128 run every product on fp16 copies of q, k, v and do, each
-// times a power of two of its own (fp16_exponent): (a0) absmax_kernel
-// reduces each tensor's largest |x| to partial maxima, (a1) convert_kernel
-// writes the copies of q, k and v and the scales below, and stats_kernel
-// converts do as it reads it.
+// Head widths up to 128 run every product on fp16 copies of q, k, v and do,
+// each times a power of two of its own (sm90_common.cuh's fp16_exponent):
+// convert_fp16 takes the four tensors' largest |x| and writes the copies of
+// q, k and v and the scales below, and stats_kernel converts do as it
+// reads it.
 // ---------------------------------------------------------------------------
 
-constexpr int kConvThreads = 256;
-constexpr int kConvBlocks = 256;   // blocks a tensor in (a0): its partial maxima
 constexpr int kPShift = 15;        // P goes to fp16 as P 2^15 (<= 2^15, under fp16's 65504)
 constexpr int kDsShift = 40;       // and dS as P 2^15 (dP - delta) 2^(ev + ed - 40)
 constexpr float kDpMul = 0x1p-40f;   // 2^-kDsShift
 
-// written by (a1), read by stats_kernel and the d128 passes
+// written by the conversion, read by stats_kernel and the d64 and d128 passes
 struct Fp16Scales {
   float mul_do;      // 2^ed: do's conversion
   float delta_mul;   // 2^(ev + ed - kDsShift): delta into the units of dP's sums times kDpMul
@@ -233,100 +235,13 @@ struct Fp16Scales {
 constexpr int kAuxFloats = 4 * kConvBlocks + 8;
 static_assert(sizeof(Fp16Scales) <= 8 * sizeof(float), "Fp16Scales outgrew its scratch");
 
-// The power of two e that takes bf16 values of largest magnitude m (given by
-// a float's bits) into fp16: 2^15 <= m 2^e <= 65280 (bf16's largest
-// mantissa), so nothing overflows fp16's 65504, and every value of 2^-32 m
-// or more converts exactly (an fp16 normal, or a subnormal multiple of
-// 2^-24: a bf16 value has 8 significant bits).  At most 127 (m zero or
-// below 2^-112: m 2^127 < 2^15 then).  The wrapper's fp16_exponent mirrors it.
-__device__ __forceinline__ int fp16_exponent(uint32_t m) {
-  const int e8 = static_cast<int>((m >> 23) & 0xff);
-  return e8 == 0 ? 127 : min(142 - e8, 127);
-}
-
-// 2^e, -126 <= e <= 127
-__device__ __forceinline__ float exp2i(int e) { return __int_as_float((e + 127) << 23); }
-
-// one (B, H, T, D) bf16 tensor, unit stride in D: its element strides and rows B H T
-struct Src16 {
-  const __nv_bfloat16* x;
-  int64_t sb, sh, st, H, T, rows;
-};
-struct ConvArgs {
-  Src16 t[4];        // q, k, v, do
-  __half* out[4];    // their fp16 copies, contiguous (B, H, T, D)
-  int64_t D;
-};
-
-// f(row, its first element) for this block's share of t's rows, a
-// contiguous range walked 16 rows at a time, a half-warp a row: the row's
-// (batch, head, position) found by division once, then stepped
-template <class F>
-__device__ __forceinline__ void for_rows(const Src16& t, F f) {
-  const int64_t per = (t.rows + gridDim.x - 1) / gridDim.x;
-  const int64_t last = static_cast<int64_t>(blockIdx.x + 1) * per;
-  const int64_t end = last < t.rows ? last : t.rows;
-  int64_t row = static_cast<int64_t>(blockIdx.x) * per + threadIdx.x / 16;
-  if (row >= end) return;
-  int64_t i = row % t.T, h = (row / t.T) % t.H, b = row / t.T / t.H;
-  for (; row < end; row += 16) {
-    f(row, t.x + b * t.sb + h * t.sh + i * t.st);
-    for (i += 16; i >= t.T; i -= t.T)
-      if (++h == t.H) { h = 0; ++b; }
-  }
-}
-
-// the largest of x over the block's threads (unsigned: float bits of magnitudes)
-__device__ __forceinline__ uint32_t block_max(uint32_t x) {
-  __shared__ uint32_t warp_max[kConvThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x / 32] = x;
-  __syncthreads();
-  x = 0;
-#pragma unroll
-  for (int w = 0; w < kConvThreads / 32; ++w) x = max(x, warp_max[w]);
-  return x;
-}
-
-// (a0) block (i, t): the largest |x| of its share of tensor t's rows
-// (for_rows), as a float's bits, into parts[t][i].  8 columns a lane; bf16
-// magnitudes compare as unsigned integers (a NaN above every number).
-__global__ void __launch_bounds__(kConvThreads)
-absmax_kernel(const __grid_constant__ ConvArgs a, uint32_t* parts) {
-  const int col = 8 * (threadIdx.x & 15);
-  uint32_t m = 0;   // two bf16 magnitudes
-  if (col < a.D)
-    for_rows(a.t[blockIdx.y], [&](int64_t, const __nv_bfloat16* x0) {
-      const uint4 x = *reinterpret_cast<const uint4*>(x0 + col);
-      m = __vmaxu2(m, x.x & 0x7fff7fffu);
-      m = __vmaxu2(m, x.y & 0x7fff7fffu);
-      m = __vmaxu2(m, x.z & 0x7fff7fffu);
-      m = __vmaxu2(m, x.w & 0x7fff7fffu);
-    });
-  m = block_max(max(m & 0xffffu, m >> 16) << 16);
-  if (threadIdx.x == 0) parts[blockIdx.y * kConvBlocks + blockIdx.x] = m;
-}
-
-// (a1) block (i, t): its share of tensor t's (q, k or v) rows, times 2^e_t,
-// to fp16; block (0, 0) also writes the Fp16Scales.  Every block reduces the
-// partial maxima of all four tensors (4 KB), so that no launch of its own
-// has to.
-__global__ void __launch_bounds__(kConvThreads)
-convert_kernel(const __grid_constant__ ConvArgs a, const uint32_t* parts, Fp16Scales* sc, float scale,
-               float softcap, int has_softcap) {
-  __shared__ int e_s[4];
-  if (threadIdx.x < 4 * 32) {   // warp w: tensor w's partial maxima
-    const int w = threadIdx.x / 32;
-    uint32_t m = 0;
-    for (int i = threadIdx.x & 31; i < kConvBlocks; i += 32) m = max(m, parts[w * kConvBlocks + i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((threadIdx.x & 31) == 0) e_s[w] = fp16_exponent(m);
-  }
-  __syncthreads();
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
-    const int eq = e_s[0], ek = e_s[1], ev = e_s[2], ed = e_s[3];
+// the conversion's epilogue: the Fp16Scales from the exponents of q, k, v, do
+struct ScalesOut {
+  Fp16Scales* sc;
+  float scale, softcap;
+  int has_softcap;
+  __device__ void operator()(const int* e) const {
+    const int eq = e[0], ek = e[1], ev = e[2], ed = e[3];
     const int ds = ev + ed + kPShift - kDsShift;   // dS's fp16 values are dS 2^ds
     sc->mul_do = exp2i(ed);
     sc->delta_mul = ldexpf(1.0f, ev + ed - kDsShift);
@@ -336,55 +251,17 @@ convert_kernel(const __grid_constant__ ConvArgs a, const uint32_t* parts, Fp16Sc
     sc->dk_mul = ldexpf(scale, -(ds + eq));
     sc->dv_mul = ldexpf(1.0f, -(kPShift + ed));
   }
-  __half* out = a.out[blockIdx.y];
-  const float mul = exp2i(e_s[blockIdx.y]);
-  const int col = 8 * (threadIdx.x & 15);
-  if (col >= a.D) return;
-  for_rows(a.t[blockIdx.y], [&](int64_t row, const __nv_bfloat16* x0) {
-    const uint4 x = *reinterpret_cast<const uint4*>(x0 + col);
-    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
-    uint4 h;
-    uint32_t* hw = reinterpret_cast<uint32_t*>(&h);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(x2[e]);
-      hw[e] = pack_f16(f.x * mul, f.y * mul);
-    }
-    *reinterpret_cast<uint4*>(out + row * a.D + col) = h;
-  });
-}
+};
 
-// a 64 x 64 float32 accumulator as four k-steps of a bf16 A operand in two
-// parts: hi = d truncated to bf16 (its upper 16 bits, no conversion), lo =
-// bf16(d - hi), d - hi exact in float32, so hi + lo is d to ~2^-17.
-// Register r of step kk holds columns 16 kk + (r / 2) 8 + c2 of row
-// r0 + (r % 2) 8, i.e. d[8 kk + 2 r], d[8 kk + 2 r + 1] (first in the low half)
-__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&hi)[4][4],
-                                     uint32_t (&lo)[4][4]) {
+// a 64 x 64 float32 accumulator as four k-steps of an fp16 A operand, each
+// value rounded once (cvt.rn.f16x2.f32): register r of step kk holds
+// columns 16 kk + (r / 2) 8 + c2 of row r0 + (r % 2) 8, i.e. d[8 kk + 2 r],
+// d[8 kk + 2 r + 1] (first in the low half)
+__device__ __forceinline__ void to_a16(const float (&d)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float a = d[8 * kk + 2 * r];
-      const float c = d[8 * kk + 2 * r + 1];
-      const uint32_t ha = __float_as_uint(a) & 0xffff0000u;
-      const uint32_t hc = __float_as_uint(c) & 0xffff0000u;
-      hi[kk][r] = __byte_perm(ha, hc, 0x7632);
-      lo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha),
-                                                  c - __uint_as_float(hc)));
-    }
-}
-
-// d += (hi + lo) . B[:, 64 nb ...] with A = hi + lo (64 x 64) from registers
-// and B a 64-row tile read MN-major: its column block nb
-__device__ __forceinline__ void gemm_rs(float (&d)[32], const uint32_t (&hi)[4][4],
-                                        const uint32_t (&lo)[4][4], uint32_t b, int nb) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = desc(b + nb * kRows * 128 + kk * 16 * 128);
-    wgmma_rs(d, hi[kk], db, 1);
-    wgmma_rs(d, lo[kk], db, 1);
-  }
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_f16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
 // two rows of a 64-row tile: bf16 pairs of d (times `mul`) at columns
@@ -405,21 +282,25 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* g, const float (&d)[32
   }
 }
 
-// (a) one warp a row of (B, Hq, Tq_pad): delta and lse2.  With f16 (the
-// D 65-128 passes) also do's fp16 copy, do 2^ed, into do16; delta goes in
-// the units of those passes' dP sums (delta_mul) and lse2 less kPShift,
-// so that exp2(x - lse2) is P 2^15.
+// (a) LANES lanes a row of (B, Hq, Tq_pad), 8 columns each (8 up to 64
+// columns, four rows a warp; else the whole warp): delta and lse2.  With
+// f16 (the passes at D <= 128) also do's fp16 copy, do 2^ed, into do16;
+// delta goes in the units of those passes' dP sums (delta_mul) and lse2
+// less kPShift, so that exp2(x - lse2) is P 2^15.
+template <int LANES>
 __global__ void __launch_bounds__(kStatThreads)
 stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, int64_t o_sb,
              int64_t o_sh, int64_t o_st, int64_t do_sb, int64_t do_sh, int64_t do_st,
              int64_t rows, const Fp16Scales* f16, __half* do16) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kStatThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * (kStatThreads / 32) + threadIdx.x / 32) * (32 / LANES) +
+      (threadIdx.x & 31) / LANES;
+  const int lane = threadIdx.x & (LANES - 1);
+  const bool in = row < rows;   // every lane stays for the shuffles below
   const int64_t i = row % p.Tq_pad, bh = row / p.Tq_pad, h = bh % p.Hq, b = bh / p.Hq;
   float acc = 0.0f;
   float l2 = CUDART_INF_F;
-  if (i < p.Tq) {
+  if (in && i < p.Tq) {
     const int d = 8 * lane;   // 8 columns a lane, 16-byte loads (D and strides: multiples of 8)
     if (d < p.D) {
       const uint4 ov = *reinterpret_cast<const uint4*>(o + b * o_sb + h * o_sh + i * o_st + d);
@@ -444,8 +325,8 @@ stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, 
     if (l != -CUDART_INF_F) l2 = l * kLog2e - (f16 != nullptr ? kPShift : 0);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
+  for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && lane == 0) {
     p.lse2[row] = l2;
     p.delta[row] = f16 != nullptr ? acc * f16->delta_mul : acc;
   }
@@ -453,7 +334,7 @@ stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, 
 
 // ---------------------------------------------------------------------------
 // Head widths up to 64: a producer warp and two consumer warpgroups that
-// take turns at the tensor cores.
+// take turns at the tensor cores, on the fp16 copies.
 // ---------------------------------------------------------------------------
 
 namespace d64 {
@@ -461,7 +342,7 @@ constexpr int kConsumers = 2;                     // consumer warpgroups a block
 constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kThreads = kConsumerThreads + 32;   // and one producer warp
 constexpr int kBlockRows = kConsumers * kRows;    // keys a (b) block, query rows a (c) block
-constexpr int kTile = kRows * kAtom * 2;          // one 64 x 64 bf16 tile
+constexpr int kTile = kRows * kAtom * 2;          // one 64 x 64 fp16 tile
 constexpr int kStages = 8;                        // ring depth of both passes
 // (b): two k and two v tiles; a stage: q, do, 64 lse2 and 64 delta
 constexpr int kSmemKV = 1024 + 2 * kConsumers * kTile + kStages * (2 * kTile + 2 * kRows * 4) +
@@ -485,12 +366,19 @@ struct Params {
   float cap_scale, cap_log2;   // softcap: scale / c and c log2(e)
 };
 
-// d = A B^T over the 64 columns of the head, A and B 64-row K-major tiles;
-// d an output only
+// d = A B^T over the 64 columns of the head, A and B 64-row K-major fp16
+// tiles; d an output only
 __device__ __forceinline__ void gemm_ss64(float (&d)[32], uint32_t a, uint32_t b) {
-  wgmma_ss_first(d, desc(a), desc(b));
+  wgmma_ss_first_f16(d, desc(a), desc(b));
 #pragma unroll
-  for (int kk = 1; kk < 4; ++kk) wgmma_ss(d, desc(a + kk * 32), desc(b + kk * 32), 1);
+  for (int kk = 1; kk < 4; ++kk) wgmma_ss_f16(d, desc(a + kk * 32), desc(b + kk * 32), 1);
+}
+
+// d += A . B with A (64 x 64 fp16) from registers and B a 64-row fp16 tile
+// read MN-major
+__device__ __forceinline__ void gemm_rs64(float (&d)[32], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_f16(d, a[kk], desc(b + kk * 16 * 128));
 }
 
 template <int N>
@@ -516,25 +404,57 @@ __device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2, float
   }
 }
 
+// the fp16 passes' grad_elem (D <= 128): P' = P 2^15 and dS' = P' (dP
+// 2^-40 - delta) (times the softcap's derivative) from the sums of S and dP
+// over the fp16 copies: lse2 and delta are stats_kernel's for these passes,
+// s_log2 and cap_scale Fp16Scales'
+template <bool CAP>
+__device__ __forceinline__ void grad_elem16(float& s, float& dp, float lse2, float delta,
+                                            float s_log2, float cap_scale, const Params& p) {
+  if (CAP) {
+    const float t = tanhf(s * cap_scale);
+    const float pr = ex2(fmaf(t, p.cap_log2, -lse2));
+    dp = pr * fmaf(dp, kDpMul, -delta) * (1.0f - t * t);
+    s = pr;
+  } else {
+    const float pr = ex2(fmaf(s, s_log2, -lse2));
+    dp = pr * fmaf(dp, kDpMul, -delta);
+    s = pr;
+  }
+}
+
+// one element's P and dS: grad_elem16 on the fp16 passes (F16), else grad_elem
+template <bool CAP, bool F16>
+__device__ __forceinline__ void grad_pair(float& s, float& dp, float lse2, float delta,
+                                          float s_log2, float cap_scale, const Params& p) {
+  if constexpr (F16)
+    grad_elem16<CAP>(s, dp, lse2, delta, s_log2, cap_scale, p);
+  else
+    grad_elem<CAP>(s, dp, lse2, delta, p);
+}
+
 __device__ __forceinline__ bool live(const Params& p, int64_t qpos, int64_t kpos) {
   return kpos < p.Tk && (!p.causal || kpos <= qpos) && (!p.has_window || kpos > qpos - p.window);
 }
 
 // (b) one tile: S^T and dP^T (keys r0, r0 + 8 by query columns 8 j + c2,
-// + 1, N / 4 columns of 8) to P^T and dS^T in place; lse2, delta: the rows
-// of those columns.  A tile that crosses a mask edge (edge) zeroes the dead
-// pairs: qa is the first column's query position, k0 this thread's first key.
-template <bool CAP, int N>
+// + 1, N / 4 columns of 8) to P^T and dS^T in place (F16: P'^T and dS'^T,
+// grad_elem16 with s_log2 and cap_scale); lse2, delta: the rows of those
+// columns.  A tile that crosses a mask edge (edge) zeroes the dead pairs: qa
+// is the first column's query position, k0 this thread's first key.
+template <bool CAP, int N, bool F16 = false>
 __device__ __forceinline__ void kv_probs(float (&st)[N], float (&dpt)[N], const float* lse2,
                                          const float* delta, int c2, const Params& p, bool edge,
-                                         int64_t qa, int64_t k0) {
+                                         int64_t qa, int64_t k0, float s_log2 = 0.0f,
+                                         float cap_scale = 0.0f) {
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + c2);
     const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c2);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      grad_elem<CAP>(st[4 * j + e], dpt[4 * j + e], (e & 1) ? l.y : l.x, (e & 1) ? dl.y : dl.x, p);
+      grad_pair<CAP, F16>(st[4 * j + e], dpt[4 * j + e], (e & 1) ? l.y : l.x,
+                          (e & 1) ? dl.y : dl.x, s_log2, cap_scale, p);
   }
   if (edge) {
 #pragma unroll
@@ -547,15 +467,16 @@ __device__ __forceinline__ void kv_probs(float (&st)[N], float (&dpt)[N], const 
 }
 
 // (c) one tile: S and dP (rows r0, r0 + 8 by keys 8 j + c2, + 1, N / 4
-// columns of 8) to dS in sc; pos0, pos1: the two rows' positions, kt the
-// first column's key
-template <bool CAP, int N>
+// columns of 8) to dS in sc (F16: dS'); pos0, pos1: the two rows'
+// positions, kt the first column's key
+template <bool CAP, int N, bool F16 = false>
 __device__ __forceinline__ void q_probs(float (&sc)[N], float (&dp)[N], float l0, float l1,
                                         float d0, float d1, int c2, const Params& p, bool edge,
-                                        int64_t pos0, int64_t pos1, int64_t kt) {
+                                        int64_t pos0, int64_t pos1, int64_t kt,
+                                        float s_log2 = 0.0f, float cap_scale = 0.0f) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    grad_elem<CAP>(sc[i], dp[i], (i & 2) ? l1 : l0, (i & 2) ? d1 : d0, p);
+    grad_pair<CAP, F16>(sc[i], dp[i], (i & 2) ? l1 : l0, (i & 2) ? d1 : d0, s_log2, cap_scale, p);
     sc[i] = dp[i];
   }
   if (edge) {
@@ -571,7 +492,7 @@ template <bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-            const Params p) {
+            const Params p, const Fp16Scales* __restrict__ f16) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;                               // kConsumers k tiles
@@ -655,7 +576,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
   float st[32], dpt[32];
-  uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];   // P^T and dS^T in two bf16 parts
+  uint32_t ph[4][4], sh[4][4];   // P'^T and dS'^T in fp16
+  const float s_log2 = f16->s_log2;
+  const float cap_scale = CAP ? f16->cap_scale : 0.0f;
   const uint32_t k_base = smem_u32(ks + wg * kTile);
   const uint32_t v_base = smem_u32(vs + wg * kTile);
   mbar_wait(kbar, 0);
@@ -665,25 +588,23 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     gemm_ss64(st, k_base, q_s0 + s * kTile);
     gemm_ss64(dpt, v_base, do_s0 + s * kTile);
   };
-  // dV += P^T dO, dK += dS^T Q of the tile in stage s
+  // dV += P'^T dO, dK += dS'^T Q of the tile in stage s
   auto issue_grad = [&](int s) {
-    gemm_rs(dv, ph, pl, do_s0 + s * kTile, 0);
-    gemm_rs(dk, sh, sl, q_s0 + s * kTile, 0);
+    gemm_rs64(dv, ph, do_s0 + s * kTile);
+    gemm_rs64(dk, sh, q_s0 + s * kTile);
   };
   auto fence_grad = [&]() {
     reg_fence(dv);
     reg_fence(dk);
     fence_parts(ph);
-    fence_parts(pl);
     fence_parts(sh);
-    fence_parts(sl);
   };
   // this warp has finished reading stage s
   auto release = [&](int s) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   };
-  // P^T and dS^T of the tile in stage s, query tile qt, in two bf16 parts
+  // P'^T and dS'^T of the tile in stage s, query tile qt, in fp16
   auto probs = [&](int s, int qt) {
     reg_fence(st);
     reg_fence(dpt);
@@ -692,9 +613,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;  // last row
     const bool edge = !(kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
                         (!p.has_window || kw > qb - p.window));
-    kv_probs<CAP>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa, kw + r0);
-    to_a(st, ph, pl);
-    to_a(dpt, sh, sl);
+    kv_probs<CAP, 32, true>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa,
+                            kw + r0, s_log2, cap_scale);
+    to_a16(st, ph);
+    to_a16(dpt, sh);
   };
 
   // Ping-pong: named barrier 1 + w is consumer w's turn at the tensor
@@ -703,8 +625,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   // and dP^T and passes the turn; the other consumer's products then run
   // while this one waits for its own and turns S^T, dP^T into P^T, dS^T.
   // (dV and dK of one tile in flight beside S^T and dP^T of the next need
-  // 192 registers for the operands alone, over the 168 ptxas gives a
-  // thread here, and spilled.)  Every consumer takes n_iter + 1 turns;
+  // 160 registers for the operands alone on fp16, over what ptxas plans the
+  // wgmma pipeline for at 288 threads: it serialised every wgmma of the
+  // pass (C7512) and spilled, and seamless's encoder backward took 5.11 ms
+  // against 4.10, PERF.md.)  Every consumer takes n_iter + 1 turns;
   // consumer 1 starts by passing the first turn to consumer 0 and does not
   // pass its own last one, so every arrival is waited for.  Every wgmma is
   // issued from branch-free code (tile 0's S^T alone, the last dV and dK
@@ -756,8 +680,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 
   const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
-  store_rows(p.dk + off, dk, 0, c2, kw + r0, p.Tk, p.D, p.scale);
-  store_rows(p.dv + off, dv, 0, c2, kw + r0, p.Tk, p.D, 1.0f);
+  store_rows(p.dk + off, dk, 0, c2, kw + r0, p.Tk, p.D, f16->dk_mul);
+  store_rows(p.dv + off, dv, 0, c2, kw + r0, p.Tk, p.D, f16->dv_mul);
 }
 
 // (c) dQ of 128 query rows of one query head: consumer warpgroup w holds
@@ -766,7 +690,7 @@ template <bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-          const Params p) {
+          const Params p, const Fp16Scales* __restrict__ f16) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;                               // kConsumers q tiles
@@ -855,7 +779,9 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
   float sc[32], dp[32];
-  uint32_t dh[4][4], dl[4][4];   // dS in two bf16 parts
+  uint32_t dh[4][4];   // dS' in fp16
+  const float s_log2 = f16->s_log2;
+  const float cap_scale = CAP ? f16->cap_scale : 0.0f;
   const uint32_t q_base = smem_u32(qs + wg * kTile);
   const uint32_t do_base = smem_u32(dos + wg * kTile);
   mbar_wait(qbar, 0);
@@ -865,12 +791,11 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     gemm_ss64(sc, q_base, k_s0 + s * kTile);
     gemm_ss64(dp, do_base, v_s0 + s * kTile);
   };
-  // dQ += dS K of the tile in stage s
-  auto issue_grad = [&](int s) { gemm_rs(dq, dh, dl, k_s0 + s * kTile, 0); };
+  // dQ += dS' K of the tile in stage s
+  auto issue_grad = [&](int s) { gemm_rs64(dq, dh, k_s0 + s * kTile); };
   auto fence_grad = [&]() {
     reg_fence(dq);
     fence_parts(dh);
-    fence_parts(dl);
   };
   auto release = [&](int s) {
     __syncwarp();
@@ -882,13 +807,14 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
     const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
                         (!p.has_window || kt > qb - p.window));
-    q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt);
-    to_a(sc, dh, dl);
+    q_probs<CAP, 32, true>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt, s_log2,
+                           cap_scale);
+    to_a16(sc, dh);
   };
 
   // the turns of dkdv_kernel, over key tiles; here the previous tile's dQ
-  // and this tile's S and dP are issued together (dS in two parts, S, dP
-  // and dQ: 128 registers)
+  // and this tile's S and dP are issued together (dS', S, dP and dQ: 112
+  // registers)
   const int mine = 1 + wg;
   const int other = 1 + (wg ^ 1);
   if (n_tiles > 0) {
@@ -930,12 +856,13 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   }
 
   __nv_bfloat16* dqg = p.dq + (static_cast<int64_t>(b) * p.Hq + h) * p.Tq * p.D;
-  store_rows(dqg, dq, 0, c2, wq0 + r0, p.Tq, p.D, p.scale);
+  store_rows(dqg, dq, 0, c2, wq0 + r0, p.Tq, p.D, f16->dq_mul);
 }
 
 template <bool CAP>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-           const CUtensorMap& dom, const Params& p, int64_t B, cudaStream_t stream) {
+           const CUtensorMap& dom, const Params& p, const Fp16Scales* f16, int64_t B,
+           cudaStream_t stream) {
   static bool configured = false;   // the attributes are per kernel, set once
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<CAP>,
@@ -947,12 +874,12 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   }
   const dim3 grid_kv(static_cast<unsigned>((p.Tk + kBlockRows - 1) / kBlockRows),
                      static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
-  dkdv_kernel<CAP><<<grid_kv, kThreads, kSmemKV, stream>>>(qm, km, vm, dom, p);
+  dkdv_kernel<CAP><<<grid_kv, kThreads, kSmemKV, stream>>>(qm, km, vm, dom, p, f16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(static_cast<unsigned>((p.Tq + kBlockRows - 1) / kBlockRows),
                     static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p);
+  dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p, f16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -998,16 +925,6 @@ __device__ __forceinline__ void gemm_ss128(float (&d)[32], uint32_t a, uint32_t 
   }
 }
 
-// a 64 x 64 float32 accumulator as four k-steps of an fp16 A operand, each
-// value rounded once (cvt.rn.f16x2.f32); register r of step kk holds
-// d[8 kk + 2 r], d[8 kk + 2 r + 1] (to_a's layout)
-__device__ __forceinline__ void to_a16(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_f16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-}
-
 // d += A . B over the head's 128 columns: A (64 x 64 fp16) from registers, B
 // a 64-row fp16 tile of two atoms read MN-major, one m64n128k16 a k-step
 __device__ __forceinline__ void gemm_rs128(float (&d)[kNB][32], const uint32_t (&a)[4][4],
@@ -1015,68 +932,6 @@ __device__ __forceinline__ void gemm_rs128(float (&d)[kNB][32], const uint32_t (
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_rs_n128_f16(d, a[kk], desc_mn(b + kk * 16 * 128, kRows * 128));
-}
-
-// P' = P 2^15 and dS' = P' (dP - delta) 2^-40 (times the softcap's
-// derivative) from the sums of S and dP over the fp16 copies, in place:
-// lse2 and delta are stats_kernel's for these passes, s_log2 and cap_scale
-// Fp16Scales'
-template <bool CAP>
-__device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2, float delta,
-                                          float s_log2, float cap_scale, const Params& p) {
-  if (CAP) {
-    const float t = tanhf(s * cap_scale);
-    const float pr = ex2(fmaf(t, p.cap_log2, -lse2));
-    dp = pr * fmaf(dp, kDpMul, -delta) * (1.0f - t * t);
-    s = pr;
-  } else {
-    const float pr = ex2(fmaf(s, s_log2, -lse2));
-    dp = pr * fmaf(dp, kDpMul, -delta);
-    s = pr;
-  }
-}
-
-// (b) one tile: d64::kv_probs over grad_elem above
-template <bool CAP>
-__device__ __forceinline__ void kv_probs(float (&st)[32], float (&dpt)[32], const float* lse2,
-                                         const float* delta, int c2, const Params& p,
-                                         float s_log2, float cap_scale, bool edge, int64_t qa,
-                                         int64_t k0) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + c2);
-    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + c2);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      grad_elem<CAP>(st[4 * j + e], dpt[4 * j + e], (e & 1) ? l.y : l.x, (e & 1) ? dl.y : dl.x,
-                     s_log2, cap_scale, p);
-  }
-  if (edge) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool on = d64::live(p, qa + (i / 4) * 8 + c2 + (i & 1), k0 + ((i & 2) ? 8 : 0));
-      st[i] = on ? st[i] : 0.0f;
-      dpt[i] = on ? dpt[i] : 0.0f;
-    }
-  }
-}
-
-// (c) one tile: d64::q_probs over grad_elem above (dS' in sc)
-template <bool CAP>
-__device__ __forceinline__ void q_probs(float (&sc)[32], float (&dp)[32], float l0, float l1,
-                                        float d0, float d1, int c2, const Params& p,
-                                        float s_log2, float cap_scale, bool edge, int64_t pos0,
-                                        int64_t pos1, int64_t kt) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    grad_elem<CAP>(sc[i], dp[i], (i & 2) ? l1 : l0, (i & 2) ? d1 : d0, s_log2, cap_scale, p);
-    sc[i] = dp[i];
-  }
-  if (edge) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (!d64::live(p, (i & 2) ? pos1 : pos0, kt + (i / 4) * 8 + c2 + (i & 1))) sc[i] = 0.0f;
-  }
 }
 
 // (b) dK and dV of 128 keys of one kv head: consumer warpgroup w holds keys
@@ -1229,8 +1084,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     const int64_t qb = p.q_offset + (q0 + kRows < p.Tq ? q0 + kRows : p.Tq) - 1;  // last row
     const bool edge = !(kw + kRows <= p.Tk && (!p.causal || kw + kRows - 1 <= qa) &&
                         (!p.has_window || kw > qb - p.window));
-    kv_probs<CAP>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, s_log2, cap_scale, edge,
-                  qa, kw + r0);
+    d64::kv_probs<CAP, 32, true>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa,
+                                 kw + r0, s_log2, cap_scale);
     to_a16(st, ph);
     to_a16(dpt, sh);
   };
@@ -1429,7 +1284,8 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     const int64_t kt = k_begin + static_cast<int64_t>(t) * kRows;
     const bool edge = !(kt + kRows <= p.Tk && (!p.causal || kt + kRows - 1 <= qa) &&
                         (!p.has_window || kt > qb - p.window));
-    q_probs<CAP>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, s_log2, cap_scale, edge, pos0, pos1, kt);
+    d64::q_probs<CAP, 32, true>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt,
+                                s_log2, cap_scale);
     to_a16(sc, dh);
   };
 
@@ -2009,12 +1865,12 @@ int blocks(int64_t* out, int64_t keys, int64_t splits, int64_t kv_threads, int64
 // contiguous float32 (B, Hq, Tq), the forward's row log-sum-exp (-inf where
 // a row sees no key); stats: contiguous float32 scratch of 2 x B x Hq x
 // Tq_pad (Tq_pad = Tq rounded up to 64), 16-byte aligned; dq, dk, dv:
-// contiguous, of q's, k's and v's shapes, bfloat16.  At 64 < D <= 128 also
-// q16, k16, v16, do16: contiguous fp16 scratch of q's, k's, v's and q's
-// shapes, and aux: float32 scratch of kAuxFloats, all 16-byte aligned (null
-// at other widths).  8 <= D <= 256 with D a multiple of 8, Hq a multiple of
-// Hkv, Tk >= 1.  Launches three kernels on `stream` (five at 64 < D <= 128:
-// the maxima and q, k, v's conversion first); returns the first cudaError_t
+// contiguous, of q's, k's and v's shapes, bfloat16.  At D <= 128 also q16,
+// k16, v16, do16: contiguous fp16 scratch of q's, k's, v's and q's shapes,
+// and aux: float32 scratch of kAuxFloats, all 16-byte aligned (null at
+// other widths).  8 <= D <= 256 with D a multiple of 8, Hq a multiple of
+// Hkv, Tk >= 1.  Launches three kernels on `stream` (five at D <= 128: the
+// maxima and q, k, v's conversion first); returns the first cudaError_t
 // (0 on success; cudaErrorInvalidValue for arguments the kernel does not
 // take or a tensor map CUDA refuses).  The caller checks shapes, types and
 // devices.
@@ -2033,7 +1889,7 @@ extern "C" int flash_attention_bwd_sm90(
     return static_cast<int>(bad);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   const int64_t DP = (D + 63) / 64 * 64;
-  const bool f16 = DP == 128;
+  const bool f16 = DP <= 128;
   if (f16 && (q16 == nullptr || k16 == nullptr || v16 == nullptr || do16 == nullptr ||
               aux == nullptr))
     return static_cast<int>(bad);
@@ -2077,26 +1933,30 @@ extern "C" int flash_attention_bwd_sm90(
                       src(dout, do_sb, do_sh, do_st, Hq, Tq, B)},
                      {static_cast<__half*>(q16), static_cast<__half*>(k16),
                       static_cast<__half*>(v16), static_cast<__half*>(do16)},
-                     D};
-    absmax_kernel<<<dim3(kConvBlocks, 4), kConvThreads, 0, s>>>(a, parts);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    convert_kernel<<<dim3(kConvBlocks, 3), kConvThreads, 0, s>>>(a, parts, sc, scale, softcap,
-                                                                  has_softcap);
-    err = cudaGetLastError();
+                     D, 4};
+    // the maxima of all four, the copies of q, k and v (stats_kernel converts do)
+    const cudaError_t err = convert_fp16(a, 3, parts, ScalesOut{sc, scale, softcap, has_softcap}, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  // eight lanes a row up to 64 columns (four rows a warp), a warp above
+  const __nv_bfloat16* o16 = static_cast<const __nv_bfloat16*>(o);
+  const __nv_bfloat16* g16 = static_cast<const __nv_bfloat16*>(dout);
   const int64_t warps = kStatThreads / 32;
-  stats_kernel<<<static_cast<unsigned>((stat_rows + warps - 1) / warps), kStatThreads, 0, s>>>(
-      p, static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), o_sb,
-      o_sh, o_st, do_sb, do_sh, do_st, stat_rows, sc, static_cast<__half*>(do16));
+  if (D <= 64)
+    stats_kernel<8><<<static_cast<unsigned>((stat_rows + 4 * warps - 1) / (4 * warps)),
+                      kStatThreads, 0, s>>>(p, o16, g16, o_sb, o_sh, o_st, do_sb, do_sh, do_st,
+                                            stat_rows, sc, static_cast<__half*>(do16));
+  else
+    stats_kernel<32><<<static_cast<unsigned>((stat_rows + warps - 1) / warps), kStatThreads, 0,
+                       s>>>(p, o16, g16, o_sb, o_sh, o_st, do_sb, do_sh, do_st, stat_rows, sc,
+                            static_cast<__half*>(do16));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const d64::Params n = narrow(p);
   switch (DP) {
     case 64:
-      return p.has_softcap ? d64::launch<true>(qm, km, vm, dom, n, B, s)
-                           : d64::launch<false>(qm, km, vm, dom, n, B, s);
+      return p.has_softcap ? d64::launch<true>(qm, km, vm, dom, n, sc, B, s)
+                           : d64::launch<false>(qm, km, vm, dom, n, sc, B, s);
     case 128:
       return p.has_softcap ? d128::launch<true>(qm, km, vm, dom, n, sc, B, s)
                            : d128::launch<false>(qm, km, vm, dom, n, sc, B, s);
@@ -2106,7 +1966,7 @@ extern "C" int flash_attention_bwd_sm90(
   }
 }
 
-// the floats of the scratch `aux` at 64 < D <= 128
+// the floats of the scratch `aux` at D <= 128
 extern "C" int flash_attention_bwd_sm90_aux_floats() { return kAuxFloats; }
 
 // The blocks of both passes at head width D (8 <= D <= 256), which the

@@ -54,7 +54,9 @@
 //   (2^-7 |want| + 1e-4) on long rows, so P is split into two bf16 parts,
 //   hi = bf16(p) and lo = bf16(p - hi), and P V is the sum of two wgmma
 //   (hi V + lo V, exact products, float32 sums): p is carried to ~2^-16
-//   relative, as close as a float32 p for the gate.
+//   relative, as close as a float32 p for the gate.  At head widths 65-128
+//   the row blocks whose every row sees 1024 keys or more round P once to
+//   fp16 instead (below).
 //
 // Head widths 136-256 (recurrentgemma's 256; namespace d256): two consumer
 // warpgroups of 64 query rows that take turns at the tensor cores, over the
@@ -76,8 +78,9 @@
 // consumers' S has read it, a v tile once their P V has, so the next S's
 // tile loads while the P V of the one before is still to run.
 //
-// Head widths 65-128 (danube's 120; namespace d128): the structure of the
-// widths up to 64 below, over the head's two 64-column atoms.  One block per
+// Head widths 65-128 (danube's 120, olmo's 128; namespace d128): the
+// structure of the widths up to 64 below, over the head's two 64-column
+// atoms.  One block per
 // 128 query rows, 128-key tiles (S is one m64n128k16 wgmma a 16-column step,
 // eight steps) and three warpgroups: a producer whose one thread issues every
 // TMA load into a ring of three stages, and two consumers of 64 rows that
@@ -91,7 +94,21 @@
 // register resources").  The accumulator (64 registers), S and the two P
 // parts (64 each) are never all live.  64-key tiles, and two consumers with
 // no producer (256 threads, the products of one tile overlapping the
-// softmax of the next), were slower.
+// softmax of the next), were slower.  P V in two bf16 parts is two thirds
+// of a tile's tensor time (6 D' flops a pair with S), so the 128-row
+// blocks whose every row sees 1024 keys or more (one contiguous range,
+// flash_attention_sm90.py::one_part_blocks, from the mask alone) take it in
+// one part: P 2^7 (p <= 2^8 under the lazy rescale) rounded once to fp16
+// against an fp16 copy of v times 2^ev (sm90_common.cuh's convert_fp16, two
+// launches before), one m64n128k16 a 16-key step over both atoms, the sums
+// taken back by 2^-(7 + ev) as they are stored: 4 D' a pair.  S stays a
+// bf16 product of q and k, and l the sum of the unrounded p.  The rounding
+// error of P averages out over a row's keys: over 129-256 keys one fp16
+// rounding put the long path's (4, 32, 8192, 120) at 1.033 of the gate, and
+// the CPU sweep (tools/emulate_fp16_attention.py --keys-sweep) keeps the
+// error under a bf16 ulp or the gate's floor from about a thousand.  The
+// two kinds of block are two launches (kernel template ONE), the one-part
+// range first: a wgmma under a branch serialises every wgmma of a kernel.
 //
 // Head widths up to 64 (seamless's 64): one block per NC * 64 query rows,
 // 128-key tiles (S is one m64n128k16 wgmma a 16-column step) and NC + 1
@@ -169,6 +186,10 @@ struct D64Params {
   float softcap, scale, scale_log2;
   float cap_scale;      // scale / softcap
   unsigned* arrivals;   // split: one zeroed counter a (batch, head, row block)
+  // width 65-128: the row blocks [one_lo, one_hi) take P V in one fp16 part
+  // against v's fp16 copy, whose sums v_back (2^-(kPShift + ev)) takes back
+  int64_t one_lo, one_hi;
+  const float* v_back;
 };
 
 struct TileRange {
@@ -295,6 +316,20 @@ __device__ __forceinline__ void split_p(const float (&sc)[8 * KK], uint32_t (&ph
       plo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha),
                                                   c - __uint_as_float(hc)));
     }
+}
+
+// P' = p 2^kPShift, each value rounded once to fp16 (cvt.rn.f16x2.f32), in
+// split_p's A-operand layout: p <= 2^8 under the lazy rescale, so P' <= 2^15,
+// under fp16's 65504, and p from 2^-21 up is an fp16 normal (2^-11 relative)
+constexpr int kPShift = 7;
+template <int KK>
+__device__ __forceinline__ void round_p16(const float (&sc)[8 * KK], uint32_t (&p16)[KK][4]) {
+  constexpr float kMul = 1 << kPShift;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p16[kk][r] = pack_f16(sc[8 * kk + 2 * r] * kMul, sc[8 * kk + 2 * r + 1] * kMul);
 }
 
 // out = acc / l for this thread's rows row0 and row0 + 8 (columns 8j + c2,
@@ -714,8 +749,10 @@ static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 
 // Width 65-128: a producer warpgroup and two consumer warpgroups (see the
 // top of the file).  The softcap is a template argument; D64Params carries
-// the call (no key splits).
-template <bool CAP>
+// the call (no key splits).  ONE: the row blocks [p.one_lo, p.one_hi), P V
+// in one fp16 part against v's fp16 copy (vmap over it); else the others,
+// P V in two bf16 parts.  Both walk their blocks last rows first.
+template <bool CAP, bool ONE>
 __global__ void __launch_bounds__(d128::kThreads, 1)
 flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
@@ -734,7 +771,9 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   // the role of this thread's warpgroup, the same in every lane
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   // the last query rows see the most keys: start them first
-  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kRows;
+  const int64_t last = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x);
+  const int64_t q0 = (ONE ? p.one_lo + last
+                          : (last < p.one_lo ? last : last + p.one_hi - p.one_lo)) * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / p.group;
@@ -795,7 +834,8 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   float l0 = 0.0f, l1 = 0.0f;
   float o[kNB][32];
   float sc[64];
-  uint32_t phi[8][4], plo[8][4];
+  uint32_t phi[8][4];            // P in one fp16 part (ONE), or its bf16 hi part
+  uint32_t plo[ONE ? 1 : 8][4];  // the bf16 lo part (two parts only)
 #pragma unroll
   for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
@@ -810,17 +850,25 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_ss_n128(sc, desc(q_base_t + (kk / 4) * kBM * 128 + (kk % 4) * 32),
                     desc(k_base + (kk / 4) * kKeys * 128 + (kk % 4) * 32), 1);
   };
-  // O += P_hi V + P_lo V with the v tile in stage st, atom by atom
+  // O += P V with the v tile in stage st: ONE, P' V' (fp16), one
+  // m64n128k16 a 16-key step over both atoms; else P_hi V + P_lo V, atom by
+  // atom
   auto issue_pv = [&](int st) {
     const uint32_t v_base = smem_u32(vs + st * kKVBytes);
+    if constexpr (ONE) {
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs_n128_f16(o, phi[kk], desc_mn(v_base + kk * 16 * 128, kKeys * 128));
+    } else {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = desc(v_base + nb * kKeys * 128 + kk * 16 * 128);
-        wgmma_rs(o[nb], phi[kk], dv, 1);
-        wgmma_rs(o[nb], plo[kk], dv, 1);
-      }
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t dv = desc(v_base + nb * kKeys * 128 + kk * 16 * 128);
+          wgmma_rs(o[nb], phi[kk], dv, 1);
+          wgmma_rs(o[nb], plo[kk], dv, 1);
+        }
+    }
   };
   auto fence_pv = [&]() {
 #pragma unroll
@@ -828,8 +876,14 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       reg_fence(phi[kk]);
-      reg_fence(plo[kk]);
+      if constexpr (!ONE) reg_fence(plo[kk]);
     }
+  };
+  auto parts = [&]() {
+    if constexpr (ONE)
+      round_p16(sc, phi);
+    else
+      split_p(sc, phi, plo);
   };
   // this warp has finished reading stage st
   auto release = [&](int st) {
@@ -866,7 +920,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait_all();
     reg_fence(sc);
     softmax(0);
-    split_p(sc, phi, plo);
+    parts();
     int s = 0, sp = 0;
     uint32_t phase = 0;
 #pragma unroll 1
@@ -890,7 +944,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
       reg_fence(sc);
       softmax(t);
       rescale();
-      split_p(sc, phi, plo);
+      parts();
     }
     bar_sync(mine, kConsumers * 128);
     fence_pv();
@@ -901,6 +955,13 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait_all();
     fence_pv();
     release(s);
+  }
+  if constexpr (ONE) {   // P' V' is P V 2^(kPShift + ev)
+    const float back = *p.v_back;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[nb][i] *= back;
   }
   store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
 }
@@ -1176,18 +1237,45 @@ int configure(Kernel kernel, int smem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
+// The conversion's epilogue: v's copy is v 2^ev, and P' V' comes back as
+// P V times v_back = 2^-(kPShift + ev)
+struct VBack {
+  float* back;
+  __device__ void operator()(const int* e) const { *back = ldexpf(1.0f, -(kPShift + e[0])); }
+};
+
+// Width 65-128: where some row block takes one fp16 part, v's fp16 copy
+// first (conv, two launches), then the row blocks [one_lo, one_hi) over
+// it (vm16), then the others over v (vm), each launch skipped when it has
+// no block
 template <bool CAP>
 int launch_d128(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                const CUtensorMap& vm16, const ConvArgs& conv, uint32_t* parts,
                 const D64Params& p, int64_t B, cudaStream_t stream) {
-  static bool configured = false;   // the attribute is per kernel, set once
+  static bool configured = false;   // the attributes are per kernel, set once
   if (!configured) {
-    const int err = configure(flash_attention_d128_kernel<CAP>, d128::kSmem);
+    int err = configure(flash_attention_d128_kernel<CAP, false>, d128::kSmem);
+    if (err == 0) err = configure(flash_attention_d128_kernel<CAP, true>, d128::kSmem);
     if (err != 0) return err;
     configured = true;
   }
-  const dim3 grid(static_cast<unsigned>((p.Tq + d128::kRows - 1) / d128::kRows),
-                  static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  flash_attention_d128_kernel<CAP><<<grid, d128::kThreads, d128::kSmem, stream>>>(qm, km, vm, p);
+  const int64_t blocks = (p.Tq + d128::kRows - 1) / d128::kRows;
+  const int64_t one = p.one_hi - p.one_lo;
+  const auto grid = [&](int64_t n) {
+    return dim3(static_cast<unsigned>(n), static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  };
+  if (one > 0) {
+    const cudaError_t err = convert_fp16(conv, 1, parts, VBack{const_cast<float*>(p.v_back)},
+                                         stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_d128_kernel<CAP, true><<<grid(one), d128::kThreads, d128::kSmem, stream>>>(
+        qm, km, vm16, p);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+  }
+  if (blocks > one)
+    flash_attention_d128_kernel<CAP, false><<<grid(blocks - one), d128::kThreads, d128::kSmem,
+                                              stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1239,7 +1327,14 @@ int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
 // contiguous float32, take each range's output, and the same launch merges
 // them into o (and lse), counting arrivals in `arrivals`: B Hq ceil(Tq /
 // rows a block) zeroed uint32 (flash_attention_sm90_rows), zero again when
-// the launch ends, used by no other launch in flight.
+// the launch ends, used by no other launch in flight.  At 64 < D <= 128,
+// the 128-row blocks [one_lo, one_hi) (0 <= one_lo <= one_hi <= ceil(Tq /
+// 128)) take P V in one fp16 part: then v16, contiguous fp16 scratch of v's
+// shape, and aux, float32 scratch of flash_attention_sm90_aux_floats, both
+// 16-byte aligned, take v's copy (null when the range is empty); every row
+// of those blocks should see 1024 live keys or more
+// (flash_attention_sm90.py::one_part_blocks), or its output may miss the
+// bf16 limit.
 // Launches on `stream`; returns the cudaError_t of the launch
 // (0 on success; cudaErrorInvalidValue for arguments the kernel does not
 // take or a tensor map CUDA refuses).
@@ -1253,7 +1348,8 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         int has_softcap, float softcap, float scale,
                                         void* lse, int64_t splits, int64_t split_lo,
                                         int64_t split_chunks, void* o_part, void* lse_part,
-                                        void* arrivals, void* stream) {
+                                        void* arrivals, void* v16, void* aux, int64_t one_lo,
+                                        int64_t one_hi, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff || splits < 1 || splits > 65535)
@@ -1262,6 +1358,9 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                      split_chunks < splits ||
                      split_lo < 0 || split_lo % kSplitKeys != 0 ||
                      splits * split_chunks > 0x7fffffff))
+    return static_cast<int>(bad);
+  if (one_lo < 0 || one_hi < one_lo || one_hi > (Tq + d128::kRows - 1) / d128::kRows ||
+      (one_hi > one_lo && ((D + 63) / 64 != 2 || v16 == nullptr || aux == nullptr)))
     return static_cast<int>(bad);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   const int64_t DP = (D + 63) / 64 * 64;
@@ -1287,10 +1386,25 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
   p.cap_scale = has_softcap ? scale / softcap : 0.0f;
   p.arrivals = splits > 1 ? static_cast<unsigned*>(arrivals) : nullptr;
+  p.one_lo = one_lo;
+  p.one_hi = one_hi;
+  uint32_t* parts = static_cast<uint32_t*>(aux);
+  p.v_back = one_hi > one_lo ? reinterpret_cast<float*>(parts + 4 * kConvBlocks) : nullptr;
   if (DP > 128)
     return has_softcap ? launch_d256<true>(qm, km, vm, p, B, s) : launch_d256<false>(qm, km, vm, p, B, s);
-  if (DP == 128)
-    return has_softcap ? launch_d128<true>(qm, km, vm, p, B, s) : launch_d128<false>(qm, km, vm, p, B, s);
+  if (DP == 128) {
+    // v's fp16 copy, contiguous, for the one-part blocks
+    CUtensorMap vm16 = vm;
+    if (one_hi > one_lo && !make_map(&vm16, v16, D, Tk, Hkv, B, D, Tk * D, Hkv * Tk * D,
+                                     d128::kKeys, CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
+      return static_cast<int>(bad);
+    const ConvArgs conv{{Src16{static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, v_st, Hkv, Tk,
+                               B * Hkv * Tk}},
+                        {static_cast<__half*>(v16)},
+                        D, 1};
+    return has_softcap ? launch_d128<true>(qm, km, vm, vm16, conv, parts, p, B, s)
+                       : launch_d128<false>(qm, km, vm, vm16, conv, parts, p, B, s);
+  }
   // up to 64 query rows one consumer warpgroup a block, more two
   if (Tq <= kBM)
     return splits > 1 ? launch_d64<1, true>(qm, km, vm, p, B, s)
@@ -1298,6 +1412,9 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   return splits > 1 ? launch_d64<2, true>(qm, km, vm, p, B, s)
                     : launch_d64<2, false>(qm, km, vm, p, B, s);
 }
+
+// the floats of the scratch `aux`: v's partial maxima, then v_back
+extern "C" int flash_attention_sm90_aux_floats() { return 4 * kConvBlocks + 4; }
 
 // The query rows a block of the kernel that takes Tq rows of head width D
 // holds (8 <= D <= 256, D a multiple of 8), which the wrapper mirrors

@@ -4,10 +4,12 @@
 // atoms through a 4-d (D, T, heads, batch) tensor map, wgmma descriptors,
 // the wgmma forms the kernels use (bf16: m64n64k16 with A from shared memory
 // or registers, m64n128k16 and m64n32k16 with both from shared memory, B K-
-// or (m64n128k16) MN-major; fp16: m64n64k16 from shared memory and
-// m64n128k16 with A from registers and B MN-major; float32 accumulators),
-// register reallocation between warpgroups, and the tensor map's encoding
-// through the CUDA runtime.
+// or (m64n128k16) MN-major; fp16: m64n64k16 from shared memory, and
+// m64n64k16 and m64n128k16 with A from registers and B MN-major; float32
+// accumulators),
+// register reallocation between warpgroups, the tensor map's encoding
+// through the CUDA runtime, and the scaled fp16 copies both libraries' fp16
+// products read.
 // Included once per source, each built into its own library.
 
 #pragma once
@@ -376,6 +378,23 @@ __device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[2][32], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// wgmma_rs on fp16 operands: d (64 x 64 float32) += A (64 x 16 fp16, four
+// registers a thread) . B (16 x 64 fp16, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // makes this thread's ordinary stores to shared memory visible to the
 // asynchronous proxy (wgmma operands, TMA), once a barrier orders them
 __device__ __forceinline__ void fence_async_shared() {
@@ -450,6 +469,164 @@ bool make_map(CUtensorMap* map, const void* base, int64_t D, int64_t T, int64_t 
   return fn(map, type, 4, const_cast<void*>(base), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// Scaled fp16 copies of bf16 tensors (the backward's q, k, v and do at head
+// widths up to 128, the forward's v at 65-128), each times a power of two
+// 2^e of its own, e = fp16_exponent(max |x|): (a0) absmax_kernel reduces
+// each tensor's largest |x| to partial maxima, one a block, (a1)
+// convert_kernel reduces those to the exponents, writes the copies and
+// hands the exponents once to the caller's epilogue (convert_fp16 launches
+// both).
+// ---------------------------------------------------------------------------
+
+constexpr int kConvThreads = 256;
+// (a0) runs 4 kConvBlocks blocks over its n tensors, conv_blocks(n) = 4
+// kConvBlocks / n a tensor, so that one tensor alone still fills the card,
+// each writing one partial maximum; (a1) as many a tensor it copies
+constexpr int kConvBlocks = 256;
+
+// The power of two e that takes bf16 values of largest magnitude m (given by
+// a float's bits) into fp16: 2^15 <= m 2^e <= 65280 (bf16's largest
+// mantissa), so nothing overflows fp16's 65504, and every value of 2^-32 m
+// or more converts exactly (an fp16 normal, or a subnormal multiple of
+// 2^-24: a bf16 value has 8 significant bits).  At most 127 (m zero or
+// below 2^-112: m 2^127 < 2^15 then).  flash_attention_bwd_sm90.py's
+// fp16_exponent mirrors it.
+__device__ __forceinline__ int fp16_exponent(uint32_t m) {
+  const int e8 = static_cast<int>((m >> 23) & 0xff);
+  return e8 == 0 ? 127 : min(142 - e8, 127);
+}
+
+// 2^e, -126 <= e <= 127
+__device__ __forceinline__ float exp2i(int e) { return __int_as_float((e + 127) << 23); }
+
+// one (B, H, T, D) bf16 tensor, unit stride in D: its element strides and rows B H T
+struct Src16 {
+  const __nv_bfloat16* x;
+  int64_t sb, sh, st, H, T, rows;
+};
+struct ConvArgs {
+  Src16 t[4];        // the tensors whose maxima (a0) takes and (a1) reduces
+  __half* out[4];    // fp16 copies of the first ones, contiguous (B, H, T, D)
+  int64_t D;
+  int n;             // tensors in t (at most 4)
+};
+
+// the blocks a tensor of (a0) and (a1) over n tensors, and its partial maxima
+__host__ __device__ __forceinline__ int conv_blocks(int n) { return 4 * kConvBlocks / n; }
+
+// f(row, its first element) for this block's share of t's rows, a
+// contiguous range walked kConvThreads / LANES rows at a time, LANES
+// threads a row of 8 columns each (8 up to 64 columns, 16 above:
+// convert_fp16): the row's (batch, head, position) found by division once,
+// then stepped
+template <int LANES, class F>
+__device__ __forceinline__ void for_rows(const Src16& t, F f) {
+  constexpr int step = kConvThreads / LANES;
+  const int64_t per = (t.rows + gridDim.x - 1) / gridDim.x;
+  const int64_t last = static_cast<int64_t>(blockIdx.x + 1) * per;
+  const int64_t end = last < t.rows ? last : t.rows;
+  int64_t row = static_cast<int64_t>(blockIdx.x) * per + threadIdx.x / LANES;
+  if (row >= end) return;
+  int64_t i = row % t.T, h = (row / t.T) % t.H, b = row / t.T / t.H;
+  for (; row < end; row += step) {
+    f(row, t.x + b * t.sb + h * t.sh + i * t.st);
+    for (i += step; i >= t.T; i -= t.T)
+      if (++h == t.H) { h = 0; ++b; }
+  }
+}
+
+// the largest of x over the block's threads (unsigned: float bits of magnitudes)
+__device__ __forceinline__ uint32_t block_max(uint32_t x) {
+  __shared__ uint32_t warp_max[kConvThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x / 32] = x;
+  __syncthreads();
+  x = 0;
+#pragma unroll
+  for (int w = 0; w < kConvThreads / 32; ++w) x = max(x, warp_max[w]);
+  return x;
+}
+
+// (a0) block (i, t): the largest |x| of its share of tensor t's rows
+// (for_rows), as a float's bits, into parts[t][i].  8 columns a lane; bf16
+// magnitudes compare as unsigned integers (a NaN above every number).
+template <int LANES>
+__global__ void __launch_bounds__(kConvThreads)
+absmax_kernel(const __grid_constant__ ConvArgs a, uint32_t* parts) {
+  const int col = 8 * (threadIdx.x % LANES);
+  uint32_t m = 0;   // two bf16 magnitudes
+  if (col < a.D)
+    for_rows<LANES>(a.t[blockIdx.y], [&](int64_t, const __nv_bfloat16* x0) {
+      const uint4 x = *reinterpret_cast<const uint4*>(x0 + col);
+      m = __vmaxu2(m, x.x & 0x7fff7fffu);
+      m = __vmaxu2(m, x.y & 0x7fff7fffu);
+      m = __vmaxu2(m, x.z & 0x7fff7fffu);
+      m = __vmaxu2(m, x.w & 0x7fff7fffu);
+    });
+  m = block_max(max(m & 0xffffu, m >> 16) << 16);
+  if (threadIdx.x == 0) parts[blockIdx.y * gridDim.x + blockIdx.x] = m;
+}
+
+// (a1) block (i, t): its share of tensor t's rows, times 2^e_t, to fp16;
+// block (0, 0) also calls epi(e), e the exponents of all a.n tensors.
+// Every block reduces the partial maxima of all of them (at most 4 KB), so
+// that no launch of its own has to.
+template <int LANES, class Epilogue>
+__global__ void __launch_bounds__(kConvThreads)
+convert_kernel(const __grid_constant__ ConvArgs a, const uint32_t* parts, const Epilogue epi) {
+  __shared__ int e_s[4];
+  if (threadIdx.x < a.n * 32) {   // warp w: tensor w's partial maxima
+    const int w = threadIdx.x / 32;
+    uint32_t m = 0;
+    const int per = conv_blocks(a.n);
+    for (int i = threadIdx.x & 31; i < per; i += 32) m = max(m, parts[w * per + i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((threadIdx.x & 31) == 0) e_s[w] = fp16_exponent(m);
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) epi(e_s);
+  __half* out = a.out[blockIdx.y];
+  const float mul = exp2i(e_s[blockIdx.y]);
+  const int col = 8 * (threadIdx.x % LANES);
+  if (col >= a.D) return;
+  for_rows<LANES>(a.t[blockIdx.y], [&](int64_t row, const __nv_bfloat16* x0) {
+    const uint4 x = *reinterpret_cast<const uint4*>(x0 + col);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    uint4 h;
+    uint32_t* hw = reinterpret_cast<uint32_t*>(&h);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(x2[e]);
+      hw[e] = pack_f16(f.x * mul, f.y * mul);
+    }
+    *reinterpret_cast<uint4*>(out + row * a.D + col) = h;
+  });
+}
+
+// (a0) over a.n tensors into `parts` (4 kConvBlocks uint32), then (a1)
+// writing the copies of the first `copies` of them, on `stream`; the first
+// cudaError_t
+template <int LANES, class Epilogue>
+cudaError_t convert_fp16_lanes(const ConvArgs& a, int copies, uint32_t* parts,
+                               const Epilogue& epi, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(conv_blocks(a.n));
+  absmax_kernel<LANES><<<dim3(blocks, a.n), kConvThreads, 0, stream>>>(a, parts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  convert_kernel<LANES, Epilogue>
+      <<<dim3(blocks, copies), kConvThreads, 0, stream>>>(a, parts, epi);
+  return cudaGetLastError();
+}
+template <class Epilogue>
+cudaError_t convert_fp16(const ConvArgs& a, int copies, uint32_t* parts, const Epilogue& epi,
+                         cudaStream_t stream) {
+  return a.D <= 64 ? convert_fp16_lanes<8>(a, copies, parts, epi, stream)
+                   : convert_fp16_lanes<16>(a, copies, parts, epi, stream);
 }
 
 }  // namespace

@@ -28,11 +28,11 @@ columns and computing half of each tile's S and dP, whose bf16 parts both
 read from shared memory.  :func:`block_config` gives each, as the kernel's
 ``flash_attention_bwd_sm90_blocks`` reports them (:func:`kernel_blocks`).
 
-From 65 to 128 every product runs on fp16 operands: two more launches
+Up to 128 columns every product runs on fp16 operands: two more launches
 first take the largest |x| of q, k, v and do and write fp16 copies of q, k
 and v, each times a power of two of its own (:func:`fp16_exponent`; the
 stats launch converts do), and P and dS go to the tensor cores rounded once
-to fp16, where the other widths carry them as two bf16 parts.
+to fp16, where the widths from 136 carry them as two bf16 parts.
 :func:`fp16_copy` is the conversion's plain version.  The wrapper allocates
 the copies and the conversion's scratch (its size the library's
 ``flash_attention_bwd_sm90_aux_floats``).
@@ -94,7 +94,7 @@ def block_config(D: int) -> Blocks:
 
 def converts_to_fp16(D: int) -> bool:
     """Whether the kernel runs its products on fp16 copies at head width ``D``."""
-    return 64 < D <= 128
+    return D <= 128
 
 
 def fp16_exponent(amax: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,8 @@ bfloat16 q, k and v (``ops.flash_attention`` sends float32 inputs to
 ``flash_attention.py``'s kernel).  The kernel
 (``csrc/flash_attention_sm90.cu``) runs q k^T and P V as ``wgmma`` on bf16
 tiles that TMA brings into a ring in shared memory, with P split into two
-bf16 parts and m, l and the accumulator in float32, and walks only the live
-key tiles.  At a width of 64 or less a block holds one warpgroup of 64
+bf16 parts (or, see below, rounded once to fp16) and m, l and the
+accumulator in float32, and walks only the live key tiles.  At a width of 64 or less a block holds one warpgroup of 64
 rows for up to 64 query rows (:func:`block_rows`), and otherwise 128 rows
 in two consumer warpgroups beside a producer warpgroup, over 128-key tiles,
 the consumers taking turns at the tensor cores so that one's softmax runs
@@ -23,6 +23,19 @@ With ``return_lse`` it also writes each row's log-sum-exp, which the
 backward reads.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention``.
 
+From 65 to 128 columns, the 128-row blocks whose every row sees at least
+``ONE_PART_KEYS`` live keys (:func:`one_part_blocks`, a contiguous range of
+row blocks found from the mask alone) take P V in one fp16 part: P times
+2^7 rounded once to fp16, against an fp16 copy of v times a power of two of
+its own (``flash_attention_bwd_sm90.fp16_copy`` is that conversion's plain
+version), which two more launches write first; the other row blocks keep
+the two bf16 parts against v.  The two kinds of block are two launches of
+the kernel, so that no ``wgmma`` sits under a branch.  P's rounding error
+averages out over the keys a row sees: over a few hundred it can reach
+the output's limit (2^-7 |want| + 1e-4) where the output is a small sum of
+large terms, so the rule asks for a thousand
+(``tools/emulate_fp16_attention.py --keys-sweep``).
+
 At a width of 64 or less, a call with fewer than two waves of blocks (a
 decode step's cross-attention, a short prompt's) splits its live keys into
 ranges (:func:`split_count`, ``ref.split_ranges``): one block per (row
@@ -33,9 +46,11 @@ zeroed, one a row block, a buffer per device and stream).  The plain
 versions are ``ref.ref_flash_attention_partials`` and
 ``ref.ref_merge_attention``.
 
-``launches`` counts the kernel's launches, and nothing else; a run reads
-it to show that its path went through the kernel.  ``split_launches``
-counts those of them that split their keys (and merged them).
+``launches`` counts the wrapper's calls that launch the kernel (one a
+call, its launches together), and nothing else; a run reads it to show
+that its path went through the kernel.  ``split_launches`` counts those of
+them that split their keys (and merged them), ``fp16_launches`` those in
+which some row block took P V in one fp16 part.
 """
 
 from __future__ import annotations
@@ -51,24 +66,33 @@ from repro_torch.kernels import ref as _ref
 
 launches = 0
 split_launches = 0
+fp16_launches = 0
+# a 128-row block takes P V in one fp16 part where each of its rows sees at
+# least this many live keys (at 65-128 columns)
+ONE_PART_KEYS = 1024
 # a call splits its keys when it has fewer blocks than this many waves of
 # one block an SM, into enough ranges for about SPLIT_WAVES waves
 SPLIT_BELOW_WAVES, SPLIT_WAVES = 2, 4
 
 _fn = None
+_aux_floats = None   # the float32 scratch of v's conversion, as the library reports it
 _sm_counts = {}
 _arrivals = {}      # (device index, stream) -> zeroed uint32 arrival counters
 
 
 def _kernel():
-    global _fn
+    global _fn, _aux_floats
     if _fn is None:
-        fn = build.load("flash_attention_sm90").flash_attention_sm90_fwd
+        lib = build.load("flash_attention_sm90")
+        aux = lib.flash_attention_sm90_aux_floats
+        aux.argtypes, aux.restype = [], ctypes.c_int
+        _aux_floats = aux()
+        fn = lib.flash_attention_sm90_fwd
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ptr, i64, i64, i64, ptr, ptr, ptr,
-                          ptr])
+                          ptr, ptr, i64, i64, ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -123,6 +147,31 @@ def kernel_rows(Tq: int, D: int) -> int:
     if fn(Tq, D, ctypes.addressof(rows)) != 0:
         raise ValueError(f"flash_attention_sm90: head width {D} is not taken")
     return rows.value
+
+
+def one_part_blocks(Tq: int, Tk: int, D: int, *, causal: bool, window: Optional[int],
+                    q_offset: int) -> Tuple[int, int]:
+    """[lo, hi): the 128-row blocks that take P V in one fp16 part, those
+    whose every row (below Tq) sees at least ``ONE_PART_KEYS`` live keys;
+    (0, 0) outside head widths 65-128.  Row i sees the keys j < Tk with j <=
+    qpos (causal) and j > qpos - window, qpos = q_offset + i: min(Tk - 1,
+    qpos) - max(0, qpos - window + 1) + 1 of them, a concave function of
+    qpos.  So it is at least K exactly on one range of qpos, [K - 1 (causal),
+    Tk - 1 + window - K (window)] when Tk >= K and window >= K, and a
+    block's rows all lie in it exactly when its first and last do: the
+    blocks that do form one range."""
+    K = ONE_PART_KEYS
+    if not 64 < D <= 128 or Tq <= 0 or Tk < K or (window is not None and window < K):
+        return 0, 0
+    rows = block_rows(Tq, D)
+    blocks = -(-Tq // rows)
+    first = K - 1 - q_offset if causal else -(2 ** 62)          # the first row that sees K
+    lo = max(0, -(-first // rows))
+    if window is None or Tk - 1 + window - K - q_offset >= Tq - 1:
+        hi = blocks
+    else:                            # blocks whose last row r rows + rows - 1 <= the last row
+        hi = max(0, (Tk + window - K - q_offset) // rows)
+    return (lo, hi) if lo < hi else (0, 0)
 
 
 def split_count(B: int, Hq: int, Tq: int, Tk: int, D: int, *, causal: bool,
@@ -195,8 +244,9 @@ def flash_attention_sm90_cuda(
     with ``return_lse`` also each row's log-sum-exp, contiguous float32
     (B, Hq, Tq), -inf where a row sees no key.  ``splits``: the key ranges
     (default :func:`split_count`'s); with more than one the launch also
-    merges them."""
-    global launches, split_launches
+    merges them.  At 65-128 columns the row blocks of
+    :func:`one_part_blocks` take P V in one fp16 part."""
+    global launches, split_launches, fp16_launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if return_lse else None
@@ -214,9 +264,14 @@ def flash_attention_sm90_cuda(
         raise ValueError(f"flash_attention_sm90: key ranges at a head width up to 64 only, "
                          f"got {D}")
     lo, chunks = split_plan(Tq, Tk, splits, **kw)      # raises before any build
+    one_lo, one_hi = one_part_blocks(Tq, Tk, D, **kw)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        v16 = aux = None
+        if one_hi > one_lo:     # v's fp16 copy and the conversion's scratch
+            v16 = torch.empty(v.shape, dtype=torch.float16, device=q.device)
+            aux = torch.empty(_aux_floats, dtype=torch.float32, device=q.device)
         part = lse_part = arrivals = None
         if splits > 1:
             part = torch.empty((B, Hq, splits, Tq, D), dtype=torch.float32, device=q.device)
@@ -231,10 +286,14 @@ def flash_attention_sm90_cuda(
                  lse.data_ptr() if return_lse else None, splits, lo, chunks,
                  part.data_ptr() if part is not None else None,
                  lse_part.data_ptr() if lse_part is not None else None,
-                 arrivals.data_ptr() if arrivals is not None else None, stream)
+                 arrivals.data_ptr() if arrivals is not None else None,
+                 v16.data_ptr() if v16 is not None else None,
+                 aux.data_ptr() if aux is not None else None, one_lo, one_hi, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90: kernel launch failed with CUDA error {err}")
     launches += 1
     if splits > 1:
         split_launches += 1
+    if one_hi > one_lo:
+        fp16_launches += 1
     return (out, lse) if return_lse else out

@@ -329,10 +329,19 @@ def split_launches() -> int:
     return _fa90.split_launches
 
 
+def fwd_fp16_launches() -> int:
+    """``flash_attention_sm90`` calls since the last
+    :func:`reset_launch_counts` in which some row block took P V in one fp16
+    part (head widths 65-128, rows that see 1024 keys or more: two more
+    launches convert v first)."""
+    return _fa90.fp16_launches
+
+
 def bwd_fp16_launches() -> int:
     """``flash_attention_bwd_sm90`` calls since the last
     :func:`reset_launch_counts` that ran their products on fp16 copies
-    (head widths 65-128: two more launches, the maxima and the conversion)."""
+    (head widths up to 128: two more launches, the maxima and the
+    conversion)."""
     return _fab90.fp16_launches
 
 
@@ -340,4 +349,5 @@ def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
     _fa90.split_launches = 0
+    _fa90.fp16_launches = 0
     _fab90.fp16_launches = 0

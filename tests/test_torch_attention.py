@@ -309,6 +309,156 @@ def test_tensor_core_rounding_holds_the_bf16_limit_only_with_p_in_two_parts(p_pa
         assert share > 1.0, share
 
 
+# ---------- one fp16 part of P at head widths 65-128 (rows that see 1024 keys)
+def _live_keys(Tq, Tk, *, causal, window, q_offset):
+    """Each row's live keys, counted one by one."""
+    qpos = q_offset + np.arange(Tq)[:, None]
+    kpos = np.arange(Tk)[None, :]
+    live = np.ones((Tq, Tk), dtype=bool)
+    if causal:
+        live &= kpos <= qpos
+    if window is not None:
+        live &= kpos > qpos - window
+    return live.sum(1)
+
+
+@pytest.mark.parametrize("Tq,Tk,D,kw", [
+    (3000, 3000, 128, dict(causal=True, window=None, q_offset=0)),      # olmo's mask
+    (8192, 8192, 120, dict(causal=True, window=4096, q_offset=0)),      # danube's
+    (1200, 1500, 72, dict(causal=True, window=None, q_offset=300)),
+    (1200, 2000, 120, dict(causal=True, window=None, q_offset=-500)),
+    (2000, 1500, 96, dict(causal=True, window=None, q_offset=-1300)),
+    (2500, 2500, 128, dict(causal=True, window=1100, q_offset=0)),
+    (1500, 3000, 128, dict(causal=True, window=1000, q_offset=1179)),   # a window under 1024
+    (3000, 1300, 128, dict(causal=True, window=None, q_offset=0)),      # Tq > Tk
+    (3000, 2000, 120, dict(causal=True, window=1500, q_offset=0)),      # rows past Tk
+    (2500, 1300, 96, dict(causal=False, window=1200, q_offset=0)),      # window past the last key
+    (2500, 1300, 96, dict(causal=False, window=1200, q_offset=-700)),
+    (130, 1300, 128, dict(causal=False, window=None, q_offset=0)),      # no mask
+    (130, 1000, 128, dict(causal=False, window=None, q_offset=0)),      # under 1024 keys at all
+    (1, 2000, 96, dict(causal=False, window=None, q_offset=0)),         # one query row
+    (1, 2000, 96, dict(causal=True, window=None, q_offset=50)),
+    (1, 2000, 96, dict(causal=True, window=None, q_offset=1999)),
+    (3000, 3000, 64, dict(causal=True, window=None, q_offset=0)),       # outside 65-128
+    (3000, 3000, 136, dict(causal=True, window=None, q_offset=0)),
+])
+def test_one_part_blocks_match_a_count_of_each_rows_keys(Tq, Tk, D, kw):
+    """``one_part_blocks`` (from the mask alone, in closed form) against a
+    count of every row's live keys: at 65-128 columns exactly the 128-row
+    blocks whose rows all see ``ONE_PART_KEYS`` keys or more, one
+    contiguous range of them; none at other widths."""
+    lo, hi = tfa90.one_part_blocks(Tq, Tk, D, **kw)
+    keys = _live_keys(Tq, Tk, **kw)
+    rows = tfa90.block_rows(Tq, D)
+    want = [b for b in range(-(-Tq // rows))
+            if 64 < D <= 128 and keys[b * rows:(b + 1) * rows].min() >= tfa90.ONE_PART_KEYS]
+    assert list(range(lo, hi)) == want
+    assert lo <= hi
+
+
+def _round_p(p, one_part):
+    """P as the tensor cores take it: rounded once to fp16 as p 2^7 (one
+    part), or hi = p truncated to bf16 plus lo = bf16(p - hi) (two)."""
+    if one_part:
+        return (p * 2.0 ** 7).half().float() * 2.0 ** -7
+    hi = (p.view(torch.int32) & -65536).view(torch.float32)
+    return hi + (p - hi).bfloat16().float()
+
+
+def _one_part_forward_model(q, k, v, *, causal, window, q_offset, softcap):
+    """``csrc/flash_attention_sm90.cu``'s arithmetic at head widths 65-128 in
+    float32 on the CPU: bf16 q and k multiplied exactly and summed in
+    float32, D^-0.5 (and the softcap) in float32; the online softmax over
+    128-key tiles, its reference point moving only when a row's max grows
+    by more than 8 in exp2 units; P V on the row blocks of
+    ``one_part_blocks`` from P rounded once to fp16 (p 2^7) and v's scaled
+    fp16 copy (``fp16_copy``), on the others from P in two bf16 parts and
+    the bf16 v; l from the unrounded p; bf16 output."""
+    from repro_torch.kernels.flash_attention_bwd_sm90 import fp16_copy
+    B, Hq, Tq, D = q.shape
+    Tk, G = k.shape[2], Hq // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    v16, ev = fp16_copy(v)
+    v16f = (v16.float() * torch.exp2(-ev.float())).repeat_interleave(G, dim=1)
+    lo, hi = tfa90.one_part_blocks(Tq, Tk, D, causal=causal, window=window, q_offset=q_offset)
+    rows = torch.arange(Tq)
+    one = ((rows >= lo * 128) & (rows < hi * 128))[:, None]
+    qf = q.float()
+    qpos = q_offset + rows[:, None]
+    m = torch.full((B, Hq, Tq, 1), -1e30)
+    l = torch.zeros((B, Hq, Tq, 1))
+    acc = torch.zeros((B, Hq, Tq, D))
+    for j0 in range(0, Tk, 128):
+        kpos = torch.arange(j0, min(j0 + 128, Tk))[None, :]
+        live = torch.ones((Tq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        if not live.any():
+            continue
+        s = (qf @ kf[:, :, j0:j0 + 128].transpose(-1, -2)) * D ** -0.5
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~live, -1e30)
+        mx = s.amax(-1, keepdim=True)
+        m_new = torch.where(mx - m > 8 * np.log(2.0), mx, m)
+        p = torch.exp(s - m_new).masked_fill(~live, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv1 = _round_p(p, True) @ v16f[:, :, j0:j0 + 128]
+        pv2 = _round_p(p, False) @ vf[:, :, j0:j0 + 128]
+        acc = acc * alpha + torch.where(one, pv1, pv2)
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).bfloat16()
+
+
+# chip_smoke.py's forward cases at head widths 65-128 (B, Hq, Hkv, Tq, Tk, D,
+# mask): its FLASH_D128_CASES, its FLASH_CASES (q_offset Tk - Tq when causal),
+# all in bf16, and its FLASH_D128_ONE_PART_CASES
+_D128_FWD_CASES = [
+    (1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
+    (1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
+    (1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=100, softcap=20.0)),
+    (2, 4, 4, 130, 333, 128, dict(causal=False)),
+    (1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=-40)),
+    (1, 8, 2, 321, 1500, 128, dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
+    (1, 8, 2, 1, 1000, 96, dict(causal=False)),
+    (1, 4, 4, 1100, 1100, 128, dict(causal=True)),
+    (1, 4, 4, 128, 128, 128, dict(causal=True)),
+    (1, 8, 2, 300, 1500, 120, dict(causal=True, window=100, q_offset=1200)),
+    (1, 32, 8, 1, 5000, 120, dict(causal=True, window=4096, q_offset=4999)),
+    (1, 4, 2, 200, 4200, 120, dict(causal=True, window=64, q_offset=4000, softcap=30.0)),
+    (1, 4, 4, 200, 1150, 72, dict(causal=True, q_offset=950)),
+    (1, 8, 2, 2500, 2500, 96, dict(causal=True, window=1500)),
+    (1, 8, 2, 300, 1300, 120, dict(causal=True, q_offset=1000, softcap=20.0)),
+    (2, 4, 4, 130, 1100, 128, dict(causal=False)),
+    (1, 4, 2, 1500, 1300, 128, dict(causal=False, window=1200)),
+]
+# input scales (q, k, v): chip_smoke.py's FLASH_FP16_SCALES without do's
+_FWD_SCALES = {"1": (1, 1, 1), "q 1e5 k 1e-5": (1e5, 1e-5, 1), "q 1e-5 k 1e5": (1e-5, 1e5, 1),
+               "v 1e-6": (1, 1, 1e-6)}
+
+
+@pytest.mark.parametrize("scales", list(_FWD_SCALES))
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _D128_FWD_CASES)
+def test_one_part_forward_emulation_within_the_chip_limit(B, Hq, Hkv, Tq, Tk, D, kw, scales):
+    """The forward kernel's arithmetic at 65-128 (one fp16 part of P on the
+    rule's row blocks, two bf16 parts elsewhere) against the plain forward,
+    per element within 2^-7 |want| + 1e-4 (``chip_smoke.py``'s
+    FLASH_BF16_REL and _FLOOR, the limit the card holds the kernel to)."""
+    rng = np.random.default_rng(Tq * 7 + Tk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * c).bfloat16()
+               for shape, c in zip(((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)),
+                                   _FWD_SCALES[scales]))
+    mask = dict(causal=kw["causal"], window=kw.get("window"), q_offset=kw.get("q_offset", 0))
+    got = _one_part_forward_model(q, k, v, softcap=kw.get("softcap"), **mask)
+    want = tref.ref_flash_attention(q, k, v, **kw)
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (BF16_REL * want.float().abs() + BF16_FLOOR)).max())
+    assert share <= 1.0, f"{share:.3f} of the limit"
+
+
 @pytest.mark.parametrize("device,dtypes,route", [
     ("cpu", ("bf16",) * 3, "plain"),
     ("cpu", ("f32",) * 3, "plain"),

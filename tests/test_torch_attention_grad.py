@@ -27,13 +27,13 @@ These tests hold, with inputs made by numpy from a seed:
   custom op;
 * the dry run: a fake-tensor train step past 4096 kv positions traces,
   counting the backward's 8 B Hq D FLOPs a live pair;
-* the bf16 backward's fp16 operands at head widths 65-128: its scale rule
-  (``flash_attention_bwd_sm90.fp16_exponent``) converts every bf16 value
-  within 2^-30 of a tensor's largest exactly and overflows nowhere, and a
-  float32 emulation of the kernel's arithmetic (scaled fp16 copies, P and
-  dS rounded once to fp16) stays within ``chip_smoke.py``'s backward limit
-  (2^-7 |want| + 1e-3 max|want|) of the plain backward at the shapes of
-  its ``FLASH_D128_CASES``.
+* the bf16 backward's fp16 operands at head widths up to 128: its scale
+  rule (``flash_attention_bwd_sm90.fp16_exponent``) converts every bf16
+  value within 2^-30 of a tensor's largest exactly and overflows nowhere,
+  and a float32 emulation of the kernel's arithmetic (scaled fp16 copies, P
+  and dS rounded once to fp16) stays within ``chip_smoke.py``'s backward
+  limit (2^-7 |want| + 1e-3 max|want|) of the plain backward at the shapes
+  of its ``FLASH_BWD_D64_CASES`` and ``FLASH_D128_CASES``.
 """
 
 import numpy as np
@@ -498,7 +498,7 @@ def test_backward_blocks_follow_the_kernels_configurations(shape, blocks, stats)
     B, Hq, Tq, D = shape
     assert tuple(tfab90.block_config(D)) == blocks
     assert tfab90.stats_shape(B, Hq, Tq, D) == stats
-    assert tfab90.converts_to_fp16(D) == (blocks == _D128)   # the 65-128 passes alone
+    assert tfab90.converts_to_fp16(D) == (blocks != _WIDE)   # the passes up to 128
 
 
 @pytest.mark.parametrize("D", [0, 12, 68, 124, 132, 264])
@@ -533,7 +533,7 @@ def test_float32_backward_blocks_refuse_widths_the_kernel_does_not_take(D):
         tfab.block_config(D)
 
 
-# -------------------- the fp16 operands of the bf16 backward at 65-128
+# -------------------- the fp16 operands of the bf16 backward up to 128
 def _bf16_values(top):
     """Every finite bf16 value of magnitude ``top`` (a bf16 value) or less,
     both signs, as a bf16 tensor."""
@@ -573,7 +573,7 @@ def test_fp16_exponent_stays_in_range():
 def _emulated_fp16_backward(q, k, v, o, lse, do, causal=True, window=None, q_offset=0,
                             softcap=None):
     """The arithmetic of ``csrc/flash_attention_bwd_sm90.cu``'s passes at
-    head widths 65-128, in float32 on the CPU: S and dP from the scaled fp16
+    head widths up to 128, in float32 on the CPU: S and dP from the scaled fp16
     copies (exact products, float32 sums), P' = P 2^15 from the stats
     launch's lse less 15 (log2 units), dS' = P' (dP 2^-40 - delta 2^(ev + ed
     - 40)), P' and dS' rounded once to fp16, the three gradients' sums
@@ -615,6 +615,17 @@ def _emulated_fp16_backward(q, k, v, o, lse, do, causal=True, window=None, q_off
     return (dq.reshape(B, Hq, Tq, D).bfloat16(), dk.bfloat16(), dv.bfloat16())
 
 
+# chip_smoke.py's FLASH_BWD_D64_CASES (B, Hq, Hkv, Tq, Tk, D, mask)
+_D64_CASES = [
+    (1, 4, 4, 200, 300, 64, dict(causal=False)),
+    (1, 8, 2, 200, 300, 64, dict(causal=False)),
+    (1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=100)),
+    (1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=-40)),
+    (1, 4, 2, 300, 300, 64, dict(causal=True, window=24)),
+    (1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=100, softcap=20.0)),
+    (1, 8, 2, 1, 1000, 64, dict(causal=False)),
+    (1, 4, 2, 200, 300, 32, dict(causal=True, q_offset=100)),
+]
 # chip_smoke.py's FLASH_D128_CASES at head widths 65-128 (B, Hq, Hkv, Tq, Tk,
 # D, mask)
 _D128_CASES = [
@@ -636,9 +647,9 @@ _FP16_SCALES = {"do 1": (1, 1, 1, 1), "do 2^-16": (1, 1, 1, 2.0 ** -16),
 
 
 @pytest.mark.parametrize("scales", list(_FP16_SCALES))
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _D128_CASES)
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _D128_CASES + _D64_CASES)
 def test_fp16_backward_emulation_within_the_chip_limit(B, Hq, Hkv, Tq, Tk, D, kw, scales):
-    """The kernel's arithmetic at 65-128 (fp16 operands, P and dS rounded
+    """The kernel's arithmetic up to 128 (fp16 operands, P and dS rounded
     once) against the plain backward, per gradient within 2^-7 |want| +
     1e-3 max|want| (``chip_smoke.py``'s FLASH_BWD_BF16_REL and _FLOOR, the
     limit the card holds the kernel to); rows that see no key get dq 0."""

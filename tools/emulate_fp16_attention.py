@@ -12,13 +12,25 @@ one rounding of P and of dS before their products:
 
 * backward, "bf16": P and dS rounded once to bf16 (what the two-part design
   avoids);
-* backward, "fp16": the 65-128 design: q, k, v and do as fp16 copies times
-  ``fp16_exponent``'s powers of two, P as P 2^15 and dS as dS 2^(ev + ed -
-  25), each rounded once to fp16;
+* backward, "fp16": the design up to 128 columns: q, k, v and do as fp16
+  copies times ``fp16_exponent``'s powers of two, P as P 2^15 and dS as dS
+  2^(ev + ed - 25), each rounded once to fp16;
 * backward, "fp16, no scales": fp16 copies and roundings without the
   powers of two (where do is small, dS falls below fp16's normal range);
-* forward, "fp16": P (exp(s - row max)) rounded once to fp16 before P V,
-  the row sum in float64; rows grouped by the keys they see.
+* forward, "fp16 P everywhere": P (exp(s - row max)) rounded once to fp16
+  before P V, the row sum in float64; rows grouped by the keys they see;
+* forward, "by the rule": the design at 65-128 columns, P rounded once to
+  fp16 (as p 2^7) on the 128-row blocks of
+  ``flash_attention_sm90.one_part_blocks``, in two bf16 parts (hi = p
+  truncated, lo = bf16(p - hi)) on the others; rows grouped by the kind of
+  their block;
+* forward, with ``--keys-sweep``: rows that see N keys (N = 128 ... 2048,
+  about ``--elements`` outputs each, q, k, v random bf16 at D = 120), P
+  rounded once to fp16 as p 2^7 against the exact P, the reference point
+  the first 128 keys' max as the kernel's first tile sets it: the largest
+  error over its allowance, max(2^-8 |o|, 0.9e-4) (an error under it
+  cannot move a bf16 output two ulps, so it cannot break the limit), and
+  over the limit itself.  Slow: minutes at the default size.
 
 Each line is one JSON object: the case, and the largest share of the limit
 per gradient (dq, dk, dv) or per group of rows.  No card is used; the
@@ -26,7 +38,7 @@ numbers are an emulation's, not the kernels'.
 
 Usage, from the root of a checkout::
 
-    python3 tools/emulate_fp16_attention.py [--seed N]
+    python3 tools/emulate_fp16_attention.py [--seed N] [--keys-sweep [--elements N]]
 """
 
 from __future__ import annotations
@@ -42,13 +54,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 import torch  # noqa: E402
 
 from repro_torch.kernels.flash_attention_bwd_sm90 import fp16_exponent  # noqa: E402
+from repro_torch.kernels.flash_attention_sm90 import one_part_blocks  # noqa: E402
 from repro_torch.kernels.ref import (ref_flash_attention,  # noqa: E402
                                      ref_flash_attention_backward)
 
 BWD_REL, BWD_FLOOR = 2.0 ** -7, 1e-3      # chip_smoke.py FLASH_BWD_BF16_REL, _FLOOR
 FWD_REL, FWD_FLOOR = 2.0 ** -7, 1e-4      # chip_smoke.py FLASH_BF16_REL, _FLOOR
-BWD_SHAPES = [(2, 4, 64, 32), (1, 4, 512, 128), (1, 2, 2048, 128), (1, 1, 4096, 120)]
-FWD_SHAPES = [(1, 4, 1024, 128), (1, 4, 1024, 120)]
+BWD_SHAPES = [(2, 4, 64, 32), (1, 4, 1024, 64), (1, 2, 2048, 64), (1, 4, 512, 128),
+              (1, 2, 2048, 128), (1, 1, 4096, 120)]
+FWD_SHAPES = [(1, 4, 1024, 128), (1, 4, 1024, 120), (1, 4, 2048, 128), (1, 4, 2048, 120)]
 
 
 def share(got, want, rel, floor_of_max):
@@ -94,12 +108,44 @@ def emulate_backward(q, k, v, o, do, how):
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
+def keys_sweep(g, elements, D=120, rows=4096):
+    """One JSON line a key count N: the one-part rounding's largest error
+    over rows that see N keys, against its allowance and the limit."""
+    for N in (128, 192, 256, 384, 512, 768, 1024, 2048):
+        worst_allow = worst_limit = 0.0
+        n = 0
+        while n < elements:
+            q = torch.randn((rows, D), generator=g).bfloat16().float()
+            k = torch.randn((rows, N, D), generator=g).bfloat16().float()
+            v = torch.randn((rows, N, D), generator=g).bfloat16().double()
+            s = torch.einsum("rd,rnd->rn", q, k) * D ** -0.5
+            p = torch.exp(s - s[:, :128].amax(-1, keepdim=True))
+            lsum = p.double().sum(-1, keepdim=True)
+            want = torch.einsum("rn,rnd->rd", p.double(), v) / lsum
+            got = torch.einsum("rn,rnd->rd", (p * 2.0 ** 7).half().double() * 2.0 ** -7, v) / lsum
+            err = (got - want).abs()
+            allow = torch.maximum(want.abs() * 2.0 ** -8, torch.full_like(want, 0.9 * FWD_FLOOR))
+            worst_allow = max(worst_allow, float((err / allow).max()))
+            worst_limit = max(worst_limit, float((err / (FWD_REL * want.abs() + FWD_FLOOR)).max()))
+            n += want.numel()
+        print(json.dumps({"pass": "forward", "rounding": "fp16 P", "keys": N, "elements": n,
+                          "max_err_over_allowance": worst_allow,
+                          "max_err_over_limit": worst_limit}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--keys-sweep", action="store_true",
+                    help="the forward's one-part rounding error by the keys a row sees")
+    ap.add_argument("--elements", type=int, default=3_000_000,
+                    help="outputs a key count in the sweep")
     args = ap.parse_args()
     torch.set_num_threads(max(1, min(4, os.cpu_count() or 1)))
     g = torch.Generator().manual_seed(args.seed)
+    if args.keys_sweep:
+        keys_sweep(g, args.elements)
+        return
     for B, H, T, D in BWD_SHAPES:
         q, k, v, do = (torch.randn((B, H, T, D), generator=g).bfloat16() for _ in range(4))
         o, lse = ref_flash_attention(q, k, v, causal=True, return_lse=True)
@@ -124,6 +170,22 @@ def main():
                 s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), float("-inf"))
             p = torch.exp(s - s.amax(-1, keepdim=True))
             got = ((p.half().double() @ v.double()) / p.sum(-1, keepdim=True)).bfloat16()
+            lo, hi = one_part_blocks(T, T, D, causal=causal, window=None, q_offset=0)
+            one = torch.zeros(T, dtype=torch.bool)
+            one[lo * 128:hi * 128] = True
+            p1 = (p * 2.0 ** 7).half().double() * 2.0 ** -7
+            top = (p.float().view(torch.int32) & -65536).view(torch.float32).double()
+            p2 = top + (p - top).bfloat16().double()
+            ruled = ((torch.where(one[:, None], p1, p2) @ v.double())
+                     / p.sum(-1, keepdim=True)).bfloat16()
+            out = {}
+            for name, rows in (("one-part blocks", one), ("two-part blocks", ~one)):
+                if bool(rows.any()):
+                    out[name] = share(ruled[:, :, rows], want[:, :, rows], FWD_REL,
+                                      torch.tensor(FWD_FLOOR, dtype=torch.float64))
+            print(json.dumps({"pass": "forward", "shape": [B, H, T, D], "causal": causal,
+                              "rounding": "by the rule", "one_part_blocks": [lo, hi],
+                              "share": out}), flush=True)
             keys = torch.arange(T) + 1 if causal else torch.full((T,), T)
             groups = {"under 128 keys": keys < 128, "128-255 keys": (keys >= 128) & (keys < 256),
                       "256 keys or more": keys >= 256}
@@ -133,7 +195,7 @@ def main():
                     out[name] = share(got[:, :, rows], want[:, :, rows], FWD_REL,
                                       torch.tensor(FWD_FLOOR, dtype=torch.float64))
             print(json.dumps({"pass": "forward", "shape": [B, H, T, D], "causal": causal,
-                              "rounding": "fp16 P", "share": out}), flush=True)
+                              "rounding": "fp16 P everywhere", "share": out}), flush=True)
 
 
 if __name__ == "__main__":

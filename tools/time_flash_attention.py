@@ -25,7 +25,11 @@ PyTorch's own pick of backend, ``sdpa_pick_ms``; for the windowed
 shapes the window-causal boolean mask on the memory-efficient backend, kv
 heads repeated outside the timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
-and the card's name and power limit.
+the 128-row blocks that take P V in one fp16 part and in two bf16 parts
+(``row_blocks``: at head widths 65-128 ``one_part_blocks`` of the checkout
+timed, none in one part in a checkout without it), each of its launches'
+device time (``launches_ms``, ``torch.profiler``), and the card's name and
+power limit.
 
 The backward, ``flash_attention_bwd_sm90``, at the training phases' four
 shapes: seamless-m4t-large-v2's encoder (2, 16, 8192, 64) and its
@@ -97,6 +101,7 @@ sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
 import torch  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention_sm90 as fa90  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
@@ -131,6 +136,20 @@ F32_BWD_SHAPES = [
     ("seamless encoder backward float32", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
 ]
 SPLIT_SHAPES = SHAPES[:2]       # seamless's two cross-attentions, which the wrapper splits
+
+
+def row_blocks(qs, ks, causal, window):
+    """{"one_part", "two_part"}: the forward's 128-row blocks a (batch,
+    head) at head widths 65-128 that take P V in one fp16 part and in two
+    bf16 parts (``one_part_blocks``; a checkout without it has none in one
+    part); None at other widths."""
+    Tq, D = qs[2], qs[3]
+    if not 64 < D <= 128:
+        return None
+    rule = getattr(fa90, "one_part_blocks", None)
+    lo, hi = rule(Tq, ks[2], D, causal=causal, window=window, q_offset=0) if rule else (0, 0)
+    blocks = -(-Tq // fa90.block_rows(Tq, D))
+    return {"one_part": hi - lo, "two_part": blocks - (hi - lo)}
 
 
 def cuda_ms(fn, reps):
@@ -389,7 +408,9 @@ def main():
                {"sdpa_ms": sdpa_ms(q, k, v, causal, window, reps)}),
             **({"sdpa_pick_ms": sdpa_ms(q, k, v, causal, window, reps)}
                if not causal and window is None else {}),
-            "max_abs_err": err, "card": smi}), flush=True)
+            "max_abs_err": err, "row_blocks": row_blocks(qs, ks, causal, window),
+            "launches_ms": launch_ms(lambda: flash_attention_sm90_cuda(q, k, v, **kw), reps),
+            "card": smi}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
 
