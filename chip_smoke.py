@@ -54,7 +54,10 @@ Phases (each one's failure fails the run):
    the other way round, v at 1e-6; the forward's 65-128 cases, and
    ``FLASH_D128_ONE_PART_CASES`` whose rows see 1024 keys or more, again
    under those scales of q, k and v, each case's row blocks that take P V
-   in one fp16 part counted) and of
+   in one fp16 part counted; at widths up to 64 ``FLASH_D64_ONE_PART_CASES``,
+   ``FLASH_D64_CASES`` and ``FLASH_SPLIT_CASES`` in both layouts and again
+   under ``FLASH_D64_FWD_SCALES``, each case's blocks in one fp16 part
+   counted and the wrapper's rule held to the kernel's) and of
    their configuration for head widths 136-256
    (``FLASH_D256_CASES``: recurrentgemma's 10 query heads over one kv head
    of 256 with windows of 100 and 2048 past 4096 keys, D = 136, 192, 200
@@ -365,7 +368,8 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda  # 
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     block_config, converts_to_fp16, flash_attention_bwd_sm90_cuda, kernel_blocks)
 from repro_torch.kernels.flash_attention_sm90 import (  # noqa: E402
-    block_rows, flash_attention_sm90_cuda, kernel_rows, one_part_blocks, split_count)
+    block_rows, flash_attention_sm90_cuda, kernel_one_part, kernel_rows, one_part_blocks,
+    one_part_ranges, split_count)
 from repro_torch.kernels.linear_scan import linear_scan_cuda  # noqa: E402
 from repro_torch.kernels.page_digest import padded_page_words, page_digest_cuda  # noqa: E402
 from repro_torch.kernels.ref import (ref_delta_mask, ref_flash_attention,  # noqa: E402
@@ -545,6 +549,27 @@ FLASH_SPLIT_CASES = [
     (2, 8, 2, 200, 3000, 48, False, None, 0, None, 5),
     (1, 4, 2, 200, 4000, 64, False, None, 0, None, 6),
 ]
+# bf16 forward cases at head widths up to 64 whose rows see 1024 keys or
+# more, where blocks of more than 64 rows take P V in one fp16 part against
+# v converted tile by tile in shared memory (name, B, Hq, Hkv, Tq, Tk, D,
+# mask and key ranges), each with k, v contiguous and strided: D = 64, 48
+# and 32, no mask over 1100 keys with Tq off the 128-row block, causal rows
+# offset forward (the first row block in two bf16 parts), a window of 1500
+# with GQA 4, a softcap, a window that the last rows' keys fall out of past
+# Tk, and two forced splits, one whose ranges all hold 1024 keys or more and
+# one whose first ranges hold fewer (those blocks in two parts)
+FLASH_D64_ONE_PART_CASES = [
+    ("D 64 no mask over 1100 keys", 2, 4, 4, 130, 1100, 64, dict(causal=False, splits=1)),
+    ("D 64 causal q_offset 950, G 1", 1, 4, 4, 200, 1150, 64,
+     dict(causal=True, q_offset=950, splits=1)),
+    ("D 48 window 1500, GQA 4", 1, 8, 2, 2500, 2500, 48, dict(causal=True, window=1500, splits=1)),
+    ("D 32 softcap 20 q_offset 1000", 1, 8, 2, 300, 1300, 32,
+     dict(causal=True, q_offset=1000, softcap=20.0, splits=1)),
+    ("D 64 window 1200 past the last key", 1, 4, 2, 1500, 1300, 64,
+     dict(causal=False, window=1200, splits=1)),
+    ("D 64 2 ranges of 1024 keys or more", 1, 4, 2, 300, 2600, 64, dict(causal=False, splits=2)),
+    ("D 64 4 ranges, 3 under 1024 keys", 1, 4, 2, 300, 2600, 64, dict(causal=False, splits=4)),
+]
 # bf16 backward cases at the edges of the kernel's configuration for head
 # widths up to 64 (name, B, Hq, Hkv, Tq, Tk, D, mask), each with k, v
 # contiguous and strided: Tq and Tk off the 64-row tile and the 128-row
@@ -606,6 +631,12 @@ FLASH_FP16_SCALES = {"do 2^-16": (1, 1, 1, 2.0 ** -16), "q 1e5, k 1e-5": (1e5, 1
 # and those of q, k and v under which the forward runs them again (its row
 # blocks whose rows all see 1024 keys take P V against v's fp16 copy)
 FLASH_FWD_FP16_SCALES = {name: c[:3] for name, c in FLASH_FP16_SCALES.items() if c[:3] != (1, 1, 1)}
+# and those under which the forward runs its cases at widths up to 64 again
+# (v's tiles converted to fp16, each times a power of two of its own), with
+# v far above fp16's largest value: the output scales with v, so its limit
+# there is 2^-7 |want| + 1e-4 in v's units (1e-4 of an output near 1e5 is
+# under float32's resolution)
+FLASH_D64_FWD_SCALES = {**FLASH_FWD_FP16_SCALES, "v 1e5": (1, 1, 1e5)}
 # bf16 cases of the kernels for head widths 136-256 (name, B, Hq, Hkv, Tq,
 # Tk, D, mask), forward and backward, each with k, v contiguous and strided:
 # recurrentgemma's MQA (10 query heads over one kv head, D = 256) with a
@@ -778,21 +809,22 @@ def flash_bwd_kernel(dtype):
     return flash_attention_bwd_sm90_cuda if dtype == torch.bfloat16 else flash_attention_bwd_cuda
 
 
-def held_to_plain(got, want, what):
+def held_to_plain(got, want, what, unit=1.0):
     """An attention output against its plain version's: the largest
     absolute difference and, for bf16, the largest share of the scaled
     limit ``FLASH_BF16_REL * |want| + FLASH_BF16_FLOOR`` (None for
-    float32), raising past either limit."""
+    float32), raising past either limit; both absolute terms in units of
+    ``unit`` (v's scale, where the output scales with it)."""
     if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}, "
                              f"finite {bool(torch.isfinite(got).all())}")
-    diff = (got.float() - want.float()).abs()
+    diff = (got.float() - want.float()).abs() / unit
     err = float(diff.max())
     if not err <= FLASH_TOL[got.dtype]:
         raise AssertionError(f"{what}: max abs err {err:.3e} > {FLASH_TOL[got.dtype]}")
     if got.dtype != torch.bfloat16:
         return err, None
-    share = float((diff / (FLASH_BF16_REL * want.float().abs() + FLASH_BF16_FLOOR)).max())
+    share = float((diff / (FLASH_BF16_REL * want.float().abs() / unit + FLASH_BF16_FLOOR)).max())
     if not share <= 1.0:
         raise AssertionError(f"{what}: |got - want| reaches {share:.3f} x ({FLASH_BF16_REL:.3g} "
                              f"|want| + {FLASH_BF16_FLOOR})")
@@ -826,13 +858,13 @@ def sm_count():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def split_case(q, k, v, splits=None, **kw):
+def split_case(q, k, v, splits=None, unit=1.0, **kw):
     """The bf16 kernel with ``splits`` key ranges (None: the wrapper's own
-    choice) against the plain version: the output within the bf16 limit,
-    the lse by ``lse_held_to_plain``, rows that see no key exactly zero,
-    two calls bit-equal, and one split launch a call when it splits (the
-    merge runs in that launch).  Returns (max abs err, limit share, lse
-    err, ranges)."""
+    choice) against the plain version: the output within the bf16 limit
+    (in units of ``unit``, ``held_to_plain``), the lse by
+    ``lse_held_to_plain``, rows that see no key exactly zero, two calls
+    bit-equal, and one split launch a call when it splits (the merge runs
+    in that launch).  Returns (max abs err, limit share, lse err, ranges)."""
     B, Hq, Tq, D = q.shape
     ranges = splits or split_count(B, Hq, Tq, k.shape[2], D, causal=kw["causal"],
                                    window=kw.get("window"), q_offset=kw.get("q_offset", 0),
@@ -848,7 +880,7 @@ def split_case(q, k, v, splits=None, **kw):
         raise AssertionError(f"{what}: {split_calls} split launches in two calls")
     if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
         raise AssertionError(f"{what}: two calls differ")
-    err, share = held_to_plain(got, want, what)
+    err, share = held_to_plain(got, want, what, unit)
     lse_err = lse_held_to_plain(lse, want_lse, what)
     dead = torch.isinf(want_lse)
     if bool(dead.any()) and bool(got[dead].any()):
@@ -985,36 +1017,72 @@ def phase_flash_vs_plain(state):
                                      f"plans {block_rows(Tq, D)}")
     log(f"  flash_attention_sm90's rows a block as planned at D in {BWD_BLOCK_WIDTHS}, Tq in "
         f"{FWD_ROWS_TQ}")
-    # the split path (key ranges merged in the same launch): seamless's two
-    # cross-attentions at the wrapper's own split, the head width 64
-    # configurations, forced splits with ranges and rows that see no key
+    # widths up to 64: the split path (key ranges merged in the same launch)
+    # and blocks of more than 64 rows whose rows all see 1024 keys of their
+    # range, P V in one fp16 part against v converted in shared memory:
+    # seamless's two cross-attentions at the wrapper's own split, then
+    # FLASH_D64_ONE_PART_CASES, FLASH_D64_CASES (the wrapper's own split) and
+    # FLASH_SPLIT_CASES (forced splits), each contiguous and strided, then
+    # under FLASH_D64_FWD_SCALES (the layouts in turns); each call's blocks
+    # in one fp16 part counted, the wrapper's rule held to the kernel's
     worst_lse = 0.0
     cfg = get_config(ENCDEC_ARCH)
-    split_runs = [(f"seamless {name}", qs, ks, dict(causal=False), None, 254 + i)
-                  for i, (name, qs, ks, _) in enumerate(seamless_cases(cfg)[1:])]
-    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset) in \
-            enumerate(FLASH_D64_CASES):
-        split_runs.append(("D <= 64", (B, Hq, Tq, D), (B, Hkv, Tk, D),
-                           dict(causal=causal, window=window, softcap=softcap,
-                                q_offset=q_offset), None, 270 + i))
-    for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, q_offset, softcap, ranges) in \
-            enumerate(FLASH_SPLIT_CASES):
-        split_runs.append(("forced split", (B, Hq, Tq, D), (B, Hkv, Tk, D),
-                           dict(causal=causal, window=window, softcap=softcap,
-                                q_offset=q_offset), ranges, 280 + i))
-    for what, qs, ks, kw, ranges, seed in split_runs:
-        q, k, v = attention_inputs(qs[0], qs[1], ks[1], qs[2], ks[2], qs[3], torch.bfloat16,
-                                   seed=seed)
-        err, share, lse_err, ranges = split_case(q, k, v, splits=ranges, **kw)
-        if what.startswith("seamless") and ranges == 1:
-            raise AssertionError(f"{what} {qs}: the wrapper does not split its keys")
-        worst[torch.bfloat16], n = max(worst[torch.bfloat16], err), n + 1
-        worst_share, worst_lse = max(worst_share, share), max(worst_lse, lse_err)
-        log(f"  flash_attention_sm90 {what} {qs} kv {ks} {kw}, {ranges} key ranges: max abs "
-            f"err {err:.3e}, bf16 limit share {share:.3f}, lse err {lse_err:.3e}, two calls "
-            f"bit-equal")
+    d64 = [(f"seamless {name}", (qs[0], qs[1], ks[1], qs[2], ks[2], qs[3]), dict(causal=False),
+            None) for name, qs, ks, _ in seamless_cases(cfg)[1:]]
+    d64 += [(name, tuple(case[:6]), {k: x for k, x in case[6].items() if k != "splits"},
+             case[6]["splits"]) for name, *case in FLASH_D64_ONE_PART_CASES]
+    d64 += [(f"D <= 64 case {i}", (B, Hq, Hkv, Tq, Tk, D),
+             dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset), None)
+            for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset)
+            in enumerate(FLASH_D64_CASES)]
+    d64 += [(f"forced split {i}", (B, Hq, Hkv, Tq, Tk, D),
+             dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset), ranges)
+            for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, q_offset, softcap, ranges)
+            in enumerate(FLASH_SPLIT_CASES)]
+    runs = [(case, "plain", strided, 254 + i) for i, case in enumerate(d64)
+            for strided in ((False,) if case[0].startswith("seamless") else (False, True))]
+    runs += [(case, scale, (i + j) % 2 == 1, 254 + i) for i, case in enumerate(d64)
+             if not case[0].startswith("seamless") for j, scale in enumerate(FLASH_D64_FWD_SCALES)]
+    d64_worst = {}
+    for (name, (B, Hq, Hkv, Tq, Tk, D), kw, splits), scale, strided, seed in runs:
+        scales = FLASH_D64_FWD_SCALES.get(scale, (1, 1, 1))
+        q, k, v = attention_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, seed=seed,
+                                   strided=strided, scales=scales)
+        before = ops.fwd_fp16_launches()
+        err, share, lse_err, ranges = split_case(q, k, v, splits=splits, unit=max(1.0, scales[2]),
+                                                 **kw)
+        if name.startswith("seamless") and ranges == 1:
+            raise AssertionError(f"{name} {(B, Hq, Tq, D)}: the wrapper does not split its keys")
+        mask = dict(causal=kw["causal"], window=kw.get("window"), q_offset=kw.get("q_offset", 0))
+        parts = one_part_ranges(Tq, Tk, D, ranges, **mask)
+        one, blocks = sum(b - a for a, b in parts), -(-Tq // block_rows(Tq, D)) * ranges
+        if ops.fwd_fp16_launches() - before != 2 * int(one > 0):
+            raise AssertionError(f"flash_attention_sm90 {name}: {ops.fwd_fp16_launches() - before}"
+                                 f" of two calls counted with one fp16 part, {one} such blocks")
+        if scale == "plain" and not strided and Tq > 64:
+            for s_, (lo, hi) in enumerate(parts):
+                for rb in range(-(-Tq // block_rows(Tq, D))):
+                    if kernel_one_part(Tq, Tk, ranges, rb, s_, **mask) != (lo <= rb < hi):
+                        raise AssertionError(f"{name}: row block {rb} of key range {s_}: the "
+                                             f"kernel's rule and one_part_ranges' {lo, hi} "
+                                             f"differ")
+        # a scaled case's error is in its inputs' units: its share counts
+        worst[torch.bfloat16] = max(worst[torch.bfloat16], err) if scale == "plain" \
+            else worst[torch.bfloat16]
+        n, worst_share, worst_lse = n + 1, max(worst_share, share), max(worst_lse, lse_err)
+        by_scale = d64_worst.setdefault(name, [one, blocks, {}])[2]
+        by_scale[scale] = max(share, by_scale.get(scale, 0.0))
+        log(f"  flash_attention_sm90 {name}, {scale}: {(B, Hq, Tq, D)} kv {(B, Hkv, Tk, D)} {kw} "
+            f"strided={strided}, {ranges} key ranges, {one} of {blocks} blocks in one fp16 part: "
+            f"max abs err {err:.3e}, bf16 limit share {share:.3f}, lse err {lse_err:.3e}, two "
+            f"calls bit-equal")
         del q, k, v
         torch.cuda.empty_cache()
+    for name, (one, blocks, by_scale) in d64_worst.items():
+        log(f"  flash_attention_sm90 at D <= 64, {name}: {one} one-part and {blocks - one} "
+            f"two-part blocks (over the key ranges); worst share of the limit "
+            + ", ".join(f"{scale} {x:.3f}" for scale, x in by_scale.items()))
+    log(f"  flash_attention_sm90's one-part blocks at D <= 64 as the kernel's own rule decides")
     state["flash_split_lse_err"] = worst_lse
     state["flash_err"] = worst
     state["flash_bf16_share"] = worst_share
@@ -2327,7 +2395,10 @@ def phase_kernel_times(state):
         if share is not None:
             row["bf16_limit_share"] = max(share, state["flash_bf16_share"])
             row["kernels_by_width"] = {
-                "8-64": "flash_attention_d64_kernel<1 or 2 consumers, split>",
+                "8-64": "flash_attention_d64_kernel<1 or 2 consumers, split, one fp16 part> "
+                        "over the blocks of more than 64 rows whose rows all see 1024 keys of "
+                        "their range (v's tiles converted in shared memory), <.., two bf16 "
+                        "parts> over the others",
                 "65-128": "absmax_kernel, convert_kernel (v's fp16 copy), "
                           "flash_attention_d128_kernel<softcap, one fp16 part> over the row "
                           "blocks whose rows all see 1024 keys, <softcap, two bf16 parts> over "
@@ -2341,7 +2412,12 @@ def phase_kernel_times(state):
                     (f"{TRAIN_ARCH} serve ({OLMO_LONG_BATCH} x {OLMO_LONG_PROMPT})",
                      "serve_long_olmo"),
                     (f"{TRAIN_ARCH} train ({OLMO_TRAIN_BATCH} x {state['train_olmo']['seq']})",
-                     "train_olmo"))}
+                     "train_olmo"),
+                    (f"{ENCDEC_ARCH} serve", "serve_encdec"),
+                    (f"{ENCDEC_ARCH} train", "train_encdec"))}
+            row["fp16_launches_by_path"].update({
+                f"{ENCDEC_ARCH} mesh serve ({k})": r["fwd_fp16_launches"]
+                for k, r in state["mesh_serve_encdec"].items()})
             row["fp16_launches"] = sum(row["fp16_launches_by_path"].values())
         kernels.append(row)
         del q, k, v
@@ -2796,6 +2872,7 @@ def phase_mesh_serve_encdec(state):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / len(ref["fed"])
         counts, split_calls = ops.launch_counts(), ops.split_launches()
+        fp16 = ops.fwd_fp16_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         want = (cfg.n_enc_layers + cfg.n_layers,
                 cfg.n_enc_layers + cfg.n_layers * (1 + len(ref["fed"])))
@@ -2805,6 +2882,8 @@ def phase_mesh_serve_encdec(state):
             raise AssertionError(f"the {strategy} mesh prefill launched {pre}, with the decode "
                                  f"steps {counts} and {split_calls} split calls; expected "
                                  f"{want} flash_attention_sm90, {splits} of them split")
+        expect_fwd_fp16_launches(fp16, want[1], cfg.head_dim, f"encdec mesh serve ({strategy})",
+                                 many_rows=want[0])
         if not all(t.to_local().is_contiguous() and t.placements == mem[0].placements
                    for t in mem):
             raise AssertionError(f"memories {[t.placements for t in mem]}")
@@ -2823,6 +2902,7 @@ def phase_mesh_serve_encdec(state):
         state["mesh_serve_encdec"][strategy] = r = {
             "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms, "max_dlogit": dlogit,
             "greedy_same": same, "peak_gib": peak, "launches": counts["flash_attention_sm90"],
+            "fwd_fp16_launches": fp16,
             "no_mesh_prefill_ms": state["serve_encdec"]["prefill_ms"],
             "no_mesh_decode_ms_per_step": state["serve_encdec"]["decode_ms_per_step"]}
         state["mesh_encdec_launches"][strategy] = counts["flash_attention_sm90"]
@@ -3381,6 +3461,7 @@ def phase_serve_encdec(state):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     state["encdec_splits"] = ops.split_launches()
+    fp16 = ops.fwd_fp16_launches()
     peak = torch.cuda.max_memory_allocated()
     state["encdec_launches"] = counts
     log(f"  prefill + {new - 1} decode steps: {new} new tokens a row in {wall:.3f} s (first "
@@ -3394,6 +3475,9 @@ def phase_serve_encdec(state):
     if state["encdec_splits"] != splits or splits == 0:
         raise AssertionError(f"{state['encdec_splits']} flash_attention_sm90 launches split their "
                              f"keys, expected {splits} (a split cross-attention each)")
+    # the prefill's calls take P V in one fp16 part, the decode steps' not
+    expect_fwd_fp16_launches(fp16, want, cfg.head_dim, "encdec serve",
+                             many_rows=cfg.n_enc_layers + cfg.n_layers)
     new_tokens = torch.stack(out, dim=1)
     if not bool(finite) or new_tokens.shape != (B, new) or \
             not bool(((new_tokens >= 0) & (new_tokens < cfg.vocab_size)).all()):
@@ -3447,6 +3531,7 @@ def phase_serve_encdec(state):
         "encoder_share": enc_ms / prefill_ms,
         "decode_tok_s": B * (new - 1) / decode_s, "decode_ms_per_step": decode_s * 1e3 / (new - 1),
         "peak_gib": peak / 2**30, "memories_gb": mem_gb, "first_call_s": wall,
+        "fwd_fp16_launches": fp16,
     }
     log(f"  prefill {B}x{S} frames + {B}x{T0} tokens: {prefill_ms:.2f} ms (median of 3: "
         f"{', '.join(f'{m:.2f}' for m in prefill_all)}); encoder {enc_ms:.2f} ms "
@@ -3635,13 +3720,17 @@ def expect_fp16_launches(fp16, bwd, head_dim, what):
                              f"expected {want} of {bwd} at head width {head_dim}")
 
 
-def expect_fwd_fp16_launches(fp16, fwd, head_dim, what):
+def expect_fwd_fp16_launches(fp16, fwd, head_dim, what, many_rows=None):
     """``flash_attention_sm90``'s calls with row blocks in one fp16 part
     (``fp16``, from ``ops.fwd_fp16_launches``) out of its ``fwd`` calls at
     ``head_dim`` on a path past 4096 tokens: every one at head widths
-    65-128 (each has row blocks whose rows all see 1024 keys), none at the
-    others."""
-    want = fwd if 64 < head_dim <= 128 else 0
+    65-128 (each has row blocks whose rows all see 1024 keys); at 64 or
+    less the ``many_rows`` of them (default all) with more than 64 query
+    rows (each sees thousands of keys a range: seamless's encoder and
+    cross-attention; a decode step's one row keeps two parts); none above
+    128."""
+    want = fwd if 64 < head_dim <= 128 else (
+        (fwd if many_rows is None else many_rows) if head_dim <= 64 else 0)
     if fp16 != want:
         raise AssertionError(f"{what}: {fp16} flash_attention_sm90 calls with row blocks in one "
                              f"fp16 part, expected {want} of {fwd} at head width {head_dim}")

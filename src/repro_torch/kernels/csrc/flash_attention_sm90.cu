@@ -54,9 +54,9 @@
 //   (2^-7 |want| + 1e-4) on long rows, so P is split into two bf16 parts,
 //   hi = bf16(p) and lo = bf16(p - hi), and P V is the sum of two wgmma
 //   (hi V + lo V, exact products, float32 sums): p is carried to ~2^-16
-//   relative, as close as a float32 p for the gate.  At head widths 65-128
-//   the row blocks whose every row sees 1024 keys or more round P once to
-//   fp16 instead (below).
+//   relative, as close as a float32 p for the gate.  At head widths up to
+//   128 the row blocks whose every row sees 1024 keys or more round P once
+//   to fp16 instead (below).
 //
 // Head widths 136-256 (recurrentgemma's 256; namespace d256): two consumer
 // warpgroups of 64 query rows that take turns at the tensor cores, over the
@@ -113,16 +113,41 @@
 // Head widths up to 64 (seamless's 64): one block per NC * 64 query rows,
 // 128-key tiles (S is one m64n128k16 wgmma a 16-column step) and NC + 1
 // warpgroups: a producer whose one thread issues every TMA load into a ring
-// of five stages (it keeps 24 registers, setmaxnreg) and NC consumer
-// warpgroups of 64 rows, NC = 2 above 64 query rows and 1 up to 64 (a decode
-// step).  The two consumers take turns at the tensor cores (a named barrier
-// each): in its turn a consumer runs the previous tile's P V, then issues
-// this tile's S and passes the turn, so one consumer's softmax runs while
-// the other's products run (ping-pong).  Within a consumer the products
-// and the softmax do not overlap: ptxas compiles the consumers to the
-// launch's 168 registers a thread whatever setmaxnreg grants them at run
-// time, and S of the next tile beside this tile's two P parts and the
-// accumulator (160 registers) spilled and serialised every wgmma.
+// of five stages and NC consumer warpgroups of 64 rows, NC = 2 above 64
+// query rows and 1 up to 64 (a decode step).  The two consumers take turns
+// at the tensor cores (a named barrier each), so that one consumer's
+// softmax runs while the other's products run (ping-pong).  ptxas compiles
+// the consumers to the launch's 168 registers a thread whatever setmaxnreg
+// grants them at run time.  In two bf16 parts P V is two thirds of a tile's
+// tensor time (6 D' flops a pair with S), and S of the next tile beside
+// the two P parts and the accumulator (160 registers) spilled and
+// serialised every wgmma, so in its turn a consumer runs the previous
+// tile's P V, waits, then issues this tile's S.  Above 64 rows the blocks
+// whose every row sees 1024 keys or more of its key range (the encoder's
+// and the cross-attention's: one_part_block, from the mask and the ranges
+// alone) take P V in one part, 4 D' a pair: P' = p 2^7 straight from the
+// exponentials (l their sum, taken back by 2^-7), rounded once to fp16 (as
+// at 65-128), against the v tile converted to fp16 in shared memory.  With
+// one P part (32 registers) a consumer issues this tile's S and the
+// previous tile's P V in one turn and runs its softmax while P V does.
+// Warps 1-3 of the producer warpgroup (idle otherwise; 56 registers,
+// setmaxnreg) convert each v tile in place once its TMA load lands: v times
+// 2^e_t, e_t by fp16_exponent from the tile's largest |v|, its bits moved
+// to fp16's fields by integer instructions (bf16x2_to_f16x2: exact where
+// the result is an fp16 normal, only values 2^29 or more below the tile's
+// max fall under it; no conversion instruction, whose pipe the softmax's
+// exponentials use), then a barrier of its own that the consumers wait on
+// before the tile's P V.  So the one-part call adds no launch and no global
+// memory traffic.  A consumer folds the change 2^(e_t - e_(t-1)) into the
+// alpha it multiplies its accumulator by on every tile (exact), so the
+// accumulator holds sums of p v 2^(7 + e_t), taken back by 2^-(7 + e_last)
+// as they are stored; e_t rises by at most 64 a tile (kExpRise), so that
+// the rescale cannot overflow.  The two kinds of block are two launches
+// (kernel template ONE), the one-part one first: a wgmma under a branch
+// serialises every wgmma of a kernel.  Where a call has both kinds each
+// launch runs over every block and a block of the other kind returns at
+// once (one_filter).  A third consumer (192 rows, 512 threads) is not
+// kept: at 128 registers a thread it spills.
 //
 // Split keys (widths up to 64): a call with few blocks (fewer than two
 // waves, see flash_attention_sm90.py::split_count) cuts the live key span
@@ -155,20 +180,32 @@ namespace d64 {
 constexpr int kKeys = 128;                 // keys a tile
 constexpr int kQBytes = kBM * kAtom * 2;   // one consumer's q tile
 constexpr int kKVBytes = kKeys * kAtom * 2;
-constexpr int kProducerRegs = 24;
+constexpr int kConverters = 96;            // ONE: warps 1-3 of the producer warpgroup
+// ONE: a tile's exponent rises by at most this much over the one before, so
+// that rescaling the accumulator (sums under 2^62) cannot overflow, and
+// stays within [-kExpNone, kExpNone], kExpNone that of a tile of zeros
+// before any other
+constexpr int kExpRise = 64;
+constexpr int kExpNone = 112;
 
 // NC consumer warpgroups: 2 above 64 query rows, 1 up to 64 (a decode
-// step).  Three consumers (192 rows) were slower: at 512 threads ptxas
-// compiles them to 128 registers, and they spill.
-template <int NC>
+// step).  Three consumers (192 rows) spill: at 512 threads ptxas compiles
+// them to 128 registers.  ONE: P V in one fp16 part, v converted by the
+// producer's warps 1-3 (more registers there).
+template <int NC, bool ONE = false>
 struct Cfg {
   static constexpr int kNC = NC;
   static constexpr int kRows = NC * kBM;             // query rows a block
   static constexpr int kThreads = 128 * (NC + 1);
-  static constexpr int kConsumerRegs = 240;   // setmaxnreg: 128 * (24 + 2 * 240) <= 65536
+  // setmaxnreg: at NC = 2 the producer's and the consumers' add up to the
+  // launch's 3 x 168 a thread
+  static constexpr int kProducerRegs = ONE ? 56 : 24;
+  static constexpr int kConsumerRegs = ONE ? 224 : 240;
   static constexpr int kStages = 5;
+  // q tiles, the k and v rings, the full, empty and (ONE) converted
+  // barriers a stage and q's, then a stage's v exponent and partial maxima
   static constexpr int kSmem =
-      1024 + NC * kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
+      1024 + NC * kQBytes + 2 * kStages * kKVBytes + 8 * (3 * kStages + 1) + 20 * kStages;
 };
 }  // namespace d64
 
@@ -190,6 +227,9 @@ struct D64Params {
   // against v's fp16 copy, whose sums v_back (2^-(kPShift + ev)) takes back
   int64_t one_lo, one_hi;
   const float* v_back;
+  // width up to 64: a call with both kinds of block launches each over every
+  // block, and a block runs in the launch of its kind (one_part_block)
+  int one_filter;
 };
 
 struct TileRange {
@@ -226,15 +266,47 @@ __device__ __forceinline__ TileRange tile_range(const D64Params& p, int64_t q0, 
   return r;
 }
 
+// The live keys of [lo, hi) that the row at position qpos sees
+__host__ __device__ inline int64_t keys_seen(const D64Params& p, int64_t lo, int64_t hi,
+                                             int64_t qpos) {
+  if (p.causal && qpos + 1 < hi) hi = qpos + 1;
+  if (p.has_window && qpos - p.window + 1 > lo) lo = qpos - p.window + 1;
+  return hi - lo;
+}
+
+// Width up to 64: whether the block of rows q0 .. rows_end - 1 in key range
+// s takes P V in one fp16 part, every row seeing kOnePartKeys live keys or
+// more of the range (all of the keys in a call that does not split; a
+// window under kOnePartKeys never).  A row's count is concave in its
+// position, so the block's first and last rows decide.
+// flash_attention_sm90.py::one_part_ranges mirrors it.
+constexpr int64_t kOnePartKeys = 1024;
+__host__ __device__ inline bool one_part_block(const D64Params& p, int64_t q0, int64_t rows_end,
+                                               int s) {
+  if (p.has_window && p.window < kOnePartKeys) return false;
+  int64_t lo = 0, hi = p.Tk;
+  if (p.splits > 1) {
+    lo = p.split_lo + kSplitKeys * static_cast<int64_t>(s * p.split_chunks / p.splits);
+    if (s + 1 < p.splits) {
+      const int64_t end =
+          p.split_lo + kSplitKeys * static_cast<int64_t>((s + 1) * p.split_chunks / p.splits);
+      if (end < hi) hi = end;
+    }
+  }
+  return keys_seen(p, lo, hi, p.q_offset + q0) >= kOnePartKeys &&
+         keys_seen(p, lo, hi, p.q_offset + rows_end - 1) >= kOnePartKeys;
+}
+
 // One tile's online softmax on a thread's share of S = q k^T: N scores, the
 // columns 8j + c2 and 8j + c2 + 1 of rows r0 (sc[4j], sc[4j + 1]) and r0 + 8
 // (sc[4j + 2], sc[4j + 3]) for j < N / 4, a tile of 2N keys from kt; qa, qb:
 // the positions of the warpgroup's first and last rows, pos0, pos1 this
 // thread's.  Applies the softcap and the masks of a tile that crosses a mask
-// edge, moves the reference points m0, m1, turns sc into p in place and
-// updates l0, l1.  alpha0, alpha1 rescale the accumulator.  CAP: 1 or 0
-// where the caller fixes the softcap at compile time, else p.has_softcap.
-template <int N, int CAP = -1>
+// edge, moves the reference points m0, m1, turns sc into p 2^SHIFT in
+// place and updates l0, l1 (sums of p 2^SHIFT).  alpha0, alpha1 rescale
+// the accumulator.  CAP: 1 or 0 where the caller fixes the softcap at
+// compile time, else p.has_softcap.
+template <int N, int CAP = -1, int SHIFT = 0>
 __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& p, int64_t kt,
                                                int64_t qa, int64_t qb, int64_t pos0,
                                                int64_t pos1, int c2, float f, float& m0,
@@ -284,8 +356,8 @@ __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& 
   alpha1 = up1 ? ex2((m1 - mx1) * f) : 1.0f;
   if (up0) m0 = mx0;
   if (up1) m1 = mx1;
-  const float mf0 = m0 == -CUDART_INF_F ? 0.0f : m0 * f;
-  const float mf1 = m1 == -CUDART_INF_F ? 0.0f : m1 * f;
+  const float mf0 = (m0 == -CUDART_INF_F ? 0.0f : m0 * f) - SHIFT;
+  const float mf1 = (m1 == -CUDART_INF_F ? 0.0f : m1 * f) - SHIFT;
   float sum[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -330,6 +402,16 @@ __device__ __forceinline__ void round_p16(const float (&sc)[8 * KK], uint32_t (&
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       p16[kk][r] = pack_f16(sc[8 * kk + 2 * r] * kMul, sc[8 * kk + 2 * r + 1] * kMul);
+}
+
+// P' as round_p16 makes it from p already times 2^kPShift (online_softmax's
+// SHIFT): no multiply
+template <int KK>
+__device__ __forceinline__ void pack_p16(const float (&sc)[8 * KK], uint32_t (&p16)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p16[kk][r] = pack_f16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
 // out = acc / l for this thread's rows row0 and row0 + 8 (columns 8j + c2,
@@ -412,6 +494,7 @@ __device__ __forceinline__ bool bar_any(int id, int threads, bool pred) {
 }
 
 constexpr int kMergeBar = 3;   // the consumers' named barrier (1 + w are their turns)
+constexpr int kConvBar = 4;    // ONE: the converting warps'
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
@@ -543,16 +626,78 @@ __device__ __forceinline__ void merge_ranges(const D64Params& p) {
   }
 }
 
-// Width 64 or less, more than 64 query rows: a producer warpgroup and two
-// consumer warpgroups (see the top of the file).  SPLIT: the call cuts its
-// keys into ranges, and the blocks merge them (merge_ranges).
-template <int NC, bool SPLIT>
+// Two bf16 values (a word, the first in the low half) times 2^e as fp16,
+// in four integer instructions and no conversion (whose pipe the softmax's
+// exponentials use): k = (112 - e) 2^7 in both halves (-112 <= e <= 112;
+// fp16's exponent bias is 112 below bf16's).  Each magnitude, first raised
+// to k, has its exponent field rebased by k and its fields shifted to
+// fp16's widths (8 exponent and 7 mantissa bits to 5 and 10): exact where
+// the result is an fp16 normal, zero or one under 2^-14 where it would be
+// under fp16's normal range, and a bf16 Inf or NaN stays one where e =
+// -112.  The tile's largest magnitude times 2^e is at most 65280, so no
+// half's result reaches the other half.
+__device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t w, uint32_t k) {
+  const uint32_t a = __vmaxu2(w & 0x7fff7fffu, k);
+  return (a - k) * 8u | (w & 0x80008000u);
+}
+
+// Warps 1-3 of the producer warpgroup, ONE: each v tile of the ring, once
+// its TMA load has landed (full), to fp16 in place times 2^e_t, e_t by the
+// fp16_exponent rule from the tile's largest |v| within [-112, 112] (the
+// previous tile's where the tile is all zeros, at most kExpRise above it),
+// then e_t into vexp and the converted barrier.  Each 2-byte element keeps
+// its place, so the swizzled layout is unchanged.
+template <int kStages>
+__device__ __forceinline__ void convert_v_tiles(uint8_t* vs, uint64_t* full, uint64_t* conv,
+                                                int* vexp, uint32_t* vmax, int n_tiles, int ct) {
+  using namespace d64;
+  const int lane = ct & 31, w = ct >> 5;
+  int e = kExpNone;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    uint4* tile = reinterpret_cast<uint4*>(vs + st * kKVBytes);
+    uint32_t m = 0;   // two bf16 magnitudes
+    for (int i = ct; i < kKVBytes / 16; i += kConverters) {
+      const uint4 x = tile[i];
+      m = __vmaxu2(m, x.x & 0x7fff7fffu);
+      m = __vmaxu2(m, x.y & 0x7fff7fffu);
+      m = __vmaxu2(m, x.z & 0x7fff7fffu);
+      m = __vmaxu2(m, x.w & 0x7fff7fffu);
+    }
+    m = max(m & 0xffffu, m >> 16);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) vmax[4 * st + w] = m;
+    bar_sync(kConvBar, kConverters);
+    m = max(vmax[4 * st], max(vmax[4 * st + 1], vmax[4 * st + 2]));
+    if (m != 0) e = min(max(fp16_exponent(m << 16), -kExpNone), min(kExpNone, e + kExpRise));
+    const uint32_t k = static_cast<uint32_t>(112 - e) * 0x800080u;   // (112 - e) 2^7 a half
+    for (int i = ct; i < kKVBytes / 16; i += kConverters) {
+      const uint4 x = tile[i];
+      tile[i] = make_uint4(bf16x2_to_f16x2(x.x, k), bf16x2_to_f16x2(x.y, k),
+                           bf16x2_to_f16x2(x.z, k), bf16x2_to_f16x2(x.w, k));
+    }
+    fence_async_shared();   // the stores, to the consumers' wgmma
+    if (ct == 0) vexp[st] = e;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&conv[st]);
+  }
+}
+
+// Width 64 or less: a producer warpgroup and NC consumer warpgroups (see the
+// top of the file).  SPLIT: the call cuts its keys into ranges, and the
+// blocks merge them (merge_ranges).  ONE: P V in one fp16 part against v's
+// tiles converted in shared memory, else two bf16 parts against v; where a
+// call has both kinds of block (p.one_filter), each launch runs over every
+// block and a block of the other kind returns at once.
+template <int NC, bool SPLIT, bool ONE>
 __global__ void __launch_bounds__(d64::Cfg<NC>::kThreads, 1)
 flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap, const D64Params p) {
   using namespace d64;
-  using C = d64::Cfg<NC>;
+  using C = d64::Cfg<NC, ONE>;
   constexpr int kNC = C::kNC, kRows = C::kRows, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -561,7 +706,10 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   uint8_t* vs = ks + kStages * kKVBytes;            // kStages v tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kKVBytes);
   uint64_t* empty = full + kStages;
-  uint64_t* qbar = empty + kStages;
+  uint64_t* conv = empty + kStages;                 // ONE: v's tile converted
+  uint64_t* qbar = conv + kStages;
+  int* vexp = reinterpret_cast<int*>(qbar + 1);     // ONE: the tile's exponent a stage
+  uint32_t* vmax = reinterpret_cast<uint32_t*>(vexp + kStages);   // [kStages][4]
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -572,6 +720,7 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   const int b = blockIdx.z;
   const int hk = h / p.group;
   const int64_t rows_end = q0 + kRows < p.Tq ? q0 + kRows : p.Tq;
+  if (p.one_filter && one_part_block(p, q0, rows_end, split) != ONE) return;
   const TileRange tr = tile_range<kKeys>(p, q0, rows_end, split);
   const int n_tiles = tr.n;
 
@@ -579,6 +728,7 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kNC * 4);   // lane 0 of every consumer warp
+      if (ONE) mbar_init(&conv[s], kConverters / 32);
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -586,8 +736,8 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   if (wg == kNC) {
-    // ---- producer: one thread keeps the ring full
-    regs_dealloc<kProducerRegs>();
+    // ---- producer: one thread keeps the ring full; ONE: warps 1-3 convert v
+    regs_dealloc<C::kProducerRegs>();
     if (tid == kNC * 128) {
       mbar_expect_tx(qbar, kNC * kQBytes);
       for (int c = 0; c < kNC; ++c)
@@ -600,6 +750,8 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
         tma_load(ks + s * kKVBytes, &kmap, &full[s], 0, kt, hk, b);
         tma_load(vs + s * kKVBytes, &vmap, &full[s], 0, kt, hk, b);
       }
+    } else if (ONE && tid >= kNC * 128 + 32) {
+      convert_v_tiles<kStages>(vs, full, conv, vexp, vmax, n_tiles, tid - kNC * 128 - 32);
     }
   } else {
     // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
@@ -619,10 +771,12 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
     float l0 = 0.0f, l1 = 0.0f;
     float o[1][32];
     float sc[64];
-    uint32_t phi[8][4], plo[8][4];
+    uint32_t phi[8][4];            // P in one fp16 part (ONE), or its bf16 hi part
+    uint32_t plo[ONE ? 1 : 8][4];  // the bf16 lo part (two parts only)
+    int ev = kExpNone;             // ONE: the sums in o are of p v 2^(kPShift + ev)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[0][i] = 0.0f;
-    // S = q k^T with the k tile in stage st; O += P_hi V + P_lo V with its v tile
+    // S = q k^T with the k tile in stage st
     auto issue_s = [&](int st) {
       const uint32_t k_base = smem_u32(ks + st * kKVBytes);
       wgmma_ss_n128_first(sc, desc(q_base), desc(k_base));
@@ -630,13 +784,19 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int kk = 1; kk < 4; ++kk)
         wgmma_ss_n128(sc, desc(q_base + kk * 32), desc(k_base + kk * 32), 1);
     };
+    // O += P V with the v tile in stage st: ONE, P' V' (fp16); else
+    // P_hi V + P_lo V
     auto issue_pv = [&](int st) {
       const uint32_t v_base = smem_u32(vs + st * kKVBytes);
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         const uint64_t dv = desc(v_base + kk * 16 * 128);
-        wgmma_rs(o[0], phi[kk], dv, 1);
-        wgmma_rs(o[0], plo[kk], dv, 1);
+        if constexpr (ONE) {
+          wgmma_rs_f16(o[0], phi[kk], dv);
+        } else {
+          wgmma_rs(o[0], phi[kk], dv, 1);
+          wgmma_rs(o[0], plo[kk], dv, 1);
+        }
       }
     };
     auto fence_pv = [&]() {
@@ -644,8 +804,14 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         reg_fence(phi[kk]);
-        reg_fence(plo[kk]);
+        if constexpr (!ONE) reg_fence(plo[kk]);
       }
+    };
+    auto parts = [&]() {
+      if constexpr (ONE)
+        pack_p16(sc, phi);
+      else
+        split_p(sc, phi, plo);
     };
     // this warp has finished reading stage st
     auto release = [&](int st) {
@@ -654,8 +820,22 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
     };
     float alpha0, alpha1;
     auto softmax = [&](int t) {
-      online_softmax(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys, qa, qb, pos0, pos1, c2,
-                     f, m0, m1, l0, l1, alpha0, alpha1);
+      // ONE: P' = p 2^kPShift straight from the exponentials, l their sum
+      online_softmax<64, -1, ONE ? kPShift : 0>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys,
+                                                qa, qb, pos0, pos1, c2, f, m0, m1, l0, l1,
+                                                alpha0, alpha1);
+      if constexpr (ONE) {
+        // tile t's v converted: its exponent moves the sums so far to it, a
+        // power of two folded into alpha (exact; 0 below float's range,
+        // where what is dropped lies under 2^-126 of the new tile's scale)
+        const int st = t % kStages;
+        mbar_wait(&conv[st], (t / kStages) & 1);
+        const int e = *reinterpret_cast<volatile int*>(&vexp[st]);
+        const float g = e - ev < -126 ? 0.0f : exp2i(e - ev);
+        ev = e;
+        alpha0 *= g;
+        alpha1 *= g;
+      }
     };
 
     // Ping-pong: named barrier 1 + w is consumer w's turn at the tensor
@@ -667,8 +847,8 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
     // not pass its own last one, so every arrival is waited for.  Every
     // wgmma is issued on a path without branches (tile 0's S alone, the
     // last P V alone), and P V ends before S starts, so S can take the
-    // registers P leaves: the accumulator, S and the two P parts (160
-    // registers a thread) are never all live at once.
+    // registers P leaves: the accumulator, S and P (160 registers a thread
+    // in two parts) are never all live at once.
     const int mine = 1 + wg;
     const int other = 1 + (wg + 1) % NC;
     mbar_wait(qbar, 0);
@@ -683,7 +863,7 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait_all();
       reg_fence(sc);
       softmax(0);
-      split_p(sc, phi, plo);
+      parts();
       for (int t = 1; t < n_tiles; ++t) {
         const int s = t % kStages;
         const int sp = (t - 1) % kStages;   // the stage of tile t - 1
@@ -691,23 +871,40 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
         if (NC > 1) bar_sync(mine, 2 * 128);
         fence_pv();
         wgmma_fence();
-        issue_pv(sp);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_pv();
-        release(sp);
-        wgmma_fence();
-        issue_s(s);
-        wgmma_commit();
-        if (NC > 1) bar_arrive(other, 2 * 128);
-        wgmma_wait_all();
-        reg_fence(sc);
-        softmax(t);
+        if constexpr (ONE) {
+          // this tile's S and the previous tile's P V in one turn, the
+          // softmax running while P V does (S, the accumulator and the one
+          // P part in flight: 128 registers)
+          issue_s(s);
+          wgmma_commit();
+          issue_pv(sp);
+          wgmma_commit();
+          if (NC > 1) bar_arrive(other, 2 * 128);
+          wgmma_wait_but_one();
+          reg_fence(sc);
+          softmax(t);
+          wgmma_wait_all();
+          fence_pv();
+          release(sp);
+        } else {
+          issue_pv(sp);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_pv();
+          release(sp);
+          wgmma_fence();
+          issue_s(s);
+          wgmma_commit();
+          if (NC > 1) bar_arrive(other, 2 * 128);
+          wgmma_wait_all();
+          reg_fence(sc);
+          softmax(t);
+        }
         // alpha is 1 on most tiles (the reference point moves rarely); the
         // multiply costs less than a branch
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[0][i] *= (i & 2) ? alpha1 : alpha0;
-        split_p(sc, phi, plo);
+        parts();
       }
       const int sp = (n_tiles - 1) % kStages;
       if (NC > 1) bar_sync(mine, 2 * 128);
@@ -719,6 +916,13 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait_all();
       fence_pv();
       release(sp);
+    }
+    if constexpr (ONE) {   // P' V' is P V 2^(kPShift + ev), l the sum of P'
+      const float back = ldexpf(1.0f, -(kPShift + ev));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[0][i] *= back;
+      l0 *= 1.0f / (1 << kPShift);
+      l1 *= 1.0f / (1 << kPShift);
     }
     store_rows(p, o, l0, l1, m0, m1, f, b, h, split, wq0 + r0, c2, lane);
     if constexpr (SPLIT) merge_ranges<NC>(p);
@@ -1297,20 +1501,36 @@ int launch_d256(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap&
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC, bool SPLIT>
+template <int NC, bool SPLIT, bool ONE>
 int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                const D64Params& p, int64_t B, cudaStream_t stream) {
-  using C = d64::Cfg<NC>;
+  using C = d64::Cfg<NC, ONE>;
   static bool configured = false;   // the attribute is per kernel, set once
   if (!configured) {
-    const int err = configure(flash_attention_d64_kernel<NC, SPLIT>, C::kSmem);
+    const int err = configure(flash_attention_d64_kernel<NC, SPLIT, ONE>, C::kSmem);
     if (err != 0) return err;
     configured = true;
   }
   const dim3 grid(static_cast<unsigned>((p.Tq + C::kRows - 1) / C::kRows * p.splits),
                   static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  flash_attention_d64_kernel<NC, SPLIT><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
+  flash_attention_d64_kernel<NC, SPLIT, ONE><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm,
+                                                                                     p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Width up to 64, more than 64 query rows: `one` of the call's blocks take
+// P V in one fp16 part; their launch first, then the others', each skipped
+// when it has no block (a call with both runs both over every block)
+template <bool SPLIT>
+int launch_d64_parts(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                     D64Params p, int64_t one, int64_t B, cudaStream_t stream) {
+  const int64_t blocks = (p.Tq + d64::Cfg<2>::kRows - 1) / d64::Cfg<2>::kRows * p.splits;
+  p.one_filter = one > 0 && one < blocks;
+  if (one > 0) {
+    const int err = launch_d64<2, SPLIT, true>(qm, km, vm, p, B, stream);
+    if (err != 0) return err;
+  }
+  return one < blocks ? launch_d64<2, SPLIT, false>(qm, km, vm, p, B, stream) : 0;
 }
 
 }  // namespace
@@ -1334,7 +1554,10 @@ int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
 // 16-byte aligned, take v's copy (null when the range is empty); every row
 // of those blocks should see 1024 live keys or more
 // (flash_attention_sm90.py::one_part_blocks), or its output may miss the
-// bf16 limit.
+// bf16 limit.  At D <= 64 with more than 64 query rows, one_blocks of the
+// call's ceil(Tq / 128) S blocks take P V in one fp16 part
+// (flash_attention_sm90.py::one_part_ranges: all, none, or those whose
+// rows see 1024 keys of their range, one_part_block); 0 otherwise.
 // Launches on `stream`; returns the cudaError_t of the launch
 // (0 on success; cudaErrorInvalidValue for arguments the kernel does not
 // take or a tensor map CUDA refuses).
@@ -1349,7 +1572,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         void* lse, int64_t splits, int64_t split_lo,
                                         int64_t split_chunks, void* o_part, void* lse_part,
                                         void* arrivals, void* v16, void* aux, int64_t one_lo,
-                                        int64_t one_hi, void* stream) {
+                                        int64_t one_hi, int64_t one_blocks, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff || splits < 1 || splits > 65535)
@@ -1361,6 +1584,10 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     return static_cast<int>(bad);
   if (one_lo < 0 || one_hi < one_lo || one_hi > (Tq + d128::kRows - 1) / d128::kRows ||
       (one_hi > one_lo && ((D + 63) / 64 != 2 || v16 == nullptr || aux == nullptr)))
+    return static_cast<int>(bad);
+  const bool d64_parts = D <= 64 && Tq > kBM;
+  if (one_blocks < 0 || (!d64_parts && one_blocks != 0) ||
+      (d64_parts && one_blocks > (Tq + d64::Cfg<2>::kRows - 1) / d64::Cfg<2>::kRows * splits))
     return static_cast<int>(bad);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   const int64_t DP = (D + 63) / 64 * 64;
@@ -1388,6 +1615,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   p.arrivals = splits > 1 ? static_cast<unsigned*>(arrivals) : nullptr;
   p.one_lo = one_lo;
   p.one_hi = one_hi;
+  p.one_filter = 0;
   uint32_t* parts = static_cast<uint32_t*>(aux);
   p.v_back = one_hi > one_lo ? reinterpret_cast<float*>(parts + 4 * kConvBlocks) : nullptr;
   if (DP > 128)
@@ -1407,10 +1635,28 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   }
   // up to 64 query rows one consumer warpgroup a block, more two
   if (Tq <= kBM)
-    return splits > 1 ? launch_d64<1, true>(qm, km, vm, p, B, s)
-                      : launch_d64<1, false>(qm, km, vm, p, B, s);
-  return splits > 1 ? launch_d64<2, true>(qm, km, vm, p, B, s)
-                    : launch_d64<2, false>(qm, km, vm, p, B, s);
+    return splits > 1 ? launch_d64<1, true, false>(qm, km, vm, p, B, s)
+                      : launch_d64<1, false, false>(qm, km, vm, p, B, s);
+  return splits > 1 ? launch_d64_parts<true>(qm, km, vm, p, one_blocks, B, s)
+                    : launch_d64_parts<false>(qm, km, vm, p, one_blocks, B, s);
+}
+
+// 1 where row block rb (rows from 128 rb) of a call at head width up to 64
+// with more than 64 query rows takes P V in one fp16 part in key range s,
+// as its blocks decide where a call has both kinds (one_part_block), else 0
+// (the wrapper's one_part_ranges is held to it)
+extern "C" int flash_attention_sm90_one_part(int64_t Tq, int64_t Tk, int causal,
+                                             int has_window, int64_t window, int64_t q_offset,
+                                             int64_t splits, int64_t split_lo,
+                                             int64_t split_chunks, int64_t rb, int64_t s) {
+  D64Params p{};
+  p.Tq = Tq; p.Tk = Tk; p.causal = causal; p.has_window = has_window; p.window = window;
+  p.q_offset = q_offset; p.splits = static_cast<int>(splits);
+  p.split_lo = splits > 1 ? split_lo : 0;
+  p.split_chunks = splits > 1 ? static_cast<int>(split_chunks) : 0;
+  constexpr int64_t rows = d64::Cfg<2>::kRows;
+  const int64_t end = (rb + 1) * rows < Tq ? (rb + 1) * rows : Tq;
+  return one_part_block(p, rb * rows, end, static_cast<int>(s)) ? 1 : 0;
 }
 
 // the floats of the scratch `aux`: v's partial maxima, then v_back

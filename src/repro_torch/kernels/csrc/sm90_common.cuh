@@ -120,6 +120,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// all but the last committed group done (groups complete in order)
+__device__ __forceinline__ void wgmma_wait_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // keeps the compiler from moving reads or writes of an accumulator (or of
 // the registers an A operand is read from) across the asynchronous wgmma
 // that owns it

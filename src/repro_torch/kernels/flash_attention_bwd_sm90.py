@@ -117,6 +117,42 @@ def fp16_copy(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return (x.float() * torch.exp2(e.float())).half(), e
 
 
+# the forward kernel's v tiles at head widths up to 64 (keys); the most a
+# tile's exponent rises over the one before, and its bound, also that of a
+# tile of zeros before any other (csrc/flash_attention_sm90.cu d64::kExpRise,
+# kExpNone)
+V_TILE, EXP_RISE, EXP_NONE = 128, 64, 112
+
+
+def fp16_tiles(v: torch.Tensor, tiles: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the forward kernel's conversion of v at head
+    widths up to 64, in shared memory tile by tile along a block's walk: v
+    (..., T, D) bf16 as ``tiles`` 128-key tiles (default all of T; keys past
+    T are zeros, as TMA fills them), each times 2^e_t in fp16, e_t =
+    ``fp16_exponent`` of the tile's largest |v| within [-EXP_NONE,
+    EXP_NONE], at most ``EXP_RISE`` above e_(t-1), and e_(t-1) where the
+    tile is all zeros (e_(-1) = EXP_NONE).  The kernel moves each value's
+    bits to fp16's fields (its magnitude first raised to (112 - e_t) 2^7,
+    then rebased and shifted left 3): exact where the result is an fp16
+    normal, under 2^-14 where it would fall below fp16's normal range.
+    Returns (the fp16 tiles (..., tiles 128, D), e (..., tiles) int32)."""
+    n = -(-v.shape[-2] // V_TILE) if tiles is None else tiles
+    x = torch.nn.functional.pad(v.to(torch.bfloat16), (0, 0, 0, n * V_TILE - v.shape[-2]))
+    bits = (x.view(torch.int16).to(torch.int32) & 0xFFFF).unflatten(-2, (n, V_TILE))
+    mag = bits & 0x7FFF
+    amax = mag.amax(dim=(-2, -1))
+    e_tile = fp16_exponent((amax << 16).view(torch.float32)).clamp(-EXP_NONE, EXP_NONE)
+    e = torch.empty_like(e_tile)
+    prev = torch.full(e.shape[:-1], EXP_NONE, dtype=torch.int32)
+    for t in range(n):
+        prev = torch.where(amax[..., t] == 0, prev, torch.minimum(e_tile[..., t], prev + EXP_RISE))
+        e[..., t] = prev
+    k = ((112 - e) << 7)[..., None, None]
+    h = ((torch.maximum(mag, k) - k) << 3) | (bits & 0x8000)
+    h = (h - ((h >> 15) << 16)).to(torch.int16)          # the same 16 bits, signed
+    return h.view(torch.float16).flatten(-3, -2), e
+
+
 def stats_shape(B: int, Hq: int, Tq: int, D: int) -> Tuple[int, int, int, int]:
     """The float32 scratch of lse2 and delta: (2, B, Hq, Tq padded)."""
     pad = block_config(D).pad

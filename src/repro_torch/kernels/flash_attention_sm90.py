@@ -23,17 +23,22 @@ With ``return_lse`` it also writes each row's log-sum-exp, which the
 backward reads.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention``.
 
-From 65 to 128 columns, the 128-row blocks whose every row sees at least
-``ONE_PART_KEYS`` live keys (:func:`one_part_blocks`, a contiguous range of
-row blocks found from the mask alone) take P V in one fp16 part: P times
-2^7 rounded once to fp16, against an fp16 copy of v times a power of two of
-its own (``flash_attention_bwd_sm90.fp16_copy`` is that conversion's plain
-version), which two more launches write first; the other row blocks keep
-the two bf16 parts against v.  The two kinds of block are two launches of
-the kernel, so that no ``wgmma`` sits under a branch.  P's rounding error
-averages out over the keys a row sees: over a few hundred it can reach
-the output's limit (2^-7 |want| + 1e-4) where the output is a small sum of
-large terms, so the rule asks for a thousand
+The 128-row blocks whose every row sees at least ``ONE_PART_KEYS`` live
+keys take P V in one fp16 part, P times 2^7 rounded once to fp16, against
+fp16 values of v; the other row blocks keep the two bf16 parts against v.
+From 65 to 128 columns those blocks (:func:`one_part_blocks`, a contiguous
+range found from the mask alone) read an fp16 copy of v times a power of
+two of its own (``flash_attention_bwd_sm90.fp16_copy`` is that
+conversion's plain version), which two more launches write first.  At 64
+columns or less with more than 64 query rows they are counted per key
+range of a split call (:func:`one_part_ranges`), and the kernel's producer
+warpgroup converts each 128-key v tile in shared memory, times a power of
+two of the tile's own (``flash_attention_bwd_sm90.fp16_tiles`` is that
+conversion's plain version): no copy, no launch more.  The two kinds of
+block are two launches of the kernel, so that no ``wgmma`` sits under a
+branch.  P's rounding error averages out over the keys a row sees: over a
+few hundred it can reach the output's limit (2^-7 |want| + 1e-4) where the
+output is a small sum of large terms, so the rule asks for a thousand
 (``tools/emulate_fp16_attention.py --keys-sweep``).
 
 At a width of 64 or less, a call with fewer than two waves of blocks (a
@@ -50,13 +55,14 @@ versions are ``ref.ref_flash_attention_partials`` and
 call, its launches together), and nothing else; a run reads it to show
 that its path went through the kernel.  ``split_launches`` counts those of
 them that split their keys (and merged them), ``fp16_launches`` those in
-which some row block took P V in one fp16 part.
+which some row block took P V in one fp16 part (at any head width up to
+128).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -68,7 +74,7 @@ launches = 0
 split_launches = 0
 fp16_launches = 0
 # a 128-row block takes P V in one fp16 part where each of its rows sees at
-# least this many live keys (at 65-128 columns)
+# least this many live keys (of its key range, in a split call)
 ONE_PART_KEYS = 1024
 # a call splits its keys when it has fewer blocks than this many waves of
 # one block an SM, into enough ranges for about SPLIT_WAVES waves
@@ -92,7 +98,7 @@ def _kernel():
         fn.argtypes = ([ptr] * 4 + [i64] * 6 + [i64] * 9
                        + [ctypes.c_int, ctypes.c_int, i64, i64, ctypes.c_int,
                           ctypes.c_float, ctypes.c_float, ptr, i64, i64, i64, ptr, ptr, ptr,
-                          ptr, ptr, i64, i64, ptr])
+                          ptr, ptr, i64, i64, i64, ptr])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -149,29 +155,71 @@ def kernel_rows(Tq: int, D: int) -> int:
     return rows.value
 
 
-def one_part_blocks(Tq: int, Tk: int, D: int, *, causal: bool, window: Optional[int],
-                    q_offset: int) -> Tuple[int, int]:
-    """[lo, hi): the 128-row blocks that take P V in one fp16 part, those
-    whose every row (below Tq) sees at least ``ONE_PART_KEYS`` live keys;
-    (0, 0) outside head widths 65-128.  Row i sees the keys j < Tk with j <=
-    qpos (causal) and j > qpos - window, qpos = q_offset + i: min(Tk - 1,
-    qpos) - max(0, qpos - window + 1) + 1 of them, a concave function of
-    qpos.  So it is at least K exactly on one range of qpos, [K - 1 (causal),
-    Tk - 1 + window - K (window)] when Tk >= K and window >= K, and a
-    block's rows all lie in it exactly when its first and last do: the
-    blocks that do form one range."""
+def _one_part_rows(Tq: int, rows: int, k_lo: int, k_hi: int, *, causal: bool,
+                   window: Optional[int], q_offset: int) -> Tuple[int, int]:
+    """[lo, hi): the blocks of ``rows`` query rows whose every row (below
+    Tq) sees at least ``ONE_PART_KEYS`` live keys of [k_lo, k_hi), k_hi <=
+    Tk; none under a window narrower than that.  Row i sees the keys k_lo
+    <= j < k_hi with j <= qpos (causal) and j > qpos - window, qpos =
+    q_offset + i: min(k_hi, qpos + 1) - max(k_lo, qpos - window + 1) of
+    them, a concave function of qpos.  So it is at least K exactly on one
+    range of qpos, [k_lo + K - 1 (causal), k_hi - 1 + window - K (window)]
+    when k_hi - k_lo >= K and window >= K, and a block's rows all lie in it
+    exactly when its first and last do: the blocks that do form one range."""
     K = ONE_PART_KEYS
-    if not 64 < D <= 128 or Tq <= 0 or Tk < K or (window is not None and window < K):
+    if Tq <= 0 or k_hi - k_lo < K or (window is not None and window < K):
         return 0, 0
-    rows = block_rows(Tq, D)
     blocks = -(-Tq // rows)
-    first = K - 1 - q_offset if causal else -(2 ** 62)          # the first row that sees K
+    first = k_lo + K - 1 - q_offset if causal else -(2 ** 62)   # the first row that sees K
     lo = max(0, -(-first // rows))
-    if window is None or Tk - 1 + window - K - q_offset >= Tq - 1:
+    if window is None or k_hi - 1 + window - K - q_offset >= Tq - 1:
         hi = blocks
     else:                            # blocks whose last row r rows + rows - 1 <= the last row
-        hi = max(0, (Tk + window - K - q_offset) // rows)
+        hi = max(0, (k_hi + window - K - q_offset) // rows)
     return (lo, hi) if lo < hi else (0, 0)
+
+
+def one_part_blocks(Tq: int, Tk: int, D: int, *, causal: bool, window: Optional[int],
+                    q_offset: int) -> Tuple[int, int]:
+    """[lo, hi): the 128-row blocks of a call that does not split its keys
+    that take P V in one fp16 part, those whose every row (below Tq) sees at
+    least ``ONE_PART_KEYS`` live keys (:func:`_one_part_rows`); (0, 0) above
+    a head width of 128, and at 64 or less up to 64 query rows (a decode
+    step's configuration keeps two parts)."""
+    return one_part_ranges(Tq, Tk, D, 1, causal=causal, window=window, q_offset=q_offset)[0]
+
+
+def one_part_ranges(Tq: int, Tk: int, D: int, splits: int, *, causal: bool,
+                    window: Optional[int], q_offset: int) -> List[Tuple[int, int]]:
+    """For each key range of a call split ``splits`` ways
+    (``ref.split_ranges``; one range: all of the keys), [lo, hi): the
+    128-row blocks that take P V in one fp16 part in it, those whose every
+    row sees at least ``ONE_PART_KEYS`` live keys of the range.  (0, 0)
+    where :func:`one_part_blocks` gives it.  A pure function of the shape,
+    the mask, the block height and the ranges; the kernel decides a block
+    of a call with both kinds the same way
+    (``csrc/flash_attention_sm90.cu::one_part_block``)."""
+    ranges = _ref.split_ranges(Tq, Tk, splits, causal=causal, window=window, q_offset=q_offset)
+    if D > 128 or (D <= 64 and Tq <= 64):
+        return [(0, 0)] * len(ranges)
+    rows = block_rows(Tq, D)
+    return [_one_part_rows(Tq, rows, a, min(b, Tk), causal=causal, window=window,
+                           q_offset=q_offset) for a, b in ranges]
+
+
+def kernel_one_part(Tq: int, Tk: int, splits: int, rb: int, s: int, *, causal: bool,
+                    window: Optional[int], q_offset: int) -> bool:
+    """Whether the compiled kernel at a head width up to 64 takes row block
+    ``rb`` of key range ``s`` in one fp16 part where a call has both kinds
+    (``flash_attention_sm90_one_part``; builds the library: on the card
+    only), to hold :func:`one_part_ranges` to."""
+    fn = build.load("flash_attention_sm90").flash_attention_sm90_one_part
+    i64 = ctypes.c_int64
+    fn.argtypes = [i64, i64, ctypes.c_int, ctypes.c_int] + [i64] * 7
+    fn.restype = ctypes.c_int
+    lo, chunks = split_plan(Tq, Tk, splits, causal=causal, window=window, q_offset=q_offset)
+    return fn(Tq, Tk, int(causal), int(window is not None), int(window or 0), q_offset, splits,
+              lo, chunks, rb, s) == 1
 
 
 def split_count(B: int, Hq: int, Tq: int, Tk: int, D: int, *, causal: bool,
@@ -244,8 +292,9 @@ def flash_attention_sm90_cuda(
     with ``return_lse`` also each row's log-sum-exp, contiguous float32
     (B, Hq, Tq), -inf where a row sees no key.  ``splits``: the key ranges
     (default :func:`split_count`'s); with more than one the launch also
-    merges them.  At 65-128 columns the row blocks of
-    :func:`one_part_blocks` take P V in one fp16 part."""
+    merges them.  The row blocks of :func:`one_part_blocks` (at 64 columns
+    or less, :func:`one_part_ranges` in each key range) take P V in one fp16
+    part."""
     global launches, split_launches, fp16_launches
     _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -264,7 +313,10 @@ def flash_attention_sm90_cuda(
         raise ValueError(f"flash_attention_sm90: key ranges at a head width up to 64 only, "
                          f"got {D}")
     lo, chunks = split_plan(Tq, Tk, splits, **kw)      # raises before any build
-    one_lo, one_hi = one_part_blocks(Tq, Tk, D, **kw)
+    one_lo, one_hi = one_part_blocks(Tq, Tk, D, **kw) if D > 64 else (0, 0)
+    # at 64 columns or less the kernel converts v's tiles itself
+    one_blocks = sum(b - a for a, b in one_part_ranges(Tq, Tk, D, splits, **kw)) \
+        if D <= 64 else 0
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -288,12 +340,13 @@ def flash_attention_sm90_cuda(
                  lse_part.data_ptr() if lse_part is not None else None,
                  arrivals.data_ptr() if arrivals is not None else None,
                  v16.data_ptr() if v16 is not None else None,
-                 aux.data_ptr() if aux is not None else None, one_lo, one_hi, stream)
+                 aux.data_ptr() if aux is not None else None, one_lo, one_hi, one_blocks,
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_sm90: kernel launch failed with CUDA error {err}")
     launches += 1
     if splits > 1:
         split_launches += 1
-    if one_hi > one_lo:
+    if one_hi > one_lo or one_blocks > 0:
         fp16_launches += 1
     return (out, lse) if return_lse else out

@@ -332,8 +332,9 @@ def split_launches() -> int:
 def fwd_fp16_launches() -> int:
     """``flash_attention_sm90`` calls since the last
     :func:`reset_launch_counts` in which some row block took P V in one fp16
-    part (head widths 65-128, rows that see 1024 keys or more: two more
-    launches convert v first)."""
+    part (rows that see 1024 keys or more: at head widths 65-128 two more
+    launches convert v first; up to 64, calls of more than 64 rows, the
+    kernel converts v's tiles in shared memory)."""
     return _fa90.fp16_launches
 
 

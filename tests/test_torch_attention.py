@@ -309,12 +309,12 @@ def test_tensor_core_rounding_holds_the_bf16_limit_only_with_p_in_two_parts(p_pa
         assert share > 1.0, share
 
 
-# ---------- one fp16 part of P at head widths 65-128 (rows that see 1024 keys)
-def _live_keys(Tq, Tk, *, causal, window, q_offset):
-    """Each row's live keys, counted one by one."""
+# ---------- one fp16 part of P at head widths up to 128 (rows that see 1024 keys)
+def _live_keys(Tq, Tk, *, causal, window, q_offset, lo=0):
+    """Each row's live keys of [lo, Tk), counted one by one."""
     qpos = q_offset + np.arange(Tq)[:, None]
-    kpos = np.arange(Tk)[None, :]
-    live = np.ones((Tq, Tk), dtype=bool)
+    kpos = np.arange(lo, Tk)[None, :]
+    live = np.ones((Tq, Tk - lo), dtype=bool)
     if causal:
         live &= kpos <= qpos
     if window is not None:
@@ -339,21 +339,51 @@ def _live_keys(Tq, Tk, *, causal, window, q_offset):
     (1, 2000, 96, dict(causal=False, window=None, q_offset=0)),         # one query row
     (1, 2000, 96, dict(causal=True, window=None, q_offset=50)),
     (1, 2000, 96, dict(causal=True, window=None, q_offset=1999)),
-    (3000, 3000, 64, dict(causal=True, window=None, q_offset=0)),       # outside 65-128
+    (3000, 3000, 64, dict(causal=True, window=None, q_offset=0)),       # D <= 64: causal
     (3000, 3000, 136, dict(causal=True, window=None, q_offset=0)),
+    # up to 64 columns: 128-row blocks above 64 query rows, none up to 64
+    (2500, 2500, 48, dict(causal=True, window=1500, q_offset=0)),
+    (1500, 3000, 64, dict(causal=True, window=1000, q_offset=1179)),    # a window under 1024
+    (200, 1150, 64, dict(causal=True, window=None, q_offset=950)),
+    (1200, 2000, 32, dict(causal=True, window=None, q_offset=-500)),
+    (1500, 1300, 64, dict(causal=False, window=1200, q_offset=0)),      # window past the last key
+    (512, 32768, 64, dict(causal=False, window=None, q_offset=0)),      # seamless's cross
+    (1, 2000, 64, dict(causal=False, window=None, q_offset=0)),         # one query row
+    (64, 2000, 64, dict(causal=False, window=None, q_offset=0)),
+    (65, 2000, 64, dict(causal=False, window=None, q_offset=0)),
+    (1200, 1400, 64, dict(causal=True, window=None, q_offset=126)),     # a block one key short
+    (1500, 1232, 64, dict(causal=False, window=1200, q_offset=0)),      # the last row on an edge
+    # split calls, counted per key range
+    (512, 32768, 64, dict(causal=False, window=None, q_offset=0, splits=3)),
+    (200, 4000, 64, dict(causal=False, window=None, q_offset=0, splits=6)),
+    (300, 2600, 64, dict(causal=False, window=None, q_offset=0, splits=2)),
+    (3000, 3000, 64, dict(causal=True, window=None, q_offset=0, splits=2)),
+    (1500, 4000, 64, dict(causal=True, window=2100, q_offset=2500, splits=3)),
+    (1200, 2048, 64, dict(causal=False, window=1024, q_offset=2000, splits=3)),
 ])
 def test_one_part_blocks_match_a_count_of_each_rows_keys(Tq, Tk, D, kw):
-    """``one_part_blocks`` (from the mask alone, in closed form) against a
-    count of every row's live keys: at 65-128 columns exactly the 128-row
-    blocks whose rows all see ``ONE_PART_KEYS`` keys or more, one
-    contiguous range of them; none at other widths."""
-    lo, hi = tfa90.one_part_blocks(Tq, Tk, D, **kw)
-    keys = _live_keys(Tq, Tk, **kw)
+    """``one_part_ranges`` (from the mask and the key ranges alone, in
+    closed form) against a count of every row's live keys in each range:
+    at widths up to 128 exactly the 128-row blocks whose rows all see
+    ``ONE_PART_KEYS`` keys or more of the range, one contiguous range of
+    them a key range (none up to 64 rows at 64 columns or less, the
+    decode step's configuration); none at other widths.  Without a split
+    ``one_part_blocks`` gives the same blocks."""
+    kw = dict(kw)
+    splits = kw.pop("splits", 1)
+    got = tfa90.one_part_ranges(Tq, Tk, D, splits, **kw)
     rows = tfa90.block_rows(Tq, D)
-    want = [b for b in range(-(-Tq // rows))
-            if 64 < D <= 128 and keys[b * rows:(b + 1) * rows].min() >= tfa90.ONE_PART_KEYS]
-    assert list(range(lo, hi)) == want
-    assert lo <= hi
+    ranges = tref.split_ranges(Tq, Tk, splits, **kw)
+    assert len(got) == len(ranges)
+    for (lo, hi), (a, b) in zip(got, ranges):
+        keys = _live_keys(Tq, min(b, Tk), lo=a, **kw)
+        want = [r for r in range(-(-Tq // rows))
+                if D <= 128 and (D > 64 or Tq > 64)
+                and keys[r * rows:(r + 1) * rows].min() >= tfa90.ONE_PART_KEYS]
+        assert list(range(lo, hi)) == want
+        assert lo <= hi
+    if splits == 1:
+        assert tfa90.one_part_blocks(Tq, Tk, D, **kw) == got[0]
 
 
 def _round_p(p, one_part):
@@ -365,58 +395,95 @@ def _round_p(p, one_part):
     return hi + (p - hi).bfloat16().float()
 
 
-def _one_part_forward_model(q, k, v, *, causal, window, q_offset, softcap):
-    """``csrc/flash_attention_sm90.cu``'s arithmetic at head widths 65-128 in
-    float32 on the CPU: bf16 q and k multiplied exactly and summed in
-    float32, D^-0.5 (and the softcap) in float32; the online softmax over
-    128-key tiles, its reference point moving only when a row's max grows
-    by more than 8 in exp2 units; P V on the row blocks of
-    ``one_part_blocks`` from P rounded once to fp16 (p 2^7) and v's scaled
-    fp16 copy (``fp16_copy``), on the others from P in two bf16 parts and
-    the bf16 v; l from the unrounded p; bf16 output."""
-    from repro_torch.kernels.flash_attention_bwd_sm90 import fp16_copy
+def _one_part_forward_model(q, k, v, *, causal, window, q_offset, softcap, splits=1):
+    """``csrc/flash_attention_sm90.cu``'s arithmetic at head widths up to 128
+    in float32 on the CPU, block by block: bf16 q and k multiplied exactly
+    and summed in float32, D^-0.5 (and the softcap) in float32; the online
+    softmax over the 128-key tiles a block walks in its key range (its
+    first row's window start rounded down to a tile, up to its last row's
+    causal end), its reference point moving only when a row's max grows by
+    more than 8 in exp2 units; P V on the blocks of ``one_part_ranges``
+    from P rounded once to fp16 (p 2^7) and v in fp16 (at 65-128 v's copy
+    times one power of two, ``fp16_copy``; up to 64 each tile of the
+    block's walk times its own, ``fp16_tiles``, the sums so far dropped
+    where the power falls by more than 2^126), on the others from P in two
+    bf16 parts and the bf16 v; l from the unrounded p; each range's o_s =
+    acc / l and lse_s, merged by ``ref_merge_attention``; bf16 output."""
+    from repro_torch.kernels.flash_attention_bwd_sm90 import V_TILE, fp16_copy, fp16_tiles
     B, Hq, Tq, D = q.shape
     Tk, G = k.shape[2], Hq // k.shape[1]
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
     kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
-    v16, ev = fp16_copy(v)
-    v16f = (v16.float() * torch.exp2(-ev.float())).repeat_interleave(G, dim=1)
-    lo, hi = tfa90.one_part_blocks(Tq, Tk, D, causal=causal, window=window, q_offset=q_offset)
-    rows = torch.arange(Tq)
-    one = ((rows >= lo * 128) & (rows < hi * 128))[:, None]
-    qf = q.float()
-    qpos = q_offset + rows[:, None]
-    m = torch.full((B, Hq, Tq, 1), -1e30)
-    l = torch.zeros((B, Hq, Tq, 1))
-    acc = torch.zeros((B, Hq, Tq, D))
-    for j0 in range(0, Tk, 128):
-        kpos = torch.arange(j0, min(j0 + 128, Tk))[None, :]
-        live = torch.ones((Tq, kpos.shape[1]), dtype=torch.bool)
-        if causal:
-            live &= kpos <= qpos
-        if window is not None:
-            live &= kpos > qpos - window
-        if not live.any():
-            continue
-        s = (qf @ kf[:, :, j0:j0 + 128].transpose(-1, -2)) * D ** -0.5
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        s = s.masked_fill(~live, -1e30)
-        mx = s.amax(-1, keepdim=True)
-        m_new = torch.where(mx - m > 8 * np.log(2.0), mx, m)
-        p = torch.exp(s - m_new).masked_fill(~live, 0.0)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        pv1 = _round_p(p, True) @ v16f[:, :, j0:j0 + 128]
-        pv2 = _round_p(p, False) @ vf[:, :, j0:j0 + 128]
-        acc = acc * alpha + torch.where(one, pv1, pv2)
-        m = m_new
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).bfloat16()
+    if D > 64:
+        v16, ev = fp16_copy(v)
+        v_copy = (v16.float() * torch.exp2(-ev.float())).repeat_interleave(G, dim=1)
+    rows = tfa90.block_rows(Tq, D)
+    ranges = tref.split_ranges(Tq, Tk, splits, **mask)
+    one = tfa90.one_part_ranges(Tq, Tk, D, splits, **mask)
+    o_s = torch.zeros((B, Hq, splits, Tq, D))
+    lse_s = torch.full((B, Hq, splits, Tq), float("-inf"))
+    for s, ((a, b), (lo, hi)) in enumerate(zip(ranges, one)):
+        for rb in range(-(-Tq // rows)):
+            r0, r1 = rb * rows, min(Tq, (rb + 1) * rows)
+            qpos = q_offset + torch.arange(r0, r1)[:, None]
+            k_end = min(b, Tk, q_offset + r1) if causal else min(b, Tk)
+            k_begin = max(0, q_offset + r0 - window + 1) if window is not None else 0
+            k_begin = max(k_begin // V_TILE * V_TILE, a)
+            n = max(0, -(-(k_end - k_begin) // V_TILE))
+            one_part = lo <= rb < hi
+            if one_part and D <= 64:
+                v16, ev = fp16_tiles(v[:, :, k_begin:min(k_begin + n * V_TILE, Tk)], n)
+                v_tiles = (v16.float().unflatten(-2, (n, V_TILE))
+                           * torch.exp2(-ev.float())[..., None, None]).repeat_interleave(G, dim=1)
+                ev = ev.repeat_interleave(G, dim=1)
+                e_acc = torch.full((B, Hq), 127)
+            m = torch.full((B, Hq, r1 - r0, 1), -1e30)
+            l = torch.zeros((B, Hq, r1 - r0, 1))
+            acc = torch.zeros((B, Hq, r1 - r0, D))
+            for t in range(n):
+                j0 = k_begin + t * V_TILE
+                j1 = min(j0 + V_TILE, Tk)
+                kpos = torch.arange(j0, j1)[None, :]
+                live = torch.ones((r1 - r0, j1 - j0), dtype=torch.bool)
+                if causal:
+                    live &= kpos <= qpos
+                if window is not None:
+                    live &= kpos > qpos - window
+                sc = (q[:, :, r0:r1].float() @ kf[:, :, j0:j1].transpose(-1, -2)) * D ** -0.5
+                if softcap is not None:
+                    sc = softcap * torch.tanh(sc / softcap)
+                sc = sc.masked_fill(~live, -1e30)
+                mx = sc.amax(-1, keepdim=True)
+                m_new = torch.where(mx - m > 8 * np.log(2.0), mx, m)
+                p = torch.exp(sc - m_new).masked_fill(~live, 0.0)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                if not one_part:
+                    pv = _round_p(p, False) @ vf[:, :, j0:j1]
+                elif D > 64:
+                    pv = _round_p(p, True) @ v_copy[:, :, j0:j1]
+                else:
+                    pv = _round_p(p, True) @ v_tiles[:, :, t, :j1 - j0]
+                    drop = (ev[:, :, t] - e_acc < -126)[..., None, None]
+                    acc = torch.where(drop, torch.zeros_like(acc), acc)
+                    e_acc = ev[:, :, t]
+                acc = acc * alpha + pv
+                m = m_new
+            dead = l == 0
+            o_s[:, :, s, r0:r1] = acc / torch.where(dead, torch.ones_like(l), l)
+            lse_s[:, :, s, r0:r1] = torch.where(dead, float("-inf"), m + torch.log(l))[..., 0]
+    if splits == 1:
+        return o_s[:, :, 0].bfloat16()
+    return tref.ref_merge_attention(o_s, lse_s)[0].bfloat16()
 
 
 # chip_smoke.py's forward cases at head widths 65-128 (B, Hq, Hkv, Tq, Tk, D,
 # mask): its FLASH_D128_CASES, its FLASH_CASES (q_offset Tk - Tq when causal),
-# all in bf16, and its FLASH_D128_ONE_PART_CASES
-_D128_FWD_CASES = [
+# all in bf16, and its FLASH_D128_ONE_PART_CASES; then at widths up to 64
+# its FLASH_D64_ONE_PART_CASES, FLASH_D64_CASES and FLASH_SPLIT_CASES, each
+# at the key ranges it runs at on the card (``splits``, else the wrapper's
+# own at an H100's 132 SMs)
+_FWD_CASES = [
     (1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
     (1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
     (1, 8, 2, 200, 300, 120, dict(causal=True, q_offset=100, softcap=20.0)),
@@ -434,29 +501,123 @@ _D128_FWD_CASES = [
     (1, 8, 2, 300, 1300, 120, dict(causal=True, q_offset=1000, softcap=20.0)),
     (2, 4, 4, 130, 1100, 128, dict(causal=False)),
     (1, 4, 2, 1500, 1300, 128, dict(causal=False, window=1200)),
+    # FLASH_D64_ONE_PART_CASES
+    (2, 4, 4, 130, 1100, 64, dict(causal=False, splits=1)),
+    (1, 4, 4, 200, 1150, 64, dict(causal=True, q_offset=950, splits=1)),
+    (1, 8, 2, 2500, 2500, 48, dict(causal=True, window=1500, splits=1)),
+    (1, 8, 2, 300, 1300, 32, dict(causal=True, q_offset=1000, softcap=20.0, splits=1)),
+    (1, 4, 2, 1500, 1300, 64, dict(causal=False, window=1200, splits=1)),
+    (1, 4, 2, 300, 2600, 64, dict(causal=False, splits=2)),
+    (1, 4, 2, 300, 2600, 64, dict(causal=False, splits=4)),
+    # FLASH_D64_CASES
+    (2, 8, 2, 300, 1500, 64, dict(causal=True, window=100, q_offset=1200)),
+    (1, 4, 2, 200, 4200, 64, dict(causal=True, window=64, softcap=30.0, q_offset=4000)),
+    (1, 4, 1, 130, 300, 48, dict(causal=False)),
+    (2, 4, 4, 129, 129, 64, dict(causal=False, window=17)),
+    (1, 4, 2, 300, 300, 64, dict(causal=True, q_offset=-40)),
+    (1, 2, 2, 1000, 1000, 16, dict(causal=True)),
+    (2, 4, 2, 64, 3000, 64, dict(causal=True, q_offset=2936)),
+    # FLASH_SPLIT_CASES
+    (1, 4, 2, 1500, 1600, 64, dict(causal=True, window=600, q_offset=-20, splits=2)),
+    (1, 4, 2, 1200, 2048, 64, dict(causal=False, window=1024, q_offset=2000, splits=3)),
+    (2, 4, 2, 37, 5000, 64, dict(causal=True, window=3000, q_offset=4963, splits=4)),
+    (1, 4, 1, 1, 4100, 32, dict(causal=False, softcap=25.0, splits=8)),
+    (2, 8, 2, 200, 3000, 48, dict(causal=False, splits=5)),
+    (1, 4, 2, 200, 4000, 64, dict(causal=False, splits=6)),
 ]
-# input scales (q, k, v): chip_smoke.py's FLASH_FP16_SCALES without do's
+# input scales (q, k, v): chip_smoke.py's FLASH_FP16_SCALES without do's, v
+# far above fp16's largest value (the output scales with v, so its limit's
+# floor is 1e-4 in v's units there: 1e-4 of an output of 1e5 is under
+# float32's resolution), and v whose 128-key tiles alternate between 1 and
+# 2^-20 ("tiles")
 _FWD_SCALES = {"1": (1, 1, 1), "q 1e5 k 1e-5": (1e5, 1e-5, 1), "q 1e-5 k 1e5": (1e-5, 1e5, 1),
-               "v 1e-6": (1, 1, 1e-6)}
+               "v 1e-6": (1, 1, 1e-6), "v 1e5": (1, 1, 1e5), "v tiles 2^20 apart": (1, 1, "tiles")}
+
+
+def _scaled_inputs(B, Hq, Hkv, Tq, Tk, D, scales, seed):
+    """q, k, v standard normal times ``scales`` in bf16; v's scale "tiles"
+    takes key j times 2^-20 where j // 128 is odd."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape, c in zip(((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)), scales):
+        x = rng.standard_normal(shape).astype(np.float32)
+        if c == "tiles":
+            c = (2.0 ** (-20 * ((np.arange(Tk) // 128) % 2)))[:, None].astype(np.float32)
+        out.append(torch.from_numpy(x * c).bfloat16())
+    return out
 
 
 @pytest.mark.parametrize("scales", list(_FWD_SCALES))
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _D128_FWD_CASES)
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _FWD_CASES)
 def test_one_part_forward_emulation_within_the_chip_limit(B, Hq, Hkv, Tq, Tk, D, kw, scales):
-    """The forward kernel's arithmetic at 65-128 (one fp16 part of P on the
-    rule's row blocks, two bf16 parts elsewhere) against the plain forward,
-    per element within 2^-7 |want| + 1e-4 (``chip_smoke.py``'s
-    FLASH_BF16_REL and _FLOOR, the limit the card holds the kernel to)."""
-    rng = np.random.default_rng(Tq * 7 + Tk + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * c).bfloat16()
-               for shape, c in zip(((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)),
-                                   _FWD_SCALES[scales]))
+    """The forward kernel's arithmetic (one fp16 part of P on the rule's row
+    blocks, two bf16 parts elsewhere; up to 64 columns v in fp16 tile by
+    tile, at the card's key ranges) against the plain forward, per element
+    within 2^-7 |want| + 1e-4 (``chip_smoke.py``'s FLASH_BF16_REL and
+    _FLOOR, the limit the card holds the kernel to)."""
+    q, k, v = _scaled_inputs(B, Hq, Hkv, Tq, Tk, D, _FWD_SCALES[scales], seed=Tq * 7 + Tk + D)
+    kw = dict(kw)
     mask = dict(causal=kw["causal"], window=kw.get("window"), q_offset=kw.get("q_offset", 0))
-    got = _one_part_forward_model(q, k, v, softcap=kw.get("softcap"), **mask)
+    splits = kw.pop("splits", None) or tfa90.split_count(B, Hq, Tq, Tk, D, **mask,
+                                                         sm_count=132)
+    got = _one_part_forward_model(q, k, v, softcap=kw.get("softcap"), splits=splits, **mask)
     want = tref.ref_flash_attention(q, k, v, **kw)
     diff = (got.float() - want.float()).abs()
-    share = float((diff / (BF16_REL * want.float().abs() + BF16_FLOOR)).max())
+    unit = max(1.0, _FWD_SCALES[scales][2]) if scales != "v tiles 2^20 apart" else 1.0
+    share = float((diff / (BF16_REL * want.float().abs() + BF16_FLOOR * unit)).max())
     assert share <= 1.0, f"{share:.3f} of the limit"
+
+
+@pytest.mark.parametrize("case", ["above fp16's largest", "below fp16's normal range",
+                                  "zero tiles", "tiles past Tk", "tiles 2^20 apart",
+                                  "a rise past 2^64"])
+def test_fp16_tiles_convert_each_tile_exactly(case):
+    """The plain version of the forward kernel's conversion of v up to 64
+    columns (``fp16_tiles``: each 128-key tile times 2^e_t, ``fp16_exponent``
+    of its largest |v| within [-112, 112]): no value overflows fp16, and
+    back in float32 every value that lands at or above fp16's normal range
+    is exact, the rest under it.  A tile of zeros (or past Tk) keeps the
+    exponent before it (112 before any other), and an exponent rises by at
+    most ``EXP_RISE`` a tile."""
+    from repro_torch.kernels import flash_attention_bwd_sm90 as tfab90
+    rng = np.random.default_rng(3)
+    T, n = 700, None
+    x = rng.standard_normal((2, 3, T, 48)).astype(np.float32)
+    tile = (np.arange(T) // 128)[:, None]
+    x = {"above fp16's largest": x * 3e9, "below fp16's normal range": x * 1e-7,
+         "zero tiles": x * (tile % 2 == 1), "tiles past Tk": x,
+         "tiles 2^20 apart": x * 2.0 ** (-20 * (tile % 2)),
+         "a rise past 2^64": x * np.where(tile == 0, 1e30, 1e-20)}[case]
+    if case == "tiles past Tk":
+        n = 8                                    # two tiles wholly past T = 700
+    v = torch.from_numpy(x).bfloat16()
+    h, e = tfab90.fp16_tiles(v, n)
+    n = e.shape[-1]
+    assert h.dtype == torch.float16 and h.shape == (2, 3, n * 128, 48)
+    assert bool(torch.isfinite(h).all()) and float(h.float().abs().max()) <= 65280.0
+    vt = torch.nn.functional.pad(v.float(), (0, 0, 0, n * 128 - T)).unflatten(-2, (n, 128))
+    amax = vt.abs().amax(dim=(-2, -1))
+    prev = torch.full(e.shape[:-1], 112, dtype=torch.int32)
+    for t in range(n):
+        own = tfab90.fp16_exponent(amax[..., t]).clamp(-112, 112)
+        want = torch.where(amax[..., t] == 0, prev, torch.minimum(own, prev + 64))
+        assert torch.equal(e[..., t], want)
+        prev = want
+    h = h.float().unflatten(-2, (n, 128))
+    normal = h.abs() >= 2.0 ** -14
+    back = h * torch.exp2(-e.float())[..., None, None]
+    assert torch.equal(back[normal], vt[normal])
+    assert bool((back[~normal].abs() < 2.0 ** -14 * torch.exp2(-e.float())[..., None, None]
+                 .expand_as(back)[~normal]).all())
+    if case == "zero tiles":                     # tiles 0, 2 and 4 are zeros
+        assert bool((e[..., 0] == 112).all())
+        assert torch.equal(e[..., 2], e[..., 1]) and torch.equal(e[..., 4], e[..., 3])
+    if case == "tiles past Tk":
+        assert torch.equal(e[..., 6], e[..., 5]) and torch.equal(e[..., 7], e[..., 5])
+    if case == "a rise past 2^64":
+        assert torch.equal(e[..., 1], e[..., 0] + 64)
+    else:
+        assert int(normal.sum()) >= 0.99 * int((vt != 0).sum())
 
 
 @pytest.mark.parametrize("device,dtypes,route", [

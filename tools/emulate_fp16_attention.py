@@ -19,18 +19,22 @@ one rounding of P and of dS before their products:
   powers of two (where do is small, dS falls below fp16's normal range);
 * forward, "fp16 P everywhere": P (exp(s - row max)) rounded once to fp16
   before P V, the row sum in float64; rows grouped by the keys they see;
-* forward, "by the rule": the design at 65-128 columns, P rounded once to
+* forward, "by the rule": the design up to 128 columns, P rounded once to
   fp16 (as p 2^7) on the 128-row blocks of
   ``flash_attention_sm90.one_part_blocks``, in two bf16 parts (hi = p
-  truncated, lo = bf16(p - hi)) on the others; rows grouped by the kind of
+  truncated, lo = bf16(p - hi)) on the others; up to 64 columns v in fp16
+  tile by tile, each 128-key tile times a power of two of its own
+  (``flash_attention_bwd_sm90.fp16_tiles``); rows grouped by the kind of
   their block;
 * forward, with ``--keys-sweep``: rows that see N keys (N = 128 ... 2048,
-  about ``--elements`` outputs each, q, k, v random bf16 at D = 120), P
-  rounded once to fp16 as p 2^7 against the exact P, the reference point
-  the first 128 keys' max as the kernel's first tile sets it: the largest
-  error over its allowance, max(2^-8 |o|, 0.9e-4) (an error under it
-  cannot move a bf16 output two ulps, so it cannot break the limit), and
-  over the limit itself.  Slow: minutes at the default size.
+  about ``--elements`` outputs each, ``--rows`` rows at a time, q, k, v
+  random bf16 at D = ``--d``, 120 by default; up to 64 v in fp16 tile by
+  tile as above), P rounded once to fp16 as p 2^7 against the exact P, the
+  reference point the first 128 keys' max as the kernel's first tile sets
+  it: the largest error over its allowance, max(2^-8 |o|, 0.9e-4) (an
+  error under it cannot move a bf16 output two ulps, so it cannot break
+  the limit), and over the limit itself.  Slow: minutes at the default
+  size.
 
 Each line is one JSON object: the case, and the largest share of the limit
 per gradient (dq, dk, dv) or per group of rows.  No card is used; the
@@ -38,7 +42,8 @@ numbers are an emulation's, not the kernels'.
 
 Usage, from the root of a checkout::
 
-    python3 tools/emulate_fp16_attention.py [--seed N] [--keys-sweep [--elements N]]
+    python3 tools/emulate_fp16_attention.py [--seed N]
+        [--keys-sweep [--elements N] [--rows N] [--d D]]
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-from repro_torch.kernels.flash_attention_bwd_sm90 import fp16_exponent  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
+    fp16_exponent, fp16_tiles)
 from repro_torch.kernels.flash_attention_sm90 import one_part_blocks  # noqa: E402
 from repro_torch.kernels.ref import (ref_flash_attention,  # noqa: E402
                                      ref_flash_attention_backward)
@@ -62,7 +68,8 @@ BWD_REL, BWD_FLOOR = 2.0 ** -7, 1e-3      # chip_smoke.py FLASH_BWD_BF16_REL, _F
 FWD_REL, FWD_FLOOR = 2.0 ** -7, 1e-4      # chip_smoke.py FLASH_BF16_REL, _FLOOR
 BWD_SHAPES = [(2, 4, 64, 32), (1, 4, 1024, 64), (1, 2, 2048, 64), (1, 4, 512, 128),
               (1, 2, 2048, 128), (1, 1, 4096, 120)]
-FWD_SHAPES = [(1, 4, 1024, 128), (1, 4, 1024, 120), (1, 4, 2048, 128), (1, 4, 2048, 120)]
+FWD_SHAPES = [(1, 4, 1024, 128), (1, 4, 1024, 120), (1, 4, 2048, 128), (1, 4, 2048, 120),
+              (1, 4, 2048, 64)]
 
 
 def share(got, want, rel, floor_of_max):
@@ -108,6 +115,15 @@ def emulate_backward(q, k, v, o, do, how):
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
+def v_as_taken(v):
+    """v (..., T, D) as the one-part P V takes it up to 64 columns: each
+    128-key tile in fp16 times its own power of two (``fp16_tiles``), back
+    in float64."""
+    h, e = fp16_tiles(v)
+    tiles = h.double().unflatten(-2, (e.shape[-1], 128)) * torch.exp2(-e.double())[..., None, None]
+    return tiles.flatten(-3, -2)[..., :v.shape[-2], :]
+
+
 def keys_sweep(g, elements, D=120, rows=4096):
     """One JSON line a key count N: the one-part rounding's largest error
     over rows that see N keys, against its allowance and the limit."""
@@ -117,18 +133,21 @@ def keys_sweep(g, elements, D=120, rows=4096):
         while n < elements:
             q = torch.randn((rows, D), generator=g).bfloat16().float()
             k = torch.randn((rows, N, D), generator=g).bfloat16().float()
-            v = torch.randn((rows, N, D), generator=g).bfloat16().double()
+            v = torch.randn((rows, N, D), generator=g).bfloat16()
+            vt = v_as_taken(v) if D <= 64 else v.double()
+            v = v.double()
             s = torch.einsum("rd,rnd->rn", q, k) * D ** -0.5
             p = torch.exp(s - s[:, :128].amax(-1, keepdim=True))
             lsum = p.double().sum(-1, keepdim=True)
             want = torch.einsum("rn,rnd->rd", p.double(), v) / lsum
-            got = torch.einsum("rn,rnd->rd", (p * 2.0 ** 7).half().double() * 2.0 ** -7, v) / lsum
+            got = torch.einsum("rn,rnd->rd", (p * 2.0 ** 7).half().double() * 2.0 ** -7, vt) / lsum
             err = (got - want).abs()
             allow = torch.maximum(want.abs() * 2.0 ** -8, torch.full_like(want, 0.9 * FWD_FLOOR))
             worst_allow = max(worst_allow, float((err / allow).max()))
             worst_limit = max(worst_limit, float((err / (FWD_REL * want.abs() + FWD_FLOOR)).max()))
             n += want.numel()
-        print(json.dumps({"pass": "forward", "rounding": "fp16 P", "keys": N, "elements": n,
+        print(json.dumps({"pass": "forward", "rounding": "fp16 P", "d": D, "keys": N,
+                          "elements": n,
                           "max_err_over_allowance": worst_allow,
                           "max_err_over_limit": worst_limit}), flush=True)
 
@@ -140,11 +159,13 @@ def main():
                     help="the forward's one-part rounding error by the keys a row sees")
     ap.add_argument("--elements", type=int, default=3_000_000,
                     help="outputs a key count in the sweep")
+    ap.add_argument("--rows", type=int, default=4096, help="rows at a time in the sweep")
+    ap.add_argument("--d", type=int, default=120, help="head width of the sweep")
     args = ap.parse_args()
     torch.set_num_threads(max(1, min(4, os.cpu_count() or 1)))
     g = torch.Generator().manual_seed(args.seed)
     if args.keys_sweep:
-        keys_sweep(g, args.elements)
+        keys_sweep(g, args.elements, D=args.d, rows=args.rows)
         return
     for B, H, T, D in BWD_SHAPES:
         q, k, v, do = (torch.randn((B, H, T, D), generator=g).bfloat16() for _ in range(4))
@@ -176,7 +197,8 @@ def main():
             p1 = (p * 2.0 ** 7).half().double() * 2.0 ** -7
             top = (p.float().view(torch.int32) & -65536).view(torch.float32).double()
             p2 = top + (p - top).bfloat16().double()
-            ruled = ((torch.where(one[:, None], p1, p2) @ v.double())
+            v1 = v_as_taken(v) if D <= 64 else v.double()
+            ruled = ((torch.where(one[:, None], p1 @ v1, p2 @ v.double()))
                      / p.sum(-1, keepdim=True)).bfloat16()
             out = {}
             for name, rows in (("one-part blocks", one), ("two-part blocks", ~one)):

@@ -25,11 +25,13 @@ PyTorch's own pick of backend, ``sdpa_pick_ms``; for the windowed
 shapes the window-causal boolean mask on the memory-efficient backend, kv
 heads repeated outside the timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
-the 128-row blocks that take P V in one fp16 part and in two bf16 parts
-(``row_blocks``: at head widths 65-128 ``one_part_blocks`` of the checkout
-timed, none in one part in a checkout without it), each of its launches'
-device time (``launches_ms``, ``torch.profiler``), and the card's name and
-power limit.
+the 128-row blocks (over the key ranges of a split call) that take P V in
+one fp16 part and in two bf16 parts (``row_blocks``: the rule of the
+checkout timed, ``one_part_ranges`` or at head widths 65-128
+``one_part_blocks``, none in one part in a checkout without either; none
+at a decode step's one query row), each of its launches' device time
+(``launches_ms``, ``torch.profiler``), and the card's name and power
+limit.
 
 The backward, ``flash_attention_bwd_sm90``, at the training phases' four
 shapes: seamless-m4t-large-v2's encoder (2, 16, 8192, 64) and its
@@ -60,6 +62,15 @@ The split path of ``flash_attention_sm90`` at seamless's two cross-attentions
 32768 frames): the call at the wrapper's own key ranges, and the same call
 with ``splits=1``.
 
+The limits (``--what limits``): ``chip_smoke.py``'s forward cases at head
+widths up to 64 (``FLASH_D64_ONE_PART_CASES``, ``FLASH_D64_CASES``,
+``FLASH_SPLIT_CASES``, read from this checkout's ``chip_smoke.py``), k and
+v contiguous and strided, then under ``FLASH_D64_FWD_SCALES`` (the layouts
+in turns), each call of the checkout timed against the plain version: one
+line a case with its largest share of the bf16 limit (2^-7 |want| +
+1e-4, in v's units where v is scaled up) by scale, and its blocks in one
+fp16 part, so that two checkouts' shares stand side by side.
+
 First it prints, for each attention kernel it compiled (the sources are
 built anew in a fresh checkout), ptxas's registers a thread and spill bytes,
 whether ptxas serialised its wgmma ("C7512 ... insufficient register
@@ -70,7 +81,7 @@ warpgroup's code after ``setmaxnreg.inc`` may use more.
 Usage, from the root of a checkout::
 
     python3 tools/time_flash_attention.py [--root DIR] [--reps N]
-        [--what all|forward|backward|float32-backward|split] [--only TEXT]
+        [--what all|forward|backward|float32-backward|split|limits] [--only TEXT]
 
 ``--root`` imports the port from another checkout's ``src/`` (its own
 kernels are built there), so one command can time two versions in turns.
@@ -81,6 +92,7 @@ head-width-256 shapes alone; ``olmo``: the three plain causal D = 128 shapes).
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import re
@@ -92,7 +104,8 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                 help="checkout whose src/ holds the port to time (default: this one)")
 ap.add_argument("--reps", type=int, default=20, help="calls timed a shape (5 at the encoder)")
-ap.add_argument("--what", choices=("all", "forward", "backward", "float32-backward", "split"),
+ap.add_argument("--what", choices=("all", "forward", "backward", "float32-backward", "split",
+                                   "limits"),
                 default="all", help="which kernels to time (backward: the bf16 one)")
 ap.add_argument("--only", default="", help="time only the shapes whose name holds this text")
 ARGS = ap.parse_args()
@@ -138,18 +151,97 @@ F32_BWD_SHAPES = [
 SPLIT_SHAPES = SHAPES[:2]       # seamless's two cross-attentions, which the wrapper splits
 
 
-def row_blocks(qs, ks, causal, window):
-    """{"one_part", "two_part"}: the forward's 128-row blocks a (batch,
-    head) at head widths 65-128 that take P V in one fp16 part and in two
-    bf16 parts (``one_part_blocks``; a checkout without it has none in one
-    part); None at other widths."""
-    Tq, D = qs[2], qs[3]
-    if not 64 < D <= 128:
+def row_blocks(qs, ks, causal, window, splits=1):
+    """{"one_part", "two_part"}: the forward's blocks a (batch, head), over
+    the key ranges of a call split ``splits`` ways, that take P V in one
+    fp16 part and in two bf16 parts by the rule of the checkout timed
+    (``one_part_ranges``, or ``one_part_blocks`` at head widths 65-128; a
+    checkout without either has none in one part); None above 128."""
+    Tq, Tk, D = qs[2], ks[2], qs[3]
+    if D > 128:
         return None
-    rule = getattr(fa90, "one_part_blocks", None)
-    lo, hi = rule(Tq, ks[2], D, causal=causal, window=window, q_offset=0) if rule else (0, 0)
-    blocks = -(-Tq // fa90.block_rows(Tq, D))
-    return {"one_part": hi - lo, "two_part": blocks - (hi - lo)}
+    kw = dict(causal=causal, window=window, q_offset=0)
+    if hasattr(fa90, "one_part_ranges"):
+        parts = fa90.one_part_ranges(Tq, Tk, D, splits, **kw)
+    elif D > 64 and hasattr(fa90, "one_part_blocks"):
+        parts = [fa90.one_part_blocks(Tq, Tk, D, **kw)]
+    else:
+        parts = [(0, 0)]
+    one = sum(b - a for a, b in parts)
+    blocks = -(-Tq // fa90.block_rows(Tq, D)) * splits
+    return {"one_part": one, "two_part": blocks - one}
+
+
+def smoke_cases():
+    """The limits' cases and scales, read from this checkout's
+    ``chip_smoke.py`` (its module-level assignments of those names,
+    evaluated in order; nothing else of it runs)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    names = ("FLASH_FP16_SCALES", "FLASH_FWD_FP16_SCALES", "FLASH_D64_FWD_SCALES",
+             "FLASH_D64_ONE_PART_CASES", "FLASH_D64_CASES", "FLASH_SPLIT_CASES",
+             "FLASH_BF16_REL", "FLASH_BF16_FLOOR")
+    env = {"dict": dict}
+    for node in ast.parse(open(path).read()).body:
+        if not isinstance(node, ast.Assign) or len(node.targets) != 1:
+            continue
+        target = node.targets[0]
+        targets = target.elts if isinstance(target, ast.Tuple) else [target]
+        if all(getattr(t, "id", None) in names for t in targets):
+            value = eval(compile(ast.Expression(node.value), path, "eval"), env)
+            env.update(zip((t.id for t in targets), value if len(targets) > 1 else [value]))
+    return env
+
+
+def time_limits(smi):
+    """The checkout timed on chip_smoke.py's forward cases up to 64 columns:
+    one line a case, its largest share of the bf16 limit by scale."""
+    c = smoke_cases()
+    cases = [(name, tuple(case[:6]), {k: x for k, x in case[6].items() if k != "splits"},
+              case[6]["splits"]) for name, *case in c["FLASH_D64_ONE_PART_CASES"]]
+    cases += [(f"D <= 64 case {i}", (B, Hq, Hkv, Tq, Tk, D),
+               dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset), None)
+              for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset)
+              in enumerate(c["FLASH_D64_CASES"])]
+    cases += [(f"forced split {i}", (B, Hq, Hkv, Tq, Tk, D),
+               dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset), ranges)
+              for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, q_offset, softcap, ranges)
+              in enumerate(c["FLASH_SPLIT_CASES"])]
+    scales = {"plain": (1, 1, 1), **c["FLASH_D64_FWD_SCALES"]}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (name, (B, Hq, Hkv, Tq, Tk, D), kw, splits) in enumerate(cases):
+        if ARGS.only not in name:
+            continue
+        mask = dict(causal=kw["causal"], window=kw.get("window"), q_offset=kw.get("q_offset", 0))
+        ranges = splits or split_count(B, Hq, Tq, Tk, D, **mask, sm_count=sms)
+        shares = {}
+        runs = [("plain", False), ("plain", True)] + [
+            (scale, j % 2 == 1) for j, scale in enumerate(scales) if scale != "plain"]
+        for scale, strided in runs:
+            g = torch.Generator(device="cuda").manual_seed(300 + i)
+            sq, sk, sv = scales[scale]
+            q = (torch.randn((B, Hq, Tq, D), generator=g, device="cuda") * sq).bfloat16()
+            kv_shape = (B, Tk, Hkv, D) if strided else (B, Hkv, Tk, D)
+            k = (torch.randn(kv_shape, generator=g, device="cuda") * sk).bfloat16()
+            v = (torch.randn(kv_shape, generator=g, device="cuda") * sv).bfloat16()
+            if strided:
+                k, v = k.transpose(1, 2), v.transpose(1, 2)
+            got = flash_attention_sm90_cuda(q, k, v, splits=ranges, **kw).float()
+            want = ref_flash_attention(q, k, v, **kw).float()
+            unit = max(1.0, sv)
+            share = float(((got - want).abs() / unit / (
+                c["FLASH_BF16_REL"] * want.abs() / unit + c["FLASH_BF16_FLOOR"])).max())
+            shares[scale] = max(shares.get(scale, 0.0), share)
+        blocks = None
+        if hasattr(fa90, "one_part_ranges"):
+            parts = fa90.one_part_ranges(Tq, Tk, D, ranges, **mask)
+            one = sum(b - a for a, b in parts)
+            blocks = {"one_part": one,
+                      "two_part": -(-Tq // fa90.block_rows(Tq, D)) * ranges - one}
+        print(json.dumps({
+            "limits": name, "q": [B, Hq, Tq, D], "kv": [B, Hkv, Tk, D], "mask": kw,
+            "splits": ranges, "root": os.path.abspath(ARGS.root), "share": shares,
+            "row_blocks": blocks, "card": smi}), flush=True)
 
 
 def cuda_ms(fn, reps):
@@ -383,6 +475,8 @@ def main():
         time_backward(g, smi, F32_BWD_SHAPES, torch.float32)
     if ARGS.what in ("all", "split"):
         time_split(g, smi)
+    if ARGS.what == "limits":
+        time_limits(smi)
     if ARGS.what not in ("all", "forward"):
         return
     for name, qs, ks, causal, window in SHAPES:
@@ -408,7 +502,10 @@ def main():
                {"sdpa_ms": sdpa_ms(q, k, v, causal, window, reps)}),
             **({"sdpa_pick_ms": sdpa_ms(q, k, v, causal, window, reps)}
                if not causal and window is None else {}),
-            "max_abs_err": err, "row_blocks": row_blocks(qs, ks, causal, window),
+            "max_abs_err": err,
+            "row_blocks": row_blocks(qs, ks, causal, window, split_count(
+                qs[0], qs[1], qs[2], ks[2], qs[3], causal=causal, window=window, q_offset=0,
+                sm_count=torch.cuda.get_device_properties(0).multi_processor_count)),
             "launches_ms": launch_ms(lambda: flash_attention_sm90_cuda(q, k, v, **kw), reps),
             "card": smi}), flush=True)
         del q, k, v
