@@ -575,7 +575,9 @@ FLASH_D64_ONE_PART_CASES = [
 # contiguous and strided: Tq and Tk off the 64-row tile and the 128-row
 # block, GQA, causal rows offset forward and back (rows before the first
 # key: dq exactly 0), a window inside one tile, a softcap, one query row,
-# D = 32
+# D = 32; query tiles that wrap the dK/dV pass's ring of eight stages more
+# than once (with the GQA group's loop, and at D = 48), and fewer tiles than
+# stages
 FLASH_BWD_D64_CASES = [
     ("no mask", 1, 4, 4, 200, 300, 64, dict(causal=False)),
     ("GQA 4", 1, 8, 2, 200, 300, 64, dict(causal=False)),
@@ -585,6 +587,9 @@ FLASH_BWD_D64_CASES = [
     ("softcap 20", 1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=100, softcap=20.0)),
     ("one query row", 1, 8, 2, 1, 1000, 64, dict(causal=False)),
     ("D 32", 1, 4, 2, 200, 300, 32, dict(causal=True, q_offset=100)),
+    ("GQA 4 causal, the ring wrapped", 1, 8, 2, 1100, 1100, 64, dict(causal=True)),
+    ("D 48, the ring wrapped", 1, 4, 4, 700, 1300, 48, dict(causal=False)),
+    ("fewer tiles than stages", 1, 4, 4, 64, 300, 64, dict(causal=False)),
 ]
 # bf16 cases of the kernels for head widths 65-128 (name, B, Hq, Hkv, Tq,
 # Tk, D, mask), forward and backward, each with k, v contiguous and strided:
@@ -1051,7 +1056,7 @@ def phase_flash_vs_plain(state):
         before = ops.fwd_fp16_launches()
         err, share, lse_err, ranges = split_case(q, k, v, splits=splits, unit=max(1.0, scales[2]),
                                                  **kw)
-        if name.startswith("seamless") and ranges == 1:
+        if name == "seamless cross decode" and ranges == 1:
             raise AssertionError(f"{name} {(B, Hq, Tq, D)}: the wrapper does not split its keys")
         mask = dict(causal=kw["causal"], window=kw.get("window"), q_offset=kw.get("q_offset", 0))
         parts = one_part_ranges(Tq, Tk, D, ranges, **mask)
@@ -2113,12 +2118,12 @@ def long_times(shapes, kw, seed):
 
 
 def split_times():
-    """``flash_attention_sm90`` at the seamless serve path's two split
-    cross-attentions, a decode step's q (4, 16, 1, 64) and the prefill's
-    q (4, 16, 512, 64) over 32768 frames, unmasked: ``split_case``'s check
-    of the call at the wrapper's own key ranges (one launch that also
-    merges them), its time, and the time of the same call with
-    ``splits=1``."""
+    """``flash_attention_sm90`` at the seamless serve path's two
+    cross-attentions, a decode step's q (4, 16, 1, 64) (split) and the
+    prefill's q (4, 16, 512, 64) (unsplit: two full waves) over 32768 frames,
+    unmasked: ``split_case``'s check of the call at the wrapper's own key
+    ranges (a split launch also merges them), its time, and the time of
+    the same call with ``splits=1``."""
     out = {}
     cfg = get_config(ENCDEC_ARCH)
     for i, name in enumerate(("cross decode", "cross prefill")):
@@ -2404,6 +2409,11 @@ def phase_kernel_times(state):
                           "blocks whose rows all see 1024 keys, <softcap, two bf16 parts> over "
                           "the others",
                 "136-256": "flash_attention_d256_kernel<softcap>"}
+            # the exponentials on the FMA pipe: none (PERF.md: with no
+            # exponential at all the D <= 64 forward ran no faster)
+            row["exp_fma_share"] = {"flash_attention_d64_kernel (every instantiation)": "0/8",
+                                    "flash_attention_d128_kernel, flash_attention_d256_kernel":
+                                        "0/8"}
             # the calls among ``launches`` with row blocks in one fp16 part
             row["fp16_launches_by_path"] = {
                 path: state[key]["fwd_fp16_launches"] for path, key in (
@@ -2500,10 +2510,15 @@ def phase_kernel_times(state):
         if dtype == torch.bfloat16:
             kernels[-1]["kernels_by_width"] = {
                 "8-64": "absmax_kernel, convert_kernel, stats_kernel (with do's conversion), "
-                        "d64::dkdv_kernel<softcap>, d64::dq_kernel<softcap> (fp16 operands)",
+                        "d64::dkdv_kernel<softcap> (256 threads, no producer), "
+                        "d64::dq_kernel<softcap> (288 threads) (fp16 operands)",
                 "65-128": "absmax_kernel, convert_kernel, stats_kernel (with do's conversion), "
                           "d128::dkdv_kernel<softcap>, d128::dq_kernel<softcap> (fp16 operands)",
                 "136-256": "stats_kernel, d256::dkdv_kernel<softcap>, d256::dq_kernel<softcap>"}
+            # the exponentials on the FMA pipe: none (PERF.md: a polynomial on
+            # 1/8 to 1/2 of them slowed both passes)
+            kernels[-1]["exp_fma_share"] = {"d64::dkdv_kernel, d64::dq_kernel": "0/8",
+                                            "d128, d256": "0/8"}
             # the calls among ``launches`` that ran on fp16 copies (five launches each)
             kernels[-1]["fp16_launches_by_path"] = {
                 path: state[key]["bwd_fp16_launches"] for path, key in zip(

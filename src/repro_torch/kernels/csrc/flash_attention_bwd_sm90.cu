@@ -97,22 +97,32 @@
 // (tools/emulate_fp16_attention.py).
 //
 // Head widths up to 64 (seamless's 64; namespace d64), on the fp16 copies:
-// both passes run a block of a producer warp and two consumer warpgroups of
-// 64 keys (b) or 64 query rows (c), 288 threads.  The producer's one thread issues every
-// load into a ring of eight stages and is the only thread that waits for a
-// stage to empty.  The consumers take turns at the tensor cores (a named
-// barrier each): in its turn a consumer issues the previous tile's
-// gradient products and this tile's S and dP and passes the turn, so one
-// consumer's exponentials and fp16 roundings run while the other's
-// products run.  The softcap is a template argument and the mask a test
-// once a tile: a fully live tile's elements run without a branch, and
-// every wgmma is issued from branch-free code.  Three warps on one of the
-// SM's four register files give ptxas 168 registers a thread (an over-
-// allocation fails to launch); a block of 256 threads (255 registers, one
-// consumer thread issuing the loads without waiting) ran slower.
+// two consumer warpgroups of 64 keys (b) or 64 query rows (c) take turns at
+// the tensor cores (a named barrier each), over a ring of eight stages.  In
+// its turn a consumer issues this tile's S and dP, then the previous tile's
+// gradient products, as two commit groups, and passes the turn; it waits
+// for the first group only, runs this tile's exponentials while its
+// gradient products and the other consumer's products run, then waits for
+// them and rounds P and dS to fp16 into the registers they have read.  So
+// the tensor cores do not run dry inside a turn.  (c) adds a producer warp
+// (288 threads), whose one thread issues every load and alone waits for
+// stages to empty: three warps on one of the SM's four register files give
+// ptxas 168 registers a thread (an over-allocation fails to launch), room
+// for dQ, S, dP and dS (112).  (b) is its two consumers alone (256
+// threads, 255 registers): dK, dV, S^T, dP^T, P^T and dS^T in flight are
+// 160 registers of operands, and at 288 threads ptxas serialised every
+// wgmma of the pass (C7512).  Its consumers issue the loads on a fixed
+// schedule, tile t + 5 in turn t by the consumer of its parity, into the
+// stage of tile t - 3 that the turns have freed; a load instruction holds
+// its thread for hundreds of clocks, so each of the four copies of a tile
+// has a warp of its own.  The exponentials stay on MUFU: a polynomial on
+// the FMA pipe for 1/8 to 1/2 of them slowed both passes (PERF.md).  The
+// softcap is a template argument and the mask a test once a tile: a fully
+// live tile's elements run without a branch, and every wgmma is issued
+// from branch-free code.
 //
-// Head widths 65-128 (danube's 120, olmo's 128; namespace d128): the turns
-// of the D <= 64 kernels over tiles of the head's two 64-column atoms, on
+// Head widths 65-128 (danube's 120, olmo's 128; namespace d128): turns at
+// the tensor cores over tiles of the head's two 64-column atoms, on
 // the fp16 copies, the softcap a template argument, the mask a test once a
 // tile.  (c) is a producer warpgroup, whose one thread issues every load
 // into a ring of five stages and alone waits for stages to empty, and two
@@ -155,22 +165,25 @@
 // so no block splits its heads.
 //
 // Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
-// every warp of the d256 passes (b) and (c) adds the SM clocks it spends in
-// each phase of the tile loop to flash_bwd_sm90_phase_clocks[pass]
-// (kClockPhases below).
+// every consumer warp of the d256 and d64 passes (b) and (c) adds the SM
+// clocks it spends in each phase of the tile loop to
+// flash_bwd_sm90_phase_clocks[pass] (kClockPhases below).
 
 #include <math_constants.h>
 
 #include "sm90_common.cuh"
 
 #ifdef FLASH_PHASE_CLOCKS
-// waiting for the tile's loads; S and dP issued; S and dP waited for (the
-// wait also ends the previous tile's gradient products); the stage released
-// and the next tile issued; P and dS; the barrier before the parts; the
-// parts stored; their proxy fence; their barrier; the gradient products
-// issued
+// d256 (passes 0 and 1): waiting for the tile's loads; S and dP issued; S
+// and dP waited for (the wait also ends the previous tile's gradient
+// products); the stage released and the next tile issued; P and dS; the
+// barrier before the parts; the parts stored; their proxy fence; their
+// barrier; the gradient products issued.  d64 (passes 2 and 3): waiting
+// for the tile's loads; waiting for the turn; the products issued and the
+// turn passed; a later tile's loads issued ((b)); the products waited for;
+// P and dS rounded to fp16 (and, in (c), the stage released); P and dS.
 constexpr int kClockPhases = 10;
-__device__ unsigned long long flash_bwd_sm90_phase_clocks[2][kClockPhases];
+__device__ unsigned long long flash_bwd_sm90_phase_clocks[4][kClockPhases];
 #define PHASE(k)                       \
   {                                    \
     const long long now = clock64();   \
@@ -340,13 +353,16 @@ stats_kernel(const Params p, const __nv_bfloat16* o, const __nv_bfloat16* dout, 
 namespace d64 {
 constexpr int kConsumers = 2;                     // consumer warpgroups a block
 constexpr int kConsumerThreads = 128 * kConsumers;
-constexpr int kThreads = kConsumerThreads + 32;   // and one producer warp
+constexpr int kQThreads = kConsumerThreads + 32;  // (c): and one producer warp
 constexpr int kBlockRows = kConsumers * kRows;    // keys a (b) block, query rows a (c) block
 constexpr int kTile = kRows * kAtom * 2;          // one 64 x 64 fp16 tile
 constexpr int kStages = 8;                        // ring depth of both passes
+// (b): tile t + kAhead is issued in turn t, into the stage of tile t - 3,
+// which both consumers are done with by then (dkdv_kernel)
+constexpr int kAhead = kStages - 3;
 // (b): two k and two v tiles; a stage: q, do, 64 lse2 and 64 delta
 constexpr int kSmemKV = 1024 + 2 * kConsumers * kTile + kStages * (2 * kTile + 2 * kRows * 4) +
-                        8 * (2 * kStages + 1);
+                        8 * (kStages + 1);
 // (c): two q and two do tiles; a stage: k, v
 constexpr int kSmemQ = 1024 + 2 * kConsumers * kTile + 2 * kStages * kTile + 8 * (2 * kStages + 1);
 static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
@@ -487,9 +503,13 @@ __device__ __forceinline__ void q_probs(float (&sc)[N], float (&dp)[N], float l0
 }
 
 // (b) dK and dV of 128 keys of one kv head: consumer warpgroup w holds keys
-// kt + 64 w ... + 63
+// kt + 64 w ... + 63.  No producer: at 256 threads a thread has 255
+// registers, room for the previous tile's dV and dK in flight beside this
+// tile's S^T and dP^T (160 registers of operands; at 288 threads ptxas
+// planned the wgmma pipeline for 168 and serialised it, C7512).  The
+// consumers issue the loads themselves, on a fixed schedule (below).
 template <bool CAP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kConsumerThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
             const Params p, const Fp16Scales* __restrict__ f16) {
@@ -502,8 +522,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   float* lse_s = reinterpret_cast<float*>(dos + kStages * kTile);   // kStages x 64
   float* delta_s = lse_s + kStages * kRows;
   uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kStages * kRows);
-  uint64_t* empty = full + kStages;
-  uint64_t* kbar = empty + kStages;
+  uint64_t* kbar = full + kStages;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -522,46 +541,58 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   const int n_iter = p.group * n_qt;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers * 4);   // lane 0 of every consumer warp
-    }
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
     mbar_init(kbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // tile t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
-  auto issue = [&](int t) {
-    const int s = t % kStages;
-    const int h = hk * p.group + t / n_qt;
-    const int64_t q0 = i_lo + static_cast<int64_t>(t % n_qt) * kRows;
-    mbar_expect_tx(&full[s], 2 * kTile + 2 * kRows * 4);
-    tma_load(qs + s * kTile, &qmap, &full[s], 0, static_cast<int>(q0), h, b);
-    tma_load(dos + s * kTile, &domap, &full[s], 0, static_cast<int>(q0), h, b);
+  // tile u: query head hk G + u / n_qt, rows i_lo + 64 (u % n_qt) ...
+  // Consumer u % 2 issues tile u, lane 0 of its warp c copy c: 0 the
+  // barrier's bytes and q, 1 do, 2 lse2, 3 delta (a copy may land before
+  // the bytes are expected: the phase ends only with warp 0's arrival).  A
+  // load instruction holds its thread for hundreds of clocks, and every
+  // consumer warp waits at the next wgmma for the slowest of its
+  // warpgroup, so one thread issuing all of them (as at 65-128) cost the
+  // pass 7 % (PERF.md).  Each such thread steps the head and the rows (h,
+  // qi) from one tile to the next instead of dividing.
+  const int copy = (tid & 31) == 0 ? (tid / 32) & 3 : -1;
+  int h = hk * p.group, qi = 0;
+  auto issue = [&](int u) {
+    if (copy < 0) return;
+    if ((u & 1) != wg) {   // the other consumer's tile: step past it
+      if (++qi == n_qt) {
+        qi = 0;
+        ++h;
+      }
+      return;
+    }
+    const int s = u % kStages;
+    const int64_t q0 = i_lo + static_cast<int64_t>(qi) * kRows;
     const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
-    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
-    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
+    if (copy == 0) {
+      mbar_expect_tx(&full[s], 2 * kTile + 2 * kRows * 4);
+      tma_load(qs + s * kTile, &qmap, &full[s], 0, static_cast<int>(q0), h, b);
+    } else if (copy == 1) {
+      tma_load(dos + s * kTile, &domap, &full[s], 0, static_cast<int>(q0), h, b);
+    } else if (copy == 2) {
+      bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
+    } else {
+      bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
+    }
+    if (++qi == n_qt) {
+      qi = 0;
+      ++h;
+    }
   };
-  auto load_kv = [&]() {
+  if (tid == 0) {
     mbar_expect_tx(kbar, 2 * kConsumers * kTile);
     for (int c = 0; c < kConsumers; ++c) {
       tma_load(ks + c * kTile, &kmap, kbar, 0, static_cast<int>(kt + c * kRows), hk, b);
       tma_load(vs + c * kTile, &vmap, kbar, 0, static_cast<int>(kt + c * kRows), hk, b);
     }
-  };
-  if (wg == kConsumers) {
-    // ---- producer: one thread streams the query tiles of every query head
-    // of the group through the ring
-    if (tid == kConsumerThreads) {
-      load_kv();
-      for (int t = 0; t < n_iter; ++t) {
-        if (t >= kStages) mbar_wait(&empty[t % kStages], ((t / kStages) - 1) & 1);
-        issue(t);
-      }
-    }
-    return;
   }
+  for (int u = 0; u <= kAhead && u < n_iter; ++u) issue(u);
 
   // ---- consumer warpgroup wg: keys kw ... kw + 63
   const int lane = tid & 31;
@@ -599,12 +630,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     fence_parts(ph);
     fence_parts(sh);
   };
-  // this warp has finished reading stage s
-  auto release = [&](int s) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  };
-  // P'^T and dS'^T of the tile in stage s, query tile qt, in fp16
+  // P'^T and dS'^T of the tile in stage s, query tile qt, in place ...
   auto probs = [&](int s, int qt) {
     reg_fence(st);
     reg_fence(dpt);
@@ -615,20 +641,20 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
                         (!p.has_window || kw > qb - p.window));
     kv_probs<CAP, 32, true>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa,
                             kw + r0, s_log2, cap_scale);
+  };
+  // ... rounded to fp16 into the A operands of the gradient products
+  auto parts = [&]() {
     to_a16(st, ph);
     to_a16(dpt, sh);
   };
 
   // Ping-pong: named barrier 1 + w is consumer w's turn at the tensor
-  // cores, passed on to the other consumer.  In its turn a consumer runs
-  // the previous tile's dV and dK, waits for them, issues this tile's S^T
-  // and dP^T and passes the turn; the other consumer's products then run
-  // while this one waits for its own and turns S^T, dP^T into P^T, dS^T.
-  // (dV and dK of one tile in flight beside S^T and dP^T of the next need
-  // 160 registers for the operands alone on fp16, over what ptxas plans the
-  // wgmma pipeline for at 288 threads: it serialised every wgmma of the
-  // pass (C7512) and spilled, and seamless's encoder backward took 5.11 ms
-  // against 4.10, PERF.md.)  Every consumer takes n_iter + 1 turns;
+  // cores, passed on to the other consumer.  In its turn a consumer issues
+  // this tile's S^T and dP^T, then the previous tile's dV and dK, as two
+  // commit groups, and passes the turn; it waits for the first group only
+  // and turns S^T, dP^T into P^T, dS^T while its dV and dK and the other
+  // consumer's products run, then waits for them and rounds P^T, dS^T into
+  // the registers they have read.  Every consumer takes n_iter + 1 turns;
   // consumer 1 starts by passing the first turn to consumer 0 and does not
   // pass its own last one, so every arrival is waited for.  Every wgmma is
   // issued from branch-free code (tile 0's S^T alone, the last dV and dK
@@ -646,37 +672,53 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     bar_arrive(other, kConsumerThreads);
     wgmma_wait_all();
     probs(0, 0);
-    int qt = 0;
+    parts();
+    int qt = 0, s = 0, sp = 0;
+    uint32_t phase = 0;
+    PHASE_START
+#pragma unroll 1
     for (int t = 1; t < n_iter; ++t) {
-      const int s = t % kStages;
-      const int sp = (t - 1) % kStages;   // the stage of tile t - 1
+      sp = s;                                 // the stage of tile t - 1
+      if (++s == kStages) { s = 0; phase ^= 1; }
       if (++qt == n_qt) qt = 0;
-      mbar_wait(&full[s], (t / kStages) & 1);
+      mbar_wait(&full[s], phase);
+      PHASE(0)
       bar_sync(mine, kConsumerThreads);
+      PHASE(1)
       fence_grad();
-      wgmma_fence();
-      issue_grad(sp);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_grad();
-      release(sp);
       wgmma_fence();
       issue_s(s);
       wgmma_commit();
+      issue_grad(sp);
+      wgmma_commit();
       bar_arrive(other, kConsumerThreads);
-      wgmma_wait_all();
+      PHASE(2)
+      // tile t + kAhead into the stage of tile t - 3, which both consumers
+      // are done with: each waited for its gradient products of tile t - 3
+      // in its turn t - 2, before the other consumer's turn t - 1 and this
+      // one's turn t began; so no stage needs an empty barrier
+      if (t + kAhead < n_iter) issue(t + kAhead);
+      __syncwarp();
+      PHASE(3)
+      wgmma_wait_but_one();
+      PHASE(4)
       probs(s, qt);
+      PHASE(6)
+      wgmma_wait_all();
+      PHASE(4)
+      fence_grad();
+      parts();
+      PHASE(5)
     }
-    const int sp = (n_iter - 1) % kStages;
+    PHASE_END(2)
     bar_sync(mine, kConsumerThreads);
     fence_grad();
     wgmma_fence();
-    issue_grad(sp);
+    issue_grad(s);
     wgmma_commit();
     if (wg != kConsumers - 1) bar_arrive(other, kConsumerThreads);
     wgmma_wait_all();
     fence_grad();
-    release(sp);
   }
 
   const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
@@ -685,9 +727,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 }
 
 // (c) dQ of 128 query rows of one query head: consumer warpgroup w holds
-// rows q0 + 64 w ... + 63
+// rows q0 + 64 w ... + 63, beside a producer warp
 template <bool CAP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kQThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
           const Params p, const Fp16Scales* __restrict__ f16) {
@@ -809,12 +851,11 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
                         (!p.has_window || kt > qb - p.window));
     q_probs<CAP, 32, true>(sc, dp, l2_0, l2_1, dl0, dl1, c2, p, edge, pos0, pos1, kt, s_log2,
                            cap_scale);
-    to_a16(sc, dh);
   };
 
-  // the turns of dkdv_kernel, over key tiles; here the previous tile's dQ
-  // and this tile's S and dP are issued together (dS', S, dP and dQ: 112
-  // registers)
+  // the turns of dkdv_kernel, over key tiles: this tile's S and dP, then
+  // the previous tile's dQ, two commit groups, dS computed while dQ runs
+  // (dS', S, dP and dQ: 112 registers)
   const int mine = 1 + wg;
   const int other = 1 + (wg ^ 1);
   if (n_tiles > 0) {
@@ -827,22 +868,35 @@ dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
     bar_arrive(other, kConsumerThreads);
     wgmma_wait_all();
     probs(0);
+    to_a16(sc, dh);
+    PHASE_START
     for (int t = 1; t < n_tiles; ++t) {
       const int s = t % kStages;
       const int sp = (t - 1) % kStages;
       mbar_wait(&full[s], (t / kStages) & 1);
+      PHASE(0)
       bar_sync(mine, kConsumerThreads);
+      PHASE(1)
       fence_grad();
       wgmma_fence();
-      issue_grad(sp);
       issue_s(s);
       wgmma_commit();
+      issue_grad(sp);
+      wgmma_commit();
       bar_arrive(other, kConsumerThreads);
+      PHASE(2)
+      wgmma_wait_but_one();
+      PHASE(4)
+      probs(t);
+      PHASE(6)
       wgmma_wait_all();
+      PHASE(4)
       fence_grad();
       release(sp);
-      probs(t);
+      to_a16(sc, dh);
+      PHASE(5)
     }
+    PHASE_END(3)
     const int sp = (n_tiles - 1) % kStages;
     bar_sync(mine, kConsumerThreads);
     fence_grad();
@@ -874,12 +928,12 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
   }
   const dim3 grid_kv(static_cast<unsigned>((p.Tk + kBlockRows - 1) / kBlockRows),
                      static_cast<unsigned>(p.Hkv), static_cast<unsigned>(B));
-  dkdv_kernel<CAP><<<grid_kv, kThreads, kSmemKV, stream>>>(qm, km, vm, dom, p, f16);
+  dkdv_kernel<CAP><<<grid_kv, kConsumerThreads, kSmemKV, stream>>>(qm, km, vm, dom, p, f16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(static_cast<unsigned>((p.Tq + kBlockRows - 1) / kBlockRows),
                     static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  dq_kernel<CAP><<<grid_q, kThreads, kSmemQ, stream>>>(qm, km, vm, dom, p, f16);
+  dq_kernel<CAP><<<grid_q, kQThreads, kSmemQ, stream>>>(qm, km, vm, dom, p, f16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,8 +941,8 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 
 // ---------------------------------------------------------------------------
 // Head widths 65-128 (danube's 120): two consumer warpgroups that take turns
-// at the tensor cores, the turns of the D <= 64 kernels over tiles of the
-// head's two 64-column atoms; (c) beside a producer warpgroup.
+// at the tensor cores over tiles of the head's two 64-column atoms; (c)
+// beside a producer warpgroup.
 // ---------------------------------------------------------------------------
 
 namespace d128 {
@@ -1090,9 +1144,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     to_a16(dpt, sh);
   };
 
-  // The turns of d64::dkdv_kernel: in its turn a consumer runs the previous
-  // tile's dV and dK, waits for them, issues this tile's S^T and dP^T and
-  // passes the turn.  (Issued together, the two accumulators, S^T, dP^T and
+  // Ping-pong: in its turn a consumer runs the previous tile's dV and dK,
+  // waits for them, issues this tile's S^T and dP^T and passes the turn.  (Issued together, the two accumulators, S^T, dP^T and
   // the previous tile's P'^T and dS'^T are 224 registers of operands:
   // ptxas spilled at 255 and the pass ran 3-4 % slower; PERF.md.)
   const int mine = 1 + wg;
@@ -1978,7 +2031,9 @@ extern "C" int flash_attention_bwd_sm90_aux_floats() { return kAuxFloats; }
 extern "C" int flash_attention_bwd_sm90_blocks(int64_t D, int64_t* out) {
   if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch ((D + 63) / 64 * 64) {
-    case 64: return blocks(out, d64::kBlockRows, 1, d64::kThreads, d64::kBlockRows, d64::kThreads);
+    case 64:
+      return blocks(out, d64::kBlockRows, 1, d64::kConsumerThreads, d64::kBlockRows,
+                    d64::kQThreads);
     case 128:
       return blocks(out, d128::kBlockRows, 1, d128::kConsumerThreads, d128::kBlockRows,
                     d128::kThreads);
@@ -1987,11 +2042,11 @@ extern "C" int flash_attention_bwd_sm90_blocks(int64_t D, int64_t* out) {
 }
 
 #ifdef FLASH_PHASE_CLOCKS
-// copies the d256 passes' phase sums out ((b) then (c), kClockPhases each),
-// or zeroes them when `out` is null; returns the cudaError_t
+// copies the phase sums out (d256's (b) and (c), then d64's, kClockPhases
+// each), or zeroes them when `out` is null; returns the cudaError_t
 extern "C" int flash_bwd_sm90_phase_clocks_read(unsigned long long* out) {
   if (out == nullptr) {
-    const unsigned long long zero[2][kClockPhases] = {};
+    const unsigned long long zero[4][kClockPhases] = {};
     return static_cast<int>(cudaMemcpyToSymbol(flash_bwd_sm90_phase_clocks, zero, sizeof(zero)));
   }
   return static_cast<int>(cudaMemcpyFromSymbol(out, flash_bwd_sm90_phase_clocks,

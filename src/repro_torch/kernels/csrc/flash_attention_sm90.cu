@@ -150,7 +150,8 @@
 // kept: at 128 registers a thread it spills.
 //
 // Split keys (widths up to 64): a call with few blocks (fewer than two
-// waves, see flash_attention_sm90.py::split_count) cuts the live key span
+// waves, and only where S ranges fill the waves better, see
+// flash_attention_sm90.py::split_count) cuts the live key span
 // into S contiguous ranges of whole 512-key chunks, and each block takes
 // one (row block, range).  It writes its range's output o_s = acc / l in
 // float32 and lse_s = m + log(l) (-inf and zeros for a row that sees no
@@ -191,7 +192,12 @@ constexpr int kExpNone = 112;
 // NC consumer warpgroups: 2 above 64 query rows, 1 up to 64 (a decode
 // step).  Three consumers (192 rows) spill: at 512 threads ptxas compiles
 // them to 128 registers.  ONE: P V in one fp16 part, v converted by the
-// producer's warps 1-3 (more registers there).
+// producer's warps 1-3 (more registers there).  What sets a one-part
+// tile's pace is not its exponentials on MUFU (16 a clock an SM, as many
+// clocks a 128 x 128 tile as its wgmma at D = 64 by the throughput table):
+// with every ex2 of the tile loop a multiply instead, the encoder's call
+// ran no faster, and with P's fp16 packs a byte permute 0.2-0.6 % faster
+// (timing-only builds, PERF.md), so no exponential goes to the FMA pipe.
 template <int NC, bool ONE = false>
 struct Cfg {
   static constexpr int kNC = NC;
@@ -305,7 +311,8 @@ __host__ __device__ inline bool one_part_block(const D64Params& p, int64_t q0, i
 // edge, moves the reference points m0, m1, turns sc into p 2^SHIFT in
 // place and updates l0, l1 (sums of p 2^SHIFT).  alpha0, alpha1 rescale
 // the accumulator.  CAP: 1 or 0 where the caller fixes the softcap at
-// compile time, else p.has_softcap.
+// compile time, else p.has_softcap.  Every exponential is one ex2 on MUFU
+// (d64::Cfg says why none moved to the FMA pipe).
 template <int N, int CAP = -1, int SHIFT = 0>
 __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& p, int64_t kt,
                                                int64_t qa, int64_t qb, int64_t pos0,

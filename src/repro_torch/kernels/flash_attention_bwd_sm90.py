@@ -16,13 +16,16 @@ that TMA loads, with float32 sums.  No atomics: two calls on one input
 give bit-equal gradients.  Its plain version is
 ``repro_torch.kernels.ref.ref_flash_attention_backward``.
 
-At a head width up to 64 (seamless's) each block is a producer warp that
-issues every load and two consumer warpgroups of 64 keys or rows that take
-turns at the tensor cores, so one's elementwise work runs while the other's
-products run; from 65 to 128 (danube's 120, olmo's 128) two such consumer
-warpgroups over the head's two 64-column atoms, the dQ pass's beside a
-producer warpgroup, the dK/dV pass's alone (one of their threads issues the
-loads); from 136 to 256 (recurrentgemma's 256) two consumer warpgroups over
+At a head width up to 64 (seamless's) each block is two consumer
+warpgroups of 64 keys or rows that take turns at the tensor cores, so one's
+elementwise work runs while the other's products run, and each runs a
+tile's exponentials while its previous tile's gradient products run; the
+dQ pass's beside a producer warp that issues every load, the dK/dV pass's
+alone (their warps issue the loads, a tile's four copies by four warps);
+from 65 to 128 (danube's 120, olmo's 128) two such consumer warpgroups
+over the head's two 64-column atoms, the dQ pass's beside a producer
+warpgroup, the dK/dV pass's alone (one of their threads issues the loads);
+from 136 to 256 (recurrentgemma's 256) two consumer warpgroups over
 one 64-row tile of keys or query rows, each holding half of the gradient's
 columns and computing half of each tile's S and dP, whose bf16 parts both
 read from shared memory.  :func:`block_config` gives each, as the kernel's
@@ -76,17 +79,17 @@ class Blocks(NamedTuple):
 
 
 def block_config(D: int) -> Blocks:
-    """The blocks the kernel runs at head width ``D``: up to 64 a producer
-    warp and two consumer warpgroups of 64 keys or rows (288 threads); up to
-    128 two consumer warpgroups, alone in a dK/dV block (256 threads) and
-    beside a producer warpgroup in a dQ block (384); above, two consumer
-    warpgroups over one 64-row tile of keys or rows (256 threads), each
-    holding half of the gradient's columns."""
+    """The blocks the kernel runs at head width ``D``: up to 128 two
+    consumer warpgroups of 64 keys or rows, alone in a dK/dV block (256
+    threads, which issue the loads themselves) and beside a producer in a
+    dQ block (a warp up to 64, 288 threads; a warpgroup above, 384); above,
+    two consumer warpgroups over one 64-row tile of keys or rows (256
+    threads), each holding half of the gradient's columns."""
     if not 8 <= D <= 256 or D % 8:
         raise ValueError(f"flash_attention_bwd_sm90: head width {D} is not a multiple of 8 "
                          f"in [8, 256]")
     if D <= 64:
-        return Blocks(128, 1, 288, 128, 288, _ROWS, _ROWS, _ROWS)
+        return Blocks(128, 1, 256, 128, 288, _ROWS, _ROWS, _ROWS)
     if D <= 128:
         return Blocks(128, 1, 256, 128, 384, _ROWS, _ROWS, _ROWS)
     return Blocks(64, 1, 256, 64, 256, _ROWS, _ROWS, _ROWS)

@@ -42,14 +42,19 @@ output is a small sum of large terms, so the rule asks for a thousand
 (``tools/emulate_fp16_attention.py --keys-sweep``).
 
 At a width of 64 or less, a call with fewer than two waves of blocks (a
-decode step's cross-attention, a short prompt's) splits its live keys into
-ranges (:func:`split_count`, ``ref.split_ranges``): one block per (row
+decode step's cross-attention, a short prompt's) may split its live keys
+into ranges (:func:`split_count`, ``ref.split_ranges``): one block per (row
 block, range) writes the range's float32 output and lse, and the last
 block of each row block to finish merges the ranges, in the same launch
 (it finds that it is last by an arrival counter that the wrapper keeps
-zeroed, one a row block, a buffer per device and stream).  The plain
-versions are ``ref.ref_flash_attention_partials`` and
-``ref.ref_merge_attention``.
+zeroed, one a row block, a buffer per device and stream).  It splits only
+where that fills the waves better: S ranges make each block about 1/S of
+the work, so the call takes about ceil(blocks S / SMs) / S waves of whole
+blocks, and a count that does not lower that only adds the merge.  On an
+H100 (PERF.md) a decode step's 64 blocks ran fastest in 2 ranges
+and 192 blocks in 2, while 128 and 256 blocks (one and two full waves,
+the prefill's cross-attention) ran fastest unsplit.  The plain versions
+are ``ref.ref_flash_attention_partials`` and ``ref.ref_merge_attention``.
 
 ``launches`` counts the wrapper's calls that launch the kernel (one a
 call, its launches together), and nothing else; a run reads it to show
@@ -62,6 +67,7 @@ which some row block took P V in one fp16 part (at any head width up to
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -76,8 +82,8 @@ fp16_launches = 0
 # a 128-row block takes P V in one fp16 part where each of its rows sees at
 # least this many live keys (of its key range, in a split call)
 ONE_PART_KEYS = 1024
-# a call splits its keys when it has fewer blocks than this many waves of
-# one block an SM, into enough ranges for about SPLIT_WAVES waves
+# a call may split its keys when it has fewer blocks than this many waves
+# of one block an SM, into at most enough ranges for SPLIT_WAVES waves
 SPLIT_BELOW_WAVES, SPLIT_WAVES = 2, 4
 
 _fn = None
@@ -227,16 +233,20 @@ def split_count(B: int, Hq: int, Tq: int, Tk: int, D: int, *, causal: bool,
     """Key ranges S of a call: 1 above a head width of 64 (that
     configuration does not split), and when its blocks (B x Hq x row
     blocks, see :func:`block_rows`) make ``SPLIT_BELOW_WAVES`` waves of one
-    block an SM; below that enough ranges for ``SPLIT_WAVES`` waves, at
-    most one for each whole 512-key chunk of the live keys
-    (``ref.split_ranges``).  A pure function of the shape, the mask and the
-    SM count, so two calls of one shape split alike."""
+    block an SM.  Below that, of the counts up to enough ranges for
+    ``SPLIT_WAVES`` waves and at most one for each whole 512-key chunk of
+    the live keys (``ref.split_ranges``), the smallest S whose waves of
+    blocks a unit of work, ceil(blocks S / SMs) / S, are fewest: a range
+    is about 1/S of a block's keys, and a split that does not fill the
+    waves better only adds the merge.  A pure function of the shape, the
+    mask and the SM count, so two calls of one shape split alike."""
     blocks = B * Hq * -(-Tq // block_rows(Tq, D))
     if D > 64 or blocks == 0 or blocks >= SPLIT_BELOW_WAVES * sm_count:
         return 1
     lo, hi = _ref.key_span(Tq, Tk, causal=causal, window=window, q_offset=q_offset)
     chunks = (hi - lo) // _ref.SPLIT_KEYS
-    return max(1, min(-(-SPLIT_WAVES * sm_count // blocks), chunks))
+    most = max(1, min(-(-SPLIT_WAVES * sm_count // blocks), chunks))
+    return min(range(1, most + 1), key=lambda S: (Fraction(-(-blocks * S // sm_count), S), S))
 
 
 def split_plan(Tq: int, Tk: int, splits: int, *, causal: bool, window: Optional[int],

@@ -465,7 +465,9 @@ def test_sm90_backward_wrapper_rejects_bad_inputs_before_building(case, no_build
 
 
 # --------------------------------------- the tensor-core backward's blocks
-_D64 = (128, 1, 288, 128, 288, 64, 64, 64)     # a producer warp, two consumer warpgroups
+# up to 64 (seamless's): two consumer warpgroups, the dK/dV pass's alone (256
+# threads), the dQ pass's beside a producer warp (288)
+_D64 = (128, 1, 256, 128, 288, 64, 64, 64)
 # 65-128 (danube's 120 reads as 128): two consumer warpgroups, the dQ pass's
 # beside a producer warpgroup
 _D128 = (128, 1, 256, 128, 384, 64, 64, 64)
@@ -625,6 +627,9 @@ _D64_CASES = [
     (1, 4, 2, 200, 300, 64, dict(causal=True, q_offset=100, softcap=20.0)),
     (1, 8, 2, 1, 1000, 64, dict(causal=False)),
     (1, 4, 2, 200, 300, 32, dict(causal=True, q_offset=100)),
+    (1, 8, 2, 1100, 1100, 64, dict(causal=True)),
+    (1, 4, 4, 700, 1300, 48, dict(causal=False)),
+    (1, 4, 4, 64, 300, 64, dict(causal=False)),
 ]
 # chip_smoke.py's FLASH_D128_CASES at head widths 65-128 (B, Hq, Hkv, Tq, Tk,
 # D, mask)

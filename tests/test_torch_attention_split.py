@@ -121,20 +121,31 @@ NO_SPLIT = {
     "seamless_train_cross": ((2, 16, 2048, 64), 8192, False, None, 0),
     **{f"danube_train_shard_{r}": ((1, 32, 2048, 120), 8192, True, 4096, 2048 * r)
        for r in range(4)},
+    # 256 and 128 blocks, two and one full waves: split, they fill no fewer
+    "seamless_cross_prefill": ((4, 16, 512, 64), 32768, False, None, 0),
+    "cross_prefill_256_rows": ((4, 16, 256, 64), 32768, False, None, 0),
 }
 SPLIT = {
     "seamless_cross_decode": ((4, 16, 1, 64), 32768, False, None, 0),
-    "seamless_cross_prefill": ((4, 16, 512, 64), 32768, False, None, 0),
+    # 192 blocks, a wave and a half: 2 ranges fill three waves of half blocks
+    "cross_prefill_384_rows": ((4, 16, 384, 64), 32768, False, None, 0),
 }
 
 
 @pytest.mark.parametrize("name", list(NO_SPLIT) + list(SPLIT))
 def test_split_count_splits_only_calls_of_few_blocks(name):
+    """A call splits only below two waves of blocks, and only into ranges
+    that take fewer waves of whole blocks for its work: ceil(blocks S /
+    SMs) / S below ceil(blocks / SMs) (a decode step's 64 blocks in 2, not
+    the 9 that four waves would take; the prefill's 256 not at all)."""
     (B, Hq, Tq, D), Tk, causal, window, q_offset = {**NO_SPLIT, **SPLIT}[name]
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     S = tfa90.split_count(B, Hq, Tq, Tk, D, sm_count=SM_COUNT, **kw)
     blocks = B * Hq * -(-Tq // tfa90.block_rows(Tq, D))
-    assert (S > 1) == (name in SPLIT) == (blocks < 2 * SM_COUNT)
+    waves = [-(-blocks * s // SM_COUNT) / s for s in range(1, S + 1)]
+    assert (S > 1) == (name in SPLIT)
+    assert S == 1 or (blocks < 2 * SM_COUNT and waves[-1] == min(waves) < waves[0])
+    assert S in (1, 2)                     # the serving shapes' counts on an H100
     assert S == tfa90.split_count(B, Hq, Tq, Tk, D, sm_count=SM_COUNT, **kw)   # pure
     ranges = tref.split_ranges(Tq, Tk, S, **kw)
     assert len(ranges) == S
@@ -151,7 +162,7 @@ def test_split_ranges_cover_each_live_tile_once(name, S, tile):
     """Every key tile that some row sees lies in exactly one range, whole:
     the kernel's blocks walk the tiles of their range, and none is
     counted twice or left out."""
-    shapes = {**SPLIT, "causal_window": ((1, 1, 300, 64), 6000, True, 1500, 4000),
+    shapes = {**SPLIT, **NO_SPLIT, "causal_window": ((1, 1, 300, 64), 6000, True, 1500, 4000),
               "window_ahead": ((1, 1, 1200, 64), 2048, False, 1024, 2000)}
     (B, Hq, Tq, D), Tk, causal, window, q_offset = shapes[name]
     kw = dict(causal=causal, window=window, q_offset=q_offset)

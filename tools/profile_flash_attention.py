@@ -29,7 +29,13 @@ training shape (q (1, 10, 8192, 256), k and v (1, 1, 8192, 256), window
 (the wait also ends the previous tile's gradient products), the stage
 released and the next tile issued, P and dS, the barrier before the shared
 parts, the parts stored, their proxy fence, their barrier, the gradient
-products issued.
+products issued.  And at head widths up to 64, its ``d64`` passes at
+seamless-m4t-large-v2's encoder (2, 16, 8192, 64), unmasked: waiting for
+the tile's loads, waiting for the consumer's turn, the products issued
+(this tile's S and dP, the previous tile's gradients) and the turn passed,
+a later tile's loads issued (the dK/dV pass's consumers), the products
+waited for, P and dS rounded to fp16 (in the dQ pass with the stage
+released), P and dS (the exponentials).
 
 Usage, from the root of a checkout::
 
@@ -69,6 +75,10 @@ BF16_PHASES = ("load wait", "S and dP issued", "S and dP waited", "release and i
                "P and dS", "parts barrier", "parts stored", "parts fence", "ready barrier",
                "gradient products issued")
 BF16_WARPS = 8                                         # csrc/flash_attention_bwd_sm90.cu, d256
+D64_ARCH, D64_BATCH = "seamless-m4t-large-v2", 2       # the d64 passes' shape: its encoder
+D64_PHASES = ("load wait", "turn wait", "products issued", "loads issued", "products waited",
+              "fp16 parts", "P and dS")
+D64_WARPS, D64_ROWS = 8, 128                           # consumer warps, keys or rows a block
 
 
 def build_clocked(source, entry, argtypes, reader):
@@ -250,7 +260,64 @@ def d256_tiles(Tq, Tk, group, window, rows=64):
     return kv, q
 
 
+def bf16_clocks(fn, clocks_read, run):
+    """The four passes' phase clocks (d256's (b) and (c), then d64's) of one
+    ``run`` through the clocked build ``fn``, and ``run``'s time with it."""
+    n = 10                                             # kClockPhases
+    saved, fab90._fn = fab90._kernel(), fn   # the wrapper, launching the clocked build
+    try:
+        clocked_ms = cuda_ms(run)
+        clocks_read(None)
+        run()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (4 * n))()
+        clocks_read(buf)
+    finally:
+        fab90._fn = saved
+    return [list(buf)[i * n:(i + 1) * n] for i in range(4)], clocked_ms
+
+
 def profile_bf16_backward(smi):
+    fn, clocks_read = build_clocked("flash_attention_bwd_sm90", "flash_attention_bwd_sm90",
+                                    fab90._kernel().argtypes, "flash_bwd_sm90_phase_clocks_read")
+    profile_d256_backward(smi, fn, clocks_read)
+    profile_d64_backward(smi, fn, clocks_read)
+
+
+def profile_d64_backward(smi, fn, clocks_read):
+    """The d64 passes' phase clocks at seamless's encoder shape, unmasked."""
+    cfg = get_config(D64_ARCH)
+    H, D, T_ = cfg.n_heads, cfg.head_dim, T
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v, do = (torch.randn((D64_BATCH, H, T_, D), generator=g, device="cuda").bfloat16()
+                   for _ in range(4))
+    o, lse = fa90.flash_attention_sm90_cuda(q, k, v, causal=False, return_lse=True)
+    run = lambda: fab90.flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do,  # noqa: E731
+                                                      causal=False)
+    plain_ms = cuda_ms(run)
+    clocks, clocked_ms = bf16_clocks(fn, clocks_read, run)
+    blocks = -(-T_ // D64_ROWS) * D64_BATCH * H        # blocks of either pass
+    loops = {"dK/dV": T_ // 64 - 1, "dQ": T_ // 64 - 1}  # turns of a block's loop, tile 0's apart
+    row = {"device": smi, "shape": [[D64_BATCH, H, T_, D]] * 2, "mask": None,
+           "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms, "passes": {}}
+    for i, name in enumerate(BWD_PASSES):
+        c = clocks[2 + i][:len(D64_PHASES)]
+        pairs = blocks * loops[name] * D64_WARPS           # (warp, tile) pairs
+        row["passes"][name] = {
+            "tiles": blocks * loops[name],
+            "phase_share": {p: x / sum(c) for p, x in zip(D64_PHASES, c)},
+            "clocks_per_warp_tile": {p: x / pairs for p, x in zip(D64_PHASES, c)}}
+    print(json.dumps(row))
+    print(f"flash_attention_bwd_sm90 bf16 d64 {row['shape'][0]} no mask: {plain_ms:.3f} ms "
+          f"({clocked_ms:.3f} ms with the phase clocks), on {smi}")
+    for name, r in row["passes"].items():
+        print(f"  {name} pass, {r['tiles']} tiles:")
+        for p, share in r["phase_share"].items():
+            print(f"    {p}: {share:.1%} of the warps' clocks, "
+                  f"{r['clocks_per_warp_tile'][p]:.0f} a warp a tile")
+
+
+def profile_d256_backward(smi, fn, clocks_read):
     cfg = get_config(BF16_ARCH)
     Hq, Hkv, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     g = torch.Generator(device="cuda").manual_seed(14)
@@ -263,20 +330,7 @@ def profile_bf16_backward(smi):
     run = lambda: fab90.flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do,  # noqa: E731
                                                       causal=True, window=window)
     plain_ms = cuda_ms(run)
-    fn, clocks_read = build_clocked("flash_attention_bwd_sm90", "flash_attention_bwd_sm90",
-                                    fab90._kernel().argtypes, "flash_bwd_sm90_phase_clocks_read")
-    n = len(BF16_PHASES)
-    saved, fab90._fn = fab90._kernel(), fn   # the wrapper, launching the clocked build
-    try:
-        clocked_ms = cuda_ms(run)
-        clocks_read(None)
-        run()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (2 * n))()
-        clocks_read(buf)
-    finally:
-        fab90._fn = saved
-    clocks = [list(buf)[:n], list(buf)[n:]]
+    clocks, clocked_ms = bf16_clocks(fn, clocks_read, run)
     tiles = dict(zip(BWD_PASSES, d256_tiles(T, T, Hq // Hkv, window)))
     row = {"device": smi, "shape": [[TRAIN_BATCH, Hq, T, D], [TRAIN_BATCH, Hkv, T, D]],
            "window": window, "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms,

@@ -60,7 +60,11 @@ backward on the same inputs and mask.
 The split path of ``flash_attention_sm90`` at seamless's two cross-attentions
 (a decode step's q (4, 16, 1, 64) and the prefill's q (4, 16, 512, 64) over
 32768 frames): the call at the wrapper's own key ranges, and the same call
-with ``splits=1``.
+with ``splits=1``; then the split rule's sweep, q (4, 16, Tq, 64) over
+32768 keys for Tq = 1, 128, 256, 384 and 512: the blocks of an unsplit
+call, the wrapper's key ranges, and the call's time at each of 1, 2, 3,
+the wrapper's and the ranges that would give four waves of blocks
+(``by_splits``).
 
 The limits (``--what limits``): ``chip_smoke.py``'s forward cases at head
 widths up to 64 (``FLASH_D64_ONE_PART_CASES``, ``FLASH_D64_CASES``,
@@ -148,7 +152,8 @@ F32_BWD_SHAPES = [
     ("danube train backward float32", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
     ("seamless encoder backward float32", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
 ]
-SPLIT_SHAPES = SHAPES[:2]       # seamless's two cross-attentions, which the wrapper splits
+SPLIT_SHAPES = SHAPES[:2]       # seamless's two cross-attentions, calls of few blocks
+SPLIT_SWEEP_TQ = (1, 128, 256, 384, 512)   # query rows of q (4, 16, Tq, 64) over 32768 keys
 
 
 def row_blocks(qs, ks, causal, window, splits=1):
@@ -439,7 +444,8 @@ def time_backward(g, smi, shapes, dtype):
 
 def time_split(g, smi):
     """The bf16 kernel at the split shapes: at the wrapper's own key ranges
-    (one launch that also merges them) and with ``splits=1``."""
+    (one launch that also merges them) and with ``splits=1``; then the
+    split rule's sweep over Tq at a few range counts each."""
     for name, qs, ks, causal, window in SPLIT_SHAPES:
         if ARGS.only not in name:
             continue
@@ -459,6 +465,30 @@ def time_split(g, smi):
             "card": smi}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, H, Tk, D = 4, 16, 32768, 64
+    k = torch.randn((B, H, Tk, D), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, H, Tk, D), generator=g, device="cuda").bfloat16()
+    for Tq in SPLIT_SWEEP_TQ:
+        name = f"split sweep Tq {Tq}"
+        if ARGS.only not in name:
+            continue
+        q = torch.randn((B, H, Tq, D), generator=g, device="cuda").bfloat16()
+        blocks = B * H * -(-Tq // fa90.block_rows(Tq, D))
+        ranges = split_count(B, H, Tq, Tk, D, causal=False, window=None, q_offset=0,
+                             sm_count=sms)
+        tried = sorted({1, 2, 3, ranges, -(-4 * sms // blocks)})
+        print(json.dumps({
+            "shape": name, "q": [B, H, Tq, D], "kv": [B, H, Tk, D],
+            "root": os.path.abspath(ARGS.root), "blocks": blocks, "waves": blocks / sms,
+            "splits": ranges,
+            "by_splits": {S: cuda_ms(lambda: flash_attention_sm90_cuda(q, k, v, causal=False,
+                                                                       splits=S), ARGS.reps * 5)
+                          for S in tried},
+            "card": smi}), flush=True)
+        del q
+    del k, v
+    torch.cuda.empty_cache()
 
 
 def main():
