@@ -597,8 +597,10 @@ FLASH_BWD_D64_CASES = [
 # 64- and 128-row tiles, GQA groups 1 and 4, causal rows offset forward and
 # back (rows before the first key: zeros, dq exactly 0), windows inside and
 # across tiles, softcaps, one query row; one case at 136, the first width of
-# the next configuration; and olmo-1b's plain causal MHA at D = 128 over
-# nine 128-key tiles (row blocks walking 1 to 9 live tiles)
+# the next configuration; olmo-1b's plain causal MHA at D = 128 over nine
+# 128-key tiles (row blocks walking 1 to 9 live tiles); and for the dK/dV
+# pass's ring of four stages, fewer query tiles than stages, as many, and a
+# ring that wraps many times under a GQA group of 4
 FLASH_D128_CASES = [
     ("D 72 causal q_offset 100, G 1", 1, 4, 4, 200, 300, 72, dict(causal=True, q_offset=100)),
     ("D 96 window 24, G 4", 1, 8, 2, 300, 300, 96, dict(causal=True, window=24)),
@@ -610,13 +612,20 @@ FLASH_D128_CASES = [
     ("D 96 one query row", 1, 8, 2, 1, 1000, 96, dict(causal=False)),
     ("D 136 causal q_offset 100", 1, 4, 2, 200, 300, 136, dict(causal=True, q_offset=100)),
     ("D 128 causal, G 1", 1, 4, 4, 1100, 1100, 128, dict(causal=True)),
+    ("D 128 fewer query tiles than stages", 1, 4, 4, 128, 700, 128, dict(causal=False)),
+    ("D 96 as many query tiles as stages", 1, 4, 4, 256, 300, 96, dict(causal=False)),
+    ("D 120 GQA 4 causal, the ring wrapped", 1, 8, 2, 900, 900, 120, dict(causal=True)),
 ]
 # bf16 forward cases whose rows see 1024 keys or more, where the kernel for
 # head widths 65-128 takes P V in one fp16 part (name, B, Hq, Hkv, Tq, Tk, D,
 # mask), each with k, v contiguous and strided: D = 72, 96, 120 and 128, GQA
 # groups 1 and 4, causal rows offset forward (the first row block in two
 # bf16 parts), a window, a softcap, no mask, and a window that the last
-# rows' keys fall out of past Tk (the last row block in two parts)
+# rows' keys fall out of past Tk (the last row block in two parts); for the
+# k and v rings of three stages each, the fewest tiles a one-part block can
+# walk (1024 keys, 8 tiles: fewer than 3 cannot occur), twelve (both rings
+# wrapped exactly four times), and rings wrapped many times under a GQA
+# group of 4 with a window (both kinds of block)
 FLASH_D128_ONE_PART_CASES = [
     ("D 72 causal q_offset 950, G 1", 1, 4, 4, 200, 1150, 72, dict(causal=True, q_offset=950)),
     ("D 96 window 1500, G 4", 1, 8, 2, 2500, 2500, 96, dict(causal=True, window=1500)),
@@ -625,6 +634,12 @@ FLASH_D128_ONE_PART_CASES = [
     ("D 128 no mask over 1100 keys", 2, 4, 4, 130, 1100, 128, dict(causal=False)),
     ("D 128 window 1200 past the last key", 1, 4, 2, 1500, 1300, 128,
      dict(causal=False, window=1200)),
+    ("D 128 no mask over 1024 keys, the fewest tiles", 1, 4, 4, 130, 1024, 128,
+     dict(causal=False)),
+    ("D 128 softcap 30 over 1536 keys, 12 tiles", 1, 4, 2, 256, 1536, 128,
+     dict(causal=True, q_offset=1280, softcap=30.0)),
+    ("D 120 GQA 4 window 1100, the rings wrapped", 1, 8, 2, 2200, 2200, 120,
+     dict(causal=True, window=1100)),
 ]
 # input scales (q, k, v, do) under which the backward runs FLASH_D128_CASES'
 # head widths 65-128 again (their products on fp16 copies, each times a

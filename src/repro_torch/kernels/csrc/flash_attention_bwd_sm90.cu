@@ -133,11 +133,13 @@
 // a thread, and with a producer warpgroup (384 threads) ptxas plans the
 // wgmma pipeline for 168 registers a thread whatever setmaxnreg grants, and
 // serialised every wgmma and spilled (its "C7512 ... insufficient register
-// resources"); at 256 threads it has 255.  There thread 0 issues the loads
-// after passing its warpgroup's turn, and waits for a stage to empty only
-// for the tile its warpgroup needs next, which the turns have released by
-// then.  The gradient products are one m64n128k16 a 16-row step over both
-// atoms of the B tile (MN-major), P^T, dS^T or dS from registers.
+// resources"); at 256 threads it has 255.  There the consumers issue the
+// loads after passing the turn, each tile's six copies over the four warps
+// of the consumer of its parity, on a fixed schedule that the turns alone
+// make safe over the ring of four stages (no empty barrier): one thread
+// issuing them all held its warpgroup's next wgmma for ~1660 clocks a turn
+// (PERF.md).  The gradient products are one m64n128k16 a 16-row step over
+// both atoms of the B tile (MN-major), P^T, dS^T or dS from registers.
 //
 // Head widths 136-256 (recurrentgemma's 256; namespace d256; narrower heads
 // read as 256 columns, the atoms past D zeroed in shared memory once and
@@ -165,9 +167,9 @@
 // so no block splits its heads.
 //
 // Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
-// every consumer warp of the d256 and d64 passes (b) and (c) adds the SM
-// clocks it spends in each phase of the tile loop to
-// flash_bwd_sm90_phase_clocks[pass] (kClockPhases below).
+// every consumer warp of the d256 and d64 passes (b) and (c) and of the
+// d128 pass (b) adds the SM clocks it spends in each phase of the tile loop
+// to flash_bwd_sm90_phase_clocks[pass] (kClockPhases below).
 
 #include <math_constants.h>
 
@@ -182,8 +184,10 @@
 // for the tile's loads; waiting for the turn; the products issued and the
 // turn passed; a later tile's loads issued ((b)); the products waited for;
 // P and dS rounded to fp16 (and, in (c), the stage released); P and dS.
+// d128 (pass 4, (b)): the d64 phases, the last entry counting the warp's
+// turns in the loop (tiles after its first).
 constexpr int kClockPhases = 10;
-__device__ unsigned long long flash_bwd_sm90_phase_clocks[4][kClockPhases];
+__device__ unsigned long long flash_bwd_sm90_phase_clocks[5][kClockPhases];
 #define PHASE(k)                       \
   {                                    \
     const long long now = clock64();   \
@@ -193,6 +197,7 @@ __device__ unsigned long long flash_bwd_sm90_phase_clocks[4][kClockPhases];
 #define PHASE_START                                  \
   long long phase_clocks[kClockPhases] = {};         \
   long long phase_at = clock64();
+#define PHASE_TURN ++phase_clocks[kClockPhases - 1];
 #define PHASE_END(pass)                                                              \
   if ((threadIdx.x & 31) == 0)                                                       \
     for (int k = 0; k < kClockPhases; ++k)                                           \
@@ -201,6 +206,7 @@ __device__ unsigned long long flash_bwd_sm90_phase_clocks[4][kClockPhases];
 #else
 #define PHASE(k)
 #define PHASE_START
+#define PHASE_TURN
 #define PHASE_END(pass)
 #endif
 
@@ -553,8 +559,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   // the bytes are expected: the phase ends only with warp 0's arrival).  A
   // load instruction holds its thread for hundreds of clocks, and every
   // consumer warp waits at the next wgmma for the slowest of its
-  // warpgroup, so one thread issuing all of them (as at 65-128) cost the
-  // pass 7 % (PERF.md).  Each such thread steps the head and the rows (h,
+  // warpgroup, so one thread issuing all of them cost the pass 7 %
+  // (PERF.md).  Each such thread steps the head and the rows (h,
   // qi) from one tile to the next instead of dividing.
   const int copy = (tid & 31) == 0 ? (tid / 32) & 3 : -1;
   int h = hk * p.group, qi = 0;
@@ -961,7 +967,7 @@ constexpr int kStagesKV = 4;                      // ring depth of (b): q, do, l
 constexpr int kStagesQ = 5;                       // ring depth of (c): k, v
 // (b): two k and two v tiles; a stage: q, do, 64 lse2 and 64 delta
 constexpr int kSmemKV = 1024 + 2 * kConsumers * kTile +
-                        kStagesKV * (2 * kTile + 2 * kRows * 4) + 8 * (2 * kStagesKV + 1);
+                        kStagesKV * (2 * kTile + 2 * kRows * 4) + 8 * (kStagesKV + 1);
 // (c): two q and two do tiles; a stage: k, v
 constexpr int kSmemQ = 1024 + 2 * kConsumers * kTile + 2 * kStagesQ * kTile + 8 * (2 * kStagesQ + 1);
 static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the 227 KB a block may use");
@@ -993,9 +999,8 @@ __device__ __forceinline__ void gemm_rs128(float (&d)[kNB][32], const uint32_t (
 // registers a thread.  No producer: with one, ptxas plans the wgmma
 // pipeline for the 168 registers a thread of 384 (whatever setmaxnreg
 // grants), and the two accumulators beside the parts do not fit it, so it
-// serialised every wgmma and spilled.  Thread 0 issues the loads, without
-// holding its warpgroup's turn and without waiting on the other warpgroup
-// (refill below).
+// serialised every wgmma and spilled.  The consumers issue the loads
+// themselves, on a fixed schedule (below).
 template <bool CAP>
 __global__ void __launch_bounds__(kConsumerThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -1010,8 +1015,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   float* lse_s = reinterpret_cast<float*>(dos + kStagesKV * kTile);   // kStagesKV x 64
   float* delta_s = lse_s + kStagesKV * kRows;
   uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kStagesKV * kRows);
-  uint64_t* empty = full + kStagesKV;
-  uint64_t* kbar = empty + kStagesKV;
+  uint64_t* kbar = full + kStagesKV;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -1030,58 +1034,52 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   const int n_iter = p.group * n_qt;
 
   if (tid == 0) {
-    for (int s = 0; s < kStagesKV; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers * 4);   // lane 0 of every consumer warp
-    }
+    for (int s = 0; s < kStagesKV; ++s) mbar_init(&full[s], 1);
     mbar_init(kbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // tile t: query head hk G + t / n_qt, rows i_lo + 64 (t % n_qt) ...
-  auto issue = [&](int t) {
-    const int s = t % kStagesKV;
-    const int h = hk * p.group + t / n_qt;
-    const int q0 = static_cast<int>(i_lo) + (t % n_qt) * kRows;
-    mbar_expect_tx(&full[s], 2 * kTile + 2 * kRows * 4);
-    for (int nb = 0; nb < kNB; ++nb) {
-      tma_load(qs + s * kTile + nb * kRows * 128, &qmap, &full[s], nb * kAtom, q0, h, b);
-      tma_load(dos + s * kTile + nb * kRows * 128, &domap, &full[s], nb * kAtom, q0, h, b);
+  // tile u: query head hk G + u / n_qt, rows i_lo + 64 (u % n_qt) ...
+  // Consumer u % 2 issues tile u, lane 0 of its warp c: 0 the barrier's
+  // bytes, q's first atom and lse2, 1 q's second atom and delta, 2 and 3
+  // do's two atoms (a copy may land before the bytes are expected: the
+  // phase ends only with warp 0's arrival).  One thread issuing all six
+  // (the design before) spent ~1660 clocks a turn on them while its
+  // warpgroup's next wgmma waited (PERF.md).  Each such thread steps the
+  // head and the rows (h, qi) from one tile to the next instead of
+  // dividing.
+  const int copy = (tid & 31) == 0 ? (tid / 32) & 3 : -1;
+  int h = hk * p.group, qi = 0;
+  auto issue = [&](int u) {
+    if (copy < 0) return;
+    if ((u & 1) == wg) {
+      const int s = u % kStagesKV;
+      const int q0 = static_cast<int>(i_lo) + qi * kRows;
+      const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
+      if (copy < 2) {
+        if (copy == 0) mbar_expect_tx(&full[s], 2 * kTile + 2 * kRows * 4);
+        tma_load(qs + s * kTile + copy * kRows * 128, &qmap, &full[s], copy * kAtom, q0, h, b);
+        bulk_load((copy == 0 ? lse_s : delta_s) + s * kRows,
+                  (copy == 0 ? p.lse2 : p.delta) + row, kRows * 4, &full[s]);
+      } else {
+        tma_load(dos + s * kTile + (copy - 2) * kRows * 128, &domap, &full[s],
+                 (copy - 2) * kAtom, q0, h, b);
+      }
     }
-    const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Tq_pad + q0;
-    bulk_load(lse_s + s * kRows, p.lse2 + row, kRows * 4, &full[s]);
-    bulk_load(delta_s + s * kRows, p.delta + row, kRows * 4, &full[s]);
-  };
-  int next = kStagesKV < n_iter ? kStagesKV : n_iter;   // thread 0: the next tile to issue
-  if (tid == 0) {
-    mbar_expect_tx(kbar, 2 * kConsumers * kTile);
-    for (int c = 0; c < kConsumers; ++c)
-      for (int nb = 0; nb < kNB; ++nb) {
-        const int k0 = static_cast<int>(kt + c * kRows);
-        tma_load(ks + c * kTile + nb * kRows * 128, &kmap, kbar, nb * kAtom, k0, hk, b);
-        tma_load(vs + c * kTile + nb * kRows * 128, &vmap, kbar, nb * kAtom, k0, hk, b);
-      }
-    for (int t = 0; t < next; ++t) issue(t);
-  }
-  // thread 0: issue every later tile whose stage both warpgroups have
-  // released, waiting only for the stage of tile `need` (the next one its
-  // warpgroup waits for).  The warpgroups take turns, one at most a tile
-  // ahead, so that stage (of tile need - 4) is free by then: the wait never
-  // holds in practice, and is there so that no order of events can hang.
-  auto refill = [&](int need) {
-    if (tid != 0) return;
-    for (; next < n_iter; ++next) {
-      const int prev = next - kStagesKV;   // the last tile in next's stage
-      uint64_t* bar = &empty[prev % kStagesKV];
-      const uint32_t ph = (prev / kStagesKV) & 1;
-      if (!mbar_test(bar, ph)) {
-        if (next > need) break;
-        mbar_wait(bar, ph);
-      }
-      issue(next);
+    if (++qi == n_qt) {   // the next tile, whichever consumer issues it
+      qi = 0;
+      ++h;
     }
   };
+  // this consumer's k and v tiles, then the ring's first tiles
+  if (tid == 0) mbar_expect_tx(kbar, 2 * kConsumers * kTile);
+  if (copy >= 0)
+    tma_load((copy < 2 ? ks : vs) + wg * kTile + (copy & 1) * kRows * 128,
+             copy < 2 ? &kmap : &vmap, kbar, (copy & 1) * kAtom,
+             static_cast<int>(kt + wg * kRows), hk, b);
+  for (int u = 0; u < kStagesKV && u < n_iter; ++u) issue(u);
+  __syncwarp();
 
   // ---- consumer warpgroup wg: keys kw ... kw + 63
   const int lane = tid & 31;
@@ -1124,11 +1122,6 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     d64::fence_parts(ph);
     d64::fence_parts(sh);
   };
-  // this warp has finished reading stage s
-  auto release = [&](int s) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  };
   // P'^T and dS'^T of the tile in stage s, query tile qt, in fp16
   auto probs = [&](int s, int qt) {
     reg_fence(st);
@@ -1140,16 +1133,26 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
                         (!p.has_window || kw > qb - p.window));
     d64::kv_probs<CAP, 32, true>(st, dpt, lse_s + s * kRows, delta_s + s * kRows, c2, p, edge, qa,
                                  kw + r0, s_log2, cap_scale);
+  };
+  auto parts = [&]() {
     to_a16(st, ph);
     to_a16(dpt, sh);
   };
 
   // Ping-pong: in its turn a consumer runs the previous tile's dV and dK,
-  // waits for them, issues this tile's S^T and dP^T and passes the turn.  (Issued together, the two accumulators, S^T, dP^T and
-  // the previous tile's P'^T and dS'^T are 224 registers of operands:
-  // ptxas spilled at 255 and the pass ran 3-4 % slower; PERF.md.)
+  // waits for them, issues this tile's S^T and dP^T and passes the turn.
+  // (Issued together, the two accumulators, S^T, dP^T and the previous
+  // tile's P'^T and dS'^T are 224 registers of operands: ptxas spilled at
+  // 255 and the pass ran 3-4 % slower; PERF.md.)  Loads: in its turn t
+  // consumer 0 is done with tile t - 1 and consumer 1, whose turn t - 1
+  // passed this one, with tile t - 2, so consumer 0 issues tile t + 2 into
+  // that stage when t + 2 is even; in consumer 1's turn t consumer 0 is done
+  // with tile t - 1 too, so consumer 1 issues tile t + 3 when it is odd.
+  // No stage needs an empty barrier, and a tile is issued two or three
+  // turns before it is needed.
   const int mine = 1 + wg;
   const int other = 1 + (wg ^ 1);
+  const int ahead = kStagesKV - 2 + wg;
   if (n_iter > 0) {
     if (wg == kConsumers - 1) bar_arrive(other, kConsumerThreads);
     mbar_wait(&full[0], 0);
@@ -1158,35 +1161,46 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     issue_s(0);
     wgmma_commit();
     bar_arrive(other, kConsumerThreads);
-    refill(1);
-    __syncwarp();
     wgmma_wait_all();
     probs(0, 0);
+    parts();
     int qt = 0, s = 0, sp = 0;
     uint32_t phase = 0;
+    PHASE_START
 #pragma unroll 1
     for (int t = 1; t < n_iter; ++t) {
       sp = s;                                 // the stage of tile t - 1
       if (++s == kStagesKV) { s = 0; phase ^= 1; }
       if (++qt == n_qt) qt = 0;
+      PHASE_TURN
       mbar_wait(&full[s], phase);
+      PHASE(0)
       bar_sync(mine, kConsumerThreads);
+      PHASE(1)
       fence_grad();
       wgmma_fence();
       issue_grad(sp);
       wgmma_commit();
+      PHASE(2)
       wgmma_wait_all();
+      PHASE(4)
       fence_grad();
-      release(sp);
       wgmma_fence();
       issue_s(s);
       wgmma_commit();
       bar_arrive(other, kConsumerThreads);
-      refill(t + 1);
+      PHASE(2)
+      if (t + ahead >= kStagesKV && t + ahead < n_iter) issue(t + ahead);
       __syncwarp();
+      PHASE(3)
       wgmma_wait_all();
+      PHASE(4)
       probs(s, qt);
+      PHASE(6)
+      parts();
+      PHASE(5)
     }
+    PHASE_END(4)
     bar_sync(mine, kConsumerThreads);
     fence_grad();
     wgmma_fence();
@@ -1195,7 +1209,6 @@ dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     if (wg != kConsumers - 1) bar_arrive(other, kConsumerThreads);
     wgmma_wait_all();
     fence_grad();
-    release(s);
   }
 
   const int64_t off = (static_cast<int64_t>(b) * p.Hkv + hk) * p.Tk * p.D;
@@ -2042,11 +2055,12 @@ extern "C" int flash_attention_bwd_sm90_blocks(int64_t D, int64_t* out) {
 }
 
 #ifdef FLASH_PHASE_CLOCKS
-// copies the phase sums out (d256's (b) and (c), then d64's, kClockPhases
-// each), or zeroes them when `out` is null; returns the cudaError_t
+// copies the phase sums out (d256's (b) and (c), then d64's, then d128's
+// (b), kClockPhases each), or zeroes them when `out` is null; returns the
+// cudaError_t
 extern "C" int flash_bwd_sm90_phase_clocks_read(unsigned long long* out) {
   if (out == nullptr) {
-    const unsigned long long zero[4][kClockPhases] = {};
+    const unsigned long long zero[5][kClockPhases] = {};
     return static_cast<int>(cudaMemcpyToSymbol(flash_bwd_sm90_phase_clocks, zero, sizeof(zero)));
   }
   return static_cast<int>(cudaMemcpyFromSymbol(out, flash_bwd_sm90_phase_clocks,

@@ -80,35 +80,47 @@
 //
 // Head widths 65-128 (danube's 120, olmo's 128; namespace d128): the
 // structure of the widths up to 64 below, over the head's two 64-column
-// atoms.  One block per
-// 128 query rows, 128-key tiles (S is one m64n128k16 wgmma a 16-column step,
-// eight steps) and three warpgroups: a producer whose one thread issues every
-// TMA load into a ring of three stages, and two consumers of 64 rows that
-// take turns at the tensor cores.  The softcap is a template argument and
-// the mask a test once a tile (online_softmax).  A consumer's products and
-// its softmax do not overlap: with a producer warpgroup the block has 384
-// threads, and ptxas plans the wgmma pipeline for the 168 registers a thread
-// that allows, whatever setmaxnreg grants the consumers at run time (it
-// does allocate up to the 240 granted, but serialises every wgmma of a
+// atoms.  One block per 128 query rows, 128-key tiles (S is one m64n128k16
+// wgmma a 16-column step, eight steps) and three warpgroups: a producer
+// whose one thread issues every TMA load into a ring of three stages, and
+// two consumers of 64 rows that take turns at the tensor cores.  The
+// softcap is a template argument and the mask a test once a tile
+// (online_softmax).  A consumer runs the previous tile's P V, waits, then
+// issues this tile's S and waits: with a producer warpgroup the block has
+// 384 threads, and ptxas plans the wgmma pipeline for the 168 registers a
+// thread that allows, whatever setmaxnreg grants the consumers at run time
+// (it does allocate up to the 240 granted, but serialises every wgmma of a
 // kernel whose operands in flight do not fit 168: "C7512 ... insufficient
-// register resources").  The accumulator (64 registers), S and the two P
-// parts (64 each) are never all live.  64-key tiles, and two consumers with
-// no producer (256 threads, the products of one tile overlapping the
-// softmax of the next), were slower.  P V in two bf16 parts is two thirds
-// of a tile's tensor time (6 D' flops a pair with S), so the 128-row
-// blocks whose every row sees 1024 keys or more (one contiguous range,
-// flash_attention_sm90.py::one_part_blocks, from the mask alone) take it in
-// one part: P 2^7 (p <= 2^8 under the lazy rescale) rounded once to fp16
-// against an fp16 copy of v times 2^ev (sm90_common.cuh's convert_fp16, two
-// launches before), one m64n128k16 a 16-key step over both atoms, the sums
-// taken back by 2^-(7 + ev) as they are stored: 4 D' a pair.  S stays a
-// bf16 product of q and k, and l the sum of the unrounded p.  The rounding
-// error of P averages out over a row's keys: over 129-256 keys one fp16
-// rounding put the long path's (4, 32, 8192, 120) at 1.033 of the gate, and
-// the CPU sweep (tools/emulate_fp16_attention.py --keys-sweep) keeps the
-// error under a bf16 ulp or the gate's floor from about a thousand.  The
-// two kinds of block are two launches (kernel template ONE), the one-part
-// range first: a wgmma under a branch serialises every wgmma of a kernel.
+// register resources"); the accumulator (64 registers), S (64) and P (64
+// in two parts, 32 in one) are never all live.  P V in two bf16 parts is
+// two thirds of a tile's tensor time (6 D' flops a pair with S), so the
+// 128-row blocks whose every row sees 1024 keys or more (one contiguous
+// range, flash_attention_sm90.py::one_part_blocks, from the mask alone) take
+// it in one part: P' = p 2^7 straight from the exponentials (p <= 2^8 under
+// the lazy rescale, l the sum of P' taken back by 2^-7) rounded once to
+// fp16 against an fp16 copy of v times 2^ev (sm90_common.cuh's
+// convert_fp16, two launches before), one m64n128k16 a 16-key step over
+// both atoms, the sums taken back by 2^-(7 + ev) as they are stored: 4 D'
+// a pair.  S stays a bf16 product of q and k.  The rounding error of P
+// averages out over a row's keys: over 129-256 keys one fp16 rounding put
+// the long path's (4, 32, 8192, 120) at 1.033 of the gate, and the CPU
+// sweep (tools/emulate_fp16_attention.py --keys-sweep) keeps the error
+// under a bf16 ulp or the gate's floor from about a thousand.  The two
+// kinds of block are two launches (kernel template ONE), the one-part range
+// first (a wgmma under a branch serialises every wgmma of a kernel), the
+// other a programmatic dependent launch whose blocks start as the first
+// launch's last wave frees SMs (griddep_wait).  By SM clocks (PERF.md) a
+// one-part consumer spends half of its turn in the softmax, more than its
+// products take at the card's rate, and a sixth draining P V and S.  Two
+// consumers alone at 256 threads (255 registers: this tile's S, then the
+// previous tile's P V, two commit groups, the exponentials while P V runs,
+// or one commit as at 136-256; k and v rings of three stages each, the
+// consumers' warps issuing the loads on a fixed schedule) drained for ~50
+// clocks instead of ~530, but spent ~180-260 issuing loads and ~240-270
+// waiting for them, and their softmax grew by ~150: 0.3-4.0 % slower than
+// this design at olmo's and danube's serving and training shapes, and at
+// olmo's serving shape slower than this design without the programmatic
+// launch and the shifted exponentials; 64-key tiles were slower too.
 //
 // Head widths up to 64 (seamless's 64): one block per NC * 64 query rows,
 // 128-key tiles (S is one m64n128k16 wgmma a 16-column step) and NC + 1
@@ -164,6 +176,39 @@
 #include <math_constants.h>
 
 #include "sm90_common.cuh"
+
+#ifdef FLASH_PHASE_CLOCKS
+// Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
+// every consumer warp of the d128 kernels adds the SM clocks it spends in
+// each phase of its tile loop to flash_fwd_sm90_phase_clocks[pass] (pass 0
+// the one-part launch, 1 the two-part one): waiting for a stage's loads;
+// waiting for the turn; the products issued and the turn passed; waiting
+// for P V to drain; waiting for S; the softmax (with the accumulator's
+// rescale); P rounded.  The last entry counts the warp's turns in the loop
+// (tiles after its first).
+constexpr int kFwdPhases = 8;
+__device__ unsigned long long flash_fwd_sm90_phase_clocks[2][kFwdPhases];
+#define PHASE(k)                       \
+  {                                    \
+    const long long now = clock64();   \
+    phase_clocks[k] += now - phase_at; \
+    phase_at = now;                    \
+  }
+#define PHASE_START                                  \
+  long long phase_clocks[kFwdPhases] = {};           \
+  long long phase_at = clock64();
+#define PHASE_TURN ++phase_clocks[kFwdPhases - 1];
+#define PHASE_END(pass)                                                              \
+  if ((threadIdx.x & 31) == 0)                                                       \
+    for (int k = 0; k < kFwdPhases; ++k)                                             \
+      atomicAdd(&flash_fwd_sm90_phase_clocks[pass][k],                               \
+                static_cast<unsigned long long>(phase_clocks[k]));
+#else
+#define PHASE(k)
+#define PHASE_START
+#define PHASE_TURN
+#define PHASE_END(pass)
+#endif
 
 namespace {
 
@@ -397,22 +442,12 @@ __device__ __forceinline__ void split_p(const float (&sc)[8 * KK], uint32_t (&ph
     }
 }
 
-// P' = p 2^kPShift, each value rounded once to fp16 (cvt.rn.f16x2.f32), in
-// split_p's A-operand layout: p <= 2^8 under the lazy rescale, so P' <= 2^15,
-// under fp16's 65504, and p from 2^-21 up is an fp16 normal (2^-11 relative)
+// P' = p 2^kPShift, each value rounded once to fp16: p <= 2^8 under the
+// lazy rescale, so P' <= 2^15, under fp16's 65504, and p from 2^-21 up is an
+// fp16 normal (2^-11 relative)
 constexpr int kPShift = 7;
-template <int KK>
-__device__ __forceinline__ void round_p16(const float (&sc)[8 * KK], uint32_t (&p16)[KK][4]) {
-  constexpr float kMul = 1 << kPShift;
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      p16[kk][r] = pack_f16(sc[8 * kk + 2 * r] * kMul, sc[8 * kk + 2 * r + 1] * kMul);
-}
-
-// P' as round_p16 makes it from p already times 2^kPShift (online_softmax's
-// SHIFT): no multiply
+// P' (cvt.rn.f16x2.f32) in split_p's A-operand layout, from p already
+// times 2^kPShift (online_softmax's SHIFT)
 template <int KK>
 __device__ __forceinline__ void pack_p16(const float (&sc)[8 * KK], uint32_t (&p16)[KK][4]) {
 #pragma unroll
@@ -937,9 +972,9 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// Head widths 65-128 (danube's 120): a producer warpgroup and two consumer
-// warpgroups of 64 query rows, 128-key tiles of the head's two 64-column
-// atoms.
+// Head widths 65-128 (danube's 120, olmo's 128): a producer warpgroup and
+// two consumer warpgroups of 64 query rows, 128-key tiles of the head's two
+// 64-column atoms.
 // ---------------------------------------------------------------------------
 
 namespace d128 {
@@ -957,6 +992,21 @@ constexpr int kStages = 3;
 constexpr int kSmem = 1024 + kConsumers * kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
 static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 }  // namespace d128
+
+// griddepcontrol (programmatic dependent launch): the two-part launch may
+// start its blocks while the one-part launch before it on the stream still
+// runs (launch_dependents, from every block of that launch), and every
+// thread of the two-part launch waits for that launch to complete, its
+// memory operations performed and made visible, before it exits (wait):
+// so the two-part launch completes after the one-part one, and whatever
+// the stream runs after it sees both launches' o and lse (the PTX ISA,
+// griddepcontrol).  Without a launch before it wait returns at once.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
 // Width 65-128: a producer warpgroup and two consumer warpgroups (see the
 // top of the file).  The softcap is a template argument; D64Params carries
@@ -978,6 +1028,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
+  if (ONE) griddep_launch_dependents();
   const int tid = threadIdx.x;
   // the role of this thread's warpgroup, the same in every lane
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
@@ -1092,7 +1143,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   auto parts = [&]() {
     if constexpr (ONE)
-      round_p16(sc, phi);
+      pack_p16(sc, phi);
     else
       split_p(sc, phi, plo);
   };
@@ -1103,12 +1154,15 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   float alpha0, alpha1;
   auto softmax = [&](int t) {
-    online_softmax<64, CAP>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys, qa, qb, pos0, pos1, c2,
-                   f, m0, m1, l0, l1, alpha0, alpha1);
+    // ONE: P' = p 2^kPShift straight from the exponentials, l their sum
+    online_softmax<64, CAP, ONE ? kPShift : 0>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys,
+                                               qa, qb, pos0, pos1, c2, f, m0, m1, l0, l1, alpha0,
+                                               alpha1);
   };
+  // 64 multiplies a thread: skipped where no row of the warp moved its
+  // reference point (most tiles), a branch the whole warp takes alike
   auto rescale = [&]() {
-    // alpha is 1 on most tiles (the reference point moves rarely); the
-    // multiply costs less than a branch
+    if (!__any_sync(0xffffffffu, alpha0 != 1.0f || alpha1 != 1.0f)) return;
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
@@ -1116,7 +1170,9 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   };
 
   // Ping-pong, as flash_attention_d64_kernel's: named barrier 1 + w is
-  // consumer w's turn at the tensor cores.
+  // consumer w's turn at the tensor cores.  In its turn a consumer runs the
+  // previous tile's P V, waits, then issues this tile's S, passes the turn
+  // and waits for it (see the top of the file).
   const int mine = 1 + wg;
   const int other = 1 + (wg ^ 1);
   mbar_wait(qbar, 0);
@@ -1134,29 +1190,40 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
     parts();
     int s = 0, sp = 0;
     uint32_t phase = 0;
+    PHASE_START
 #pragma unroll 1
     for (int t = 1; t < n_tiles; ++t) {
       sp = s;                                 // the stage of tile t - 1
       if (++s == kStages) { s = 0; phase ^= 1; }
+      PHASE_TURN
       mbar_wait(&full[s], phase);
+      PHASE(0)
       bar_sync(mine, kConsumers * 128);
+      PHASE(1)
       fence_pv();
       wgmma_fence();
       issue_pv(sp);
       wgmma_commit();
+      PHASE(2)
       wgmma_wait_all();
+      PHASE(3)
       fence_pv();
       release(sp);
       wgmma_fence();
       issue_s(s);
       wgmma_commit();
       bar_arrive(other, kConsumers * 128);
+      PHASE(2)
       wgmma_wait_all();
+      PHASE(4)
       reg_fence(sc);
       softmax(t);
       rescale();
+      PHASE(5)
       parts();
+      PHASE(6)
     }
+    PHASE_END(ONE ? 0 : 1)
     bar_sync(mine, kConsumers * 128);
     fence_pv();
     wgmma_fence();
@@ -1167,14 +1234,17 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_pv();
     release(s);
   }
-  if constexpr (ONE) {   // P' V' is P V 2^(kPShift + ev)
+  if constexpr (ONE) {   // P' V' is P V 2^(kPShift + ev), l the sum of P'
     const float back = *p.v_back;
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[nb][i] *= back;
+    l0 *= 1.0f / (1 << kPShift);
+    l1 *= 1.0f / (1 << kPShift);
   }
   store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
+  if (!ONE) griddep_wait();   // completes after the one-part launch before it
 }
 
 // ---------------------------------------------------------------------------
@@ -1484,10 +1554,19 @@ int launch_d128(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap&
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return static_cast<int>(launched);
   }
-  if (blocks > one)
-    flash_attention_d128_kernel<CAP, false><<<grid(blocks - one), d128::kThreads, d128::kSmem,
-                                              stream>>>(qm, km, vm, p);
-  return static_cast<int>(cudaGetLastError());
+  if (blocks == one) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid(blocks - one);
+  cfg.blockDim = dim3(d128::kThreads);
+  cfg.dynamicSmemBytes = d128::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute dependent;
+  dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &dependent;
+  cfg.numAttrs = one > 0 ? 1 : 0;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, flash_attention_d128_kernel<CAP, false>, qm, km, vm, p));
 }
 
 template <bool CAP>
@@ -1665,6 +1744,19 @@ extern "C" int flash_attention_sm90_one_part(int64_t Tq, int64_t Tk, int causal,
   const int64_t end = (rb + 1) * rows < Tq ? (rb + 1) * rows : Tq;
   return one_part_block(p, rb * rows, end, static_cast<int>(s)) ? 1 : 0;
 }
+
+#ifdef FLASH_PHASE_CLOCKS
+// the d128 kernels' phase clocks (2 x kFwdPhases) into out, or zeroed when
+// out is null
+extern "C" int flash_fwd_sm90_phase_clocks_read(unsigned long long* out) {
+  if (out == nullptr) {
+    const unsigned long long zero[2][kFwdPhases] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(flash_fwd_sm90_phase_clocks, zero, sizeof(zero)));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, flash_fwd_sm90_phase_clocks,
+                                               sizeof(flash_fwd_sm90_phase_clocks)));
+}
+#endif
 
 // the floats of the scratch `aux`: v's partial maxima, then v_back
 extern "C" int flash_attention_sm90_aux_floats() { return 4 * kConvBlocks + 4; }

@@ -12,8 +12,9 @@ accumulator in float32, and walks only the live key tiles.  At a width of 64 or 
 rows for up to 64 query rows (:func:`block_rows`), and otherwise 128 rows
 in two consumer warpgroups beside a producer warpgroup, over 128-key tiles,
 the consumers taking turns at the tensor cores so that one's softmax runs
-while the other's products run; from 65 to 128 columns (danube's 120) the
-same over the head's two 64-column atoms, for any number of rows.  From
+while the other's products run; from 65 to 128 columns (danube's 120,
+olmo's 128) the same over the head's two 64-column atoms, for any number
+of rows.  From
 136 to 256 columns (recurrentgemma's 256) a block holds 128 query rows in
 two consumer warpgroups alone, over 64-key tiles of the head's four atoms,
 taking turns at the tensor cores (64 rows of two query heads of a kv head
@@ -29,7 +30,9 @@ fp16 values of v; the other row blocks keep the two bf16 parts against v.
 From 65 to 128 columns those blocks (:func:`one_part_blocks`, a contiguous
 range found from the mask alone) read an fp16 copy of v times a power of
 two of its own (``flash_attention_bwd_sm90.fp16_copy`` is that
-conversion's plain version), which two more launches write first.  At 64
+conversion's plain version), which two more launches write first; the
+other row blocks' launch may start as that launch's last blocks finish
+(programmatic dependent launch), and ends after it.  At 64
 columns or less with more than 64 query rows they are counted per key
 range of a split call (:func:`one_part_ranges`), and the kernel's producer
 warpgroup converts each 128-key v tile in shared memory, times a power of

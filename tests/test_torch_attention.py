@@ -501,6 +501,13 @@ _FWD_CASES = [
     (1, 8, 2, 300, 1300, 120, dict(causal=True, q_offset=1000, softcap=20.0)),
     (2, 4, 4, 130, 1100, 128, dict(causal=False)),
     (1, 4, 2, 1500, 1300, 128, dict(causal=False, window=1200)),
+    (1, 4, 4, 130, 1024, 128, dict(causal=False)),
+    (1, 4, 2, 256, 1536, 128, dict(causal=True, q_offset=1280, softcap=30.0)),
+    (1, 8, 2, 2200, 2200, 120, dict(causal=True, window=1100)),
+    # FLASH_D128_CASES' cases for the dK/dV pass's ring
+    (1, 4, 4, 128, 700, 128, dict(causal=False)),
+    (1, 4, 4, 256, 300, 96, dict(causal=False)),
+    (1, 8, 2, 900, 900, 120, dict(causal=True)),
     # FLASH_D64_ONE_PART_CASES
     (2, 4, 4, 130, 1100, 64, dict(causal=False, splits=1)),
     (1, 4, 4, 200, 1150, 64, dict(causal=True, q_offset=950, splits=1)),

@@ -642,6 +642,9 @@ _D128_CASES = [
     (1, 8, 2, 321, 1500, 128, dict(causal=True, window=100, q_offset=1179, softcap=30.0)),
     (1, 8, 2, 1, 1000, 96, dict(causal=False)),
     (1, 4, 4, 1100, 1100, 128, dict(causal=True)),
+    (1, 4, 4, 128, 700, 128, dict(causal=False)),
+    (1, 4, 4, 256, 300, 96, dict(causal=False)),
+    (1, 8, 2, 900, 900, 120, dict(causal=True)),
 ]
 # input scales (q, k, v, do): do at O(1) and at a mean loss's gradient size;
 # q above fp16's largest value with k below its normal range, scores unchanged

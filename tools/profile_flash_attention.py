@@ -35,11 +35,26 @@ the tile's loads, waiting for the consumer's turn, the products issued
 (this tile's S and dP, the previous tile's gradients) and the turn passed,
 a later tile's loads issued (the dK/dV pass's consumers), the products
 waited for, P and dS rounded to fp16 (in the dQ pass with the stage
-released), P and dS (the exponentials).
+released), P and dS (the exponentials).  And at head widths 65-128, its
+``d128`` dK/dV pass at olmo-1b's training shape (2, 16, 8192, 128), plain
+causal: the ``d64`` pass's phases, by the warps' own count of their turns.
+
+The bf16 forward at head widths 65-128 (``--what bf16-forward``): the same
+for ``csrc/flash_attention_sm90.cu``'s ``d128`` kernels at olmo-1b's
+training and serving shapes ((2, 16, 8192, 128) and (4, 16, 32768, 128),
+plain causal), the launch of the one-part row blocks and that of the
+two-part ones apart: waiting for a stage's loads, waiting for the turn,
+the products issued and the turn passed, waiting for P V to drain,
+waiting for S, the softmax, P rounded; each in clocks a warp a turn, by
+the warps' own count of their turns.
 
 Usage, from the root of a checkout::
 
-    python3 tools/profile_flash_attention.py [--what all|forward|backward|bf16-backward]
+    python3 tools/profile_flash_attention.py [--root DIR]
+        [--what all|forward|backward|bf16-backward|bf16-forward]
+
+``--root`` imports the port from another checkout's ``src/`` and builds
+its sources with the clocks, so that one command can profile two versions.
 """
 
 from __future__ import annotations
@@ -51,8 +66,13 @@ import os
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ap.add_argument("--what", choices=("all", "forward", "backward", "bf16-backward",
+                                   "bf16-forward"), default="all")
+ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                help="checkout whose src/ holds the port to profile (default: this one)")
+ARGS = ap.parse_args()
+sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
 
 import torch  # noqa: E402
 
@@ -79,6 +99,13 @@ D64_ARCH, D64_BATCH = "seamless-m4t-large-v2", 2       # the d64 passes' shape: 
 D64_PHASES = ("load wait", "turn wait", "products issued", "loads issued", "products waited",
               "fp16 parts", "P and dS")
 D64_WARPS, D64_ROWS = 8, 128                           # consumer warps, keys or rows a block
+OLMO_ARCH = "olmo-1b"                                  # the d128 kernels' shapes, plain causal
+OLMO_FWD_SHAPES = (("olmo train forward", 2, 8192), ("olmo prefill", 4, 32768))
+OLMO_TRAIN = (2, 8192)
+FWD_PASSES = ("one part", "two parts")
+FWD_PHASES = ("load wait", "turn wait", "products issued", "P V drained", "S waited",
+              "softmax", "P rounded")
+FWD_CLOCK_PHASES = 8                                   # kFwdPhases: the phases, then turns
 
 
 def build_clocked(source, entry, argtypes, reader):
@@ -260,21 +287,47 @@ def d256_tiles(Tq, Tk, group, window, rows=64):
     return kv, q
 
 
-def bf16_clocks(fn, clocks_read, run):
-    """The four passes' phase clocks (d256's (b) and (c), then d64's) of one
-    ``run`` through the clocked build ``fn``, and ``run``'s time with it."""
-    n = 10                                             # kClockPhases
-    saved, fab90._fn = fab90._kernel(), fn   # the wrapper, launching the clocked build
+def read_clocks(module, fn, clocks_read, run, passes, n):
+    """The ``passes`` x ``n`` phase clocks of one ``run`` through the clocked
+    build ``fn`` of ``module``'s kernel, and ``run``'s time with it."""
+    saved, module._fn = module._kernel(), fn   # the wrapper, launching the clocked build
     try:
         clocked_ms = cuda_ms(run)
         clocks_read(None)
         run()
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (4 * n))()
+        buf = (ctypes.c_ulonglong * (passes * n))()
         clocks_read(buf)
     finally:
-        fab90._fn = saved
-    return [list(buf)[i * n:(i + 1) * n] for i in range(4)], clocked_ms
+        module._fn = saved
+    return [list(buf)[i * n:(i + 1) * n] for i in range(passes)], clocked_ms
+
+
+def bf16_clocks(fn, clocks_read, run):
+    """The five passes' phase clocks (d256's (b) and (c), then d64's, then
+    d128's (b)) of one ``run`` through the clocked build ``fn``, and
+    ``run``'s time with it."""
+    return read_clocks(fab90, fn, clocks_read, run, 5, 10)   # kClockPhases
+
+
+def print_turns(title, passes, phases):
+    """One JSON line, then each pass's phases in clocks a warp a turn;
+    ``passes``: {name: clocks, the last entry the warps' turns}."""
+    row = {**title, "passes": {}}
+    for name, c in passes.items():
+        turns = c[-1]
+        row["passes"][name] = {
+            "warp_turns": turns,
+            "phase_share": {p: x / max(1, sum(c[:len(phases)])) for p, x in zip(phases, c)},
+            "clocks_per_warp_turn": {p: x / max(1, turns) for p, x in zip(phases, c)}}
+    print(json.dumps(row))
+    print(f"{row['what']} {row['shape']}: {row['kernel_ms']:.3f} ms ({row['clocked_kernel_ms']:.3f}"
+          f" ms with the phase clocks), on {row['device']}")
+    for name, r in row["passes"].items():
+        total = sum(r["clocks_per_warp_turn"].values())
+        print(f"  {name}, {r['warp_turns']} warp turns, {total:.0f} clocks a warp a turn:")
+        for p, share in r["phase_share"].items():
+            print(f"    {p}: {share:.1%}, {r['clocks_per_warp_turn'][p]:.0f} a warp a turn")
 
 
 def profile_bf16_backward(smi):
@@ -282,6 +335,49 @@ def profile_bf16_backward(smi):
                                     fab90._kernel().argtypes, "flash_bwd_sm90_phase_clocks_read")
     profile_d256_backward(smi, fn, clocks_read)
     profile_d64_backward(smi, fn, clocks_read)
+    profile_d128_backward(smi, fn, clocks_read)
+
+
+def profile_d128_backward(smi, fn, clocks_read):
+    """The d128 dK/dV pass's phase clocks at olmo-1b's training shape."""
+    cfg = get_config(OLMO_ARCH)
+    B, T_ = OLMO_TRAIN
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, do = (torch.randn((B, cfg.n_heads, T_, cfg.head_dim), generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    o, lse = fa90.flash_attention_sm90_cuda(q, k, v, causal=True, return_lse=True)
+    run = lambda: fab90.flash_attention_bwd_sm90_cuda(q, k, v, o, lse, do,  # noqa: E731
+                                                      causal=True)
+    plain_ms = cuda_ms(run)
+    clocks, clocked_ms = bf16_clocks(fn, clocks_read, run)
+    print_turns({"device": smi, "what": "flash_attention_bwd_sm90 bf16 d128",
+                 "shape": [B, cfg.n_heads, T_, cfg.head_dim], "mask": "causal",
+                 "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms},
+                {"dK/dV": clocks[4][:len(D64_PHASES)] + [clocks[4][-1]]}, D64_PHASES)
+
+
+def profile_bf16_forward(smi):
+    """The d128 forward's phase clocks at olmo-1b's training and serving
+    shapes, its one-part and two-part launches apart."""
+    fn, clocks_read = build_clocked("flash_attention_sm90", "flash_attention_sm90_fwd",
+                                    fa90._kernel().argtypes, "flash_fwd_sm90_phase_clocks_read")
+    cfg = get_config(OLMO_ARCH)
+    for name, B, T_ in OLMO_FWD_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(17)
+        q, k, v = (torch.randn((B, cfg.n_heads, T_, cfg.head_dim), generator=g,
+                               device="cuda").bfloat16() for _ in range(3))
+        run = lambda: fa90.flash_attention_sm90_cuda(q, k, v, causal=True)  # noqa: E731
+        plain_ms = cuda_ms(run)
+        clocks, clocked_ms = read_clocks(fa90, fn, clocks_read, run, len(FWD_PASSES),
+                                         FWD_CLOCK_PHASES)
+        print_turns({"device": smi, "what": f"flash_attention_sm90 bf16 d128, {name}",
+                     "shape": [B, cfg.n_heads, T_, cfg.head_dim], "mask": "causal",
+                     "one_part_blocks": fa90.one_part_blocks(T_, T_, cfg.head_dim, causal=True,
+                                                             window=None, q_offset=0),
+                     "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms},
+                    dict(zip(FWD_PASSES, clocks)), FWD_PHASES)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def profile_d64_backward(smi, fn, clocks_read):
@@ -353,10 +449,7 @@ def profile_d256_backward(smi, fn, clocks_read):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--what", choices=("all", "forward", "backward", "bf16-backward"),
-                    default="all")
-    args = ap.parse_args()
+    args = ARGS
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -368,6 +461,8 @@ def main() -> int:
         profile_backward(smi)
     if args.what in ("all", "bf16-backward"):
         profile_bf16_backward(smi)
+    if args.what in ("all", "bf16-forward"):
+        profile_bf16_forward(smi)
     return 0
 
 
