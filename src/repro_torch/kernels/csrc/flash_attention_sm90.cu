@@ -54,9 +54,9 @@
 //   (2^-7 |want| + 1e-4) on long rows, so P is split into two bf16 parts,
 //   hi = bf16(p) and lo = bf16(p - hi), and P V is the sum of two wgmma
 //   (hi V + lo V, exact products, float32 sums): p is carried to ~2^-16
-//   relative, as close as a float32 p for the gate.  At head widths up to
-//   128 the row blocks whose every row sees 1024 keys or more round P once
-//   to fp16 instead (below).
+//   relative, as close as a float32 p for the gate.  P rounded once to fp16
+//   misses it too where a row's weight sits on a few keys (peaked scores,
+//   tools/emulate_fp16_attention.py --peaked), at any count of keys.
 //
 // Head widths 136-256 (recurrentgemma's 256; namespace d256): two consumer
 // warpgroups of 64 query rows that take turns at the tensor cores, over the
@@ -93,25 +93,13 @@
 // kernel whose operands in flight do not fit 168: "C7512 ... insufficient
 // register resources"); the accumulator (64 registers), S (64) and P (64
 // in two parts, 32 in one) are never all live.  P V in two bf16 parts is
-// two thirds of a tile's tensor time (6 D' flops a pair with S), so the
-// 128-row blocks whose every row sees 1024 keys or more (one contiguous
-// range, flash_attention_sm90.py::one_part_blocks, from the mask alone) take
-// it in one part: P' = p 2^7 straight from the exponentials (p <= 2^8 under
-// the lazy rescale, l the sum of P' taken back by 2^-7) rounded once to
-// fp16 against an fp16 copy of v times 2^ev (sm90_common.cuh's
-// convert_fp16, two launches before), one m64n128k16 a 16-key step over
-// both atoms, the sums taken back by 2^-(7 + ev) as they are stored: 4 D'
-// a pair.  S stays a bf16 product of q and k.  The rounding error of P
-// averages out over a row's keys: over 129-256 keys one fp16 rounding put
-// the long path's (4, 32, 8192, 120) at 1.033 of the gate, and the CPU
-// sweep (tools/emulate_fp16_attention.py --keys-sweep) keeps the error
-// under a bf16 ulp or the gate's floor from about a thousand.  The two
-// kinds of block are two launches (kernel template ONE), the one-part range
-// first (a wgmma under a branch serialises every wgmma of a kernel), the
-// other a programmatic dependent launch whose blocks start as the first
-// launch's last wave frees SMs (griddep_wait).  By SM clocks (PERF.md) a
-// one-part consumer spends half of its turn in the softmax, more than its
-// products take at the card's rate, and a sixth draining P V and S.  Two
+// two thirds of a tile's tensor time (6 D' flops a pair with S).  P V in
+// one fp16 part, P' = p 2^7 against an fp16 copy of v (4 D' a pair), ran
+// the 128-row blocks whose every row sees 1024 keys or more until one
+// rounding of P was found to miss the limit on peaked scores (git history
+// keeps that design).  By SM clocks (PERF.md) a consumer spends half of
+// its turn in the softmax, more than its products take at the card's
+// rate, and a sixth draining P V and S.  Two
 // consumers alone at 256 threads (255 registers: this tile's S, then the
 // previous tile's P V, two commit groups, the exponentials while P V runs,
 // or one commit as at 136-256; k and v rings of three stages each, the
@@ -125,42 +113,26 @@
 // Head widths up to 64 (seamless's 64): one block per NC * 64 query rows,
 // 128-key tiles (S is one m64n128k16 wgmma a 16-column step) and NC + 1
 // warpgroups: a producer whose one thread issues every TMA load into a ring
-// of five stages and NC consumer warpgroups of 64 rows, NC = 2 above 64
-// query rows and 1 up to 64 (a decode step).  The two consumers take turns
-// at the tensor cores (a named barrier each), so that one consumer's
-// softmax runs while the other's products run (ping-pong).  ptxas compiles
-// the consumers to the launch's 168 registers a thread whatever setmaxnreg
-// grants them at run time.  In two bf16 parts P V is two thirds of a tile's
-// tensor time (6 D' flops a pair with S), and S of the next tile beside
-// the two P parts and the accumulator (160 registers) spilled and
-// serialised every wgmma, so in its turn a consumer runs the previous
-// tile's P V, waits, then issues this tile's S.  Above 64 rows the blocks
-// whose every row sees 1024 keys or more of its key range (the encoder's
-// and the cross-attention's: one_part_block, from the mask and the ranges
-// alone) take P V in one part, 4 D' a pair: P' = p 2^7 straight from the
-// exponentials (l their sum, taken back by 2^-7), rounded once to fp16 (as
-// at 65-128), against the v tile converted to fp16 in shared memory.  With
-// one P part (32 registers) a consumer issues this tile's S and the
-// previous tile's P V in one turn and runs its softmax while P V does.
-// Warps 1-3 of the producer warpgroup (idle otherwise; 56 registers,
-// setmaxnreg) convert each v tile in place once its TMA load lands: v times
-// 2^e_t, e_t by fp16_exponent from the tile's largest |v|, its bits moved
-// to fp16's fields by integer instructions (bf16x2_to_f16x2: exact where
-// the result is an fp16 normal, only values 2^29 or more below the tile's
-// max fall under it; no conversion instruction, whose pipe the softmax's
-// exponentials use), then a barrier of its own that the consumers wait on
-// before the tile's P V.  So the one-part call adds no launch and no global
-// memory traffic.  A consumer folds the change 2^(e_t - e_(t-1)) into the
-// alpha it multiplies its accumulator by on every tile (exact), so the
-// accumulator holds sums of p v 2^(7 + e_t), taken back by 2^-(7 + e_last)
-// as they are stored; e_t rises by at most 64 a tile (kExpRise), so that
-// the rescale cannot overflow.  The two kinds of block are two launches
-// (kernel template ONE), the one-part one first: a wgmma under a branch
-// serialises every wgmma of a kernel.  Where a call has both kinds each
-// launch runs over every block and a block of the other kind returns at
-// once (one_filter).  A third consumer (192 rows, 512 threads) is not
-// kept: at 128 registers a thread it spills.
-//
+// of five stages and NC consumer warpgroups of 64 rows.  The caller picks
+// NC by the rows a block it passes (flash_attention_sm90.py::block_rows):
+// 1 up to 64 query rows (a decode step); above, 3 (192 rows, 512 threads)
+// where the call's waves of such blocks hold no more rows of an SM's time
+// than those of 128-row blocks (seamless's encoder), else 2.
+// The consumers take turns at the tensor cores (named barrier 1 + w,
+// passed on to 1 + (w + 1) % NC), so that a consumer's softmax runs while
+// the others' products run (ping-pong).  P V in two bf16 parts is two
+// thirds of a tile's tensor time (6 D' flops a pair with S; 768 clocks of
+// a 128-key tile at the SM's rate): with two consumers a softmax (~1600
+// clocks a turn, PERF.md) cannot hide behind the other's products, with
+// three it has two consumers' to hide behind, and each k and v tile, read
+// once, serves 192 rows.  In its turn a consumer runs the previous tile's
+// P V, waits, then issues this tile's S (the accumulator, S and two P
+// parts, 160 registers, are never all live); see d64::Cfg for the
+// registers.  One fp16 part of P with v converted to fp16 in shared memory
+// by the producer's idle warps ran the blocks whose rows see 1024 keys or
+// more, 9 % faster at the encoder than two parts, until one rounding of P
+// was found to miss the limit on peaked scores (git history keeps it).
+
 // Split keys (widths up to 64): a call with few blocks (fewer than two
 // waves, and only where S ranges fill the waves better, see
 // flash_attention_sm90.py::split_count) cuts the live key span
@@ -179,15 +151,16 @@
 
 #ifdef FLASH_PHASE_CLOCKS
 // Built with -DFLASH_PHASE_CLOCKS (tools/profile_flash_attention.py only),
-// every consumer warp of the d128 kernels adds the SM clocks it spends in
-// each phase of its tile loop to flash_fwd_sm90_phase_clocks[pass] (pass 0
-// the one-part launch, 1 the two-part one): waiting for a stage's loads;
-// waiting for the turn; the products issued and the turn passed; waiting
-// for P V to drain; waiting for S; the softmax (with the accumulator's
-// rescale); P rounded.  The last entry counts the warp's turns in the loop
-// (tiles after its first).
+// every consumer warp of the d128 and d64 kernels adds the SM clocks it
+// spends in each phase of its tile loop to flash_fwd_sm90_phase_clocks[pass]
+// (pass 0 the d128 kernel, 1 the d64 kernels that do not split, 2 those
+// that do): waiting for a stage's loads; waiting for the turn; the products
+// issued and the turn passed; waiting for P V to drain; waiting for S; the
+// softmax (with the accumulator's rescale); P split into its parts.  The
+// last entry counts the warp's turns in the loop (tiles after its first).
 constexpr int kFwdPhases = 8;
-__device__ unsigned long long flash_fwd_sm90_phase_clocks[2][kFwdPhases];
+constexpr int kFwdPasses = 3;
+__device__ unsigned long long flash_fwd_sm90_phase_clocks[kFwdPasses][kFwdPhases];
 #define PHASE(k)                       \
   {                                    \
     const long long now = clock64();   \
@@ -226,37 +199,38 @@ namespace d64 {
 constexpr int kKeys = 128;                 // keys a tile
 constexpr int kQBytes = kBM * kAtom * 2;   // one consumer's q tile
 constexpr int kKVBytes = kKeys * kAtom * 2;
-constexpr int kConverters = 96;            // ONE: warps 1-3 of the producer warpgroup
-// ONE: a tile's exponent rises by at most this much over the one before, so
-// that rescaling the accumulator (sums under 2^62) cannot overflow, and
-// stays within [-kExpNone, kExpNone], kExpNone that of a tile of zeros
-// before any other
-constexpr int kExpRise = 64;
-constexpr int kExpNone = 112;
 
-// NC consumer warpgroups: 2 above 64 query rows, 1 up to 64 (a decode
-// step).  Three consumers (192 rows) spill: at 512 threads ptxas compiles
-// them to 128 registers.  ONE: P V in one fp16 part, v converted by the
-// producer's warps 1-3 (more registers there).  What sets a one-part
-// tile's pace is not its exponentials on MUFU (16 a clock an SM, as many
-// clocks a 128 x 128 tile as its wgmma at D = 64 by the throughput table):
-// with every ex2 of the tile loop a multiply instead, the encoder's call
-// ran no faster, and with P's fp16 packs a byte permute 0.2-0.6 % faster
-// (timing-only builds, PERF.md), so no exponential goes to the FMA pipe.
-template <int NC, bool ONE = false>
+// NC consumer warpgroups: 1 up to 64 query rows (a decode step), else 2 or
+// 3 (the rows a block the caller passes).  The launch allocates 3 x 168
+// registers a thread at NC = 2 and 4 x 128 at NC = 3, which setmaxnreg
+// moves from the producer to the consumers (24 + 2 x 240, 24 + 3 x 160).
+// ptxas plans the code for the launch's budget whatever setmaxnreg grants:
+// at NC = 3 the consumer's SASS names no register above the launch's 128
+// (PERF.md gives ptxas's report and the SASS's highest register and spill
+// instructions a build).  So the NC = 3 consumer is fitted to 128: the
+// accumulator (32) beside S (64) or beside P's two parts (64), never all
+// three, and few loop scalars (the tile range and the bounds of the tiles
+// every row sees whole); the rows' positions and the block's indices are
+// read again where a masked tile or the store needs them, and q's address
+// is opaque to the loop, so that its four wgmma descriptors are computed
+// anew each turn instead of held (held, they spilled).  64-key halves of a
+// tile (S and P 32 registers each) fit with room to spare but cost more a
+// key.  What sets a tile's pace is not its exponentials on MUFU (16 a
+// clock an SM, as many clocks a 128 x 128 tile as its wgmma at D = 64 by
+// the throughput table): with every ex2 of the tile loop a multiply
+// instead, the encoder's call ran no faster (PERF.md), so no exponential
+// goes to the FMA pipe.
+template <int NC>
 struct Cfg {
   static constexpr int kNC = NC;
   static constexpr int kRows = NC * kBM;             // query rows a block
   static constexpr int kThreads = 128 * (NC + 1);
-  // setmaxnreg: at NC = 2 the producer's and the consumers' add up to the
-  // launch's 3 x 168 a thread
-  static constexpr int kProducerRegs = ONE ? 56 : 24;
-  static constexpr int kConsumerRegs = ONE ? 224 : 240;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = NC == 3 ? 160 : 240;
   static constexpr int kStages = 5;
-  // q tiles, the k and v rings, the full, empty and (ONE) converted
-  // barriers a stage and q's, then a stage's v exponent and partial maxima
-  static constexpr int kSmem =
-      1024 + NC * kQBytes + 2 * kStages * kKVBytes + 8 * (3 * kStages + 1) + 20 * kStages;
+  // q tiles, the k and v rings, the full and empty barriers a stage and q's
+  static constexpr int kSmem = 1024 + NC * kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 }  // namespace d64
 
@@ -274,13 +248,6 @@ struct D64Params {
   float softcap, scale, scale_log2;
   float cap_scale;      // scale / softcap
   unsigned* arrivals;   // split: one zeroed counter a (batch, head, row block)
-  // width 65-128: the row blocks [one_lo, one_hi) take P V in one fp16 part
-  // against v's fp16 copy, whose sums v_back (2^-(kPShift + ev)) takes back
-  int64_t one_lo, one_hi;
-  const float* v_back;
-  // width up to 64: a call with both kinds of block launches each over every
-  // block, and a block runs in the launch of its kind (one_part_block)
-  int one_filter;
 };
 
 struct TileRange {
@@ -317,72 +284,58 @@ __device__ __forceinline__ TileRange tile_range(const D64Params& p, int64_t q0, 
   return r;
 }
 
-// The live keys of [lo, hi) that the row at position qpos sees
-__host__ __device__ inline int64_t keys_seen(const D64Params& p, int64_t lo, int64_t hi,
-                                             int64_t qpos) {
-  if (p.causal && qpos + 1 < hi) hi = qpos + 1;
-  if (p.has_window && qpos - p.window + 1 > lo) lo = qpos - p.window + 1;
-  return hi - lo;
-}
-
-// Width up to 64: whether the block of rows q0 .. rows_end - 1 in key range
-// s takes P V in one fp16 part, every row seeing kOnePartKeys live keys or
-// more of the range (all of the keys in a call that does not split; a
-// window under kOnePartKeys never).  A row's count is concave in its
-// position, so the block's first and last rows decide.
-// flash_attention_sm90.py::one_part_ranges mirrors it.
-constexpr int64_t kOnePartKeys = 1024;
-__host__ __device__ inline bool one_part_block(const D64Params& p, int64_t q0, int64_t rows_end,
-                                               int s) {
-  if (p.has_window && p.window < kOnePartKeys) return false;
-  int64_t lo = 0, hi = p.Tk;
-  if (p.splits > 1) {
-    lo = p.split_lo + kSplitKeys * static_cast<int64_t>(s * p.split_chunks / p.splits);
-    if (s + 1 < p.splits) {
-      const int64_t end =
-          p.split_lo + kSplitKeys * static_cast<int64_t>((s + 1) * p.split_chunks / p.splits);
-      if (end < hi) hi = end;
-    }
+// Sets to -inf the scores of a thread's share of a tile of 2N keys from kt
+// (see online_softmax) that its rows at positions pos0 and pos1 do not see.
+// The bounds are taken once a tile as 32-bit column offsets from kt + c2,
+// so that an element costs two compares with constants and a select.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&sc)[N], const D64Params& p, int64_t kt,
+                                          int64_t pos0, int64_t pos1, int c2) {
+  constexpr int64_t kTile = 2 * N;
+  // offsets are read against [0, kTile): clamping to [-1, kTile] keeps every compare
+  const auto edge = [](int64_t x) {
+    return static_cast<int>(x < -1 ? -1 : (x > kTile ? kTile : x));
+  };
+  const int64_t base = kt + c2;
+  int64_t hi0 = p.Tk - base, hi1 = hi0, lo0 = 0, lo1 = 0;   // live: lo <= j < hi
+  if (p.causal) {
+    hi0 = pos0 - base + 1 < hi0 ? pos0 - base + 1 : hi0;
+    hi1 = pos1 - base + 1 < hi1 ? pos1 - base + 1 : hi1;
   }
-  return keys_seen(p, lo, hi, p.q_offset + q0) >= kOnePartKeys &&
-         keys_seen(p, lo, hi, p.q_offset + rows_end - 1) >= kOnePartKeys;
+  if (p.has_window) {
+    lo0 = pos0 - p.window + 1 - base;
+    lo1 = pos1 - p.window + 1 - base;
+  }
+  const int h0 = edge(hi0), h1 = edge(hi1), g0 = edge(lo0), g1 = edge(lo1);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int j = (i / 4) * 8 + (i & 1);
+    const bool live = (i & 2) ? (j >= g1 && j < h1) : (j >= g0 && j < h0);
+    sc[i] = live ? sc[i] : -CUDART_INF_F;
+  }
 }
 
 // One tile's online softmax on a thread's share of S = q k^T: N scores, the
 // columns 8j + c2 and 8j + c2 + 1 of rows r0 (sc[4j], sc[4j + 1]) and r0 + 8
-// (sc[4j + 2], sc[4j + 3]) for j < N / 4, a tile of 2N keys from kt; qa, qb:
-// the positions of the warpgroup's first and last rows, pos0, pos1 this
-// thread's.  Applies the softcap and the masks of a tile that crosses a mask
-// edge, moves the reference points m0, m1, turns sc into p 2^SHIFT in
-// place and updates l0, l1 (sums of p 2^SHIFT).  alpha0, alpha1 rescale
-// the accumulator.  CAP: 1 or 0 where the caller fixes the softcap at
-// compile time, else p.has_softcap.  Every exponential is one ex2 on MUFU
-// (d64::Cfg says why none moved to the FMA pipe).
-template <int N, int CAP = -1, int SHIFT = 0>
-__device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& p, int64_t kt,
-                                               int64_t qa, int64_t qb, int64_t pos0,
-                                               int64_t pos1, int c2, float f, float& m0,
-                                               float& m1, float& l0, float& l1, float& alpha0,
-                                               float& alpha1) {
-  constexpr int kTile = 2 * N;
-  const bool all_live = kt + kTile <= p.Tk && (!p.causal || kt + kTile - 1 <= qa) &&
-                        (!p.has_window || kt > qb - p.window);
+// (sc[4j + 2], sc[4j + 3]) for j < N / 4, a tile of 2N keys.  Applies the
+// softcap, and where the tile crosses a mask edge (all_live false) the mask
+// (mask(sc): mask_tile), moves the reference points m0, m1, turns sc into
+// p in place and updates l0, l1 (sums of p).  alpha0, alpha1
+// rescale the accumulator.  CAP: 1 or 0 where the caller fixes the softcap
+// at compile time, else p.has_softcap.  Every exponential is one ex2 on
+// MUFU (d64::Cfg says why none moved to the FMA pipe).
+template <int N, int CAP = -1, class Mask>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], const D64Params& p, bool all_live,
+                                             const Mask& mask, float f, float& m0, float& m1,
+                                             float& l0, float& l1, float& alpha0,
+                                             float& alpha1) {
   // The softcap and the mask are uniform branches taken once a tile, not
   // once an element (a branch an element costs more than the exponentials).
   if (CAP < 0 ? p.has_softcap != 0 : CAP != 0) {
 #pragma unroll
     for (int i = 0; i < N; ++i) sc[i] = p.softcap * tanhf(sc[i] * p.cap_scale) * kLog2e;
   }
-  if (!all_live) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int64_t kpos = kt + (i / 4) * 8 + c2 + (i & 1);
-      const int64_t qpos = (i & 2) ? pos1 : pos0;
-      const bool live = kpos < p.Tk && (!p.causal || kpos <= qpos) &&
-                        (!p.has_window || kpos > qpos - p.window);
-      sc[i] = live ? sc[i] : -CUDART_INF_F;
-    }
-  }
+  if (!all_live) mask(sc);
   // the row max and sum in four independent chains each, so that the
   // reductions do not wait on one long dependency chain
   float mx[2][4] = {{m0, m0, m0, m0}, {m1, m1, m1, m1}};
@@ -408,8 +361,8 @@ __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& 
   alpha1 = up1 ? ex2((m1 - mx1) * f) : 1.0f;
   if (up0) m0 = mx0;
   if (up1) m1 = mx1;
-  const float mf0 = (m0 == -CUDART_INF_F ? 0.0f : m0 * f) - SHIFT;
-  const float mf1 = (m1 == -CUDART_INF_F ? 0.0f : m1 * f) - SHIFT;
+  const float mf0 = m0 == -CUDART_INF_F ? 0.0f : m0 * f;
+  const float mf1 = m1 == -CUDART_INF_F ? 0.0f : m1 * f;
   float sum[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -419,6 +372,23 @@ __device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& 
   }
   l0 = l0 * alpha0 + ((sum[0][0] + sum[0][1]) + (sum[0][2] + sum[0][3]));
   l1 = l1 * alpha1 + ((sum[1][0] + sum[1][1]) + (sum[1][2] + sum[1][3]));
+}
+
+// softmax_tile of the tile from kt, whose mask edges it finds itself: qa, qb
+// the positions of the warpgroup's first and last rows, pos0, pos1 this
+// thread's
+template <int N, int CAP = -1>
+__device__ __forceinline__ void online_softmax(float (&sc)[N], const D64Params& p, int64_t kt,
+                                               int64_t qa, int64_t qb, int64_t pos0,
+                                               int64_t pos1, int c2, float f, float& m0,
+                                               float& m1, float& l0, float& l1, float& alpha0,
+                                               float& alpha1) {
+  constexpr int kTile = 2 * N;
+  const bool all_live = kt + kTile <= p.Tk && (!p.causal || kt + kTile - 1 <= qa) &&
+                        (!p.has_window || kt > qb - p.window);
+  softmax_tile<N, CAP>(
+      sc, p, all_live, [&](float(&s)[N]) { mask_tile(s, p, kt, pos0, pos1, c2); }, f, m0, m1,
+      l0, l1, alpha0, alpha1);
 }
 
 // P = hi + lo, each bf16, in the A-operand layout: register r of the
@@ -440,20 +410,6 @@ __device__ __forceinline__ void split_p(const float (&sc)[8 * KK], uint32_t (&ph
       plo[kk][r] = pack_bf16(__floats2bfloat162_rn(a - __uint_as_float(ha),
                                                   c - __uint_as_float(hc)));
     }
-}
-
-// P' = p 2^kPShift, each value rounded once to fp16: p <= 2^8 under the
-// lazy rescale, so P' <= 2^15, under fp16's 65504, and p from 2^-21 up is an
-// fp16 normal (2^-11 relative)
-constexpr int kPShift = 7;
-// P' (cvt.rn.f16x2.f32) in split_p's A-operand layout, from p already
-// times 2^kPShift (online_softmax's SHIFT)
-template <int KK>
-__device__ __forceinline__ void pack_p16(const float (&sc)[8 * KK], uint32_t (&p16)[KK][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) p16[kk][r] = pack_f16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
 // out = acc / l for this thread's rows row0 and row0 + 8 (columns 8j + c2,
@@ -535,8 +491,7 @@ __device__ __forceinline__ bool bar_any(int id, int threads, bool pred) {
   return out != 0;
 }
 
-constexpr int kMergeBar = 3;   // the consumers' named barrier (1 + w are their turns)
-constexpr int kConvBar = 4;    // ONE: the converting warps'
+constexpr int kMergeBar = 5;   // the consumers' named barrier (1 + w are their turns)
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
@@ -668,78 +623,47 @@ __device__ __forceinline__ void merge_ranges(const D64Params& p) {
   }
 }
 
-// Two bf16 values (a word, the first in the low half) times 2^e as fp16,
-// in four integer instructions and no conversion (whose pipe the softmax's
-// exponentials use): k = (112 - e) 2^7 in both halves (-112 <= e <= 112;
-// fp16's exponent bias is 112 below bf16's).  Each magnitude, first raised
-// to k, has its exponent field rebased by k and its fields shifted to
-// fp16's widths (8 exponent and 7 mantissa bits to 5 and 10): exact where
-// the result is an fp16 normal, zero or one under 2^-14 where it would be
-// under fp16's normal range, and a bf16 Inf or NaN stays one where e =
-// -112.  The tile's largest magnitude times 2^e is at most 65280, so no
-// half's result reaches the other half.
-__device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t w, uint32_t k) {
-  const uint32_t a = __vmaxu2(w & 0x7fff7fffu, k);
-  return (a - k) * 8u | (w & 0x80008000u);
+// floor(a / d) for d > 0
+__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t d) {
+  return a >= 0 ? a / d : -((d - 1 - a) / d);
 }
 
-// Warps 1-3 of the producer warpgroup, ONE: each v tile of the ring, once
-// its TMA load has landed (full), to fp16 in place times 2^e_t, e_t by the
-// fp16_exponent rule from the tile's largest |v| within [-112, 112] (the
-// previous tile's where the tile is all zeros, at most kExpRise above it),
-// then e_t into vexp and the converted barrier.  Each 2-byte element keeps
-// its place, so the swizzled layout is unchanged.
-template <int kStages>
-__device__ __forceinline__ void convert_v_tiles(uint8_t* vs, uint64_t* full, uint64_t* conv,
-                                                int* vexp, uint32_t* vmax, int n_tiles, int ct) {
-  using namespace d64;
-  const int lane = ct & 31, w = ct >> 5;
-  int e = kExpNone;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    mbar_wait(&full[st], (t / kStages) & 1);
-    uint4* tile = reinterpret_cast<uint4*>(vs + st * kKVBytes);
-    uint32_t m = 0;   // two bf16 magnitudes
-    for (int i = ct; i < kKVBytes / 16; i += kConverters) {
-      const uint4 x = tile[i];
-      m = __vmaxu2(m, x.x & 0x7fff7fffu);
-      m = __vmaxu2(m, x.y & 0x7fff7fffu);
-      m = __vmaxu2(m, x.z & 0x7fff7fffu);
-      m = __vmaxu2(m, x.w & 0x7fff7fffu);
-    }
-    m = max(m & 0xffffu, m >> 16);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) vmax[4 * st + w] = m;
-    bar_sync(kConvBar, kConverters);
-    m = max(vmax[4 * st], max(vmax[4 * st + 1], vmax[4 * st + 2]));
-    if (m != 0) e = min(max(fp16_exponent(m << 16), -kExpNone), min(kExpNone, e + kExpRise));
-    const uint32_t k = static_cast<uint32_t>(112 - e) * 0x800080u;   // (112 - e) 2^7 a half
-    for (int i = ct; i < kKVBytes / 16; i += kConverters) {
-      const uint4 x = tile[i];
-      tile[i] = make_uint4(bf16x2_to_f16x2(x.x, k), bf16x2_to_f16x2(x.y, k),
-                           bf16x2_to_f16x2(x.z, k), bf16x2_to_f16x2(x.w, k));
-    }
-    fence_async_shared();   // the stores, to the consumers' wgmma
-    if (ct == 0) vexp[st] = e;
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&conv[st]);
-  }
+// The thread's lane and the block's x index, read from the special
+// registers where they are used (volatile: not kept in a register from an
+// earlier read)
+__device__ __forceinline__ int lane_now() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(v));
+  return static_cast<int>(v);
+}
+__device__ __forceinline__ unsigned block_x() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(v));
+  return v;
+}
+
+// Width up to 64: the first of the two query rows (it and 8 below) of this
+// consumer thread of a block of kRows rows (flash_attention_d64_kernel)
+template <int kRows>
+__device__ __forceinline__ int64_t d64_row0(const D64Params& p) {
+  unsigned tid, nbx;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tid));
+  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(nbx));
+  const int64_t n_rb = nbx / p.splits;
+  return (n_rb - 1 - block_x() / p.splits) * kRows + (tid / 128) * kBM + ((tid / 32) & 3) * 16 +
+         (tid & 31) / 4;
 }
 
 // Width 64 or less: a producer warpgroup and NC consumer warpgroups (see the
 // top of the file).  SPLIT: the call cuts its keys into ranges, and the
-// blocks merge them (merge_ranges).  ONE: P V in one fp16 part against v's
-// tiles converted in shared memory, else two bf16 parts against v; where a
-// call has both kinds of block (p.one_filter), each launch runs over every
-// block and a block of the other kind returns at once.
-template <int NC, bool SPLIT, bool ONE>
+// blocks merge them (merge_ranges).
+template <int NC, bool SPLIT>
 __global__ void __launch_bounds__(d64::Cfg<NC>::kThreads, 1)
 flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap, const D64Params p) {
   using namespace d64;
-  using C = d64::Cfg<NC, ONE>;
+  using C = d64::Cfg<NC>;
   constexpr int kNC = C::kNC, kRows = C::kRows, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -748,10 +672,7 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   uint8_t* vs = ks + kStages * kKVBytes;            // kStages v tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kKVBytes);
   uint64_t* empty = full + kStages;
-  uint64_t* conv = empty + kStages;                 // ONE: v's tile converted
-  uint64_t* qbar = conv + kStages;
-  int* vexp = reinterpret_cast<int*>(qbar + 1);     // ONE: the tile's exponent a stage
-  uint32_t* vmax = reinterpret_cast<uint32_t*>(vexp + kStages);   // [kStages][4]
+  uint64_t* qbar = empty + kStages;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -762,7 +683,6 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   const int b = blockIdx.z;
   const int hk = h / p.group;
   const int64_t rows_end = q0 + kRows < p.Tq ? q0 + kRows : p.Tq;
-  if (p.one_filter && one_part_block(p, q0, rows_end, split) != ONE) return;
   const TileRange tr = tile_range<kKeys>(p, q0, rows_end, split);
   const int n_tiles = tr.n;
 
@@ -770,7 +690,6 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kNC * 4);   // lane 0 of every consumer warp
-      if (ONE) mbar_init(&conv[s], kConverters / 32);
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -778,7 +697,7 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   if (wg == kNC) {
-    // ---- producer: one thread keeps the ring full; ONE: warps 1-3 convert v
+    // ---- producer: one thread keeps the ring full
     regs_dealloc<C::kProducerRegs>();
     if (tid == kNC * 128) {
       mbar_expect_tx(qbar, kNC * kQBytes);
@@ -792,53 +711,60 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
         tma_load(ks + s * kKVBytes, &kmap, &full[s], 0, kt, hk, b);
         tma_load(vs + s * kKVBytes, &vmap, &full[s], 0, kt, hk, b);
       }
-    } else if (ONE && tid >= kNC * 128 + 32) {
-      convert_v_tiles<kStages>(vs, full, conv, vexp, vmax, n_tiles, tid - kNC * 128 - 32);
     }
   } else {
     // ---- consumer warpgroup wg: query rows q0 + wg * 64 ... + 63
     regs_alloc<C::kConsumerRegs>();
+    // The tile loop keeps the softmax's state, the tile range and the
+    // bounds of the tiles every row of the warpgroup sees whole; a masked
+    // tile and the store read the thread's row and the block's indices
+    // again (d64_row0, volatile), so that no register holds them across
+    // the loop (at NC = 3 a thread has 128, see Cfg).
     const int lane = tid & 31;
-    const int warp = (tid / 32) & 3;
-    const int r0 = warp * 16 + lane / 4;
-    const int c2 = (lane & 3) * 2;
-    const int64_t wq0 = q0 + wg * kBM;
-    const int64_t qa = p.q_offset + wq0;
-    const int64_t qb = p.q_offset + (wq0 + kBM < p.Tq ? wq0 + kBM : p.Tq) - 1;
-    const int64_t pos0 = qa + r0;
-    const int64_t pos1 = pos0 + 8;
     const uint32_t q_base = smem_u32(qs + wg * kQBytes);
     const float f = p.has_softcap ? 1.0f : p.scale_log2;
+    int live_lo, live_hi;   // tiles [live_lo, live_hi) are live for every row
+    {
+      const int64_t wq0 = q0 + wg * kBM;
+      const int64_t qa = p.q_offset + wq0;
+      const int64_t qb = p.q_offset + (wq0 + kBM < p.Tq ? wq0 + kBM : p.Tq) - 1;
+      int64_t hi = floor_div(p.Tk - tr.begin, kKeys);
+      if (p.causal) {
+        const int64_t c = floor_div(qa - tr.begin + 1, kKeys);
+        hi = c < hi ? c : hi;
+      }
+      const int64_t lo = p.has_window ? floor_div(qb - p.window - tr.begin, kKeys) + 1 : 0;
+      const auto tiles = [&](int64_t x) {
+        return static_cast<int>(x < 0 ? 0 : (x > n_tiles ? n_tiles : x));
+      };
+      live_lo = tiles(lo);
+      live_hi = tiles(hi);
+    }
     float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
     float l0 = 0.0f, l1 = 0.0f;
     float o[1][32];
     float sc[64];
-    uint32_t phi[8][4];            // P in one fp16 part (ONE), or its bf16 hi part
-    uint32_t plo[ONE ? 1 : 8][4];  // the bf16 lo part (two parts only)
-    int ev = kExpNone;             // ONE: the sums in o are of p v 2^(kPShift + ev)
+    uint32_t phi[8][4], plo[8][4];   // P's bf16 hi and lo parts
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[0][i] = 0.0f;
-    // S = q k^T with the k tile in stage st
+    // S = q k^T with the k tile in stage st (q's address opaque, so that
+    // its four descriptors are not held in registers across the loop)
     auto issue_s = [&](int st) {
+      const uint32_t q_base_t = opaque(q_base);
       const uint32_t k_base = smem_u32(ks + st * kKVBytes);
-      wgmma_ss_n128_first(sc, desc(q_base), desc(k_base));
+      wgmma_ss_n128_first(sc, desc(q_base_t), desc(k_base));
 #pragma unroll
       for (int kk = 1; kk < 4; ++kk)
-        wgmma_ss_n128(sc, desc(q_base + kk * 32), desc(k_base + kk * 32), 1);
+        wgmma_ss_n128(sc, desc(q_base_t + kk * 32), desc(k_base + kk * 32), 1);
     };
-    // O += P V with the v tile in stage st: ONE, P' V' (fp16); else
-    // P_hi V + P_lo V
+    // O += P_hi V + P_lo V with the v tile in stage st
     auto issue_pv = [&](int st) {
       const uint32_t v_base = smem_u32(vs + st * kKVBytes);
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         const uint64_t dv = desc(v_base + kk * 16 * 128);
-        if constexpr (ONE) {
-          wgmma_rs_f16(o[0], phi[kk], dv);
-        } else {
-          wgmma_rs(o[0], phi[kk], dv, 1);
-          wgmma_rs(o[0], plo[kk], dv, 1);
-        }
+        wgmma_rs(o[0], phi[kk], dv, 1);
+        wgmma_rs(o[0], plo[kk], dv, 1);
       }
     };
     auto fence_pv = [&]() {
@@ -846,14 +772,8 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         reg_fence(phi[kk]);
-        if constexpr (!ONE) reg_fence(plo[kk]);
+        reg_fence(plo[kk]);
       }
-    };
-    auto parts = [&]() {
-      if constexpr (ONE)
-        pack_p16(sc, phi);
-      else
-        split_p(sc, phi, plo);
     };
     // this warp has finished reading stage st
     auto release = [&](int st) {
@@ -862,22 +782,14 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
     };
     float alpha0, alpha1;
     auto softmax = [&](int t) {
-      // ONE: P' = p 2^kPShift straight from the exponentials, l their sum
-      online_softmax<64, -1, ONE ? kPShift : 0>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys,
-                                                qa, qb, pos0, pos1, c2, f, m0, m1, l0, l1,
-                                                alpha0, alpha1);
-      if constexpr (ONE) {
-        // tile t's v converted: its exponent moves the sums so far to it, a
-        // power of two folded into alpha (exact; 0 below float's range,
-        // where what is dropped lies under 2^-126 of the new tile's scale)
-        const int st = t % kStages;
-        mbar_wait(&conv[st], (t / kStages) & 1);
-        const int e = *reinterpret_cast<volatile int*>(&vexp[st]);
-        const float g = e - ev < -126 ? 0.0f : exp2i(e - ev);
-        ev = e;
-        alpha0 *= g;
-        alpha1 *= g;
-      }
+      softmax_tile<64>(
+          sc, p, t >= live_lo && t < live_hi,
+          [&](float(&s)[64]) {
+            const int64_t pos0 = p.q_offset + d64_row0<kRows>(p);
+            mask_tile(s, p, tr.begin + static_cast<int64_t>(t) * kKeys, pos0, pos0 + 8,
+                      (lane_now() & 3) * 2);
+          },
+          f, m0, m1, l0, l1, alpha0, alpha1);
     };
 
     // Ping-pong: named barrier 1 + w is consumer w's turn at the tensor
@@ -905,49 +817,43 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait_all();
       reg_fence(sc);
       softmax(0);
-      parts();
+      split_p(sc, phi, plo);
+      PHASE_START
       for (int t = 1; t < n_tiles; ++t) {
         const int s = t % kStages;
         const int sp = (t - 1) % kStages;   // the stage of tile t - 1
+        PHASE_TURN
         mbar_wait(&full[s], (t / kStages) & 1);
+        PHASE(0)
         if (NC > 1) bar_sync(mine, 2 * 128);
+        PHASE(1)
         fence_pv();
         wgmma_fence();
-        if constexpr (ONE) {
-          // this tile's S and the previous tile's P V in one turn, the
-          // softmax running while P V does (S, the accumulator and the one
-          // P part in flight: 128 registers)
-          issue_s(s);
-          wgmma_commit();
-          issue_pv(sp);
-          wgmma_commit();
-          if (NC > 1) bar_arrive(other, 2 * 128);
-          wgmma_wait_but_one();
-          reg_fence(sc);
-          softmax(t);
-          wgmma_wait_all();
-          fence_pv();
-          release(sp);
-        } else {
-          issue_pv(sp);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_pv();
-          release(sp);
-          wgmma_fence();
-          issue_s(s);
-          wgmma_commit();
-          if (NC > 1) bar_arrive(other, 2 * 128);
-          wgmma_wait_all();
-          reg_fence(sc);
-          softmax(t);
-        }
+        issue_pv(sp);
+        wgmma_commit();
+        PHASE(2)
+        wgmma_wait_all();
+        PHASE(3)
+        fence_pv();
+        release(sp);
+        wgmma_fence();
+        issue_s(s);
+        wgmma_commit();
+        if (NC > 1) bar_arrive(other, 2 * 128);
+        PHASE(2)
+        wgmma_wait_all();
+        PHASE(4)
+        reg_fence(sc);
+        softmax(t);
         // alpha is 1 on most tiles (the reference point moves rarely); the
         // multiply costs less than a branch
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[0][i] *= (i & 2) ? alpha1 : alpha0;
-        parts();
+        PHASE(5)
+        split_p(sc, phi, plo);
+        PHASE(6)
       }
+      PHASE_END(SPLIT ? 2 : 1)
       const int sp = (n_tiles - 1) % kStages;
       if (NC > 1) bar_sync(mine, 2 * 128);
       fence_pv();
@@ -959,14 +865,13 @@ flash_attention_d64_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_pv();
       release(sp);
     }
-    if constexpr (ONE) {   // P' V' is P V 2^(kPShift + ev), l the sum of P'
-      const float back = ldexpf(1.0f, -(kPShift + ev));
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[0][i] *= back;
-      l0 *= 1.0f / (1 << kPShift);
-      l1 *= 1.0f / (1 << kPShift);
-    }
-    store_rows(p, o, l0, l1, m0, m1, f, b, h, split, wq0 + r0, c2, lane);
+    unsigned by, bz;
+    asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(by));
+    asm volatile("mov.u32 %0, %%ctaid.z;\n" : "=r"(bz));
+    const int ln = lane_now();
+    store_rows(p, o, l0, l1, m0, m1, f, static_cast<int>(bz), static_cast<int>(by),
+               SPLIT ? static_cast<int>(block_x() % p.splits) : 0, d64_row0<kRows>(p),
+               (ln & 3) * 2, ln);
     if constexpr (SPLIT) merge_ranges<NC>(p);
   }
 }
@@ -993,27 +898,10 @@ constexpr int kSmem = 1024 + kConsumers * kQBytes + 2 * kStages * kKVBytes + 8 *
 static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 }  // namespace d128
 
-// griddepcontrol (programmatic dependent launch): the two-part launch may
-// start its blocks while the one-part launch before it on the stream still
-// runs (launch_dependents, from every block of that launch), and every
-// thread of the two-part launch waits for that launch to complete, its
-// memory operations performed and made visible, before it exits (wait):
-// so the two-part launch completes after the one-part one, and whatever
-// the stream runs after it sees both launches' o and lse (the PTX ISA,
-// griddepcontrol).  Without a launch before it wait returns at once.
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // Width 65-128: a producer warpgroup and two consumer warpgroups (see the
 // top of the file).  The softcap is a template argument; D64Params carries
-// the call (no key splits).  ONE: the row blocks [p.one_lo, p.one_hi), P V
-// in one fp16 part against v's fp16 copy (vmap over it); else the others,
-// P V in two bf16 parts.  Both walk their blocks last rows first.
-template <bool CAP, bool ONE>
+// the call (no key splits).  The blocks walk the rows last rows first.
+template <bool CAP>
 __global__ void __launch_bounds__(d128::kThreads, 1)
 flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
@@ -1028,14 +916,12 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
-  if (ONE) griddep_launch_dependents();
   const int tid = threadIdx.x;
   // the role of this thread's warpgroup, the same in every lane
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   // the last query rows see the most keys: start them first
   const int64_t last = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x);
-  const int64_t q0 = (ONE ? p.one_lo + last
-                          : (last < p.one_lo ? last : last + p.one_hi - p.one_lo)) * kRows;
+  const int64_t q0 = last * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / p.group;
@@ -1096,8 +982,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   float l0 = 0.0f, l1 = 0.0f;
   float o[kNB][32];
   float sc[64];
-  uint32_t phi[8][4];            // P in one fp16 part (ONE), or its bf16 hi part
-  uint32_t plo[ONE ? 1 : 8][4];  // the bf16 lo part (two parts only)
+  uint32_t phi[8][4], plo[8][4];   // P's bf16 hi and lo parts
 #pragma unroll
   for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
@@ -1112,25 +997,17 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_ss_n128(sc, desc(q_base_t + (kk / 4) * kBM * 128 + (kk % 4) * 32),
                     desc(k_base + (kk / 4) * kKeys * 128 + (kk % 4) * 32), 1);
   };
-  // O += P V with the v tile in stage st: ONE, P' V' (fp16), one
-  // m64n128k16 a 16-key step over both atoms; else P_hi V + P_lo V, atom by
-  // atom
+  // O += P_hi V + P_lo V with the v tile in stage st, atom by atom
   auto issue_pv = [&](int st) {
     const uint32_t v_base = smem_u32(vs + st * kKVBytes);
-    if constexpr (ONE) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs_n128_f16(o, phi[kk], desc_mn(v_base + kk * 16 * 128, kKeys * 128));
-    } else {
+    for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint64_t dv = desc(v_base + nb * kKeys * 128 + kk * 16 * 128);
-          wgmma_rs(o[nb], phi[kk], dv, 1);
-          wgmma_rs(o[nb], plo[kk], dv, 1);
-        }
-    }
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dv = desc(v_base + nb * kKeys * 128 + kk * 16 * 128);
+        wgmma_rs(o[nb], phi[kk], dv, 1);
+        wgmma_rs(o[nb], plo[kk], dv, 1);
+      }
   };
   auto fence_pv = [&]() {
 #pragma unroll
@@ -1138,14 +1015,8 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       reg_fence(phi[kk]);
-      if constexpr (!ONE) reg_fence(plo[kk]);
+      reg_fence(plo[kk]);
     }
-  };
-  auto parts = [&]() {
-    if constexpr (ONE)
-      pack_p16(sc, phi);
-    else
-      split_p(sc, phi, plo);
   };
   // this warp has finished reading stage st
   auto release = [&](int st) {
@@ -1154,10 +1025,8 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   float alpha0, alpha1;
   auto softmax = [&](int t) {
-    // ONE: P' = p 2^kPShift straight from the exponentials, l their sum
-    online_softmax<64, CAP, ONE ? kPShift : 0>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys,
-                                               qa, qb, pos0, pos1, c2, f, m0, m1, l0, l1, alpha0,
-                                               alpha1);
+    online_softmax<64, CAP>(sc, p, tr.begin + static_cast<int64_t>(t) * kKeys, qa, qb, pos0, pos1,
+                            c2, f, m0, m1, l0, l1, alpha0, alpha1);
   };
   // 64 multiplies a thread: skipped where no row of the warp moved its
   // reference point (most tiles), a branch the whole warp takes alike
@@ -1187,7 +1056,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait_all();
     reg_fence(sc);
     softmax(0);
-    parts();
+    split_p(sc, phi, plo);
     int s = 0, sp = 0;
     uint32_t phase = 0;
     PHASE_START
@@ -1220,10 +1089,10 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
       softmax(t);
       rescale();
       PHASE(5)
-      parts();
+      split_p(sc, phi, plo);
       PHASE(6)
     }
-    PHASE_END(ONE ? 0 : 1)
+    PHASE_END(0)
     bar_sync(mine, kConsumers * 128);
     fence_pv();
     wgmma_fence();
@@ -1234,17 +1103,7 @@ flash_attention_d128_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_pv();
     release(s);
   }
-  if constexpr (ONE) {   // P' V' is P V 2^(kPShift + ev), l the sum of P'
-    const float back = *p.v_back;
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[nb][i] *= back;
-    l0 *= 1.0f / (1 << kPShift);
-    l1 *= 1.0f / (1 << kPShift);
-  }
   store_rows(p, o, l0, l1, m0, m1, f, b, h, 0, wq0 + r0, c2, lane);
-  if (!ONE) griddep_wait();   // completes after the one-part launch before it
 }
 
 // ---------------------------------------------------------------------------
@@ -1518,55 +1377,19 @@ int configure(Kernel kernel, int smem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
-// The conversion's epilogue: v's copy is v 2^ev, and P' V' comes back as
-// P V times v_back = 2^-(kPShift + ev)
-struct VBack {
-  float* back;
-  __device__ void operator()(const int* e) const { *back = ldexpf(1.0f, -(kPShift + e[0])); }
-};
-
-// Width 65-128: where some row block takes one fp16 part, v's fp16 copy
-// first (conv, two launches), then the row blocks [one_lo, one_hi) over
-// it (vm16), then the others over v (vm), each launch skipped when it has
-// no block
 template <bool CAP>
 int launch_d128(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-                const CUtensorMap& vm16, const ConvArgs& conv, uint32_t* parts,
                 const D64Params& p, int64_t B, cudaStream_t stream) {
-  static bool configured = false;   // the attributes are per kernel, set once
+  static bool configured = false;   // the attribute is per kernel, set once
   if (!configured) {
-    int err = configure(flash_attention_d128_kernel<CAP, false>, d128::kSmem);
-    if (err == 0) err = configure(flash_attention_d128_kernel<CAP, true>, d128::kSmem);
+    const int err = configure(flash_attention_d128_kernel<CAP>, d128::kSmem);
     if (err != 0) return err;
     configured = true;
   }
-  const int64_t blocks = (p.Tq + d128::kRows - 1) / d128::kRows;
-  const int64_t one = p.one_hi - p.one_lo;
-  const auto grid = [&](int64_t n) {
-    return dim3(static_cast<unsigned>(n), static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  };
-  if (one > 0) {
-    const cudaError_t err = convert_fp16(conv, 1, parts, VBack{const_cast<float*>(p.v_back)},
-                                         stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_d128_kernel<CAP, true><<<grid(one), d128::kThreads, d128::kSmem, stream>>>(
-        qm, km, vm16, p);
-    const cudaError_t launched = cudaGetLastError();
-    if (launched != cudaSuccess) return static_cast<int>(launched);
-  }
-  if (blocks == one) return 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid(blocks - one);
-  cfg.blockDim = dim3(d128::kThreads);
-  cfg.dynamicSmemBytes = d128::kSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute dependent;
-  dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &dependent;
-  cfg.numAttrs = one > 0 ? 1 : 0;
-  return static_cast<int>(
-      cudaLaunchKernelEx(&cfg, flash_attention_d128_kernel<CAP, false>, qm, km, vm, p));
+  const dim3 grid(static_cast<unsigned>((p.Tq + d128::kRows - 1) / d128::kRows),
+                  static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
+  flash_attention_d128_kernel<CAP><<<grid, d128::kThreads, d128::kSmem, stream>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool CAP>
@@ -1587,36 +1410,20 @@ int launch_d256(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap&
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC, bool SPLIT, bool ONE>
+template <int NC, bool SPLIT>
 int launch_d64(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                const D64Params& p, int64_t B, cudaStream_t stream) {
-  using C = d64::Cfg<NC, ONE>;
+  using C = d64::Cfg<NC>;
   static bool configured = false;   // the attribute is per kernel, set once
   if (!configured) {
-    const int err = configure(flash_attention_d64_kernel<NC, SPLIT, ONE>, C::kSmem);
+    const int err = configure(flash_attention_d64_kernel<NC, SPLIT>, C::kSmem);
     if (err != 0) return err;
     configured = true;
   }
   const dim3 grid(static_cast<unsigned>((p.Tq + C::kRows - 1) / C::kRows * p.splits),
                   static_cast<unsigned>(p.Hq), static_cast<unsigned>(B));
-  flash_attention_d64_kernel<NC, SPLIT, ONE><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm,
-                                                                                     p);
+  flash_attention_d64_kernel<NC, SPLIT><<<grid, C::kThreads, C::kSmem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Width up to 64, more than 64 query rows: `one` of the call's blocks take
-// P V in one fp16 part; their launch first, then the others', each skipped
-// when it has no block (a call with both runs both over every block)
-template <bool SPLIT>
-int launch_d64_parts(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-                     D64Params p, int64_t one, int64_t B, cudaStream_t stream) {
-  const int64_t blocks = (p.Tq + d64::Cfg<2>::kRows - 1) / d64::Cfg<2>::kRows * p.splits;
-  p.one_filter = one > 0 && one < blocks;
-  if (one > 0) {
-    const int err = launch_d64<2, SPLIT, true>(qm, km, vm, p, B, stream);
-    if (err != 0) return err;
-  }
-  return one < blocks ? launch_d64<2, SPLIT, false>(qm, km, vm, p, B, stream) : 0;
 }
 
 }  // namespace
@@ -1632,18 +1439,10 @@ int launch_d64_parts(const CUtensorMap& qm, const CUtensorMap& km, const CUtenso
 // to Tk; then o_part (B, Hq, S, Tq, D) and lse_part (B, Hq, S, Tq), both
 // contiguous float32, take each range's output, and the same launch merges
 // them into o (and lse), counting arrivals in `arrivals`: B Hq ceil(Tq /
-// rows a block) zeroed uint32 (flash_attention_sm90_rows), zero again when
-// the launch ends, used by no other launch in flight.  At 64 < D <= 128,
-// the 128-row blocks [one_lo, one_hi) (0 <= one_lo <= one_hi <= ceil(Tq /
-// 128)) take P V in one fp16 part: then v16, contiguous fp16 scratch of v's
-// shape, and aux, float32 scratch of flash_attention_sm90_aux_floats, both
-// 16-byte aligned, take v's copy (null when the range is empty); every row
-// of those blocks should see 1024 live keys or more
-// (flash_attention_sm90.py::one_part_blocks), or its output may miss the
-// bf16 limit.  At D <= 64 with more than 64 query rows, one_blocks of the
-// call's ceil(Tq / 128) S blocks take P V in one fp16 part
-// (flash_attention_sm90.py::one_part_ranges: all, none, or those whose
-// rows see 1024 keys of their range, one_part_block); 0 otherwise.
+// rows) zeroed uint32, zero again when the launch ends, used by no other
+// launch in flight.  rows: the query rows a block, 64, 128 or 192 at D <= 64
+// (64 exactly when Tq <= 64: flash_attention_sm90.py::block_rows picks
+// them), 128 above.
 // Launches on `stream`; returns the cudaError_t of the launch
 // (0 on success; cudaErrorInvalidValue for arguments the kernel does not
 // take or a tensor map CUDA refuses).
@@ -1657,8 +1456,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                                         int has_softcap, float softcap, float scale,
                                         void* lse, int64_t splits, int64_t split_lo,
                                         int64_t split_chunks, void* o_part, void* lse_part,
-                                        void* arrivals, void* v16, void* aux, int64_t one_lo,
-                                        int64_t one_hi, int64_t one_blocks, void* stream) {
+                                        void* arrivals, int64_t rows, void* stream) {
   const cudaError_t bad = cudaErrorInvalidValue;
   if (D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       Tk < 1 || Tq > 0x7fffffff || Tk > 0x7fffffff || splits < 1 || splits > 65535)
@@ -1668,12 +1466,8 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
                      split_lo < 0 || split_lo % kSplitKeys != 0 ||
                      splits * split_chunks > 0x7fffffff))
     return static_cast<int>(bad);
-  if (one_lo < 0 || one_hi < one_lo || one_hi > (Tq + d128::kRows - 1) / d128::kRows ||
-      (one_hi > one_lo && ((D + 63) / 64 != 2 || v16 == nullptr || aux == nullptr)))
-    return static_cast<int>(bad);
-  const bool d64_parts = D <= 64 && Tq > kBM;
-  if (one_blocks < 0 || (!d64_parts && one_blocks != 0) ||
-      (d64_parts && one_blocks > (Tq + d64::Cfg<2>::kRows - 1) / d64::Cfg<2>::kRows * splits))
+  if (D <= 64 ? (rows != 64 && rows != 128 && rows != 192) || (rows == 64) != (Tq <= kBM)
+              : rows != 128)
     return static_cast<int>(bad);
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   const int64_t DP = (D + 63) / 64 * 64;
@@ -1699,75 +1493,30 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   p.softcap = softcap; p.scale = scale; p.scale_log2 = scale * kLog2e;
   p.cap_scale = has_softcap ? scale / softcap : 0.0f;
   p.arrivals = splits > 1 ? static_cast<unsigned*>(arrivals) : nullptr;
-  p.one_lo = one_lo;
-  p.one_hi = one_hi;
-  p.one_filter = 0;
-  uint32_t* parts = static_cast<uint32_t*>(aux);
-  p.v_back = one_hi > one_lo ? reinterpret_cast<float*>(parts + 4 * kConvBlocks) : nullptr;
   if (DP > 128)
     return has_softcap ? launch_d256<true>(qm, km, vm, p, B, s) : launch_d256<false>(qm, km, vm, p, B, s);
-  if (DP == 128) {
-    // v's fp16 copy, contiguous, for the one-part blocks
-    CUtensorMap vm16 = vm;
-    if (one_hi > one_lo && !make_map(&vm16, v16, D, Tk, Hkv, B, D, Tk * D, Hkv * Tk * D,
-                                     d128::kKeys, CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
-      return static_cast<int>(bad);
-    const ConvArgs conv{{Src16{static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, v_st, Hkv, Tk,
-                               B * Hkv * Tk}},
-                        {static_cast<__half*>(v16)},
-                        D, 1};
-    return has_softcap ? launch_d128<true>(qm, km, vm, vm16, conv, parts, p, B, s)
-                       : launch_d128<false>(qm, km, vm, vm16, conv, parts, p, B, s);
-  }
-  // up to 64 query rows one consumer warpgroup a block, more two
-  if (Tq <= kBM)
-    return splits > 1 ? launch_d64<1, true, false>(qm, km, vm, p, B, s)
-                      : launch_d64<1, false, false>(qm, km, vm, p, B, s);
-  return splits > 1 ? launch_d64_parts<true>(qm, km, vm, p, one_blocks, B, s)
-                    : launch_d64_parts<false>(qm, km, vm, p, one_blocks, B, s);
-}
-
-// 1 where row block rb (rows from 128 rb) of a call at head width up to 64
-// with more than 64 query rows takes P V in one fp16 part in key range s,
-// as its blocks decide where a call has both kinds (one_part_block), else 0
-// (the wrapper's one_part_ranges is held to it)
-extern "C" int flash_attention_sm90_one_part(int64_t Tq, int64_t Tk, int causal,
-                                             int has_window, int64_t window, int64_t q_offset,
-                                             int64_t splits, int64_t split_lo,
-                                             int64_t split_chunks, int64_t rb, int64_t s) {
-  D64Params p{};
-  p.Tq = Tq; p.Tk = Tk; p.causal = causal; p.has_window = has_window; p.window = window;
-  p.q_offset = q_offset; p.splits = static_cast<int>(splits);
-  p.split_lo = splits > 1 ? split_lo : 0;
-  p.split_chunks = splits > 1 ? static_cast<int>(split_chunks) : 0;
-  constexpr int64_t rows = d64::Cfg<2>::kRows;
-  const int64_t end = (rb + 1) * rows < Tq ? (rb + 1) * rows : Tq;
-  return one_part_block(p, rb * rows, end, static_cast<int>(s)) ? 1 : 0;
+  if (DP == 128)
+    return has_softcap ? launch_d128<true>(qm, km, vm, p, B, s) : launch_d128<false>(qm, km, vm, p, B, s);
+  // one, two or three consumer warpgroups a block
+  if (rows == d64::Cfg<1>::kRows)
+    return splits > 1 ? launch_d64<1, true>(qm, km, vm, p, B, s)
+                      : launch_d64<1, false>(qm, km, vm, p, B, s);
+  if (rows == d64::Cfg<3>::kRows)
+    return splits > 1 ? launch_d64<3, true>(qm, km, vm, p, B, s)
+                      : launch_d64<3, false>(qm, km, vm, p, B, s);
+  return splits > 1 ? launch_d64<2, true>(qm, km, vm, p, B, s)
+                    : launch_d64<2, false>(qm, km, vm, p, B, s);
 }
 
 #ifdef FLASH_PHASE_CLOCKS
-// the d128 kernels' phase clocks (2 x kFwdPhases) into out, or zeroed when
-// out is null
+// the kernels' phase clocks (kFwdPasses x kFwdPhases) into out, or zeroed
+// when out is null
 extern "C" int flash_fwd_sm90_phase_clocks_read(unsigned long long* out) {
   if (out == nullptr) {
-    const unsigned long long zero[2][kFwdPhases] = {};
+    const unsigned long long zero[kFwdPasses][kFwdPhases] = {};
     return static_cast<int>(cudaMemcpyToSymbol(flash_fwd_sm90_phase_clocks, zero, sizeof(zero)));
   }
   return static_cast<int>(cudaMemcpyFromSymbol(out, flash_fwd_sm90_phase_clocks,
                                                sizeof(flash_fwd_sm90_phase_clocks)));
 }
 #endif
-
-// the floats of the scratch `aux`: v's partial maxima, then v_back
-extern "C" int flash_attention_sm90_aux_floats() { return 4 * kConvBlocks + 4; }
-
-// The query rows a block of the kernel that takes Tq rows of head width D
-// holds (8 <= D <= 256, D a multiple of 8), which the wrapper mirrors
-// (flash_attention_sm90.py::block_rows); cudaErrorInvalidValue for another D.
-extern "C" int flash_attention_sm90_rows(int64_t Tq, int64_t D, int64_t* rows) {
-  if (D < 8 || D > 256 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t DP = (D + 63) / 64 * 64;
-  *rows = DP == 64 ? (Tq <= kBM ? d64::Cfg<1>::kRows : d64::Cfg<2>::kRows)
-                   : (DP == 128 ? d128::kRows : d256::kRows);
-  return 0;
-}

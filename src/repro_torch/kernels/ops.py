@@ -329,13 +329,11 @@ def split_launches() -> int:
     return _fa90.split_launches
 
 
-def fwd_fp16_launches() -> int:
-    """``flash_attention_sm90`` calls since the last
-    :func:`reset_launch_counts` in which some row block took P V in one fp16
-    part (rows that see 1024 keys or more: at head widths 65-128 two more
-    launches convert v first; up to 64, calls of more than 64 rows, the
-    kernel converts v's tiles in shared memory)."""
-    return _fa90.fp16_launches
+def fwd_d64_launches() -> Dict[int, int]:
+    """``flash_attention_sm90`` calls at head widths up to 64 since the last
+    :func:`reset_launch_counts`, by the query rows a block of the kernel's
+    configuration (64: one consumer warpgroup, 128: two, 192: three)."""
+    return dict(_fa90.d64_launches)
 
 
 def bwd_fp16_launches() -> int:
@@ -350,5 +348,5 @@ def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
     _fa90.split_launches = 0
-    _fa90.fp16_launches = 0
+    _fa90.d64_launches = {rows: 0 for rows in _fa90.d64_launches}
     _fab90.fp16_launches = 0

@@ -309,7 +309,7 @@ def test_tensor_core_rounding_holds_the_bf16_limit_only_with_p_in_two_parts(p_pa
         assert share > 1.0, share
 
 
-# ---------- one fp16 part of P at head widths up to 128 (rows that see 1024 keys)
+# ---------- the forward's plan of row blocks and key ranges, and one fp16 part of P
 def _live_keys(Tq, Tk, *, causal, window, q_offset, lo=0):
     """Each row's live keys of [lo, Tk), counted one by one."""
     qpos = q_offset + np.arange(Tq)[:, None]
@@ -360,30 +360,44 @@ def _live_keys(Tq, Tk, *, causal, window, q_offset, lo=0):
     (3000, 3000, 64, dict(causal=True, window=None, q_offset=0, splits=2)),
     (1500, 4000, 64, dict(causal=True, window=2100, q_offset=2500, splits=3)),
     (1200, 2048, 64, dict(causal=False, window=1024, q_offset=2000, splits=3)),
+    # blocks of the rows of block_rows over B x Hq = bh heads: seamless's
+    # encoder (192 rows, the last block 128), its training encoder (128),
+    # 200 (128) and 513 rows (192, the last block 129) of 64 heads, its
+    # cross-attention (128) and a decode step (64)
+    (32768, 32768, 64, dict(causal=False, window=None, q_offset=0, bh=64)),
+    (8192, 8192, 64, dict(causal=False, window=None, q_offset=0, bh=32)),
+    (200, 1500, 64, dict(causal=True, window=None, q_offset=1300, bh=64)),
+    (513, 2048, 64, dict(causal=False, window=None, q_offset=0, bh=64)),
+    (513, 2048, 64, dict(causal=False, window=None, q_offset=0, bh=64, splits=2)),
+    (8192, 8192, 64, dict(causal=True, window=None, q_offset=0, bh=64)),
+    (512, 32768, 64, dict(causal=False, window=None, q_offset=0, bh=64)),
+    (1, 32768, 64, dict(causal=False, window=None, q_offset=0, bh=64, splits=2)),
 ])
 def test_one_part_blocks_match_a_count_of_each_rows_keys(Tq, Tk, D, kw):
-    """``one_part_ranges`` (from the mask and the key ranges alone, in
-    closed form) against a count of every row's live keys in each range:
-    at widths up to 128 exactly the 128-row blocks whose rows all see
-    ``ONE_PART_KEYS`` keys or more of the range, one contiguous range of
-    them a key range (none up to 64 rows at 64 columns or less, the
-    decode step's configuration); none at other widths.  Without a split
-    ``one_part_blocks`` gives the same blocks."""
+    """The plan that the one-part rule was a part of, against a count of
+    every row's live keys: the blocks of ``block_rows`` rows (over ``bh``
+    heads, 1 where unnamed) cover each query row once, and the key ranges
+    of a split call (``ref.split_ranges``, ``split_plan``'s chunks) hold
+    each row's live keys once between them.  No block takes P V in one
+    fp16 part any more (peaked scores break the limit with it, see
+    ``test_one_fp16_part_breaks_the_limit_on_peaked_scores``), so no range
+    of such blocks is planned."""
     kw = dict(kw)
-    splits = kw.pop("splits", 1)
-    got = tfa90.one_part_ranges(Tq, Tk, D, splits, **kw)
-    rows = tfa90.block_rows(Tq, D)
+    splits, bh = kw.pop("splits", 1), kw.pop("bh", 1)
+    rows = tfa90.block_rows(1, bh, Tq, D, 132)
+    assert rows == 128 if D > 64 else (rows in (128, 192) if Tq > 64 else rows == 64)
+    covered = np.zeros(Tq, dtype=int)
+    for r in range(-(-Tq // rows)):
+        covered[r * rows:(r + 1) * rows] += 1
+    assert (covered == 1).all()
     ranges = tref.split_ranges(Tq, Tk, splits, **kw)
-    assert len(got) == len(ranges)
-    for (lo, hi), (a, b) in zip(got, ranges):
-        keys = _live_keys(Tq, min(b, Tk), lo=a, **kw)
-        want = [r for r in range(-(-Tq // rows))
-                if D <= 128 and (D > 64 or Tq > 64)
-                and keys[r * rows:(r + 1) * rows].min() >= tfa90.ONE_PART_KEYS]
-        assert list(range(lo, hi)) == want
-        assert lo <= hi
-    if splits == 1:
-        assert tfa90.one_part_blocks(Tq, Tk, D, **kw) == got[0]
+    assert len(ranges) == splits
+    lo, chunks = tfa90.split_plan(Tq, Tk, splits, **kw)
+    if splits > 1:     # range s from chunk floor(s chunks / splits), as the kernel reads them
+        assert [a for a, _ in ranges] == [lo + tref.SPLIT_KEYS * (s * chunks // splits)
+                                          for s in range(splits)]
+    seen = sum(_live_keys(Tq, min(b, Tk), lo=min(a, Tk), **kw) for a, b in ranges)
+    np.testing.assert_array_equal(seen, _live_keys(Tq, Tk, **kw))
 
 
 def _round_p(p, one_part):
@@ -395,34 +409,34 @@ def _round_p(p, one_part):
     return hi + (p - hi).bfloat16().float()
 
 
-def _one_part_forward_model(q, k, v, *, causal, window, q_offset, softcap, splits=1):
+def _forward_model(q, k, v, *, causal, window, q_offset, softcap, splits=1, one_part=False):
     """``csrc/flash_attention_sm90.cu``'s arithmetic at head widths up to 128
     in float32 on the CPU, block by block: bf16 q and k multiplied exactly
     and summed in float32, D^-0.5 (and the softcap) in float32; the online
     softmax over the 128-key tiles a block walks in its key range (its
     first row's window start rounded down to a tile, up to its last row's
     causal end), its reference point moving only when a row's max grows by
-    more than 8 in exp2 units; P V on the blocks of ``one_part_ranges``
-    from P rounded once to fp16 (p 2^7) and v in fp16 (at 65-128 v's copy
-    times one power of two, ``fp16_copy``; up to 64 each tile of the
-    block's walk times its own, ``fp16_tiles``, the sums so far dropped
-    where the power falls by more than 2^126), on the others from P in two
-    bf16 parts and the bf16 v; l from the unrounded p; each range's o_s =
-    acc / l and lse_s, merged by ``ref_merge_attention``; bf16 output."""
+    more than 8 in exp2 units; P V from P in two bf16 parts and the bf16 v;
+    l from the unrounded p; each range's o_s = acc / l and lse_s, merged by
+    ``ref_merge_attention``; bf16 output.  ``one_part``: the design the
+    kernel dropped, every block's P V from P rounded once to fp16 (p 2^7)
+    against v in fp16 (at 65-128 v's copy times one power of two,
+    ``fp16_copy``; up to 64 each tile of the block's walk times its own,
+    ``fp16_tiles``, the sums so far dropped where the power falls by more
+    than 2^126)."""
     from repro_torch.kernels.flash_attention_bwd_sm90 import V_TILE, fp16_copy, fp16_tiles
     B, Hq, Tq, D = q.shape
     Tk, G = k.shape[2], Hq // k.shape[1]
     mask = dict(causal=causal, window=window, q_offset=q_offset)
     kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
-    if D > 64:
+    if one_part and D > 64:
         v16, ev = fp16_copy(v)
         v_copy = (v16.float() * torch.exp2(-ev.float())).repeat_interleave(G, dim=1)
-    rows = tfa90.block_rows(Tq, D)
+    rows = tfa90.block_rows(B, Hq, Tq, D, 132)
     ranges = tref.split_ranges(Tq, Tk, splits, **mask)
-    one = tfa90.one_part_ranges(Tq, Tk, D, splits, **mask)
     o_s = torch.zeros((B, Hq, splits, Tq, D))
     lse_s = torch.full((B, Hq, splits, Tq), float("-inf"))
-    for s, ((a, b), (lo, hi)) in enumerate(zip(ranges, one)):
+    for s, (a, b) in enumerate(ranges):
         for rb in range(-(-Tq // rows)):
             r0, r1 = rb * rows, min(Tq, (rb + 1) * rows)
             qpos = q_offset + torch.arange(r0, r1)[:, None]
@@ -430,7 +444,6 @@ def _one_part_forward_model(q, k, v, *, causal, window, q_offset, softcap, split
             k_begin = max(0, q_offset + r0 - window + 1) if window is not None else 0
             k_begin = max(k_begin // V_TILE * V_TILE, a)
             n = max(0, -(-(k_end - k_begin) // V_TILE))
-            one_part = lo <= rb < hi
             if one_part and D <= 64:
                 v16, ev = fp16_tiles(v[:, :, k_begin:min(k_begin + n * V_TILE, Tk)], n)
                 v_tiles = (v16.float().unflatten(-2, (n, V_TILE))
@@ -479,8 +492,8 @@ def _one_part_forward_model(q, k, v, *, causal, window, q_offset, softcap, split
 
 # chip_smoke.py's forward cases at head widths 65-128 (B, Hq, Hkv, Tq, Tk, D,
 # mask): its FLASH_D128_CASES, its FLASH_CASES (q_offset Tk - Tq when causal),
-# all in bf16, and its FLASH_D128_ONE_PART_CASES; then at widths up to 64
-# its FLASH_D64_ONE_PART_CASES, FLASH_D64_CASES and FLASH_SPLIT_CASES, each
+# all in bf16, and its FLASH_D128_LONG_CASES; then at widths up to 64
+# its FLASH_D64_LONG_CASES, FLASH_D64_CASES and FLASH_SPLIT_CASES, each
 # at the key ranges it runs at on the card (``splits``, else the wrapper's
 # own at an H100's 132 SMs)
 _FWD_CASES = [
@@ -508,7 +521,7 @@ _FWD_CASES = [
     (1, 4, 4, 128, 700, 128, dict(causal=False)),
     (1, 4, 4, 256, 300, 96, dict(causal=False)),
     (1, 8, 2, 900, 900, 120, dict(causal=True)),
-    # FLASH_D64_ONE_PART_CASES
+    # FLASH_D64_LONG_CASES
     (2, 4, 4, 130, 1100, 64, dict(causal=False, splits=1)),
     (1, 4, 4, 200, 1150, 64, dict(causal=True, q_offset=950, splits=1)),
     (1, 8, 2, 2500, 2500, 48, dict(causal=True, window=1500, splits=1)),
@@ -531,6 +544,14 @@ _FWD_CASES = [
     (1, 4, 1, 1, 4100, 32, dict(causal=False, softcap=25.0, splits=8)),
     (2, 8, 2, 200, 3000, 48, dict(causal=False, splits=5)),
     (1, 4, 2, 200, 4000, 64, dict(causal=False, splits=6)),
+    # peaked scores (``_peaked_inputs``: each query row a low-temperature
+    # multiple of a few of its keys, as trained models' scores peak), no
+    # mask over 2048 keys: D = 64 in 192-row blocks and in 128-row blocks,
+    # and D = 128, (temperature, keys)
+    (4, 16, 16, 384, 2048, 64, dict(causal=False, peaked=(2.0, 2))),
+    (1, 4, 4, 512, 2048, 64, dict(causal=False, peaked=(1.0, 4))),
+    (1, 4, 4, 512, 2048, 128, dict(causal=False, peaked=(2.0, 4))),
+    (1, 4, 4, 512, 2048, 128, dict(causal=False, peaked=(1.0, 2))),
 ]
 # input scales (q, k, v): chip_smoke.py's FLASH_FP16_SCALES without do's, v
 # far above fp16's largest value (the output scales with v, so its limit's
@@ -554,25 +575,65 @@ def _scaled_inputs(B, Hq, Hkv, Tq, Tk, D, scales, seed):
     return out
 
 
+def _peaked_inputs(B, Hq, Hkv, Tq, Tk, D, scales, temp, hits, seed):
+    """``_scaled_inputs``' k and v (times their scales), and q whose every
+    row is ``temp`` times the sum of ``hits`` keys of its kv head drawn at
+    random, times q's scale: its scores peak on those keys (about ``temp``
+    sqrt(D) there, ``temp`` N(0, hits) elsewhere)."""
+    _, k, v = _scaled_inputs(B, Hq, Hkv, Tq, Tk, D, (1,) + tuple(scales[1:]), seed)
+    rng = np.random.default_rng(seed + 1)
+    kf = k.float().numpy() / scales[1]
+    idx = rng.integers(0, Tk, (B, Hq, Tq, hits))
+    G = Hq // Hkv
+    q = np.stack([np.stack([kf[b, h // G][idx[b, h]].sum(1) for h in range(Hq)])
+                  for b in range(B)])
+    return torch.from_numpy(q * temp * scales[0]).bfloat16(), k, v
+
+
 @pytest.mark.parametrize("scales", list(_FWD_SCALES))
 @pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,kw", _FWD_CASES)
 def test_one_part_forward_emulation_within_the_chip_limit(B, Hq, Hkv, Tq, Tk, D, kw, scales):
-    """The forward kernel's arithmetic (one fp16 part of P on the rule's row
-    blocks, two bf16 parts elsewhere; up to 64 columns v in fp16 tile by
-    tile, at the card's key ranges) against the plain forward, per element
-    within 2^-7 |want| + 1e-4 (``chip_smoke.py``'s FLASH_BF16_REL and
-    _FLOOR, the limit the card holds the kernel to)."""
-    q, k, v = _scaled_inputs(B, Hq, Hkv, Tq, Tk, D, _FWD_SCALES[scales], seed=Tq * 7 + Tk + D)
+    """The forward kernel's arithmetic (P in two bf16 parts, at the card's
+    key ranges) against the plain forward, per element within 2^-7 |want| + 1e-4
+    (``chip_smoke.py``'s FLASH_BF16_REL and _FLOOR, the limit the card
+    holds the kernel to), on random and on peaked scores."""
     kw = dict(kw)
+    peaked = kw.pop("peaked", None)
+    if peaked is None:
+        q, k, v = _scaled_inputs(B, Hq, Hkv, Tq, Tk, D, _FWD_SCALES[scales],
+                                 seed=Tq * 7 + Tk + D)
+    else:
+        q, k, v = _peaked_inputs(B, Hq, Hkv, Tq, Tk, D, _FWD_SCALES[scales], *peaked,
+                                 seed=Tq * 7 + Tk + D)
     mask = dict(causal=kw["causal"], window=kw.get("window"), q_offset=kw.get("q_offset", 0))
     splits = kw.pop("splits", None) or tfa90.split_count(B, Hq, Tq, Tk, D, **mask,
                                                          sm_count=132)
-    got = _one_part_forward_model(q, k, v, softcap=kw.get("softcap"), splits=splits, **mask)
+    got = _forward_model(q, k, v, softcap=kw.get("softcap"), splits=splits, **mask)
     want = tref.ref_flash_attention(q, k, v, **kw)
     diff = (got.float() - want.float()).abs()
     unit = max(1.0, _FWD_SCALES[scales][2]) if scales != "v tiles 2^20 apart" else 1.0
     share = float((diff / (BF16_REL * want.float().abs() + BF16_FLOOR * unit)).max())
     assert share <= 1.0, f"{share:.3f} of the limit"
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_one_fp16_part_breaks_the_limit_on_peaked_scores(D):
+    """Why no block rounds P once to fp16: on rows whose weight sits on a
+    few of their 2048 keys, P V from one fp16 rounding of P (the dropped
+    design, on every block) misses 2^-7 |want| + 1e-4 (2^-11 of each large
+    term is no longer averaged out over many keys), where the kernel's two
+    bf16 parts hold it on the same inputs."""
+    q, k, v = _peaked_inputs(1, 4, 4, 512, 2048, D, (1, 1, 1), 2.0, 4, seed=11)
+    mask = dict(causal=False, window=None, q_offset=0)
+    want = tref.ref_flash_attention(q, k, v, causal=False)
+
+    def share(one_part):
+        got = _forward_model(q, k, v, softcap=None, splits=1, one_part=one_part, **mask)
+        diff = (got.float() - want.float()).abs()
+        return float((diff / (BF16_REL * want.float().abs() + BF16_FLOOR)).max())
+
+    assert share(False) <= 1.0
+    assert share(True) > 1.0
 
 
 @pytest.mark.parametrize("case", ["above fp16's largest", "below fp16's normal range",

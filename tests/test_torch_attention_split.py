@@ -124,11 +124,21 @@ NO_SPLIT = {
     # 256 and 128 blocks, two and one full waves: split, they fill no fewer
     "seamless_cross_prefill": ((4, 16, 512, 64), 32768, False, None, 0),
     "cross_prefill_256_rows": ((4, 16, 256, 64), 32768, False, None, 0),
+    # 128 blocks of 192 rows, one wave (192 of 128 rows would take two):
+    # no split fills fewer
+    "cross_prefill_384_rows": ((4, 16, 384, 64), 32768, False, None, 0),
+    # 128 blocks of 128 rows (two of 192 rows hold 192 rows of an SM's time)
+    "rows_200": ((4, 16, 200, 64), 32768, False, None, 0),
+    # seamless's encoder on one row of its batch: 16 x 171 blocks of 192
+    "seamless_encoder_one_row": ((1, 16, 32768, 64), 32768, False, None, 0),
 }
 SPLIT = {
     "seamless_cross_decode": ((4, 16, 1, 64), 32768, False, None, 0),
-    # 192 blocks, a wave and a half: 2 ranges fill three waves of half blocks
-    "cross_prefill_384_rows": ((4, 16, 384, 64), 32768, False, None, 0),
+    # 192 blocks of 192 rows, a wave and a half: 2 ranges fill three waves
+    # of half blocks
+    "rows_513": ((4, 16, 513, 64), 2048, False, None, 0),
+    # 192 blocks of 128 rows (as many of 192 rows): 2 ranges as above
+    "rows_256_of_96_heads": ((2, 48, 256, 64), 32768, False, None, 0),
 }
 
 
@@ -141,7 +151,7 @@ def test_split_count_splits_only_calls_of_few_blocks(name):
     (B, Hq, Tq, D), Tk, causal, window, q_offset = {**NO_SPLIT, **SPLIT}[name]
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     S = tfa90.split_count(B, Hq, Tq, Tk, D, sm_count=SM_COUNT, **kw)
-    blocks = B * Hq * -(-Tq // tfa90.block_rows(Tq, D))
+    blocks = B * Hq * -(-Tq // tfa90.block_rows(B, Hq, Tq, D, SM_COUNT))
     waves = [-(-blocks * s // SM_COUNT) / s for s in range(1, S + 1)]
     assert (S > 1) == (name in SPLIT)
     assert S == 1 or (blocks < 2 * SM_COUNT and waves[-1] == min(waves) < waves[0])
@@ -202,9 +212,37 @@ def test_split_plan_refuses_more_ranges_than_chunks(splits):
         tfa90.split_plan(1500, 1600, splits, causal=True, window=600, q_offset=-20)
 
 
-@pytest.mark.parametrize("Tq,D,want", [(1, 64, 64), (64, 32, 64), (65, 64, 128), (32768, 64, 128),
-                                       (1, 120, 128), (8192, 128, 128), (100, 256, 128),
-                                       (200, 72, 128), (64, 96, 128), (8192, 120, 128),
-                                       (333, 128, 128), (300, 136, 128)])
-def test_block_rows_follow_the_kernels_configurations(Tq, D, want):
-    assert tfa90.block_rows(Tq, D) == want
+def _rows_case(B, Hq, Tq, D, want, id=None):
+    return pytest.param(B, Hq, Tq, D, want, id=id or f"{B}x{Hq}-{Tq}-{D}-{want}")
+
+
+@pytest.mark.parametrize("B,Hq,Tq,D,want", [
+    # one head: one consumer up to 64 rows, else two (one wave either way,
+    # or two waves of 171 blocks of 192 rows against two of 256 of 128)
+    *(_rows_case(1, 1, Tq, D, want, id=f"{Tq}-{D}-{want}") for Tq, D, want in [
+        (1, 64, 64), (64, 32, 64), (65, 64, 128), (32768, 64, 128), (1, 120, 128),
+        (8192, 128, 128), (100, 256, 128), (200, 72, 128), (64, 96, 128), (8192, 120, 128),
+        (333, 128, 128), (300, 136, 128)]),
+    # seamless at D = 64 over B x 16 heads: the encoder 192 (83 waves against
+    # 125), its last block 128 rows; the training encoder 128 (11 waves of
+    # 192 against 16 of 128); the cross-attention 128 (two waves either
+    # way); a decode step 64; 200 rows 128 (one wave either way), 513 rows
+    # 192 (two waves of 192 rows, three of 128); wider than 64, always 128
+    _rows_case(4, 16, 32768, 64, 192), _rows_case(1, 16, 32768, 64, 192),
+    _rows_case(2, 16, 8192, 64, 128), _rows_case(4, 16, 512, 64, 128),
+    _rows_case(4, 16, 1, 64, 64), _rows_case(4, 16, 200, 64, 128),
+    _rows_case(4, 16, 513, 64, 192), _rows_case(4, 16, 384, 48, 192),
+    _rows_case(4, 16, 32768, 128, 128),
+])
+def test_block_rows_follow_the_kernels_configurations(B, Hq, Tq, D, want):
+    """``block_rows`` picks 192 rows (three consumers) only where its waves
+    hold no more rows of an SM's time than 128-row blocks', a pure function
+    of the shape and the SM count; the blocks cover every row once."""
+    rows = tfa90.block_rows(B, Hq, Tq, D, SM_COUNT)
+    assert rows == want
+    assert rows == tfa90.block_rows(B, Hq, Tq, D, SM_COUNT)
+    if D <= 64 and Tq > 64:
+        held = {r: -(-(B * Hq * -(-Tq // r)) // SM_COUNT) * r for r in (128, 192)}
+        assert (rows == 192) == (held[192] <= held[128])
+    starts = range(0, Tq, rows)
+    assert sum(min(Tq, a + rows) - a for a in starts) == Tq

@@ -19,13 +19,13 @@ one rounding of P and of dS before their products:
   powers of two (where do is small, dS falls below fp16's normal range);
 * forward, "fp16 P everywhere": P (exp(s - row max)) rounded once to fp16
   before P V, the row sum in float64; rows grouped by the keys they see;
-* forward, "by the rule": the design up to 128 columns, P rounded once to
-  fp16 (as p 2^7) on the 128-row blocks of
-  ``flash_attention_sm90.one_part_blocks``, in two bf16 parts (hi = p
-  truncated, lo = bf16(p - hi)) on the others; up to 64 columns v in fp16
-  tile by tile, each 128-key tile times a power of two of its own
-  (``flash_attention_bwd_sm90.fp16_tiles``); rows grouped by the kind of
-  their block;
+* forward, "by the rule": the design up to 128 columns that the kernels
+  dropped, P rounded once to fp16 (as p 2^7) on the 128-row blocks whose
+  every row sees ``ONE_PART_KEYS`` keys or more (``one_part_blocks``), in
+  two bf16 parts (hi = p truncated, lo = bf16(p - hi)) on the others; up
+  to 64 columns v in fp16 tile by tile, each 128-key tile times a power of
+  two of its own (``flash_attention_bwd_sm90.fp16_tiles``); rows grouped
+  by the kind of their block;
 * forward, with ``--keys-sweep``: rows that see N keys (N = 128 ... 2048,
   about ``--elements`` outputs each, ``--rows`` rows at a time, q, k, v
   random bf16 at D = ``--d``, 120 by default; up to 64 v in fp16 tile by
@@ -34,7 +34,15 @@ one rounding of P and of dS before their products:
   it: the largest error over its allowance, max(2^-8 |o|, 0.9e-4) (an
   error under it cannot move a bf16 output two ulps, so it cannot break
   the limit), and over the limit itself.  Slow: minutes at the default
-  size.
+  size;
+* forward, with ``--peaked``: rows whose scores peak on a few keys, as a
+  trained model's do: each of ``--rows`` query rows (256 by default) is
+  ``temp`` times the sum of ``hits`` of N random bf16 keys (temp 0.5, 1, 2;
+  hits 1, 2, 4; N = 1100, 2048, 4096, 16384; D = 64 and 128), v random;
+  P rounded once to fp16 (as p 2^7; up to 64 columns against v's tiles in
+  fp16 as above) and in two bf16 parts, each against the plain forward:
+  the largest share of the limit of each, and the mean weight of the
+  ``hits`` largest probabilities of a row.
 
 Each line is one JSON object: the case, and the largest share of the limit
 per gradient (dq, dk, dv) or per group of rows.  No card is used; the
@@ -43,7 +51,7 @@ numbers are an emulation's, not the kernels'.
 Usage, from the root of a checkout::
 
     python3 tools/emulate_fp16_attention.py [--seed N]
-        [--keys-sweep [--elements N] [--rows N] [--d D]]
+        [--keys-sweep [--elements N] [--rows N] [--d D]] [--peaked [--rows N]]
 """
 
 from __future__ import annotations
@@ -60,11 +68,11 @@ import torch  # noqa: E402
 
 from repro_torch.kernels.flash_attention_bwd_sm90 import (  # noqa: E402
     fp16_exponent, fp16_tiles)
-from repro_torch.kernels.flash_attention_sm90 import one_part_blocks  # noqa: E402
 from repro_torch.kernels.ref import (ref_flash_attention,  # noqa: E402
                                      ref_flash_attention_backward)
 
 BWD_REL, BWD_FLOOR = 2.0 ** -7, 1e-3      # chip_smoke.py FLASH_BWD_BF16_REL, _FLOOR
+ONE_PART_KEYS, ONE_PART_ROWS = 1024, 128   # the dropped rule: keys a row, rows a block
 FWD_REL, FWD_FLOOR = 2.0 ** -7, 1e-4      # chip_smoke.py FLASH_BF16_REL, _FLOOR
 BWD_SHAPES = [(2, 4, 64, 32), (1, 4, 1024, 64), (1, 2, 2048, 64), (1, 4, 512, 128),
               (1, 2, 2048, 128), (1, 1, 4096, 120)]
@@ -77,6 +85,15 @@ def share(got, want, rel, floor_of_max):
     max|want| (the backward's) or absolute (the forward's, as a tensor)."""
     diff, wf = (got.double() - want.double()).abs(), want.double().abs()
     return (diff / (rel * wf + floor_of_max)).amax().item()
+
+
+def one_part_blocks(T, causal):
+    """[lo, hi): the 128-row blocks of a (T, T) call, causal or unmasked,
+    whose every row sees ``ONE_PART_KEYS`` keys or more (row i sees i + 1
+    keys causal, T unmasked)."""
+    lo = -(-(ONE_PART_KEYS - 1) // ONE_PART_ROWS) if causal else 0
+    hi = -(-T // ONE_PART_ROWS)
+    return (lo, hi) if T >= ONE_PART_KEYS and lo < hi else (0, 0)
 
 
 def causal_probs(q, k, scale):
@@ -152,6 +169,36 @@ def keys_sweep(g, elements, D=120, rows=4096):
                           "max_err_over_limit": worst_limit}), flush=True)
 
 
+def peaked(g, rows):
+    """One JSON line a (D, N, temp, hits): the shares of the limit of one
+    fp16 part and of two bf16 parts of P on rows whose scores peak."""
+    for D in (64, 128):
+        for N in (1100, 2048, 4096, 16384):
+            for temp in (0.5, 1.0, 2.0):
+                for hits in (1, 2, 4):
+                    k = torch.randn((N, D), generator=g).bfloat16()
+                    v = torch.randn((N, D), generator=g).bfloat16()
+                    idx = torch.randint(0, N, (rows, hits), generator=g)
+                    q = (k.float()[idx].sum(1) * temp).bfloat16()
+                    want = ref_flash_attention(q[None, None], k[None, None], v[None, None],
+                                               causal=False)[0, 0]
+                    s = (q.double() @ k.double().T) * D ** -0.5
+                    p = torch.exp(s - s.amax(-1, keepdim=True))
+                    lsum = p.sum(-1, keepdim=True)
+                    one = (p * 2.0 ** 7).half().double() * 2.0 ** -7
+                    top = (p.float().view(torch.int32) & -65536).view(torch.float32).double()
+                    two = top + (p - top).bfloat16().double()
+                    v1 = v_as_taken(v) if D <= 64 else v.double()
+                    floor = torch.tensor(FWD_FLOOR, dtype=torch.float64)
+                    out = {name: share(((pp @ vv) / lsum).bfloat16(), want, FWD_REL, floor)
+                           for name, pp, vv in (("one fp16 part", one, v1),
+                                                ("two bf16 parts", two, v.double()))}
+                    weight = float((p / lsum).topk(hits, -1).values.sum(-1).mean())
+                    print(json.dumps({"pass": "forward", "rounding": "peaked scores", "d": D,
+                                      "keys": N, "rows": rows, "temp": temp, "hits": hits,
+                                      "top_weight": weight, "share": out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -159,13 +206,19 @@ def main():
                     help="the forward's one-part rounding error by the keys a row sees")
     ap.add_argument("--elements", type=int, default=3_000_000,
                     help="outputs a key count in the sweep")
-    ap.add_argument("--rows", type=int, default=4096, help="rows at a time in the sweep")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="rows at a time in the sweep (4096), query rows with --peaked (256)")
+    ap.add_argument("--peaked", action="store_true",
+                    help="the forward's roundings of P on rows whose scores peak on a few keys")
     ap.add_argument("--d", type=int, default=120, help="head width of the sweep")
     args = ap.parse_args()
     torch.set_num_threads(max(1, min(4, os.cpu_count() or 1)))
     g = torch.Generator().manual_seed(args.seed)
     if args.keys_sweep:
-        keys_sweep(g, args.elements, D=args.d, rows=args.rows)
+        keys_sweep(g, args.elements, D=args.d, rows=args.rows or 4096)
+        return
+    if args.peaked:
+        peaked(g, args.rows or 256)
         return
     for B, H, T, D in BWD_SHAPES:
         q, k, v, do = (torch.randn((B, H, T, D), generator=g).bfloat16() for _ in range(4))
@@ -191,9 +244,9 @@ def main():
                 s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), float("-inf"))
             p = torch.exp(s - s.amax(-1, keepdim=True))
             got = ((p.half().double() @ v.double()) / p.sum(-1, keepdim=True)).bfloat16()
-            lo, hi = one_part_blocks(T, T, D, causal=causal, window=None, q_offset=0)
+            lo, hi = one_part_blocks(T, causal)
             one = torch.zeros(T, dtype=torch.bool)
-            one[lo * 128:hi * 128] = True
+            one[lo * ONE_PART_ROWS:hi * ONE_PART_ROWS] = True
             p1 = (p * 2.0 ** 7).half().double() * 2.0 ** -7
             top = (p.float().view(torch.int32) & -65536).view(torch.float32).double()
             p2 = top + (p - top).bfloat16().double()

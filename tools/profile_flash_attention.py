@@ -42,16 +42,23 @@ causal: the ``d64`` pass's phases, by the warps' own count of their turns.
 The bf16 forward at head widths 65-128 (``--what bf16-forward``): the same
 for ``csrc/flash_attention_sm90.cu``'s ``d128`` kernels at olmo-1b's
 training and serving shapes ((2, 16, 8192, 128) and (4, 16, 32768, 128),
-plain causal), the launch of the one-part row blocks and that of the
-two-part ones apart: waiting for a stage's loads, waiting for the turn,
-the products issued and the turn passed, waiting for P V to drain,
-waiting for S, the softmax, P rounded; each in clocks a warp a turn, by
-the warps' own count of their turns.
+plain causal): waiting for a stage's loads, waiting for the turn, the
+products issued and the turn passed, waiting for P V to drain, waiting for
+S, the softmax, P split into its two parts; each in clocks a warp a turn,
+by the warps' own count of their turns.
+
+The bf16 forward at head widths up to 64 (``--what bf16-forward-d64``):
+the same phases for ``csrc/flash_attention_sm90.cu``'s
+``flash_attention_d64_kernel`` at seamless-m4t-large-v2's shapes,
+unmasked: the encoder (4, 16, 32768, 64), its training step's (2, 16,
+8192, 64), the prefill's cross-attention q (4, 16, 512, 64) and a decode
+step's q (4, 16, 1, 64) over 32768 frames; the kernels that split their
+keys and those that do not apart, with each call's rows a block.
 
 Usage, from the root of a checkout::
 
     python3 tools/profile_flash_attention.py [--root DIR]
-        [--what all|forward|backward|bf16-backward|bf16-forward]
+        [--what all|forward|backward|bf16-backward|bf16-forward|bf16-forward-d64]
 
 ``--root`` imports the port from another checkout's ``src/`` and builds
 its sources with the clocks, so that one command can profile two versions.
@@ -68,7 +75,7 @@ import sys
 
 ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("--what", choices=("all", "forward", "backward", "bf16-backward",
-                                   "bf16-forward"), default="all")
+                                   "bf16-forward", "bf16-forward-d64"), default="all")
 ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                 help="checkout whose src/ holds the port to profile (default: this one)")
 ARGS = ap.parse_args()
@@ -102,10 +109,17 @@ D64_WARPS, D64_ROWS = 8, 128                           # consumer warps, keys or
 OLMO_ARCH = "olmo-1b"                                  # the d128 kernels' shapes, plain causal
 OLMO_FWD_SHAPES = (("olmo train forward", 2, 8192), ("olmo prefill", 4, 32768))
 OLMO_TRAIN = (2, 8192)
-FWD_PASSES = ("one part", "two parts")
+FWD_PASSES = ("d128", "d64", "d64 split")              # kFwdPasses
 FWD_PHASES = ("load wait", "turn wait", "products issued", "P V drained", "S waited",
-              "softmax", "P rounded")
-FWD_CLOCK_PHASES = 8                                   # kFwdPhases: the phases, then turns
+              "softmax", "P split")
+FWD_CLOCK_PHASES = len(FWD_PHASES) + 1                 # kFwdPhases: the phases, then turns
+# the d64 forward's shapes at seamless-m4t-large-v2's widths, unmasked: the
+# encoder's self-attention, its training step's, the prefill's
+# cross-attention and a decode step's over 32768 frames
+D64_FWD_SHAPES = (("seamless encoder", (4, 16, 32768, 64), (4, 16, 32768, 64)),
+                  ("seamless train encoder", (2, 16, 8192, 64), (2, 16, 8192, 64)),
+                  ("seamless cross prefill", (4, 16, 512, 64), (4, 16, 32768, 64)),
+                  ("seamless cross decode", (4, 16, 1, 64), (4, 16, 32768, 64)))
 
 
 def build_clocked(source, entry, argtypes, reader):
@@ -358,7 +372,7 @@ def profile_d128_backward(smi, fn, clocks_read):
 
 def profile_bf16_forward(smi):
     """The d128 forward's phase clocks at olmo-1b's training and serving
-    shapes, its one-part and two-part launches apart."""
+    shapes."""
     fn, clocks_read = build_clocked("flash_attention_sm90", "flash_attention_sm90_fwd",
                                     fa90._kernel().argtypes, "flash_fwd_sm90_phase_clocks_read")
     cfg = get_config(OLMO_ARCH)
@@ -372,10 +386,35 @@ def profile_bf16_forward(smi):
                                          FWD_CLOCK_PHASES)
         print_turns({"device": smi, "what": f"flash_attention_sm90 bf16 d128, {name}",
                      "shape": [B, cfg.n_heads, T_, cfg.head_dim], "mask": "causal",
-                     "one_part_blocks": fa90.one_part_blocks(T_, T_, cfg.head_dim, causal=True,
-                                                             window=None, q_offset=0),
                      "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms},
-                    dict(zip(FWD_PASSES, clocks)), FWD_PHASES)
+                    dict(zip(FWD_PASSES[:1], clocks)), FWD_PHASES)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def profile_bf16_forward_d64(smi):
+    """The d64 forward's phase clocks at seamless's shapes, unmasked: the
+    kernels that split their keys and those that do not apart, with each
+    call's rows a block and key ranges."""
+    fn, clocks_read = build_clocked("flash_attention_sm90", "flash_attention_sm90_fwd",
+                                    fa90._kernel().argtypes, "flash_fwd_sm90_phase_clocks_read")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, qs, ks in D64_FWD_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(18)
+        q = torch.randn(qs, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(ks, generator=g, device="cuda").bfloat16() for _ in range(2))
+        run = lambda: fa90.flash_attention_sm90_cuda(q, k, v, causal=False)  # noqa: E731
+        plain_ms = cuda_ms(run)
+        clocks, clocked_ms = read_clocks(fa90, fn, clocks_read, run, len(FWD_PASSES),
+                                         FWD_CLOCK_PHASES)
+        B, Hq, Tq, D = qs
+        splits = fa90.split_count(B, Hq, Tq, ks[2], D, causal=False, window=None, q_offset=0,
+                                  sm_count=sms)
+        print_turns({"device": smi, "what": f"flash_attention_sm90 bf16 d64, {name}",
+                     "shape": [list(qs), list(ks)], "mask": None, "splits": splits,
+                     "rows_a_block": fa90.block_rows(B, Hq, Tq, D, sms),
+                     "kernel_ms": plain_ms, "clocked_kernel_ms": clocked_ms},
+                    {p: c for p, c in zip(FWD_PASSES[1:], clocks[1:]) if c[-1] > 0}, FWD_PHASES)
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -463,6 +502,8 @@ def main() -> int:
         profile_bf16_backward(smi)
     if args.what in ("all", "bf16-forward"):
         profile_bf16_forward(smi)
+    if args.what in ("all", "bf16-forward-d64"):
+        profile_bf16_forward_d64(smi)
     return 0
 
 

@@ -4,7 +4,8 @@
 At the shapes the serving paths give it, bf16, random inputs from a seed:
 seamless-m4t-large-v2's encoder self-attention (4, 16, 32768, 64), its
 prefill's cross-attention (q (4, 16, 512, 64)) and a decode step's
-(q (4, 16, 1, 64)), both over 32768 frames, all unmasked; and
+(q (4, 16, 1, 64)), both over 32768 frames, and its training step's
+encoder forward (2, 16, 8192, 64), all unmasked; and
 h2o-danube3-4b's prefill attention, q (4, 32, 8192, 120) over k, v
 (4, 8, 8192, 120), causal with a 4096 window, and its training step's
 forward, q (1, 32, 8192, 120) over (1, 8, 8192, 120); recurrentgemma-2b's
@@ -25,11 +26,12 @@ PyTorch's own pick of backend, ``sdpa_pick_ms``; for the windowed
 shapes the window-causal boolean mask on the memory-efficient backend, kv
 heads repeated outside the timing), the largest difference from the first call's output to the
 plain version's (``ref.ref_flash_attention``) at the three smaller shapes,
-the 128-row blocks (over the key ranges of a split call) that take P V in
-one fp16 part and in two bf16 parts (``row_blocks``: the rule of the
-checkout timed, ``one_part_ranges`` or at head widths 65-128
-``one_part_blocks``, none in one part in a checkout without either; none
-at a decode step's one query row), each of its launches' device time
+the row blocks (over the key ranges of a split call) that take P V in
+one fp16 part and in two bf16 parts, and the rows a block (``row_blocks``:
+the rule of the checkout timed, ``one_part_ranges`` or at head widths
+65-128 ``one_part_blocks`` in an older checkout, none in one part in a
+checkout without either;
+none at a decode step's one query row), each of its launches' device time
 (``launches_ms``, ``torch.profiler``), and the card's name and power
 limit.
 
@@ -67,7 +69,7 @@ the wrapper's and the ranges that would give four waves of blocks
 (``by_splits``).
 
 The limits (``--what limits``): ``chip_smoke.py``'s forward cases at head
-widths up to 64 (``FLASH_D64_ONE_PART_CASES``, ``FLASH_D64_CASES``,
+widths up to 64 (``FLASH_D64_LONG_CASES``, ``FLASH_D64_CASES``,
 ``FLASH_SPLIT_CASES``, read from this checkout's ``chip_smoke.py``), k and
 v contiguous and strided, then under ``FLASH_D64_FWD_SCALES`` (the layouts
 in turns), each call of the checkout timed against the plain version: one
@@ -75,17 +77,28 @@ line a case with its largest share of the bf16 limit (2^-7 |want| +
 1e-4, in v's units where v is scaled up) by scale, and its blocks in one
 fp16 part, so that two checkouts' shares stand side by side.
 
+Peaked scores (``--what peaked``): ``chip_smoke.py``'s
+``FLASH_PEAKED_CASES`` at each of its ``FLASH_PEAKED_DRAWS`` (each query
+row a low-temperature multiple of a few keys of its kv head, as
+``chip_smoke.peaked_inputs`` builds them), each call of the checkout timed
+against the plain version: one line a case with its share of the bf16
+limit by draw and its blocks in one fp16 part.  Over a checkout whose rule
+takes one-part blocks this shows what one fp16 rounding of P does there.
+
 First it prints, for each attention kernel it compiled (the sources are
 built anew in a fresh checkout), ptxas's registers a thread and spill bytes,
 whether ptxas serialised its wgmma ("C7512 ... insufficient register
-resources"), and the highest register its SASS names (``cuobjdump``, where
-the toolkit has it): ptxas reports the budget of the launch, while a
-warpgroup's code after ``setmaxnreg.inc`` may use more.
+resources"), the highest register its SASS names and its spill loads and
+stores as SASS instructions (LDL, STL), in all and between its first and
+last wgmma (``cuobjdump``, where the toolkit has it): ptxas reports the
+budget of the launch, while a warpgroup's code after ``setmaxnreg.inc`` may
+use more.  ``--sass DIR`` writes each source's SASS there too.
 
 Usage, from the root of a checkout::
 
     python3 tools/time_flash_attention.py [--root DIR] [--reps N]
-        [--what all|forward|backward|float32-backward|split|limits] [--only TEXT]
+        [--what all|forward|backward|float32-backward|split|limits|peaked] [--only TEXT]
+        [--sass DIR]
 
 ``--root`` imports the port from another checkout's ``src/`` (its own
 kernels are built there), so one command can time two versions in turns.
@@ -109,9 +122,10 @@ ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspat
                 help="checkout whose src/ holds the port to time (default: this one)")
 ap.add_argument("--reps", type=int, default=20, help="calls timed a shape (5 at the encoder)")
 ap.add_argument("--what", choices=("all", "forward", "backward", "float32-backward", "split",
-                                   "limits"),
+                                   "limits", "peaked"),
                 default="all", help="which kernels to time (backward: the bf16 one)")
 ap.add_argument("--only", default="", help="time only the shapes whose name holds this text")
+ap.add_argument("--sass", default="", help="also write each compiled source's SASS to this directory")
 ARGS = ap.parse_args()
 sys.path.insert(0, os.path.join(os.path.abspath(ARGS.root), "src"))
 
@@ -134,6 +148,7 @@ SHAPES = [
     ("seamless cross decode", (4, 16, 1, 64), (4, 16, 32768, 64), False, None),
     ("seamless cross prefill", (4, 16, 512, 64), (4, 16, 32768, 64), False, None),
     ("seamless encoder", (4, 16, 32768, 64), (4, 16, 32768, 64), False, None),
+    ("seamless train encoder forward", (2, 16, 8192, 64), (2, 16, 8192, 64), False, None),
     ("danube prefill", (4, 32, 8192, 120), (4, 8, 8192, 120), True, 4096),
     ("danube train forward", (1, 32, 8192, 120), (1, 8, 8192, 120), True, 4096),
     ("recurrentgemma prefill", (4, 10, 32768, 256), (4, 1, 32768, 256), True, 2048),
@@ -156,25 +171,46 @@ SPLIT_SHAPES = SHAPES[:2]       # seamless's two cross-attentions, calls of few 
 SPLIT_SWEEP_TQ = (1, 128, 256, 384, 512)   # query rows of q (4, 16, Tq, 64) over 32768 keys
 
 
+def rows_a_block(B, Hq, Tq, D):
+    """The timed checkout's query rows a block (``block_rows`` of the call's
+    shape and this card's SM count, or of Tq and D alone in a checkout
+    before 192-row blocks)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        return fa90.block_rows(B, Hq, Tq, D, sms)
+    except TypeError:
+        return fa90.block_rows(Tq, D)
+
+
+def one_part_parts(B, Hq, Tq, Tk, D, splits, **mask):
+    """The timed checkout's one-part blocks of each key range
+    (``one_part_ranges``, or ``one_part_blocks`` at head widths 65-128, in
+    an older checkout that rounds P once to fp16 on some blocks; a checkout
+    without either has none)."""
+    if hasattr(fa90, "one_part_ranges"):
+        try:
+            return fa90.one_part_ranges(Tq, Tk, D, splits, rows=rows_a_block(B, Hq, Tq, D),
+                                        **mask)
+        except TypeError:
+            return fa90.one_part_ranges(Tq, Tk, D, splits, **mask)
+    if D > 64 and hasattr(fa90, "one_part_blocks"):
+        return [fa90.one_part_blocks(Tq, Tk, D, **mask)]
+    return [(0, 0)]
+
+
 def row_blocks(qs, ks, causal, window, splits=1):
-    """{"one_part", "two_part"}: the forward's blocks a (batch, head), over
-    the key ranges of a call split ``splits`` ways, that take P V in one
-    fp16 part and in two bf16 parts by the rule of the checkout timed
-    (``one_part_ranges``, or ``one_part_blocks`` at head widths 65-128; a
-    checkout without either has none in one part); None above 128."""
-    Tq, Tk, D = qs[2], ks[2], qs[3]
+    """{"one_part", "two_part", "rows"}: the forward's blocks a (batch,
+    head), over the key ranges of a call split ``splits`` ways, that take P
+    V in one fp16 part and in two bf16 parts by the rule of the checkout
+    timed (``one_part_parts``), and the rows a block; None above 128."""
+    B, Hq, Tq, D = qs
+    Tk = ks[2]
     if D > 128:
         return None
-    kw = dict(causal=causal, window=window, q_offset=0)
-    if hasattr(fa90, "one_part_ranges"):
-        parts = fa90.one_part_ranges(Tq, Tk, D, splits, **kw)
-    elif D > 64 and hasattr(fa90, "one_part_blocks"):
-        parts = [fa90.one_part_blocks(Tq, Tk, D, **kw)]
-    else:
-        parts = [(0, 0)]
+    parts = one_part_parts(B, Hq, Tq, Tk, D, splits, causal=causal, window=window, q_offset=0)
     one = sum(b - a for a, b in parts)
-    blocks = -(-Tq // fa90.block_rows(Tq, D)) * splits
-    return {"one_part": one, "two_part": blocks - one}
+    rows = rows_a_block(B, Hq, Tq, D)
+    return {"one_part": one, "two_part": -(-Tq // rows) * splits - one, "rows": rows}
 
 
 def smoke_cases():
@@ -184,8 +220,8 @@ def smoke_cases():
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     names = ("FLASH_FP16_SCALES", "FLASH_FWD_FP16_SCALES", "FLASH_D64_FWD_SCALES",
-             "FLASH_D64_ONE_PART_CASES", "FLASH_D64_CASES", "FLASH_SPLIT_CASES",
-             "FLASH_BF16_REL", "FLASH_BF16_FLOOR")
+             "FLASH_D64_LONG_CASES", "FLASH_D64_CASES", "FLASH_SPLIT_CASES",
+             "FLASH_BF16_REL", "FLASH_BF16_FLOOR", "FLASH_PEAKED_CASES", "FLASH_PEAKED_DRAWS")
     env = {"dict": dict}
     for node in ast.parse(open(path).read()).body:
         if not isinstance(node, ast.Assign) or len(node.targets) != 1:
@@ -203,7 +239,7 @@ def time_limits(smi):
     one line a case, its largest share of the bf16 limit by scale."""
     c = smoke_cases()
     cases = [(name, tuple(case[:6]), {k: x for k, x in case[6].items() if k != "splits"},
-              case[6]["splits"]) for name, *case in c["FLASH_D64_ONE_PART_CASES"]]
+              case[6]["splits"]) for name, *case in c["FLASH_D64_LONG_CASES"]]
     cases += [(f"D <= 64 case {i}", (B, Hq, Hkv, Tq, Tk, D),
                dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset), None)
               for i, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap, q_offset)
@@ -239,14 +275,42 @@ def time_limits(smi):
             shares[scale] = max(shares.get(scale, 0.0), share)
         blocks = None
         if hasattr(fa90, "one_part_ranges"):
-            parts = fa90.one_part_ranges(Tq, Tk, D, ranges, **mask)
+            parts = one_part_parts(B, Hq, Tq, Tk, D, ranges, **mask)
             one = sum(b - a for a, b in parts)
-            blocks = {"one_part": one,
-                      "two_part": -(-Tq // fa90.block_rows(Tq, D)) * ranges - one}
+            rows = rows_a_block(B, Hq, Tq, D)
+            blocks = {"one_part": one, "two_part": -(-Tq // rows) * ranges - one, "rows": rows}
         print(json.dumps({
             "limits": name, "q": [B, Hq, Tq, D], "kv": [B, Hkv, Tk, D], "mask": kw,
             "splits": ranges, "root": os.path.abspath(ARGS.root), "share": shares,
             "row_blocks": blocks, "card": smi}), flush=True)
+
+
+def time_peaked(smi):
+    """The checkout timed on chip_smoke.py's peaked-score cases: one line a
+    case, its share of the bf16 limit by (temperature, keys)."""
+    c = smoke_cases()
+    for i, (name, B, Hq, Hkv, Tq, Tk, D) in enumerate(c.get("FLASH_PEAKED_CASES", [])):
+        if ARGS.only not in name:
+            continue
+        shares = {}
+        for j, (temp, hits) in enumerate(c["FLASH_PEAKED_DRAWS"]):
+            # chip_smoke.peaked_inputs, the same seeds
+            g = torch.Generator(device="cuda").manual_seed(330 + 8 * i + j)
+            k = torch.randn((B, Hkv, Tk, D), generator=g, device="cuda")
+            v = torch.randn((B, Hkv, Tk, D), generator=g, device="cuda")
+            idx = torch.randint(0, Tk, (B, Hq, Tq * hits), generator=g, device="cuda")
+            kq = k.repeat_interleave(Hq // Hkv, dim=1)
+            q = torch.gather(kq, 2, idx[..., None].expand(-1, -1, -1, D)).unflatten(2, (Tq, hits))
+            q, k, v = (q.sum(3) * temp).bfloat16(), k.bfloat16(), v.bfloat16()
+            got = flash_attention_sm90_cuda(q, k, v, causal=False).float()
+            want = ref_flash_attention(q, k, v, causal=False).float()
+            shares[f"{temp} {hits}"] = float(((got - want).abs() / (
+                c["FLASH_BF16_REL"] * want.abs() + c["FLASH_BF16_FLOOR"])).max())
+        print(json.dumps({
+            "peaked": name, "q": [B, Hq, Tq, D], "kv": [B, Hkv, Tk, D],
+            "root": os.path.abspath(ARGS.root), "share_by_temp_keys": shares,
+            "row_blocks": row_blocks((B, Hq, Tq, D), (B, Hkv, Tk, D), False, None),
+            "card": smi}), flush=True)
 
 
 def cuda_ms(fn, reps):
@@ -355,29 +419,49 @@ def demangle(names):
     return out.stdout.splitlines()
 
 
-def sass_max_registers(name):
-    """{mangled kernel: highest register its SASS names} for built source
-    ``name``, or {} where ``cuobjdump`` is missing."""
+def sass_stats(name):
+    """{mangled kernel: {"sass_max_register": the highest register its SASS
+    names, "sass_stl" / "sass_ldl": its spill stores and loads (STL, LDL
+    instructions), "sass_stl_wgmma_span" / "sass_ldl_wgmma_span": those of
+    them between its first and last wgmma (HGMMA), the consumers' tile loop
+    and its last P V}} for built source ``name``, or {} where ``cuobjdump``
+    is missing.  With ``--sass DIR`` the SASS is also written to
+    DIR/<name>.sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     sass = subprocess.run([tool, "-sass", str(build.library_path(name))], capture_output=True,
                           text=True).stdout
-    top, kernel = {}, None
+    if ARGS.sass:
+        os.makedirs(ARGS.sass, exist_ok=True)
+        with open(os.path.join(ARGS.sass, f"{name}.sass"), "w") as f:
+            f.write(sass)
+    ops, kernel = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = m.group(1)
-            top[kernel] = -1
-        elif kernel is not None:
-            for r in re.findall(r"\bR(\d+)\b", line):
-                top[kernel] = max(top[kernel], int(r))
-    return top
+            ops[kernel] = []
+        elif kernel is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            ops[kernel].append(line)
+    stats = {}
+    for kernel, lines in ops.items():
+        regs = [int(r) for line in lines for r in re.findall(r"\bR(\d+)\b", line)]
+        mma = [i for i, line in enumerate(lines) if "HGMMA" in line]
+        span = range(mma[0], mma[-1] + 1) if mma else range(0)
+        stl = [i for i, line in enumerate(lines) if re.search(r"\bSTL(\.\S+)?\s", line)]
+        ldl = [i for i, line in enumerate(lines) if re.search(r"\bLDL(\.\S+)?\s", line)]
+        stats[kernel] = {"sass_max_register": max(regs, default=-1),
+                         "sass_stl": len(stl), "sass_ldl": len(ldl),
+                         "sass_stl_wgmma_span": sum(i in span for i in stl),
+                         "sass_ldl_wgmma_span": sum(i in span for i in ldl)}
+    return stats
 
 
 def ptxas_report(logs, smi):
     """One JSON line a kernel compiled now: ptxas's registers and spill
-    bytes, wgmma serialisation, the SASS's highest register."""
+    bytes, wgmma serialisation, the SASS's highest register and spill
+    instructions (``sass_stats``)."""
     for name, log in logs.items():
         rows, serialised, kernel = {}, {}, None
         for line in log.splitlines():
@@ -397,11 +481,11 @@ def ptxas_report(logs, smi):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 rows[kernel]["registers"] = int(m.group(1))
-        top = sass_max_registers(name)
+        stats = sass_stats(name)
         for kernel, readable in zip(rows, demangle(list(rows))):
             print(json.dumps({"ptxas": readable, "source": name, **rows[kernel],
                               "wgmma_serialised": serialised.get(kernel, False),
-                              "sass_max_register": top.get(kernel),
+                              **stats.get(kernel, {"sass_max_register": None}),
                               "root": os.path.abspath(ARGS.root), "card": smi}), flush=True)
 
 
@@ -474,7 +558,7 @@ def time_split(g, smi):
         if ARGS.only not in name:
             continue
         q = torch.randn((B, H, Tq, D), generator=g, device="cuda").bfloat16()
-        blocks = B * H * -(-Tq // fa90.block_rows(Tq, D))
+        blocks = B * H * -(-Tq // rows_a_block(B, H, Tq, D))
         ranges = split_count(B, H, Tq, Tk, D, causal=False, window=None, q_offset=0,
                              sm_count=sms)
         tried = sorted({1, 2, 3, ranges, -(-4 * sms // blocks)})
@@ -496,8 +580,10 @@ def main():
         raise SystemExit("no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    ptxas_report(build.build_all(["flash_attention_sm90", "flash_attention_bwd_sm90",
-                                  "flash_attention_bwd"]), smi)
+    # the forward's source alone where nothing else is timed
+    forward_only = ARGS.what in ("forward", "split", "limits", "peaked")
+    ptxas_report(build.build_all(["flash_attention_sm90"] if forward_only else [
+        "flash_attention_sm90", "flash_attention_bwd_sm90", "flash_attention_bwd"]), smi)
     g = torch.Generator(device="cuda").manual_seed(0)
     if ARGS.what in ("all", "backward"):
         time_backward(g, smi, BWD_SHAPES, torch.bfloat16)
@@ -507,6 +593,8 @@ def main():
         time_split(g, smi)
     if ARGS.what == "limits":
         time_limits(smi)
+    if ARGS.what == "peaked":
+        time_peaked(smi)
     if ARGS.what not in ("all", "forward"):
         return
     for name, qs, ks, causal, window in SHAPES:
